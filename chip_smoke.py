@@ -1,0 +1,572 @@
+#!/usr/bin/env python3
+"""On-card check of the PyTorch/CUDA port (rnaelem_tpu_torch), one GPU.
+
+Phases:
+  1. the card's name and power limit; build the hand-written kernels
+     (csrc/*.cu, nvcc for sm_90a) and time the build;
+  2. hold every kernel against its plain PyTorch version on the card:
+     K1 score tables (ints/bools equal, floats within 1e-6 relative), the
+     column stages of K2-K4 one by one (f64 at B=16 within 1e-9 relative,
+     f32 at the main path's shapes within 1e-4 relative on the cells f32
+     exp space resolves), and the full inside DP: f64 kernels vs the f64
+     plain version (parts within 1e-9 absolute), f32 kernels vs the f64
+     plain version (within 2e-3 absolute);
+  3. the flagship forward main path: stack_reads -> batch_total, B=128
+     reads x 100 nt, pattern (.....), max-span 50, max-iloop 30, f32,
+     min_bpp 0; one warm-up (the launch counts are read after it), then
+     3 timed repetitions; the plain version's time on the same batch;
+  4. one JSON line per kernel table, the card line, and the result line.
+
+Run from the repository root:  python3 chip_smoke.py
+Exits non-zero and prints no result without CUDA or without the package.
+"""
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, HERE)
+
+# set by main() once the imports succeed (the script must fail cleanly,
+# with no result, where torch, CUDA or the package is missing)
+np = torch = ET = J = DP = K = OBJ = seq_to_ints = None
+
+PATTERN = "(.....)"
+LP = 100               # read length of the main path (and the padded Lp)
+B_MAIN = 128           # reads per main-path batch
+SMALL = (16, 80, 100)  # reads and length range of the f64 checks
+J0 = 75                # column of the per-stage checks and timings
+DEVICE = "cuda"
+MEM_BPS = 3.35e12      # H100 SXM HBM3 bytes/s (data sheet)
+PEAK_F32 = 67e12       # H100 SXM f32 FLOP/s outside the tensor cores
+STAGE_KERNEL = {"band_front": "inside_band", "band_bif": "inside_band",
+                "band_m": "inside_band", "band_e": "inside_band",
+                "ep_stage": "inside_ep", "ext_stage": "inside_ext"}
+STAGE_OUT = {"band_front": ("LL", "P", "T2"), "band_bif": ("Bt", "T1"),
+             "band_m": ("M",), "ep_stage": ("ep",), "band_e": ("E",),
+             "ext_stage": ("O",)}
+
+
+def fail(msg):
+    print("chip_smoke: FAIL: " + msg, file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def card_line():
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip()
+    except (OSError, subprocess.TimeoutExpired) as e:
+        out = "nvidia-smi unavailable (%s)" % e
+    return out.splitlines()[0] if out else "nvidia-smi printed nothing"
+
+
+def cuda_ms(fn, reps):
+    """Mean ms per call over ``reps`` calls after one warm-up (events)."""
+    fn()
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(reps):
+        fn()
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e) / reps
+
+
+def make_reads(rng, n, lmin, lmax):
+    """n random reads of lmin..lmax nt with flat qualities."""
+    reads = []
+    for i in range(n):
+        L = int(rng.randint(lmin, lmax + 1))
+        s = "".join("ACGU"[c] for c in rng.randint(0, 4, L))
+        q = np.full(L + 1, 10 + (i % 3))
+        q[-1] = 0 if i % 2 == 0 else 20
+        reads.append((seq_to_ints(s), q))
+    return reads
+
+
+def main_reads():
+    """The main path's reads: B_MAIN x LP nt, as bench.py makes them."""
+    rng = np.random.RandomState(0)
+    reads = []
+    for i in range(B_MAIN):
+        s = "".join("ACGU"[x] for x in rng.randint(0, 4, LP))
+        q = np.full(LP + 1, 10 + (i % 3))
+        q[-1] = 0
+        reads.append((seq_to_ints(s), q))
+    return reads
+
+
+def random_params(cfg, dev, seed=0):
+    """Flat initial weights plus 0.3 N(0, 1) noise from a numpy seed."""
+    p = J.init_params(J.kernels(cfg, "cpu").g, cfg, device="cpu",
+                      dtype="float64")
+    rng = np.random.RandomState(seed)
+    dt = torch.float32 if cfg.dtype == "float32" else torch.float64
+    f = lambda x: torch.as_tensor(x, dtype=dt, device=dev)
+    return J.Params(
+        singles=f(p.singles.numpy() + 0.3 * rng.randn(*p.singles.shape)),
+        pairs=f(p.pairs.numpy() + 0.3 * rng.randn(*p.pairs.shape)),
+        lam=f(np.array([1.0, 1.0])))
+
+
+def cfg_for(dtype):
+    return J.ModelConfig(pattern=PATTERN, Lp=LP, max_span=50, max_iloop=30,
+                         min_bpp=0.0, tau=0.1, dtype=dtype)
+
+
+def batch_factors_for(cfg, reads, dev, params):
+    batch = OBJ.stack_reads(cfg, reads, device=dev)
+    d, c = J.batch_factors(cfg, params, batch.sd, batch.bp_ok, device=dev)
+    return batch, d, c
+
+
+def plain_parts(cfg, params, batch, dev):
+    """[B, 3] parts with every column stage in its plain version, on the
+    card: the reference the kernels are held against."""
+    dp = J.kernels(cfg, dev).dp
+    d, c = J.batch_factors(cfg, params, batch.sd, batch.bp_ok, device=dev)
+    h, state = dp.start(d, c)
+    for j in range(1, dp.dims.Lp + 1):
+        for stage in DP.PLAIN_STAGES:
+            stage(state, j, d, c, h, dp.st)
+    return dp.extract_parts(state["O"], c)
+
+
+# ------------------------------------------------------------ phase 2
+
+def check_score_tables(cfg, reads, dev):
+    """K1 vs its plain version; returns the max abs float error."""
+    k = J.kernels(cfg, dev)
+    batch = OBJ.stack_reads(cfg, reads, device=dev)
+    seq, L, bp_ok, dots_cum = J.score_inputs(cfg, k, batch.sd, batch.bp_ok)
+    args = (k.tab, seq, L, bp_ok, dots_cum, cfg.Wp, cfg.max_span, cfg.turn,
+            cfg.no_ene, cfg.fix_rss)
+    got = ET.score_tables(*args)
+    want = ET.score_tables_plain(*args)
+    worst = 0.0
+    for key in ET.SCORE_KEYS:
+        a, b = got[key], want[key]
+        if a.shape != b.shape or a.dtype != b.dtype:
+            fail("score_tables %s: %s %s vs %s %s" % (
+                key, a.shape, a.dtype, b.shape, b.dtype))
+        if not a.is_floating_point():
+            if not torch.equal(a, b):
+                fail("score_tables %s: %d cells differ"
+                     % (key, int((a != b).sum())))
+            continue
+        if not torch.equal(torch.isfinite(a), torch.isfinite(b)) or \
+                not torch.equal(torch.isneginf(a), torch.isneginf(b)):
+            fail("score_tables %s: -inf pattern differs" % key)
+        fin = torch.isfinite(b)
+        err = (a[fin] - b[fin]).abs()
+        if err.numel():
+            bad = err > 1e-6 * b[fin].abs() + 1e-12
+            if bad.any():
+                fail("score_tables %s: max rel err %.3g" % (
+                    key, float((err / b[fin].abs().clamp(min=1e-12)).max())))
+            worst = max(worst, float(err.max()))
+    return worst
+
+
+def stage_compare(name, k_out, p_out, rel, significant):
+    """Max abs error of one stage output; fails beyond ``rel``.  With
+    ``significant`` (f32), cells more than 50 below their read's maximum
+    are not compared: exp space under per-read shifts flushes them."""
+    fk, fp = torch.isfinite(k_out), torch.isfinite(p_out)
+    B = p_out.shape[-1]
+    if significant:
+        flat = p_out.reshape(-1, B)
+        rowmax = torch.where(torch.isfinite(flat), flat,
+                             torch.full_like(flat, -1e30)).amax(dim=0)
+        sig = fp & (p_out >= rowmax - 50.0)
+        kflat = k_out.reshape(-1, B)
+        extra = torch.isfinite(kflat) & ~torch.isfinite(flat) & \
+            (kflat >= rowmax - 40.0)
+        if extra.any():
+            fail("%s: %d cells finite and significant in the kernel, -inf "
+                 "in the plain version" % (name, int(extra.sum())))
+    else:
+        sig = fp
+        if not torch.equal(fk, fp):
+            fail("%s: -inf pattern differs (%d cells)"
+                 % (name, int((fk != fp).sum())))
+    if (sig & ~fk).any():
+        fail("%s: %d cells -inf in the kernel, finite in the plain version"
+             % (name, int((sig & ~fk).sum())))
+    if not sig.any():
+        return 0.0
+    err = (k_out[sig] - p_out[sig]).abs()
+    lim = rel * p_out[sig].abs().clamp(min=1.0)
+    if (err > lim).any():
+        fail("%s: max abs err %.3g beyond %.0e relative"
+             % (name, float(err.max()), rel))
+    return float(err.max())
+
+
+def check_stages(dp, d, c, j0, rel, significant):
+    """Each column stage at column j0 vs its plain version on identical
+    inputs (the kernel DP's tables for columns < j0, the plain stages
+    before it at j0).  Returns {kernel name: max abs err}."""
+    h, state = dp.start(d, c)
+    dp.run_columns(state, d, c, h, 1, j0)
+    errs = {}
+    PAD = dp.st.PAD
+    for stage, plain in zip(DP.STAGES, DP.PLAIN_STAGES):
+        ks = DP.clone_state(state)
+        stage(ks, j0, d, c, h, dp.st)
+        plain(state, j0, d, c, h, dp.st)
+        for key in STAGE_OUT[stage.__name__]:
+            a = ks[key] if key == "ep" else ks[key][j0 + PAD]
+            b = state[key] if key == "ep" else state[key][j0 + PAD]
+            e = stage_compare("%s %s" % (stage.__name__, key), a, b, rel,
+                              significant)
+            kn = STAGE_KERNEL[stage.__name__]
+            errs[kn] = max(errs.get(kn, 0.0), e)
+    return errs
+
+
+# ------------------------------------------------------------ bounds
+
+def _band_cells(Wp, n):
+    """Cells (row j - k, width v) with k = 0..n and k + v <= Wp: the
+    triangle of a band window that a gap of at most n reaches."""
+    n = np.minimum(n, Wp)
+    return np.where(n >= 0, (n + 1) * (Wp + 1) - n * (n + 1) // 2, 0)
+
+
+def bounds(cfg, st, c, tab, j0, B, itemsize):
+    """Least time per unit (ms) for K1 (one batch) and K2-K4 (one column
+    j0): the larger of bytes / memory rate and operations / f32 rate.
+    Each input cell the function reads is counted once, in the states it
+    reads, and each output once; where the extent depends on the data (the
+    band masks, the per-read loop cap C, finite exterior energies) only
+    what this batch needs is counted."""
+    Lp, Wp, Cp, S = cfg.Lp, cfg.Wp, cfg.Cp, st.dims.S
+    W1 = Wp + 1
+    g = st.g
+    kk = {k: v.cpu().numpy() for k, v in st.k.items()}
+    states = lambda *ks: set(np.concatenate([kk[k].ravel() for k in ks]))
+    cells = (Lp + 1) * W1 * B
+    out = {}
+    # K1: seq/L/bp_ok/dots_cum in; the energy tables, of which the loop
+    # key tables (tri/tetra/hexa) give at most one entry per (j, read);
+    # 19 float + 2 int32 + 4 bool planes out; ~40 operations per cell
+    tab_n = sum(min(tab[k].numel(), (Lp + 1) * B)
+                if k in ("tri", "tetra", "hexa") else tab[k].numel()
+                for k in ET.FLOAT_TABLES)
+    by = B * Lp * 8 + B * 8 + cells + B * (Lp + 1) * 4 + tab_n * itemsize \
+        + cells * (19 * itemsize + 2 * 4 + 4)
+    out["score_tables"] = (by, 40.0 * cells)
+
+    # K2 (inside_band)
+    okP = c.okP[j0].cpu().numpy()                       # [W1, B]
+    okB = c.okB[j0].cpu().numpy()
+    wv = np.arange(W1)[:, None]
+    n_rt = len(states("rt_s"))
+    n_pt = int((kk["pt_code"] != -1).any(0).sum())     # P/E source states
+    n_b1 = len(states("b12_a"))
+    n_tab = len(set(kk["pt_code"][kk["pt_code"] >= 0].ravel()))
+    okP2 = int((okP & (wv >= 2)).sum())                 # cells reading E/P
+    okB1 = int((okB & (wv >= 1)).sum())                 # cells reading T2
+    tri1 = int((okB * wv).sum())                        # T1 (dk, w) cells
+    by2 = itemsize * (
+        Wp * n_rt * B + okB1 * n_rt + 2 * okP2 * n_pt   # rows j-1: LL T2 E P
+        + tri1 * n_b1                                   # T1 window of B
+        + int(okP.sum()) * n_tab                        # pair emissions
+        + 2 * W1 * S * B + S * B                        # eL rows, ep, eR
+        + 8 * W1 * B + B                                # per-cell planes
+        + 7 * W1 * S * B) + 4 * W1 * B                  # 7 rows out; masks
+    nb = len(g.b12_tuples)
+    pt_nnz, rt_nnz, lt_nnz = int((kk["pt_code"] != -1).sum()), \
+        len(kk["rt_s"]), len(kk["lt_s"])
+    ops2 = 2.0 * (tri1 * nb + okB1 * rt_nnz + W1 * B * rt_nnz
+                  + 2 * okP2 * pt_nnz + W1 * B * lt_nnz)
+    out["inside_band"] = (by2, ops2)
+
+    # K3 (inside_ep), per read with its cap C_b = min(C, Cp): P cells
+    # (j - dl, v) with dl <= C_b, dl + v <= Wp; left-flank LL cells
+    # (j - x, u1) with u1 <= C_b, x + u1 <= Wp (the right flank, LL row j
+    # up to width C_b, lies in that set); emisB on the P cells; emisA,
+    # spec_il rows j; the read-independent size weights eSZg; ep out
+    Cb = np.minimum(c.C.cpu().numpy().astype(np.int64), Cp)
+    pc = _band_cells(Wp, Cb)                            # per read
+    n_s1, n_s2 = len(states("p13_s1")), len(states("k2_s2"))
+    n_s3x = len(states("p13_s3") - states("k2_s2"))
+    eszg = 2 * 4 * (Cp + 1) * (Cp + 2) // 2
+    by3 = itemsize * (
+        int(pc.sum()) * (n_s1 + n_s2 + 2 * 4)
+        + int((Cb + 1).clip(min=0).sum()) * n_s3x
+        + B * W1 * (2 * 4 + (0 if cfg.no_ene else 6)) + eszg
+        + W1 * S * B) + 4 * B + (4 * (Lp + 1) * B if cfg.fix_rss else 0)
+    x = np.arange(W1)[:, None, None]
+    u1 = np.arange(Cp + 1)[None, :, None]
+    dl = np.arange(Cp + 1)[None, None, :]
+    geo = (x + u1 <= Wp) & (dl <= x)
+    vterms = sum(int((geo & (dl + u1 <= cb)).sum()) for cb in Cb)
+    spec = 0 if cfg.no_ene else 6 * W1 * st.n2 * (2 * st.n13 / st.n_ar + 3)
+    ops3 = 2.0 * (vterms * (2 * st.n_ar + 12) + int(pc.sum()) * (st.n13
+                  + st.n2)) + 2.0 * B * spec
+    out["inside_ep"] = (by3, ops3)
+
+    # K4 (inside_ext): for each w >= 1 with a finite exterior energy, P row
+    # j at width w and O row j - w in the split tuples' states (row j - 1
+    # also in the chain's sources); ext, eR rows; O row j out
+    ext_ok = np.isfinite(c.ext[j0].cpu().numpy()) & (wv >= 1)
+    n_ext = int(ext_ok.sum())
+    by4 = itemsize * (n_ext * len(states("op_a"))
+                      + int(ext_ok[2:].sum()) * len(states("op_c"))
+                      + len(states("op_c", "rt_s")) * B
+                      + W1 * B + S * B + B + S * B)
+    ops4 = 2.0 * (n_ext * len(g.op_tuples) + B * rt_nnz)
+    out["inside_ext"] = (by4, ops4)
+    res = {}
+    for k, (by_, ops) in out.items():
+        tb, to = by_ / MEM_BPS * 1e3, ops / PEAK_F32 * 1e3
+        res[k] = (max(tb, to), "bytes" if tb >= to else "operations")
+    return res
+
+
+def profile_forward(path, fn):
+    """torch.profiler over one forward: per-kernel device time and the
+    device's busy share of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.time() - t0) * 1e6
+    ka = prof.key_averages()
+    # busy = the union of kernel intervals (two streams may overlap)
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    dev_us, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            dev_us += b - max(a, end)
+            end = b
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        f.write(ka.table(sort_by="self_device_time_total", row_limit=40))
+    print("profile: one forward %.1f ms wall, device busy %.1f ms (%.1f%%); "
+          "table in %s" % (wall_us / 1e3, dev_us / 1e3,
+                           100.0 * dev_us / wall_us, path), flush=True)
+
+
+# ------------------------------------------------------------ main
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--ptxas", default="",
+                    help="also write nvcc -Xptxas -v output to this file")
+    ap.add_argument("--profile", default="",
+                    help="also trace one main-path forward with "
+                         "torch.profiler; write its kernel table here")
+    args = ap.parse_args()
+    global np, torch, ET, J, DP, K, OBJ, seq_to_ints
+    try:
+        import numpy as np
+        import torch
+    except ImportError as e:
+        fail("numpy/torch missing: %s" % e)
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this check needs a GPU")
+    try:
+        from rnaelem_tpu_torch.alphabet import seq_to_ints
+        from rnaelem_tpu_torch.energy import tables as ET
+        from rnaelem_tpu_torch.model import joint as J
+        from rnaelem_tpu_torch.ops import dp as DP
+        from rnaelem_tpu_torch.ops import kernels as K
+        from rnaelem_tpu_torch.train import objective as OBJ
+    except ImportError as e:
+        fail("the rnaelem_tpu_torch package must sit beside this script "
+             "(%s)" % e)
+    if "jax" in sys.modules or "rnaelem_tpu" in sys.modules:
+        fail("the port imported jax or the JAX package")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = DEVICE
+    t_start = time.time()
+    card = card_line()
+    print("card: %s" % card, flush=True)
+
+    # ---- phase 1: build
+    t0 = time.time()
+    K.lib()
+    print("kernel build: %.1f s" % (time.time() - t0), flush=True)
+    if args.ptxas:
+        _, log = K.build(("-Xptxas", "-v"))
+        os.makedirs(os.path.dirname(os.path.abspath(args.ptxas)),
+                    exist_ok=True)
+        with open(args.ptxas, "w") as f:
+            f.write(log)
+
+    # ---- phase 2: kernels vs plain versions
+    small = make_reads(np.random.RandomState(0), *SMALL)
+    reads = main_reads()
+    cfg64, cfg32 = cfg_for("float64"), cfg_for("float32")
+    err = {}
+    e64 = check_score_tables(cfg64, small, dev)
+    err["score_tables"] = check_score_tables(cfg32, reads, dev)
+    print("check score_tables: f64 small batch max abs err %.3g; f32 main "
+          "batch %.3g (floats within 1e-6 relative, ints/bools equal)"
+          % (e64, err["score_tables"]), flush=True)
+
+    p64, p32 = random_params(cfg64, dev), random_params(cfg32, dev)
+    dp64, dp32 = J.kernels(cfg64, dev).dp, J.kernels(cfg32, dev).dp
+    b16, d64, c64 = batch_factors_for(cfg64, small, dev, p64)
+    j0 = J0
+    s64 = check_stages(dp64, d64, c64, j0, 1e-9, False)
+    print("check stages f64 small batch column %d: %s (1e-9 relative)"
+          % (j0, json.dumps(s64)), flush=True)
+    bm, d32, c32 = batch_factors_for(cfg32, reads, dev, p32)
+    s32 = check_stages(dp32, d32, c32, j0, 1e-4, True)
+    print("check stages f32 main batch column %d: %s (1e-4 relative)"
+          % (j0, json.dumps(s32)), flush=True)
+    err.update(s32)
+
+    parts_k64 = J.batch_logZ_parts(cfg64, p64, b16.sd, b16.bp_ok, device=dev)
+    parts_p64 = plain_parts(cfg64, p64, b16, dev)
+    b16_32 = OBJ.stack_reads(cfg32, small, device=dev)
+    parts_k32 = J.batch_logZ_parts(cfg32, p32, b16_32.sd, b16_32.bp_ok,
+                                   device=dev)
+    fin = torch.isfinite(parts_p64)
+    if not torch.equal(fin, torch.isfinite(parts_k64)) or \
+            not torch.equal(fin, torch.isfinite(parts_k32)):
+        fail("inside DP: -inf pattern of the parts differs")
+    e_dp64 = float((parts_k64 - parts_p64)[fin].abs().max())
+    e_dp32 = float((parts_k32.double() - parts_p64)[fin].abs().max())
+    print("check inside DP small batch: f64 kernels vs f64 plain %.3g "
+          "(<= 1e-9); f32 kernels vs f64 plain %.3g (<= 2e-3)"
+          % (e_dp64, e_dp32), flush=True)
+    if not e_dp64 <= 1e-9:
+        fail("inside DP f64: parts differ by %.3g" % e_dp64)
+    if not e_dp32 <= 2e-3:
+        fail("inside DP f32: parts differ by %.3g" % e_dp32)
+
+    # ---- phase 3a: per-call times at the main path's shapes
+    k32 = J.kernels(cfg32, dev)
+    seq, L, bp_ok, dots_cum = J.score_inputs(cfg32, k32, bm.sd, bm.bp_ok)
+    sargs = (k32.tab, seq, L, bp_ok, dots_cum, cfg32.Wp, cfg32.max_span,
+             cfg32.turn, cfg32.no_ene, cfg32.fix_rss)
+    ms, plain_ms, unit = {}, {}, {}
+    K.reset_counts()
+    ET.score_tables(*sargs)
+    unit["score_tables"] = ("batch", K.KERNELS["score_tables"].launches)
+    ms["score_tables"] = cuda_ms(lambda: ET.score_tables(*sargs), 20)
+    plain_ms["score_tables"] = cuda_ms(
+        lambda: ET.score_tables_plain(*sargs), 3)
+    h32, state = dp32.start(d32, c32)
+    dp32.run_columns(state, d32, c32, h32, 1, j0)
+    st = dp32.st
+    groups = {"inside_band": ("band_front", "band_bif", "band_m", "band_e"),
+              "inside_ep": ("ep_stage",), "inside_ext": ("ext_stage",)}
+    for kname, names in groups.items():
+        ks, ps = DP.clone_state(state), DP.clone_state(state)
+        kf = [getattr(DP, n) for n in names]
+        pf = [getattr(DP, n + "_plain") for n in names]
+        K.reset_counts()
+        for f in kf:
+            f(DP.clone_state(state), j0, d32, c32, h32, st)
+        unit[kname] = ("column %d" % j0, K.KERNELS[kname].launches)
+        ms[kname] = cuda_ms(
+            lambda: [f(ks, j0, d32, c32, h32, st) for f in kf], 20)
+        plain_ms[kname] = cuda_ms(
+            lambda: [f(ps, j0, d32, c32, h32, st) for f in pf], 3)
+    del state
+
+    # ---- phase 3b: the main path
+    K.reset_counts()
+    t0 = time.time()
+    batch = OBJ.stack_reads(cfg32, reads, device=dev)
+    fn, eff = OBJ.batch_total(cfg32, p32, batch, device=dev)
+    torch.cuda.synchronize()
+    warm_s = time.time() - t0
+    launches = {n: k.launches for n, k in K.KERNELS.items()}
+    print("main path launches per forward: %s" % json.dumps(launches),
+          flush=True)
+    for n, cnt in launches.items():
+        if cnt <= 0:
+            fail("kernel %s was not launched on the main path" % n)
+    if not np.isfinite(float(fn)):
+        fail("main path fn is not finite: %s" % float(fn))
+    reps = 3
+    s_ev = torch.cuda.Event(enable_timing=True)
+    e_ev = torch.cuda.Event(enable_timing=True)
+    t0 = time.time()
+    s_ev.record()
+    for _ in range(reps):
+        batch = OBJ.stack_reads(cfg32, reads, device=dev)
+        fn, eff = OBJ.batch_total(cfg32, p32, batch, device=dev)
+    e_ev.record()
+    torch.cuda.synchronize()
+    step_ms = s_ev.elapsed_time(e_ev) / reps
+    host_ms = (time.time() - t0) / reps * 1e3
+    fwd_ms = cuda_ms(lambda: OBJ.batch_total(cfg32, p32, batch, device=dev),
+                     reps)
+    t0 = time.time()
+    f_plain, _ = OBJ._per_read_terms(cfg32, plain_parts(cfg32, p32, batch,
+                                                        dev), batch, False)
+    fn_plain = f_plain.sum()
+    torch.cuda.synchronize()
+    main_plain_ms = (time.time() - t0) * 1e3
+    parts_main = J.batch_logZ_parts(cfg32, p32, batch.sd, batch.bp_ok,
+                                    device=dev)
+    b64 = OBJ.stack_reads(cfg64, reads, device=dev)
+    parts_ref = plain_parts(cfg64, p64, b64, dev)
+    e_main = float((parts_main.double() - parts_ref).abs().max())
+    print("main path: B=%d x %d nt %s W=50 C=30 f32 min_bpp=0: fn %.6f "
+          "sum eff %.1f; stack_reads+batch_total %.3f ms/batch (%.1f seqs/s, "
+          "host clock %.3f ms); batch_total %.3f ms/batch (%.1f seqs/s); "
+          "warm-up %.1f s; plain version %.1f ms (fn %.6f); parts vs f64 "
+          "plain max abs %.3g" % (
+              B_MAIN, LP, PATTERN, float(fn), float(eff), step_ms,
+              B_MAIN * 1e3 / step_ms, host_ms, fwd_ms, B_MAIN * 1e3 / fwd_ms,
+              warm_s, main_plain_ms, float(fn_plain), e_main), flush=True)
+    if not e_main <= 2e-3:
+        fail("main path parts differ from the f64 plain version by %.3g"
+             % e_main)
+    if args.profile:
+        profile_forward(args.profile, lambda: OBJ.batch_total(
+            cfg32, p32, batch, device=dev))
+
+    # ---- phase 4: the kernel table
+    # ms, plain_ms and bound_ms are per unit of work ("unit": K1 one batch,
+    # K2-K4 one column j0, of "launches_per_unit" launches); "launches"
+    # counts the main path's forward
+    bnd = bounds(cfg32, st, c32, k32.tab, j0, B_MAIN, 4)
+    rows = []
+    for name, kern in K.KERNELS.items():
+        bms, by = bnd[name]
+        u, per = unit[name]
+        rows.append({
+            "name": name, "route": "cuda", "source": kern.source,
+            "replaces": kern.replaces, "launches": launches[name],
+            "max_abs_err": err[name], "ms": ms[name],
+            "plain_ms": plain_ms[name], "bound_ms": bms, "bound_by": by,
+            "library_ms": None, "unit": u, "launches_per_unit": per})
+        print("kernel %s: %.4f ms per %s of %d launches (plain %.3f ms, "
+              "bound %.4f ms by %s); %d launches per forward" % (
+                  name, ms[name], u, per, plain_ms[name], bms, by,
+                  launches[name]), flush=True)
+    print("chip_smoke total %.1f s" % (time.time() - t_start))
+    print(json.dumps({"kernels": rows}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,96 @@
+// Shared device helpers for the port's hand-written kernels.
+//
+// Every kernel is a template on the scalar type (float for production,
+// double to hold the algorithm to the plain PyTorch version) and is
+// exported through a plain C function per type, loaded with ctypes.  A C
+// function launches exactly one kernel on the caller's stream and returns
+// cudaGetLastError(), so a refused launch is reported at once.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#define RNAELEM_EXPORT extern "C" __attribute__((visibility("default")))
+
+// Column geometry shared by the DP kernels (K2-K4).  Tables are
+// [Lp+1+PAD, Wp+1, S, B] with row j at j+PAD; everything is batch-minor.
+struct DPDims {
+  int Lp, Wp, Cp, S, B, PAD, j;
+  int n13, n_ar, n2, n_cls, Tp;
+  int fix_rss, no_ene;
+};
+
+template <typename T>
+__device__ __forceinline__ T ninf() { return -(T)INFINITY; }
+
+__device__ __forceinline__ float ex(float x) { return expf(x); }
+__device__ __forceinline__ double ex(double x) { return exp(x); }
+__device__ __forceinline__ float lg(float x) { return logf(x); }
+__device__ __forceinline__ double lg(double x) { return log(x); }
+
+// lambda * x with -inf energies kept at -inf (also for lambda == 0)
+template <typename T>
+__device__ __forceinline__ T lam_mul(T lam, T x) {
+  return x == ninf<T>() ? ninf<T>() : lam * x;
+}
+
+template <typename T>
+__device__ __forceinline__ T logadd(T a, T b) {
+  T m = a > b ? a : b;
+  if (m == ninf<T>()) return ninf<T>();
+  return m + lg(ex(a - m) + ex(b - m));
+}
+
+// Online log-sum-exp: one exp per finite term; an empty or all--inf
+// sum gives -inf (never NaN, never log(tiny)).
+template <typename T>
+struct LSE {
+  T m, s;
+  __device__ __forceinline__ LSE() : m(ninf<T>()), s((T)0) {}
+  __device__ __forceinline__ void add(T x) {
+    if (!(x > ninf<T>())) return;
+    if (x > m) {
+      s = s * ex(m - x) + (T)1;
+      m = x;
+    } else {
+      s += ex(x - m);
+    }
+  }
+  __device__ __forceinline__ T result() const {
+    return s > (T)0 ? m + lg(s) : ninf<T>();
+  }
+};
+
+// log(s) + shift for an exp-space sum; zero sums give -inf
+template <typename T>
+__device__ __forceinline__ T safe_log_shift(T s, T shift) {
+  return s > (T)0 ? lg(s) + shift : ninf<T>();
+}
+
+// Atomic max on floats by their ordered bit patterns (the target starts
+// at -inf; -inf inputs are skipped by the callers).
+__device__ __forceinline__ void atomic_max_t(float* addr, float v) {
+  if (v >= 0.0f)
+    atomicMax(reinterpret_cast<int*>(addr), __float_as_int(v));
+  else
+    atomicMin(reinterpret_cast<unsigned int*>(addr), __float_as_uint(v));
+}
+__device__ __forceinline__ void atomic_max_t(double* addr, double v) {
+  if (v >= 0.0)
+    atomicMax(reinterpret_cast<long long*>(addr), __double_as_longlong(v));
+  else
+    atomicMin(reinterpret_cast<unsigned long long*>(addr),
+              static_cast<unsigned long long>(__double_as_longlong(v)));
+}
+
+template <typename T>
+__device__ __forceinline__ T finite_or_zero(T m) {
+  return isfinite(m) ? m : (T)0;
+}
+
+static inline int ceil_div(long long a, int b) {
+  return static_cast<int>((a + b - 1) / b);
+}
+
+RNAELEM_EXPORT const char* rnaelem_error_string(int code);

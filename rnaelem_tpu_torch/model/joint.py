@@ -1,0 +1,418 @@
+"""RNAelem joint model: parameters + factor construction + logZ API
+(PyTorch).
+
+Parameter layout mirrors the reference (motif_model.hpp:147-168): one
+emission table per '.'/')' node plus the shared background table 0, a
+2-vector lambda, optional softmax parameterization s with
+theta = s - logsumexp(s) (profile_hmm.hpp:103-111).  Emission tables are
+two dense banks — ``singles [n_single, 4]`` and ``pairs [n_pair, 6]`` —
+indexed through the grammar's table maps.
+
+The DP (ops/dp.py) is batched with a trailing batch axis;
+``batch_logZ_parts`` is the entry point.  Every entry point takes an
+explicit ``device``: None means CUDA (and raises without a GPU).
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .. import device as DEV
+from ..energy import params as EPARAMS
+from ..energy import tables as ET
+from ..grammar.profile import Grammar, compile_pattern
+from ..ops import dp as DP
+from ..ops.semiring import NEG, lse
+
+SLICE2 = ("is not ported yet: it needs the outside pass (slice 2 of the "
+          "port)")
+
+
+class Params(NamedTuple):
+    singles: torch.Tensor   # [n_single, 4] log-space theta (or raw s)
+    pairs: torch.Tensor     # [n_pair, 6]
+    lam: torch.Tensor       # [2]
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Static configuration; hashable so builders cache per config."""
+    pattern: str
+    Lp: int
+    max_span: int = 50
+    max_iloop: int = 30
+    min_bpp: float = 1e-4
+    energy: str = EPARAMS.T2004
+    turn: int = 3            # 0 under the NO_TURN test mode
+    theta_softmax: bool = False
+    no_ene: bool = False
+    no_rss: bool = False
+    no_prf: bool = False
+    no_theta: bool = False   # DBG_NO_THETA test mode
+    fix_rss: bool = False    # DBG_FIX_RSS test mode
+    with_aux: bool = False
+    tau: float = 0.1
+    rho_s: float = 0.0
+    rho_theta: float = 0.0
+    rho_lambda: float = 0.0
+    lambda_prior: float = -1.0
+    s_prior: float = 0.0
+    dtype: str = "float64"
+
+    @property
+    def Wp(self) -> int:
+        return min(self.Lp, self.max_span)
+
+    @property
+    def Cp(self) -> int:
+        return max(1, min(self.max_iloop, self.Wp))
+
+
+class SeqData(NamedTuple):
+    """Per-sequence inputs (padded to Lp); host numpy arrays for one read,
+    stacked with a leading batch axis (numpy or tensors) for a batch."""
+    seq: np.ndarray        # [Lp] int32 codes, 0 beyond L
+    ws: np.ndarray         # [Lp] positional log-weights (0 beyond L)
+    L: np.ndarray          # scalar int32
+    has_motif: np.ndarray  # scalar bool (ws sentinel == 0,
+    #                        motif_model.hpp:62-70)
+    rss_pair: np.ndarray   # [Lp+1, Wp+1] bool fixed-structure pairs
+    dots: np.ndarray       # [Lp] bool: rss '.' marks (True if not fix_rss)
+
+
+def make_seqdata(cfg: ModelConfig, seq_codes, quals=None,
+                 rss: str = "") -> SeqData:
+    """Host-side packing of one read into padded arrays.
+
+    quals: int phred array of length L+1 (the trailing element is the
+    has-motif sentinel, kmer-psp.py:66) or None for flat weights.
+    """
+    L = len(seq_codes)
+    Lp, Wp = cfg.Lp, cfg.Wp
+    seq = np.zeros(Lp, np.int32)
+    seq[:L] = seq_codes
+    ws = np.zeros(Lp, np.float64)
+    has_motif = False
+    if quals is not None:
+        q = np.asarray(quals)
+        cnt = np.bincount(q[:-1], minlength=127 - 33)
+        mode = int(np.flatnonzero(cnt == cnt.max())[-1])
+        ws[:L] = np.log((0.01 + q[:-1]) / (0.01 + mode))
+        has_motif = (q[-1] == 0)
+    rss_pair = np.zeros((Lp + 1, Wp + 1), bool)
+    dots = np.ones(Lp, bool)
+    if cfg.fix_rss and rss:
+        dots[:] = False
+        dots[:L] = np.frombuffer(rss.encode(), np.uint8) == ord(".")
+        stack = []
+        for p, ch in enumerate(rss):
+            if ch == "(":
+                stack.append(p)
+            elif ch == ")":
+                i = stack.pop()
+                jj, w = p + 1, p + 1 - i
+                if w <= Wp:
+                    rss_pair[jj, w] = True
+    return SeqData(seq=seq, ws=ws, L=np.int32(L),
+                   has_motif=np.bool_(has_motif), rss_pair=rss_pair,
+                   dots=dots)
+
+
+def stack_seqdata(sds, device) -> SeqData:
+    """Stack per-read SeqData into batch tensors on ``device`` (one host
+    np.stack and one transfer per field)."""
+    return SeqData(*[torch.as_tensor(np.stack(xs), device=device)
+                     for xs in zip(*sds)])
+
+
+def init_params(g: Grammar, cfg: ModelConfig, dtype=None,
+                device=None) -> Params:
+    """Flat initialization: s = 0 -> theta = -log(arity)
+    (profile_hmm.hpp:286-313)."""
+    dev = DEV.resolve(device)
+    dt = DEV.torch_dtype(dtype or cfg.dtype)
+    ns = int((g.single_table_index >= 0).sum())
+    npair = max(1, g.n_pair_tables)
+    if cfg.theta_softmax:
+        singles = torch.zeros((ns, 4), dtype=dt, device=dev)
+        pairs = torch.zeros((npair, 6), dtype=dt, device=dev)
+    else:
+        singles = torch.full((ns, 4), -math.log(4.0), dtype=dt, device=dev)
+        pairs = torch.full((npair, 6), -math.log(6.0), dtype=dt, device=dev)
+    return Params(singles=singles, pairs=pairs,
+                  lam=torch.ones((2,), dtype=dt, device=dev))
+
+
+def _np(x):
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def pack_params(g: Grammar, p: Params) -> np.ndarray:
+    """Reference order: tables in creation order, then lambda
+    (motif_model.hpp:147-157)."""
+    singles, pairs = _np(p.singles), _np(p.pairs)
+    out = []
+    for t, sz in enumerate(g.table_sizes):
+        if sz == 6:
+            out.append(pairs[g.pair_table_index[t]])
+        else:
+            out.append(singles[g.single_table_index[t]])
+    out.append(_np(p.lam))
+    return np.concatenate(out)
+
+
+def unpack_params(g: Grammar, flat, like: Params) -> Params:
+    flat = np.asarray(flat)
+    singles = _np(like.singles).copy()
+    pairs = _np(like.pairs).copy()
+    k = 0
+    for t, sz in enumerate(g.table_sizes):
+        if sz == 6:
+            pairs[g.pair_table_index[t]] = flat[k:k + 6]
+            k += 6
+        else:
+            singles[g.single_table_index[t]] = flat[k:k + 4]
+            k += 4
+    as_like = lambda a, ref: torch.as_tensor(a, dtype=ref.dtype,
+                                             device=ref.device)
+    return Params(singles=as_like(singles, like.singles),
+                  pairs=as_like(pairs, like.pairs),
+                  lam=as_like(flat[k:k + 2], like.lam))
+
+
+def effective_theta(cfg: ModelConfig, p: Params) -> Params:
+    if not cfg.theta_softmax:
+        return p
+    return Params(
+        singles=p.singles - lse(p.singles, axis=-1)[:, None],
+        pairs=p.pairs - lse(p.pairs, axis=-1)[:, None],
+        lam=p.lam)
+
+
+class _Kernels(NamedTuple):
+    g: Grammar
+    dp: DP.InsideDP
+    dims: DP.Dims
+    tab: dict
+    dtype: torch.dtype
+    device: torch.device
+
+
+@functools.lru_cache(maxsize=32)
+def _kernels_cached(cfg: ModelConfig, device: str) -> _Kernels:
+    g = compile_pattern(cfg.pattern)
+    dtype = DEV.torch_dtype(cfg.dtype)
+    tab = ET.device_tables(cfg.energy, dtype, device)
+    ltau = float(np.log(cfg.tau)) if cfg.tau > 0 else -np.inf
+    dims = DP.Dims(Lp=cfg.Lp, Wp=cfg.Wp, Cp=cfg.Cp, S=g.S,
+                   no_ene=cfg.no_ene, fix_rss=cfg.fix_rss, ltau=ltau)
+    dp = DP.build_dp(g, dims, tab, dtype, device)
+    return _Kernels(g=g, dp=dp, dims=dims, tab=tab, dtype=dtype,
+                    device=torch.device(device))
+
+
+def kernels(cfg: ModelConfig, device=None) -> _Kernels:
+    """Grammar, energy tables and the DP for ``cfg`` on ``device``."""
+    return _kernels_cached(cfg, str(DEV.resolve(device)))
+
+
+def _grid(cfg: ModelConfig, device):
+    j = torch.arange(cfg.Lp + 1, device=device)[:, None]
+    w = torch.arange(cfg.Wp + 1, device=device)[None, :]
+    return j, w
+
+
+def _band_masks(cfg: ModelConfig, sd: SeqData, bp_ok):
+    """is_parsable masks in (j, w) layout (energy_model.hpp:289-338), for
+    stacked reads: each [B, Lp+1, Wp+1]."""
+    L = torch.as_tensor(sd.L, device=bp_ok.device).long()
+    W = torch.clamp(L, max=cfg.max_span)
+    return ET.band_masks(bp_ok, L, W, cfg.Wp, cfg.turn)
+
+
+def _complementary_bp(cfg: ModelConfig, k: _Kernels, sd: SeqData):
+    """Candidate pairs by complementarity, band and turn: [B, Lp+1, Wp+1]."""
+    seq = torch.as_tensor(sd.seq, device=k.device).long()
+    L = torch.as_tensor(sd.L, device=k.device).long()
+    W = torch.clamp(L, max=cfg.max_span)
+    return ET.pair_mask_jw(k.tab, seq, L, W, cfg.Wp, cfg.turn)
+
+
+def effective_bp_mask_batch(cfg: ModelConfig, sd_b: SeqData, device=None):
+    """Batched bp_ok and bpp_eff [B] (energy_model.hpp:211-266) for the
+    branches that need no DP: fix_rss (the given structure) and
+    min_bpp <= 0 (complementarity only).  min-BPP pruning needs the
+    outside pass and raises until it is ported."""
+    k = kernels(cfg, device)
+    bp0 = _complementary_bp(cfg, k, sd_b)
+    total = torch.clamp(bp0.sum(dim=(1, 2)), min=1)
+    if cfg.fix_rss:
+        rss = torch.as_tensor(sd_b.rss_pair, device=k.device).bool()
+        return rss, rss.sum(dim=(1, 2)) / total
+    if cfg.min_bpp <= 0 or cfg.no_rss:
+        return bp0, torch.ones(bp0.shape[0], dtype=k.dtype, device=k.device)
+    raise NotImplementedError("min-BPP pruning (min_bpp > 0) " + SLICE2)
+
+
+def score_inputs(cfg: ModelConfig, k: _Kernels, sd: SeqData, bp_ok):
+    """(seq [B, Lp] int64, L [B] int64, bp_ok [B, Lp+1, Wp+1] bool,
+    dots_cum [B, Lp+1] int32) as the score-table kernel takes them."""
+    dev = k.device
+    seq = torch.as_tensor(sd.seq, device=dev).long().contiguous()
+    L = torch.as_tensor(sd.L, device=dev).long()
+    dots = torch.as_tensor(sd.dots, device=dev).to(torch.int32)
+    dots_cum = torch.cat([torch.zeros_like(dots[:, :1]),
+                          torch.cumsum(dots, dim=1, dtype=torch.int32)],
+                         dim=1)
+    bp_ok = torch.as_tensor(bp_ok, device=dev).bool().contiguous()
+    return seq, L, bp_ok, dots_cum
+
+
+def _const_factors(cfg: ModelConfig, k: _Kernels, sd: SeqData, bp_ok):
+    """Per-read constants for the batch, batch-minor (trailing B)."""
+    dev, dt = k.device, k.dtype
+    seq, L, bp_ok, dots_cum = score_inputs(cfg, k, sd, bp_ok)
+    dots = torch.as_tensor(sd.dots, device=dev).bool()
+    W = torch.clamp(L, max=cfg.max_span)
+    C = torch.clamp(W - 2 - (2 if cfg.turn == 0 else 5),
+                    max=cfg.max_iloop).to(torch.int32)
+    sc = ET.score_tables(k.tab, seq, L, bp_ok, dots_cum, cfg.Wp,
+                         cfg.max_span, cfg.turn, cfg.no_ene, cfg.fix_rss)
+    if cfg.fix_rss:
+        gate = torch.where(dots, 0.0, NEG).to(dt).T.contiguous()
+    else:
+        gate = torch.zeros((cfg.Lp, seq.shape[0]), dtype=dt, device=dev)
+    ws = torch.as_tensor(sd.ws, device=dev).to(dt)
+    return DP.ConstFactors(
+        wsp=ws.T.contiguous(), hp=sc["hp"], stk=sc["stk"], ext=sc["ext"],
+        ml2=sc["ml2"], mlE=sc["mlE"], okP=sc["okP"], okE=sc["okE"],
+        okM=sc["okM"], okB=sc["okB"], gate_O2=gate, gate_M=gate,
+        seq=seq.T.contiguous(), C=C, L=L,
+        dots_cum=dots_cum.T.contiguous(),
+        ep={kk: sc[kk] for kk in ("misA", "misB", "t_out", "t_in",
+                                  "spec_il")})
+
+
+def _diff_factors(cfg: ModelConfig, k: _Kernels, params: Params,
+                  sd: SeqData):
+    """Differentiable factors for the batch, batch-minor (trailing B)."""
+    g, dev, dt = k.g, k.device, k.dtype
+    Lp = cfg.Lp
+    th = effective_theta(cfg, params)
+    seq = torch.as_tensor(sd.seq, device=dev).long()          # [B, Lp]
+    ws = torch.as_tensor(sd.ws, device=dev).to(dt)
+    B = seq.shape[0]
+    # DBG_NO_THETA pins theta to log(1)=0 while keeping the gradient path
+    if cfg.no_theta and not cfg.no_prf:
+        th = th._replace(singles=th.singles - th.singles.detach(),
+                         pairs=th.pairs - th.pairs.detach())
+    sidx_r = torch.as_tensor(g.single_table_index[g.tid_r], device=dev)
+    sidx_l = torch.as_tensor(g.single_table_index[g.tid_l], device=dev)
+    b1 = torch.clamp(seq - 1, 0, 3)
+    zero = torch.zeros((), dtype=dt, device=dev)
+
+    def single_lookup(slot):
+        if cfg.no_prf:
+            return torch.zeros((B, Lp, g.S), dtype=dt, device=dev)
+        v = th.singles.to(dt)[slot[None, None, :], b1[:, :, None]]
+        return torch.where((seq > 0)[:, :, None], v, zero)
+
+    def ws_at(flags):
+        f = torch.as_tensor(flags, device=dev)
+        return torch.where(f[None, None, :], ws[:, :, None], zero)
+
+    eR = single_lookup(sidx_r) + ws_at(g.ws_r)
+    eL = single_lookup(sidx_l) + ws_at(g.ws_l)
+    if cfg.no_prf:
+        bg2 = torch.zeros((B, Lp), dtype=dt, device=dev)
+    else:
+        bg2 = torch.where(seq > 0, th.singles.to(dt)[0, b1], zero)
+    j, w = _grid(cfg, dev)
+    i = torch.clamp(j - w, 0, Lp - 1)
+    bt = k.tab["bp"][seq[:, i], seq[:, torch.clamp(j - 1, 0, Lp - 1)]
+                     .expand(-1, -1, cfg.Wp + 1)]
+    Tp = max(1, g.n_pair_tables)
+    if cfg.no_prf:
+        pv = torch.zeros((B, Lp + 1, cfg.Wp + 1, Tp), dtype=dt, device=dev)
+    else:
+        pvv = th.pairs.to(dt)[torch.arange(Tp, device=dev)[None, None, None],
+                              torch.clamp(bt - 1, 0, 5)[..., None]]
+        pv = torch.where((bt > 0)[..., None], pvv, zero)
+    mv = lambda x: torch.movedim(x, 0, -1).contiguous()
+    return DP.DiffFactors(
+        eR=mv(eR), eL=mv(eL), bg2=mv(bg2), pv=mv(pv),
+        lam=params.lam.to(dt),
+        alphaP=torch.zeros((Lp + 1, cfg.Wp + 1, B), dtype=dt, device=dev))
+
+
+def batch_factors(cfg: ModelConfig, params: Params, sd_b: SeqData,
+                  bp_ok_b, device=None):
+    """Batched (DiffFactors, ConstFactors) for the DP.
+
+    sd_b: SeqData with a leading batch axis; bp_ok_b: [B, Lp+1, Wp+1].
+    """
+    if cfg.with_aux:
+        raise NotImplementedError("posterior injection (with_aux, the "
+                                  "scanner path) is not ported yet")
+    k = kernels(cfg, device)
+    bp_ok_b = torch.as_tensor(bp_ok_b, device=k.device)
+    c = _const_factors(cfg, k, sd_b, bp_ok_b)
+    d = _diff_factors(cfg, k, params, sd_b)
+    return d, c
+
+
+def batch_logZ_parts(cfg: ModelConfig, params: Params, sd_b: SeqData,
+                     bp_ok_b=None, device=None):
+    """[B, 3] log partition parts at end states (0,0), (0,M-2), (0,M-1).
+
+    part_func(ari, nasi) of the reference (motif_trainer.hpp:108-112) is
+    a logsumexp over a subset of these.
+    """
+    if cfg.no_rss:
+        raise NotImplementedError(
+            "the no-rss linear chain (kernel row J) is not ported yet")
+    if bp_ok_b is None:
+        bp_ok_b, _ = effective_bp_mask_batch(cfg, sd_b, device)
+    d, c = batch_factors(cfg, params, sd_b, bp_ok_b, device)
+    return kernels(cfg, device).dp.dp_parts(d, c)
+
+
+def part_func(parts, ari=True, nasi=True):
+    """sumL over selected end states (motif_trainer.hpp:108-112)."""
+    sel = torch.as_tensor([nasi, ari, ari], device=parts.device)
+    return lse(torch.where(sel, parts, torch.full_like(parts, NEG)), axis=-1)
+
+
+class JointModel(torch.nn.Module):
+    """The joint model's parameters (``singles``, ``pairs``, ``lam``) as
+    nn.Parameters; ``forward`` gives the [B, 3] log partition parts."""
+
+    def __init__(self, cfg: ModelConfig, params: Params = None, device=None):
+        super().__init__()
+        dev = DEV.resolve(device)
+        self.cfg = cfg
+        if params is None:
+            params = init_params(compile_pattern(cfg.pattern), cfg,
+                                 device=dev)
+        dt = DEV.torch_dtype(cfg.dtype)
+        as_p = lambda x: torch.nn.Parameter(
+            torch.as_tensor(x, dtype=dt, device=dev).clone())
+        self.singles = as_p(params.singles)
+        self.pairs = as_p(params.pairs)
+        self.lam = as_p(params.lam)
+
+    @property
+    def device(self):
+        return self.lam.device
+
+    def params(self) -> Params:
+        return Params(singles=self.singles, pairs=self.pairs, lam=self.lam)
+
+    def forward(self, sd_b: SeqData, bp_ok_b=None):
+        return batch_logZ_parts(self.cfg, self.params(), sd_b, bp_ok_b,
+                                device=self.device)

@@ -1,0 +1,405 @@
+"""Build and ctypes bindings of the hand-written CUDA kernels (csrc/*.cu).
+
+The sources are compiled at first use with ``nvcc`` for ``sm_90a`` (one
+process per source, all started together, then one link) into a shared
+library with a plain C interface under ``build/kernels/<hash>/``, keyed on
+a hash of the sources and flags.  Nothing is compiled or imported from
+CUDA when this module is imported.
+
+Each wrapper checks device, dtype, shape and contiguity, allocates its
+outputs and scratch with torch, launches on PyTorch's current stream,
+raises when the launch returns a CUDA error, and counts its launches in
+``KERNELS[name].launches``.  Kernels are instantiated for float32
+(production) and float64 (held to the plain versions).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+PKG = Path(__file__).resolve().parent.parent
+CSRC = PKG / "csrc"
+SOURCES = ("score_tables.cu", "inside_band.cu", "inside_ep.cu",
+           "inside_ext.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC")
+LIB_NAME = "librnaelem_kernels.so"
+
+
+class Kernel:
+    """One hand-written kernel (a .cu source) and its launch count."""
+
+    def __init__(self, name: str, source: str, replaces: str):
+        self.name, self.source, self.replaces = name, source, replaces
+        self.launches = 0
+
+
+KERNELS = {
+    "score_tables": Kernel("score_tables",
+                           "rnaelem_tpu_torch/csrc/score_tables.cu",
+                           "rnaelem_tpu/energy/tables.py:97"),
+    "inside_band": Kernel("inside_band",
+                          "rnaelem_tpu_torch/csrc/inside_band.cu",
+                          "rnaelem_tpu/ops/dp.py:352"),
+    "inside_ep": Kernel("inside_ep", "rnaelem_tpu_torch/csrc/inside_ep.cu",
+                        "rnaelem_tpu/ops/dp.py:477"),
+    "inside_ext": Kernel("inside_ext",
+                         "rnaelem_tpu_torch/csrc/inside_ext.cu",
+                         "rnaelem_tpu/ops/dp.py:601"),
+}
+
+
+def reset_counts():
+    for k in KERNELS.values():
+        k.launches = 0
+
+
+# ---------------------------------------------------------------- build
+
+def build_dir() -> Path:
+    env = os.environ.get("RNAELEM_KERNEL_BUILD_DIR")
+    return Path(env) if env else PKG.parent / "build" / "kernels"
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("NVCC"), shutil.which("nvcc"),
+                 "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (set NVCC or put nvcc on PATH)")
+
+
+def _source_hash(extra=()) -> str:
+    h = hashlib.sha256()
+    for f in sorted(CSRC.iterdir()):
+        if f.suffix in (".cu", ".cuh"):
+            h.update(f.name.encode())
+            h.update(f.read_bytes())
+    h.update(" ".join(NVCC_FLAGS + tuple(extra)).encode())
+    return h.hexdigest()[:16]
+
+
+def build(extra_flags=()) -> tuple:
+    """Compile csrc/*.cu into the shared library (if not built yet).
+    Returns (path, compiler log); ``extra_flags`` such as
+    ("-Xptxas", "-v") go to every nvcc call."""
+    out_dir = build_dir() / _source_hash(extra_flags)
+    lib_path = out_dir / LIB_NAME
+    if lib_path.exists():
+        return lib_path, ""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    flags = list(NVCC_FLAGS) + list(extra_flags) + ["-I", str(CSRC)]
+    procs = []
+    for src in SOURCES:
+        obj = out_dir / (src + ".%d.o" % os.getpid())
+        procs.append((src, obj, subprocess.Popen(
+            [nvcc, *flags, "-c", str(CSRC / src), "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for src, obj, p in procs:
+        text, _ = p.communicate()
+        log.append("== %s\n%s" % (src, text))
+        if p.returncode != 0:
+            failed.append(src)
+    if failed:
+        raise RuntimeError("nvcc failed for %s:\n%s"
+                           % (", ".join(failed), "\n".join(log)))
+    tmp = out_dir / (LIB_NAME + ".%d.tmp" % os.getpid())
+    link = subprocess.run(
+        [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+         *[str(obj) for _, obj, _ in procs]],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for _, obj, _ in procs:
+        obj.unlink(missing_ok=True)
+    if link.returncode != 0:
+        raise RuntimeError("nvcc link failed:\n" + link.stdout)
+    os.replace(tmp, lib_path)
+    return lib_path, "\n".join(log)
+
+
+# ---------------------------------------------------------- C interface
+
+class DPDims(ctypes.Structure):
+    _fields_ = [(n, ctypes.c_int) for n in (
+        "Lp", "Wp", "Cp", "S", "B", "PAD", "j", "n13", "n_ar", "n2",
+        "n_cls", "Tp", "fix_rss", "no_ene")]
+
+
+N_TABLES = 23
+
+
+class ScoreDims(ctypes.Structure):
+    _fields_ = [(n, ctypes.c_int) for n in (
+        "Lp", "Wp", "B", "max_span", "turn", "no_ene", "fix_rss")] + [
+        ("off", ctypes.c_int * N_TABLES)]
+
+
+def _ptr_struct(name, fields):
+    return type(name, (ctypes.Structure,),
+                {"_fields_": [(f, ctypes.c_void_p) for f in fields]})
+
+
+BAND_IDX = ("rt_off", "rt_s", "rt_w", "lt_off", "lt_s", "lt_w", "pt_lt",
+            "diag", "loopm", "bucket", "pt_code", "pt_wl", "pt_wr",
+            "b12_off", "b12_a", "b12_c")
+EP_IDX = ("p13_s1", "p13_s3", "ar_off", "ar_p", "k2_s2", "k2_ar", "k2_bu",
+          "k2_off", "k2_idx")
+EXT_IDX = ("rt_off", "rt_s", "rt_w", "bucket", "op_off", "op_a", "op_c")
+BandIdx = _ptr_struct("BandIdx", BAND_IDX)
+EpIdx = _ptr_struct("EpIdx", EP_IDX)
+ExtIdx = _ptr_struct("ExtIdx", EXT_IDX)
+
+# exported function -> (leading struct argtypes, number of pointers)
+_SIGS = {
+    "score_tables": ((ScoreDims,), 19),
+    "band_front": ((DPDims, BandIdx), 15),
+    "band_bif": ((DPDims, BandIdx), 4),
+    "band_m": ((DPDims, BandIdx), 5),
+    "band_e": ((DPDims, BandIdx), 8),
+    "ep_rowmax": ((DPDims,), 3),
+    "ep_shift": ((DPDims,), 2),
+    "ep_t": ((DPDims, EpIdx), 5),
+    "ep_v": ((DPDims,), 6),
+    "ep_out": ((DPDims, EpIdx), 9),
+    "ext_col": ((DPDims, ExtIdx), 6),
+}
+_SUF = {torch.float32: "f32", torch.float64: "f64"}
+
+_lib = None
+_lock = threading.Lock()
+
+
+def lib():
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            path, _ = build()
+            L = ctypes.CDLL(str(path))
+            for name, (structs, nptr) in _SIGS.items():
+                for suf in _SUF.values():
+                    fn = getattr(L, "rnaelem_%s_%s" % (name, suf))
+                    fn.argtypes = list(structs) + \
+                        [ctypes.c_void_p] * (nptr + 1)
+                    fn.restype = ctypes.c_int
+            L.rnaelem_error_string.argtypes = [ctypes.c_int]
+            L.rnaelem_error_string.restype = ctypes.c_char_p
+            _lib = L
+    return _lib
+
+
+def _call(kernel: str, fname: str, dtype, *args):
+    """Launch rnaelem_<fname>_<type> on the current stream; raise on a
+    CUDA error; count the launch against ``kernel``."""
+    if dtype not in _SUF:
+        raise TypeError("kernels take float32 or float64, not %s" % dtype)
+    L = lib()
+    fn = getattr(L, "rnaelem_%s_%s" % (fname, _SUF[dtype]))
+    stream = torch.cuda.current_stream().cuda_stream
+    rc = fn(*args, ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError("CUDA kernel %s failed: %s (%d)" % (
+            fname, L.rnaelem_error_string(rc).decode(), rc))
+    KERNELS[kernel].launches += 1
+
+
+def _p(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _req(t, name, dtype, shape, device):
+    if not torch.is_tensor(t) or t.device != device:
+        raise ValueError("%s: expected a tensor on %s" % (name, device))
+    if t.dtype != dtype:
+        raise TypeError("%s: expected %s, got %s" % (name, dtype, t.dtype))
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError("%s: expected shape %s, got %s"
+                         % (name, tuple(shape), tuple(t.shape)))
+    if not t.is_contiguous():
+        raise ValueError("%s: must be contiguous" % name)
+
+
+# ------------------------------------------------------- K1 score tables
+
+def score_tables(tab, seq, L, bp_ok, dots_cum, Wp: int, max_span: int,
+                 turn: int, no_ene: bool, fix_rss: bool):
+    """Launch K1 (csrc/score_tables.cu); same outputs as
+    energy.tables.score_tables_plain."""
+    dev = seq.device
+    if dev.type != "cuda":
+        raise ValueError("score_tables kernel: seq must be a CUDA tensor")
+    packed = tab["packed"]
+    dt = packed.dtype
+    B, Lp = seq.shape
+    _req(packed, "packed tables", dt, packed.shape, dev)
+    _req(seq, "seq", torch.int64, (B, Lp), dev)
+    _req(L, "L", torch.int64, (B,), dev)
+    _req(bp_ok, "bp_ok", torch.bool, (B, Lp + 1, Wp + 1), dev)
+    _req(dots_cum, "dots_cum", torch.int32, (B, Lp + 1), dev)
+    offs = tab["packed_offsets"]
+    if len(offs) != N_TABLES:
+        raise ValueError("packed tables: expected %d offsets" % N_TABLES)
+    g = (Lp + 1, Wp + 1, B)
+    e = lambda shape, t=dt: torch.empty(shape, dtype=t, device=dev)
+    out = {k: e(g) for k in ("hp", "stk", "ext", "ml2", "mlE")}
+    out.update(misA=e((4,) + g), misB=e((4,) + g), spec_il=e((6,) + g),
+               t_out=e(g, torch.int32), t_in=e(g, torch.int32))
+    out.update({k: e(g, torch.bool) for k in ("okP", "okE", "okM", "okB")})
+    p = ScoreDims(Lp, Wp, B, max_span, turn, int(no_ene), int(fix_rss),
+                  (ctypes.c_int * N_TABLES)(*offs))
+    _call("score_tables", "score_tables", dt, p, _p(packed), _p(seq), _p(L),
+          _p(bp_ok), _p(dots_cum), *[_p(out[k]) for k in (
+              "hp", "stk", "ext", "ml2", "mlE", "misA", "misB", "spec_il",
+              "t_out", "t_in", "okP", "okE", "okM", "okB")])
+    return out
+
+
+# --------------------------------------------- K2-K4 column stage kernels
+
+TABLE_KEYS = ("LL", "P", "E", "M", "Bt", "T1", "T2")
+
+
+def _check_column(state, j, d, c, h, st):
+    """Full input validation, once per (state, factors) combination."""
+    if not 1 <= j <= st.dims.Lp:
+        raise ValueError("column %d outside 1..%d" % (j, st.dims.Lp))
+    key = (id(d), id(c), id(h), id(st))
+    if state.get("_checked") == key:
+        return
+    Lp, Wp, Cp, S = st.dims.Lp, st.dims.Wp, st.dims.Cp, st.dims.S
+    dt, dev = st.dtype, state["O"].device
+    if dev.type != "cuda" or dt not in _SUF:
+        raise ValueError("column kernels take float32/float64 CUDA tensors")
+    B = state["O"].shape[-1]
+    R, W1, C1 = Lp + 1 + st.PAD, Wp + 1, Cp + 1
+    for k in TABLE_KEYS:
+        _req(state[k], k, dt, (R, W1, S, B), dev)
+    _req(state["O"], "O", dt, (R, S, B), dev)
+    _req(state["ep"], "ep", dt, (W1, S, B), dev)
+    Tp = d.pv.shape[2]
+    for name, t, shape in (
+            ("eR", d.eR, (Lp, S, B)), ("eL", d.eL, (Lp, S, B)),
+            ("bg2", d.bg2, (Lp, B)), ("pv", d.pv, (Lp + 1, W1, Tp, B)),
+            ("lam", d.lam, (2,)), ("alphaP", d.alphaP, (Lp + 1, W1, B)),
+            ("wsp", c.wsp, (Lp, B)), ("gate_O2", c.gate_O2, (Lp, B)),
+            ("gate_M", c.gate_M, (Lp, B)),
+            ("spec_il", c.ep["spec_il"], (6, Lp + 1, W1, B)),
+            ("eSZg", h["eSZg"], (2, 4, C1, C1)),
+            ("emisA", h["emisA"], (2, 4, Lp + 1, W1, B)),
+            ("emisB", h["emisB"], (2, R, W1, 4, B))):
+        _req(t, name, dt, shape, dev)
+    for name in ("hp", "stk", "ext", "ml2", "mlE"):
+        _req(getattr(c, name), name, dt, (Lp + 1, W1, B), dev)
+    for name in ("okP", "okE", "okM", "okB"):
+        _req(getattr(c, name), name, torch.bool, (Lp + 1, W1, B), dev)
+    _req(c.C, "C", torch.int32, (B,), dev)
+    _req(c.dots_cum, "dots_cum", torch.int32, (Lp + 1, B), dev)
+    state["_checked"] = key
+
+
+def _dims(st, state, j, d):
+    D = st.dims
+    return DPDims(D.Lp, D.Wp, D.Cp, D.S, state["O"].shape[-1], st.PAD, j,
+                  st.n13, st.n_ar, st.n2, st.n_cls, d.pv.shape[2],
+                  int(D.fix_rss), int(D.no_ene))
+
+
+def _idx(st, cls, fields):
+    """Index struct for ``cls``, cached on the static object (the tensors
+    it points into live in st.k)."""
+    cache = st.__dict__.setdefault("_cidx", {})
+    if cls.__name__ not in cache:
+        cache[cls.__name__] = cls(*[st.k[f].data_ptr() for f in fields])
+    return cache[cls.__name__]
+
+
+def _band_idx(st):
+    return _idx(st, BandIdx, BAND_IDX)
+
+
+def band_front(state, j, d, c, h, st):
+    """K2 stages L, P, T2 of column j (writes rows j of LL, P, T2)."""
+    _check_column(state, j, d, c, h, st)
+    _call("inside_band", "band_front", st.dtype, _dims(st, state, j, d),
+          _band_idx(st), _p(state["LL"]), _p(state["P"]), _p(state["T2"]),
+          _p(state["E"]), _p(d.eR), _p(d.bg2), _p(d.pv), _p(d.alphaP),
+          _p(c.wsp), _p(d.lam), _p(c.stk), _p(c.ml2), _p(c.gate_O2),
+          _p(c.okP), _p(c.okB))
+
+
+def band_bif(state, j, d, c, h, st):
+    """K2 stages B and T1 of column j."""
+    _check_column(state, j, d, c, h, st)
+    _call("inside_band", "band_bif", st.dtype, _dims(st, state, j, d),
+          _band_idx(st), _p(state["Bt"]), _p(state["T1"]),
+          _p(state["T2"]), _p(c.okB))
+
+
+def band_m(state, j, d, c, h, st):
+    """K2 stage M (sequential multiloop chain) of column j."""
+    _check_column(state, j, d, c, h, st)
+    _call("inside_band", "band_m", st.dtype, _dims(st, state, j, d),
+          _band_idx(st), _p(state["M"]), _p(state["Bt"]), _p(d.eL),
+          _p(c.gate_M), _p(c.okM))
+
+
+def band_e(state, j, d, c, h, st):
+    """K2 stage E of column j (reads the K3 ep term)."""
+    _check_column(state, j, d, c, h, st)
+    _call("inside_band", "band_e", st.dtype, _dims(st, state, j, d),
+          _band_idx(st), _p(state["E"]), _p(state["LL"]), _p(state["M"]),
+          _p(state["ep"]), _p(d.lam), _p(c.hp), _p(c.mlE), _p(c.okE))
+
+
+def ep_stage(state, j, d, c, h, st):
+    """K3: the TT_E_P internal-loop term of column j into state['ep']."""
+    _check_column(state, j, d, c, h, st)
+    if not st.have_ep:
+        state["ep"].fill_(float("-inf"))
+        return
+    dt, dev = st.dtype, state["O"].device
+    B = state["O"].shape[-1]
+    W1, C1 = st.dims.Wp + 1, st.dims.Cp + 1
+    scr = state.get("_ep_scratch")
+    if scr is None:
+        # per-row maxima of P and of LL up to width Cp, for the rows the
+        # state holds now; ep_rowmax adds each new row as it is done
+        rowmax = torch.stack([state["P"].amax(dim=(1, 2)),
+                              state["LL"][:, :C1].amax(dim=(1, 2))])
+        scr = dict(
+            rowmax=rowmax.contiguous(),
+            shift=torch.empty((3, B), dtype=dt, device=dev),
+            T=torch.empty((C1, W1, st.n_ar, B), dtype=dt, device=dev),
+            V=torch.empty((2, W1, C1, st.n_ar, B), dtype=dt, device=dev))
+        state["_ep_scratch"] = scr
+    D = _dims(st, state, j, d)
+    ix = _idx(st, EpIdx, EP_IDX)
+    _call("inside_ep", "ep_rowmax", dt, D, _p(state["P"]), _p(state["LL"]),
+          _p(scr["rowmax"]))
+    _call("inside_ep", "ep_shift", dt, D, _p(scr["rowmax"]),
+          _p(scr["shift"]))
+    _call("inside_ep", "ep_t", dt, D, ix, _p(state["P"]), _p(state["LL"]),
+          _p(c.dots_cum), _p(scr["shift"]), _p(scr["T"]))
+    _call("inside_ep", "ep_v", dt, D, _p(scr["T"]), _p(h["emisA"]),
+          _p(h["emisB"]), _p(h["eSZg"]), _p(c.C), _p(scr["V"]))
+    _call("inside_ep", "ep_out", dt, D, ix, _p(state["P"]), _p(state["LL"]),
+          _p(scr["V"]), _p(scr["shift"]), _p(c.dots_cum),
+          _p(c.ep["spec_il"]), _p(d.lam), _p(c.C), _p(state["ep"]))
+
+
+def ext_stage(state, j, d, c, h, st):
+    """K4: the exterior O column j (writes row j of O)."""
+    _check_column(state, j, d, c, h, st)
+    ix = _idx(st, ExtIdx, EXT_IDX)
+    _call("inside_ext", "ext_col", st.dtype, _dims(st, state, j, d), ix,
+          _p(state["O"]), _p(state["P"]), _p(d.eR), _p(c.gate_O2),
+          _p(c.ext), _p(d.lam))

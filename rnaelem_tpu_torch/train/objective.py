@@ -1,0 +1,180 @@
+"""Training objective: the discriminative EM function value (PyTorch).
+
+Replicates the function half of RNAelemTrainDP::operator()
+(motif_trainer.hpp:124-272):
+
+* default mode: f += Z(all) - Z(label-restricted); positives (has-motif
+  sentinel) restrict to motif-present (ari), negatives/unflagged restrict
+  to motif-absent (nasi);
+* lik-ratio mode (TR_LIK_RATIO): f += +-(Z(motif) - Z(all)) with sign -1
+  for flagged positives;
+* reads whose partition functions are non-finite contribute nothing
+  (motif_trainer.hpp:211-214).
+
+The gradient (batch_fn_grad / eval_file) needs the DP's outside pass and
+is not ported yet.
+"""
+from __future__ import annotations
+
+import os
+from collections import OrderedDict
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .. import device as DEV
+from ..model import joint as J
+from ..ops.semiring import NEG, lse
+
+
+class BatchData(NamedTuple):
+    sd: J.SeqData               # fields stacked, leading batch axis
+    restrict_ari: torch.Tensor  # [B] bool: restriction is motif-present
+    lik_sign: torch.Tensor      # [B] +-1.0 for lik-ratio mode
+    is_neg: torch.Tensor        # [B] bool: shuffled negative (weaker skip
+    #                             check, motif_trainer.hpp:236)
+    valid: torch.Tensor         # [B] bool (padding rows in a batch)
+    bp_ok: torch.Tensor         # [B, Lp+1, Wp+1] pair masks, computed
+    #                             once per sequence (parameter-free)
+    eff: torch.Tensor           # [B] bpp_eff per read
+
+
+class BpMaskCache:
+    """Bounded LRU for pair masks keyed by (Lp, seq bytes); entries are
+    evicted least-recently-used once the byte total exceeds the cap
+    (default 256 MB, RNAELEM_BP_CACHE_MB)."""
+
+    def __init__(self, max_bytes: int = None):
+        if max_bytes is None:
+            max_bytes = int(os.environ.get(
+                "RNAELEM_BP_CACHE_MB", "256")) << 20
+        self.max_bytes = max_bytes
+        self._d = OrderedDict()
+        self._bytes = 0
+
+    @staticmethod
+    def _size(v):
+        bp, _ = v
+        return bp.nbytes + 64
+
+    def __contains__(self, k):
+        return k in self._d
+
+    def __len__(self):
+        return len(self._d)
+
+    def __getitem__(self, k):
+        self._d.move_to_end(k)
+        return self._d[k]
+
+    def __setitem__(self, k, v):
+        if k in self._d:
+            self._bytes -= self._size(self._d[k])
+        self._d[k] = v
+        self._d.move_to_end(k)
+        self._bytes += self._size(v)
+        while self._bytes > self.max_bytes and len(self._d) > 1:
+            _, old = self._d.popitem(last=False)
+            self._bytes -= self._size(old)
+
+
+def batch_bp_masks(cfg: J.ModelConfig, sd_batch, device=None):
+    """Pair masks and bpp_eff for a stacked SeqData batch."""
+    return J.effective_bp_mask_batch(cfg, sd_batch, device)
+
+
+def stack_reads(cfg: J.ModelConfig, reads, negatives=None,
+                bp_cache=None, bp_fn=None, device=None) -> BatchData:
+    """Pack reads (+ optional shuffled negatives) into a batch on
+    ``device``.
+
+    reads: list of (seq_codes, quals) tuples. negatives: list of
+    seq_codes (quality all zero, restricted to motif-absent,
+    motif_trainer.hpp:228-245).  bp_cache (optional, mutated): maps
+    (Lp, sequence bytes) -> (bp_ok, eff) numpy; masks are
+    parameter-independent so positives need them computed only once.
+    """
+    dev = DEV.resolve(device)
+    sds, ari, sign, neg, keys = [], [], [], [], []
+    for seq, quals in reads:
+        sd = J.make_seqdata(cfg, seq, quals)
+        sds.append(sd)
+        ari.append(bool(sd.has_motif))
+        sign.append(-1.0 if bool(sd.has_motif) else 1.0)
+        neg.append(False)
+        keys.append((cfg.Lp, np.asarray(seq).tobytes()))
+    for seq in negatives or []:
+        q = np.zeros(len(seq) + 1, np.int64)
+        sds.append(J.make_seqdata(cfg, seq, q))
+        ari.append(False)
+        sign.append(1.0)
+        neg.append(True)
+        keys.append(None)
+    sd = J.stack_seqdata(sds, dev)
+    if bp_fn is None:
+        bp_fn = batch_bp_masks
+
+    if bp_cache is None:
+        bp_ok, eff = (torch.as_tensor(x, device=dev)
+                      for x in bp_fn(cfg, sd, dev))
+    else:
+        miss = [i for i, k in enumerate(keys)
+                if k is None or k not in bp_cache]
+        Lp, Wp = cfg.Lp, cfg.Wp
+        bp_np = np.zeros((len(sds), Lp + 1, Wp + 1), bool)
+        eff_np = np.zeros(len(sds))
+        if miss:
+            mb, me = bp_fn(cfg, J.stack_seqdata([sds[i] for i in miss],
+                                                dev), dev)
+            mb, me = J._np(mb), J._np(me)
+            for t, i in enumerate(miss):
+                bp_np[i], eff_np[i] = mb[t], me[t]
+                if keys[i] is not None:
+                    bp_cache[keys[i]] = (mb[t], float(me[t]))
+        for i, k in enumerate(keys):
+            if k is not None and k in bp_cache and i not in miss:
+                bp_np[i], eff_np[i] = bp_cache[k]
+        bp_ok = torch.as_tensor(bp_np, device=dev)
+        eff = torch.as_tensor(eff_np, device=dev)
+
+    dt = DEV.torch_dtype(cfg.dtype)
+    return BatchData(
+        sd=sd,
+        restrict_ari=torch.as_tensor(ari, device=dev),
+        lik_sign=torch.as_tensor(sign, dtype=dt, device=dev),
+        is_neg=torch.as_tensor(neg, device=dev),
+        valid=torch.ones(len(sds), dtype=torch.bool, device=dev),
+        bp_ok=bp_ok,
+        eff=eff.to(dt),
+    )
+
+
+def _per_read_terms(cfg, parts, batch: BatchData, lik_ratio: bool):
+    """Per-read objective terms f[B] / eff[B] (motif_trainer.hpp:156-245)."""
+    z_all = lse(parts, axis=-1)
+    sel = torch.as_tensor([False, True, True], device=parts.device)[None]
+    z_ari = lse(torch.where(sel, parts, torch.full_like(parts, NEG)),
+                axis=-1)
+    z_nasi = parts[:, 0]
+    if lik_ratio:
+        f = batch.lik_sign * (z_ari - z_all)
+        ok = torch.isfinite(z_all) & torch.isfinite(z_ari)
+    else:
+        z_restr = torch.where(batch.restrict_ari, z_ari, z_nasi)
+        f = z_all - z_restr
+        ok = torch.isfinite(z_all) & (batch.is_neg | torch.isfinite(z_ari))
+    zero = torch.zeros_like(f)
+    f = torch.where(ok & batch.valid, f, zero)
+    eff = torch.where(batch.valid & ~batch.is_neg, batch.eff.to(f.dtype),
+                      zero)
+    return f, eff
+
+
+def batch_total(cfg: J.ModelConfig, params: J.Params, batch: BatchData,
+                lik_ratio: bool = False, device=None):
+    """(sum f, sum eff) over the batch through the batched DP."""
+    parts = J.batch_logZ_parts(cfg, params, batch.sd, batch.bp_ok,
+                               device=device)
+    f, eff = _per_read_terms(cfg, parts, batch, lik_ratio)
+    return f.sum(), eff.sum()

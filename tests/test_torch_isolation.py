@@ -1,0 +1,69 @@
+"""The port stands alone: importing every module of rnaelem_tpu_torch pulls
+in neither JAX nor the JAX package, and its entry points run on CUDA
+unless the caller passes device="cpu"."""
+import os
+import pkgutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import rnaelem_tpu_torch
+from rnaelem_tpu_torch.model import io as TIO
+from rnaelem_tpu_torch.model import joint as TJ
+from rnaelem_tpu_torch.model.convert import params_from_numpy
+from rnaelem_tpu_torch.train import objective as OBJ
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        rnaelem_tpu_torch.__path__, "rnaelem_tpu_torch."))
+
+
+def test_every_module_imports_without_jax():
+    mods = _modules()
+    assert "rnaelem_tpu_torch.ops.kernels" in mods and len(mods) >= 15
+    code = ("import importlib, sys\n"
+            "for m in %r:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(k for k in sys.modules if k == 'jax' or "
+            "k.startswith('jax.') or k == 'rnaelem_tpu' or "
+            "k.startswith('rnaelem_tpu.'))\n"
+            "print(bad)\n" % (mods,))
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+def _entry_points():
+    cfg = TJ.ModelConfig(pattern="(.)", Lp=12, max_span=12, max_iloop=4,
+                         min_bpp=0.0)
+    fix = os.path.join(ROOT, "tests", "fixtures", "0.model")
+    reads = [(np.array([1, 2, 3, 4, 1, 2]), np.full(7, 10))]
+    return [
+        ("init_params", lambda: TJ.init_params(
+            TJ.kernels(cfg, "cpu").g, cfg)),
+        ("kernels", lambda: TJ.kernels(cfg)),
+        ("JointModel", lambda: TJ.JointModel(cfg)),
+        ("read_model", lambda: TIO.read_model(fix, Lp=12)),
+        ("params_from_numpy", lambda: params_from_numpy(
+            np.zeros((2, 4)), np.zeros((1, 6)), np.ones(2))),
+        ("stack_reads", lambda: OBJ.stack_reads(cfg, reads)),
+    ]
+
+
+@pytest.mark.parametrize("name", [n for n, _ in _entry_points()])
+def test_entry_points_default_to_cuda(name):
+    """Without device= an entry point asks for CUDA: without a GPU it
+    raises instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    fn = dict(_entry_points())[name]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fn()

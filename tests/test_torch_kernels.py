@@ -1,0 +1,193 @@
+"""The port's hand-written CUDA kernels against their plain PyTorch
+versions.  The card-only tests carry the ``gpu`` marker and skip without
+a CUDA device; this file imports no JAX, so on the card it runs alone:
+    python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from rnaelem_tpu_torch.alphabet import seq_to_ints
+from rnaelem_tpu_torch.energy import tables as ET
+from rnaelem_tpu_torch.model import joint as J
+from rnaelem_tpu_torch.ops import dp as DP
+from rnaelem_tpu_torch.ops import kernels as K
+from rnaelem_tpu_torch.train import objective as OBJ
+
+
+def _batch(cfg, device, n=5, seed=0):
+    rng = np.random.RandomState(seed)
+    reads = []
+    for i in range(n):
+        L = int(rng.randint(cfg.Lp - 12, cfg.Lp + 1))
+        s = "".join("ACGU"[c] for c in rng.randint(0, 4, L))
+        q = rng.randint(0, 40, L + 1)
+        q[-1] = 0 if i % 2 else 9
+        reads.append((seq_to_ints(s), q))
+    return OBJ.stack_reads(cfg, reads, device=device)
+
+
+def _cfg(dtype, pattern="(.....)"):
+    return J.ModelConfig(pattern=pattern, Lp=40, max_span=24, max_iloop=12,
+                         min_bpp=0.0, tau=0.1, dtype=dtype)
+
+
+def _need_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card: see README)")
+
+
+@pytest.mark.parametrize("name", ["score_tables", "band_front", "band_bif",
+                                  "band_m", "band_e", "ep_stage",
+                                  "ext_stage"])
+def test_kernel_wrappers_reject_cpu_tensors(name):
+    """A wrapper launches its kernel or raises: handed CPU tensors it
+    raises before building anything (the CPU path is the dispatcher's
+    plain version, never a fallback inside the wrapper)."""
+    cfg = _cfg("float64")
+    batch = _batch(cfg, "cpu")
+    k = J.kernels(cfg, "cpu")
+    if name == "score_tables":
+        seq, L, bp_ok, dots_cum = J.score_inputs(cfg, k, batch.sd,
+                                                 batch.bp_ok)
+        with pytest.raises(ValueError, match="CUDA"):
+            K.score_tables(k.tab, seq, L, bp_ok, dots_cum, cfg.Wp,
+                           cfg.max_span, cfg.turn, False, False)
+        return
+    params = J.init_params(k.g, cfg, device="cpu")
+    d, c = J.batch_factors(cfg, params, batch.sd, batch.bp_ok, device="cpu")
+    h, state = k.dp.start(d, c)
+    with pytest.raises(ValueError, match="CUDA"):
+        getattr(K, name)(state, 1, d, c, h, k.dp.st)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_score_tables_kernel_matches_plain(dtype):
+    _need_cuda()
+    cfg = _cfg(dtype)
+    batch = _batch(cfg, "cuda")
+    k = J.kernels(cfg, "cuda")
+    args = J.score_inputs(cfg, k, batch.sd, batch.bp_ok) + (
+        cfg.Wp, cfg.max_span, cfg.turn, False, False)
+    got = ET.score_tables(k.tab, *args)
+    want = ET.score_tables_plain(k.tab, *args)
+    for key in ET.SCORE_KEYS:
+        a, b = got[key].cpu(), want[key].cpu()
+        if not b.is_floating_point():
+            assert torch.equal(a, b), key
+            continue
+        assert torch.equal(torch.isneginf(a), torch.isneginf(b)), key
+        fin = torch.isfinite(b)
+        assert torch.all((a[fin] - b[fin]).abs()
+                         <= 1e-6 * b[fin].abs() + 1e-12), key
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pattern", ["(.....)", "(.*)", "..*.."])
+@pytest.mark.parametrize("dtype,tol", [("float64", 1e-9), ("float32", 2e-3)])
+def test_inside_kernels_match_plain(pattern, dtype, tol):
+    """The forward through K1-K4 vs the f64 plain version (on the CPU) on
+    the same inputs; every kernel launched."""
+    _need_cuda()
+    ref_cfg = _cfg("float64", pattern)
+    batch = _batch(ref_cfg, "cpu")
+    k = J.kernels(ref_cfg, "cpu")
+    rng = np.random.RandomState(3)
+    p = J.init_params(k.g, ref_cfg, device="cpu")
+    p = J.Params(p.singles + 0.3 * torch.as_tensor(rng.randn(*p.singles.shape)),
+                 p.pairs + 0.3 * torch.as_tensor(rng.randn(*p.pairs.shape)),
+                 torch.tensor([0.8, 1.2], dtype=torch.float64))
+    ref = J.batch_logZ_parts(ref_cfg, p, batch.sd, batch.bp_ok, device="cpu")
+    cfg = _cfg(dtype, pattern)
+    dt = torch.float32 if dtype == "float32" else torch.float64
+    pc = J.Params(*[x.to("cuda", dt) for x in p])
+    sdc = J.SeqData(*[x.cuda() for x in batch.sd])
+    K.reset_counts()
+    got = J.batch_logZ_parts(cfg, pc, sdc, batch.bp_ok.cuda(), device="cuda")
+    torch.cuda.synchronize()
+    assert all(kk.launches > 0 for kk in K.KERNELS.values())
+    fin = torch.isfinite(ref)
+    assert torch.equal(fin, torch.isfinite(got.cpu()))
+    assert float((got.cpu().double() - ref)[fin].abs().max()) <= tol
+
+
+def _random_rss(rng, L, min_loop=3):
+    """A random nested dot-bracket structure of length L."""
+    rss, opened = [], []
+    for p in range(L):
+        if opened and p - opened[-1] > min_loop and rng.rand() < 0.3:
+            opened.pop()
+            rss.append(")")
+        elif rng.rand() < 0.25:
+            opened.append(p)
+            rss.append("(")
+        else:
+            rss.append(".")
+    for p in opened:  # unmatched openings stay unpaired
+        rss[p] = "."
+    return "".join(rss)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("opts", [
+    dict(fix_rss=True),
+    dict(fix_rss=True, no_ene=True, turn=0, tau=1.0),
+    dict(no_ene=True),
+    dict(no_prf=True, theta_softmax=True),
+    dict(turn=0, max_iloop=4),
+])
+def test_inside_kernel_branches_match_plain(opts):
+    """The kernels' option branches (fixed structure dot gating, energies
+    off, no profile, no hairpin turn, a narrow loop cap) vs the f64 plain
+    version on the CPU."""
+    _need_cuda()
+    kw = dict(pattern="(.*)", Lp=30, max_span=20, max_iloop=12,
+              min_bpp=0.0, tau=0.1, dtype="float64")
+    kw.update(opts)
+    cfg = J.ModelConfig(**kw)
+    rng = np.random.RandomState(7)
+    sds = []
+    for L in (30, 26, 21):
+        s = "".join("ACGU"[c] for c in rng.randint(0, 4, L))
+        q = rng.randint(0, 40, L + 1)
+        rss = _random_rss(rng, L) if cfg.fix_rss else ""
+        sds.append(J.make_seqdata(cfg, seq_to_ints(s), q, rss))
+    sd = J.stack_seqdata(sds, "cpu")
+    bp, _ = J.effective_bp_mask_batch(cfg, sd, device="cpu")
+    p = J.init_params(J.kernels(cfg, "cpu").g, cfg, device="cpu")
+    p = J.Params(p.singles + 0.3 * torch.as_tensor(rng.randn(*p.singles.shape)),
+                 p.pairs + 0.3 * torch.as_tensor(rng.randn(*p.pairs.shape)),
+                 torch.tensor([0.7, 1.3], dtype=torch.float64))
+    ref = J.batch_logZ_parts(cfg, p, sd, bp, device="cpu")
+    got = J.batch_logZ_parts(cfg, J.Params(*[x.cuda() for x in p]),
+                             J.SeqData(*[x.cuda() for x in sd]), bp.cuda(),
+                             device="cuda").cpu()
+    fin = torch.isfinite(ref)
+    assert fin.any()
+    assert torch.equal(fin, torch.isfinite(got))
+    assert float((got - ref)[fin].abs().max()) <= 1e-9
+
+
+@pytest.mark.gpu
+def test_column_stages_match_plain():
+    """Each column stage alone, f64, on identical inputs."""
+    _need_cuda()
+    cfg = _cfg("float64")
+    batch = _batch(cfg, "cuda")
+    k = J.kernels(cfg, "cuda")
+    params = J.init_params(k.g, cfg, device="cuda")
+    d, c = J.batch_factors(cfg, params, batch.sd, batch.bp_ok, device="cuda")
+    h, state = k.dp.start(d, c)
+    j0, PAD = 30, k.dp.st.PAD
+    k.dp.run_columns(state, d, c, h, 1, j0)
+    for stage, plain in zip(DP.STAGES, DP.PLAIN_STAGES):
+        ks = DP.clone_state(state)
+        stage(ks, j0, d, c, h, k.dp.st)
+        plain(state, j0, d, c, h, k.dp.st)
+        for key in ("LL", "P", "T2", "Bt", "T1", "M", "E", "O"):
+            a, b = ks[key][j0 + PAD], state[key][j0 + PAD]
+            assert torch.equal(torch.isfinite(a), torch.isfinite(b)), key
+            fin = torch.isfinite(b)
+            assert torch.all((a[fin] - b[fin]).abs()
+                             <= 1e-9 * b[fin].abs().clamp(min=1)), key
