@@ -8,14 +8,29 @@ Phases:
      K1 score tables (ints/bools equal, floats within 1e-6 relative), the
      column stages of K2-K4 one by one (f64 at B=16 within 1e-9 relative,
      f32 at the main path's shapes within 1e-4 relative on the cells f32
-     exp space resolves), and the full inside DP: f64 kernels vs the f64
-     plain version (parts within 1e-9 absolute), f32 kernels vs the f64
-     plain version (within 2e-3 absolute);
-  3. the flagship forward main path: stack_reads -> batch_total, B=128
-     reads x 100 nt, pattern (.....), max-span 50, max-iloop 30, f32,
-     min_bpp 0; one warm-up (the launch counts are read after it), then
-     3 timed repetitions; the plain version's time on the same batch;
-  4. one JSON line per kernel table, the card line, and the result line.
+     exp space resolves), the adjoint stages of K5-K7 one by one on one
+     column (f64 within 1e-9, f32 within 1e-4, relative in the max norm),
+     and the full inside DP: f64 kernels vs the f64 plain version (parts
+     within 1e-9 absolute), f32 kernels vs the f64 plain version (within
+     2e-3 absolute);
+  3. the full gradient on B=16 reads: f64 kernels vs the f64 plain
+     version, every gradient leaf and d alphaP within 1e-9 relative (max
+     norm); two kernel runs bitwise equal;
+  4. the min-BPP masks (the motif-free S=1 DP and its outside pass):
+     posteriors of the f64 kernels within 1e-9 of the f64 plain version,
+     masks equal but for cells within 1e-9 of the threshold; the f32
+     kernels' mask cells that differ lie within 1e-3 (log) of it;
+  5. per-call device times of K1-K7 (torch.profiler, the kernel's own
+     functions over 200 calls) at the main path's shapes, and the plain
+     versions' times (CUDA events);
+  6. the flagship main path: B=128 reads x 100 nt, pattern (.....),
+     max-span 50, max-iloop 30, min_bpp 1e-4, tau 0.1, f32: the masks
+     (stack_reads), then batch_fn_grad, one warm-up (the launch counts
+     are read from it) and 3 timed repetitions (CUDA events), the forward
+     alone too; the f32 gradient against the f64 plain version (1e-3
+     relative); two profiled batch_fn_grad and two stack_reads (device
+     busy share, device time per kernel);
+  7. one JSON line per kernel, the card line, and the result line.
 
 Run from the repository root:  python3 chip_smoke.py
 Exits non-zero and prints no result without CUDA or without the package.
@@ -23,6 +38,7 @@ Exits non-zero and prints no result without CUDA or without the package.
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -38,6 +54,8 @@ PATTERN = "(.....)"
 LP = 100               # read length of the main path (and the padded Lp)
 B_MAIN = 128           # reads per main-path batch
 SMALL = (16, 80, 100)  # reads and length range of the f64 checks
+MIN_BPP = 1e-4         # the main path's pruning threshold
+REPS = 200             # calls per kernel timing
 J0 = 75                # column of the per-stage checks and timings
 DEVICE = "cuda"
 MEM_BPS = 3.35e12      # H100 SXM HBM3 bytes/s (data sheet)
@@ -48,6 +66,10 @@ STAGE_KERNEL = {"band_front": "inside_band", "band_bif": "inside_band",
 STAGE_OUT = {"band_front": ("LL", "P", "T2"), "band_bif": ("Bt", "T1"),
              "band_m": ("M",), "ep_stage": ("ep",), "band_e": ("E",),
              "ext_stage": ("O",)}
+ADJ_KERNEL = {"ext_adj": "outside_ext", "e_adj": "outside_band",
+              "ep_adj": "outside_ep", "band_adj": "outside_band"}
+GRAD_KEYS = ("eR", "eL", "bg2", "pv", "alphaP", "emisA", "emisB", "gM",
+             "gep")
 
 
 def fail(msg):
@@ -64,6 +86,66 @@ def card_line():
     except (OSError, subprocess.TimeoutExpired) as e:
         out = "nvidia-smi unavailable (%s)" % e
     return out.splitlines()[0] if out else "nvidia-smi printed nothing"
+
+
+def kernel_functions():
+    """{kernel: names of the __global__ functions in its source}."""
+    out = {}
+    for name, kern in K.KERNELS.items():
+        with open(os.path.join(HERE, kern.source)) as f:
+            out[name] = set(re.findall(r"__global__\s+void\s+(\w+)",
+                                       f.read()))
+    return out
+
+
+def _function_name(key):
+    """'void ep_v_kernel<float>(DPDims, ...)' -> 'ep_v_kernel'."""
+    return key.split("(")[0].split("<")[0].replace("void ", "").strip()
+
+
+def _device_us(evt):
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        v = getattr(evt, attr, None)
+        if v is not None:
+            return float(v)
+    return 0.0
+
+
+def device_profile(fn, reps):
+    """torch.profiler over ``reps`` calls of ``fn`` after one warm-up:
+    (device us per call by CUDA function name, the profile, the wall us
+    and the device's busy us of the window, the union of kernel
+    intervals over all streams)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.time() - t0) * 1e6
+    per = {}
+    for e in prof.key_averages():
+        name = _function_name(e.key)
+        per[name] = per.get(name, 0.0) + _device_us(e) / reps
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return per, prof, wall_us, busy
+
+
+def device_ms(fn, reps, functions):
+    """Device ms per call of ``fn`` in the given CUDA functions (the
+    profiler's per-kernel device time over ``reps`` calls)."""
+    per, _, _, _ = device_profile(fn, reps)
+    return sum(per.get(f, 0.0) for f in functions) / 1e3
 
 
 def cuda_ms(fn, reps):
@@ -119,7 +201,7 @@ def random_params(cfg, dev, seed=0):
 
 def cfg_for(dtype):
     return J.ModelConfig(pattern=PATTERN, Lp=LP, max_span=50, max_iloop=30,
-                         min_bpp=0.0, tau=0.1, dtype=dtype)
+                         min_bpp=MIN_BPP, tau=0.1, dtype=dtype)
 
 
 def batch_factors_for(cfg, reads, dev, params):
@@ -133,10 +215,7 @@ def plain_parts(cfg, params, batch, dev):
     card: the reference the kernels are held against."""
     dp = J.kernels(cfg, dev).dp
     d, c = J.batch_factors(cfg, params, batch.sd, batch.bp_ok, device=dev)
-    h, state = dp.start(d, c)
-    for j in range(1, dp.dims.Lp + 1):
-        for stage in DP.PLAIN_STAGES:
-            stage(state, j, d, c, h, dp.st)
+    state = plain_forward(dp, d, c, DP.hoisted(d, c, dp.st))
     return dp.extract_parts(state["O"], c)
 
 
@@ -224,8 +303,7 @@ def check_stages(dp, d, c, j0, rel, significant):
         stage(ks, j0, d, c, h, dp.st)
         plain(state, j0, d, c, h, dp.st)
         for key in STAGE_OUT[stage.__name__]:
-            a = ks[key] if key == "ep" else ks[key][j0 + PAD]
-            b = state[key] if key == "ep" else state[key][j0 + PAD]
+            a, b = ks[key][j0 + PAD], state[key][j0 + PAD]
             e = stage_compare("%s %s" % (stage.__name__, key), a, b, rel,
                               significant)
             kn = STAGE_KERNEL[stage.__name__]
@@ -327,6 +405,13 @@ def bounds(cfg, st, c, tab, j0, B, itemsize):
                       + W1 * B + S * B + B + S * B)
     ops4 = 2.0 * (n_ext * len(g.op_tuples) + B * rt_nnz)
     out["inside_ext"] = (by4, ops4)
+    # K5-K7 read each forward cell of their stage and the cotangent of
+    # the same cell and write that cotangent: twice the forward stage's
+    # bytes; one exp and a multiply-add per term: twice its operations
+    for fwd, adj in (("inside_band", "outside_band"),
+                     ("inside_ep", "outside_ep"),
+                     ("inside_ext", "outside_ext")):
+        out[adj] = (2 * out[fwd][0], 2 * out[fwd][1])
     res = {}
     for k, (by_, ops) in out.items():
         tb, to = by_ / MEM_BPS * 1e3, ops / PEAK_F32 * 1e3
@@ -334,34 +419,190 @@ def bounds(cfg, st, c, tab, j0, B, itemsize):
     return res
 
 
-def profile_forward(path, fn):
-    """torch.profiler over one forward: per-kernel device time and the
-    device's busy share of the wall time."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        fn()
-        torch.cuda.synchronize()
-        wall_us = (time.time() - t0) * 1e6
-    ka = prof.key_averages()
-    # busy = the union of kernel intervals (two streams may overlap)
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    dev_us, end = 0.0, float("-inf")
-    for a, b in spans:
-        if b > end:
-            dev_us += b - max(a, end)
-            end = b
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    with open(path, "w") as f:
-        f.write(ka.table(sort_by="self_device_time_total", row_limit=40))
-    print("profile: one forward %.1f ms wall, device busy %.1f ms (%.1f%%); "
-          "table in %s" % (wall_us / 1e3, dev_us / 1e3,
-                           100.0 * dev_us / wall_us, path), flush=True)
+# ------------------------------------------------------------ outside pass
+
+def plain_forward(dp, d, c, h):
+    """The inside tables with every stage in its plain version."""
+    state = DP.init_state(dp.st, c.wsp.shape[-1])
+    for j in range(1, dp.dims.Lp + 1):
+        for stage in DP.PLAIN_STAGES:
+            stage(state, j, d, c, h, dp.st)
+    return state
+
+
+def outside_grads(dp, fs, d, c, h, gbar, stages):
+    """finish_grads of an outside pass through ``stages`` (the kernels'
+    DP.ADJ_STAGES or DP.PLAIN_ADJ_STAGES)."""
+    gs = DP.init_grads(fs, d, c, h)
+    DP.seed_parts(gs, gbar, c, dp.st)
+    for j in range(dp.dims.Lp, 0, -1):
+        for stage in stages:
+            stage(fs, gs, j, d, c, h, dp.st)
+    return DP.finish_grads(gs, dp.st)
+
+
+def full_grads(cfg, params, batch, dev, plain):
+    """(parts, grads of sum f w.r.t. singles, pairs, lam and alphaP), the
+    outside pass through the kernels or the plain versions."""
+    k = J.kernels(cfg, dev)
+    dp = k.dp
+    leaves = [x.detach().clone().requires_grad_(True) for x in params]
+    with torch.enable_grad():
+        d, c = J.batch_factors(cfg, J.Params(*leaves), batch.sd, batch.bp_ok,
+                               device=dev)
+        d = d._replace(alphaP=d.alphaP.requires_grad_(True))
+        h = DP.hoisted(d, c, dp.st)
+    with torch.no_grad():
+        fs = plain_forward(dp, d, c, h) if plain else dp.run_inside(d, c, h)
+        parts = dp.extract_parts(fs["O"], c)
+    with torch.enable_grad():
+        pl = parts.detach().requires_grad_(True)
+        f, _ = OBJ._per_read_terms(cfg, pl, batch, False)
+        (gbar,) = torch.autograd.grad(f.sum(), pl)
+    g = outside_grads(dp, fs, d, c, h, gbar,
+                      DP.PLAIN_ADJ_STAGES if plain else DP.ADJ_STAGES)
+    with torch.enable_grad():
+        outs = [d.eR, d.eL, d.bg2, d.pv, d.lam, d.alphaP] + \
+            [h[kk] for kk in DP.HOISTED]
+        gr = torch.autograd.grad(outs, leaves + [d.alphaP], list(g),
+                                 allow_unused=True)
+    return parts, [torch.zeros_like(x) if y is None else y
+                   for x, y in zip(leaves + [d.alphaP], gr)]
+
+
+def rel_err(a, b):
+    """Max-norm error of a relative to b's max norm (0 for two zeros)."""
+    a, b = a.double(), b.double()
+    scale = float(b.abs().max()) if b.numel() else 0.0
+    err = float((a - b).abs().max()) if b.numel() else 0.0
+    return err / scale if scale > 0 else err
+
+
+def grad_compare(name, a, b, rel):
+    """Fails beyond ``rel`` (relative, max norm); returns the max abs
+    error."""
+    if torch.isnan(a).any():
+        fail("%s: NaN in the kernel's cotangents" % name)
+    e = rel_err(a, b)
+    if not e <= rel:
+        fail("%s: max-norm relative error %.3g beyond %.0e" % (name, e, rel))
+    return float((a.double() - b.double()).abs().max()) if b.numel() else 0.0
+
+
+def check_adj_stages(dp, d, c, j0, rel):
+    """Each adjoint stage at column j0 vs its plain version on identical
+    inputs: the kernel forward's tables, the cotangents of the kernel
+    outside pass over the columns after j0 (seeded with gbar from a numpy
+    seed), the plain adjoint stages before it at j0.  The tables compare
+    at the rows below j0 (and at j0 but for band_adj, whose kernels keep
+    the column's own intra-stage cotangents in row j0), every row
+    cotangent and lambda's whole cotangent.  Returns {kernel: max abs
+    err}."""
+    st = dp.st
+    h = DP.hoisted(d, c, st)
+    fs = dp.run_inside(d, c, h)
+    B = c.wsp.shape[-1]
+    gbar = torch.as_tensor(np.random.RandomState(5).rand(B, 3),
+                           dtype=st.dtype, device=fs["O"].device)
+    gs = DP.init_grads(fs, d, c, h)
+    DP.seed_parts(gs, gbar, c, st)
+    dp.outside_columns(fs, gs, d, c, h, dp.dims.Lp + 1, j0 + 1)
+    r = j0 + st.PAD
+    errs = {}
+    for stage, plain in zip(DP.ADJ_STAGES, DP.PLAIN_ADJ_STAGES):
+        kg = {k: v.clone() for k, v in gs.items() if not k.startswith("_")}
+        stage(fs, kg, j0, d, c, h, st)
+        plain(fs, gs, j0, d, c, h, st)
+        name = stage.__name__
+        rows = r if name == "band_adj" else r + 1
+        e = 0.0
+        for key in DP.GRAD_TABLES:
+            e = max(e, grad_compare("%s %s" % (name, key), kg[key][:rows],
+                                    gs[key][:rows], rel))
+        for key in GRAD_KEYS:
+            e = max(e, grad_compare("%s %s" % (name, key), kg[key],
+                                    gs[key], rel))
+        lk = DP.lam_total(DP.finish_grads(kg, st), d, c, st)
+        lp = DP.lam_total(DP.finish_grads(gs, st), d, c, st)
+        el = float((lk - lp).abs().max())
+        if not el <= rel * max(1.0, float(lp.abs().max())):
+            fail("%s lambda: error %.3g beyond %.0e relative" % (name, el, rel))
+        kn = ADJ_KERNEL[name]
+        errs[kn] = max(errs.get(kn, 0.0), e, el)
+    return errs
+
+
+def check_full_gradient(cfg64, cfg32, small, dev):
+    """f64 kernels vs f64 plain on the small batch, all leaves; two kernel
+    runs bitwise equal; f32 kernels vs f64 plain printed."""
+    p64 = random_params(cfg64, dev)
+    b = OBJ.stack_reads(cfg64, small, device=dev)
+    _, gk = full_grads(cfg64, p64, b, dev, plain=False)
+    _, gk2 = full_grads(cfg64, p64, b, dev, plain=False)
+    _, gp = full_grads(cfg64, p64, b, dev, plain=True)
+    names = ("singles", "pairs", "lam", "alphaP")
+    for n, a, c_ in zip(names, gk, gp):
+        grad_compare("full gradient f64 " + n, a, c_, 1e-9)
+    errs = {n: rel_err(a, c_) for n, a, c_ in zip(names, gk, gp)}
+    for n, a, a2 in zip(names, gk, gk2):
+        if not torch.equal(a, a2):
+            fail("full gradient: two kernel runs differ in %s" % n)
+    p32 = random_params(cfg32, dev)
+    b32 = b._replace(lik_sign=b.lik_sign.float(), eff=b.eff.float())
+    _, g32 = full_grads(cfg32, p32, b32, dev, plain=False)
+    e32 = {n: rel_err(a, c_) for n, a, c_ in zip(names, g32, gp)}
+    print("check full gradient B=%d f64 kernels vs f64 plain: %s (<= 1e-9, "
+          "relative max norm); two kernel runs bitwise equal; f32 kernels "
+          "vs f64 plain: %s" % (len(small), json.dumps(errs), json.dumps(e32)),
+          flush=True)
+    return max(errs.values())
+
+
+def plain_posterior(cfg, sd, dev):
+    """Pair posteriors [B, Lp+1, Wp+1] of the motif-free pass with every
+    forward and adjoint stage in its plain version."""
+    k = J.kernels(cfg, dev)
+    bp0 = J._candidate_pairs(cfg, k, sd)
+    d, c = J._null_batch_factors(cfg, k, sd, bp0)
+    dp = k.dp_null
+    h = DP.hoisted(d, c, dp.st)
+    fs = plain_forward(dp, d, c, h)
+    gbar = torch.zeros((bp0.shape[0], 3), dtype=k.dtype, device=k.device)
+    gbar[:, 0] = 1.0
+    g = outside_grads(dp, fs, d, c, h, gbar, DP.PLAIN_ADJ_STAGES)
+    return torch.movedim(g[5], -1, 0), bp0
+
+
+def check_masks(cfg64, cfg32, small, dev):
+    """The S=1 pass: posteriors and masks of K1-K7 vs the plain version."""
+    thr = float(np.log(MIN_BPP))
+    sd64 = J.stack_seqdata([J.make_seqdata(cfg64, s, q) for s, q in small],
+                           dev)
+    sd32 = J.stack_seqdata([J.make_seqdata(cfg32, s, q) for s, q in small],
+                           dev)
+    post_p, bp0 = plain_posterior(cfg64, sd64, dev)
+    _, post_k, _ = J.bpp_posterior_batch(cfg64, sd64, dev)
+    e_post = float((post_k - post_p).abs().max())
+    if not e_post <= 1e-9:
+        fail("masks: f64 posteriors differ by %.3g" % e_post)
+    lp = torch.log(torch.clamp(post_p, min=1e-300))
+    keep_p = bp0 & (lp >= thr)
+    keep_k, _ = J.effective_bp_mask_batch(cfg64, sd64, dev)
+    diff = keep_k != keep_p
+    if (diff & ((post_p - MIN_BPP).abs() > 1e-9)).any():
+        fail("masks: f64 masks differ away from the threshold")
+    keep_32, _ = J.effective_bp_mask_batch(cfg32, sd32, dev)
+    d32 = keep_32 != keep_p
+    far = d32 & ((lp - thr).abs() > 1e-3)
+    print("check masks S=1 B=%d: f64 posteriors max abs err %.3g (<= 1e-9), "
+          "%d f64 mask cells differ (all within 1e-9 of the threshold); f32 "
+          "masks: %d of %d cells differ from the f64 plain version, %d of "
+          "them more than 1e-3 (log) from the threshold"
+          % (len(small), e_post, int(diff.sum()), int(d32.sum()),
+             int(bp0.sum()), int(far.sum())), flush=True)
+    if far.any():
+        fail("masks: f32 mask cells differ far from the threshold")
+    return e_post
 
 
 # ------------------------------------------------------------ main
@@ -371,8 +612,8 @@ def main():
     ap.add_argument("--ptxas", default="",
                     help="also write nvcc -Xptxas -v output to this file")
     ap.add_argument("--profile", default="",
-                    help="also trace one main-path forward with "
-                         "torch.profiler; write its kernel table here")
+                    help="write the torch.profiler kernel table of one "
+                         "main-path batch_fn_grad to this file")
     args = ap.parse_args()
     global np, torch, ET, J, DP, K, OBJ, seq_to_ints
     try:
@@ -435,11 +676,20 @@ def main():
     print("check stages f32 main batch column %d: %s (1e-4 relative)"
           % (j0, json.dumps(s32)), flush=True)
     err.update(s32)
+    a64 = check_adj_stages(dp64, d64, c64, j0, 1e-9)
+    print("check adjoint stages f64 small batch column %d: max abs err %s "
+          "(within 1e-9 relative, max norm)" % (j0, json.dumps(a64)),
+          flush=True)
+    a32 = check_adj_stages(dp32, d32, c32, j0, 1e-4)
+    print("check adjoint stages f32 main batch column %d: max abs err %s "
+          "(within 1e-4 relative, max norm)" % (j0, json.dumps(a32)),
+          flush=True)
+    err.update(a32)
 
     parts_k64 = J.batch_logZ_parts(cfg64, p64, b16.sd, b16.bp_ok, device=dev)
     parts_p64 = plain_parts(cfg64, p64, b16, dev)
     b16_32 = OBJ.stack_reads(cfg32, small, device=dev)
-    parts_k32 = J.batch_logZ_parts(cfg32, p32, b16_32.sd, b16_32.bp_ok,
+    parts_k32 = J.batch_logZ_parts(cfg32, p32, b16.sd, b16.bp_ok,
                                    device=dev)
     fin = torch.isfinite(parts_p64)
     if not torch.equal(fin, torch.isfinite(parts_k64)) or \
@@ -454,112 +704,180 @@ def main():
         fail("inside DP f64: parts differ by %.3g" % e_dp64)
     if not e_dp32 <= 2e-3:
         fail("inside DP f32: parts differ by %.3g" % e_dp32)
+    del b16_32
 
-    # ---- phase 3a: per-call times at the main path's shapes
+    # ---- phases 3-4: full gradient and masks, small batch
+    check_full_gradient(cfg64, cfg32, small, dev)
+    check_masks(cfg64, cfg32, small, dev)
+
+    # ---- phase 5: per-call times at the main path's shapes
     k32 = J.kernels(cfg32, dev)
     seq, L, bp_ok, dots_cum = J.score_inputs(cfg32, k32, bm.sd, bm.bp_ok)
     sargs = (k32.tab, seq, L, bp_ok, dots_cum, cfg32.Wp, cfg32.max_span,
              cfg32.turn, cfg32.no_ene, cfg32.fix_rss)
+    funcs = kernel_functions()
     ms, plain_ms, unit = {}, {}, {}
     K.reset_counts()
     ET.score_tables(*sargs)
     unit["score_tables"] = ("batch", K.KERNELS["score_tables"].launches)
-    ms["score_tables"] = cuda_ms(lambda: ET.score_tables(*sargs), 20)
+    ms["score_tables"] = device_ms(lambda: ET.score_tables(*sargs), REPS,
+                                   funcs["score_tables"])
     plain_ms["score_tables"] = cuda_ms(
         lambda: ET.score_tables_plain(*sargs), 3)
-    h32, state = dp32.start(d32, c32)
-    dp32.run_columns(state, d32, c32, h32, 1, j0)
     st = dp32.st
+    h32 = DP.hoisted(d32, c32, st)
+    fs = dp32.run_inside(d32, c32, h32)
+    state = {k: fs[k] for k in fs}
     groups = {"inside_band": ("band_front", "band_bif", "band_m", "band_e"),
               "inside_ep": ("ep_stage",), "inside_ext": ("ext_stage",)}
     for kname, names in groups.items():
         ks, ps = DP.clone_state(state), DP.clone_state(state)
+        if "_ep_scratch" in state:
+            ks["_ep_scratch"] = {k: v.clone() for k, v in
+                                 state["_ep_scratch"].items()}
         kf = [getattr(DP, n) for n in names]
         pf = [getattr(DP, n + "_plain") for n in names]
         K.reset_counts()
         for f in kf:
-            f(DP.clone_state(state), j0, d32, c32, h32, st)
+            f(ks, j0, d32, c32, h32, st)
         unit[kname] = ("column %d" % j0, K.KERNELS[kname].launches)
-        ms[kname] = cuda_ms(
-            lambda: [f(ks, j0, d32, c32, h32, st) for f in kf], 20)
+        ms[kname] = device_ms(
+            lambda: [f(ks, j0, d32, c32, h32, st) for f in kf], REPS,
+            funcs[kname])
         plain_ms[kname] = cuda_ms(
             lambda: [f(ps, j0, d32, c32, h32, st) for f in pf], 3)
-    del state
+        del ks, ps
+    gbar = torch.as_tensor(np.random.RandomState(5).rand(B_MAIN, 3),
+                           dtype=st.dtype, device=dev)
+    gs = DP.init_grads(fs, d32, c32, h32)
+    DP.seed_parts(gs, gbar, c32, st)
+    dp32.outside_columns(fs, gs, d32, c32, h32, LP + 1, j0 + 1)
+    adj = {"outside_band": ("e_adj", "band_adj"), "outside_ep": ("ep_adj",),
+           "outside_ext": ("ext_adj",)}
+    for kname, names in adj.items():
+        kg = {k: v.clone() for k, v in gs.items() if not k.startswith("_")}
+        pg = {k: v.clone() for k, v in gs.items() if not k.startswith("_")}
+        kf = [getattr(DP, n) for n in names]
+        pf = [getattr(DP, n + "_plain") for n in names]
+        K.reset_counts()
+        for f in kf:
+            f(fs, kg, j0, d32, c32, h32, st)
+        unit[kname] = ("column %d" % j0, K.KERNELS[kname].launches)
+        ms[kname] = device_ms(
+            lambda: [f(fs, kg, j0, d32, c32, h32, st) for f in kf], REPS,
+            funcs[kname])
+        plain_ms[kname] = cuda_ms(
+            lambda: [f(fs, pg, j0, d32, c32, h32, st) for f in pf], 3)
+        del kg, pg
+    del state, fs, gs
 
-    # ---- phase 3b: the main path
+    # ---- phase 6: the main path
     K.reset_counts()
     t0 = time.time()
     batch = OBJ.stack_reads(cfg32, reads, device=dev)
-    fn, eff = OBJ.batch_total(cfg32, p32, batch, device=dev)
+    torch.cuda.synchronize()
+    mask_warm_s = time.time() - t0
+    fn, grads, eff = OBJ.batch_fn_grad(cfg32, p32, batch, device=dev)
     torch.cuda.synchronize()
     warm_s = time.time() - t0
-    launches = {n: k.launches for n, k in K.KERNELS.items()}
-    print("main path launches per forward: %s" % json.dumps(launches),
-          flush=True)
+    launches = {n: kk.launches for n, kk in K.KERNELS.items()}
+    print("main path launches (masks + fn+grad, B=%d): %s"
+          % (B_MAIN, json.dumps(launches)), flush=True)
     for n, cnt in launches.items():
         if cnt <= 0:
             fail("kernel %s was not launched on the main path" % n)
+    K.reset_counts()
+    OBJ.batch_fn_grad(cfg32, p32, batch, device=dev)
+    per_fg = {n: kk.launches for n, kk in K.KERNELS.items()}
     if not np.isfinite(float(fn)):
         fail("main path fn is not finite: %s" % float(fn))
+    if any(not bool(torch.isfinite(g).all()) for g in grads):
+        fail("main path gradient is not finite")
     reps = 3
-    s_ev = torch.cuda.Event(enable_timing=True)
-    e_ev = torch.cuda.Event(enable_timing=True)
-    t0 = time.time()
-    s_ev.record()
-    for _ in range(reps):
-        batch = OBJ.stack_reads(cfg32, reads, device=dev)
-        fn, eff = OBJ.batch_total(cfg32, p32, batch, device=dev)
-    e_ev.record()
-    torch.cuda.synchronize()
-    step_ms = s_ev.elapsed_time(e_ev) / reps
-    host_ms = (time.time() - t0) / reps * 1e3
+    mask_ms = cuda_ms(lambda: OBJ.stack_reads(cfg32, reads, device=dev),
+                      reps)
+    fg_ms = cuda_ms(lambda: OBJ.batch_fn_grad(cfg32, p32, batch, device=dev),
+                    reps)
     fwd_ms = cuda_ms(lambda: OBJ.batch_total(cfg32, p32, batch, device=dev),
                      reps)
     t0 = time.time()
-    f_plain, _ = OBJ._per_read_terms(cfg32, plain_parts(cfg32, p32, batch,
-                                                        dev), batch, False)
-    fn_plain = f_plain.sum()
+    b64 = batch._replace(lik_sign=batch.lik_sign.double(),
+                         eff=batch.eff.double())
+    parts_ref, g_ref = full_grads(cfg64, p64, b64, dev, plain=True)
     torch.cuda.synchronize()
-    main_plain_ms = (time.time() - t0) * 1e3
+    ref_s = time.time() - t0
     parts_main = J.batch_logZ_parts(cfg32, p32, batch.sd, batch.bp_ok,
                                     device=dev)
-    b64 = OBJ.stack_reads(cfg64, reads, device=dev)
-    parts_ref = plain_parts(cfg64, p64, b64, dev)
-    e_main = float((parts_main.double() - parts_ref).abs().max())
-    print("main path: B=%d x %d nt %s W=50 C=30 f32 min_bpp=0: fn %.6f "
-          "sum eff %.1f; stack_reads+batch_total %.3f ms/batch (%.1f seqs/s, "
-          "host clock %.3f ms); batch_total %.3f ms/batch (%.1f seqs/s); "
-          "warm-up %.1f s; plain version %.1f ms (fn %.6f); parts vs f64 "
-          "plain max abs %.3g" % (
-              B_MAIN, LP, PATTERN, float(fn), float(eff), step_ms,
-              B_MAIN * 1e3 / step_ms, host_ms, fwd_ms, B_MAIN * 1e3 / fwd_ms,
-              warm_s, main_plain_ms, float(fn_plain), e_main), flush=True)
+    fin = torch.isfinite(parts_ref)
+    if not torch.equal(fin, torch.isfinite(parts_main)):
+        fail("main path: -inf pattern of the parts differs from the f64 "
+             "plain version")
+    e_main = float((parts_main.double() - parts_ref)[fin].abs().max())
+    names = ("singles", "pairs", "lam")
+    e_grad = {n: rel_err(a, b) for n, a, b in zip(names, grads, g_ref)}
+    print("main path: B=%d x %d nt %s W=50 C=30 min_bpp=%g tau=0.1 f32: fn "
+          "%.6f sum eff %.4f; masks (stack_reads) %.3f ms/batch (first "
+          "%.1f s); batch_fn_grad %.3f ms/batch (%.1f seqs/s); forward "
+          "batch_total %.3f ms/batch (%.1f seqs/s); warm-up %.1f s; "
+          "launches per fn+grad %s; f64 plain reference %.1f s; parts vs "
+          "f64 plain max abs %.3g; gradient vs f64 plain relative max norm "
+          "%s" % (
+              B_MAIN, LP, PATTERN, MIN_BPP, float(fn), float(eff), mask_ms,
+              mask_warm_s, fg_ms, B_MAIN * 1e3 / fg_ms, fwd_ms,
+              B_MAIN * 1e3 / fwd_ms, warm_s, json.dumps(per_fg), ref_s,
+              e_main, json.dumps(e_grad)), flush=True)
     if not e_main <= 2e-3:
         fail("main path parts differ from the f64 plain version by %.3g"
              % e_main)
+    if not max(e_grad.values()) <= 1e-3:
+        fail("main path gradient differs from the f64 plain version by "
+             "%.3g" % max(e_grad.values()))
+    per, prof, wall_us, busy_us = device_profile(
+        lambda: OBJ.batch_fn_grad(cfg32, p32, batch, device=dev), 2)
+    wall_us, busy_us = wall_us / 2, busy_us / 2
+    fg_dev = {n: sum(per.get(f, 0.0) for f in fn_) / 1e3
+              for n, fn_ in funcs.items()}
+    print("profile: batch_fn_grad %.1f ms wall (profiler on, mean of 2), "
+          "device busy %.1f ms (%.1f%%); device ms per fn+grad by kernel %s"
+          % (wall_us / 1e3, busy_us / 1e3, 100.0 * busy_us / wall_us,
+             json.dumps(fg_dev)), flush=True)
+    per_m, _, wall_m, busy_m = device_profile(
+        lambda: OBJ.stack_reads(cfg32, reads, device=dev), 2)
+    print("profile: masks (stack_reads) %.1f ms wall (profiler on, mean of "
+          "2), device busy %.1f ms (%.1f%%); device ms by kernel %s"
+          % (wall_m / 2e3, busy_m / 2e3, 100.0 * busy_m / wall_m,
+             json.dumps({n: sum(per_m.get(f, 0.0) for f in fn_) / 1e3
+                         for n, fn_ in funcs.items()})), flush=True)
     if args.profile:
-        profile_forward(args.profile, lambda: OBJ.batch_total(
-            cfg32, p32, batch, device=dev))
+        os.makedirs(os.path.dirname(os.path.abspath(args.profile)),
+                    exist_ok=True)
+        with open(args.profile, "w") as f:
+            f.write(prof.key_averages().table(
+                sort_by="self_device_time_total", row_limit=50))
 
-    # ---- phase 4: the kernel table
-    # ms, plain_ms and bound_ms are per unit of work ("unit": K1 one batch,
-    # K2-K4 one column j0, of "launches_per_unit" launches); "launches"
-    # counts the main path's forward
+    # ---- phase 7: the kernel table
+    # ms (the profiler's device time of the kernel's own functions over
+    # REPS calls), plain_ms and bound_ms are per unit of work ("unit": K1
+    # one batch, K2-K7 one column j0, of "launches_per_unit" launches);
+    # "launches" counts the main path's run (masks + fn+grad),
+    # "launches_fn_grad" and "ms_fn_grad" (device time) one batch_fn_grad
     bnd = bounds(cfg32, st, c32, k32.tab, j0, B_MAIN, 4)
     rows = []
     for name, kern in K.KERNELS.items():
         bms, by = bnd[name]
-        u, per = unit[name]
+        u, n_unit = unit[name]
         rows.append({
             "name": name, "route": "cuda", "source": kern.source,
             "replaces": kern.replaces, "launches": launches[name],
             "max_abs_err": err[name], "ms": ms[name],
             "plain_ms": plain_ms[name], "bound_ms": bms, "bound_by": by,
-            "library_ms": None, "unit": u, "launches_per_unit": per})
+            "library_ms": None, "unit": u, "launches_per_unit": n_unit,
+            "launches_fn_grad": per_fg[name], "ms_fn_grad": fg_dev[name]})
         print("kernel %s: %.4f ms per %s of %d launches (plain %.3f ms, "
-              "bound %.4f ms by %s); %d launches per forward" % (
-                  name, ms[name], u, per, plain_ms[name], bms, by,
-                  launches[name]), flush=True)
+              "bound %.4f ms by %s); %d launches on the main path, %d per "
+              "fn+grad (%.3f ms of device time)"
+              % (name, ms[name], u, n_unit, plain_ms[name], bms, by,
+                 launches[name], per_fg[name], fg_dev[name]), flush=True)
     print("chip_smoke total %.1f s" % (time.time() - t_start))
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -19,6 +19,7 @@ struct DPDims {
   int Lp, Wp, Cp, S, B, PAD, j;
   int n13, n_ar, n2, n_cls, Tp;
   int fix_rss, no_ene;
+  int n_pt;  // pair transitions (t, s) of the grammar (outside kernels)
 };
 
 template <typename T>

@@ -25,12 +25,9 @@ import torch
 from .. import device as DEV
 from ..energy import params as EPARAMS
 from ..energy import tables as ET
-from ..grammar.profile import Grammar, compile_pattern
+from ..grammar.profile import Grammar, compile_pattern, null_grammar
 from ..ops import dp as DP
 from ..ops.semiring import NEG, lse
-
-SLICE2 = ("is not ported yet: it needs the outside pass (slice 2 of the "
-          "port)")
 
 
 class Params(NamedTuple):
@@ -196,7 +193,9 @@ def effective_theta(cfg: ModelConfig, p: Params) -> Params:
 
 class _Kernels(NamedTuple):
     g: Grammar
+    gnull: Grammar
     dp: DP.InsideDP
+    dp_null: DP.InsideDP      # the motif-free (S=1) DP of the BPP masks
     dims: DP.Dims
     tab: dict
     dtype: torch.dtype
@@ -206,14 +205,17 @@ class _Kernels(NamedTuple):
 @functools.lru_cache(maxsize=32)
 def _kernels_cached(cfg: ModelConfig, device: str) -> _Kernels:
     g = compile_pattern(cfg.pattern)
+    gn = null_grammar()
     dtype = DEV.torch_dtype(cfg.dtype)
     tab = ET.device_tables(cfg.energy, dtype, device)
     ltau = float(np.log(cfg.tau)) if cfg.tau > 0 else -np.inf
     dims = DP.Dims(Lp=cfg.Lp, Wp=cfg.Wp, Cp=cfg.Cp, S=g.S,
                    no_ene=cfg.no_ene, fix_rss=cfg.fix_rss, ltau=ltau)
     dp = DP.build_dp(g, dims, tab, dtype, device)
-    return _Kernels(g=g, dp=dp, dims=dims, tab=tab, dtype=dtype,
-                    device=torch.device(device))
+    dims_n = dims._replace(S=1)
+    dp_null = DP.build_dp(gn, dims_n, tab, dtype, device)
+    return _Kernels(g=g, gnull=gn, dp=dp, dp_null=dp_null, dims=dims,
+                    tab=tab, dtype=dtype, device=torch.device(device))
 
 
 def kernels(cfg: ModelConfig, device=None) -> _Kernels:
@@ -241,22 +243,6 @@ def _complementary_bp(cfg: ModelConfig, k: _Kernels, sd: SeqData):
     L = torch.as_tensor(sd.L, device=k.device).long()
     W = torch.clamp(L, max=cfg.max_span)
     return ET.pair_mask_jw(k.tab, seq, L, W, cfg.Wp, cfg.turn)
-
-
-def effective_bp_mask_batch(cfg: ModelConfig, sd_b: SeqData, device=None):
-    """Batched bp_ok and bpp_eff [B] (energy_model.hpp:211-266) for the
-    branches that need no DP: fix_rss (the given structure) and
-    min_bpp <= 0 (complementarity only).  min-BPP pruning needs the
-    outside pass and raises until it is ported."""
-    k = kernels(cfg, device)
-    bp0 = _complementary_bp(cfg, k, sd_b)
-    total = torch.clamp(bp0.sum(dim=(1, 2)), min=1)
-    if cfg.fix_rss:
-        rss = torch.as_tensor(sd_b.rss_pair, device=k.device).bool()
-        return rss, rss.sum(dim=(1, 2)) / total
-    if cfg.min_bpp <= 0 or cfg.no_rss:
-        return bp0, torch.ones(bp0.shape[0], dtype=k.dtype, device=k.device)
-    raise NotImplementedError("min-BPP pruning (min_bpp > 0) " + SLICE2)
 
 
 def score_inputs(cfg: ModelConfig, k: _Kernels, sd: SeqData, bp_ok):
@@ -315,11 +301,15 @@ def _diff_factors(cfg: ModelConfig, k: _Kernels, params: Params,
     sidx_l = torch.as_tensor(g.single_table_index[g.tid_l], device=dev)
     b1 = torch.clamp(seq - 1, 0, 3)
     zero = torch.zeros((), dtype=dt, device=dev)
+    # the weights are picked by one-hot contractions, not gathers: the
+    # backward is then a product rather than a sorted, accumulating
+    # index_put over every cell
+    oh4 = torch.nn.functional.one_hot(b1, 4).to(dt)            # [B, Lp, 4]
 
     def single_lookup(slot):
         if cfg.no_prf:
             return torch.zeros((B, Lp, g.S), dtype=dt, device=dev)
-        v = th.singles.to(dt)[slot[None, None, :], b1[:, :, None]]
+        v = torch.einsum("blk,sk->bls", oh4, th.singles.to(dt)[slot])
         return torch.where((seq > 0)[:, :, None], v, zero)
 
     def ws_at(flags):
@@ -331,7 +321,7 @@ def _diff_factors(cfg: ModelConfig, k: _Kernels, params: Params,
     if cfg.no_prf:
         bg2 = torch.zeros((B, Lp), dtype=dt, device=dev)
     else:
-        bg2 = torch.where(seq > 0, th.singles.to(dt)[0, b1], zero)
+        bg2 = torch.where(seq > 0, oh4 @ th.singles.to(dt)[0], zero)
     j, w = _grid(cfg, dev)
     i = torch.clamp(j - w, 0, Lp - 1)
     bt = k.tab["bp"][seq[:, i], seq[:, torch.clamp(j - 1, 0, Lp - 1)]
@@ -340,8 +330,8 @@ def _diff_factors(cfg: ModelConfig, k: _Kernels, params: Params,
     if cfg.no_prf:
         pv = torch.zeros((B, Lp + 1, cfg.Wp + 1, Tp), dtype=dt, device=dev)
     else:
-        pvv = th.pairs.to(dt)[torch.arange(Tp, device=dev)[None, None, None],
-                              torch.clamp(bt - 1, 0, 5)[..., None]]
+        oh6 = torch.nn.functional.one_hot(torch.clamp(bt - 1, 0, 5), 6)
+        pvv = torch.einsum("bjwk,tk->bjwt", oh6.to(dt), th.pairs.to(dt))
         pv = torch.where((bt > 0)[..., None], pvv, zero)
     mv = lambda x: torch.movedim(x, 0, -1).contiguous()
     return DP.DiffFactors(
@@ -364,6 +354,78 @@ def batch_factors(cfg: ModelConfig, params: Params, sd_b: SeqData,
     c = _const_factors(cfg, k, sd_b, bp_ok_b)
     d = _diff_factors(cfg, k, params, sd_b)
     return d, c
+
+
+def _null_batch_factors(cfg: ModelConfig, k: _Kernels, sd_b: SeqData,
+                        bp0_b):
+    """Batched factors for the motif-free McCaskill pass (BPP pruning):
+    the constants of the reads with zero positional weights, unit
+    emissions, lambda 1 and a zero injected pair factor alphaP that the
+    caller differentiates."""
+    c = _const_factors(cfg, k, sd_b, bp0_b)
+    c = c._replace(wsp=torch.zeros_like(c.wsp))
+    Lp, Wp, B = cfg.Lp, cfg.Wp, bp0_b.shape[0]
+    z = lambda *shape: torch.zeros(shape, dtype=k.dtype, device=k.device)
+    d = DP.DiffFactors(eR=z(Lp, 1, B), eL=z(Lp, 1, B), bg2=z(Lp, B),
+                       pv=z(Lp + 1, Wp + 1, 1, B),
+                       lam=torch.ones(2, dtype=k.dtype, device=k.device),
+                       alphaP=z(Lp + 1, Wp + 1, B))
+    return d, c
+
+
+def _candidate_pairs(cfg: ModelConfig, k: _Kernels, sd_b: SeqData):
+    if cfg.fix_rss:
+        return torch.as_tensor(sd_b.rss_pair, device=k.device).bool()
+    return _complementary_bp(cfg, k, sd_b)
+
+
+def bpp_posterior_batch(cfg: ModelConfig, sd_b: SeqData, device=None):
+    """Batched base-pair probabilities from the motif-free pass
+    (energy_model.hpp:188-266): the gradient of logZ with respect to the
+    injected per-pair log-factor alphaP is the pair posterior.
+    Returns (logZ [B], post [B, Lp+1, Wp+1], bp0 [B, Lp+1, Wp+1])."""
+    k = kernels(cfg, device)
+    bp0 = _candidate_pairs(cfg, k, sd_b)
+    d, c = _null_batch_factors(cfg, k, sd_b, bp0)
+    alphaP = d.alphaP.requires_grad_(True)
+    with torch.enable_grad():
+        z = k.dp_null.dp_parts(d, c)[:, 0]
+        (post,) = torch.autograd.grad(z.sum(), alphaP)
+    return z.detach(), torch.movedim(post, -1, 0), bp0
+
+
+def effective_bp_mask_batch(cfg: ModelConfig, sd_b: SeqData, device=None):
+    """Batched bp_ok after min-BPP pruning and bpp_eff [B]
+    (energy_model.hpp:211-266): the given structure under fix_rss,
+    complementarity alone at min_bpp <= 0 (or no-rss), else the candidate
+    pairs whose motif-free posterior reaches min_bpp."""
+    k = kernels(cfg, device)
+    bp0 = _complementary_bp(cfg, k, sd_b)
+    total = torch.clamp(bp0.sum(dim=(1, 2)), min=1)
+    if cfg.fix_rss:
+        rss = torch.as_tensor(sd_b.rss_pair, device=k.device).bool()
+        return rss, rss.sum(dim=(1, 2)).to(k.dtype) / total
+    if cfg.min_bpp <= 0 or cfg.no_rss:
+        return bp0, torch.ones(bp0.shape[0], dtype=k.dtype, device=k.device)
+    _, post, _ = bpp_posterior_batch(cfg, sd_b, device)
+    keep = bp0 & (torch.log(torch.clamp(post, min=1e-300))
+                  >= math.log(cfg.min_bpp))
+    return keep, keep.sum(dim=(1, 2)).to(k.dtype) / total
+
+
+def bpp_posterior(cfg: ModelConfig, sd: SeqData, device=None):
+    """Per-read wrapper: (logZ, post [Lp+1, Wp+1], bp0) of one read."""
+    dev = DEV.resolve(device)
+    z, post, bp0 = bpp_posterior_batch(cfg, stack_seqdata([sd], dev), dev)
+    return z[0], post[0], bp0[0]
+
+
+def effective_bp_mask(cfg: ModelConfig, sd: SeqData, device=None):
+    """Per-read wrapper: (bp_ok [Lp+1, Wp+1], bpp_eff) of one read."""
+    dev = DEV.resolve(device)
+    keep, eff = effective_bp_mask_batch(cfg, stack_seqdata([sd], dev),
+                                        dev)
+    return keep[0], eff[0]
 
 
 def batch_logZ_parts(cfg: ModelConfig, params: Params, sd_b: SeqData,

@@ -1,4 +1,5 @@
-"""Joint (energy x motif) banded inside DP, forward — batched (PyTorch).
+"""Joint (energy x motif) banded inside DP and its outside pass — batched
+(PyTorch).
 
 One loop over sequence columns j computes the inside recursion of the
 reference (energy_model.hpp:340-441 fanned out over motif states by
@@ -18,10 +19,15 @@ tensors:
   ``band_e``      (K2)                  E = hairpin + multiloop + ep
   ``ext_stage``   (K4, inside_ext.cu)   exterior O column
 
-The plain versions mirror the JAX column body ``cols_fn`` (exp-space
-contractions under per-read max shifts).  ``dp_parts`` is an autograd
-Function whose backward (the outside pass) is not ported yet: it raises
-rather than dropping gradients.
+The plain versions are pure functions of the windows of earlier rows
+(``front_col`` ... ``o_col``, mirroring the JAX column body ``cols_fn``:
+exp-space contractions under per-read max shifts) whose outputs the plain
+stages write into the tables.  ``dp_parts`` is an autograd Function whose
+backward is the outside pass (JAX ``dp_bwd``): the columns j = Lp..1 in
+reverse, four adjoint stages per column, each the kernels K5-K7
+(outside_band.cu, outside_ep.cu, outside_ext.cu) for CUDA tensors and, for
+CPU tensors, torch.autograd.grad of the stage's pure function on leaf
+copies of the saved rows.
 
 Cell conventions (span (i, j), i = j - w, bases i..j-1):
   LL: ST_L linear runs inside loops;   P: paired span (i, j-1);
@@ -146,6 +152,16 @@ def _csr_by_target(tuples, S: int):
     off = np.zeros(S + 1, np.int64)
     np.add.at(off, tt[:, 0] + 1, 1)
     return np.cumsum(off), tt[:, 1], tt[:, 2]
+
+
+def _csr_by(key, n: int, *vals):
+    """Entries grouped by ``key`` in 0..n-1: CSR offsets [n+1] and each
+    of ``vals`` in that (stable) order."""
+    key = np.asarray(key, np.int64)
+    order = np.argsort(key, kind="stable")
+    off = np.zeros(n + 1, np.int64)
+    np.add.at(off, key + 1, 1)
+    return np.cumsum(off), [np.asarray(v)[order] for v in vals]
 
 
 def _csr_finite(mat):
@@ -283,6 +299,31 @@ class DPStatic:
             koff = np.zeros(S + 1, np.int64)
             np.add.at(koff, k2_tgt + 1, 1)
             kk["k2_off"], kk["k2_idx"] = i32(np.cumsum(koff)), i32(order)
+            kk["p13_ar"], kk["k2_tgt"] = i32(p13_ar), i32(k2_tgt)
+            n13r, n2r = np.arange(self.n13), np.arange(self.n2)
+            for name, key, n, vals in (
+                    ("s1", p13_s1, S, (n13r,)), ("s3", p13_s3, S, (n13r,)),
+                    ("k2a", k2_ar, self.n_ar, (n2r,))):
+                off, (v,) = _csr_by(key, n, *vals)
+                kk[name + "_off"], kk[name + "_k"] = i32(off), i32(v)
+
+        # ---- the outside kernels' reverse lists (CSR by source)
+        for name, mat in (("rtr", TRlog), ("ltr", TLlog)):
+            tgt, src = np.nonzero(np.isfinite(mat))
+            off, (t_, w_) = _csr_by(src, S, tgt, mat[tgt, src])
+            kk[name + "_off"], kk[name + "_t"] = i32(off), i32(t_)
+            kk[name + "_w"] = f(w_)
+        for name, tuples in (("b12", g.b12_tuples), ("op", g.op_tuples)):
+            tt = np.asarray(tuples, np.int64).reshape(-1, 3)
+            off, (t_, c_) = _csr_by(tt[:, 1], S, tt[:, 0], tt[:, 2])
+            kk[name + "a_off"], kk[name + "a_t"] = i32(off), i32(t_)
+            kk[name + "a_c"] = i32(c_)
+            off, (t_, a_) = _csr_by(tt[:, 2], S, tt[:, 0], tt[:, 1])
+            kk[name + "c_off"], kk[name + "c_t"] = i32(off), i32(t_)
+            kk[name + "c_a"] = i32(a_)
+        pt_t, pt_s = np.nonzero(code != -1)
+        kk["ptl_t"], kk["ptl_s"] = i32(pt_t), i32(pt_s)
+        self.n_pt = len(pt_t)
         self.k = kk
 
 
@@ -327,28 +368,54 @@ def hoisted(d: DiffFactors, c: ConstFactors, st: DPStatic):
 
 def init_state(st: DPStatic, B: int):
     """Inside tables with PAD front rows of -inf: LL, P, E, M, Bt, T1, T2
-    [Lp+1+PAD, Wp+1, S, B], O [Lp+1+PAD, S, B], plus the column's ep-term
-    scratch [Wp+1, S, B].  LL at width 0 is the grammar diagonal; O
-    starts at end_states[0]."""
+    and the internal-loop term ep [Lp+1+PAD, Wp+1, S, B], O [Lp+1+PAD, S,
+    B].  LL at width 0 is the grammar diagonal; O starts at
+    end_states[0].  The outside pass reads every table, ep included."""
     Lp, Wp, S = st.dims.Lp, st.dims.Wp, st.dims.S
     PAD, dt, dev = st.PAD, st.dtype, st.device
     R = Lp + 1 + PAD
     mk = lambda: torch.full((R, Wp + 1, S, B), NEG, dtype=dt, device=dev)
-    state = {k: mk() for k in ("LL", "P", "E", "M", "Bt", "T1", "T2")}
+    state = {k: mk() for k in ("LL", "P", "E", "M", "Bt", "T1", "T2", "ep")}
     state["LL"][PAD:, 0] = st.diag_col[:, None]
     O = torch.full((R, S, B), NEG, dtype=dt, device=dev)
     O[PAD, int(st.g.end_states[0])] = 0.0
     state["O"] = O
-    state["ep"] = torch.full((Wp + 1, S, B), NEG, dtype=dt, device=dev)
     return state
 
 
 def clone_state(state):
-    """Copy of the inside tables (scratch and validation marks dropped)."""
+    """Copy of the tables (scratch and validation marks dropped)."""
     return {k: v.clone() for k, v in state.items() if not k.startswith("_")}
 
 
-# ------------------------------------------------- plain column stages
+# ------------------------------------------- plain column (pure functions)
+
+def windows_of(tabs, j: int, st, keys=("L", "P", "T1", "E", "T2", "O")):
+    """Windows of earlier rows feeding column j (JAX ``windows_of``):
+    win[k] is row j-1-k.  E/T2 chains read only row j-1; P feeds the
+    internal loop back to j-1-Cp; LL/T1/O feed band-wide reads."""
+    Wp, Cp, PAD = st.dims.Wp, st.dims.Cp, st.PAD
+    get = dict(
+        L=lambda: _flip(tabs["LL"], j - 1, Wp, PAD),
+        P=lambda: _flip(tabs["P"], j - 1, Cp, PAD),
+        T1=lambda: _flip(tabs["T1"], j - 1, Wp, PAD),
+        E=lambda: tabs["E"][j - 1 + PAD],
+        T2=lambda: tabs["T2"][j - 1 + PAD],
+        O=lambda: _flip(tabs["O"], j - 1, Wp, PAD))
+    return {k: get[k]() for k in keys}
+
+
+def col_rows(d: DiffFactors, h, j: int, st):
+    """The row slices of the differentiable inputs that column j reads
+    (JAX ``col_rows``); emisB holds rows j-Cp..j in ascending order."""
+    Lp, Wp, Cp, PAD = st.dims.Lp, st.dims.Wp, st.dims.Cp, st.PAD
+    iw = torch.clamp(j - torch.arange(Wp + 1, device=st.device), 0, Lp - 1)
+    r = j + PAD
+    return dict(lam=d.lam, eR=d.eR[j - 1], eL=d.eL[iw], bgl=d.bg2[iw],
+                bgr=d.bg2[j - 1], pv=d.pv[j], alphaP=d.alphaP[j],
+                emisA=h["emisA"][:, :, j], emisB=h["emisB"][:, r - Cp: r + 1],
+                eSZ=h["eSZ"])
+
 
 def _chain(src, eRrow, st):
     """Right-transition chain: [w,S,B] -> [w,S,B] target-indexed."""
@@ -357,24 +424,23 @@ def _chain(src, eRrow, st):
     return safe_log(t) + m + eRrow[None]
 
 
-def band_front_plain(state, j, d, c, h, st):
+def front_col(win, j, rows, c, st):
     """L chain (U1), P (U2: TT_P_E / TT_P_P) and T2 (U3) of column j."""
-    Lp, Wp, PAD = st.dims.Lp, st.dims.Wp, st.PAD
-    dev = st.device
-    warr = torch.arange(Wp + 1, device=dev)
-    iw = torch.clamp(j - warr, 0, Lp - 1)
-    lamv = _lam2(d.lam)[st.bucket]                 # [S, 1]
-    eRrow = d.eR[j - 1]
+    Lp, Wp = st.dims.Lp, st.dims.Wp
+    iw = torch.clamp(j - torch.arange(Wp + 1, device=st.device), 0, Lp - 1)
+    lamv = _lam2(rows["lam"])[st.bucket]           # [S, 1]
+    eRrow = rows["eR"]
     g_o2 = c.gate_O2[j - 1]
     # U1: ST_L chain (motif_model.hpp:243-257); width 0 is the diagonal
-    Lcol = _chain(_shift_w(state["LL"][j - 1 + PAD], 1), eRrow, st)
-    Lcol[0] = st.diag_col[:, None]
+    Lcol = _chain(_shift_w(win["L"][0], 1), eRrow, st)
+    Lcol = torch.cat([st.diag_col[None, :, None].expand_as(Lcol[:1]),
+                      Lcol[1:]])
     # U2: P <- pem * (E | P), factored into static-matrix contractions
-    prevE2 = _shift_w(state["E"][j - 1 + PAD], 2)
-    prevP2 = _shift_w(state["P"][j - 1 + PAD], 2)
+    prevE2 = _shift_w(win["E"], 2)
+    prevP2 = _shift_w(win["P"][0], 2)
     wl, wr = c.wsp[iw], c.wsp[j - 1]
-    bgf = torch.exp(d.bg2[iw] + d.bg2[j - 1][None])
-    pvj = d.pv[j]
+    bgf = torch.exp(rows["bgl"] + rows["bgr"][None])
+    pvj = rows["pv"]
     outs = []
     for src in (prevE2, prevP2):
         m = _finmax(src, 1, keepdim=True)
@@ -391,53 +457,44 @@ def band_front_plain(state, j, d, c, h, st):
         outs.append(safe_log(acc) + m)
     a_pe, a_pp = outs
     a_pp = a_pp + lam_mul(lamv[None], c.stk[j][:, None, :])
-    Pcol = logadd(a_pe, a_pp) + d.alphaP[j][:, None, :]
+    Pcol = logadd(a_pe, a_pp) + rows["alphaP"][:, None, :]
     Pcol = mask_neg(Pcol, c.okP[j][:, None, :])
     # U3: 2 (TT_2_2 / TT_2_P)
     T2col = logadd(
-        _chain(_shift_w(state["T2"][j - 1 + PAD], 1), eRrow, st)
-        + g_o2[None, None, :],
+        _chain(_shift_w(win["T2"], 1), eRrow, st) + g_o2[None, None, :],
         Pcol + lam_mul(lamv[None], c.ml2[j][:, None, :]))
     T2col = mask_neg(T2col, c.okB[j][:, None, :])
-    state["LL"][j + PAD] = Lcol
-    state["P"][j + PAD] = Pcol
-    state["T2"][j + PAD] = T2col
+    return Lcol, Pcol, T2col
 
 
-def band_bif_plain(state, j, d, c, h, st):
+def bif_col(win, j, c, st, T2col):
     """B (U4: TT_B_12) as a dk contraction then the static tuple sum,
     and T1 (U5).  dk = 0 and 2-cells of width 0 are excluded."""
-    Wp, S, PAD = st.dims.Wp, st.dims.S, st.PAD
-    T2col = state["T2"][j + PAD]
-    B = T2col.shape[-1]
-    negcol = torch.full((1, Wp + 1, S, B), NEG, dtype=st.dtype,
-                        device=st.device)
-    T1F = torch.cat([negcol, _flip(state["T1"], j - 1, Wp, PAD)], dim=0)
-    m1 = _finmax(T1F, (0, 1, 2))
-    ex1 = torch.exp(T1F - m1)
-    ex1[0] = 0.0                                 # dk >= 1 (k < j)
+    Wp, S = st.dims.Wp, st.dims.S
+    T1W = win["T1"]                              # T1F[dk] = row j-dk, dk>=1
+    m1 = _finmax(T1W, (0, 1, 2))
+    zero1 = torch.zeros_like(T1W[:1])
+    ex1 = torch.cat([zero1, torch.exp(T1W - m1)])
     X1 = _shear(ex1, Wp + 1, 0.0)                # [dk, w, S, B]
     m2 = _finmax(T2col, (0, 1))
     ex2 = torch.exp(T2col - m2)
-    ex2[0] = 0.0                                 # width(2-cell) >= 1
+    ex2 = torch.cat([torch.zeros_like(ex2[:1]), ex2[1:]])
     G = torch.einsum("dwab,dcb->wacb", X1, ex2)
-    out = torch.einsum("wqb,qt->wtb", G.reshape(Wp + 1, S * S, B), st.Hb12)
+    out = torch.einsum("wqb,qt->wtb", G.reshape(Wp + 1, S * S, -1), st.Hb12)
     Bcol = mask_neg(safe_log(out) + m1 + m2, c.okB[j][:, None, :])
     T1col = mask_neg(logadd(T2col, Bcol), c.okB[j][:, None, :])
-    state["Bt"][j + PAD] = Bcol
-    state["T1"][j + PAD] = T1col
+    return Bcol, T1col
 
 
-def band_m_plain(state, j, d, c, h, st):
+def m_col(j, rows, c, st, Bcol):
     """M chain (U6: TT_M_M / TT_M_B), sequential over the band
     (motif_model.hpp:346-366)."""
-    Lp, Wp, S, PAD = st.dims.Lp, st.dims.Wp, st.dims.S, st.PAD
-    warr = torch.arange(Wp + 1, device=st.device)
-    iw = torch.clamp(j - warr, 0, Lp - 1)
-    eLrows = d.eL[iw]                            # [w, S, B] source-keyed
+    Lp, Wp, S = st.dims.Lp, st.dims.Wp, st.dims.S
+    iw = torch.clamp(j - torch.arange(Wp + 1, device=st.device), 0, Lp - 1)
+    eLrows = rows["eL"]                          # [w, S, B] source-keyed
     gMs = c.gate_M[iw]                           # [w, B]
     okMj = c.okM[j]                              # [w, B]
-    bvecs = mask_neg(state["Bt"][j + PAD], okMj[:, None, :])
+    bvecs = mask_neg(Bcol, okMj[:, None, :])
     B = bvecs.shape[-1]
     x = torch.full((S, B), NEG, dtype=st.dtype, device=st.device)
     out = []
@@ -446,14 +503,14 @@ def band_m_plain(state, j, d, c, h, st):
             + gMs[w][None, None, :]
         x = mask_neg(logadd(bvecs[w], lse(t, axis=1)), okMj[w][None, :])
         out.append(x)
-    state["M"][j + PAD] = torch.stack(out)
+    return torch.stack(out)
 
 
-def _ep_specials(c, j, exPF, exLB, exL3, lam, h, st):
+def _ep_specials(c, j, exPF, exLB, exL3, lam, st):
     """Base-coupled internal loops — stack-adjacent bulges (0,1)/(1,0)
     and 1x1/1x2/2x1/2x2 internals (energy_param.hpp:744-795) — in the
     chain-factored exp space; a [w, n2, B] contribution carrying the
-    ep_stage shifts."""
+    ep_col shifts."""
     lamk2 = lam[st.lamk2_idx]                    # [n2, 1]
     il6 = c.ep["spec_il"][:, j]                  # [6, w, B]
     acc = None
@@ -473,22 +530,19 @@ def _ep_specials(c, j, exPF, exLB, exL3, lam, h, st):
     return acc
 
 
-def ep_stage_plain(state, j, d, c, h, st):
+def ep_col(win, j, rows, c, st, Lcol, Pcol):
     """U7 TT_E_P internal-loop sum (motif_model.hpp:329-335,
     energy_param.hpp:744-795), chain-factored through pairs13 -> AR -> K2
     with the five (u1, u2) energy classes fused into W[dl, x, u1] per
     lambda bucket; exp space under per-read max shifts."""
-    Wp, Cp, S, PAD = st.dims.Wp, st.dims.Cp, st.dims.S, st.PAD
-    dev, dt = st.device, st.dtype
-    B = state["ep"].shape[-1]
+    Wp, Cp, S = st.dims.Wp, st.dims.Cp, st.dims.S
+    dev = st.device
+    B = Lcol.shape[-1]
     if not st.have_ep:
-        state["ep"].fill_(NEG)
-        return
-    lam = _lam2(d.lam)
-    Lcol = state["LL"][j + PAD]
-    PF = torch.cat([state["P"][j + PAD][None],
-                    _flip(state["P"], j - 1, Cp, PAD)], dim=0)
-    LB = torch.cat([Lcol[None], _flip(state["LL"], j - 1, Wp, PAD)], dim=0)
+        return torch.full((Wp + 1, S, B), NEG, dtype=st.dtype, device=dev)
+    lam = _lam2(rows["lam"])
+    PF = torch.cat([Pcol[None], win["P"]], dim=0)
+    LB = torch.cat([Lcol[None], win["L"]], dim=0)
     warr = torch.arange(Wp + 1, device=dev)
     dlarr = torch.arange(Cp + 1, device=dev)
     mPF = _finmax(PF, (0, 1, 2))
@@ -509,17 +563,17 @@ def ep_stage_plain(state, j, d, c, h, st):
 
     # fused energy weight W[bu][dl, x, u1, B]: misB (inner pair) x
     # size/asymmetry class x misA (outer pair), classes summed
-    emisB = _flip(h["emisB"].transpose(0, 1), j, Cp + 1, PAD)  # [dl,2,..]
+    emisB = torch.flip(rows["emisB"].transpose(0, 1), dims=(0,))
     V_bu = []
     for b in range(2):
         mBsh = _shear(emisB[:, b], Wp + 1, 0.0)  # [dl, x, 4, B]
-        mArow = h["emisA"][b][:, j]              # [4, w, B]
+        mArow = rows["emisA"][b]                 # [4, w, B]
         wA = [mArow[g_][st.ru] * st.ru_ok[:, :, None] for g_ in range(4)]
         Wall = None
         for x_ in range(st.n_cls):
             g_ = int(st.grp[x_])
             t = (mBsh[:, :, g_, None, :]
-                 * h["eSZ"][b][x_][:, None, :, :]
+                 * rows["eSZ"][b][x_][:, None, :, :]
                  * wA[g_][None, :, :, :])        # [dl, x, u1, B]
             Wall = t if Wall is None else Wall + t
         V_bu.append((Tsh[:, :, None, :, :]
@@ -539,36 +593,32 @@ def ep_stage_plain(state, j, d, c, h, st):
     pickV = torch.einsum("xuab,ak->xukb", Vcat, st.Hot_arcat_k2)
     outw = torch.einsum("xukb,xuw->wkb", pickL * pickV, st.Ind)
     if not st.dims.no_ene:
-        outw = outw + _ep_specials(c, j, exPF, exLB, exL3, lam, h, st)
+        outw = outw + _ep_specials(c, j, exPF, exLB, exL3, lam, st)
     out = torch.einsum("wkb,kt->wtb", outw, st.Hot_k2_tgt)
-    state["ep"].copy_(safe_log(out) + (mPF + mL3 + mLB))
+    return safe_log(out) + (mPF + mL3 + mLB)
 
 
-def band_e_plain(state, j, d, c, h, st):
+def e_col(j, rows, c, st, Lcol, Mcol, epcol):
     """E (U7: TT_E_H / TT_E_M / TT_E_P) of column j."""
-    PAD = st.PAD
-    lamv = _lam2(d.lam)[st.bucket]
-    Lcol = state["LL"][j + PAD]
+    lamv = _lam2(rows["lam"])[st.bucket]
     hterm = torch.where(st.loopm[None, :, None],
                         Lcol + lam_mul(lamv[None], c.hp[j][:, None, :]),
                         torch.full_like(Lcol, NEG))
-    mterm = state["M"][j + PAD] + lam_mul(lamv[None], c.mlE[j][:, None, :])
-    Ecol = logadd(logadd(hterm, mterm), state["ep"])
-    state["E"][j + PAD] = mask_neg(Ecol, c.okE[j][:, None, :])
+    mterm = Mcol + lam_mul(lamv[None], c.mlE[j][:, None, :])
+    Ecol = logadd(logadd(hterm, mterm), epcol)
+    return mask_neg(Ecol, c.okE[j][:, None, :])
 
 
-def ext_stage_plain(state, j, d, c, h, st):
+def o_col(win, j, rows, c, st, Pcol):
     """O column (U8: TT_O_O / TT_O_OP): O = O chain + O*P splits per
     lambda bucket.  Slot 0 (row j) is zero-weighted: okP kills w = 0."""
-    Wp, S, PAD = st.dims.Wp, st.dims.S, st.PAD
-    lam = _lam2(d.lam)
-    Pcol = state["P"][j + PAD]
-    eRrow = d.eR[j - 1]
+    S = st.dims.S
+    lam = _lam2(rows["lam"])
+    eRrow = rows["eR"]
     g_o2 = c.gate_O2[j - 1]
     B = Pcol.shape[-1]
     Orows = torch.cat([torch.full((1, S, B), NEG, dtype=st.dtype,
-                                  device=st.device),
-                       _flip(state["O"], j - 1, Wp, PAD)], dim=0)
+                                  device=st.device), win["O"]], dim=0)
     prevO = Orows[1]
     m = _finmax(prevO, 0, keepdim=True)
     t = torch.einsum("ts,sb->tb", st.E_TR, torch.exp(prevO - m))
@@ -584,7 +634,254 @@ def ext_stage_plain(state, j, d, c, h, st):
         ob = torch.einsum("qb,qt->tb", Gb.reshape(S * S, B), st.Hop[b])
         tot = ob if tot is None else tot + ob
     op_term = safe_log(tot) + mP + mO
-    state["O"][j + PAD] = logadd(oo, op_term)
+    return logadd(oo, op_term)
+
+
+# ------------------------------------------------- plain column stages
+
+def band_front_plain(state, j, d, c, h, st):
+    """L, P and T2 of column j into the tables."""
+    PAD = st.PAD
+    win = windows_of(state, j, st, ("L", "P", "E", "T2"))
+    L, P, T2 = front_col(win, j, col_rows(d, h, j, st), c, st)
+    state["LL"][j + PAD] = L
+    state["P"][j + PAD] = P
+    state["T2"][j + PAD] = T2
+
+
+def band_bif_plain(state, j, d, c, h, st):
+    """B and T1 of column j."""
+    PAD = st.PAD
+    Bc, T1 = bif_col(windows_of(state, j, st, ("T1",)), j, c, st,
+                     state["T2"][j + PAD])
+    state["Bt"][j + PAD] = Bc
+    state["T1"][j + PAD] = T1
+
+
+def band_m_plain(state, j, d, c, h, st):
+    """M chain of column j."""
+    PAD = st.PAD
+    state["M"][j + PAD] = m_col(j, col_rows(d, h, j, st), c, st,
+                                state["Bt"][j + PAD])
+
+
+def ep_stage_plain(state, j, d, c, h, st):
+    """TT_E_P internal-loop term of column j into the ep table."""
+    PAD = st.PAD
+    state["ep"][j + PAD] = ep_col(
+        windows_of(state, j, st, ("L", "P")), j, col_rows(d, h, j, st), c,
+        st, state["LL"][j + PAD], state["P"][j + PAD])
+
+
+def band_e_plain(state, j, d, c, h, st):
+    """E of column j."""
+    PAD = st.PAD
+    state["E"][j + PAD] = e_col(j, col_rows(d, h, j, st), c, st,
+                                state["LL"][j + PAD], state["M"][j + PAD],
+                                state["ep"][j + PAD])
+
+
+def ext_stage_plain(state, j, d, c, h, st):
+    """Exterior O column j."""
+    PAD = st.PAD
+    state["O"][j + PAD] = o_col(windows_of(state, j, st, ("O",)), j,
+                                col_rows(d, h, j, st), c, st,
+                                state["P"][j + PAD])
+
+
+# ------------------------------------------- plain outside (adjoint) stages
+#
+# The outside pass walks the columns j = Lp..1.  For each column four
+# adjoint stages run in reverse stage order — O (K7), E (K5), the
+# internal-loop term (K6), then M, B/T1 and L/P/T2 (K5) — each adding the
+# cotangents of its inputs into the gradient state ``gs`` (tables shaped
+# like the inside tables, row cotangents shaped like DiffFactors and the
+# hoisted tensors).  When a stage runs, the cotangents of its outputs are
+# complete: later columns were done first, and within the column its
+# consumers ran before it.  The plain versions rebuild the stage from
+# leaf copies of the saved forward rows and take torch.autograd.grad.
+
+GRAD_TABLES = ("LL", "P", "E", "T1", "T2", "O")
+
+
+def init_grads(fs, d: DiffFactors, c: ConstFactors, h):
+    """Zero gradient state for the inside tables ``fs``."""
+    z = torch.zeros_like
+    gs = {k: z(fs[k]) for k in GRAD_TABLES}
+    col = fs["LL"][0]
+    gs.update(gM=z(col), gB=z(col), gep=z(col))
+    gs.update(eR=z(d.eR), eL=z(d.eL), bg2=z(d.bg2), pv=z(d.pv),
+              alphaP=z(d.alphaP), lam=z(d.lam))
+    gs.update({k: z(h[k]) for k in ("eSZ", "eSZg", "emisA", "emisB")})
+    # the kernels' lambda terms: per-cell partials DL[j, w, target, read]
+    # (summed per bucket in finish_grads) and per-read size-weight
+    # partials GSZ [2, 4, Cp+1, Cp+1, B]
+    gs["DL"] = z(fs["LL"][: d.pv.shape[0]])
+    gs["GSZ"] = torch.zeros(tuple(h["eSZg"].shape) + (col.shape[-1],),
+                            dtype=col.dtype, device=col.device)
+    return gs
+
+
+def seed_parts(gs, gbar, c: ConstFactors, st):
+    """gbar [B, 3] enters the O cotangent at row L_b (JAX dp_bwd)."""
+    B = gbar.shape[0]
+    ar = torch.arange(B, device=gbar.device)
+    rows = c.L.long() + st.PAD
+    for k in range(3):
+        es = torch.full_like(ar, int(st.g.end_states[k]))
+        gs["O"].index_put_((rows, es, ar), gbar[:, k].to(gs["O"].dtype),
+                           accumulate=True)
+
+
+def finish_grads(gs, st):
+    """Cotangents of (eR, eL, bg2, pv, lam, alphaP, eSZ, eSZg, emisA,
+    emisB) from a gradient state: the kernels' per-cell lambda partials
+    are summed per bucket, their per-read size-weight partials over the
+    reads (plain sums in a fixed order)."""
+    DLs = gs["DL"].sum(dim=(0, 1, 3))                    # [S]
+    lam = gs["lam"] + torch.stack(
+        [DLs[st.bucket == b].sum() for b in range(2)])
+    eSZg = gs["eSZg"] + gs["GSZ"].sum(dim=-1)
+    return (gs["eR"], gs["eL"], gs["bg2"], gs["pv"], lam, gs["alphaP"],
+            gs["eSZ"], eSZg, gs["emisA"], gs["emisB"])
+
+
+def lam_total(grads, d: DiffFactors, c: ConstFactors, st):
+    """Lambda's whole cotangent from the outputs of ``finish_grads``: its
+    direct term plus what the hoisted exponentials' cotangents carry to
+    it (as autograd does in dp_parts)."""
+    lam = d.lam.detach().requires_grad_(True)
+    with torch.enable_grad():
+        h = hoisted(d._replace(lam=lam), c, st)
+        (g,) = torch.autograd.grad([h[k] for k in HOISTED], [lam],
+                                   list(grads[6:]), allow_unused=True)
+    return grads[4] + (0.0 if g is None else g)
+
+
+def _leaves(**xs):
+    return {k: v.detach().requires_grad_(True) for k, v in xs.items()}
+
+
+def _vjp(outs, gouts, leaves):
+    """torch.autograd.grad of ``outs`` against ``leaves`` (a dict),
+    seeded with ``gouts``; unused leaves give no entry."""
+    names = list(leaves)
+    gr = torch.autograd.grad(list(outs), [leaves[n] for n in names],
+                             list(gouts), allow_unused=True)
+    return {n: g for n, g in zip(names, gr) if g is not None}
+
+
+def _accumulate(gs, gr, j, st):
+    """Add the leaf cotangents of one adjoint stage at column j into gs."""
+    Lp, Wp, Cp, PAD = st.dims.Lp, st.dims.Wp, st.dims.Cp, st.PAD
+    r = j + PAD
+    iw = torch.clamp(j - torch.arange(Wp + 1, device=st.device), 0, Lp - 1)
+    win = dict(winL=("LL", Wp), winP=("P", Cp), winT1=("T1", Wp),
+               winO=("O", Wp))
+    col = dict(Lcol="LL", Pcol="P", T2col="T2")
+    for k, g in gr.items():
+        if k in win:
+            tab, n = win[k]
+            gs[tab][r - n: r] += torch.flip(g, dims=(0,))
+        elif k in col:
+            gs[col[k]][r] += g
+        elif k == "winE":
+            gs["E"][r - 1] += g
+        elif k == "winT2":
+            gs["T2"][r - 1] += g
+        elif k == "Mcol":
+            gs["gM"].copy_(g)
+        elif k == "epcol":
+            gs["gep"].copy_(g)
+        elif k == "eR":
+            gs["eR"][j - 1] += g
+        elif k == "bgr":
+            gs["bg2"][j - 1] += g
+        elif k == "eL":
+            gs["eL"].index_add_(0, iw, g)
+        elif k == "bgl":
+            gs["bg2"].index_add_(0, iw, g)
+        elif k in ("pv", "alphaP"):
+            gs[k][j] += g
+        elif k == "emisA":
+            gs["emisA"][:, :, j] += g
+        elif k == "emisB":
+            gs["emisB"][:, r - Cp: r + 1] += g
+        else:                                     # lam, eSZ
+            gs[k] += g
+
+
+@torch.enable_grad()
+def ext_adj_plain(fs, gs, j, d, c, h, st):
+    """Adjoint of the O column (K4): O window, P row j, eR, lambda."""
+    r = j + st.PAD
+    rows = col_rows(d, h, j, st)
+    lv = _leaves(winO=windows_of(fs, j, st, ("O",))["O"], Pcol=fs["P"][r],
+                 eR=rows["eR"], lam=rows["lam"])
+    rows.update(eR=lv["eR"], lam=lv["lam"])
+    out = o_col(dict(O=lv["winO"]), j, rows, c, st, lv["Pcol"])
+    _accumulate(gs, _vjp([out], [gs["O"][r]], lv), j, st)
+
+
+@torch.enable_grad()
+def e_adj_plain(fs, gs, j, d, c, h, st):
+    """Adjoint of E (K2's band_e): LL row j, the M and ep columns (into
+    gs['gM'], gs['gep']), lambda."""
+    r = j + st.PAD
+    rows = col_rows(d, h, j, st)
+    lv = _leaves(Lcol=fs["LL"][r], Mcol=fs["M"][r], epcol=fs["ep"][r],
+                 lam=rows["lam"])
+    rows.update(lam=lv["lam"])
+    out = e_col(j, rows, c, st, lv["Lcol"], lv["Mcol"], lv["epcol"])
+    gs["gM"].zero_()
+    gs["gep"].zero_()
+    _accumulate(gs, _vjp([out], [gs["E"][r]], lv), j, st)
+
+
+@torch.enable_grad()
+def ep_adj_plain(fs, gs, j, d, c, h, st):
+    """Adjoint of the internal-loop term (K3): LL and P rows j..j-Wp /
+    j-Cp, the hoisted mismatch and size weights, lambda."""
+    r = j + st.PAD
+    if not st.have_ep:
+        return
+    rows = col_rows(d, h, j, st)
+    win = windows_of(fs, j, st, ("L", "P"))
+    lv = _leaves(Lcol=fs["LL"][r], Pcol=fs["P"][r], winL=win["L"],
+                 winP=win["P"], emisA=rows["emisA"], emisB=rows["emisB"],
+                 eSZ=rows["eSZ"], lam=rows["lam"])
+    rows.update({k: lv[k] for k in ("emisA", "emisB", "eSZ", "lam")})
+    out = ep_col(dict(L=lv["winL"], P=lv["winP"]), j, rows, c, st,
+                 lv["Lcol"], lv["Pcol"])
+    _accumulate(gs, _vjp([out], [gs["gep"]], lv), j, st)
+
+
+@torch.enable_grad()
+def band_adj_plain(fs, gs, j, d, c, h, st):
+    """Adjoint of M, B/T1 and L/P/T2 (K2): the rows j-1 of LL, E, P, T2,
+    the T1 window, eR, eL, bg2, pv, alphaP, lambda."""
+    r = j + st.PAD
+    rows = col_rows(d, h, j, st)
+    win = windows_of(fs, j, st, ("L", "P", "E", "T2", "T1"))
+    lv = _leaves(winL=win["L"][:1], winP=win["P"][:1], winE=win["E"],
+                 winT2=win["T2"], winT1=win["T1"], eR=rows["eR"],
+                 eL=rows["eL"], bgl=rows["bgl"], bgr=rows["bgr"],
+                 pv=rows["pv"], alphaP=rows["alphaP"], lam=rows["lam"])
+    rows.update({k: lv[k] for k in ("eR", "eL", "bgl", "bgr", "pv",
+                                     "alphaP", "lam")})
+    w = dict(L=lv["winL"], P=lv["winP"], E=lv["winE"], T2=lv["winT2"],
+             T1=lv["winT1"])
+    L, P, T2 = front_col(w, j, rows, c, st)
+    Bc, T1 = bif_col(w, j, c, st, T2)
+    M = m_col(j, rows, c, st, Bc)
+    gr = _vjp([L, P, T2, T1, M],
+              [gs["LL"][r], gs["P"][r], gs["T2"][r], gs["T1"][r], gs["gM"]],
+              lv)
+    # winL / winP hold only row j-1 here
+    for k, tab in (("winL", "LL"), ("winP", "P")):
+        if k in gr:
+            gs[tab][r - 1] += gr.pop(k)[0]
+    _accumulate(gs, gr, j, st)
 
 
 # ---------------------------------------------- wrappers (kernel or plain)
@@ -592,11 +889,11 @@ def ext_stage_plain(state, j, d, c, h, st):
 def _stage(name: str, plain_fn):
     """Wrapper ``name``: the plain version for CPU tensors, the kernel
     wrapper ``ops.kernels.<name>`` (which launches or raises) otherwise."""
-    def stage(state, j, d, c, h, st):
+    def stage(state, *args):
         if state["O"].device.type == "cpu":
-            return plain_fn(state, j, d, c, h, st)
+            return plain_fn(state, *args)
         from . import kernels as K
-        return getattr(K, name)(state, j, d, c, h, st)
+        return getattr(K, name)(state, *args)
     stage.__name__ = stage.__qualname__ = name
     return stage
 
@@ -613,27 +910,44 @@ STAGES = (band_front, band_bif, band_m, ep_stage, band_e, ext_stage)
 PLAIN_STAGES = (band_front_plain, band_bif_plain, band_m_plain,
                 ep_stage_plain, band_e_plain, ext_stage_plain)
 
+ext_adj = _stage("ext_adj", ext_adj_plain)
+e_adj = _stage("e_adj", e_adj_plain)
+ep_adj = _stage("ep_adj", ep_adj_plain)
+band_adj = _stage("band_adj", band_adj_plain)
+
+# adjoint stages of one column, in the order the outside pass runs them
+ADJ_STAGES = (ext_adj, e_adj, ep_adj, band_adj)
+PLAIN_ADJ_STAGES = (ext_adj_plain, e_adj_plain, ep_adj_plain,
+                    band_adj_plain)
+
+HOISTED = ("eSZ", "eSZg", "emisA", "emisB")
+
 
 class _DPParts(torch.autograd.Function):
-    """[B, 3] log partition parts; the outside pass is not ported yet."""
+    """[B, 3] log partition parts.  The hoisted exponentials come in as
+    inputs, so autograd carries their cotangents on to lambda; lambda's
+    direct terms come out of the outside pass itself."""
 
     @staticmethod
-    def forward(ctx, dp, c, eR, eL, bg2, pv, lam, alphaP):
+    def forward(ctx, dp, c, eR, eL, bg2, pv, lam, alphaP, *hvals):
         d = DiffFactors(eR=eR, eL=eL, bg2=bg2, pv=pv, lam=lam,
                         alphaP=alphaP)
-        state = dp.inside_tables(d, c)
+        h = dict(zip(HOISTED, hvals))
+        state = dp.run_inside(d, c, h)
+        ctx.dp, ctx.c, ctx.d, ctx.h, ctx.state = dp, c, d, h, state
         return dp.extract_parts(state["O"], c)
 
     @staticmethod
     def backward(ctx, gbar):
-        raise NotImplementedError(
-            "dp_parts backward (the outside pass, kernel row H) is not "
-            "ported yet")
+        grads = ctx.dp.outside(ctx.state, gbar.contiguous(), ctx.d, ctx.c,
+                               ctx.h)
+        ctx.state = None
+        return (None, None) + tuple(grads)
 
 
 class InsideDP:
-    """Forward joint inside DP for one compiled grammar + dims, on one
-    device and dtype."""
+    """Joint inside DP and its outside pass for one compiled grammar +
+    dims, on one device and dtype."""
 
     def __init__(self, g, dims: Dims, energy_tab, dtype, device):
         self.st = DPStatic(g, dims, energy_tab, dtype, device)
@@ -668,11 +982,31 @@ class InsideDP:
             main.wait_stream(side)
             band_e(state, j, d, c, h, st)
 
-    def inside_tables(self, d: DiffFactors, c: ConstFactors):
-        """All inside tables (state dict, row j at j + PAD)."""
-        h, state = self.start(d, c)
+    def run_inside(self, d: DiffFactors, c: ConstFactors, h):
+        state = init_state(self.st, c.wsp.shape[-1])
         self.run_columns(state, d, c, h, 1, self.dims.Lp + 1)
         return state
+
+    def inside_tables(self, d: DiffFactors, c: ConstFactors):
+        """All inside tables (state dict, row j at j + PAD)."""
+        return self.run_inside(d, c, hoisted(d, c, self.st))
+
+    def outside_columns(self, fs, gs, d, c, h, j1: int, j0: int):
+        """Adjoint stages of columns j1-1 down to j0, in stream order:
+        column j's adjoint ends before column j-1's starts."""
+        st = self.st
+        for j in range(j1 - 1, j0 - 1, -1):
+            for stage in ADJ_STAGES:
+                stage(fs, gs, j, d, c, h, st)
+
+    def outside(self, fs, gbar, d, c, h):
+        """The outside pass (JAX dp_bwd): cotangents of (eR, eL, bg2, pv,
+        lam, alphaP, eSZ, eSZg, emisA, emisB) from the inside tables
+        ``fs`` and the parts' cotangent gbar [B, 3]."""
+        gs = init_grads(fs, d, c, h)
+        seed_parts(gs, gbar, c, self.st)
+        self.outside_columns(fs, gs, d, c, h, self.dims.Lp + 1, 1)
+        return finish_grads(gs, self.st)
 
     def extract_parts(self, Ofin, c: ConstFactors):
         """parts[b, k] = O[L_b, end_states[k], b] (ragged lengths)."""
@@ -681,8 +1015,9 @@ class InsideDP:
         return rows[:, self.st.end_states]       # [B, 3]
 
     def dp_parts(self, d: DiffFactors, c: ConstFactors):
-        return _DPParts.apply(self, c, d.eR, d.eL, d.bg2, d.pv,
-                              d.lam, d.alphaP)
+        h = hoisted(d, c, self.st)
+        return _DPParts.apply(self, c, d.eR, d.eL, d.bg2, d.pv, d.lam,
+                              d.alphaP, *[h[k] for k in HOISTED])
 
 
 def build_dp(g, dims: Dims, energy_tab, dtype=torch.float64, device="cpu"):

@@ -24,10 +24,13 @@ from pathlib import Path
 
 import torch
 
+from .dp import GRAD_TABLES
+
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 SOURCES = ("score_tables.cu", "inside_band.cu", "inside_ep.cu",
-           "inside_ext.cu")
+           "inside_ext.cu", "outside_band.cu", "outside_ep.cu",
+           "outside_ext.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 LIB_NAME = "librnaelem_kernels.so"
@@ -53,6 +56,15 @@ KERNELS = {
     "inside_ext": Kernel("inside_ext",
                          "rnaelem_tpu_torch/csrc/inside_ext.cu",
                          "rnaelem_tpu/ops/dp.py:601"),
+    "outside_band": Kernel("outside_band",
+                           "rnaelem_tpu_torch/csrc/outside_band.cu",
+                           "rnaelem_tpu/ops/dp.py:788"),
+    "outside_ep": Kernel("outside_ep",
+                         "rnaelem_tpu_torch/csrc/outside_ep.cu",
+                         "rnaelem_tpu/ops/dp.py:788"),
+    "outside_ext": Kernel("outside_ext",
+                          "rnaelem_tpu_torch/csrc/outside_ext.cu",
+                          "rnaelem_tpu/ops/dp.py:788"),
 }
 
 
@@ -131,7 +143,7 @@ def build(extra_flags=()) -> tuple:
 class DPDims(ctypes.Structure):
     _fields_ = [(n, ctypes.c_int) for n in (
         "Lp", "Wp", "Cp", "S", "B", "PAD", "j", "n13", "n_ar", "n2",
-        "n_cls", "Tp", "fix_rss", "no_ene")]
+        "n_cls", "Tp", "fix_rss", "no_ene", "n_pt")]
 
 
 N_TABLES = 23
@@ -154,7 +166,16 @@ BAND_IDX = ("rt_off", "rt_s", "rt_w", "lt_off", "lt_s", "lt_w", "pt_lt",
 EP_IDX = ("p13_s1", "p13_s3", "ar_off", "ar_p", "k2_s2", "k2_ar", "k2_bu",
           "k2_off", "k2_idx")
 EXT_IDX = ("rt_off", "rt_s", "rt_w", "bucket", "op_off", "op_a", "op_c")
+ADJ_IDX = ("rt_off", "rt_s", "rt_w", "rtr_off", "rtr_t", "rtr_w", "ltr_off",
+           "ltr_t", "ltr_w", "pt_lt", "loopm", "bucket", "pt_code", "pt_wl",
+           "pt_wr", "ptl_t", "ptl_s", "b12a_off", "b12a_t", "b12a_c",
+           "b12c_off", "b12c_t", "b12c_a", "op_off", "op_a", "op_c",
+           "opa_off", "opa_t", "opa_c", "opc_off", "opc_t", "opc_a",
+           "p13_s1", "p13_s3", "p13_ar", "ar_off", "ar_p", "s1_off", "s1_k",
+           "s3_off", "s3_k", "k2_s2", "k2_ar", "k2_bu", "k2_tgt", "k2_off",
+           "k2_idx", "k2a_off", "k2a_k")
 BandIdx = _ptr_struct("BandIdx", BAND_IDX)
+AdjIdx = _ptr_struct("AdjIdx", ADJ_IDX)
 EpIdx = _ptr_struct("EpIdx", EP_IDX)
 ExtIdx = _ptr_struct("ExtIdx", EXT_IDX)
 
@@ -171,6 +192,25 @@ _SIGS = {
     "ep_v": ((DPDims,), 6),
     "ep_out": ((DPDims, EpIdx), 9),
     "ext_col": ((DPDims, ExtIdx), 6),
+    "ext_adj": ((DPDims, AdjIdx), 10),
+    "ext_adj_chain": ((DPDims, AdjIdx), 4),
+    "e_adj": ((DPDims, AdjIdx), 12),
+    "m_adj": ((DPDims, AdjIdx), 8),
+    "t1_adj": ((DPDims,), 6),
+    "bif_adj_t1": ((DPDims, AdjIdx), 5),
+    "bif_adj_t2": ((DPDims, AdjIdx), 5),
+    "front_adj_t": ((DPDims, AdjIdx), 17),
+    "front_adj_s": ((DPDims, AdjIdx), 17),
+    "front_adj_wb": ((DPDims, AdjIdx), 12),
+    "front_adj_red": ((DPDims,), 4),
+    "ep_go": ((DPDims, AdjIdx), 11),
+    "ep_gv": ((DPDims, AdjIdx), 11),
+    "ep_gtw": ((DPDims,), 8),
+    "ep_gmb": ((DPDims,), 5),
+    "ep_gma": ((DPDims,), 5),
+    "ep_gsz": ((DPDims,), 5),
+    "ep_gp": ((DPDims, AdjIdx), 10),
+    "ep_gl3": ((DPDims, AdjIdx), 10),
 }
 _SUF = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -284,7 +324,7 @@ def _check_column(state, j, d, c, h, st):
     for k in TABLE_KEYS:
         _req(state[k], k, dt, (R, W1, S, B), dev)
     _req(state["O"], "O", dt, (R, S, B), dev)
-    _req(state["ep"], "ep", dt, (W1, S, B), dev)
+    _req(state["ep"], "ep", dt, (R, W1, S, B), dev)
     Tp = d.pv.shape[2]
     for name, t, shape in (
             ("eR", d.eR, (Lp, S, B)), ("eL", d.eL, (Lp, S, B)),
@@ -310,7 +350,7 @@ def _dims(st, state, j, d):
     D = st.dims
     return DPDims(D.Lp, D.Wp, D.Cp, D.S, state["O"].shape[-1], st.PAD, j,
                   st.n13, st.n_ar, st.n2, st.n_cls, d.pv.shape[2],
-                  int(D.fix_rss), int(D.no_ene))
+                  int(D.fix_rss), int(D.no_ene), st.n_pt)
 
 
 def _idx(st, cls, fields):
@@ -318,7 +358,9 @@ def _idx(st, cls, fields):
     it points into live in st.k)."""
     cache = st.__dict__.setdefault("_cidx", {})
     if cls.__name__ not in cache:
-        cache[cls.__name__] = cls(*[st.k[f].data_ptr() for f in fields])
+        # lists a grammar lacks (no internal loops) are null pointers
+        cache[cls.__name__] = cls(*[st.k[f].data_ptr() if f in st.k else 0
+                                    for f in fields])
     return cache[cls.__name__]
 
 
@@ -357,14 +399,17 @@ def band_e(state, j, d, c, h, st):
     _check_column(state, j, d, c, h, st)
     _call("inside_band", "band_e", st.dtype, _dims(st, state, j, d),
           _band_idx(st), _p(state["E"]), _p(state["LL"]), _p(state["M"]),
-          _p(state["ep"]), _p(d.lam), _p(c.hp), _p(c.mlE), _p(c.okE))
+          _p(state["ep"][j + st.PAD]), _p(d.lam), _p(c.hp), _p(c.mlE),
+          _p(c.okE))
 
 
 def ep_stage(state, j, d, c, h, st):
-    """K3: the TT_E_P internal-loop term of column j into state['ep']."""
+    """K3: the TT_E_P internal-loop term of column j into row j of the
+    ep table."""
     _check_column(state, j, d, c, h, st)
+    ep_row = state["ep"][j + st.PAD]
     if not st.have_ep:
-        state["ep"].fill_(float("-inf"))
+        ep_row.fill_(float("-inf"))
         return
     dt, dev = st.dtype, state["O"].device
     B = state["O"].shape[-1]
@@ -385,15 +430,24 @@ def ep_stage(state, j, d, c, h, st):
     ix = _idx(st, EpIdx, EP_IDX)
     _call("inside_ep", "ep_rowmax", dt, D, _p(state["P"]), _p(state["LL"]),
           _p(scr["rowmax"]))
-    _call("inside_ep", "ep_shift", dt, D, _p(scr["rowmax"]),
-          _p(scr["shift"]))
-    _call("inside_ep", "ep_t", dt, D, ix, _p(state["P"]), _p(state["LL"]),
-          _p(c.dots_cum), _p(scr["shift"]), _p(scr["T"]))
-    _call("inside_ep", "ep_v", dt, D, _p(scr["T"]), _p(h["emisA"]),
-          _p(h["emisB"]), _p(h["eSZg"]), _p(c.C), _p(scr["V"]))
+    _ep_tv(state, j, d, c, h, st)
     _call("inside_ep", "ep_out", dt, D, ix, _p(state["P"]), _p(state["LL"]),
           _p(scr["V"]), _p(scr["shift"]), _p(c.dots_cum),
-          _p(c.ep["spec_il"]), _p(d.lam), _p(c.C), _p(state["ep"]))
+          _p(c.ep["spec_il"]), _p(d.lam), _p(c.C), _p(ep_row))
+
+
+def _ep_tv(state, j, d, c, h, st):
+    """K3's shifts, T and V of column j into the state's scratch (rows
+    up to j must be final and in the per-row maxima)."""
+    dt, scr = st.dtype, state["_ep_scratch"]
+    D = _dims(st, state, j, d)
+    _call("inside_ep", "ep_shift", dt, D, _p(scr["rowmax"]),
+          _p(scr["shift"]))
+    _call("inside_ep", "ep_t", dt, D, _idx(st, EpIdx, EP_IDX),
+          _p(state["P"]), _p(state["LL"]), _p(c.dots_cum), _p(scr["shift"]),
+          _p(scr["T"]))
+    _call("inside_ep", "ep_v", dt, D, _p(scr["T"]), _p(h["emisA"]),
+          _p(h["emisB"]), _p(h["eSZg"]), _p(c.C), _p(scr["V"]))
 
 
 def ext_stage(state, j, d, c, h, st):
@@ -403,3 +457,130 @@ def ext_stage(state, j, d, c, h, st):
     _call("inside_ext", "ext_col", st.dtype, _dims(st, state, j, d), ix,
           _p(state["O"]), _p(state["P"]), _p(d.eR), _p(c.gate_O2),
           _p(c.ext), _p(d.lam))
+
+
+# ----------------------------------------- K5-K7 outside (adjoint) stages
+#
+# Each takes the inside tables ``fs`` of a CUDA forward and the gradient
+# state ``gs`` of ops.dp.init_grads, and adds the cotangents of column j's
+# stage inputs into gs, on the current stream (same signatures as the
+# plain versions ops.dp.*_adj_plain).
+
+def _check_adj(fs, gs, j, d, c, h, st):
+    _check_column(fs, j, d, c, h, st)
+    key = (id(fs), id(d), id(c), id(h), id(st))
+    if gs.get("_checked") == key:
+        return
+    dev, dt = fs["O"].device, st.dtype
+    for k in GRAD_TABLES:
+        _req(gs[k], "grad " + k, dt, fs[k].shape, dev)
+    col = fs["LL"].shape[1:]
+    for k in ("gM", "gB", "gep"):
+        _req(gs[k], "grad " + k, dt, col, dev)
+    for k, ref in (("eR", d.eR), ("eL", d.eL), ("bg2", d.bg2),
+                   ("pv", d.pv), ("alphaP", d.alphaP),
+                   ("emisA", h["emisA"]), ("emisB", h["emisB"])):
+        _req(gs[k], "grad " + k, dt, ref.shape, dev)
+    _req(gs["DL"], "grad DL", dt, fs["LL"][: st.dims.Lp + 1].shape, dev)
+    _req(gs["GSZ"], "grad GSZ", dt,
+         tuple(h["eSZg"].shape) + (fs["O"].shape[-1],), dev)
+    gs["_checked"] = key
+
+
+def _adj_scratch(gs, st, B, dev):
+    scr = gs.get("_adj_scratch")
+    if scr is None:
+        W1, C1, S, dt = st.dims.Wp + 1, st.dims.Cp + 1, st.dims.S, st.dtype
+        e = lambda *shape: torch.empty(shape, dtype=dt, device=dev)
+        # K6's chain scratch is double at either type (outside_ep.cu)
+        a = lambda *shape: torch.empty(shape, dtype=torch.float64,
+                                       device=dev)
+        scr = dict(ePart=e(W1, S, B), bgp=e(W1, B))
+        if st.have_ep:
+            scr.update(GO=a(W1, S, B), gV=a(2, W1, C1, st.n_ar, B),
+                       gT=a(C1, W1, st.n_ar, B), gW=a(2, C1, W1, C1, B))
+        gs["_adj_scratch"] = scr
+    return scr
+
+
+def ext_adj(fs, gs, j, d, c, h, st):
+    """K7: adjoint of the O column j."""
+    _check_adj(fs, gs, j, d, c, h, st)
+    D, ix, dt = _dims(st, fs, j, d), _idx(st, AdjIdx, ADJ_IDX), st.dtype
+    _call("outside_ext", "ext_adj", dt, D, ix, _p(fs["O"]), _p(fs["P"]),
+          _p(d.eR), _p(c.gate_O2), _p(c.ext), _p(d.lam), _p(gs["O"]),
+          _p(gs["P"]), _p(gs["eR"]), _p(gs["DL"]))
+    _call("outside_ext", "ext_adj_chain", dt, D, ix, _p(fs["O"]), _p(d.eR),
+          _p(c.gate_O2), _p(gs["O"]))
+
+
+def e_adj(fs, gs, j, d, c, h, st):
+    """K5: adjoint of E at column j (fills gs['gM'] and gs['gep'])."""
+    _check_adj(fs, gs, j, d, c, h, st)
+    D, ix, dt = _dims(st, fs, j, d), _idx(st, AdjIdx, ADJ_IDX), st.dtype
+    _call("outside_band", "e_adj", dt, D, ix, _p(fs["E"]), _p(fs["LL"]),
+          _p(fs["M"]), _p(fs["ep"]), _p(d.lam), _p(c.hp), _p(c.mlE),
+          _p(gs["E"]), _p(gs["LL"]), _p(gs["gM"]), _p(gs["gep"]),
+          _p(gs["DL"]))
+
+
+def ep_adj(fs, gs, j, d, c, h, st):
+    """K6: adjoint of the internal-loop term at column j (K3's shifts, T
+    and V are recomputed first)."""
+    _check_adj(fs, gs, j, d, c, h, st)
+    if not st.have_ep:
+        return
+    D, ix, dt = _dims(st, fs, j, d), _idx(st, AdjIdx, ADJ_IDX), st.dtype
+    _ep_tv(fs, j, d, c, h, st)
+    fscr = fs["_ep_scratch"]
+    scr = _adj_scratch(gs, st, fs["O"].shape[-1], fs["O"].device)
+    ctx = (_p(fs["P"]), _p(fs["LL"]), _p(fscr["shift"]),
+           _p(c.ep["spec_il"]), _p(d.lam), _p(c.dots_cum), _p(c.C))
+    _call("outside_ep", "ep_go", dt, D, ix, *ctx, _p(fs["ep"]),
+          _p(gs["gep"]), _p(scr["GO"]), _p(gs["DL"]))
+    _call("outside_ep", "ep_gv", dt, D, ix, *ctx, _p(fscr["V"]),
+          _p(scr["GO"]), _p(scr["gV"]), _p(gs["LL"]))
+    _call("outside_ep", "ep_gtw", dt, D, _p(fscr["T"]), _p(scr["gV"]),
+          _p(h["emisA"]), _p(h["emisB"]), _p(h["eSZg"]), _p(c.C),
+          _p(scr["gT"]), _p(scr["gW"]))
+    _call("outside_ep", "ep_gmb", dt, D, _p(scr["gW"]), _p(h["emisA"]),
+          _p(h["eSZg"]), _p(c.C), _p(gs["emisB"]))
+    _call("outside_ep", "ep_gma", dt, D, _p(scr["gW"]), _p(h["emisB"]),
+          _p(h["eSZg"]), _p(c.C), _p(gs["emisA"]))
+    _call("outside_ep", "ep_gsz", dt, D, _p(scr["gW"]), _p(h["emisA"]),
+          _p(h["emisB"]), _p(c.C), _p(gs["GSZ"]))
+    _call("outside_ep", "ep_gp", dt, D, ix, *ctx, _p(scr["gT"]),
+          _p(scr["GO"]), _p(gs["P"]))
+    _call("outside_ep", "ep_gl3", dt, D, ix, *ctx, _p(scr["gT"]),
+          _p(scr["GO"]), _p(gs["LL"]))
+
+
+def band_adj(fs, gs, j, d, c, h, st):
+    """K5: adjoint of M, B/T1 and L/P/T2 at column j."""
+    _check_adj(fs, gs, j, d, c, h, st)
+    D, ix, dt = _dims(st, fs, j, d), _idx(st, AdjIdx, ADJ_IDX), st.dtype
+    scr = _adj_scratch(gs, st, fs["O"].shape[-1], fs["O"].device)
+    f, g = fs, gs
+    _call("outside_band", "m_adj", dt, D, ix, _p(f["M"]), _p(f["Bt"]),
+          _p(d.eL), _p(c.gate_M), _p(c.okM), _p(g["gM"]), _p(g["gB"]),
+          _p(g["eL"]))
+    _call("outside_band", "t1_adj", dt, D, _p(f["T1"]), _p(f["T2"]),
+          _p(f["Bt"]), _p(g["T1"]), _p(g["T2"]), _p(g["gB"]))
+    for side, out in (("t1", "T1"), ("t2", "T2")):
+        _call("outside_band", "bif_adj_" + side, dt, D, ix, _p(f["T1"]),
+              _p(f["T2"]), _p(f["Bt"]), _p(g["gB"]), _p(g[out]))
+    _call("outside_band", "front_adj_t", dt, D, ix, _p(f["LL"]), _p(f["P"]),
+          _p(f["T2"]), _p(d.eR), _p(d.bg2), _p(d.pv), _p(d.alphaP),
+          _p(c.wsp), _p(d.lam), _p(c.stk), _p(c.ml2), _p(c.gate_O2),
+          _p(g["LL"]), _p(g["P"]), _p(g["T2"]), _p(g["DL"]),
+          _p(scr["ePart"]))
+    _call("outside_band", "front_adj_s", dt, D, ix, _p(f["LL"]), _p(f["P"]),
+          _p(f["T2"]), _p(f["E"]), _p(d.eR), _p(d.bg2), _p(d.pv),
+          _p(d.alphaP), _p(c.wsp), _p(d.lam), _p(c.stk), _p(c.gate_O2),
+          _p(g["LL"]), _p(g["P"]), _p(g["P"]), _p(g["T2"]), _p(g["E"]))
+    _call("outside_band", "front_adj_wb", dt, D, ix, _p(f["P"]), _p(f["E"]),
+          _p(d.bg2), _p(d.pv), _p(d.alphaP), _p(c.wsp), _p(d.lam),
+          _p(c.stk), _p(g["P"]), _p(g["pv"]), _p(g["alphaP"]),
+          _p(scr["bgp"]))
+    _call("outside_band", "front_adj_red", dt, D, _p(scr["ePart"]),
+          _p(scr["bgp"]), _p(g["eR"]), _p(g["bg2"]))

@@ -11,8 +11,8 @@ Replicates the function half of RNAelemTrainDP::operator()
 * reads whose partition functions are non-finite contribute nothing
   (motif_trainer.hpp:211-214).
 
-The gradient (batch_fn_grad / eval_file) needs the DP's outside pass and
-is not ported yet.
+``batch_fn_grad`` adds the gradient (through the DP's outside pass) and
+``eval_file`` evaluates a whole FASTQ file (motif_eval.hpp:23-54).
 """
 from __future__ import annotations
 
@@ -178,3 +178,51 @@ def batch_total(cfg: J.ModelConfig, params: J.Params, batch: BatchData,
                                device=device)
     f, eff = _per_read_terms(cfg, parts, batch, lik_ratio)
     return f.sum(), eff.sum()
+
+
+def batch_fn_grad(cfg: J.ModelConfig, params: J.Params, batch: BatchData,
+                  lik_ratio: bool = False, device=None):
+    """(fn, grads as Params, sum eff) over a batch."""
+    leaves = J.Params(*[x.detach().requires_grad_(True) for x in params])
+    with torch.enable_grad():
+        fn, eff = batch_total(cfg, leaves, batch, lik_ratio, device)
+        gr = torch.autograd.grad(fn, list(leaves), allow_unused=True)
+    grads = J.Params(*[torch.zeros_like(x) if g is None else g
+                       for x, g in zip(leaves, gr)])
+    return fn.detach(), grads, eff
+
+
+def assigned_range(N: int, n: int, tid: int):
+    """Balanced contiguous slice for distributed eval slaves
+    (arrayjob_manager.hpp:143-151); tid is 0-based here."""
+    base, rem = divmod(N, n)
+    start = tid * base + min(tid, rem)
+    return start, start + base + (1 if tid < rem else 0)
+
+
+def eval_file(cfg: J.ModelConfig, params: J.Params, fq_path: str,
+              lik_ratio: bool = False, batch_size: int = 0, shard=None,
+              device=None):
+    """Full-file fn/gr evaluation (motif_eval.hpp:23-54, no-shuffle).
+
+    shard=(tid, n) restricts to the tid-th of n contiguous slices (the
+    array-eval slave path).  Returns (fn, flat_grad, sum_eff) with the
+    gradient in the reference's parameter order (pack_params).
+    """
+    from ..io.fastq import FastqReader
+    dev = DEV.resolve(device)
+    reads = [(r.seq, r.qual) for r in FastqReader(fq_path).reads()]
+    if shard is not None:
+        lo, hi = assigned_range(len(reads), shard[1], shard[0])
+        reads = reads[lo:hi]
+    g = J.kernels(cfg, dev).g
+    fn_total, eff_total, acc = 0.0, 0.0, None
+    bs = batch_size or len(reads)
+    for k in range(0, len(reads), bs):
+        batch = stack_reads(cfg, reads[k:k + bs], device=dev)
+        fn, grads, eff = batch_fn_grad(cfg, params, batch, lik_ratio, dev)
+        fn_total += float(fn)
+        eff_total += float(eff)
+        acc = grads if acc is None else J.Params(
+            *[a + b for a, b in zip(acc, grads)])
+    return fn_total, J.pack_params(g, acc), eff_total

@@ -1,63 +1,83 @@
-"""The port's objective function value against the RNAelem C++ goldens, and
-its model files and weight carry-over against the JAX package.
+"""The port's objective value and gradient against the RNAelem C++ goldens,
+and its model files and weight carry-over against the JAX package.
 
-Golden values in tests/golden/eval_{0,1,3}.fn come from the reference's
-eval path (motif_eval.hpp, TR_NORMAL|TR_NO_SHUFFLE) on fixtures
-{0,1,3}.model x 0.fq, the same bar as test_grad_golden.py.  The pair
-masks (min-bpp 1e-4 pruning) come from the JAX package until the port's
-outside pass exists; model 2 is the no-rss model (kernel row J, not
-ported yet).
+Golden values in tests/golden/eval_{0,1,3}.{fn,gr} come from the
+reference's eval path (motif_eval.hpp, TR_NORMAL|TR_NO_SHUFFLE) on
+fixtures {0,1,3}.model x 0.fq, the same bar as test_grad_golden.py.  The
+port computes its own min-BPP pruning masks; model 2 is the no-rss model
+(kernel row J, not ported yet).
 """
 import io
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
 import torch
 
-import jax
-import jax.numpy as jnp
-
 from rnaelem_tpu.model import io as JIO
-from rnaelem_tpu.model import joint as JJ
-from rnaelem_tpu_torch.io.fastq import FastqReader
 from rnaelem_tpu_torch.model import io as TIO
 from rnaelem_tpu_torch.model.convert import params_from_numpy
 from rnaelem_tpu_torch.train import objective as OBJ
 
+# the CPU path is many small torch ops: one thread per test process
+# (xdist worker) keeps parallel workers from oversubscribing the cores
+torch.set_num_threads(1)
+
 HERE = os.path.dirname(__file__)
 FIX = os.path.join(HERE, "fixtures")
 GOLD = os.path.join(HERE, "golden")
+ROOT = os.path.dirname(HERE)
 LP = 48
 
 
-def _golden_fn(x):
+def _golden(x):
     with open(os.path.join(GOLD, "eval_%s.fn" % x)) as f:
-        return float(f.read().split(":")[1])
-
-
-def _jax_masks(cfg_t, reads):
-    """min_bpp pruning masks from the JAX package (pattern-free)."""
-    cj = JJ.ModelConfig(**{**cfg_t.__dict__, "pattern": "."})
-    JJ.kernels(cj)  # build constants eagerly, outside the jit trace
-    sds = [JJ.make_seqdata(cj, s, q) for s, q in reads]
-    sd = jax.tree.map(lambda *x: jnp.asarray(np.stack(x)), *sds)
-    bp, eff = JJ._effective_bp_mask_batch_jit(cj, sd)
-    return np.array(bp), np.array(eff)
+        fn = float(f.read().split(":")[1])
+    with open(os.path.join(GOLD, "eval_%s.gr" % x)) as f:
+        s = f.read()
+        gr = np.array([float(v) for v in
+                       s[s.find("[") + 1: s.rfind("]")].split(",")])
+    return fn, gr
 
 
 @pytest.mark.parametrize("x", ["0", "1", "3"])
 def test_fn_matches_reference(x):
+    """fn and gr of eval_file (the port's own masks) to 1e-6."""
+    fn_g, gr_g = _golden(x)
     cfg, params = TIO.read_model(os.path.join(FIX, "%s.model" % x), Lp=LP,
                                  device="cpu")
-    reads = [(r.seq, r.qual) for r in
-             FastqReader(os.path.join(FIX, "0.fq")).reads()]
-    masks = _jax_masks(cfg, reads)
-    batch = OBJ.stack_reads(cfg, reads, bp_fn=lambda *a: masks,
-                            device="cpu")
-    fn, eff = OBJ.batch_total(cfg, params, batch, device="cpu")
-    assert float(fn) == pytest.approx(_golden_fn(x), abs=1e-6)
-    assert float(eff) == pytest.approx(float(masks[1].sum()), abs=1e-12)
+    fn, gr, eff = OBJ.eval_file(cfg, params, os.path.join(FIX, "0.fq"),
+                                device="cpu")
+    assert fn == pytest.approx(fn_g, abs=1e-6)
+    assert gr.shape == gr_g.shape
+    np.testing.assert_allclose(gr, gr_g, rtol=0, atol=1e-6)
+    assert 0 < eff <= 2
+
+
+def test_cli_eval_matches_reference(tmp_path):
+    """python -m rnaelem_tpu_torch.cli eval writes the JAX CLI's fn:/gr:
+    lines (%.17g), and their values meet the goldens."""
+    fn_g, gr_g = _golden("1")
+    out1, out2 = tmp_path / "fn.txt", tmp_path / "gr.txt"
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    r = subprocess.run(
+        [sys.executable, "-m", "rnaelem_tpu_torch.cli", "eval",
+         "-f", os.path.join(FIX, "0.fq"), "-q", os.path.join(FIX, "1.model"),
+         "--out1", str(out1), "--out2", str(out2), "--device", "cpu"],
+        cwd=str(tmp_path), env=env, capture_output=True, text=True,
+        timeout=600)
+    assert r.returncode == 0, r.stderr
+    fn_line, = out1.read_text().splitlines()
+    gr_line, = out2.read_text().splitlines()
+    assert fn_line.startswith("fn: ") and gr_line.startswith("gr: [")
+    fn = float(fn_line[4:])
+    gr = np.array([float(v) for v in gr_line[5:-1].split(",")])
+    assert fn_line == "fn: %.17g" % fn
+    assert gr_line == "gr: [" + ",".join("%.17g" % v for v in gr) + "]"
+    assert fn == pytest.approx(fn_g, abs=1e-6)
+    np.testing.assert_allclose(gr, gr_g, rtol=0, atol=1e-6)
 
 
 @pytest.mark.parametrize("x", ["0", "1", "2", "3"])

@@ -1,6 +1,6 @@
-"""The port stands alone: importing every module of rnaelem_tpu_torch pulls
-in neither JAX nor the JAX package, and its entry points run on CUDA
-unless the caller passes device="cpu"."""
+"""The port stands alone: importing every module of rnaelem_tpu_torch (the
+command line included) pulls in neither JAX nor the JAX package, and its
+entry points run on CUDA unless the caller passes device="cpu"."""
 import os
 import pkgutil
 import subprocess
@@ -11,10 +11,15 @@ import pytest
 import torch
 
 import rnaelem_tpu_torch
+from rnaelem_tpu_torch import cli as CLI
 from rnaelem_tpu_torch.model import io as TIO
 from rnaelem_tpu_torch.model import joint as TJ
 from rnaelem_tpu_torch.model.convert import params_from_numpy
 from rnaelem_tpu_torch.train import objective as OBJ
+
+# the CPU path is many small torch ops: one thread per test process
+# (xdist worker) keeps parallel workers from oversubscribing the cores
+torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -27,6 +32,7 @@ def _modules():
 def test_every_module_imports_without_jax():
     mods = _modules()
     assert "rnaelem_tpu_torch.ops.kernels" in mods and len(mods) >= 15
+    assert "rnaelem_tpu_torch.cli" in mods
     code = ("import importlib, sys\n"
             "for m in %r:\n"
             "    importlib.import_module(m)\n"
@@ -45,6 +51,7 @@ def _entry_points():
     cfg = TJ.ModelConfig(pattern="(.)", Lp=12, max_span=12, max_iloop=4,
                          min_bpp=0.0)
     fix = os.path.join(ROOT, "tests", "fixtures", "0.model")
+    fq = os.path.join(ROOT, "tests", "fixtures", "0.fq")
     reads = [(np.array([1, 2, 3, 4, 1, 2]), np.full(7, 10))]
     return [
         ("init_params", lambda: TJ.init_params(
@@ -55,6 +62,13 @@ def _entry_points():
         ("params_from_numpy", lambda: params_from_numpy(
             np.zeros((2, 4)), np.zeros((1, 6)), np.ones(2))),
         ("stack_reads", lambda: OBJ.stack_reads(cfg, reads)),
+        ("batch_fn_grad", lambda: OBJ.batch_fn_grad(
+            cfg, TJ.init_params(TJ.kernels(cfg, "cpu").g, cfg, device="cpu"),
+            OBJ.stack_reads(cfg, reads, device="cpu"))),
+        ("eval_file", lambda: OBJ.eval_file(cfg, None, fq)),
+        ("bpp_posterior", lambda: TJ.bpp_posterior(
+            cfg, TJ.make_seqdata(cfg, reads[0][0]))),
+        ("cli eval", lambda: CLI.main(["eval", "-f", fq, "-q", fix])),
     ]
 
 

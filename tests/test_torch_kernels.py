@@ -14,6 +14,10 @@ from rnaelem_tpu_torch.ops import dp as DP
 from rnaelem_tpu_torch.ops import kernels as K
 from rnaelem_tpu_torch.train import objective as OBJ
 
+# the CPU path is many small torch ops: one thread per test process
+# (xdist worker) keeps parallel workers from oversubscribing the cores
+torch.set_num_threads(1)
+
 
 def _batch(cfg, device, n=5, seed=0):
     rng = np.random.RandomState(seed)
@@ -39,7 +43,8 @@ def _need_cuda():
 
 @pytest.mark.parametrize("name", ["score_tables", "band_front", "band_bif",
                                   "band_m", "band_e", "ep_stage",
-                                  "ext_stage"])
+                                  "ext_stage", "ext_adj", "e_adj", "ep_adj",
+                                  "band_adj"])
 def test_kernel_wrappers_reject_cpu_tensors(name):
     """A wrapper launches its kernel or raises: handed CPU tensors it
     raises before building anything (the CPU path is the dispatcher's
@@ -57,8 +62,11 @@ def test_kernel_wrappers_reject_cpu_tensors(name):
     params = J.init_params(k.g, cfg, device="cpu")
     d, c = J.batch_factors(cfg, params, batch.sd, batch.bp_ok, device="cpu")
     h, state = k.dp.start(d, c)
+    args = (state, 1, d, c, h, k.dp.st)
+    if name.endswith("_adj"):
+        args = (state, DP.init_grads(state, d, c, h)) + args[1:]
     with pytest.raises(ValueError, match="CUDA"):
-        getattr(K, name)(state, 1, d, c, h, k.dp.st)
+        getattr(K, name)(*args)
 
 
 @pytest.mark.gpu
@@ -106,7 +114,8 @@ def test_inside_kernels_match_plain(pattern, dtype, tol):
     K.reset_counts()
     got = J.batch_logZ_parts(cfg, pc, sdc, batch.bp_ok.cuda(), device="cuda")
     torch.cuda.synchronize()
-    assert all(kk.launches > 0 for kk in K.KERNELS.values())
+    for name in ("score_tables", "inside_band", "inside_ep", "inside_ext"):
+        assert K.KERNELS[name].launches > 0, name
     fin = torch.isfinite(ref)
     assert torch.equal(fin, torch.isfinite(got.cpu()))
     assert float((got.cpu().double() - ref)[fin].abs().max()) <= tol
@@ -191,3 +200,99 @@ def test_column_stages_match_plain():
             fin = torch.isfinite(b)
             assert torch.all((a[fin] - b[fin]).abs()
                              <= 1e-9 * b[fin].abs().clamp(min=1)), key
+
+
+def _adj_inputs(cfg, device, seed=3):
+    """Factors of a random batch with randomized weights, the kernel
+    forward's tables and a random parts cotangent."""
+    batch = _batch(cfg, device, seed=seed)
+    k = J.kernels(cfg, device)
+    rng = np.random.RandomState(seed)
+    p = J.init_params(k.g, cfg, device="cpu", dtype="float64")
+    dt = torch.float32 if cfg.dtype == "float32" else torch.float64
+    f = lambda x: torch.as_tensor(x, dtype=dt, device=device)
+    p = J.Params(f(p.singles.numpy() + 0.3 * rng.randn(*p.singles.shape)),
+                 f(p.pairs.numpy() + 0.3 * rng.randn(*p.pairs.shape)),
+                 f(np.array([0.8, 1.2])))
+    d, c = J.batch_factors(cfg, p, batch.sd, batch.bp_ok, device=device)
+    h = DP.hoisted(d, c, k.dp.st)
+    fs = k.dp.run_inside(d, c, h)
+    gbar = f(rng.rand(c.wsp.shape[-1], 3))
+    return k.dp, d, c, h, fs, gbar
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pattern", ["(.....)", "(.*)", "..*.."])
+@pytest.mark.parametrize("dtype,tol", [("float64", 1e-9), ("float32", 1e-4)])
+def test_outside_kernels_match_plain(pattern, dtype, tol):
+    """K5-K7 (ext_adj, e_adj, ep_adj, band_adj) one stage at a time on
+    column j0 against their plain adjoints, on identical inputs: the
+    cotangent tables below j0 and every row cotangent, relative to its
+    max norm."""
+    _need_cuda()
+    cfg = _cfg(dtype, pattern)
+    dp, d, c, h, fs, gbar = _adj_inputs(cfg, "cuda")
+    st, j0 = dp.st, 25
+    gs = DP.init_grads(fs, d, c, h)
+    DP.seed_parts(gs, gbar, c, st)
+    dp.outside_columns(fs, gs, d, c, h, cfg.Lp + 1, j0 + 1)
+    K.reset_counts()
+    for stage, plain in zip(DP.ADJ_STAGES, DP.PLAIN_ADJ_STAGES):
+        kg = {k_: v.clone() for k_, v in gs.items() if not k_.startswith("_")}
+        stage(fs, kg, j0, d, c, h, st)
+        plain(fs, gs, j0, d, c, h, st)
+        rows = j0 + st.PAD + (0 if stage.__name__ == "band_adj" else 1)
+        pairs = [(kg[k_][:rows], gs[k_][:rows]) for k_ in DP.GRAD_TABLES]
+        pairs += [(kg[k_], gs[k_]) for k_ in
+                  ("eR", "eL", "bg2", "pv", "alphaP", "emisA", "emisB")]
+        for a, b in pairs:
+            assert not torch.isnan(a).any(), stage.__name__
+            scale = max(1.0, float(b.abs().max()))
+            assert float((a - b).abs().max()) <= tol * scale, stage.__name__
+    for name in ("outside_band", "outside_ep", "outside_ext"):
+        assert K.KERNELS[name].launches > 0, name
+
+
+@pytest.mark.gpu
+def test_outside_pass_kernels_match_plain_and_repeat_bitwise():
+    """The whole outside pass at f64: kernels vs plain versions on the
+    same forward tables, and two kernel runs give the same bits."""
+    _need_cuda()
+    cfg = _cfg("float64")
+    dp, d, c, h, fs, gbar = _adj_inputs(cfg, "cuda", seed=4)
+    got = dp.outside(fs, gbar, d, c, h)
+    again = dp.outside(fs, gbar, d, c, h)
+    gs = DP.init_grads(fs, d, c, h)
+    DP.seed_parts(gs, gbar, c, dp.st)
+    for j in range(cfg.Lp, 0, -1):
+        for plain in DP.PLAIN_ADJ_STAGES:
+            plain(fs, gs, j, d, c, h, dp.st)
+    want = DP.finish_grads(gs, dp.st)
+    for a, a2 in zip(got, again):
+        assert torch.equal(a, a2)
+    # the kernels carry the size weights' cotangent on eSZg, the plain
+    # version on eSZ: lambda's whole cotangent compares
+    pairs = list(zip(got[:4], want[:4])) + [
+        (got[5], want[5]), (DP.lam_total(got, d, c, dp.st),
+                            DP.lam_total(want, d, c, dp.st))]
+    for a, b in pairs:
+        scale = max(1.0, float(b.abs().max()))
+        assert float((a - b).abs().max()) <= 1e-9 * scale
+
+
+@pytest.mark.gpu
+def test_bpp_masks_kernels_match_plain():
+    """The S=1 pass of the min-BPP masks: posteriors through K1-K7 at f64
+    against the same function on the CPU (plain versions)."""
+    _need_cuda()
+    cfg = J.ModelConfig(pattern="(.....)", Lp=40, max_span=24, max_iloop=12,
+                        min_bpp=1e-4, dtype="float64")
+    batch = _batch(cfg, "cpu", seed=6)
+    zc, pc, bc = J.bpp_posterior_batch(cfg, batch.sd, device="cpu")
+    sd = J.SeqData(*[x.cuda() for x in batch.sd])
+    K.reset_counts()
+    zg, pg, bg = J.bpp_posterior_batch(cfg, sd, device="cuda")
+    assert all(kk.launches > 0 for kk in K.KERNELS.values())
+    assert torch.equal(bg.cpu(), bc)
+    assert float((zg.cpu() - zc).abs().max()) <= 1e-9
+    assert float((pg.cpu() - pc).abs().max()) <= 1e-9

@@ -23,6 +23,10 @@ from rnaelem_tpu_torch.model import joint as TJ
 from rnaelem_tpu_torch.model.convert import params_from_numpy
 from rnaelem_tpu_torch.ops import ep_fast as TEPF
 
+# the CPU path is many small torch ops: one thread per test process
+# (xdist worker) keeps parallel workers from oversubscribing the cores
+torch.set_num_threads(1)
+
 LP = 48
 PATTERN = "(.....)"
 
