@@ -13,9 +13,12 @@ Phases:
      and the full inside DP: f64 kernels vs the f64 plain version (parts
      within 1e-9 absolute), f32 kernels vs the f64 plain version (within
      2e-3 absolute);
-  3. the full gradient on B=16 reads: f64 kernels vs the f64 plain
-     version, every gradient leaf and d alphaP within 1e-9 relative (max
-     norm); two kernel runs bitwise equal;
+  3. the full gradient on B=16 reads, per read (the weights enter as
+     per-read copies): f64 kernels vs the f64 plain version, every
+     gradient leaf and d alphaP of every read within 1e-9 relative (max
+     norm); two kernel runs bitwise equal; batch_fn_grad_pr, the trainer's
+     entry point, within 1e-9 of the same plain version, and its
+     read-order sum within 1e-12 of batch_fn_grad;
   4. the min-BPP masks (the motif-free S=1 DP and its outside pass):
      posteriors of the f64 kernels within 1e-9 of the f64 plain version,
      masks equal but for cells within 1e-9 of the threshold; the f32
@@ -23,24 +26,41 @@ Phases:
   5. per-call device times of K1-K7 (torch.profiler, the kernel's own
      functions over 200 calls) at the main path's shapes, and the plain
      versions' times (CUDA events);
-  6. the flagship main path: B=128 reads x 100 nt, pattern (.....),
-     max-span 50, max-iloop 30, min_bpp 1e-4, tau 0.1, f32: the masks
-     (stack_reads), then batch_fn_grad, one warm-up (the launch counts
-     are read from it) and 3 timed repetitions (CUDA events), the forward
-     alone too; the f32 gradient against the f64 plain version (1e-3
-     relative); two profiled batch_fn_grad and two stack_reads (device
-     busy share, device time per kernel);
-  7. one JSON line per kernel, the card line, and the result line.
+  6. the flagship evaluation path: B=128 reads x 100 nt, pattern
+     (.....), max-span 50, max-iloop 30, min_bpp 1e-4, tau 0.1, f32: the
+     masks (stack_reads), then batch_fn_grad, one warm-up (the launch
+     counts are read from it) and 3 timed repetitions (CUDA events), the
+     forward alone too; two profiled batch_fn_grad and two stack_reads
+     (device busy share, device time per kernel);
+  7. the no-rss chain K8/K9 against its plain version (..*.., f64 within
+     1e-9 and f32 within 1e-4 relative, at B=16 and B=128 x 100 nt; two
+     runs bitwise equal); per-call times of K8/K9;
+  8. the training path, the production step as bench.py times it: the
+     Trainer (Adam, k-let shuffled negatives) on 64 random reads x 100 nt
+     plus 64 fresh negatives per step, f32, one warm-up step and 4 timed
+     steps with a stage breakdown, for (.....) and for ..*.. with
+     --no-rss; each run with the launch counts set to 0 before it; the
+     last step's per-read f and gradients (its own batch and weights)
+     against the f64 plain version, every read within 1e-2 of its max
+     norm and their sum within 1e-3 relative;
+  9. the C++ goldens on the card: eval of the reference's converged tRNA
+     model over the 76 tRNAs (fn within 2e-3 of 0.13662, fn + L2 within
+     2e-3 of 1.713098, f32) and `cli train --no-shuffle` on the first 8
+     tRNAs (f64) within 0.05 of the reference binary's model;
+ 10. one JSON line per kernel (K1-K9), the card line, and the result
+     line.
 
 Run from the repository root:  python3 chip_smoke.py
 Exits non-zero and prints no result without CUDA or without the package.
 """
 import argparse
+import dataclasses
 import json
 import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -48,7 +68,8 @@ sys.path.insert(0, HERE)
 
 # set by main() once the imports succeed (the script must fail cleanly,
 # with no result, where torch, CUDA or the package is missing)
-np = torch = ET = J = DP = K = OBJ = seq_to_ints = None
+np = torch = ET = J = DP = K = LIN = MIO = OBJ = TRN = CLI = None
+seq_to_ints = None
 
 PATTERN = "(.....)"
 LP = 100               # read length of the main path (and the padded Lp)
@@ -70,6 +91,15 @@ ADJ_KERNEL = {"ext_adj": "outside_ext", "e_adj": "outside_band",
               "ep_adj": "outside_ep", "band_adj": "outside_band"}
 GRAD_KEYS = ("eR", "eL", "bg2", "pv", "alphaP", "emisA", "emisB", "gM",
              "gep")
+NORSS = "..*.."        # the no-rss configuration's pattern (S=28)
+N_POS = 64             # reads per production step (plus as many negatives)
+STEPS = 4              # timed production steps after one warm-up
+DP_KERNELS = ("score_tables", "inside_band", "inside_ep", "inside_ext",
+              "outside_band", "outside_ep", "outside_ext")
+CHAIN_KERNELS = ("linear_fwd", "linear_adj")
+TRNA_FA = os.path.join(HERE, "tests", "fixtures", "material", "positive.fa")
+GOLD_TRNA = os.path.join(HERE, "tests", "golden", "trna_noshuffle_ref.model")
+GOLD_SMALL8 = os.path.join(HERE, "tests", "golden", "trna_small8_ref.model")
 
 
 def fail(msg):
@@ -89,7 +119,7 @@ def card_line():
 
 
 def kernel_functions():
-    """{kernel: names of the __global__ functions in its source}."""
+    """{kernel: names of the __global__ functions of its source}."""
     out = {}
     for name, kern in K.KERNELS.items():
         with open(os.path.join(HERE, kern.source)) as f:
@@ -320,103 +350,228 @@ def _band_cells(Wp, n):
     return np.where(n >= 0, (n + 1) * (Wp + 1) - n * (n + 1) // 2, 0)
 
 
-def bounds(cfg, st, c, tab, j0, B, itemsize):
-    """Least time per unit (ms) for K1 (one batch) and K2-K4 (one column
-    j0): the larger of bytes / memory rate and operations / f32 rate.
-    Each input cell the function reads is counted once, in the states it
-    reads, and each output once; where the extent depends on the data (the
-    band masks, the per-read loop cap C, finite exterior energies) only
-    what this batch needs is counted."""
-    Lp, Wp, Cp, S = cfg.Lp, cfg.Wp, cfg.Cp, st.dims.S
-    W1 = Wp + 1
-    g = st.g
-    kk = {k: v.cpu().numpy() for k, v in st.k.items()}
-    states = lambda *ks: set(np.concatenate([kk[k].ravel() for k in ks]))
+def _ms(by, ops):
+    """(least ms, what bounds it) for bytes and operations."""
+    tb, to = by / MEM_BPS * 1e3, ops / PEAK_F32 * 1e3
+    return max(tb, to), "bytes" if tb >= to else "operations"
+
+
+def score_work(cfg, c, tab, B, itemsize):
+    """K1 (one batch): seq/L/bp_ok/dots_cum in; the energy tables, of
+    which the loop key tables (tri/tetra/hexa) give at most one entry per
+    (j, read); 19 float + 2 int32 + 4 bool planes out; ~40 operations per
+    cell."""
+    Lp, W1 = cfg.Lp, cfg.Wp + 1
     cells = (Lp + 1) * W1 * B
-    out = {}
-    # K1: seq/L/bp_ok/dots_cum in; the energy tables, of which the loop
-    # key tables (tri/tetra/hexa) give at most one entry per (j, read);
-    # 19 float + 2 int32 + 4 bool planes out; ~40 operations per cell
     tab_n = sum(min(tab[k].numel(), (Lp + 1) * B)
                 if k in ("tri", "tetra", "hexa") else tab[k].numel()
                 for k in ET.FLOAT_TABLES)
     by = B * Lp * 8 + B * 8 + cells + B * (Lp + 1) * 4 + tab_n * itemsize \
         + cells * (19 * itemsize + 2 * 4 + 4)
-    out["score_tables"] = (by, 40.0 * cells)
+    return by, 40.0 * cells
 
-    # K2 (inside_band)
-    okP = c.okP[j0].cpu().numpy()                       # [W1, B]
-    okB = c.okB[j0].cpu().numpy()
+
+def batch_counts(cfg, st, c, B):
+    """The column-independent quantities of a batch the column counts
+    use: state sets and list sizes of the grammar, the per-read loop cap
+    C_b = min(C, Cp) and the internal-loop cells it admits."""
+    Wp, Cp, S = cfg.Wp, cfg.Cp, st.dims.S
+    g = st.g
+    kk = {k: v.cpu().numpy() for k, v in st.k.items()}
+    states = lambda *ks: set(np.concatenate([kk[k].ravel() for k in ks]))
+    q = dict(Wp=Wp, S=S, W1=Wp + 1, C1=Cp + 1,
+             B=B, CC=(Wp + 1) * S * B, WB=(Wp + 1) * B, SB=S * B,
+             n_rt=len(states("rt_s")), n_b1=len(states("b12_a")),
+             n_c=len(states("b12_c")), nb=len(g.b12_tuples),
+             n_pt_src=int((kk["pt_code"] != -1).any(0).sum()),
+             n_tab=len(set(kk["pt_code"][kk["pt_code"] >= 0].ravel())),
+             pt_nnz=int((kk["pt_code"] != -1).sum()), rt_nnz=len(kk["rt_s"]),
+             lt_nnz=len(kk["lt_s"]), n_op=len(g.op_tuples),
+             n_opa=len(states("op_a")), n_opc=len(states("op_c")),
+             n_opc_rt=len(states("op_c", "rt_s")),
+             have_ep=st.have_ep)
+    if st.have_ep:
+        Cb = np.minimum(c.C.cpu().numpy().astype(np.int64), Cp)
+        pc = _band_cells(Wp, Cb)                       # P cells per read
+        x = np.arange(Wp + 1)[:, None, None]
+        u1 = np.arange(Cp + 1)[None, :, None]
+        dl = np.arange(Cp + 1)[None, None, :]
+        geo = (x + u1 <= Wp) & (dl <= x)
+        caps, n_caps = np.unique(Cb, return_counts=True)
+        q.update(
+            pc=int(pc.sum()), cb1=int((Cb + 1).clip(min=0).sum()),
+            n_s1=len(states("p13_s1")), n_s2=len(states("k2_s2")),
+            n_s3=len(states("p13_s3")),
+            n_s3x=len(states("p13_s3") - states("k2_s2")),
+            eszg=2 * 4 * (Cp + 1) * (Cp + 2) // 2,
+            vterms=sum(int(n) * int((geo & (dl + u1 <= cb)).sum())
+                       for cb, n in zip(caps, n_caps)),
+            n_xu=int(_band_cells(Wp, Cp)),
+            spec=(0 if cfg.no_ene else
+                  6 * (Wp + 1) * st.n2 * (2 * st.n13 / st.n_ar + 3)))
+    return q
+
+
+def column_work(cfg, st, c, q, j, itemsize):
+    """{kernel: (bytes, operations)} of K2-K7 at column j, each kernel
+    counted as one function of what its stage needs: each input cell read
+    once, in the states it reads, each output cell written once (a
+    cotangent it adds to is read and written); where the extent depends
+    on the data (the band masks, the per-read loop cap C, finite exterior
+    energies) only what this batch needs is counted.  The scratch that
+    the kernels' functions pass to one another (K3's T and V, K5's column
+    cotangents of M and B and its eR/bg2 partials, K6's double-precision
+    GO, gV, gT and gW) is not counted: a fused kernel would not move it.
+    Operations are the stage's arithmetic, summed over its functions."""
+    it = itemsize
+    B, S, W1, Wp, C1 = q["B"], q["S"], q["W1"], q["Wp"], q["C1"]
+    CC, WB, SB = q["CC"], q["WB"], q["SB"]
+    okP = c.okP[j].cpu().numpy()                         # [W1, B]
+    okB = c.okB[j].cpu().numpy()
+    okE = c.okE[j].cpu().numpy()
+    okM = c.okM[j].cpu().numpy()
     wv = np.arange(W1)[:, None]
-    n_rt = len(states("rt_s"))
-    n_pt = int((kk["pt_code"] != -1).any(0).sum())     # P/E source states
-    n_b1 = len(states("b12_a"))
-    n_tab = len(set(kk["pt_code"][kk["pt_code"] >= 0].ravel()))
     okP2 = int((okP & (wv >= 2)).sum())                 # cells reading E/P
     okB1 = int((okB & (wv >= 1)).sum())                 # cells reading T2
     tri1 = int((okB * wv).sum())                        # T1 (dk, w) cells
-    by2 = itemsize * (
-        Wp * n_rt * B + okB1 * n_rt + 2 * okP2 * n_pt   # rows j-1: LL T2 E P
-        + tri1 * n_b1                                   # T1 window of B
-        + int(okP.sum()) * n_tab                        # pair emissions
+    nP, nE, nM, nB = (int(m.sum()) for m in (okP, okE, okM, okB))
+    pvb = nP * q["n_tab"]                               # pair emissions
+    out = {}
+
+    # K2 (inside_band)
+    by2 = it * (
+        Wp * q["n_rt"] * B + okB1 * q["n_rt"] + 2 * okP2 * q["n_pt_src"]
+        + tri1 * q["n_b1"] + pvb
         + 2 * W1 * S * B + S * B                        # eL rows, ep, eR
-        + 8 * W1 * B + B                                # per-cell planes
-        + 7 * W1 * S * B) + 4 * W1 * B                  # 7 rows out; masks
-    nb = len(g.b12_tuples)
-    pt_nnz, rt_nnz, lt_nnz = int((kk["pt_code"] != -1).sum()), \
-        len(kk["rt_s"]), len(kk["lt_s"])
-    ops2 = 2.0 * (tri1 * nb + okB1 * rt_nnz + W1 * B * rt_nnz
-                  + 2 * okP2 * pt_nnz + W1 * B * lt_nnz)
+        + 8 * WB + B                                    # per-cell planes
+        + 7 * CC) + 4 * WB                              # 7 rows out; masks
+    ops2 = 2.0 * (tri1 * q["nb"] + okB1 * q["rt_nnz"] + WB * q["rt_nnz"]
+                  + 2 * okP2 * q["pt_nnz"] + WB * q["lt_nnz"])
     out["inside_band"] = (by2, ops2)
 
-    # K3 (inside_ep), per read with its cap C_b = min(C, Cp): P cells
-    # (j - dl, v) with dl <= C_b, dl + v <= Wp; left-flank LL cells
-    # (j - x, u1) with u1 <= C_b, x + u1 <= Wp (the right flank, LL row j
-    # up to width C_b, lies in that set); emisB on the P cells; emisA,
-    # spec_il rows j; the read-independent size weights eSZg; ep out
-    Cb = np.minimum(c.C.cpu().numpy().astype(np.int64), Cp)
-    pc = _band_cells(Wp, Cb)                            # per read
-    n_s1, n_s2 = len(states("p13_s1")), len(states("k2_s2"))
-    n_s3x = len(states("p13_s3") - states("k2_s2"))
-    eszg = 2 * 4 * (Cp + 1) * (Cp + 2) // 2
-    by3 = itemsize * (
-        int(pc.sum()) * (n_s1 + n_s2 + 2 * 4)
-        + int((Cb + 1).clip(min=0).sum()) * n_s3x
-        + B * W1 * (2 * 4 + (0 if cfg.no_ene else 6)) + eszg
-        + W1 * S * B) + 4 * B + (4 * (Lp + 1) * B if cfg.fix_rss else 0)
-    x = np.arange(W1)[:, None, None]
-    u1 = np.arange(Cp + 1)[None, :, None]
-    dl = np.arange(Cp + 1)[None, None, :]
-    geo = (x + u1 <= Wp) & (dl <= x)
-    vterms = sum(int((geo & (dl + u1 <= cb)).sum()) for cb in Cb)
-    spec = 0 if cfg.no_ene else 6 * W1 * st.n2 * (2 * st.n13 / st.n_ar + 3)
-    ops3 = 2.0 * (vterms * (2 * st.n_ar + 12) + int(pc.sum()) * (st.n13
-                  + st.n2)) + 2.0 * B * spec
-    out["inside_ep"] = (by3, ops3)
+    # K3 (inside_ep), per read with its cap C_b: P cells (j - dl, v) with
+    # dl <= C_b, dl + v <= Wp; left-flank LL cells (j - x, u1) with
+    # u1 <= C_b, x + u1 <= Wp (the right flank, LL row j up to width C_b,
+    # lies in that set); emisB on the P cells; emisA, spec_il rows j; the
+    # read-independent size weights eSZg; ep out
+    if q["have_ep"]:
+        by3 = it * (
+            q["pc"] * (q["n_s1"] + q["n_s2"] + 2 * 4) + q["cb1"] * q["n_s3x"]
+            + B * W1 * (2 * 4 + (0 if cfg.no_ene else 6)) + q["eszg"]
+            + W1 * S * B) + 4 * B + (4 * (cfg.Lp + 1) * B if cfg.fix_rss
+                                     else 0)
+        ops3 = 2.0 * (q["vterms"] * (2 * st.n_ar + 12) + q["pc"] * (
+            st.n13 + st.n2)) + 2.0 * B * q["spec"]
+        out["inside_ep"] = (by3, ops3)
+    else:
+        out["inside_ep"] = (it * CC, 0.0)
 
     # K4 (inside_ext): for each w >= 1 with a finite exterior energy, P row
     # j at width w and O row j - w in the split tuples' states (row j - 1
     # also in the chain's sources); ext, eR rows; O row j out
-    ext_ok = np.isfinite(c.ext[j0].cpu().numpy()) & (wv >= 1)
+    ext_ok = np.isfinite(c.ext[j].cpu().numpy()) & (wv >= 1)
     n_ext = int(ext_ok.sum())
-    by4 = itemsize * (n_ext * len(states("op_a"))
-                      + int(ext_ok[2:].sum()) * len(states("op_c"))
-                      + len(states("op_c", "rt_s")) * B
-                      + W1 * B + S * B + B + S * B)
-    ops4 = 2.0 * (n_ext * len(g.op_tuples) + B * rt_nnz)
+    by4 = it * (n_ext * q["n_opa"] + int(ext_ok[2:].sum()) * q["n_opc"]
+                + q["n_opc_rt"] * B + WB + SB + B + SB)
+    ops4 = 2.0 * (n_ext * q["n_op"] + B * q["rt_nnz"])
     out["inside_ext"] = (by4, ops4)
-    # K5-K7 read each forward cell of their stage and the cotangent of
-    # the same cell and write that cotangent: twice the forward stage's
-    # bytes; one exp and a multiply-add per term: twice its operations
-    for fwd, adj in (("inside_band", "outside_band"),
-                     ("inside_ep", "outside_ep"),
-                     ("inside_ext", "outside_ext")):
-        out[adj] = (2 * out[fwd][0], 2 * out[fwd][1])
-    res = {}
-    for k, (by_, ops) in out.items():
-        tb, to = by_ / MEM_BPS * 1e3, ops / PEAK_F32 * 1e3
-        res[k] = (max(tb, to), "bytes" if tb >= to else "operations")
-    return res
+
+    # K5 (outside_band): the adjoint of K2's E, M, B/T1 and L/P/T2 at
+    # column j; liveX = the cells of table X its mask admits (E, M, B/T1/T2)
+    # in all S states.  Forward cells: E, LL, M, ep at live E; M, Bt at
+    # live M; T1, T2, Bt at live B; the T1 triangle and the T2 rows of the
+    # splits; rows j of LL, P, T2 and j-1 of LL, E, P, T2; eL rows, eR row,
+    # gates, per-cell planes, bg2, pv.  Cotangents: rows j of gE, gLL, gP,
+    # gT1, gT2 read; rows j-1 of gLL, gE, gP, gT2, the triangle's and the
+    # split rows' added to; gEP written (K6 reads it); DL row j, eL, eR row
+    # j-1, bg2, pv and alphaP added to
+    lE, lM, lB = nE * S, nM * S, nB * S
+    split = tri1 * q["n_b1"] + Wp * q["n_c"] * B
+    by5 = it * (
+        4 * lE + 2 * nE + 2 * lM + W1 * S * B + WB + 3 * lB + split
+        + 7 * CC + SB + B + 5 * WB + (W1 + 1) * B + pvb
+        + 5 * CC + 2 * 4 * CC + 2 * split + CC + 2 * CC
+        + 2 * (W1 * S * B + SB + (W1 + 1) * B + pvb + WB)) + WB
+    ops5 = (6.0 * lE + 2.0 * nM * q["lt_nnz"] + 4.0 * lB
+            + 4.0 * tri1 * q["nb"]
+            + 2.0 * (WB * q["rt_nnz"] + okP2 * q["pt_nnz"])
+            + 2.0 * (2 * WB * q["rt_nnz"] + 2 * okP2 * q["pt_nnz"])
+            + 2.0 * (CC + 2 * okP2 * st.n_pt) + float(CC + WB))
+    out["outside_band"] = (by5, ops5)
+
+    # K6 (outside_ep): the adjoint of K3 at column j.  It reads what K3
+    # reads (P cells, both LL flanks, emisB on the P cells, emisA and
+    # spec_il rows j, eSZg), the ep row and its cotangent gEP; it adds to
+    # the cotangents of the P and LL cells, emisB, emisA, the per-read
+    # size-weight partials GSZ [2, 4, Cp+1, Cp+1, B] (its triangle) and DL
+    # row j
+    if q["have_ep"]:
+        pc, n_xu, vt = q["pc"], q["n_xu"], q["vterms"]
+        fwd_in = (pc * (q["n_s1"] + q["n_s2"] + 2 * 4) + q["cb1"] * q["n_s3x"]
+                  + B * W1 * (2 * 4 + (0 if cfg.no_ene else 6)) + q["eszg"])
+        by6 = it * (
+            2 * CC + fwd_in
+            + 2 * (pc * (q["n_s1"] + q["n_s2"] + 2 * 4)
+                   + q["cb1"] * q["n_s3x"] + 2 * 4 * WB)
+            + 2 * q["eszg"] * B + 2 * CC) + 4 * B + (
+                4 * (cfg.Lp + 1) * B if cfg.fix_rss else 0)
+        ops6 = (2.0 * 6 * CC * st.n2 / S + 4.0 * n_xu * B * st.n2
+                + vt * (8.0 * st.n_ar + 32) + 3 * 16.0 * vt
+                + 2 * 2.0 * pc * st.n13)
+        out["outside_ep"] = (by6, ops6)
+    else:
+        out["outside_ep"] = (0.0, 0.0)
+
+    # K7 (outside_ext): O rows j-1 and j, eR, gate, gO row j, ext; at live
+    # exterior widths the P column and O rows j-w (read, their cotangents
+    # added to); eR and DL cotangents added to; gO row j-1 added to
+    by7 = it * (5 * SB + B + 2 * SB + WB + 8 * n_ext * S + 2 * SB)
+    ops7 = 2.0 * (B * q["rt_nnz"] + 3 * n_ext * q["n_op"]) \
+        + 2.0 * B * q["rt_nnz"]
+    out["outside_ext"] = (by7, ops7)
+    return out
+
+
+def bounds(cfg, st, c, tab, j0, B, itemsize):
+    """Least time per unit (ms) for K1 (one batch) and K2-K7 (one column
+    j0): the larger of bytes / memory rate and operations / f32 rate."""
+    q = batch_counts(cfg, st, c, B)
+    work = column_work(cfg, st, c, q, j0, itemsize)
+    work["score_tables"] = score_work(cfg, c, tab, B, itemsize)
+    return {k: _ms(*v) for k, v in work.items()}
+
+
+def mask_pass_bound(cfg, sd, dev, itemsize):
+    """Row I: one S=1 forward and outside pass (K1-K7 over every column)
+    of the batch ``sd``, as one function: (ms, what bounds it)."""
+    k = J.kernels(cfg, dev)
+    bp0 = J._candidate_pairs(cfg, k, sd)
+    _, c = J._null_batch_factors(cfg, k, sd, bp0)
+    st = k.dp_null.st
+    B = bp0.shape[0]
+    q = batch_counts(cfg, st, c, B)
+    by, ops = score_work(cfg, c, k.tab, B, itemsize)
+    for j in range(1, cfg.Lp + 1):
+        for b_, o_ in column_work(cfg, st, c, q, j, itemsize).values():
+            by, ops = by + b_, ops + o_
+    return _ms(by, ops)
+
+
+def chain_bounds(lin, L, Lp, itemsize):
+    """K8 and K9 for one batch of lengths L: K8 reads the rows p < L_b of
+    eR and writes the chain rows 0..L_b and the parts; K9 reads eR and
+    those rows, the parts' cotangent, and writes eR's cotangent [Lp, S,
+    B].  Operations: per step and transition, K8 a max, an exp and an
+    add; K9 an exp, a multiply and an add."""
+    S, B = lin.dims.S, len(L)
+    nnz = int(lin.k["rt_s"].numel())
+    steps = int(np.sum(L))
+    terms = steps * nnz
+    by8 = itemsize * (steps * S + (steps + B) * S + 3 * B) + 8 * B
+    by9 = itemsize * (steps * S + (steps + B) * S + 3 * B + Lp * S * B) \
+        + 8 * B
+    return {"linear_fwd": _ms(by8, 4.0 * terms + steps * S),
+            "linear_adj": _ms(by9, 4.0 * terms)}
 
 
 # ------------------------------------------------------------ outside pass
@@ -442,14 +597,15 @@ def outside_grads(dp, fs, d, c, h, gbar, stages):
 
 
 def full_grads(cfg, params, batch, dev, plain):
-    """(parts, grads of sum f w.r.t. singles, pairs, lam and alphaP), the
-    outside pass through the kernels or the plain versions."""
-    k = J.kernels(cfg, dev)
-    dp = k.dp
-    leaves = [x.detach().clone().requires_grad_(True) for x in params]
+    """(f [B], per-read gradients of f w.r.t. singles, pairs and lam, and
+    alphaP's cotangent): per-read copies of the weights, the outside pass
+    through the kernels or the plain versions."""
+    dp = J.kernels(cfg, dev).dp
+    leaves = [x.detach().clone().requires_grad_(True)
+              for x in J.per_read(params, batch.valid.shape[0])]
     with torch.enable_grad():
-        d, c = J.batch_factors(cfg, J.Params(*leaves), batch.sd, batch.bp_ok,
-                               device=dev)
+        d, c = J.batch_factors_pr(cfg, J.Params(*leaves), batch.sd,
+                                  batch.bp_ok, device=dev)
         d = d._replace(alphaP=d.alphaP.requires_grad_(True))
         h = DP.hoisted(d, c, dp.st)
     with torch.no_grad():
@@ -466,8 +622,8 @@ def full_grads(cfg, params, batch, dev, plain):
             [h[kk] for kk in DP.HOISTED]
         gr = torch.autograd.grad(outs, leaves + [d.alphaP], list(g),
                                  allow_unused=True)
-    return parts, [torch.zeros_like(x) if y is None else y
-                   for x, y in zip(leaves + [d.alphaP], gr)]
+    return f.detach(), [torch.zeros_like(x) if y is None else y
+                        for x, y in zip(leaves + [d.alphaP], gr)]
 
 
 def rel_err(a, b):
@@ -476,6 +632,13 @@ def rel_err(a, b):
     scale = float(b.abs().max()) if b.numel() else 0.0
     err = float((a - b).abs().max()) if b.numel() else 0.0
     return err / scale if scale > 0 else err
+
+
+def worst_read(a, b, axis=0):
+    """rel_err of a against b read by read (the read axis ``axis``), the
+    worst read's."""
+    a, b = a.movedim(axis, 0), b.movedim(axis, 0)
+    return max(rel_err(a[r], b[r]) for r in range(b.shape[0]))
 
 
 def grad_compare(name, a, b, rel):
@@ -532,29 +695,53 @@ def check_adj_stages(dp, d, c, j0, rel):
     return errs
 
 
+GRAD_NAMES = ("singles", "pairs", "lam", "alphaP")
+
+
 def check_full_gradient(cfg64, cfg32, small, dev):
-    """f64 kernels vs f64 plain on the small batch, all leaves; two kernel
-    runs bitwise equal; f32 kernels vs f64 plain printed."""
+    """f64 kernels vs f64 plain on the small batch, every leaf per read;
+    two kernel runs bitwise equal; batch_fn_grad_pr (the trainer's entry
+    point) vs the same plain version, per read, and its read-order sum vs
+    batch_fn_grad; f32 kernels vs f64 plain printed."""
     p64 = random_params(cfg64, dev)
     b = OBJ.stack_reads(cfg64, small, device=dev)
     _, gk = full_grads(cfg64, p64, b, dev, plain=False)
     _, gk2 = full_grads(cfg64, p64, b, dev, plain=False)
-    _, gp = full_grads(cfg64, p64, b, dev, plain=True)
-    names = ("singles", "pairs", "lam", "alphaP")
-    for n, a, c_ in zip(names, gk, gp):
-        grad_compare("full gradient f64 " + n, a, c_, 1e-9)
-    errs = {n: rel_err(a, c_) for n, a, c_ in zip(names, gk, gp)}
-    for n, a, a2 in zip(names, gk, gk2):
+    fp, gp = full_grads(cfg64, p64, b, dev, plain=True)
+    axes = (0, 0, 0, -1)                   # alphaP's read axis is last
+    errs = {n: worst_read(a, c_, ax)
+            for n, a, c_, ax in zip(GRAD_NAMES, gk, gp, axes)}
+    for n, e in errs.items():
+        if torch.isnan(gk[GRAD_NAMES.index(n)]).any() or not e <= 1e-9:
+            fail("full gradient f64 %s: worst read's relative error %.3g "
+                 "beyond 1e-9" % (n, e))
+    for n, a, a2 in zip(GRAD_NAMES, gk, gk2):
         if not torch.equal(a, a2):
             fail("full gradient: two kernel runs differ in %s" % n)
+    f, gpr, eff = OBJ.batch_fn_grad_pr(cfg64, p64, b, device=dev)
+    e_pr = {"f": rel_err(f, fp)}
+    e_pr.update({n: worst_read(a, c_) for n, a, c_ in
+                 zip(GRAD_NAMES, gpr, gp)})
+    if not max(e_pr.values()) <= 1e-9:
+        fail("batch_fn_grad_pr vs plain: %s beyond 1e-9" % json.dumps(e_pr))
+    fn, gsum, _ = OBJ.reduce_per_read(f, gpr, eff)
+    fb, gb, _ = OBJ.batch_fn_grad(cfg64, p64, b, device=dev)
+    e_sum = max([abs(fn - float(fb)) / max(1.0, abs(float(fb)))] + [
+        rel_err(torch.as_tensor(a), c_.cpu()) for a, c_ in zip(gsum, gb)])
+    if not e_sum <= 1e-12:
+        fail("per-read gradients: read-order sum differs from batch_fn_grad "
+             "by %.3g" % e_sum)
     p32 = random_params(cfg32, dev)
     b32 = b._replace(lik_sign=b.lik_sign.float(), eff=b.eff.float())
     _, g32 = full_grads(cfg32, p32, b32, dev, plain=False)
-    e32 = {n: rel_err(a, c_) for n, a, c_ in zip(names, g32, gp)}
-    print("check full gradient B=%d f64 kernels vs f64 plain: %s (<= 1e-9, "
-          "relative max norm); two kernel runs bitwise equal; f32 kernels "
-          "vs f64 plain: %s" % (len(small), json.dumps(errs), json.dumps(e32)),
-          flush=True)
+    e32 = {n: worst_read(a, c_, ax)
+           for n, a, c_, ax in zip(GRAD_NAMES, g32, gp, axes)}
+    print("check full gradient B=%d, per read (worst read, relative max "
+          "norm): f64 kernels vs f64 plain %s (<= 1e-9); two kernel runs "
+          "bitwise equal; batch_fn_grad_pr vs f64 plain %s (<= 1e-9); its "
+          "read-order sum vs batch_fn_grad %.3g (<= 1e-12); f32 kernels vs "
+          "f64 plain %s" % (len(small), json.dumps(errs), json.dumps(e_pr),
+                            e_sum, json.dumps(e32)), flush=True)
     return max(errs.values())
 
 
@@ -605,6 +792,272 @@ def check_masks(cfg64, cfg32, small, dev):
     return e_post
 
 
+# ------------------------------------------------ no-rss chain, per read
+
+def norss_cfg(dtype):
+    return J.ModelConfig(pattern=NORSS, Lp=LP, max_span=50, max_iloop=30,
+                         min_bpp=MIN_BPP, tau=0.1, no_rss=True, dtype=dtype)
+
+
+def chain_inputs(cfg, reads, dev, seed=6):
+    """(static, eR [Lp, S, B], L [B], a parts cotangent [B, 3]) of the
+    reads under random weights."""
+    k = J.kernels(cfg, dev)
+    sd = J.stack_seqdata([J.make_seqdata(cfg, s_, q_) for s_, q_ in reads],
+                         dev)
+    eR = J.right_emissions(
+        cfg, k, J.per_read(random_params(cfg, dev, seed), len(reads)), sd)
+    L = torch.as_tensor(sd.L, device=dev).long()
+    gp = torch.as_tensor(np.random.RandomState(seed).rand(len(reads), 3),
+                         dtype=eR.dtype, device=dev)
+    return k.dp.st, eR, L, gp
+
+
+def plain_chain(lin, eR, L, gp):
+    """(parts, eR's cotangent) of the plain chain and its autograd."""
+    leaf = eR.detach().clone().requires_grad_(True)
+    with torch.enable_grad():
+        parts = LIN.chain_plain(lin, leaf, L)
+        (g,) = torch.autograd.grad(parts, leaf, gp)
+    return parts.detach(), g
+
+
+def check_chain(small, reads, dev):
+    """K8/K9 vs the plain chain, f64 and f32, small and main batches; two
+    kernel runs bitwise equal.  Returns {kernel: max abs err} of the f32
+    main batch."""
+    errs, msgs = {}, []
+    for dtype, rel in (("float64", 1e-9), ("float32", 1e-4)):
+        for name, rr in (("B=%d" % len(small), small),
+                         ("B=%d x %d nt" % (len(reads), LP), reads)):
+            lin, eR, L, gp = chain_inputs(norss_cfg(dtype), rr, dev)
+            parts, rows = K.chain_fwd(lin, eR, L)
+            g = K.chain_adj(lin, eR, L, rows, gp)
+            parts2, rows2 = K.chain_fwd(lin, eR, L)
+            if not (torch.equal(parts, parts2) and torch.equal(
+                    g, K.chain_adj(lin, eR, L, rows2, gp))):
+                fail("chain kernels: two runs differ (%s %s)"
+                     % (dtype, name))
+            pp, gpl = plain_chain(lin, eR, L, gp)
+            fin = torch.isfinite(pp)
+            if not torch.equal(fin, torch.isfinite(parts)):
+                fail("linear_fwd %s %s: -inf pattern differs" % (dtype, name))
+            ef = grad_compare("linear_fwd %s %s" % (dtype, name),
+                              parts[fin], pp[fin], rel)
+            ea = grad_compare("linear_adj %s %s" % (dtype, name), g, gpl,
+                              rel)
+            msgs.append("%s %s: parts %.3g, d eR %.3g"
+                        % (dtype, name, ef, ea))
+            if dtype == "float32" and rr is reads:
+                errs = {"linear_fwd": ef, "linear_adj": ea}
+    print("check chain %s (no-rss, S=%d) K8/K9 vs plain, max abs err (f64 "
+          "within 1e-9, f32 within 1e-4 relative, max norm; two runs bitwise "
+          "equal): %s" % (NORSS, lin.dims.S, "; ".join(msgs)), flush=True)
+    return errs
+
+
+# ------------------------------------------------------------ training
+
+def write_fq(path, seqs, flagged=True):
+    """FASTQ with flat '+' qualities and the has-motif sentinel."""
+    with open(path, "w") as f:
+        for i, s_ in enumerate(seqs):
+            f.write("@r%d\n%s\n+\n%s%s\n" % (
+                i, s_, "+" * len(s_), "!" if flagged else "+"))
+
+
+def production_step(pattern, no_rss, tmp, dev):
+    """The Trainer's step as bench.py times it (64 random reads x 100 nt,
+    numpy seed 0, 64 fresh negatives per step, f32, Adam): one warm-up
+    step and STEPS timed steps, each stage timed with the device
+    synchronised around it.  Returns a dict of the step's numbers; the
+    launch counts are those of this run alone."""
+    rng = np.random.RandomState(0)
+    fq = os.path.join(tmp, "step_%s.fq" % ("norss" if no_rss else "rss"))
+    with open(fq, "w") as f:
+        for i in range(N_POS):
+            s_ = "".join("ACGU"[c] for c in rng.randint(0, 4, LP))
+            f.write("@r%d\n%s\n+\n%s!\n" % (i, s_, chr(33 + 10) * LP))
+    cfg = J.ModelConfig(pattern=pattern, Lp=LP, max_span=50, max_iloop=30,
+                        min_bpp=MIN_BPP, tau=0.1, rho_theta=0.1,
+                        rho_lambda=0.1, no_rss=no_rss, dtype="float32")
+    params = J.init_params(J.kernels(cfg, dev).g, cfg, device=dev)
+    tr = TRN.Trainer(cfg, params, max_iter=1 + STEPS, batch_size=N_POS,
+                     kmer_shuf=2, device=dev)
+    tr.set_fq(fq)
+    rec = {}
+
+    def timed(key, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            rec.setdefault(key, []).append(time.perf_counter() - t0)
+            return out
+        return run
+
+    starts, fns = [], []
+    objective = tr._objective
+
+    def step_objective(x, it):
+        starts.append(time.perf_counter())
+        fn, gr = timed("objective", objective)(x, it)
+        fns.append(fn)
+        return fn, gr
+
+    tr._objective = step_objective
+    tr._read_batch_host = timed("negatives", tr._read_batch_host)
+    saved = {n: getattr(OBJ, n) for n in (
+        "stack_reads", "batch_bp_masks", "batch_fn_grad_pr",
+        "reduce_per_read")}
+    last = {}
+
+    def fn_grad(cfg_b, params_, batch, *a):
+        out = saved["batch_fn_grad_pr"](cfg_b, params_, batch, *a)
+        last.update(cfg=cfg_b, params=params_, batch=batch, out=out)
+        return out
+
+    for n, key, f in (("stack_reads", "stack", saved["stack_reads"]),
+                      ("batch_bp_masks", "masks", saved["batch_bp_masks"]),
+                      ("batch_fn_grad_pr", "fn_grad", fn_grad),
+                      ("reduce_per_read", "reduce",
+                       saved["reduce_per_read"])):
+        setattr(OBJ, n, timed(key, f))
+    try:
+        K.reset_counts()
+        tr.train()
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        launches = {n: kk.launches for n, kk in K.KERNELS.items()}
+    finally:
+        for n, f in saved.items():
+            setattr(OBJ, n, f)
+    if len(starts) != 1 + STEPS:
+        fail("production step %s: %d evaluations, expected %d"
+             % (pattern, len(starts), 1 + STEPS))
+    if not all(np.isfinite(fns)):
+        fail("production step %s: objective not finite: %s" % (pattern, fns))
+    steps = np.diff(starts + [t_end])
+    mean = lambda key: 1e3 * float(np.mean(rec[key][1:]))
+    out = dict(pattern=pattern + (" --no-rss" if no_rss else ""),
+               warmup_s=float(steps[0]),
+               step_ms=1e3 * float(np.mean(steps[1:])),
+               negatives_ms=mean("negatives"), masks_ms=mean("masks"),
+               stack_ms=mean("stack") - mean("masks"),
+               fn_grad_ms=mean("fn_grad"), reduce_ms=mean("reduce"),
+               adam_ms=1e3 * float(np.mean(steps[1:] - np.asarray(
+                   rec["objective"][1:]))),
+               fn=[float(v) for v in fns], launches=launches)
+    out["seqs_per_s"] = 2 * N_POS * 1e3 / out["step_ms"]
+    out["grad_err"] = check_step_gradient(last, dev)
+    print("production step %s f32, %d reads + %d fresh negatives x %d nt: "
+          "%.1f ms per step (%.1f seqs/s, mean of %d steps after a warm-up "
+          "step of %.2f s); per step: negatives (host) %.2f ms, negatives' "
+          "masks %.2f ms, stack_reads packing %.2f ms, fn+grad (per read) "
+          "%.2f ms, host reduce %.2f ms, Adam update and log %.2f ms; fn per "
+          "step %s; launches %s; the last step's f32 per-read f and "
+          "gradients vs the f64 plain version (relative max norm: worst "
+          "read <= 1e-2, sum over reads <= 1e-3) %s" % (
+              out["pattern"], N_POS, N_POS, LP, out["step_ms"],
+              out["seqs_per_s"], STEPS, out["warmup_s"],
+              out["negatives_ms"], out["masks_ms"], out["stack_ms"],
+              out["fn_grad_ms"], out["reduce_ms"], out["adam_ms"],
+              json.dumps([round(v, 4) for v in out["fn"]]),
+              json.dumps(launches), json.dumps(out["grad_err"])), flush=True)
+    return out
+
+
+def check_step_gradient(last, dev):
+    """The last production step's per-read f and gradients (f32 kernels,
+    the trainer's own batch of reads and negatives and its weights) vs the
+    f64 plain version on the same inputs (every stage's plain version on
+    the card for rss models, the plain chain on the CPU for no-rss ones):
+    read by read within 1e-2 of the read's max norm, and summed over the
+    reads within 1e-3.  A read whose gradient terms nearly cancel carries
+    an f32 error near 1e-3 of its own max norm (..*.. read 9.1e-4 on an
+    H100); a wrong leaf or a read mixed with another is off by O(1).
+    Returns {leaf: worst read's relative error, leaf + " sum": ...}."""
+    cfg = dataclasses.replace(last["cfg"], dtype="float64")
+    f32, g32, _ = last["out"]
+    b = last["batch"]
+    b = b._replace(lik_sign=b.lik_sign.double(), eff=b.eff.double())
+    p64 = J.Params(*[x.detach().double() for x in last["params"]])
+    if cfg.no_rss:
+        cpu = lambda x: (J.SeqData(*[torch.as_tensor(y).cpu() for y in x])
+                         if isinstance(x, J.SeqData) else x.cpu())
+        fp, gp, _ = OBJ.batch_fn_grad_pr(
+            cfg, J.Params(*[x.cpu() for x in p64]),
+            OBJ.BatchData(*[cpu(x) for x in b]), device="cpu")
+    else:
+        fp, gp = full_grads(cfg, p64, b, dev, plain=True)
+    errs = {"f": rel_err(f32.cpu(), fp.cpu())}
+    errs.update({n: worst_read(a.cpu(), c_.cpu())
+                 for n, a, c_ in zip(GRAD_NAMES, g32, gp)})
+    sums = {n + " sum": rel_err(a.cpu().double().sum(0), c_.cpu().sum(0))
+            for n, a, c_ in zip(GRAD_NAMES, g32, gp)}
+    if not (max(errs.values()) <= 1e-2 and max(sums.values()) <= 1e-3):
+        fail("production step %s: gradients differ from the f64 plain "
+             "version: %s %s" % (cfg.pattern, json.dumps(errs),
+                                 json.dumps(sums)))
+    errs.update(sums)
+    return errs
+
+
+def trna_seqs(n=None):
+    seqs = [line.strip().replace("T", "U") for line in open(TRNA_FA)
+            if line.strip() and not line.startswith(">")]
+    return seqs if n is None else seqs[:n]
+
+
+def golden_trna_eval(tmp, dev):
+    """eval_file of the reference's converged model over the 76 tRNAs at
+    f32 against its final objective (tests/test_lbfgsb_golden.py's bar)."""
+    fq = os.path.join(tmp, "trna.fq")
+    seqs = trna_seqs()
+    write_fq(fq, seqs)
+    if len(seqs) != 76:
+        fail("tRNA fixture: %d reads, expected 76" % len(seqs))
+    cfg, params = MIO.read_model(GOLD_TRNA, Lp=96, dtype="float32",
+                                 device=dev)
+    fn, gr, eff = OBJ.eval_file(cfg, params, fq, device=dev)
+    x = J.pack_params(J.kernels(cfg, dev).g, params)
+    rho = np.concatenate([np.full(len(gr) - 2, cfg.rho_theta),
+                          [cfg.rho_lambda] * 2])
+    total = fn + float((rho * x * x / 2.0).sum())
+    print("golden tRNA eval (76 reads, Lp 96, f32): fn %.6f (reference "
+          "0.13662, within 2e-3), fn + L2 %.6f (reference 1.713098, within "
+          "2e-3), sum eff %.4f" % (fn, total, eff), flush=True)
+    if not (abs(fn - 0.13662) <= 2e-3 and abs(total - 1.713098) <= 2e-3):
+        fail("golden tRNA eval: fn %.6f, total %.6f" % (fn, total))
+    return fn, total
+
+
+def golden_small8_train(tmp, dev):
+    """The port CLI's --no-shuffle L-BFGS-B on the first 8 tRNAs (W=28,
+    C=12, 16 iterations, f64) against the reference binary's model."""
+    fq = os.path.join(tmp, "small8.fq")
+    write_fq(fq, trna_seqs(8))
+    out1 = os.path.join(tmp, "small8.model")
+    t0 = time.time()
+    CLI.main(["train", "-f", fq, "-m", "(.....)", "--no-shuffle", "-i", "16",
+              "-w", "28", "-c", "12", "--batch-size", "-1", "--dtype",
+              "float64", "--out1", out1, "--out3", "~NULL~", "--device",
+              "cuda"])
+    t_train = time.time() - t0
+    _, pr = MIO.read_model(GOLD_SMALL8, Lp=80, device="cpu")
+    _, po = MIO.read_model(out1, Lp=80, device="cpu")
+    err = {n: float((a - b).abs().max()) for n, a, b in zip(
+        ("singles", "pairs", "lam"), po, pr)}
+    print("golden small8 train --no-shuffle (8 tRNAs, W=28, C=12, -i 16, f64, "
+          "on the card): %.1f s; max abs difference from the reference "
+          "binary's model %s (within 0.05)" % (t_train, json.dumps(err)),
+          flush=True)
+    if not max(err.values()) <= 0.05:
+        fail("golden small8: parameters differ by %.3g" % max(err.values()))
+    return err
+
+
 # ------------------------------------------------------------ main
 
 def main():
@@ -615,7 +1068,7 @@ def main():
                     help="write the torch.profiler kernel table of one "
                          "main-path batch_fn_grad to this file")
     args = ap.parse_args()
-    global np, torch, ET, J, DP, K, OBJ, seq_to_ints
+    global np, torch, ET, J, DP, K, LIN, MIO, OBJ, TRN, CLI, seq_to_ints
     try:
         import numpy as np
         import torch
@@ -624,12 +1077,16 @@ def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs a GPU")
     try:
+        from rnaelem_tpu_torch import cli as CLI
         from rnaelem_tpu_torch.alphabet import seq_to_ints
         from rnaelem_tpu_torch.energy import tables as ET
+        from rnaelem_tpu_torch.model import io as MIO
         from rnaelem_tpu_torch.model import joint as J
         from rnaelem_tpu_torch.ops import dp as DP
         from rnaelem_tpu_torch.ops import kernels as K
+        from rnaelem_tpu_torch.ops import linear as LIN
         from rnaelem_tpu_torch.train import objective as OBJ
+        from rnaelem_tpu_torch.train import trainer as TRN
     except ImportError as e:
         fail("the rnaelem_tpu_torch package must sit beside this script "
              "(%s)" % e)
@@ -710,6 +1167,9 @@ def main():
     check_full_gradient(cfg64, cfg32, small, dev)
     check_masks(cfg64, cfg32, small, dev)
 
+    # ---- phase 7 (checks): the no-rss chain
+    err.update(check_chain(small, reads, dev))
+
     # ---- phase 5: per-call times at the main path's shapes
     k32 = J.kernels(cfg32, dev)
     seq, L, bp_ok, dots_cum = J.score_inputs(cfg32, k32, bm.sd, bm.bp_ok)
@@ -770,8 +1230,24 @@ def main():
             lambda: [f(fs, pg, j0, d32, c32, h32, st) for f in pf], 3)
         del kg, pg
     del state, fs, gs
+    lin, eRc, Lc, gpc = chain_inputs(norss_cfg("float32"), reads, dev)
+    _, rows_c = K.chain_fwd(lin, eRc, Lc)
+    for kname, call in (
+            ("linear_fwd", lambda: K.chain_fwd(lin, eRc, Lc)),
+            ("linear_adj", lambda: K.chain_adj(lin, eRc, Lc, rows_c, gpc))):
+        K.reset_counts()
+        call()
+        unit[kname] = ("batch", K.KERNELS[kname].launches)
+        ms[kname] = device_ms(call, REPS, funcs[kname])
+    plain_ms["linear_fwd"] = cuda_ms(lambda: LIN.chain_plain(lin, eRc, Lc), 3)
+    leaf = eRc.detach().clone().requires_grad_(True)
+    with torch.enable_grad():
+        graph = LIN.chain_plain(lin, leaf, Lc)
+    plain_ms["linear_adj"] = cuda_ms(lambda: torch.autograd.grad(
+        graph, leaf, gpc, retain_graph=True), 3)
+    del graph, leaf, rows_c
 
-    # ---- phase 6: the main path
+    # ---- phase 6: the evaluation path
     K.reset_counts()
     t0 = time.time()
     batch = OBJ.stack_reads(cfg32, reads, device=dev)
@@ -780,12 +1256,12 @@ def main():
     fn, grads, eff = OBJ.batch_fn_grad(cfg32, p32, batch, device=dev)
     torch.cuda.synchronize()
     warm_s = time.time() - t0
-    launches = {n: kk.launches for n, kk in K.KERNELS.items()}
-    print("main path launches (masks + fn+grad, B=%d): %s"
-          % (B_MAIN, json.dumps(launches)), flush=True)
-    for n, cnt in launches.items():
-        if cnt <= 0:
-            fail("kernel %s was not launched on the main path" % n)
+    eval_launches = {n: kk.launches for n, kk in K.KERNELS.items()}
+    print("evaluation path launches (masks + fn+grad, B=%d): %s"
+          % (B_MAIN, json.dumps(eval_launches)), flush=True)
+    for n in DP_KERNELS:
+        if eval_launches[n] <= 0:
+            fail("kernel %s was not launched on the evaluation path" % n)
     K.reset_counts()
     OBJ.batch_fn_grad(cfg32, p32, batch, device=dev)
     per_fg = {n: kk.launches for n, kk in K.KERNELS.items()}
@@ -800,38 +1276,15 @@ def main():
                     reps)
     fwd_ms = cuda_ms(lambda: OBJ.batch_total(cfg32, p32, batch, device=dev),
                      reps)
-    t0 = time.time()
-    b64 = batch._replace(lik_sign=batch.lik_sign.double(),
-                         eff=batch.eff.double())
-    parts_ref, g_ref = full_grads(cfg64, p64, b64, dev, plain=True)
-    torch.cuda.synchronize()
-    ref_s = time.time() - t0
-    parts_main = J.batch_logZ_parts(cfg32, p32, batch.sd, batch.bp_ok,
-                                    device=dev)
-    fin = torch.isfinite(parts_ref)
-    if not torch.equal(fin, torch.isfinite(parts_main)):
-        fail("main path: -inf pattern of the parts differs from the f64 "
-             "plain version")
-    e_main = float((parts_main.double() - parts_ref)[fin].abs().max())
-    names = ("singles", "pairs", "lam")
-    e_grad = {n: rel_err(a, b) for n, a, b in zip(names, grads, g_ref)}
-    print("main path: B=%d x %d nt %s W=50 C=30 min_bpp=%g tau=0.1 f32: fn "
-          "%.6f sum eff %.4f; masks (stack_reads) %.3f ms/batch (first "
-          "%.1f s); batch_fn_grad %.3f ms/batch (%.1f seqs/s); forward "
-          "batch_total %.3f ms/batch (%.1f seqs/s); warm-up %.1f s; "
-          "launches per fn+grad %s; f64 plain reference %.1f s; parts vs "
-          "f64 plain max abs %.3g; gradient vs f64 plain relative max norm "
-          "%s" % (
+    print("evaluation path: B=%d x %d nt %s W=50 C=30 min_bpp=%g tau=0.1 "
+          "f32: fn %.6f sum eff %.4f; masks (stack_reads) %.3f ms/batch "
+          "(first %.1f s); batch_fn_grad %.3f ms/batch (%.1f seqs/s); "
+          "forward batch_total %.3f ms/batch (%.1f seqs/s); warm-up %.1f s; "
+          "launches per fn+grad %s" % (
               B_MAIN, LP, PATTERN, MIN_BPP, float(fn), float(eff), mask_ms,
               mask_warm_s, fg_ms, B_MAIN * 1e3 / fg_ms, fwd_ms,
-              B_MAIN * 1e3 / fwd_ms, warm_s, json.dumps(per_fg), ref_s,
-              e_main, json.dumps(e_grad)), flush=True)
-    if not e_main <= 2e-3:
-        fail("main path parts differ from the f64 plain version by %.3g"
-             % e_main)
-    if not max(e_grad.values()) <= 1e-3:
-        fail("main path gradient differs from the f64 plain version by "
-             "%.3g" % max(e_grad.values()))
+              B_MAIN * 1e3 / fwd_ms, warm_s, json.dumps(per_fg)),
+          flush=True)
     per, prof, wall_us, busy_us = device_profile(
         lambda: OBJ.batch_fn_grad(cfg32, p32, batch, device=dev), 2)
     wall_us, busy_us = wall_us / 2, busy_us / 2
@@ -855,29 +1308,52 @@ def main():
             f.write(prof.key_averages().table(
                 sort_by="self_device_time_total", row_limit=50))
 
-    # ---- phase 7: the kernel table
+    # ---- phase 8: the training path (the production step)
+    with tempfile.TemporaryDirectory() as tmp:
+        step = production_step(PATTERN, False, tmp, dev)
+        step_nr = production_step(NORSS, True, tmp, dev)
+        for run, names in ((step, DP_KERNELS), (step_nr, CHAIN_KERNELS)):
+            for n in names:
+                if run["launches"][n] <= 0:
+                    fail("kernel %s was not launched on the training path "
+                         "%s" % (n, run["pattern"]))
+        # ---- phase 9: the C++ goldens on the card
+        golden_trna_eval(tmp, dev)
+        golden_small8_train(tmp, dev)
+
+    # ---- phase 10: the kernel table
     # ms (the profiler's device time of the kernel's own functions over
-    # REPS calls), plain_ms and bound_ms are per unit of work ("unit": K1
-    # one batch, K2-K7 one column j0, of "launches_per_unit" launches);
-    # "launches" counts the main path's run (masks + fn+grad),
+    # REPS calls), plain_ms and bound_ms are per unit of work ("unit": K1,
+    # K8, K9 one batch, K2-K7 one column j0, of "launches_per_unit"
+    # launches); "launches" counts the training path's run of the kernel
+    # (the production step, (.....) for K1-K7, ..*.. --no-rss for K8/K9),
+    # "launches_eval_path" the evaluation path's (masks + fn+grad),
     # "launches_fn_grad" and "ms_fn_grad" (device time) one batch_fn_grad
     bnd = bounds(cfg32, st, c32, k32.tab, j0, B_MAIN, 4)
+    bnd.update(chain_bounds(lin, Lc.cpu().numpy(), LP, 4))
     rows = []
     for name, kern in K.KERNELS.items():
         bms, by = bnd[name]
         u, n_unit = unit[name]
+        launches = (step_nr if name in CHAIN_KERNELS else step)["launches"]
         rows.append({
             "name": name, "route": "cuda", "source": kern.source,
             "replaces": kern.replaces, "launches": launches[name],
             "max_abs_err": err[name], "ms": ms[name],
             "plain_ms": plain_ms[name], "bound_ms": bms, "bound_by": by,
             "library_ms": None, "unit": u, "launches_per_unit": n_unit,
+            "launches_eval_path": eval_launches[name],
             "launches_fn_grad": per_fg[name], "ms_fn_grad": fg_dev[name]})
         print("kernel %s: %.4f ms per %s of %d launches (plain %.3f ms, "
-              "bound %.4f ms by %s); %d launches on the main path, %d per "
-              "fn+grad (%.3f ms of device time)"
-              % (name, ms[name], u, n_unit, plain_ms[name], bms, by,
-                 launches[name], per_fg[name], fg_dev[name]), flush=True)
+              "bound %.4f ms by %s); %d launches in the production step, %d "
+              "on the evaluation path, %d per fn+grad (%.3f ms of device "
+              "time)" % (name, ms[name], u, n_unit, plain_ms[name], bms, by,
+                         launches[name], eval_launches[name], per_fg[name],
+                         fg_dev[name]), flush=True)
+    mb_ms, mb_by = mask_pass_bound(cfg32, batch.sd, dev, 4)
+    print("row I (the masks, K1-K7 at S=1 over every column, B=%d x %d nt): "
+          "bound %.4f ms by %s; measured %.3f ms per batch (stack_reads)"
+          % (B_MAIN, LP, mb_ms, mb_by, mask_ms), flush=True)
     print("chip_smoke total %.1f s" % (time.time() - t_start))
     print(json.dumps({"kernels": rows}))
     print(card)

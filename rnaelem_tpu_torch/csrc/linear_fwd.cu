@@ -1,0 +1,69 @@
+// K8: the no-rss forward chain (chain.cuh states the recursion and the
+// design).  Replaces model/joint.py _linear_parts_one (row J,
+// joint.py:594-631), the forward lax.scan.
+#include "chain.cuh"
+
+// One block per read b, thread t = target state
+template <typename T>
+__global__ void chain_fwd_kernel(ChainDims D, ChainIdx ix, const T* eR,
+                                 const long long* L, T* Osave, T* parts) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* o = reinterpret_cast<T*>(smem_raw);  // [S]
+  const int Lp = D.Lp, S = D.S, B = D.B;
+  const int b = blockIdx.x, t = threadIdx.x;
+  const int Lb = L[b] < Lp ? static_cast<int>(L[b]) : Lp;
+  const T* w = static_cast<const T*>(ix.rt_w);
+  if (t < S) {
+    const T v = t == ix.end_states[0] ? (T)0 : ninf<T>();
+    o[t] = v;
+    Osave[(long long)t * B + b] = v;
+  }
+  __syncthreads();
+  for (int p = 0; p < Lb; ++p) {
+    T nxt = ninf<T>();
+    if (t < S) {
+      const T e = eR[((long long)p * S + t) * B + b];
+      T m = ninf<T>();
+      for (int k = ix.rt_off[t]; k < ix.rt_off[t + 1]; ++k) {
+        const T x = o[ix.rt_s[k]] + w[k];
+        m = x > m ? x : m;
+      }
+      if (m > ninf<T>()) {
+        T s = (T)0;
+        for (int k = ix.rt_off[t]; k < ix.rt_off[t + 1]; ++k)
+          s += ex(o[ix.rt_s[k]] + w[k] - m);
+        nxt = m + lg(s) + e;
+      }
+    }
+    __syncthreads();
+    if (t < S) {
+      o[t] = nxt;
+      Osave[((long long)(p + 1) * S + t) * B + b] = nxt;
+    }
+    __syncthreads();
+  }
+  if (t < 3) parts[(long long)b * 3 + t] = o[ix.end_states[t]];
+}
+
+template <typename T>
+static int chain_fwd(ChainDims D, ChainIdx ix, const T* eR,
+                     const long long* L, T* Osave, T* parts,
+                     cudaStream_t st) {
+  chain_fwd_kernel<T><<<D.B, chain_threads(D.S), D.S * sizeof(T), st>>>(
+      D, ix, eR, L, Osave, parts);
+  return static_cast<int>(cudaGetLastError());
+}
+
+RNAELEM_EXPORT int rnaelem_chain_fwd_f32(ChainDims D, ChainIdx ix,
+                                         const float* eR, const long long* L,
+                                         float* Osave, float* parts,
+                                         cudaStream_t st) {
+  return chain_fwd<float>(D, ix, eR, L, Osave, parts, st);
+}
+
+RNAELEM_EXPORT int rnaelem_chain_fwd_f64(ChainDims D, ChainIdx ix,
+                                         const double* eR, const long long* L,
+                                         double* Osave, double* parts,
+                                         cudaStream_t st) {
+  return chain_fwd<double>(D, ix, eR, L, Osave, parts, st);
+}

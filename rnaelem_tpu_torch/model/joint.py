@@ -8,9 +8,11 @@ theta = s - logsumexp(s) (profile_hmm.hpp:103-111).  Emission tables are
 two dense banks — ``singles [n_single, 4]`` and ``pairs [n_pair, 6]`` —
 indexed through the grammar's table maps.
 
-The DP (ops/dp.py) is batched with a trailing batch axis;
-``batch_logZ_parts`` is the entry point.  Every entry point takes an
-explicit ``device``: None means CUDA (and raises without a GPU).
+The DP (ops/dp.py) is batched with a trailing batch axis and takes the
+weights as per-read copies (``per_read``): ``batch_logZ_parts_pr`` is the
+one path, and ``batch_logZ_parts`` runs it on the copies of shared
+weights.  Every entry point takes an explicit ``device``: None means CUDA
+(and raises without a GPU).
 """
 from __future__ import annotations
 
@@ -27,10 +29,14 @@ from ..energy import params as EPARAMS
 from ..energy import tables as ET
 from ..grammar.profile import Grammar, compile_pattern, null_grammar
 from ..ops import dp as DP
+from ..ops import linear as LIN
 from ..ops.semiring import NEG, lse
 
 
 class Params(NamedTuple):
+    """Model weights; per-read copies (``per_read``) carry a leading
+    read axis: singles [B, n_single, 4], pairs [B, n_pair, 6], lam
+    [B, 2]."""
     singles: torch.Tensor   # [n_single, 4] log-space theta (or raw s)
     pairs: torch.Tensor     # [n_pair, 6]
     lam: torch.Tensor       # [2]
@@ -186,8 +192,8 @@ def effective_theta(cfg: ModelConfig, p: Params) -> Params:
     if not cfg.theta_softmax:
         return p
     return Params(
-        singles=p.singles - lse(p.singles, axis=-1)[:, None],
-        pairs=p.pairs - lse(p.pairs, axis=-1)[:, None],
+        singles=p.singles - lse(p.singles, axis=-1)[..., None],
+        pairs=p.pairs - lse(p.pairs, axis=-1)[..., None],
         lam=p.lam)
 
 
@@ -284,44 +290,76 @@ def _const_factors(cfg: ModelConfig, k: _Kernels, sd: SeqData, bp_ok):
                                   "spec_il")})
 
 
-def _diff_factors(cfg: ModelConfig, k: _Kernels, params: Params,
-                  sd: SeqData):
-    """Differentiable factors for the batch, batch-minor (trailing B)."""
-    g, dev, dt = k.g, k.device, k.dtype
-    Lp = cfg.Lp
-    th = effective_theta(cfg, params)
-    seq = torch.as_tensor(sd.seq, device=dev).long()          # [B, Lp]
-    ws = torch.as_tensor(sd.ws, device=dev).to(dt)
-    B = seq.shape[0]
+def per_read(params: Params, B: int) -> Params:
+    """B per-read copies of shared weights (views: nothing is copied)."""
+    return Params(*[x[None].expand(B, *x.shape) for x in params])
+
+
+def _theta(cfg: ModelConfig, params_b: Params, dt):
+    """Effective emission tables of per-read weights: singles [B,
+    n_single, 4], pairs [B, n_pair, 6]."""
+    th = effective_theta(cfg, params_b)
     # DBG_NO_THETA pins theta to log(1)=0 while keeping the gradient path
     if cfg.no_theta and not cfg.no_prf:
         th = th._replace(singles=th.singles - th.singles.detach(),
                          pairs=th.pairs - th.pairs.detach())
-    sidx_r = torch.as_tensor(g.single_table_index[g.tid_r], device=dev)
-    sidx_l = torch.as_tensor(g.single_table_index[g.tid_l], device=dev)
-    b1 = torch.clamp(seq - 1, 0, 3)
+    return th.singles.to(dt), th.pairs.to(dt)
+
+
+def _emission_parts(cfg: ModelConfig, k: _Kernels, sd: SeqData):
+    """(seq [B, Lp] int64, ws [B, Lp], the base one-hot [B, Lp, 4])."""
+    seq = torch.as_tensor(sd.seq, device=k.device).long()
+    ws = torch.as_tensor(sd.ws, device=k.device).to(k.dtype)
+    oh4 = torch.nn.functional.one_hot(torch.clamp(seq - 1, 0, 3), 4)
+    return seq, ws, oh4.to(k.dtype)
+
+
+def _single_emissions(cfg, k, singles, seq, ws, oh4, tid, ws_flags):
+    """Per-state single emissions + positional weight, [B, Lp, S]: the
+    table of each state's node picked by a one-hot contraction (not a
+    gather: the backward is then a product rather than a sorted,
+    accumulating index_put over every cell) that keeps the read axis."""
+    g, dev, dt = k.g, k.device, k.dtype
+    B, Lp = seq.shape
     zero = torch.zeros((), dtype=dt, device=dev)
-    # the weights are picked by one-hot contractions, not gathers: the
-    # backward is then a product rather than a sorted, accumulating
-    # index_put over every cell
-    oh4 = torch.nn.functional.one_hot(b1, 4).to(dt)            # [B, Lp, 4]
+    f = torch.as_tensor(ws_flags, device=dev)
+    w = torch.where(f[None, None, :], ws[:, :, None], zero)
+    if cfg.no_prf:
+        return torch.zeros((B, Lp, g.S), dtype=dt, device=dev) + w
+    slot = torch.as_tensor(g.single_table_index[tid], device=dev)
+    v = torch.einsum("blk,bsk->bls", oh4, singles[:, slot])
+    return torch.where((seq > 0)[:, :, None], v, zero) + w
 
-    def single_lookup(slot):
-        if cfg.no_prf:
-            return torch.zeros((B, Lp, g.S), dtype=dt, device=dev)
-        v = torch.einsum("blk,sk->bls", oh4, th.singles.to(dt)[slot])
-        return torch.where((seq > 0)[:, :, None], v, zero)
 
-    def ws_at(flags):
-        f = torch.as_tensor(flags, device=dev)
-        return torch.where(f[None, None, :], ws[:, :, None], zero)
+def right_emissions(cfg: ModelConfig, k: _Kernels, params_b: Params,
+                    sd: SeqData):
+    """eR [Lp, S, B] (right emission + ws) of per-read weights,
+    batch-minor: the one differentiable input of the no-rss chain."""
+    seq, ws, oh4 = _emission_parts(cfg, k, sd)
+    singles, _ = _theta(cfg, params_b, k.dtype)
+    eR = _single_emissions(cfg, k, singles, seq, ws, oh4, k.g.tid_r,
+                           k.g.ws_r)
+    return torch.movedim(eR, 0, -1).contiguous()
 
-    eR = single_lookup(sidx_r) + ws_at(g.ws_r)
-    eL = single_lookup(sidx_l) + ws_at(g.ws_l)
+
+def _diff_factors(cfg: ModelConfig, k: _Kernels, params_b: Params,
+                  sd: SeqData):
+    """Differentiable factors for the batch, batch-minor (trailing B),
+    from per-read weights: each read's factors depend on its own copy
+    alone, and lam comes out [2, B]."""
+    g, dev, dt = k.g, k.device, k.dtype
+    Lp = cfg.Lp
+    seq, ws, oh4 = _emission_parts(cfg, k, sd)
+    B = seq.shape[0]
+    singles, pairs = _theta(cfg, params_b, dt)
+    zero = torch.zeros((), dtype=dt, device=dev)
+    eR = _single_emissions(cfg, k, singles, seq, ws, oh4, g.tid_r, g.ws_r)
+    eL = _single_emissions(cfg, k, singles, seq, ws, oh4, g.tid_l, g.ws_l)
     if cfg.no_prf:
         bg2 = torch.zeros((B, Lp), dtype=dt, device=dev)
     else:
-        bg2 = torch.where(seq > 0, oh4 @ th.singles.to(dt)[0], zero)
+        bg2 = torch.where(seq > 0, torch.einsum("blk,bk->bl", oh4,
+                                                singles[:, 0]), zero)
     j, w = _grid(cfg, dev)
     i = torch.clamp(j - w, 0, Lp - 1)
     bt = k.tab["bp"][seq[:, i], seq[:, torch.clamp(j - 1, 0, Lp - 1)]
@@ -331,18 +369,26 @@ def _diff_factors(cfg: ModelConfig, k: _Kernels, params: Params,
         pv = torch.zeros((B, Lp + 1, cfg.Wp + 1, Tp), dtype=dt, device=dev)
     else:
         oh6 = torch.nn.functional.one_hot(torch.clamp(bt - 1, 0, 5), 6)
-        pvv = torch.einsum("bjwk,tk->bjwt", oh6.to(dt), th.pairs.to(dt))
+        pvv = torch.einsum("bjwk,btk->bjwt", oh6.to(dt), pairs)
         pv = torch.where((bt > 0)[..., None], pvv, zero)
     mv = lambda x: torch.movedim(x, 0, -1).contiguous()
     return DP.DiffFactors(
         eR=mv(eR), eL=mv(eL), bg2=mv(bg2), pv=mv(pv),
-        lam=params.lam.to(dt),
+        lam=params_b.lam.to(dt).T,
         alphaP=torch.zeros((Lp + 1, cfg.Wp + 1, B), dtype=dt, device=dev))
 
 
 def batch_factors(cfg: ModelConfig, params: Params, sd_b: SeqData,
                   bp_ok_b, device=None):
-    """Batched (DiffFactors, ConstFactors) for the DP.
+    """``batch_factors_pr`` on per-read copies of shared weights."""
+    return batch_factors_pr(cfg, per_read(params, len(sd_b.L)), sd_b,
+                            bp_ok_b, device)
+
+
+def batch_factors_pr(cfg: ModelConfig, params_b: Params, sd_b: SeqData,
+                     bp_ok_b, device=None):
+    """Batched (DiffFactors, ConstFactors) for the DP from per-read
+    weights.
 
     sd_b: SeqData with a leading batch axis; bp_ok_b: [B, Lp+1, Wp+1].
     """
@@ -352,7 +398,7 @@ def batch_factors(cfg: ModelConfig, params: Params, sd_b: SeqData,
     k = kernels(cfg, device)
     bp_ok_b = torch.as_tensor(bp_ok_b, device=k.device)
     c = _const_factors(cfg, k, sd_b, bp_ok_b)
-    d = _diff_factors(cfg, k, params, sd_b)
+    d = _diff_factors(cfg, k, params_b, sd_b)
     return d, c
 
 
@@ -368,7 +414,8 @@ def _null_batch_factors(cfg: ModelConfig, k: _Kernels, sd_b: SeqData,
     z = lambda *shape: torch.zeros(shape, dtype=k.dtype, device=k.device)
     d = DP.DiffFactors(eR=z(Lp, 1, B), eL=z(Lp, 1, B), bg2=z(Lp, B),
                        pv=z(Lp + 1, Wp + 1, 1, B),
-                       lam=torch.ones(2, dtype=k.dtype, device=k.device),
+                       lam=torch.ones((2, B), dtype=k.dtype,
+                                      device=k.device),
                        alphaP=z(Lp + 1, Wp + 1, B))
     return d, c
 
@@ -430,18 +477,58 @@ def effective_bp_mask(cfg: ModelConfig, sd: SeqData, device=None):
 
 def batch_logZ_parts(cfg: ModelConfig, params: Params, sd_b: SeqData,
                      bp_ok_b=None, device=None):
-    """[B, 3] log partition parts at end states (0,0), (0,M-2), (0,M-1).
+    """``batch_logZ_parts_pr`` on per-read copies of shared weights."""
+    return batch_logZ_parts_pr(cfg, per_read(params, len(sd_b.L)), sd_b,
+                               bp_ok_b, device)
+
+
+def batch_logZ_parts_pr(cfg: ModelConfig, params_b: Params, sd_b: SeqData,
+                        bp_ok_b=None, device=None):
+    """[B, 3] log partition parts at end states (0,0), (0,M-2), (0,M-1)
+    from per-read weights (read b's parts depend on its own copy alone).
 
     part_func(ari, nasi) of the reference (motif_trainer.hpp:108-112) is
-    a logsumexp over a subset of these.
+    a logsumexp over a subset of these.  No-rss models run the forward
+    chain (ops/linear.py, K8/K9) on their right emissions; the pair masks
+    play no part there.
     """
     if cfg.no_rss:
-        raise NotImplementedError(
-            "the no-rss linear chain (kernel row J) is not ported yet")
+        k = kernels(cfg, device)
+        L = torch.as_tensor(sd_b.L, device=k.device).long()
+        return LIN.linear_parts(k.dp.st,
+                                right_emissions(cfg, k, params_b, sd_b), L)
     if bp_ok_b is None:
         bp_ok_b, _ = effective_bp_mask_batch(cfg, sd_b, device)
-    d, c = batch_factors(cfg, params, sd_b, bp_ok_b, device)
+    d, c = batch_factors_pr(cfg, params_b, sd_b, bp_ok_b, device)
     return kernels(cfg, device).dp.dp_parts(d, c)
+
+
+def linear_parts(cfg: ModelConfig, params: Params, sd: SeqData,
+                 device=None):
+    """[3] no-rss chain parts of one read (JAX ``linear_parts``)."""
+    dev = DEV.resolve(device)
+    cfg1 = dataclasses.replace(cfg, no_rss=True)
+    return batch_logZ_parts(cfg1, params, stack_seqdata([sd], dev),
+                            device=dev)[0]
+
+
+def logZ_parts(cfg: ModelConfig, params: Params, sd: SeqData, bp_ok=None,
+               with_eff=False, device=None):
+    """[3] parts of one read (JAX ``logZ_parts``): the read's own min-BPP
+    masks unless ``bp_ok`` is given; with ``with_eff`` also bpp_eff (1 for
+    no-rss models and for given masks)."""
+    dev = DEV.resolve(device)
+    sd_b = stack_seqdata([sd], dev)
+    eff = torch.ones((), dtype=DEV.torch_dtype(cfg.dtype), device=dev)
+    if cfg.no_rss:
+        bp_b = None
+    elif bp_ok is None:
+        bp_b, effs = effective_bp_mask_batch(cfg, sd_b, dev)
+        eff = effs[0]
+    else:
+        bp_b = torch.as_tensor(bp_ok, device=dev)[None]
+    parts = batch_logZ_parts(cfg, params, sd_b, bp_b, device=dev)[0]
+    return (parts, eff) if with_eff else parts
 
 
 def part_func(parts, ari=True, nasi=True):

@@ -63,7 +63,7 @@ class DiffFactors(NamedTuple):
     eL: torch.Tensor      # [Lp, S, B] left emission + ws, keyed by source
     bg2: torch.Tensor     # [Lp, B] background single emission
     pv: torch.Tensor      # [Lp+1, Wp+1, Tp, B] pair-table emissions
-    lam: torch.Tensor     # [2] shared across the batch
+    lam: torch.Tensor     # [2, B] per-read copies
     alphaP: torch.Tensor  # [Lp+1, Wp+1, B] injected P-cell factor
 
 
@@ -197,6 +197,7 @@ class DPStatic:
         self.E_TR = f(np.where(g.rt, np.where(g.rt_tau, tau, 1.0), 0.0))
         TRlog = np.where(g.rt, np.where(g.rt_tau, ltau, 0.0), -np.inf)
         TLlog = np.where(g.lt, np.where(g.lt_tau, ltau, 0.0), -np.inf)
+        self.TR = f(TRlog)                 # the no-rss chain (ops/linear.py)
         self.TL = f(TLlog)
         mbg, combos = _pem_combos(g, ltau)
         self.Mbg = f(mbg)
@@ -327,31 +328,24 @@ class DPStatic:
         self.k = kk
 
 
-def _lam2(lam):
-    if lam.dim() != 1:
-        raise NotImplementedError(
-            "per-read lambda is not ported yet; pass lam of shape [2]")
-    return lam[:, None]                          # [2, 1]
-
-
 def hoisted(d: DiffFactors, c: ConstFactors, st: DPStatic):
     """Per-evaluation exp-space energy tensors (lambda flows here):
     eSZ [2, n_cls, Cp+1 (dl), Cp+1 (u1), B] with the per-read C cap
-    (dl + u1 <= C) folded in, and eSZg [2, 4, Cp+1, Cp+1], the size
-    weights without the cap summed per misA/misB group; emisA
-    [2, 4, Lp+1, Wp+1, B]; emisB rows-leading [2, Lp+1+PAD, Wp+1, 4, B]
-    with zero PAD rows."""
-    lam = _lam2(d.lam)
+    (dl + u1 <= C) folded in, and eSZg [2, 4, Cp+1, Cp+1, B], the size
+    weights without the cap
+    summed per misA/misB group; emisA [2, 4, Lp+1, Wp+1, B]; emisB
+    rows-leading [2, Lp+1+PAD, Wp+1, 4, B] with zero PAD rows."""
+    lam = d.lam
     Cp, PAD = st.dims.Cp, st.PAD
     dt, dev = st.dtype, st.device
     dlarr = torch.arange(Cp + 1, device=dev)
     cmask = (dlarr[:, None, None] + dlarr[None, :, None]
              <= c.C[None, None, :])
     SZT = torch.as_tensor(np.ascontiguousarray(
-        np.transpose(st.SZ, (0, 2, 1))), dtype=dt, device=dev)
+        np.transpose(st.SZ, (0, 2, 1))), dtype=dt, device=dev)[..., None]
     eSZs = torch.stack([torch.exp(lam_mul(lam[b], SZT))
-                        for b in range(2)])        # [2, n_cls, dl, u1]
-    eSZ = eSZs[..., None] * cmask
+                        for b in range(2)])  # [2, n_cls, dl, u1, B]
+    eSZ = eSZs * cmask
     grp = torch.as_tensor(st.grp, device=dev)
     eSZg = torch.zeros((2, 4) + tuple(eSZs.shape[2:]), dtype=dt,
                        device=dev).index_add_(1, grp, eSZs)
@@ -428,7 +422,7 @@ def front_col(win, j, rows, c, st):
     """L chain (U1), P (U2: TT_P_E / TT_P_P) and T2 (U3) of column j."""
     Lp, Wp = st.dims.Lp, st.dims.Wp
     iw = torch.clamp(j - torch.arange(Wp + 1, device=st.device), 0, Lp - 1)
-    lamv = _lam2(rows["lam"])[st.bucket]           # [S, 1]
+    lamv = rows["lam"][st.bucket]                 # [S, B]
     eRrow = rows["eR"]
     g_o2 = c.gate_O2[j - 1]
     # U1: ST_L chain (motif_model.hpp:243-257); width 0 is the diagonal
@@ -511,7 +505,7 @@ def _ep_specials(c, j, exPF, exLB, exL3, lam, st):
     and 1x1/1x2/2x1/2x2 internals (energy_param.hpp:744-795) — in the
     chain-factored exp space; a [w, n2, B] contribution carrying the
     ep_col shifts."""
-    lamk2 = lam[st.lamk2_idx]                    # [n2, 1]
+    lamk2 = lam[st.lamk2_idx]                    # [n2, B]
     il6 = c.ep["spec_il"][:, j]                  # [6, w, B]
     acc = None
     for ci, (dk, dl) in enumerate(SPEC_COMBOS):
@@ -540,7 +534,7 @@ def ep_col(win, j, rows, c, st, Lcol, Pcol):
     B = Lcol.shape[-1]
     if not st.have_ep:
         return torch.full((Wp + 1, S, B), NEG, dtype=st.dtype, device=dev)
-    lam = _lam2(rows["lam"])
+    lam = rows["lam"]
     PF = torch.cat([Pcol[None], win["P"]], dim=0)
     LB = torch.cat([Lcol[None], win["L"]], dim=0)
     warr = torch.arange(Wp + 1, device=dev)
@@ -600,7 +594,7 @@ def ep_col(win, j, rows, c, st, Lcol, Pcol):
 
 def e_col(j, rows, c, st, Lcol, Mcol, epcol):
     """E (U7: TT_E_H / TT_E_M / TT_E_P) of column j."""
-    lamv = _lam2(rows["lam"])[st.bucket]
+    lamv = rows["lam"][st.bucket]
     hterm = torch.where(st.loopm[None, :, None],
                         Lcol + lam_mul(lamv[None], c.hp[j][:, None, :]),
                         torch.full_like(Lcol, NEG))
@@ -613,7 +607,7 @@ def o_col(win, j, rows, c, st, Pcol):
     """O column (U8: TT_O_O / TT_O_OP): O = O chain + O*P splits per
     lambda bucket.  Slot 0 (row j) is zero-weighted: okP kills w = 0."""
     S = st.dims.S
-    lam = _lam2(rows["lam"])
+    lam = rows["lam"]
     eRrow = rows["eR"]
     g_o2 = c.gate_O2[j - 1]
     B = Pcol.shape[-1]
@@ -710,15 +704,17 @@ def init_grads(fs, d: DiffFactors, c: ConstFactors, h):
     gs = {k: z(fs[k]) for k in GRAD_TABLES}
     col = fs["LL"][0]
     gs.update(gM=z(col), gB=z(col), gep=z(col))
+    B = col.shape[-1]
     gs.update(eR=z(d.eR), eL=z(d.eL), bg2=z(d.bg2), pv=z(d.pv),
-              alphaP=z(d.alphaP), lam=z(d.lam))
-    gs.update({k: z(h[k]) for k in ("eSZ", "eSZg", "emisA", "emisB")})
-    # the kernels' lambda terms: per-cell partials DL[j, w, target, read]
-    # (summed per bucket in finish_grads) and per-read size-weight
-    # partials GSZ [2, 4, Cp+1, Cp+1, B]
+              alphaP=z(d.alphaP))
+    gs.update({k: z(h[k]) for k in ("eSZ", "emisA", "emisB")})
+    # lambda's direct terms, all per read: the plain stages' [2, B]
+    # cotangent, the kernels' per-cell partials DL[j, w, target, read]
+    # (summed per bucket in finish_grads) and their size-weight partials
+    # GSZ [2, 4, Cp+1, Cp+1, B]
+    gs["lam"] = torch.zeros((2, B), dtype=col.dtype, device=col.device)
     gs["DL"] = z(fs["LL"][: d.pv.shape[0]])
-    gs["GSZ"] = torch.zeros(tuple(h["eSZg"].shape) + (col.shape[-1],),
-                            dtype=col.dtype, device=col.device)
+    gs["GSZ"] = z(h["eSZg"])
     return gs
 
 
@@ -735,21 +731,21 @@ def seed_parts(gs, gbar, c: ConstFactors, st):
 
 def finish_grads(gs, st):
     """Cotangents of (eR, eL, bg2, pv, lam, alphaP, eSZ, eSZg, emisA,
-    emisB) from a gradient state: the kernels' per-cell lambda partials
-    are summed per bucket, their per-read size-weight partials over the
-    reads (plain sums in a fixed order)."""
-    DLs = gs["DL"].sum(dim=(0, 1, 3))                    # [S]
+    emisB) from a gradient state, every one per read: the kernels'
+    per-cell lambda partials are summed per bucket into lambda's [2, B]
+    (plain sums in a fixed order)."""
+    DLs = gs["DL"].sum(dim=(0, 1))                       # [S, B]
     lam = gs["lam"] + torch.stack(
-        [DLs[st.bucket == b].sum() for b in range(2)])
-    eSZg = gs["eSZg"] + gs["GSZ"].sum(dim=-1)
+        [DLs[st.bucket == b].sum(dim=0) for b in range(2)])
     return (gs["eR"], gs["eL"], gs["bg2"], gs["pv"], lam, gs["alphaP"],
-            gs["eSZ"], eSZg, gs["emisA"], gs["emisB"])
+            gs["eSZ"], gs["GSZ"], gs["emisA"], gs["emisB"])
 
 
 def lam_total(grads, d: DiffFactors, c: ConstFactors, st):
-    """Lambda's whole cotangent from the outputs of ``finish_grads``: its
-    direct term plus what the hoisted exponentials' cotangents carry to
-    it (as autograd does in dp_parts)."""
+    """Lambda's whole cotangent [2, B] from the outputs of
+    ``finish_grads``: its direct term plus what the hoisted
+    exponentials' cotangents carry to it (as autograd does in
+    dp_parts)."""
     lam = d.lam.detach().requires_grad_(True)
     with torch.enable_grad():
         h = hoisted(d._replace(lam=lam), c, st)
@@ -866,7 +862,8 @@ def band_adj_plain(fs, gs, j, d, c, h, st):
     lv = _leaves(winL=win["L"][:1], winP=win["P"][:1], winE=win["E"],
                  winT2=win["T2"], winT1=win["T1"], eR=rows["eR"],
                  eL=rows["eL"], bgl=rows["bgl"], bgr=rows["bgr"],
-                 pv=rows["pv"], alphaP=rows["alphaP"], lam=rows["lam"])
+                 pv=rows["pv"], alphaP=rows["alphaP"],
+                 lam=rows["lam"])
     rows.update({k: lv[k] for k in ("eR", "eL", "bgl", "bgr", "pv",
                                      "alphaP", "lam")})
     w = dict(L=lv["winL"], P=lv["winP"], E=lv["winE"], T2=lv["winT2"],
@@ -926,7 +923,7 @@ HOISTED = ("eSZ", "eSZg", "emisA", "emisB")
 class _DPParts(torch.autograd.Function):
     """[B, 3] log partition parts.  The hoisted exponentials come in as
     inputs, so autograd carries their cotangents on to lambda; lambda's
-    direct terms come out of the outside pass itself."""
+    direct terms come out of the outside pass itself, per read."""
 
     @staticmethod
     def forward(ctx, dp, c, eR, eL, bg2, pv, lam, alphaP, *hvals):
@@ -1001,8 +998,8 @@ class InsideDP:
 
     def outside(self, fs, gbar, d, c, h):
         """The outside pass (JAX dp_bwd): cotangents of (eR, eL, bg2, pv,
-        lam, alphaP, eSZ, eSZg, emisA, emisB) from the inside tables
-        ``fs`` and the parts' cotangent gbar [B, 3]."""
+        lam, alphaP, eSZ, eSZg, emisA, emisB), per read, from the inside
+        tables ``fs`` and the parts' cotangent gbar [B, 3]."""
         gs = init_grads(fs, d, c, h)
         seed_parts(gs, gbar, c, self.st)
         self.outside_columns(fs, gs, d, c, h, self.dims.Lp + 1, 1)

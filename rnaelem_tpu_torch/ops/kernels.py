@@ -30,7 +30,7 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 SOURCES = ("score_tables.cu", "inside_band.cu", "inside_ep.cu",
            "inside_ext.cu", "outside_band.cu", "outside_ep.cu",
-           "outside_ext.cu")
+           "outside_ext.cu", "linear_fwd.cu", "linear_adj.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 LIB_NAME = "librnaelem_kernels.so"
@@ -65,6 +65,12 @@ KERNELS = {
     "outside_ext": Kernel("outside_ext",
                           "rnaelem_tpu_torch/csrc/outside_ext.cu",
                           "rnaelem_tpu/ops/dp.py:788"),
+    "linear_fwd": Kernel("linear_fwd",
+                         "rnaelem_tpu_torch/csrc/linear_fwd.cu",
+                         "rnaelem_tpu/model/joint.py:594"),
+    "linear_adj": Kernel("linear_adj",
+                         "rnaelem_tpu_torch/csrc/linear_adj.cu",
+                         "rnaelem_tpu/model/joint.py:594"),
 }
 
 
@@ -155,6 +161,10 @@ class ScoreDims(ctypes.Structure):
         ("off", ctypes.c_int * N_TABLES)]
 
 
+class ChainDims(ctypes.Structure):
+    _fields_ = [(n, ctypes.c_int) for n in ("Lp", "S", "B")]
+
+
 def _ptr_struct(name, fields):
     return type(name, (ctypes.Structure,),
                 {"_fields_": [(f, ctypes.c_void_p) for f in fields]})
@@ -174,10 +184,13 @@ ADJ_IDX = ("rt_off", "rt_s", "rt_w", "rtr_off", "rtr_t", "rtr_w", "ltr_off",
            "p13_s1", "p13_s3", "p13_ar", "ar_off", "ar_p", "s1_off", "s1_k",
            "s3_off", "s3_k", "k2_s2", "k2_ar", "k2_bu", "k2_tgt", "k2_off",
            "k2_idx", "k2a_off", "k2a_k")
+CHAIN_IDX = ("rt_off", "rt_s", "rt_w", "rtr_off", "rtr_t", "rtr_w",
+             "end_states")
 BandIdx = _ptr_struct("BandIdx", BAND_IDX)
 AdjIdx = _ptr_struct("AdjIdx", ADJ_IDX)
 EpIdx = _ptr_struct("EpIdx", EP_IDX)
 ExtIdx = _ptr_struct("ExtIdx", EXT_IDX)
+ChainIdx = _ptr_struct("ChainIdx", CHAIN_IDX)
 
 # exported function -> (leading struct argtypes, number of pointers)
 _SIGS = {
@@ -211,6 +224,8 @@ _SIGS = {
     "ep_gsz": ((DPDims,), 5),
     "ep_gp": ((DPDims, AdjIdx), 10),
     "ep_gl3": ((DPDims, AdjIdx), 10),
+    "chain_fwd": ((ChainDims, ChainIdx), 4),
+    "chain_adj": ((ChainDims, ChainIdx), 5),
 }
 _SUF = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -309,7 +324,11 @@ TABLE_KEYS = ("LL", "P", "E", "M", "Bt", "T1", "T2")
 
 
 def _check_column(state, j, d, c, h, st):
-    """Full input validation, once per (state, factors) combination."""
+    """Full input validation, once per (state, factors) combination.
+    The kernels take one lambda [2] and one eSZg [2, 4, Cp+1, Cp+1] for
+    the batch: the per-read copies (there for per-read gradients) must be
+    equal, and their first column goes into state['_lam'] and
+    state['_eSZg']."""
     if not 1 <= j <= st.dims.Lp:
         raise ValueError("column %d outside 1..%d" % (j, st.dims.Lp))
     key = (id(d), id(c), id(h), id(st))
@@ -329,11 +348,11 @@ def _check_column(state, j, d, c, h, st):
     for name, t, shape in (
             ("eR", d.eR, (Lp, S, B)), ("eL", d.eL, (Lp, S, B)),
             ("bg2", d.bg2, (Lp, B)), ("pv", d.pv, (Lp + 1, W1, Tp, B)),
-            ("lam", d.lam, (2,)), ("alphaP", d.alphaP, (Lp + 1, W1, B)),
+            ("alphaP", d.alphaP, (Lp + 1, W1, B)),
             ("wsp", c.wsp, (Lp, B)), ("gate_O2", c.gate_O2, (Lp, B)),
             ("gate_M", c.gate_M, (Lp, B)),
             ("spec_il", c.ep["spec_il"], (6, Lp + 1, W1, B)),
-            ("eSZg", h["eSZg"], (2, 4, C1, C1)),
+            ("eSZg", h["eSZg"], (2, 4, C1, C1, B)),
             ("emisA", h["emisA"], (2, 4, Lp + 1, W1, B)),
             ("emisB", h["emisB"], (2, R, W1, 4, B))):
         _req(t, name, dt, shape, dev)
@@ -343,6 +362,13 @@ def _check_column(state, j, d, c, h, st):
         _req(getattr(c, name), name, torch.bool, (Lp + 1, W1, B), dev)
     _req(c.C, "C", torch.int32, (B,), dev)
     _req(c.dots_cum, "dots_cum", torch.int32, (Lp + 1, B), dev)
+    if d.lam.dtype != dt or tuple(d.lam.shape) != (2, B):
+        raise ValueError("lam: expected %s [2, %d]" % (dt, B))
+    if not torch.equal(d.lam, d.lam[:, :1].expand_as(d.lam)):
+        raise ValueError("the kernels take one lambda for the batch: "
+                         "per-read copies must be equal")
+    state["_lam"] = d.lam[:, 0].contiguous()
+    state["_eSZg"] = h["eSZg"][..., 0].contiguous()
     state["_checked"] = key
 
 
@@ -374,7 +400,7 @@ def band_front(state, j, d, c, h, st):
     _call("inside_band", "band_front", st.dtype, _dims(st, state, j, d),
           _band_idx(st), _p(state["LL"]), _p(state["P"]), _p(state["T2"]),
           _p(state["E"]), _p(d.eR), _p(d.bg2), _p(d.pv), _p(d.alphaP),
-          _p(c.wsp), _p(d.lam), _p(c.stk), _p(c.ml2), _p(c.gate_O2),
+          _p(c.wsp), _p(state["_lam"]), _p(c.stk), _p(c.ml2), _p(c.gate_O2),
           _p(c.okP), _p(c.okB))
 
 
@@ -399,7 +425,7 @@ def band_e(state, j, d, c, h, st):
     _check_column(state, j, d, c, h, st)
     _call("inside_band", "band_e", st.dtype, _dims(st, state, j, d),
           _band_idx(st), _p(state["E"]), _p(state["LL"]), _p(state["M"]),
-          _p(state["ep"][j + st.PAD]), _p(d.lam), _p(c.hp), _p(c.mlE),
+          _p(state["ep"][j + st.PAD]), _p(state["_lam"]), _p(c.hp), _p(c.mlE),
           _p(c.okE))
 
 
@@ -433,7 +459,7 @@ def ep_stage(state, j, d, c, h, st):
     _ep_tv(state, j, d, c, h, st)
     _call("inside_ep", "ep_out", dt, D, ix, _p(state["P"]), _p(state["LL"]),
           _p(scr["V"]), _p(scr["shift"]), _p(c.dots_cum),
-          _p(c.ep["spec_il"]), _p(d.lam), _p(c.C), _p(ep_row))
+          _p(c.ep["spec_il"]), _p(state["_lam"]), _p(c.C), _p(ep_row))
 
 
 def _ep_tv(state, j, d, c, h, st):
@@ -447,7 +473,7 @@ def _ep_tv(state, j, d, c, h, st):
           _p(state["P"]), _p(state["LL"]), _p(c.dots_cum), _p(scr["shift"]),
           _p(scr["T"]))
     _call("inside_ep", "ep_v", dt, D, _p(scr["T"]), _p(h["emisA"]),
-          _p(h["emisB"]), _p(h["eSZg"]), _p(c.C), _p(scr["V"]))
+          _p(h["emisB"]), _p(state["_eSZg"]), _p(c.C), _p(scr["V"]))
 
 
 def ext_stage(state, j, d, c, h, st):
@@ -456,7 +482,7 @@ def ext_stage(state, j, d, c, h, st):
     ix = _idx(st, ExtIdx, EXT_IDX)
     _call("inside_ext", "ext_col", st.dtype, _dims(st, state, j, d), ix,
           _p(state["O"]), _p(state["P"]), _p(d.eR), _p(c.gate_O2),
-          _p(c.ext), _p(d.lam))
+          _p(c.ext), _p(state["_lam"]))
 
 
 # ----------------------------------------- K5-K7 outside (adjoint) stages
@@ -482,8 +508,7 @@ def _check_adj(fs, gs, j, d, c, h, st):
                    ("emisA", h["emisA"]), ("emisB", h["emisB"])):
         _req(gs[k], "grad " + k, dt, ref.shape, dev)
     _req(gs["DL"], "grad DL", dt, fs["LL"][: st.dims.Lp + 1].shape, dev)
-    _req(gs["GSZ"], "grad GSZ", dt,
-         tuple(h["eSZg"].shape) + (fs["O"].shape[-1],), dev)
+    _req(gs["GSZ"], "grad GSZ", dt, h["eSZg"].shape, dev)
     gs["_checked"] = key
 
 
@@ -508,7 +533,7 @@ def ext_adj(fs, gs, j, d, c, h, st):
     _check_adj(fs, gs, j, d, c, h, st)
     D, ix, dt = _dims(st, fs, j, d), _idx(st, AdjIdx, ADJ_IDX), st.dtype
     _call("outside_ext", "ext_adj", dt, D, ix, _p(fs["O"]), _p(fs["P"]),
-          _p(d.eR), _p(c.gate_O2), _p(c.ext), _p(d.lam), _p(gs["O"]),
+          _p(d.eR), _p(c.gate_O2), _p(c.ext), _p(fs["_lam"]), _p(gs["O"]),
           _p(gs["P"]), _p(gs["eR"]), _p(gs["DL"]))
     _call("outside_ext", "ext_adj_chain", dt, D, ix, _p(fs["O"]), _p(d.eR),
           _p(c.gate_O2), _p(gs["O"]))
@@ -519,7 +544,7 @@ def e_adj(fs, gs, j, d, c, h, st):
     _check_adj(fs, gs, j, d, c, h, st)
     D, ix, dt = _dims(st, fs, j, d), _idx(st, AdjIdx, ADJ_IDX), st.dtype
     _call("outside_band", "e_adj", dt, D, ix, _p(fs["E"]), _p(fs["LL"]),
-          _p(fs["M"]), _p(fs["ep"]), _p(d.lam), _p(c.hp), _p(c.mlE),
+          _p(fs["M"]), _p(fs["ep"]), _p(fs["_lam"]), _p(c.hp), _p(c.mlE),
           _p(gs["E"]), _p(gs["LL"]), _p(gs["gM"]), _p(gs["gep"]),
           _p(gs["DL"]))
 
@@ -535,18 +560,18 @@ def ep_adj(fs, gs, j, d, c, h, st):
     fscr = fs["_ep_scratch"]
     scr = _adj_scratch(gs, st, fs["O"].shape[-1], fs["O"].device)
     ctx = (_p(fs["P"]), _p(fs["LL"]), _p(fscr["shift"]),
-           _p(c.ep["spec_il"]), _p(d.lam), _p(c.dots_cum), _p(c.C))
+           _p(c.ep["spec_il"]), _p(fs["_lam"]), _p(c.dots_cum), _p(c.C))
     _call("outside_ep", "ep_go", dt, D, ix, *ctx, _p(fs["ep"]),
           _p(gs["gep"]), _p(scr["GO"]), _p(gs["DL"]))
     _call("outside_ep", "ep_gv", dt, D, ix, *ctx, _p(fscr["V"]),
           _p(scr["GO"]), _p(scr["gV"]), _p(gs["LL"]))
     _call("outside_ep", "ep_gtw", dt, D, _p(fscr["T"]), _p(scr["gV"]),
-          _p(h["emisA"]), _p(h["emisB"]), _p(h["eSZg"]), _p(c.C),
+          _p(h["emisA"]), _p(h["emisB"]), _p(fs["_eSZg"]), _p(c.C),
           _p(scr["gT"]), _p(scr["gW"]))
     _call("outside_ep", "ep_gmb", dt, D, _p(scr["gW"]), _p(h["emisA"]),
-          _p(h["eSZg"]), _p(c.C), _p(gs["emisB"]))
+          _p(fs["_eSZg"]), _p(c.C), _p(gs["emisB"]))
     _call("outside_ep", "ep_gma", dt, D, _p(scr["gW"]), _p(h["emisB"]),
-          _p(h["eSZg"]), _p(c.C), _p(gs["emisA"]))
+          _p(fs["_eSZg"]), _p(c.C), _p(gs["emisA"]))
     _call("outside_ep", "ep_gsz", dt, D, _p(scr["gW"]), _p(h["emisA"]),
           _p(h["emisB"]), _p(c.C), _p(gs["GSZ"]))
     _call("outside_ep", "ep_gp", dt, D, ix, *ctx, _p(scr["gT"]),
@@ -571,16 +596,55 @@ def band_adj(fs, gs, j, d, c, h, st):
               _p(f["T2"]), _p(f["Bt"]), _p(g["gB"]), _p(g[out]))
     _call("outside_band", "front_adj_t", dt, D, ix, _p(f["LL"]), _p(f["P"]),
           _p(f["T2"]), _p(d.eR), _p(d.bg2), _p(d.pv), _p(d.alphaP),
-          _p(c.wsp), _p(d.lam), _p(c.stk), _p(c.ml2), _p(c.gate_O2),
+          _p(c.wsp), _p(fs["_lam"]), _p(c.stk), _p(c.ml2), _p(c.gate_O2),
           _p(g["LL"]), _p(g["P"]), _p(g["T2"]), _p(g["DL"]),
           _p(scr["ePart"]))
     _call("outside_band", "front_adj_s", dt, D, ix, _p(f["LL"]), _p(f["P"]),
           _p(f["T2"]), _p(f["E"]), _p(d.eR), _p(d.bg2), _p(d.pv),
-          _p(d.alphaP), _p(c.wsp), _p(d.lam), _p(c.stk), _p(c.gate_O2),
+          _p(d.alphaP), _p(c.wsp), _p(fs["_lam"]), _p(c.stk), _p(c.gate_O2),
           _p(g["LL"]), _p(g["P"]), _p(g["P"]), _p(g["T2"]), _p(g["E"]))
     _call("outside_band", "front_adj_wb", dt, D, ix, _p(f["P"]), _p(f["E"]),
-          _p(d.bg2), _p(d.pv), _p(d.alphaP), _p(c.wsp), _p(d.lam),
+          _p(d.bg2), _p(d.pv), _p(d.alphaP), _p(c.wsp), _p(fs["_lam"]),
           _p(c.stk), _p(g["P"]), _p(g["pv"]), _p(g["alphaP"]),
           _p(scr["bgp"]))
     _call("outside_band", "front_adj_red", dt, D, _p(scr["ePart"]),
           _p(scr["bgp"]), _p(g["eR"]), _p(g["bg2"]))
+
+
+# ------------------------------------------------ K8-K9 no-rss chain
+
+def _check_chain(st, eR, L):
+    dev = eR.device
+    if dev.type != "cuda" or st.dtype not in _SUF:
+        raise ValueError("chain kernels take float32/float64 CUDA tensors")
+    Lp, S, B = eR.shape
+    if S != st.dims.S or B < 1:
+        raise ValueError("eR: expected [Lp, %d, B>=1], got %s"
+                         % (st.dims.S, tuple(eR.shape)))
+    _req(eR, "eR", st.dtype, (Lp, S, B), dev)
+    _req(L, "L", torch.int64, (B,), dev)
+    return ChainDims(Lp, S, B), _idx(st, ChainIdx, CHAIN_IDX)
+
+
+def chain_fwd(st, eR, L):
+    """K8 on the grammar's DPStatic ``st``: ([B, 3] parts, the chain rows
+    [Lp+1, S, B] for K9); rows beyond a read's length are left
+    unwritten."""
+    D, ix = _check_chain(st, eR, L)
+    parts = torch.empty((D.B, 3), dtype=eR.dtype, device=eR.device)
+    rows = torch.empty((D.Lp + 1, D.S, D.B), dtype=eR.dtype,
+                       device=eR.device)
+    _call("linear_fwd", "chain_fwd", st.dtype, D, ix, _p(eR), _p(L),
+          _p(rows), _p(parts))
+    return parts, rows
+
+
+def chain_adj(st, eR, L, rows, gparts):
+    """K9: the cotangent of eR [Lp, S, B] from that of the parts [B, 3]."""
+    D, ix = _check_chain(st, eR, L)
+    _req(rows, "chain rows", st.dtype, (D.Lp + 1, D.S, D.B), eR.device)
+    _req(gparts, "parts cotangent", st.dtype, (D.B, 3), eR.device)
+    g_eR = torch.empty_like(eR)
+    _call("linear_adj", "chain_adj", st.dtype, D, ix, _p(eR), _p(L),
+          _p(rows), _p(gparts), _p(g_eR))
+    return g_eR

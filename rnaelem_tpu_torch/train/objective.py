@@ -11,8 +11,10 @@ Replicates the function half of RNAelemTrainDP::operator()
 * reads whose partition functions are non-finite contribute nothing
   (motif_trainer.hpp:211-214).
 
-``batch_fn_grad`` adds the gradient (through the DP's outside pass) and
-``eval_file`` evaluates a whole FASTQ file (motif_eval.hpp:23-54).
+``batch_fn_grad_pr`` adds the gradient, per read (through the DP's
+outside pass); ``reduce_per_read`` sums it in read order on the host
+(the trainer's step) and ``batch_fn_grad`` on the device; ``eval_file``
+evaluates a whole FASTQ file (motif_eval.hpp:23-54).
 """
 from __future__ import annotations
 
@@ -180,16 +182,44 @@ def batch_total(cfg: J.ModelConfig, params: J.Params, batch: BatchData,
     return f.sum(), eff.sum()
 
 
-def batch_fn_grad(cfg: J.ModelConfig, params: J.Params, batch: BatchData,
-                  lik_ratio: bool = False, device=None):
-    """(fn, grads as Params, sum eff) over a batch."""
-    leaves = J.Params(*[x.detach().requires_grad_(True) for x in params])
+def batch_fn_grad_pr(cfg: J.ModelConfig, params: J.Params,
+                     batch: BatchData, lik_ratio: bool = False, device=None):
+    """(f [B], per-read gradients as Params with a leading read axis,
+    eff [B]).
+
+    The weights enter as per-read copies (a few KB of tables, B x
+    [n, 4|6] and B x [2]), so d f_b / d weights of read b is the
+    gradient of its own copy: the one-hot contractions of the factors
+    and the outside pass's lambda terms keep the read axis.  The DP
+    kernels themselves take one shared lambda (the copies are equal)."""
+    B = batch.valid.shape[0]
+    leaves = J.Params(*[x.detach().clone().requires_grad_(True)
+                        for x in J.per_read(params, B)])
     with torch.enable_grad():
-        fn, eff = batch_total(cfg, leaves, batch, lik_ratio, device)
-        gr = torch.autograd.grad(fn, list(leaves), allow_unused=True)
+        parts = J.batch_logZ_parts_pr(cfg, leaves, batch.sd, batch.bp_ok,
+                                      device=device)
+        f, eff = _per_read_terms(cfg, parts, batch, lik_ratio)
+        gr = torch.autograd.grad(f.sum(), list(leaves), allow_unused=True)
     grads = J.Params(*[torch.zeros_like(x) if g is None else g
                        for x, g in zip(leaves, gr)])
-    return fn.detach(), grads, eff
+    return f.detach(), grads, eff
+
+
+def batch_fn_grad(cfg: J.ModelConfig, params: J.Params, batch: BatchData,
+                  lik_ratio: bool = False, device=None):
+    """(fn, grads as Params, sum eff) over a batch: batch_fn_grad_pr
+    summed over the reads on the device."""
+    f, grads, eff = batch_fn_grad_pr(cfg, params, batch, lik_ratio, device)
+    return f.sum(), J.Params(*[g.sum(dim=0) for g in grads]), eff.sum()
+
+
+def reduce_per_read(f_b, grads_b, eff_b):
+    """Read-order reduction on the host (f64 numpy), as the JAX package
+    does: the same bits however the batch was split."""
+    sum64 = lambda x: np.add.reduce(np.asarray(J._np(x), np.float64),
+                                    axis=0)
+    return (float(sum64(f_b)), J.Params(*[sum64(x) for x in grads_b]),
+            float(sum64(eff_b)))
 
 
 def assigned_range(N: int, n: int, tid: int):

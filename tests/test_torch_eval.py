@@ -1,11 +1,11 @@
 """The port's objective value and gradient against the RNAelem C++ goldens,
 and its model files and weight carry-over against the JAX package.
 
-Golden values in tests/golden/eval_{0,1,3}.{fn,gr} come from the
+Golden values in tests/golden/eval_{0,1,2,3}.{fn,gr} come from the
 reference's eval path (motif_eval.hpp, TR_NORMAL|TR_NO_SHUFFLE) on
-fixtures {0,1,3}.model x 0.fq, the same bar as test_grad_golden.py.  The
+fixtures {0,1,2,3}.model x 0.fq, the same bar as test_grad_golden.py.  The
 port computes its own min-BPP pruning masks; model 2 is the no-rss model
-(kernel row J, not ported yet).
+(the forward chain of kernel row J).
 """
 import io
 import os
@@ -42,7 +42,7 @@ def _golden(x):
     return fn, gr
 
 
-@pytest.mark.parametrize("x", ["0", "1", "3"])
+@pytest.mark.parametrize("x", ["0", "1", "2", "3"])
 def test_fn_matches_reference(x):
     """fn and gr of eval_file (the port's own masks) to 1e-6."""
     fn_g, gr_g = _golden(x)

@@ -89,10 +89,3 @@ def test_path_count(pattern, seq, rss, count):
     parts = TJ.batch_logZ_parts(cfg, params, sd, device="cpu")
     got = float(torch.exp(TJ.part_func(parts))[0])
     assert got == pytest.approx(count, rel=1e-9), (pattern, seq, rss)
-
-
-def test_no_rss_raises_until_ported():
-    _, ct, _, sdt, _, pt = _setup(".(.)", 8)
-    cfg = TJ.ModelConfig(**{**ct.__dict__, "no_rss": True})
-    with pytest.raises(NotImplementedError, match="row J"):
-        TJ.batch_logZ_parts(cfg, pt, sdt, device="cpu")

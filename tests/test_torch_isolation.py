@@ -15,7 +15,9 @@ from rnaelem_tpu_torch import cli as CLI
 from rnaelem_tpu_torch.model import io as TIO
 from rnaelem_tpu_torch.model import joint as TJ
 from rnaelem_tpu_torch.model.convert import params_from_numpy
+from rnaelem_tpu_torch.pipeline.ushuffle import negative_for
 from rnaelem_tpu_torch.train import objective as OBJ
+from rnaelem_tpu_torch.train.trainer import Trainer
 
 # the CPU path is many small torch ops: one thread per test process
 # (xdist worker) keeps parallel workers from oversubscribing the cores
@@ -32,7 +34,9 @@ def _modules():
 def test_every_module_imports_without_jax():
     mods = _modules()
     assert "rnaelem_tpu_torch.ops.kernels" in mods and len(mods) >= 15
-    assert "rnaelem_tpu_torch.cli" in mods
+    for m in ("cli", "native", "pipeline.ushuffle", "train.optim",
+              "train.trainer", "ops.linear"):
+        assert "rnaelem_tpu_torch." + m in mods
     code = ("import importlib, sys\n"
             "for m in %r:\n"
             "    importlib.import_module(m)\n"
@@ -65,10 +69,16 @@ def _entry_points():
         ("batch_fn_grad", lambda: OBJ.batch_fn_grad(
             cfg, TJ.init_params(TJ.kernels(cfg, "cpu").g, cfg, device="cpu"),
             OBJ.stack_reads(cfg, reads, device="cpu"))),
+        ("batch_fn_grad_pr", lambda: OBJ.batch_fn_grad_pr(
+            cfg, TJ.init_params(TJ.kernels(cfg, "cpu").g, cfg, device="cpu"),
+            OBJ.stack_reads(cfg, reads, device="cpu"))),
+        ("Trainer", lambda: Trainer(cfg, TJ.init_params(
+            TJ.kernels(cfg, "cpu").g, cfg, device="cpu"))),
         ("eval_file", lambda: OBJ.eval_file(cfg, None, fq)),
         ("bpp_posterior", lambda: TJ.bpp_posterior(
             cfg, TJ.make_seqdata(cfg, reads[0][0]))),
         ("cli eval", lambda: CLI.main(["eval", "-f", fq, "-q", fix])),
+        ("cli train", lambda: CLI.main(["train", "-f", fq, "-m", "(.)"])),
     ]
 
 
@@ -81,3 +91,11 @@ def test_entry_points_default_to_cuda(name):
     fn = dict(_entry_points())[name]
     with pytest.raises(RuntimeError, match="CUDA"):
         fn()
+
+
+def test_negative_for_is_host_work():
+    """The shuffled negatives are drawn on the host (the native walk): no
+    device, and the same string for the same read and iteration."""
+    s = "GGACUACGUAGCUAGCUAGGCAUCG"
+    a = negative_for(s, 2, 3)
+    assert a == negative_for(s, 2, 3) and sorted(a) == sorted(s)

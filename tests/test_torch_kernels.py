@@ -12,6 +12,7 @@ from rnaelem_tpu_torch.energy import tables as ET
 from rnaelem_tpu_torch.model import joint as J
 from rnaelem_tpu_torch.ops import dp as DP
 from rnaelem_tpu_torch.ops import kernels as K
+from rnaelem_tpu_torch.ops import linear as LIN
 from rnaelem_tpu_torch.train import objective as OBJ
 
 # the CPU path is many small torch ops: one thread per test process
@@ -36,6 +37,10 @@ def _cfg(dtype, pattern="(.....)"):
                          min_bpp=0.0, tau=0.1, dtype=dtype)
 
 
+DP_KERNELS = ("score_tables", "inside_band", "inside_ep", "inside_ext",
+              "outside_band", "outside_ep", "outside_ext")
+
+
 def _need_cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the card: see README)")
@@ -44,7 +49,7 @@ def _need_cuda():
 @pytest.mark.parametrize("name", ["score_tables", "band_front", "band_bif",
                                   "band_m", "band_e", "ep_stage",
                                   "ext_stage", "ext_adj", "e_adj", "ep_adj",
-                                  "band_adj"])
+                                  "band_adj", "chain_fwd", "chain_adj"])
 def test_kernel_wrappers_reject_cpu_tensors(name):
     """A wrapper launches its kernel or raises: handed CPU tensors it
     raises before building anything (the CPU path is the dispatcher's
@@ -52,6 +57,14 @@ def test_kernel_wrappers_reject_cpu_tensors(name):
     cfg = _cfg("float64")
     batch = _batch(cfg, "cpu")
     k = J.kernels(cfg, "cpu")
+    if name.startswith("chain_"):
+        eR = torch.zeros((cfg.Lp, k.g.S, 2), dtype=torch.float64)
+        L = torch.full((2,), cfg.Lp, dtype=torch.int64)
+        args = (k.dp.st, eR, L) + ((eR, torch.zeros((2, 3))) if
+                                 name == "chain_adj" else ())
+        with pytest.raises(ValueError, match="CUDA"):
+            getattr(K, name)(*args)
+        return
     if name == "score_tables":
         seq, L, bp_ok, dots_cum = J.score_inputs(cfg, k, batch.sd,
                                                  batch.bp_ok)
@@ -292,7 +305,86 @@ def test_bpp_masks_kernels_match_plain():
     sd = J.SeqData(*[x.cuda() for x in batch.sd])
     K.reset_counts()
     zg, pg, bg = J.bpp_posterior_batch(cfg, sd, device="cuda")
-    assert all(kk.launches > 0 for kk in K.KERNELS.values())
+    for name in DP_KERNELS:
+        assert K.KERNELS[name].launches > 0, name
     assert torch.equal(bg.cpu(), bc)
     assert float((zg.cpu() - zc).abs().max()) <= 1e-9
     assert float((pg.cpu() - pc).abs().max()) <= 1e-9
+
+
+def _chain_inputs(pattern, tau, dtype, no_prf=False, n=6, seed=8):
+    """eR [Lp, S, B] of random reads with random emissions, their
+    lengths and a random parts cotangent, on the card."""
+    cfg = J.ModelConfig(pattern=pattern, Lp=40, max_span=24, max_iloop=12,
+                        min_bpp=0.0, tau=tau, no_rss=True, no_prf=no_prf,
+                        dtype=dtype)
+    batch = _batch(cfg, "cuda", n=n, seed=seed)
+    k = J.kernels(cfg, "cuda")
+    rng = np.random.RandomState(seed)
+    p = J.init_params(k.g, cfg, device="cuda")
+    p = p._replace(singles=p.singles + torch.as_tensor(
+        0.3 * rng.randn(*p.singles.shape), dtype=p.singles.dtype,
+        device="cuda"))
+    eR = J.right_emissions(cfg, k, J.per_read(p, n), batch.sd)
+    L = torch.as_tensor(batch.sd.L, device="cuda").long()
+    gp = torch.as_tensor(rng.rand(n, 3), dtype=eR.dtype, device="cuda")
+    return k.dp.st, eR, L, gp
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pattern,tau,no_prf", [
+    ("..*..", 0.1, False), ("..*..", 0.0, False), ("....*....", 0.1, False),
+    ("..*..", 0.1, True)])
+@pytest.mark.parametrize("dtype,tol", [("float64", 1e-9), ("float32", 1e-4)])
+def test_chain_kernels_match_plain(pattern, tau, no_prf, dtype, tol):
+    """K8 (parts) and K9 (the cotangent of eR) against the plain chain
+    and its autograd on the same inputs, relative in the max norm; two
+    kernel runs give the same bits."""
+    _need_cuda()
+    st, eR, L, gp = _chain_inputs(pattern, tau, dtype, no_prf)
+    K.reset_counts()
+    parts, rows = K.chain_fwd(st, eR, L)
+    g = K.chain_adj(st, eR, L, rows, gp)
+    parts2, rows2 = K.chain_fwd(st, eR, L)
+    assert torch.equal(parts, parts2)
+    assert torch.equal(g, K.chain_adj(st, eR, L, rows2, gp))
+    assert K.KERNELS["linear_fwd"].launches == 2
+    assert K.KERNELS["linear_adj"].launches == 2
+    leaf = eR.detach().clone().requires_grad_(True)
+    want = LIN.chain_plain(st, leaf, L)
+    (gw,) = torch.autograd.grad(want, leaf, gp)
+    want = want.detach()
+    fin = torch.isfinite(want)
+    assert torch.equal(fin, torch.isfinite(parts))
+    assert float((parts - want)[fin].abs().max()) <= tol * float(
+        want[fin].abs().max())
+    assert not torch.isnan(g).any()
+    assert float((g - gw).abs().max()) <= tol * float(gw.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pattern,opts", [
+    ("(.*)", {}), ("..*..", dict(no_rss=True))])
+def test_per_read_gradients_on_the_card_match_cpu(pattern, opts):
+    """batch_fn_grad_pr through the kernels (one shared lambda, per-read
+    partials) against the plain versions on the CPU, f64, per read."""
+    _need_cuda()
+    cfg = J.ModelConfig(pattern=pattern, Lp=40, max_span=24, max_iloop=12,
+                        min_bpp=1e-4, tau=0.1, dtype="float64", **opts)
+    batch = _batch(cfg, "cpu", seed=9)
+    rng = np.random.RandomState(9)
+    p = J.init_params(J.kernels(cfg, "cpu").g, cfg, device="cpu")
+    noise = lambda x: 0.3 * torch.as_tensor(rng.randn(*x.shape))
+    p = J.Params(p.singles + noise(p.singles), p.pairs + noise(p.pairs),
+                 torch.tensor([0.7, 1.3], dtype=torch.float64))
+    fc, gc, _ = OBJ.batch_fn_grad_pr(cfg, p, batch, device="cpu")
+    bg = OBJ.BatchData(*[J.SeqData(*[x.cuda() for x in f])
+                         if isinstance(f, J.SeqData) else f.cuda()
+                         for f in batch])
+    fg, gg, _ = OBJ.batch_fn_grad_pr(cfg, J.Params(*[x.cuda() for x in p]),
+                                     bg, device="cuda")
+    assert float((fg.cpu() - fc).abs().max()) <= 1e-9
+    for a, b in zip(gg, gc):
+        for r in range(b.shape[0]):
+            scale = max(1.0, float(b[r].abs().max()))
+            assert float((a[r].cpu() - b[r]).abs().max()) <= 1e-9 * scale
