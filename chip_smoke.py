@@ -48,13 +48,31 @@ Phases:
      2e-3 of 1.713098, f32) and `cli train --no-shuffle` on the first 8
      tRNAs (f64) within 0.05 of the reference binary's model;
  10. one JSON line per kernel (K1-K9), the card line, and the result
-     line.
+     line;
+ 2b. (after phase 2) the scanner's row K: every forward stage and every
+     adjoint stage, and the class sums of the column and of the whole
+     outside pass, with a random pin per read and with aux = 0 (the class
+     probe alone), against the plain versions (dense aux, autograd): f64
+     at B=16 within 1e-9 (the pinned whole pass too, two kernel runs
+     bitwise equal),
+     f32 at B=64 x 100 nt within 1e-4; likewise K8/K9 under a pin with
+     K9's class sums (after phase 7); per-call device times of the pinned
+     K2, K4, K5, K7, K8, K9 at the main path's shapes (phase 5);
+ 11. the scan path: the posterior half (scan_posteriors_batch in the
+     driver's buckets and chunks) of the 76 tRNAs with the reference's
+     converged model, f64 held against the C++ scan (start, end, inner,
+     motif region, exist prob: test_scan_trained_golden's bars), f32 timed
+     with a stage breakdown, its reads with an isfinite mismatch counted
+     (F4), one 64-read chunk timed (CUDA events) beside its bound;
+ 12. Scanner.scan of the --no-rss fixture model 2 on 0.fq against every
+     line of the C++ scan_2.raw.
 
 Run from the repository root:  python3 chip_smoke.py
 Exits non-zero and prints no result without CUDA or without the package.
 """
 import argparse
 import dataclasses
+import io
 import json
 import os
 import re
@@ -68,8 +86,8 @@ sys.path.insert(0, HERE)
 
 # set by main() once the imports succeed (the script must fail cleanly,
 # with no result, where torch, CUDA or the package is missing)
-np = torch = ET = J = DP = K = LIN = MIO = OBJ = TRN = CLI = None
-seq_to_ints = None
+np = torch = ET = J = DP = K = LIN = MIO = OBJ = TRN = CLI = SC = SCD = None
+seq_to_ints = ints_to_seq = None
 
 PATTERN = "(.....)"
 LP = 100               # read length of the main path (and the padded Lp)
@@ -100,6 +118,10 @@ CHAIN_KERNELS = ("linear_fwd", "linear_adj")
 TRNA_FA = os.path.join(HERE, "tests", "fixtures", "material", "positive.fa")
 GOLD_TRNA = os.path.join(HERE, "tests", "golden", "trna_noshuffle_ref.model")
 GOLD_SMALL8 = os.path.join(HERE, "tests", "golden", "trna_small8_ref.model")
+FIXDIR = os.path.join(HERE, "tests", "fixtures")
+GOLDDIR = os.path.join(HERE, "tests", "golden")
+GOLD_TRNA_SCAN = os.path.join(GOLDDIR, "trna_scan_ref.raw")
+B_SCAN = 64            # reads of the f32 pinned checks (a scan chunk)
 
 
 def fail(msg):
@@ -412,7 +434,7 @@ def batch_counts(cfg, st, c, B):
     return q
 
 
-def column_work(cfg, st, c, q, j, itemsize):
+def column_work(cfg, st, c, q, j, itemsize, need):
     """{kernel: (bytes, operations)} of K2-K7 at column j, each kernel
     counted as one function of what its stage needs: each input cell read
     once, in the states it reads, each output cell written once (a
@@ -422,7 +444,18 @@ def column_work(cfg, st, c, q, j, itemsize):
     the kernels' functions pass to one another (K3's T and V, K5's column
     cotangents of M and B and its eR/bg2 partials, K6's double-precision
     GO, gV, gT and gW) is not counted: a fused kernel would not move it.
-    Operations are the stage's arithmetic, summed over its functions."""
+    Operations are the stage's arithmetic, summed over its functions.
+
+    ``need`` names the groups of leaf cotangents the caller keeps besides
+    the tables' own: "weights" (eR, eL, bg2, pv: the singles' and pairs'
+    gradient), "lam" (lambda's per-cell partials DL, the size-weight
+    partials GSZ and the hoisted exponentials emisA and emisB, which
+    depend on lambda alone) and "alphaP" (the injected pair factor, whose
+    cotangent is the pair posterior).  A group left out is not counted:
+    its bytes, and the operations that only it needs (K5's eR/eL/pv, DL
+    and alphaP adds, K6's emisA/emisB/GSZ spreads, K7's eR and DL
+    sums)."""
+    wts, lmb, alp = ("weights" in need, "lam" in need, "alphaP" in need)
     it = itemsize
     B, S, W1, Wp, C1 = q["B"], q["S"], q["W1"], q["Wp"], q["C1"]
     CC, WB, SB = q["CC"], q["WB"], q["SB"]
@@ -490,13 +523,15 @@ def column_work(cfg, st, c, q, j, itemsize):
     by5 = it * (
         4 * lE + 2 * nE + 2 * lM + W1 * S * B + WB + 3 * lB + split
         + 7 * CC + SB + B + 5 * WB + (W1 + 1) * B + pvb
-        + 5 * CC + 2 * 4 * CC + 2 * split + CC + 2 * CC
-        + 2 * (W1 * S * B + SB + (W1 + 1) * B + pvb + WB)) + WB
+        + 5 * CC + 2 * 4 * CC + 2 * split + CC
+        + lmb * 2 * CC + alp * 2 * WB
+        + wts * 2 * (W1 * S * B + SB + (W1 + 1) * B + pvb)) + WB
     ops5 = (6.0 * lE + 2.0 * nM * q["lt_nnz"] + 4.0 * lB
             + 4.0 * tri1 * q["nb"]
             + 2.0 * (WB * q["rt_nnz"] + okP2 * q["pt_nnz"])
             + 2.0 * (2 * WB * q["rt_nnz"] + 2 * okP2 * q["pt_nnz"])
-            + 2.0 * (CC + 2 * okP2 * st.n_pt) + float(CC + WB))
+            + wts * 2.0 * (CC + 2 * okP2 * st.n_pt)
+            + float(lmb * CC + alp * WB))
     out["outside_band"] = (by5, ops5)
 
     # K6 (outside_ep): the adjoint of K3 at column j.  It reads what K3
@@ -511,12 +546,11 @@ def column_work(cfg, st, c, q, j, itemsize):
                   + B * W1 * (2 * 4 + (0 if cfg.no_ene else 6)) + q["eszg"])
         by6 = it * (
             2 * CC + fwd_in
-            + 2 * (pc * (q["n_s1"] + q["n_s2"] + 2 * 4)
-                   + q["cb1"] * q["n_s3x"] + 2 * 4 * WB)
-            + 2 * q["eszg"] * B + 2 * CC) + 4 * B + (
-                4 * (cfg.Lp + 1) * B if cfg.fix_rss else 0)
+            + 2 * (pc * (q["n_s1"] + q["n_s2"]) + q["cb1"] * q["n_s3x"])
+            + lmb * 2 * (pc * 2 * 4 + 2 * 4 * WB + q["eszg"] * B + CC)
+        ) + 4 * B + (4 * (cfg.Lp + 1) * B if cfg.fix_rss else 0)
         ops6 = (2.0 * 6 * CC * st.n2 / S + 4.0 * n_xu * B * st.n2
-                + vt * (8.0 * st.n_ar + 32) + 3 * 16.0 * vt
+                + vt * (8.0 * st.n_ar + 32) + lmb * 3 * 16.0 * vt
                 + 2 * 2.0 * pc * st.n13)
         out["outside_ep"] = (by6, ops6)
     else:
@@ -524,9 +558,11 @@ def column_work(cfg, st, c, q, j, itemsize):
 
     # K7 (outside_ext): O rows j-1 and j, eR, gate, gO row j, ext; at live
     # exterior widths the P column and O rows j-w (read, their cotangents
-    # added to); eR and DL cotangents added to; gO row j-1 added to
-    by7 = it * (5 * SB + B + 2 * SB + WB + 8 * n_ext * S + 2 * SB)
-    ops7 = 2.0 * (B * q["rt_nnz"] + 3 * n_ext * q["n_op"]) \
+    # added to, and DL at those cells); eR's cotangent added to; gO row
+    # j-1 added to
+    by7 = it * (5 * SB + B + wts * 2 * SB + WB + (6 + lmb * 2) * n_ext * S
+                + 2 * SB)
+    ops7 = 2.0 * (wts * B * q["rt_nnz"] + (2 + lmb) * n_ext * q["n_op"]) \
         + 2.0 * B * q["rt_nnz"]
     out["outside_ext"] = (by7, ops7)
     return out
@@ -534,16 +570,24 @@ def column_work(cfg, st, c, q, j, itemsize):
 
 def bounds(cfg, st, c, tab, j0, B, itemsize):
     """Least time per unit (ms) for K1 (one batch) and K2-K7 (one column
-    j0): the larger of bytes / memory rate and operations / f32 rate."""
+    j0) of fn+grad, whose outside pass must give the weights' and
+    lambda's cotangents: the larger of bytes / memory rate and operations
+    / f32 rate."""
     q = batch_counts(cfg, st, c, B)
-    work = column_work(cfg, st, c, q, j0, itemsize)
+    work = column_work(cfg, st, c, q, j0, itemsize, ("weights", "lam"))
     work["score_tables"] = score_work(cfg, c, tab, B, itemsize)
     return {k: _ms(*v) for k, v in work.items()}
 
 
 def mask_pass_bound(cfg, sd, dev, itemsize):
     """Row I: one S=1 forward and outside pass (K1-K7 over every column)
-    of the batch ``sd``, as one function: (ms, what bounds it)."""
+    of the batch ``sd``, as one function whose output is alphaP's
+    cotangent (the pair posteriors): (ms, what bounds it)."""
+    return _ms(*mask_pass_work(cfg, sd, dev, itemsize))
+
+
+def mask_pass_work(cfg, sd, dev, itemsize):
+    """(bytes, operations) of row I for the batch ``sd``."""
     k = J.kernels(cfg, dev)
     bp0 = J._candidate_pairs(cfg, k, sd)
     _, c = J._null_batch_factors(cfg, k, sd, bp0)
@@ -552,9 +596,10 @@ def mask_pass_bound(cfg, sd, dev, itemsize):
     q = batch_counts(cfg, st, c, B)
     by, ops = score_work(cfg, c, k.tab, B, itemsize)
     for j in range(1, cfg.Lp + 1):
-        for b_, o_ in column_work(cfg, st, c, q, j, itemsize).values():
+        for b_, o_ in column_work(cfg, st, c, q, j, itemsize,
+                                  need=("alphaP",)).values():
             by, ops = by + b_, ops + o_
-    return _ms(by, ops)
+    return by, ops
 
 
 def chain_bounds(lin, L, Lp, itemsize):
@@ -672,6 +717,16 @@ def check_adj_stages(dp, d, c, j0, rel):
     dp.outside_columns(fs, gs, d, c, h, dp.dims.Lp + 1, j0 + 1)
     r = j0 + st.PAD
     errs = {}
+    if d.cls is not None:
+        # the class sums come out at the end of the column (K5's cls_red
+        # sums what K7 and K5 left): the whole column's adjoint
+        kg, pg = (DP.clone_state(gs) for _ in range(2))
+        for stage, plain in zip(DP.ADJ_STAGES, DP.PLAIN_ADJ_STAGES):
+            stage(fs, kg, j0, d, c, h, st)
+            plain(fs, pg, j0, d, c, h, st)
+        errs["outside_band"] = grad_compare("column %d class sums" % j0,
+                                            kg["cls"], pg["cls"], rel)
+        del kg, pg
     for stage, plain in zip(DP.ADJ_STAGES, DP.PLAIN_ADJ_STAGES):
         kg = {k: v.clone() for k, v in gs.items() if not k.startswith("_")}
         stage(fs, kg, j0, d, c, h, st)
@@ -1058,6 +1113,361 @@ def golden_small8_train(tmp, dev):
     return err
 
 
+# ------------------------------------------------ the scanner (row K)
+
+def random_pin(sd, dev, seed=7):
+    """A pin per read at a random base of the read (the last read left
+    unpinned), start class: the end pass's vetoes."""
+    L = J._np(sd.L).astype(np.int64)
+    pos = (np.random.RandomState(seed).rand(len(L)) * L).astype(np.int32)
+    pos[-1] = -1
+    return DP.Pin(torch.as_tensor(pos, device=dev), DP.CLS_START)
+
+
+def scan_factors(cfg, batch, params, dev, pinned):
+    """(d, c) of a batch with the class probe and, if ``pinned``, a pin
+    per read."""
+    B = batch.valid.shape[0]
+    aux = {"cls": torch.zeros((4, cfg.Lp, B), dtype=params.lam.dtype,
+                              device=dev)}
+    if pinned:
+        aux["pin"] = random_pin(batch.sd, dev)
+    return J.batch_factors(cfg, params, batch.sd, batch.bp_ok, device=dev,
+                           aux_b=aux)
+
+
+def class_sums(dp, d, c, gbar, plain):
+    """(parts, the class probe's cotangent [4, Lp, B]) of a forward and
+    outside pass through the kernels or the plain versions."""
+    h = DP.hoisted(d, c, dp.st)
+    fs = plain_forward(dp, d, c, h) if plain else dp.run_inside(d, c, h)
+    parts = dp.extract_parts(fs["O"], c)
+    gs = DP.init_grads(fs, d, c, h)
+    DP.seed_parts(gs, gbar, c, dp.st)
+    for j in range(dp.dims.Lp, 0, -1):
+        for stage in (DP.PLAIN_ADJ_STAGES if plain else DP.ADJ_STAGES):
+            stage(fs, gs, j, d, c, h, dp.st)
+    return parts, gs["cls"]
+
+
+def check_pinned(cfg, batch, params, dev, rel, significant, full):
+    """Row K's kernel work against the plain versions (dense aux built
+    from the pin and the class probe, autograd): every forward stage at
+    column J0, every adjoint stage and the column's class sums, with a
+    random pin per read and with aux = 0 (the probe alone); with ``full``
+    also, under the pin, the class sums of the whole outside pass,
+    kernels (two runs, bitwise equal) vs plain.  Returns ({kernel: max
+    abs err}, message)."""
+    dp = J.kernels(cfg, dev).dp
+    errs, msgs = {}, []
+    B = batch.valid.shape[0]
+    for pinned in (True, False):
+        d, c = scan_factors(cfg, batch, params, dev, pinned)
+        st_e = check_stages(dp, d, c, J0, rel, significant)
+        ad_e = check_adj_stages(dp, d, c, J0, rel)
+        for e in (st_e, ad_e):
+            for k_, v in e.items():
+                errs[k_] = max(errs.get(k_, 0.0), v)
+        msg = "%s: stages %s, adjoints %s" % (
+            "pin" if pinned else "aux=0", json.dumps(st_e), json.dumps(ad_e))
+        if full and pinned:
+            fwd = dp.extract_parts(dp.run_inside(d, c, DP.hoisted(
+                d, c, dp.st))["O"], c)
+            gbar = torch.as_tensor(np.random.RandomState(8).rand(B, 3),
+                                   dtype=fwd.dtype, device=dev)
+            gbar = torch.where(torch.isfinite(fwd), gbar, 0.0)
+            pk, ck = class_sums(dp, d, c, gbar, False)
+            _, ck2 = class_sums(dp, d, c, gbar, False)
+            pp, cp = class_sums(dp, d, c, gbar, True)
+            if not torch.equal(ck, ck2):
+                fail("class sums: two kernel runs differ (%s)" % msg)
+            fin = torch.isfinite(pp)
+            if not torch.equal(fin, torch.isfinite(pk)):
+                fail("pinned parts: -inf pattern differs")
+            ep = grad_compare("pinned parts", pk[fin], pp[fin], rel)
+            ec = grad_compare("class sums, whole pass", ck, cp, rel)
+            msg += ", whole pass: parts %.3g, class sums %.3g (two kernel " \
+                "runs bitwise equal)" % (ep, ec)
+        msgs.append(msg)
+    return errs, "; ".join(msgs)
+
+
+def pinned_times(dp, d, c, j0, funcs):
+    """Device ms per column j0 of the pinned K2 and K4 stages (a pin per
+    read in ``c``) and of K5 and K7 with the class probe in ``d`` (the
+    outside pass run through the later columns first), and K5's ms by
+    CUDA function."""
+    st = dp.st
+    h = DP.hoisted(d, c, st)
+    fs = dp.run_inside(d, c, h)
+    out = {}
+    for kname, names in (("inside_band", ("band_front", "band_bif", "band_m",
+                                          "band_e")),
+                         ("inside_ext", ("ext_stage",))):
+        ks = DP.clone_state(fs)
+        kf = [getattr(DP, n) for n in names]
+        out[kname] = device_ms(
+            lambda: [f(ks, j0, d, c, h, st) for f in kf], REPS, funcs[kname])
+    gs = DP.init_grads(fs, d, c, h)
+    B = c.wsp.shape[-1]
+    DP.seed_parts(gs, torch.as_tensor(np.random.RandomState(5).rand(B, 3),
+                                      dtype=st.dtype, device=fs["O"].device),
+                  c, st)
+    dp.outside_columns(fs, gs, d, c, h, dp.dims.Lp + 1, j0 + 1)
+    per_fn = {}
+    for kname, names in (("outside_band", ("e_adj", "band_adj")),
+                         ("outside_ext", ("ext_adj",))):
+        kg = DP.clone_state(gs)
+        kf = [getattr(DP, n) for n in names]
+        per, _, _, _ = device_profile(
+            lambda: [f(fs, kg, j0, d, c, h, st) for f in kf], REPS)
+        per_fn[kname] = {f: per[f] / 1e3 for f in sorted(funcs[kname])
+                         if f in per}
+        out[kname] = sum(per_fn[kname].values())
+    return out, per_fn["outside_band"]
+
+
+def check_chain_pinned(small, reads, dev):
+    """K8/K9 under a pin per read, with K9's class sums, against the
+    plain chain (dense auxR from the pin and the probe, autograd): f64
+    within 1e-9 and f32 within 1e-4 relative (max norm) at B=16 and the
+    main batch; two kernel runs bitwise equal.  Returns {kernel: max abs
+    err} of the f32 main batch and the message."""
+    errs, msgs = {}, []
+    for dtype, rel in (("float64", 1e-9), ("float32", 1e-4)):
+        for name, rr in (("B=%d" % len(small), small),
+                         ("B=%d x %d nt" % (len(reads), LP), reads)):
+            cfg = norss_cfg(dtype)
+            lin, eR, L, gp = chain_inputs(cfg, rr, dev)
+            sd = J.stack_seqdata([J.make_seqdata(cfg, s_, q_)
+                                  for s_, q_ in rr], dev)
+            pin = random_pin(sd, dev)
+            B = eR.shape[-1]
+            # a pinned read's no-motif part is -inf: no cotangent there
+            gp = torch.where(torch.isfinite(K.chain_fwd(lin, eR, L, pin)[0]),
+                             gp, 0.0)
+            runs = []
+            for _ in range(2):
+                parts, rows = K.chain_fwd(lin, eR, L, pin)
+                cls = torch.empty((4, LP, B), dtype=eR.dtype, device=dev)
+                g = K.chain_adj(lin, eR, L, rows, gp, pin, cls)
+                runs.append((parts, g, cls))
+            if not all(torch.equal(a, b) for a, b in zip(*runs)):
+                fail("chain kernels with a pin: two runs differ (%s %s)"
+                     % (dtype, name))
+            parts, g, cls = runs[0]
+            leaf = eR.detach().clone().requires_grad_(True)
+            probe = torch.zeros_like(cls, requires_grad=True)
+            with torch.enable_grad():
+                pp = LIN.chain_plain(lin, leaf, L, LIN.chain_aux(
+                    lin, LP, B, pin=pin, cls=probe))
+                gpl, cpl = torch.autograd.grad(pp, [leaf, probe], gp)
+            pp = pp.detach()
+            fin = torch.isfinite(pp)
+            if not torch.equal(fin, torch.isfinite(parts)):
+                fail("linear_fwd pinned %s %s: -inf pattern differs"
+                     % (dtype, name))
+            ef = grad_compare("linear_fwd pinned %s %s" % (dtype, name),
+                              parts[fin], pp[fin], rel)
+            ea = grad_compare("linear_adj pinned %s %s" % (dtype, name), g,
+                              gpl, rel)
+            ec = grad_compare("linear_adj class sums %s %s" % (dtype, name),
+                              cls, cpl, rel)
+            msgs.append("%s %s: parts %.3g, d eR %.3g, class sums %.3g"
+                        % (dtype, name, ef, ea, ec))
+            if dtype == "float32" and rr is reads:
+                errs = {"linear_fwd": ef, "linear_adj": max(ea, ec)}
+    return errs, "; ".join(msgs)
+
+
+def parse_raw(text):
+    """10-line scan records -> [{key: value}] (tests/test_scan_golden's
+    reader)."""
+    recs = []
+    lines = [ln for ln in text.strip().splitlines() if ln.strip()]
+    for k0 in range(0, len(lines), 10):
+        recs.append(dict(ln.split(": ", 1) if ": " in ln else (ln[:-1], "")
+                         for ln in lines[k0:k0 + 10]))
+    return recs
+
+
+def vec(text):
+    return np.array([float(v) for v in text.strip()[1:-1].split(",") if v])
+
+
+def golden_lines(reads, results, gold, strict):
+    """The start, end, inner, motif region and exist prob lines against
+    a C++ scan (test_scan_trained_golden's rules: isfinite pattern equal,
+    atol 2e-4 and rtol 1e-3 on the log posteriors, motif region equal,
+    exist prob within 1e-3).  ``strict`` fails on a miss; otherwise
+    returns the number of reads whose isfinite pattern differs and the
+    largest error on the lines both print finite."""
+    if len(reads) != len(gold):
+        fail("scan: %d records, the golden has %d" % (len(reads), len(gold)))
+    n_fin, worst = 0, 0.0
+    for r, res, g in zip(reads, results, gold):
+        lines = dict(ln.split(": ", 1) for ln in SCD.posterior_lines(*res))
+        if ints_to_seq(r.seq) != g["seq"]:
+            fail("scan: read %s is not the golden's" % r.id)
+        fin_diff = False
+        for key in ("start", "end", "inner"):
+            a, b = vec(lines[key]), vec(g[key])
+            if a.shape != b.shape:
+                fail("scan %s %s: shape %s vs %s" % (r.id, key, a.shape,
+                                                     b.shape))
+            fin_diff |= bool((np.isfinite(a) != np.isfinite(b)).any())
+            both = np.isfinite(a) & np.isfinite(b)
+            err = np.abs(a[both] - b[both])
+            worst = max(worst, float(err.max()) if err.size else 0.0)
+            if strict and (fin_diff or (err > 2e-4 + 1e-3 * np.abs(
+                    b[both])).any()):
+                fail("scan %s %s: differs from the golden (max %.3g, "
+                     "isfinite differs: %s)" % (r.id, key, float(
+                         err.max()) if err.size else 0.0, fin_diff))
+        n_fin += fin_diff
+        if strict and (lines["motif region"] != g["motif region"] or abs(
+                float(lines["exist prob"]) - float(g["exist prob"])) > 1e-3):
+            fail("scan %s: motif region / exist prob %s %s vs %s %s" % (
+                r.id, lines["motif region"], lines["exist prob"],
+                g["motif region"], g["exist prob"]))
+    return n_fin, worst
+
+
+def scan_trna(tmp, dev):
+    """Phase 11: the scanner's posterior half on the 76 tRNAs with the
+    reference's converged model, in the driver's buckets and chunks: f64
+    held against the C++ scan, f32 timed with a stage breakdown (the scan
+    path's launch counts are those of the timed f32 run) and its reads
+    with an isfinite mismatch counted (F4).  Returns the numbers."""
+    fq = os.path.join(tmp, "trna.fq")
+    write_fq(fq, trna_seqs())
+    gold = parse_raw(open(GOLD_TRNA_SCAN).read())
+    out = {}
+    cfg, params = MIO.read_model(GOLD_TRNA, Lp=96, dtype="float64",
+                                 device=dev)
+    t0 = time.perf_counter()
+    reads, res, _, _ = SCD.Scanner(cfg, params, dev).posteriors(fq)
+    torch.cuda.synchronize()
+    out["f64_s"] = time.perf_counter() - t0
+    _, out["f64_err"] = golden_lines(reads, res, gold, strict=True)
+    cfg, params = MIO.read_model(GOLD_TRNA, Lp=96, dtype="float32",
+                                 device=dev)
+    sc = SCD.Scanner(cfg, params, dev)
+    sc.posteriors(fq)                                     # warm-up
+    stamps = []
+
+    def mark(stage):
+        torch.cuda.synchronize()
+        stamps.append((stage, time.perf_counter()))
+
+    K.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reads, res, _, _ = sc.posteriors(fq, mark)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    out["launches"] = {n: kk.launches for n, kk in K.KERNELS.items()}
+    stages = {}
+    for (_, a), (name, b) in zip(stamps, stamps[1:]):
+        if name != "begin":
+            stages[name] = stages.get(name, 0.0) + 1e3 * (b - a)
+    stages["host"] = 1e3 * total - sum(stages.values())
+    out.update(total_ms=1e3 * total, seqs_per_s=len(reads) / total,
+               stages=stages, chunks=sum(1 for n, _ in stamps
+                                         if n == "begin"))
+    out["f4_reads"], out["f32_err"] = golden_lines(reads, res, gold,
+                                                   strict=False)
+    # row K's unit: one scan chunk (the first 64 reads, bucket 96)
+    scfg, sparams = SCD.scan_config(cfg, params, 96)
+    sd = J.stack_seqdata([J.make_seqdata(scfg, r.seq, r.qual)
+                          for r in reads[:SCD.SCAN_BATCH]], dev)
+    call = lambda: SC.scan_posteriors_batch(scfg, sparams, sd, device=dev)
+    K.reset_counts()
+    call()
+    out["chunk_launches"] = {n: kk.launches for n, kk in K.KERNELS.items()}
+    out["chunk_ms"] = cuda_ms(call, 3)
+    out["chunk_bound"] = scan_chunk_bound(scfg, sparams, sd, dev, 4)
+    print("scan posteriors, 76 tRNAs (trna_noshuffle_ref.model, buckets of "
+          "32, chunks of %d): f64 %.2f s, start/end/inner/region/exist prob "
+          "lines all within the golden's bars (largest log error %.3g); f32 "
+          "%.1f ms (%.1f seqs/s) in %d chunks, stages (ms, the device "
+          "synchronised around each) %s; f32 reads with an isfinite mismatch "
+          "against the golden (F4): %d of %d (largest log error on lines both "
+          "print finite %.3g); one chunk (64 reads x bucket 96, f32) %.2f ms, "
+          "launches %s, bound %.4f ms by %s" % (
+              SCD.SCAN_BATCH, out["f64_s"], out["f64_err"], out["total_ms"],
+              out["seqs_per_s"], out["chunks"], json.dumps(
+                  {k_: round(v, 2) for k_, v in stages.items()}),
+              out["f4_reads"], len(reads), out["f32_err"], out["chunk_ms"],
+              json.dumps(out["chunk_launches"]), out["chunk_bound"][0],
+              out["chunk_bound"][1]), flush=True)
+    return out
+
+
+def scan_norss(tmp, dev):
+    """Phase 12: Scanner.scan of the --no-rss fixture model 2 on 0.fq
+    (f32, the card) against the C++ scan on every line
+    (tests/test_scan_golden's rules); the launch counts of this run."""
+    cfg, params = MIO.read_model(os.path.join(FIXDIR, "2.model"), Lp=48,
+                                 dtype="float32", device=dev)
+    buf, log = io.StringIO(), io.StringIO()
+    K.reset_counts()
+    SCD.Scanner(cfg, params, dev).scan(os.path.join(FIXDIR, "0.fq"), buf,
+                                       log=log)
+    torch.cuda.synchronize()
+    launches = {n: kk.launches for n, kk in K.KERNELS.items()}
+    mine = parse_raw(buf.getvalue())
+    gold = parse_raw(open(os.path.join(GOLDDIR, "scan_2.raw")).read())
+    if len(mine) != len(gold) or "E[N]:" not in log.getvalue():
+        fail("no-rss scan: %d records, golden %d" % (len(mine), len(gold)))
+    worst = 0.0
+    for m, g in zip(mine, gold):
+        for key in ("start", "end", "inner"):
+            a, b = vec(m[key]), vec(g[key])
+            if a.shape != b.shape or not (np.isfinite(a) ==
+                                          np.isfinite(b)).all():
+                fail("no-rss scan %s %s: shape or isfinite pattern differs"
+                     % (m["id"], key))
+            fin = np.isfinite(a)
+            err = np.abs(a[fin] - b[fin])
+            worst = max(worst, float(err.max()) if err.size else 0.0)
+            if (err > 2e-4 + 1e-3 * np.abs(b[fin])).any():
+                fail("no-rss scan %s %s: max log error %.3g"
+                     % (m["id"], key, float(err.max())))
+        if abs(float(m["exist prob"]) - float(g["exist prob"])) > 1e-3:
+            fail("no-rss scan %s: exist prob %s vs %s"
+                 % (m["id"], m["exist prob"], g["exist prob"]))
+        for key in ("id", "psihat", "motif region", "seq", "rss", "mot"):
+            if m[key] != g[key]:
+                fail("no-rss scan %s: %s differs" % (m["id"], key))
+    print("no-rss scan (fixture model 2 on 0.fq, f32, Scanner.scan): every "
+          "line of scan_2.raw held (largest log error %.3g); launches %s"
+          % (worst, json.dumps(launches)), flush=True)
+    return launches
+
+
+def scan_chunk_bound(cfg, params, sd, dev, itemsize):
+    """Row K for one chunk, as one function: the masks (row I), the score
+    tables once, two forward and outside passes (K2-K7 over every
+    column), the pins read and the class sums written: (ms, bound_by).
+    Pass 1 must give the singles' and pairs' cotangents (E[N]; the scan
+    keeps no lambda part), the end pass the class sums alone."""
+    k = J.kernels(cfg, dev)
+    bp, _ = J.effective_bp_mask_batch(cfg, sd, dev)
+    _, c = J.batch_factors(cfg, params, sd, bp, device=dev)
+    B = bp.shape[0]
+    q = batch_counts(cfg, k.dp.st, c, B)
+    by, ops = mask_pass_work(cfg, sd, dev, itemsize)
+    b1, o1 = score_work(cfg, c, k.tab, B, itemsize)
+    by, ops = by + b1, ops + o1
+    for j in range(1, cfg.Lp + 1):
+        for need in (("weights",), ()):
+            for b_, o_ in column_work(cfg, k.dp.st, c, q, j, itemsize,
+                                      need=need).values():
+                by, ops = by + b_, ops + o_
+    by += 4 * B + 2 * 4 * cfg.Lp * B * itemsize
+    return _ms(by, ops)
+
 # ------------------------------------------------------------ main
 
 def main():
@@ -1068,7 +1478,8 @@ def main():
                     help="write the torch.profiler kernel table of one "
                          "main-path batch_fn_grad to this file")
     args = ap.parse_args()
-    global np, torch, ET, J, DP, K, LIN, MIO, OBJ, TRN, CLI, seq_to_ints
+    global np, torch, ET, J, DP, K, LIN, MIO, OBJ, TRN, CLI, SC, SCD
+    global seq_to_ints, ints_to_seq
     try:
         import numpy as np
         import torch
@@ -1078,13 +1489,15 @@ def main():
         fail("torch.cuda.is_available() is false: this check needs a GPU")
     try:
         from rnaelem_tpu_torch import cli as CLI
-        from rnaelem_tpu_torch.alphabet import seq_to_ints
+        from rnaelem_tpu_torch.alphabet import ints_to_seq, seq_to_ints
         from rnaelem_tpu_torch.energy import tables as ET
         from rnaelem_tpu_torch.model import io as MIO
         from rnaelem_tpu_torch.model import joint as J
         from rnaelem_tpu_torch.ops import dp as DP
         from rnaelem_tpu_torch.ops import kernels as K
         from rnaelem_tpu_torch.ops import linear as LIN
+        from rnaelem_tpu_torch.scan import driver as SCD
+        from rnaelem_tpu_torch.scan import scanner as SC
         from rnaelem_tpu_torch.train import objective as OBJ
         from rnaelem_tpu_torch.train import trainer as TRN
     except ImportError as e:
@@ -1163,12 +1576,27 @@ def main():
         fail("inside DP f32: parts differ by %.3g" % e_dp32)
     del b16_32
 
+    # ---- phase 2b: row K, the pinned stages and the class sums
+    kp64, msg = check_pinned(cfg64, b16, p64, dev, 1e-9, False, full=True)
+    print("check pinned stages and class sums (row K) f64 small batch, "
+          "column %d, 1e-9 relative: %s" % (j0, msg), flush=True)
+    b64 = OBJ.stack_reads(cfg32, reads[:B_SCAN], device=dev)
+    err_pin, msg = check_pinned(cfg32, b64, p32, dev, 1e-4, True, full=False)
+    print("check pinned stages and class sums (row K) f32 B=%d x %d nt, "
+          "column %d, 1e-4 relative: %s" % (B_SCAN, LP, j0, msg), flush=True)
+    del b64
+
     # ---- phases 3-4: full gradient and masks, small batch
     check_full_gradient(cfg64, cfg32, small, dev)
     check_masks(cfg64, cfg32, small, dev)
 
     # ---- phase 7 (checks): the no-rss chain
     err.update(check_chain(small, reads, dev))
+    e_cp, msg = check_chain_pinned(small, reads, dev)
+    err_pin.update(e_cp)
+    print("check chain %s (no-rss) K8/K9 under a pin, K9's class sums, vs "
+          "plain (f64 within 1e-9, f32 within 1e-4 relative, max norm; two "
+          "runs bitwise equal): %s" % (NORSS, msg), flush=True)
 
     # ---- phase 5: per-call times at the main path's shapes
     k32 = J.kernels(cfg32, dev)
@@ -1246,6 +1674,24 @@ def main():
     plain_ms["linear_adj"] = cuda_ms(lambda: torch.autograd.grad(
         graph, leaf, gpc, retain_graph=True), 3)
     del graph, leaf, rows_c
+    ms_pin, k5_fn = pinned_times(dp32, *scan_factors(cfg32, bm, p32, dev,
+                                                     True), j0, funcs)
+    sd_c = J.stack_seqdata([J.make_seqdata(cfg32, s_, q_) for s_, q_ in reads],
+                           dev)
+    pin_c = random_pin(sd_c, dev)
+    gpc = torch.where(torch.isfinite(K.chain_fwd(lin, eRc, Lc, pin_c)[0]), gpc,
+                      0.0)
+    _, rows_p = K.chain_fwd(lin, eRc, Lc, pin_c)
+    cls_c = torch.empty((4, LP, B_MAIN), dtype=eRc.dtype, device=dev)
+    ms_pin["linear_fwd"] = device_ms(lambda: K.chain_fwd(lin, eRc, Lc, pin_c),
+                                     REPS, funcs["linear_fwd"])
+    ms_pin["linear_adj"] = device_ms(lambda: K.chain_adj(
+        lin, eRc, Lc, rows_p, gpc, pin_c, cls_c), REPS, funcs["linear_adj"])
+    print("pinned per-call device ms (a pin per read and the class probe, "
+          "column %d / one batch, B=%d x %d nt, f32): %s; outside_band by "
+          "function %s" % (j0, B_MAIN, LP, json.dumps(ms_pin),
+                           json.dumps(k5_fn)), flush=True)
+    del rows_p, cls_c
 
     # ---- phase 6: the evaluation path
     K.reset_counts()
@@ -1320,13 +1766,26 @@ def main():
         # ---- phase 9: the C++ goldens on the card
         golden_trna_eval(tmp, dev)
         golden_small8_train(tmp, dev)
+        # ---- phases 11-12: the scan path (this slice's main path)
+        scan = scan_trna(tmp, dev)
+        scan_nr = scan_norss(tmp, dev)
+        for n in DP_KERNELS:
+            if scan["launches"][n] <= 0:
+                fail("kernel %s was not launched on the scan path" % n)
+        for n in CHAIN_KERNELS:
+            if scan_nr[n] <= 0:
+                fail("kernel %s was not launched on the no-rss scan" % n)
 
     # ---- phase 10: the kernel table
     # ms (the profiler's device time of the kernel's own functions over
     # REPS calls), plain_ms and bound_ms are per unit of work ("unit": K1,
     # K8, K9 one batch, K2-K7 one column j0, of "launches_per_unit"
-    # launches); "launches" counts the training path's run of the kernel
-    # (the production step, (.....) for K1-K7, ..*.. --no-rss for K8/K9),
+    # launches); "ms_pin" the same unit under a pin per read with the
+    # class probe (K2, K4, K5, K7, K8, K9), "max_abs_err_pin" its f32
+    # check; "launches" counts the scan path's run of the kernel (the f32
+    # posteriors of the 76 tRNAs for K1-K7, the no-rss scan of fixture
+    # model 2 for K8/K9), "launches_step" the training path's (the
+    # production step, (.....) for K1-K7, ..*.. --no-rss for K8/K9),
     # "launches_eval_path" the evaluation path's (masks + fn+grad),
     # "launches_fn_grad" and "ms_fn_grad" (device time) one batch_fn_grad
     bnd = bounds(cfg32, st, c32, k32.tab, j0, B_MAIN, 4)
@@ -1335,21 +1794,28 @@ def main():
     for name, kern in K.KERNELS.items():
         bms, by = bnd[name]
         u, n_unit = unit[name]
-        launches = (step_nr if name in CHAIN_KERNELS else step)["launches"]
+        chain = name in CHAIN_KERNELS
+        launches = (step_nr if chain else step)["launches"]
+        n_scan = (scan_nr if chain else scan["launches"])[name]
         rows.append({
             "name": name, "route": "cuda", "source": kern.source,
-            "replaces": kern.replaces, "launches": launches[name],
+            "replaces": kern.replaces, "launches": n_scan,
             "max_abs_err": err[name], "ms": ms[name],
             "plain_ms": plain_ms[name], "bound_ms": bms, "bound_by": by,
             "library_ms": None, "unit": u, "launches_per_unit": n_unit,
+            "ms_pin": ms_pin.get(name),
+            "max_abs_err_pin": err_pin.get(name),
+            "launches_step": launches[name],
             "launches_eval_path": eval_launches[name],
             "launches_fn_grad": per_fg[name], "ms_fn_grad": fg_dev[name]})
         print("kernel %s: %.4f ms per %s of %d launches (plain %.3f ms, "
-              "bound %.4f ms by %s); %d launches in the production step, %d "
-              "on the evaluation path, %d per fn+grad (%.3f ms of device "
-              "time)" % (name, ms[name], u, n_unit, plain_ms[name], bms, by,
-                         launches[name], eval_launches[name], per_fg[name],
-                         fg_dev[name]), flush=True)
+              "bound %.4f ms by %s; with the pin %s ms); %d launches on the "
+              "scan path, %d in the production step, %d on the evaluation "
+              "path, %d per fn+grad (%.3f ms of device time)" % (
+                  name, ms[name], u, n_unit, plain_ms[name], bms, by,
+                  ms_pin.get(name), n_scan, launches[name],
+                  eval_launches[name], per_fg[name], fg_dev[name]),
+              flush=True)
     mb_ms, mb_by = mask_pass_bound(cfg32, batch.sd, dev, 4)
     print("row I (the masks, K1-K7 at S=1 over every column, B=%d x %d nt): "
           "bound %.4f ms by %s; measured %.3f ms per batch (stack_reads)"

@@ -8,6 +8,10 @@ Modes of the rnaelem binary (application.hpp:76-301, main.cpp:20-163):
 * ``eval``: the objective's value over a FASTQ file (motif_eval.hpp:23-54,
   no shuffle) to --out1 as ``fn: %.17g`` and its gradient, in the
   reference's parameter order, to --out2 as ``gr: [...]``;
+* ``scan``: scan a FASTQ file with a --no-rss model (-q): the 10-line
+  record of every read (motif start/end/inner posteriors, Viterbi motif
+  path, region, exist prob) to --out1 and the E[N] line to stderr
+  (motif_scanner.hpp); a structure model needs CYK, not ported yet;
 * ``gen-neg``: the shuffled negatives the trainer draws, -i iterations
   of the whole file, as FASTA to --out1.
 
@@ -21,9 +25,9 @@ import sys
 
 import numpy as np
 
-LATER = ("the default mode 'normal' (train, then scan) waits for the "
-         "scanner; --array, --mesh and 'array-eval' wait for the multi-GPU "
-         "port")
+LATER = ("the default mode 'normal' (train, then scan) and scanning "
+         "structure models wait for the CYK slice; --array, --mesh and "
+         "'array-eval' wait for the multi-GPU port")
 
 
 def _round_up(n, m=16):
@@ -56,7 +60,7 @@ def build_parser():
         prog="rnaelem-torch",
         description="RNA sequence-structure motif learning (PyTorch/CUDA). "
                     "Not ported yet: " + LATER + ".")
-    p.add_argument("mode", choices=["train", "eval", "gen-neg"])
+    p.add_argument("mode", choices=["train", "eval", "scan", "gen-neg"])
     p.add_argument("-f", "--fastq", dest="seq_fname", required=True)
     p.add_argument("-m", "--motif-pattern", dest="pattern",
                    default="~NONE~")
@@ -192,6 +196,22 @@ def do_eval(args):
         _close(o)
 
 
+def do_scan(args):
+    from .model import io as MIO
+    from .scan.driver import Scanner, check_scannable
+    if args.model_fname == "~NONE~":
+        raise SystemExit("require sequence and model filenames")
+    Lp = _round_up(_fq_maxlen(args.seq_fname))
+    cfg, params = MIO.read_model(args.model_fname, Lp=Lp, dtype=_dtype(args),
+                                 device=args.device)
+    check_scannable(cfg)
+    out = _out_stream(args.out1)
+    try:
+        Scanner(cfg, params, args.device).scan(args.seq_fname, out)
+    finally:
+        _close(out)
+
+
 def do_genneg(args):
     from .alphabet import ints_to_seq
     from .io.fastq import FastqReader
@@ -208,8 +228,8 @@ def do_genneg(args):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    {"train": do_train, "eval": do_eval, "gen-neg": do_genneg}[args.mode](
-        args)
+    {"train": do_train, "eval": do_eval, "scan": do_scan,
+     "gen-neg": do_genneg}[args.mode](args)
 
 
 if __name__ == "__main__":

@@ -22,8 +22,50 @@ struct DPDims {
   int n_pt;  // pair transitions (t, s) of the grammar (outside kernels)
 };
 
+// The scanner's aux transition factors (scan/scanner.py, ops/dp.py), as
+// the kernels take them: never dense [Lp, S, S, B] factors, but a per-read
+// pin and the class sums of the transition posteriors.  Emission kinds:
+// R (right-chain transitions, base j-1), L (M chain, base j-w), PL and PR
+// (pair edges, bases j-w and j-1).  code[(kind * S + t) * S + s] holds the
+// class bits of transition t <- s: 1 start, 2 in, 4 end, 8 tail.  At the
+// pinned base of a read only the transitions with pin_bit survive (the
+// end pass's -inf vetoes).  The adjoint kernels add each transition's
+// posterior into the class partials of its base: cpR [4, Wp+1, S, B] for
+// base j-1 (slot w of the source state's thread, slot 0 the O chain's),
+// cpL [4, Wp+1, S, B] for base j-w; the column's last K5 function sums
+// them.  For the no-rss chain cpR is the class sums [4, Lp, B] themselves.
+enum { kAuxR = 0, kAuxL = 1, kAuxPL = 2, kAuxPR = 3 };
+
+struct Aux {
+  const int* code;  // [4, S, S]
+  const int* pin;   // [B] pinned base of each read (-1: none), or null
+  int pin_bit;      // the class bit that survives at the pinned base
+  void* cpR;        // class partials (scalar type), or null
+  void* cpL;
+};
+
+// is base p of read b pinned?
+__device__ __forceinline__ bool pinned(const Aux& a, int b, int p) {
+  return a.pin != nullptr && a.pin[b] == p;
+}
+
+// does a pin at this base veto transition t <- s of the kind?
+__device__ __forceinline__ bool vetoed(const Aux& a, bool pin, int kind,
+                                       int t, int s, int S) {
+  return pin && !(a.code[(kind * S + t) * S + s] & a.pin_bit);
+}
+
 template <typename T>
 __device__ __forceinline__ T ninf() { return -(T)INFINITY; }
+
+// add posterior mass x of transition t <- s of the kind to its classes
+template <typename T>
+__device__ __forceinline__ void add_classes(const Aux& a, int kind, int t,
+                                            int s, int S, T x, T acc[4]) {
+  const int c = a.code[(kind * S + t) * S + s];
+  for (int k = 0; k < 4; ++k)
+    if (c & (1 << k)) acc[k] += x;
+}
 
 __device__ __forceinline__ float ex(float x) { return expf(x); }
 __device__ __forceinline__ double ex(double x) { return exp(x); }

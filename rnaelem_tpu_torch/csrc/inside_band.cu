@@ -25,7 +25,11 @@
 // merge in shared memory, so the longest serial chain is w/8 steps.  The M
 // chain runs one block per read, one thread per target state, with the
 // previous cell in shared memory and the next step's loads issued before
-// the current step's arithmetic.
+// the current step's arithmetic.  The scanner's end pass (common.cuh Aux)
+// pins one base per read: the L/T2 chains and P skip the vetoed
+// transitions that emit it, the M chain likewise (base j-w).  The pin
+// test is a template flag chosen at launch, so an evaluation without a
+// pin runs the loops without it.
 #include "common.cuh"
 
 #define TIDX(r, w, s, b) ((((long long)(r) * W1 + (w)) * S + (s)) * B + (b))
@@ -50,8 +54,9 @@ struct BandIdx {  // grammar index lists (int32 unless noted)
 };
 
 // ---- L, P and T2 of column j: one thread per (w, t, b)
-template <typename T>
-__global__ void band_front_kernel(DPDims D, BandIdx ix, T* LL, T* P, T* T2,
+template <typename T, bool kPin>
+__global__ void band_front_kernel(DPDims D, BandIdx ix, Aux ax, T* LL, T* P,
+                                  T* T2,
                                   const T* E, const T* eR, const T* bg2,
                                   const T* pv, const T* alphaP, const T* wsp,
                                   const T* lam, const T* stk, const T* ml2,
@@ -71,6 +76,7 @@ __global__ void band_front_kernel(DPDims D, BandIdx ix, T* LL, T* P, T* T2,
   const long long cell = ((long long)j * W1 + w) * B + b;  // [Lp+1,W1,B]
   const T lam_t = lam[ix.bucket[t]];
   const int k0 = ix.rt_off[t], k1 = ix.rt_off[t + 1];
+  const bool pinR = kPin && pinned(ax, b, j - 1);
 
   // U1: ST_L chain (motif_model.hpp:243-257); width 0 is the diagonal
   T Lv;
@@ -78,8 +84,10 @@ __global__ void band_front_kernel(DPDims D, BandIdx ix, T* LL, T* P, T* T2,
     Lv = ix.diag[t] ? (T)0 : ninf<T>();
   } else {
     LSE<T> acc;
-    for (int k = k0; k < k1; ++k)
+    for (int k = k0; k < k1; ++k) {
+      if (vetoed(ax, pinR, kAuxR, t, ix.rt_s[k], S)) continue;
       acc.add(rtw[k] + LL[TIDX(rp, w - 1, ix.rt_s[k], b)]);
+    }
     Lv = acc.result() + eRt;
   }
 
@@ -92,10 +100,13 @@ __global__ void band_front_kernel(DPDims D, BandIdx ix, T* LL, T* P, T* T2,
     const T wl = wsp[(long long)iw * B + b];
     const T wr = wsp[(long long)(j - 1) * B + b];
     LSE<T> ape, app;
+    const bool pinL = kPin && pinned(ax, b, iw);
     if (w >= 2) {
       for (int s = 0; s < S; ++s) {
         const int code = ix.pt_code[t * S + s];
-        if (code == -1) continue;
+        if (code == -1 || vetoed(ax, pinL, kAuxPL, t, s, S) ||
+            vetoed(ax, pinR, kAuxPR, t, s, S))
+          continue;
         T pem;
         if (code == -2) {
           pem = bgsum;
@@ -119,8 +130,10 @@ __global__ void band_front_kernel(DPDims D, BandIdx ix, T* LL, T* P, T* T2,
     T ch = ninf<T>();
     if (w >= 1) {
       LSE<T> acc;
-      for (int k = k0; k < k1; ++k)
+      for (int k = k0; k < k1; ++k) {
+        if (vetoed(ax, pinR, kAuxR, t, ix.rt_s[k], S)) continue;
         acc.add(rtw[k] + T2[TIDX(rp, w - 1, ix.rt_s[k], b)]);
+      }
       ch = acc.result() + eRt + gate_O2[(long long)(j - 1) * B + b];
     }
     T2v = logadd(ch, Pv + lam_mul(lam_t, ml2[cell]));
@@ -177,8 +190,8 @@ __global__ void band_bif_kernel(DPDims D, BandIdx ix, T* Bt, T* T1,
 // Each step thread s publishes y[s] = M(w-1)[s] + eL[s] + gate in shared
 // memory, then thread t takes the log-sum-exp of y + TL[t, :] over its
 // left-transition sources.
-template <typename T>
-__global__ void band_m_kernel(DPDims D, BandIdx ix, T* M, const T* Bt,
+template <typename T, bool kPin>
+__global__ void band_m_kernel(DPDims D, BandIdx ix, Aux ax, T* M, const T* Bt,
                               const T* eL, const T* gate_M, const bool* okM) {
   extern __shared__ unsigned char smem_raw[];
   T* y = reinterpret_cast<T*>(smem_raw);  // [S]
@@ -210,8 +223,13 @@ __global__ void band_m_kernel(DPDims D, BandIdx ix, T* M, const T* Bt,
     __syncthreads();
     T cur = ninf<T>();
     if (t < S && ok) {
+      const int iw = j - w < 0 ? 0 : (j - w > Lp - 1 ? Lp - 1 : j - w);
+      const bool pinL = kPin && pinned(ax, b, iw);
       LSE<T> acc;
-      for (int k = k0; k < k1; ++k) acc.add(y[ix.lt_s[k]] + ltw[k]);
+      for (int k = k0; k < k1; ++k) {
+        if (vetoed(ax, pinL, kAuxL, t, ix.lt_s[k], S)) continue;
+        acc.add(y[ix.lt_s[k]] + ltw[k]);
+      }
       cur = logadd(bt, acc.result());
     }
     __syncthreads();
@@ -254,15 +272,16 @@ static bool too_big(const DPDims& D) {
 }
 
 template <typename T>
-static int front(DPDims D, BandIdx ix, T* LL, T* P, T* T2, const T* E,
+static int front(DPDims D, BandIdx ix, Aux ax, T* LL, T* P, T* T2, const T* E,
                  const T* eR, const T* bg2, const T* pv, const T* alphaP,
                  const T* wsp, const T* lam, const T* stk, const T* ml2,
                  const T* gate_O2, const bool* okP, const bool* okB,
                  cudaStream_t st) {
   if (too_big(D)) return static_cast<int>(cudaErrorInvalidValue);
   long long n = (long long)(D.Wp + 1) * D.S * D.B;
-  band_front_kernel<T><<<ceil_div(n, kThreads), kThreads, 0, st>>>(
-      D, ix, LL, P, T2, E, eR, bg2, pv, alphaP, wsp, lam, stk, ml2, gate_O2,
+  auto kern = ax.pin ? band_front_kernel<T, true> : band_front_kernel<T, false>;
+  kern<<<ceil_div(n, kThreads), kThreads, 0, st>>>(
+      D, ix, ax, LL, P, T2, E, eR, bg2, pv, alphaP, wsp, lam, stk, ml2, gate_O2,
       okP, okB);
   return static_cast<int>(cudaGetLastError());
 }
@@ -277,11 +296,12 @@ static int bif(DPDims D, BandIdx ix, T* Bt, T* T1, const T* T2,
 }
 
 template <typename T>
-static int mchain(DPDims D, BandIdx ix, T* M, const T* Bt, const T* eL,
+static int mchain(DPDims D, BandIdx ix, Aux ax, T* M, const T* Bt, const T* eL,
                   const T* gate_M, const bool* okM, cudaStream_t st) {
   int threads = ((D.S + 31) / 32) * 32;
-  band_m_kernel<T><<<D.B, threads, D.S * sizeof(T), st>>>(D, ix, M, Bt, eL,
-                                                          gate_M, okM);
+  auto kern = ax.pin ? band_m_kernel<T, true> : band_m_kernel<T, false>;
+  kern<<<D.B, threads, D.S * sizeof(T), st>>>(D, ix, ax, M, Bt, eL, gate_M,
+                                              okM);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -298,12 +318,13 @@ static int ecol(DPDims D, BandIdx ix, T* E, const T* LL, const T* M,
 
 #define BAND_EXPORTS(SUF, T)                                                 \
   RNAELEM_EXPORT int rnaelem_band_front_##SUF(                               \
-      DPDims D, BandIdx ix, T* LL, T* P, T* T2, const T* E, const T* eR,     \
+      DPDims D, BandIdx ix, Aux ax, T* LL, T* P, T* T2, const T* E,          \
+      const T* eR,                                                           \
       const T* bg2, const T* pv, const T* alphaP, const T* wsp,              \
       const T* lam, const T* stk, const T* ml2, const T* gate_O2,            \
       const bool* okP, const bool* okB, cudaStream_t st) {                   \
-    return front<T>(D, ix, LL, P, T2, E, eR, bg2, pv, alphaP, wsp, lam, stk, \
-                    ml2, gate_O2, okP, okB, st);                             \
+    return front<T>(D, ix, ax, LL, P, T2, E, eR, bg2, pv, alphaP, wsp, lam,  \
+                    stk, ml2, gate_O2, okP, okB, st);                        \
   }                                                                          \
   RNAELEM_EXPORT int rnaelem_band_bif_##SUF(DPDims D, BandIdx ix, T* Bt,     \
                                             T* T1, const T* T2,              \
@@ -311,11 +332,11 @@ static int ecol(DPDims D, BandIdx ix, T* E, const T* LL, const T* M,
                                             cudaStream_t st) {               \
     return bif<T>(D, ix, Bt, T1, T2, okB, st);                               \
   }                                                                          \
-  RNAELEM_EXPORT int rnaelem_band_m_##SUF(DPDims D, BandIdx ix, T* M,        \
-                                          const T* Bt, const T* eL,          \
+  RNAELEM_EXPORT int rnaelem_band_m_##SUF(DPDims D, BandIdx ix, Aux ax,      \
+                                          T* M, const T* Bt, const T* eL,    \
                                           const T* gate_M, const bool* okM,  \
                                           cudaStream_t st) {                 \
-    return mchain<T>(D, ix, M, Bt, eL, gate_M, okM, st);                     \
+    return mchain<T>(D, ix, ax, M, Bt, eL, gate_M, okM, st);                 \
   }                                                                          \
   RNAELEM_EXPORT int rnaelem_band_e_##SUF(                                   \
       DPDims D, BandIdx ix, T* E, const T* LL, const T* M, const T* ep,      \

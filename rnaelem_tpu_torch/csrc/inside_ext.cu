@@ -13,7 +13,9 @@
 // (target state, 32 reads) with the read fastest (coalesced) and eight
 // warps splitting w = 1..Wp, each a direct log-space online log-sum-exp
 // over the target's sparse (a, c) split list, merged in shared memory;
-// slot w = 0 is skipped (P at width 0 is masked out).
+// slot w = 0 is skipped (P at width 0 is masked out).  The scanner's end
+// pass (common.cuh Aux) pins one base per read: the O chain skips the
+// vetoed transitions that emit it (base j-1); the splits carry no aux.
 #include "common.cuh"
 
 struct ExtIdx {
@@ -29,7 +31,7 @@ struct ExtIdx {
 // one block per (target t, tile of 32 reads): lane = read, the 8 warps
 // split w = 1..Wp; partial (max, sum) pairs are merged in shared memory
 template <typename T>
-__global__ void ext_col_kernel(DPDims D, ExtIdx ix, T* O, const T* P,
+__global__ void ext_col_kernel(DPDims D, ExtIdx ix, Aux ax, T* O, const T* P,
                                const T* eR, const T* gate_O2, const T* ext,
                                const T* lam) {
   const int S = D.S, B = D.B, W1 = D.Wp + 1, j = D.j;
@@ -62,30 +64,33 @@ __global__ void ext_col_kernel(DPDims D, ExtIdx ix, T* O, const T* P,
   }
   // O chain from row j-1
   const T* rtw = static_cast<const T*>(ix.rt_w);
+  const bool pinR = pinned(ax, b, j - 1);
   LSE<T> oo;
-  for (int k = ix.rt_off[t]; k < ix.rt_off[t + 1]; ++k)
+  for (int k = ix.rt_off[t]; k < ix.rt_off[t + 1]; ++k) {
+    if (vetoed(ax, pinR, kAuxR, t, ix.rt_s[k], S)) continue;
     oo.add(rtw[k] + O[((long long)(r - 1) * S + ix.rt_s[k]) * B + b]);
+  }
   const T oov = oo.result() + eR[((long long)(j - 1) * S + t) * B + b] +
                 gate_O2[(long long)(j - 1) * B + b];
   O[((long long)r * S + t) * B + b] = logadd(oov, all.result());
 }
 
 template <typename T>
-static int ext_col(DPDims D, ExtIdx ix, T* O, const T* P, const T* eR,
+static int ext_col(DPDims D, ExtIdx ix, Aux ax, T* O, const T* P, const T* eR,
                    const T* gate_O2, const T* ext, const T* lam,
                    cudaStream_t st) {
   dim3 block(32, 8);
   dim3 grid((D.B + 31) / 32, D.S);
-  ext_col_kernel<T><<<grid, block, 0, st>>>(D, ix, O, P, eR, gate_O2, ext,
-                                            lam);
+  ext_col_kernel<T><<<grid, block, 0, st>>>(D, ix, ax, O, P, eR, gate_O2,
+                                            ext, lam);
   return static_cast<int>(cudaGetLastError());
 }
 
 #define EXT_EXPORT(SUF, T)                                                   \
   RNAELEM_EXPORT int rnaelem_ext_col_##SUF(                                  \
-      DPDims D, ExtIdx ix, T* O, const T* P, const T* eR, const T* gate_O2,  \
-      const T* ext, const T* lam, cudaStream_t st) {                         \
-    return ext_col<T>(D, ix, O, P, eR, gate_O2, ext, lam, st);               \
+      DPDims D, ExtIdx ix, Aux ax, T* O, const T* P, const T* eR,            \
+      const T* gate_O2, const T* ext, const T* lam, cudaStream_t st) {       \
+    return ext_col<T>(D, ix, ax, O, P, eR, gate_O2, ext, lam, st);           \
   }
 
 EXT_EXPORT(f32, float)

@@ -1,7 +1,13 @@
 // K9: the adjoint of the no-rss chain (chain.cuh states the recursion
 // and the design).  Replaces the reverse-mode derivative of
 // model/joint.py _linear_parts_one (row J, joint.py:594-631), jax.grad
-// through the lax.scan.
+// through the lax.scan.  Under the scanner's pin (common.cuh Aux) the
+// vetoed transitions of a read's pinned base are skipped; with ax.cpR the
+// kernel also writes the class sums [4, Lp, B] of the transition
+// posteriors per base (zero beyond the read): each thread's per-class
+// sums go to shared memory, and threads 0..3 add them over the states in
+// a fixed order between the step's two barriers.  Pin and class sums are
+// a template flag chosen at launch: without them the loop is K9's own.
 #include "chain.cuh"
 
 // One block per read b, thread s = source state.  g holds the
@@ -9,16 +15,18 @@
 // sources through the softmax weights exp(o_p[s] + TR[t, s] + eR[p, t]
 // - o_{p+1}[t]) and, unchanged, to eR[p, t].  Rows p >= L_b of the
 // cotangent are zero (the chain stops at the read's end).
-template <typename T>
-__global__ void chain_adj_kernel(ChainDims D, ChainIdx ix, const T* eR,
+template <typename T, bool kAux>
+__global__ void chain_adj_kernel(ChainDims D, ChainIdx ix, Aux ax, const T* eR,
                                  const long long* L, const T* Osave,
                                  const T* gparts, T* g_eR) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* g = reinterpret_cast<T*>(smem_raw);  // [S]
+  T* part = g + D.S;                        // [4, S]
   const int Lp = D.Lp, S = D.S, B = D.B;
   const int b = blockIdx.x, s = threadIdx.x;
   const int Lb = L[b] < Lp ? static_cast<int>(L[b]) : Lp;
   const T* w = static_cast<const T*>(ix.rtr_w);
+  T* cls = kAux ? static_cast<T*>(ax.cpR) : nullptr;
   if (s < S) {
     T v = (T)0;
     for (int k = 0; k < 3; ++k)
@@ -26,50 +34,65 @@ __global__ void chain_adj_kernel(ChainDims D, ChainIdx ix, const T* eR,
     g[s] = v;
     for (int p = Lb; p < Lp; ++p) g_eR[((long long)p * S + s) * B + b] = 0;
   }
+  if (cls && s < 4)
+    for (int p = Lb; p < Lp; ++p) cls[((long long)s * Lp + p) * B + b] = 0;
   __syncthreads();
   for (int p = Lb - 1; p >= 0; --p) {
-    T gnew = (T)0;
+    T gnew = (T)0, acc[4] = {0, 0, 0, 0};
     if (s < S) {
       g_eR[((long long)p * S + s) * B + b] = g[s];
       const T os = Osave[((long long)p * S + s) * B + b];
+      const bool pin = kAux && pinned(ax, b, p);
       if (os > ninf<T>()) {
         for (int k = ix.rtr_off[s]; k < ix.rtr_off[s + 1]; ++k) {
           const int t = ix.rtr_t[k];
           const T gt = g[t];
-          if (gt == (T)0) continue;
+          if (gt == (T)0 || vetoed(ax, pin, kAuxR, t, s, S)) continue;
           const T on = Osave[((long long)(p + 1) * S + t) * B + b];
           if (!(on > ninf<T>())) continue;
-          gnew += gt * ex(os + w[k] + eR[((long long)p * S + t) * B + b] - on);
+          const T x =
+              gt * ex(os + w[k] + eR[((long long)p * S + t) * B + b] - on);
+          gnew += x;
+          if (cls) add_classes(ax, kAuxR, t, s, S, x, acc);
         }
       }
+      if (cls)
+        for (int c = 0; c < 4; ++c) part[c * S + s] = acc[c];
     }
     __syncthreads();
+    if (cls && s < 4) {
+      T tot = (T)0;
+      for (int q = 0; q < S; ++q) tot += part[s * S + q];
+      cls[((long long)s * Lp + p) * B + b] = tot;
+    }
     if (s < S) g[s] = gnew;
     __syncthreads();
   }
 }
 
 template <typename T>
-static int chain_adj(ChainDims D, ChainIdx ix, const T* eR,
+static int chain_adj(ChainDims D, ChainIdx ix, Aux ax, const T* eR,
                      const long long* L, const T* Osave, const T* gparts,
                      T* g_eR, cudaStream_t st) {
-  chain_adj_kernel<T><<<D.B, chain_threads(D.S), D.S * sizeof(T), st>>>(
-      D, ix, eR, L, Osave, gparts, g_eR);
+  const bool aux = ax.pin || ax.cpR;
+  auto kern = aux ? chain_adj_kernel<T, true> : chain_adj_kernel<T, false>;
+  kern<<<D.B, chain_threads(D.S), (aux ? 5 : 1) * D.S * sizeof(T), st>>>(
+      D, ix, ax, eR, L, Osave, gparts, g_eR);
   return static_cast<int>(cudaGetLastError());
 }
 
-RNAELEM_EXPORT int rnaelem_chain_adj_f32(ChainDims D, ChainIdx ix,
+RNAELEM_EXPORT int rnaelem_chain_adj_f32(ChainDims D, ChainIdx ix, Aux ax,
                                          const float* eR, const long long* L,
                                          const float* Osave,
                                          const float* gparts, float* g_eR,
                                          cudaStream_t st) {
-  return chain_adj<float>(D, ix, eR, L, Osave, gparts, g_eR, st);
+  return chain_adj<float>(D, ix, ax, eR, L, Osave, gparts, g_eR, st);
 }
 
-RNAELEM_EXPORT int rnaelem_chain_adj_f64(ChainDims D, ChainIdx ix,
+RNAELEM_EXPORT int rnaelem_chain_adj_f64(ChainDims D, ChainIdx ix, Aux ax,
                                          const double* eR, const long long* L,
                                          const double* Osave,
                                          const double* gparts, double* g_eR,
                                          cudaStream_t st) {
-  return chain_adj<double>(D, ix, eR, L, Osave, gparts, g_eR, st);
+  return chain_adj<double>(D, ix, ax, eR, L, Osave, gparts, g_eR, st);
 }

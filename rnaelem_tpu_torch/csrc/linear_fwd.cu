@@ -1,11 +1,13 @@
 // K8: the no-rss forward chain (chain.cuh states the recursion and the
 // design).  Replaces model/joint.py _linear_parts_one (row J,
-// joint.py:594-631), the forward lax.scan.
+// joint.py:594-631), the forward lax.scan.  Under the scanner's pin
+// (common.cuh Aux) the step that emits a read's pinned base skips the
+// vetoed transitions; the pin test is a template flag chosen at launch.
 #include "chain.cuh"
 
 // One block per read b, thread t = target state
-template <typename T>
-__global__ void chain_fwd_kernel(ChainDims D, ChainIdx ix, const T* eR,
+template <typename T, bool kPin>
+__global__ void chain_fwd_kernel(ChainDims D, ChainIdx ix, Aux ax, const T* eR,
                                  const long long* L, T* Osave, T* parts) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* o = reinterpret_cast<T*>(smem_raw);  // [S]
@@ -23,15 +25,19 @@ __global__ void chain_fwd_kernel(ChainDims D, ChainIdx ix, const T* eR,
     T nxt = ninf<T>();
     if (t < S) {
       const T e = eR[((long long)p * S + t) * B + b];
+      const bool pin = kPin && pinned(ax, b, p);
       T m = ninf<T>();
       for (int k = ix.rt_off[t]; k < ix.rt_off[t + 1]; ++k) {
+        if (vetoed(ax, pin, kAuxR, t, ix.rt_s[k], S)) continue;
         const T x = o[ix.rt_s[k]] + w[k];
         m = x > m ? x : m;
       }
       if (m > ninf<T>()) {
         T s = (T)0;
-        for (int k = ix.rt_off[t]; k < ix.rt_off[t + 1]; ++k)
+        for (int k = ix.rt_off[t]; k < ix.rt_off[t + 1]; ++k) {
+          if (vetoed(ax, pin, kAuxR, t, ix.rt_s[k], S)) continue;
           s += ex(o[ix.rt_s[k]] + w[k] - m);
+        }
         nxt = m + lg(s) + e;
       }
     }
@@ -46,24 +52,25 @@ __global__ void chain_fwd_kernel(ChainDims D, ChainIdx ix, const T* eR,
 }
 
 template <typename T>
-static int chain_fwd(ChainDims D, ChainIdx ix, const T* eR,
+static int chain_fwd(ChainDims D, ChainIdx ix, Aux ax, const T* eR,
                      const long long* L, T* Osave, T* parts,
                      cudaStream_t st) {
-  chain_fwd_kernel<T><<<D.B, chain_threads(D.S), D.S * sizeof(T), st>>>(
-      D, ix, eR, L, Osave, parts);
+  auto kern = ax.pin ? chain_fwd_kernel<T, true> : chain_fwd_kernel<T, false>;
+  kern<<<D.B, chain_threads(D.S), D.S * sizeof(T), st>>>(D, ix, ax, eR, L,
+                                                         Osave, parts);
   return static_cast<int>(cudaGetLastError());
 }
 
-RNAELEM_EXPORT int rnaelem_chain_fwd_f32(ChainDims D, ChainIdx ix,
+RNAELEM_EXPORT int rnaelem_chain_fwd_f32(ChainDims D, ChainIdx ix, Aux ax,
                                          const float* eR, const long long* L,
                                          float* Osave, float* parts,
                                          cudaStream_t st) {
-  return chain_fwd<float>(D, ix, eR, L, Osave, parts, st);
+  return chain_fwd<float>(D, ix, ax, eR, L, Osave, parts, st);
 }
 
-RNAELEM_EXPORT int rnaelem_chain_fwd_f64(ChainDims D, ChainIdx ix,
+RNAELEM_EXPORT int rnaelem_chain_fwd_f64(ChainDims D, ChainIdx ix, Aux ax,
                                          const double* eR, const long long* L,
                                          double* Osave, double* parts,
                                          cudaStream_t st) {
-  return chain_fwd<double>(D, ix, eR, L, Osave, parts, st);
+  return chain_fwd<double>(D, ix, ax, eR, L, Osave, parts, st);
 }

@@ -23,6 +23,13 @@
 // clip(j - w) sends to row 0 add up in one thread.  Sums across threads
 // (eR row j-1 over w, bg2, pv, alphaP, lambda) are per-cell partials that
 // the last kernel of the column reduces in a fixed order: no atomics.
+// Under the scanner's pin (common.cuh Aux) every term skips the vetoed
+// transitions, as K2 did, and the posterior of each transition the
+// kernels form (a share) also goes to the class partials of the base it
+// emits: the M chain's (L kind, base j-w) in m_adj, the L/T2 chains' (R,
+// base j-1) and P's (PL at j-w, PR at j-1) in front_adj_s, each in the
+// slot of the thread that owns it; cls_red, the column's last function,
+// sums them per (class, base, read) in a fixed order.
 #include "outside.cuh"
 
 // pair emission of the pair transition t <- s at (j, w) (log space)
@@ -93,7 +100,8 @@ __global__ void e_adj_kernel(DPDims D, AdjIdx ix, const T* E, const T* LL,
 // Thread t holds the chain's carried cotangent of M(w-1)[t]; per step it
 // publishes its cell's cotangent and value, then gathers as a source.
 template <typename T>
-__global__ void m_adj_kernel(DPDims D, AdjIdx ix, const T* M, const T* Bt,
+__global__ void m_adj_kernel(DPDims D, AdjIdx ix, Aux ax, const T* M,
+                             const T* Bt,
                              const T* eL, const T* gate_M, const bool* okM,
                              const T* gM, T* gB, T* geL) {
   extern __shared__ unsigned char smem_raw[];
@@ -118,18 +126,26 @@ __global__ void m_adj_kernel(DPDims D, AdjIdx ix, const T* M, const T* Bt,
     }
     __syncthreads();
     if (t < S) {
-      T gy = (T)0;
+      T gy = (T)0, cls[4] = {0, 0, 0, 0};
       if (w >= 1) {
         const T y = M[TIDX(r, w - 1, t, b)] + eL[((long long)iw * S + t) * B + b]
                     + gate_M[(long long)iw * B + b];
+        const bool pinL = pinned(ax, b, iw);
         if (y > ninf<T>())
           for (int k = ix.ltr_off[t]; k < ix.ltr_off[t + 1]; ++k) {
             const int tt = ix.ltr_t[k];
-            gy += share(coef[tt], y + ltrw[k], curv[tt]);
+            if (vetoed(ax, pinL, kAuxL, tt, t, S)) continue;
+            const T x = share(coef[tt], y + ltrw[k], curv[tt]);
+            gy += x;
+            if (ax.cpL) add_classes(ax, kAuxL, tt, t, S, x, cls);
           }
       }
       carry = gy;
       geL[((long long)iw * S + t) * B + b] += gy;
+      if (ax.cpL) {
+        T* cp = static_cast<T*>(ax.cpL);
+        for (int c = 0; c < 4; ++c) cp[TIDX(c, w, t, b)] += cls[c];
+      }
     }
     __syncthreads();
   }
@@ -202,7 +218,7 @@ __global__ void bif_adj_t2_kernel(DPDims D, AdjIdx ix, const T* T1,
 // ---- front, target side (w, t, b): T2's P term into P's cotangent, the
 // lambda terms of ml2 and stk, and eR's per-(w, t) partial
 template <typename T>
-__global__ void front_adj_t_kernel(DPDims D, AdjIdx ix, const T* LL,
+__global__ void front_adj_t_kernel(DPDims D, AdjIdx ix, Aux ax, const T* LL,
                                    const T* P, const T* T2, const T* eR,
                                    const T* bg2, const T* pv,
                                    const T* alphaP, const T* wsp,
@@ -220,6 +236,7 @@ __global__ void front_adj_t_kernel(DPDims D, AdjIdx ix, const T* LL,
   const T eRt = eR[((long long)(j - 1) * S + t) * B + b];
   const T gate = gate_O2[(long long)(j - 1) * B + b];
   const T Pv = P[TIDX(r, w, t, b)];
+  const bool pinR = pinned(ax, b, j - 1);
   T epart = (T)0;
   // T2 = logadd(chain, P + ml2)
   const T g2 = gT2[TIDX(r, w, t, b)], T2v = T2[TIDX(r, w, t, b)];
@@ -230,8 +247,10 @@ __global__ void front_adj_t_kernel(DPDims D, AdjIdx ix, const T* LL,
     DL[TIDX(j, w, t, b)] += c * xfac(ml2[cell]);
     if (w >= 1) {
       LSE<T> acc;
-      for (int k = ix.rt_off[t]; k < ix.rt_off[t + 1]; ++k)
+      for (int k = ix.rt_off[t]; k < ix.rt_off[t + 1]; ++k) {
+        if (vetoed(ax, pinR, kAuxR, t, ix.rt_s[k], S)) continue;
         acc.add(rtw[k] + T2[TIDX(r - 1, w - 1, ix.rt_s[k], b)]);
+      }
       epart += share(g2, acc.result() + eRt + gate, T2v);
     }
     gP[TIDX(r, w, t, b)] = gPt;
@@ -242,10 +261,13 @@ __global__ void front_adj_t_kernel(DPDims D, AdjIdx ix, const T* LL,
     const T bgsum = bg2[(long long)iw * B + b] + bg2[(long long)(j - 1) * B + b];
     const T wl = wsp[(long long)iw * B + b], wr = wsp[(long long)(j - 1) * B + b];
     const T* pvw = pv + ((long long)j * W1 + w) * D.Tp * B + b;
+    const bool pinL = pinned(ax, b, iw);
     LSE<T> app;
     for (int s = 0; s < S; ++s) {
       const int code = ix.pt_code[t * S + s];
-      if (code == -1) continue;
+      if (code == -1 || vetoed(ax, pinL, kAuxPL, t, s, S) ||
+          vetoed(ax, pinR, kAuxPR, t, s, S))
+        continue;
       app.add(pem_of(D, ix, code, t, s, bgsum, wl, wr, pvw) +
               P[TIDX(r - 1, w - 2, s, b)]);
     }
@@ -258,38 +280,18 @@ __global__ void front_adj_t_kernel(DPDims D, AdjIdx ix, const T* LL,
   ePart[((long long)w * S + t) * B + b] = epart;
 }
 
-// ---- front, source side (w, s, b): the L and T2 chains' sources at
-// (j-1, w-1, s) and the pair cells' sources E, P at (j-1, w-2, s)
+// the pair cells' sources E, P at (j-1, w-2, s) of front_adj_s (w >= 2)
 template <typename T>
-__global__ void front_adj_s_kernel(DPDims D, AdjIdx ix, const T* LL,
-                                   const T* P, const T* T2, const T* E,
-                                   const T* eR, const T* bg2, const T* pv,
-                                   const T* alphaP, const T* wsp,
-                                   const T* lam, const T* stk,
-                                   const T* gate_O2, T* gLL, const T* gP_r,
-                                   T* gP, T* gT2, T* gE) {
-  Cell q;
-  if (!cell_of(D, q)) return;
-  const int S = D.S, B = D.B, W1 = D.Wp + 1, Lp = D.Lp, j = D.j, w = q.w,
-            s = q.s, b = q.b;
+__device__ __forceinline__ void front_adj_s_pair(
+    const DPDims& D, const AdjIdx& ix, const Aux& ax, const T* P, const T* E,
+    const T* bg2, const T* pv, const T* alphaP, const T* wsp, const T* lam,
+    const T* stk, const T* gP_r, T* gP, T* gE, int w, int s, int b,
+    bool pinR, T clsR[4], T clsL[4]) {
+  const int S = D.S, B = D.B, W1 = D.Wp + 1, Lp = D.Lp, j = D.j;
   const int r = j + D.PAD;
-  if (w == 0) return;
-  const T* rtrw = static_cast<const T*>(ix.rtr_w);
-  const T gate = gate_O2[(long long)(j - 1) * B + b];
-  const T xl = LL[TIDX(r - 1, w - 1, s, b)];
-  const T x2 = T2[TIDX(r - 1, w - 1, s, b)];
-  T al = (T)0, a2 = (T)0;
-  for (int k = ix.rtr_off[s]; k < ix.rtr_off[s + 1]; ++k) {
-    const int t = ix.rtr_t[k];
-    const T e = rtrw[k] + eR[((long long)(j - 1) * S + t) * B + b];
-    al += share(gLL[TIDX(r, w, t, b)], xl + e, LL[TIDX(r, w, t, b)]);
-    a2 += share(gT2[TIDX(r, w, t, b)], x2 + e + gate, T2[TIDX(r, w, t, b)]);
-  }
-  gLL[TIDX(r - 1, w - 1, s, b)] += al;
-  gT2[TIDX(r - 1, w - 1, s, b)] += a2;
-  if (w < 2) return;
   const long long cell = ((long long)j * W1 + w) * B + b;
   const int iw = clip_row(j - w, Lp);
+  const bool pinL = pinned(ax, b, iw);
   const T bgsum = bg2[(long long)iw * B + b] + bg2[(long long)(j - 1) * B + b];
   const T wl = wsp[(long long)iw * B + b], wr = wsp[(long long)(j - 1) * B + b];
   const T* pvw = pv + ((long long)j * W1 + w) * D.Tp * B + b;
@@ -298,21 +300,79 @@ __global__ void front_adj_s_kernel(DPDims D, AdjIdx ix, const T* LL,
   T ge = (T)0, gp = (T)0;
   for (int t = 0; t < S; ++t) {
     const int code = ix.pt_code[t * S + s];
-    if (code == -1) continue;
+    if (code == -1 || vetoed(ax, pinL, kAuxPL, t, s, S) ||
+        vetoed(ax, pinR, kAuxPR, t, s, S))
+      continue;
     const T Pt = P[TIDX(r, w, t, b)], g = gP_r[TIDX(r, w, t, b)];
     if (g == (T)0 || !(Pt > ninf<T>())) continue;
     const T pem = pem_of(D, ix, code, t, s, bgsum, wl, wr, pvw);
-    ge += share(g, pem + xe + ap, Pt);
-    gp += share(g, pem + xp + lam_mul(lam[ix.bucket[t]], stk[cell]) + ap, Pt);
+    const T xe_ = share(g, pem + xe + ap, Pt);
+    const T xp_ = share(g, pem + xp + lam_mul(lam[ix.bucket[t]], stk[cell]) +
+                               ap, Pt);
+    ge += xe_;
+    gp += xp_;
+    if (ax.cpR) {
+      add_classes(ax, kAuxPL, t, s, S, xe_ + xp_, clsL);
+      add_classes(ax, kAuxPR, t, s, S, xe_ + xp_, clsR);
+    }
   }
   gE[TIDX(r - 1, w - 2, s, b)] += ge;
   gP[TIDX(r - 1, w - 2, s, b)] += gp;
 }
 
+// ---- front, source side (w, s, b): the L and T2 chains' sources at
+// (j-1, w-1, s) and the pair cells' sources E, P at (j-1, w-2, s)
+template <typename T>
+__global__ void front_adj_s_kernel(DPDims D, AdjIdx ix, Aux ax, const T* LL,
+                                   const T* P, const T* T2, const T* E,
+                                   const T* eR, const T* bg2, const T* pv,
+                                   const T* alphaP, const T* wsp,
+                                   const T* lam, const T* stk,
+                                   const T* gate_O2, T* gLL, const T* gP_r,
+                                   T* gP, T* gT2, T* gE) {
+  Cell q;
+  if (!cell_of(D, q)) return;
+  const int S = D.S, B = D.B, W1 = D.Wp + 1, j = D.j, w = q.w, s = q.s,
+            b = q.b;
+  const int r = j + D.PAD;
+  if (w == 0) return;
+  const T* rtrw = static_cast<const T*>(ix.rtr_w);
+  const T gate = gate_O2[(long long)(j - 1) * B + b];
+  const T xl = LL[TIDX(r - 1, w - 1, s, b)];
+  const T x2 = T2[TIDX(r - 1, w - 1, s, b)];
+  const bool pinR = pinned(ax, b, j - 1);
+  // class partials: R and PR at base j-1, PL at base j-w
+  T clsR[4] = {0, 0, 0, 0}, clsL[4] = {0, 0, 0, 0};
+  T al = (T)0, a2 = (T)0;
+  for (int k = ix.rtr_off[s]; k < ix.rtr_off[s + 1]; ++k) {
+    const int t = ix.rtr_t[k];
+    if (vetoed(ax, pinR, kAuxR, t, s, S)) continue;
+    const T e = rtrw[k] + eR[((long long)(j - 1) * S + t) * B + b];
+    const T xL = share(gLL[TIDX(r, w, t, b)], xl + e, LL[TIDX(r, w, t, b)]);
+    const T x2t = share(gT2[TIDX(r, w, t, b)], x2 + e + gate,
+                        T2[TIDX(r, w, t, b)]);
+    al += xL;
+    a2 += x2t;
+    if (ax.cpR) add_classes(ax, kAuxR, t, s, S, xL + x2t, clsR);
+  }
+  gLL[TIDX(r - 1, w - 1, s, b)] += al;
+  gT2[TIDX(r - 1, w - 1, s, b)] += a2;
+  if (w >= 2) front_adj_s_pair(D, ix, ax, P, E, bg2, pv, alphaP, wsp, lam,
+                               stk, gP_r, gP, gE, w, s, b, pinR, clsR, clsL);
+  if (ax.cpR) {
+    T* cpR = static_cast<T*>(ax.cpR);
+    T* cpL = static_cast<T*>(ax.cpL);
+    for (int c = 0; c < 4; ++c) {
+      cpR[TIDX(c, w, s, b)] += clsR[c];
+      cpL[TIDX(c, w, s, b)] += clsL[c];
+    }
+  }
+}
+
 // ---- front, per (w, b): alphaP, the pair-table emissions pv and the
 // background partial bgp[w] (reduced into bg2 by front_adj_red)
 template <typename T>
-__global__ void front_adj_wb_kernel(DPDims D, AdjIdx ix, const T* P,
+__global__ void front_adj_wb_kernel(DPDims D, AdjIdx ix, Aux ax, const T* P,
                                     const T* E, const T* bg2, const T* pv,
                                     const T* alphaP, const T* wsp,
                                     const T* lam, const T* stk, const T* gP,
@@ -333,8 +393,12 @@ __global__ void front_adj_wb_kernel(DPDims D, AdjIdx ix, const T* P,
     const T* pvw = pv + ((long long)j * W1 + w) * D.Tp * B + b;
     T* gpvw = gpv + ((long long)j * W1 + w) * D.Tp * B + b;
     const T ap = alphaP[cell];
+    const bool pinL = pinned(ax, b, iw), pinR = pinned(ax, b, j - 1);
     for (int k = 0; k < D.n_pt; ++k) {
       const int t = ix.ptl_t[k], s = ix.ptl_s[k];
+      if (vetoed(ax, pinL, kAuxPL, t, s, S) ||
+          vetoed(ax, pinR, kAuxPR, t, s, S))
+        continue;
       const int code = ix.pt_code[t * S + s];
       const T Pt = P[TIDX(r, w, t, b)], g = gP[TIDX(r, w, t, b)];
       if (g == (T)0 || !(Pt > ninf<T>())) continue;
@@ -376,6 +440,46 @@ __global__ void front_adj_red_kernel(DPDims D, const T* ePart, const T* bgp,
   gbg2[(long long)(j - 1) * B + b] += tot;
 }
 
+// ---- the class sums of column j (scanner, common.cuh Aux): one block per
+// (32 reads, class), warp y taking widths w = y, y+8, ...; each thread
+// sums the partials of its widths over the states, adds the base-(j-w)
+// sums (w >= 2) to cls[class, j-w] and keeps those of base j-1 (all of
+// cpR, and cpL at w = 1); warp 0 merges the eight in a fixed order.  The
+// partials it read are zeroed for the next column.  Widths w > j lie
+// outside the read: every partial there is 0.
+template <typename T>
+__global__ void cls_red_kernel(DPDims D, Aux ax, T* cls) {
+  const int S = D.S, B = D.B, W1 = D.Wp + 1, j = D.j;
+  const int b = blockIdx.x * 32 + threadIdx.x, c = blockIdx.y;
+  __shared__ T part[8][32];
+  T* cpR = static_cast<T*>(ax.cpR);
+  T* cpL = static_cast<T*>(ax.cpL);
+  T atj = (T)0;
+  if (b < B) {
+    for (int w = threadIdx.y; w < W1 && w <= j; w += blockDim.y) {
+      T sr = (T)0, sl = (T)0;
+      for (int s = 0; s < S; ++s) {
+        const long long q = TIDX(c, w, s, b);
+        sr += cpR[q];
+        sl += cpL[q];
+        cpR[q] = (T)0;
+        cpL[q] = (T)0;
+      }
+      atj += sr;
+      if (w == 1)
+        atj += sl;
+      else if (w >= 2)
+        cls[((long long)c * D.Lp + (j - w)) * B + b] += sl;
+    }
+  }
+  part[threadIdx.y][threadIdx.x] = atj;
+  __syncthreads();
+  if (threadIdx.y != 0 || b >= B) return;
+  T tot = (T)0;
+  for (int y = 0; y < blockDim.y; ++y) tot += part[y][threadIdx.x];
+  cls[((long long)c * D.Lp + (j - 1)) * B + b] += tot;
+}
+
 static bool too_big(const DPDims& D) {
   return (long long)(D.Wp + 1) * D.S * D.B >= (1LL << 31);
 }
@@ -396,12 +500,12 @@ static bool too_big(const DPDims& D) {
                 gM, gEP, DL);                                                \
   }                                                                          \
   RNAELEM_EXPORT int rnaelem_m_adj_##SUF(                                    \
-      DPDims D, AdjIdx ix, const T* M, const T* Bt, const T* eL,             \
+      DPDims D, AdjIdx ix, Aux ax, const T* M, const T* Bt, const T* eL,     \
       const T* gate_M, const bool* okM, const T* gM, T* gB, T* geL,          \
       cudaStream_t st) {                                                     \
     const int threads = ((D.S + 31) / 32) * 32;                              \
     m_adj_kernel<T><<<D.B, threads, 2 * D.S * sizeof(T), st>>>(             \
-        D, ix, M, Bt, eL, gate_M, okM, gM, gB, geL);                         \
+        D, ix, ax, M, Bt, eL, gate_M, okM, gM, gB, geL);                     \
     return static_cast<int>(cudaGetLastError());                             \
   }                                                                          \
   RNAELEM_EXPORT int rnaelem_t1_adj_##SUF(DPDims D, const T* T1,             \
@@ -427,30 +531,32 @@ static bool too_big(const DPDims& D) {
     return static_cast<int>(cudaGetLastError());                             \
   }                                                                          \
   RNAELEM_EXPORT int rnaelem_front_adj_t_##SUF(                              \
-      DPDims D, AdjIdx ix, const T* LL, const T* P, const T* T2,             \
+      DPDims D, AdjIdx ix, Aux ax, const T* LL, const T* P, const T* T2,     \
       const T* eR, const T* bg2, const T* pv, const T* alphaP,               \
       const T* wsp, const T* lam, const T* stk, const T* ml2,                \
       const T* gate_O2, const T* gLL, T* gP, const T* gT2, T* DL,            \
       T* ePart, cudaStream_t st) {                                           \
-    CELL_LAUNCH(T, front_adj_t_kernel, D, ix, LL, P, T2, eR, bg2, pv, alphaP,   \
+    CELL_LAUNCH(T, front_adj_t_kernel, D, ix, ax, LL, P, T2, eR, bg2, pv,       \
+                alphaP,                                                      \
                 wsp, lam, stk, ml2, gate_O2, gLL, gP, gT2, DL, ePart);       \
   }                                                                          \
   RNAELEM_EXPORT int rnaelem_front_adj_s_##SUF(                              \
-      DPDims D, AdjIdx ix, const T* LL, const T* P, const T* T2,             \
+      DPDims D, AdjIdx ix, Aux ax, const T* LL, const T* P, const T* T2,     \
       const T* E, const T* eR, const T* bg2, const T* pv, const T* alphaP,   \
       const T* wsp, const T* lam, const T* stk, const T* gate_O2, T* gLL,    \
       const T* gP_r, T* gP, T* gT2, T* gE, cudaStream_t st) {                \
-    CELL_LAUNCH(T, front_adj_s_kernel, D, ix, LL, P, T2, E, eR, bg2, pv,        \
+    CELL_LAUNCH(T, front_adj_s_kernel, D, ix, ax, LL, P, T2, E, eR, bg2, pv,    \
                 alphaP, wsp, lam, stk, gate_O2, gLL, gP_r, gP, gT2, gE);     \
   }                                                                          \
   RNAELEM_EXPORT int rnaelem_front_adj_wb_##SUF(                             \
-      DPDims D, AdjIdx ix, const T* P, const T* E, const T* bg2,             \
+      DPDims D, AdjIdx ix, Aux ax, const T* P, const T* E, const T* bg2,     \
       const T* pv, const T* alphaP, const T* wsp, const T* lam,              \
       const T* stk, const T* gP, T* gpv, T* galphaP, T* bgp,                 \
       cudaStream_t st) {                                                     \
     const long long n = (long long)(D.Wp + 1) * D.B;                        \
     front_adj_wb_kernel<T><<<n_blocks(n, kAdjThreads), kAdjThreads, 0,      \
-                             st>>>(D, ix, P, E, bg2, pv, alphaP, wsp, lam,  \
+                             st>>>(D, ix, ax, P, E, bg2, pv, alphaP, wsp,   \
+                                   lam,                                      \
                                    stk, gP, gpv, galphaP, bgp);              \
     return static_cast<int>(cudaGetLastError());                             \
   }                                                                          \
@@ -460,6 +566,13 @@ static bool too_big(const DPDims& D) {
     const long long n = (long long)D.S * D.B;                               \
     front_adj_red_kernel<T><<<n_blocks(n, kAdjThreads), kAdjThreads, 0,     \
                               st>>>(D, ePart, bgp, geR, gbg2);               \
+    return static_cast<int>(cudaGetLastError());                             \
+  }                                                                          \
+  RNAELEM_EXPORT int rnaelem_cls_red_##SUF(DPDims D, Aux ax, T* cls,         \
+                                           cudaStream_t st) {                \
+    if (!ax.cpR || !ax.cpL) return static_cast<int>(cudaErrorInvalidValue);  \
+    cls_red_kernel<T><<<dim3((D.B + 31) / 32, 4), dim3(32, 8), 0, st>>>(     \
+        D, ax, cls);                                                         \
     return static_cast<int>(cudaGetLastError());                             \
   }
 

@@ -14,11 +14,15 @@
 // cotangent at (j, w, state), the O cotangent at (j - w, state), the
 // lambda partial DL at (j, w, state) and, at w = 0, eR's cotangent at
 // (j - 1, state), and walks the sparse split lists by P state, by O state
-// and by target.  No atomics: two runs give the same bits.
+// and by target.  No atomics: two runs give the same bits.  Under the
+// scanner's pin (common.cuh Aux) the O chain skips the vetoed transitions
+// emitting base j-1, and its transitions' posteriors go to the class
+// partials of that base (cpR slot 0, thread (s, read) the owner).
 #include "outside.cuh"
 
 template <typename T>
-__global__ void ext_adj_kernel(DPDims D, AdjIdx ix, const T* O, const T* P,
+__global__ void ext_adj_kernel(DPDims D, AdjIdx ix, Aux ax, const T* O,
+                               const T* P,
                                const T* eR, const T* gate_O2, const T* ext,
                                const T* lam, T* gO, T* gP, T* geR, T* DL) {
   const int S = D.S, B = D.B, W1 = D.Wp + 1, j = D.j;
@@ -36,9 +40,12 @@ __global__ void ext_adj_kernel(DPDims D, AdjIdx ix, const T* O, const T* P,
   const T gate = gate_O2[(long long)(j - 1) * B + b];
   if (w == 0) {
     // eR[j-1][s]: the O chain of target s
+    const bool pinR = pinned(ax, b, j - 1);
     LSE<T> oo;
-    for (int k = ix.rt_off[s]; k < ix.rt_off[s + 1]; ++k)
+    for (int k = ix.rt_off[s]; k < ix.rt_off[s + 1]; ++k) {
+      if (vetoed(ax, pinR, kAuxR, s, ix.rt_s[k], S)) continue;
       oo.add(rtw[k] + O[((long long)(r - 1) * S + ix.rt_s[k]) * B + b]);
+    }
     const T oov = oo.result() + eR[((long long)(j - 1) * S + s) * B + b] +
                   gate;
     geR[((long long)(j - 1) * S + s) * B + b] += share(Og(s), oov, Ov(s));
@@ -83,8 +90,9 @@ __global__ void ext_adj_kernel(DPDims D, AdjIdx ix, const T* O, const T* P,
 
 // the chain's sources: O row j-1 (one thread per (state, read))
 template <typename T>
-__global__ void ext_adj_chain_kernel(DPDims D, AdjIdx ix, const T* O,
-                                     const T* eR, const T* gate_O2, T* gO) {
+__global__ void ext_adj_chain_kernel(DPDims D, AdjIdx ix, Aux ax,
+                                     const T* O, const T* eR,
+                                     const T* gate_O2, T* gO) {
   const int S = D.S, B = D.B, j = D.j;
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= S * B) return;
@@ -94,48 +102,59 @@ __global__ void ext_adj_chain_kernel(DPDims D, AdjIdx ix, const T* O,
   const T ov = O[((long long)(r - 1) * S + s) * B + b];
   if (!(ov > ninf<T>())) return;
   const T gate = gate_O2[(long long)(j - 1) * B + b];
-  T acc = (T)0;
+  const bool pinR = pinned(ax, b, j - 1);
+  T acc = (T)0, cls[4] = {0, 0, 0, 0};
   for (int k = ix.rtr_off[s]; k < ix.rtr_off[s + 1]; ++k) {
     const int t = ix.rtr_t[k];
-    acc += share(gO[((long long)r * S + t) * B + b],
-                 rtrw[k] + ov + eR[((long long)(j - 1) * S + t) * B + b] +
-                     gate,
-                 O[((long long)r * S + t) * B + b]);
+    if (vetoed(ax, pinR, kAuxR, t, s, S)) continue;
+    const T x = share(gO[((long long)r * S + t) * B + b],
+                      rtrw[k] + ov + eR[((long long)(j - 1) * S + t) * B + b] +
+                          gate,
+                      O[((long long)r * S + t) * B + b]);
+    acc += x;
+    if (ax.cpR) add_classes(ax, kAuxR, t, s, S, x, cls);
   }
   gO[((long long)(r - 1) * S + s) * B + b] += acc;
+  if (ax.cpR) {
+    T* cp = static_cast<T*>(ax.cpR);
+    const long long W1S = (long long)(D.Wp + 1) * S;
+    for (int c = 0; c < 4; ++c) cp[(c * W1S + s) * B + b] += cls[c];
+  }
 }
 
 template <typename T>
-static int ext_adj(DPDims D, AdjIdx ix, const T* O, const T* P, const T* eR,
+static int ext_adj(DPDims D, AdjIdx ix, Aux ax, const T* O, const T* P,
+                   const T* eR,
                    const T* gate_O2, const T* ext, const T* lam, T* gO, T* gP,
                    T* geR, T* DL, cudaStream_t st) {
   const long long n = (long long)(D.Wp + 1) * D.S * D.B;
   ext_adj_kernel<T><<<n_blocks(n, kAdjThreads), kAdjThreads, 0, st>>>(
-      D, ix, O, P, eR, gate_O2, ext, lam, gO, gP, geR, DL);
+      D, ix, ax, O, P, eR, gate_O2, ext, lam, gO, gP, geR, DL);
   return static_cast<int>(cudaGetLastError());
 }
 
 // after ext_adj: both add to the O cotangent at row j-1
 template <typename T>
-static int ext_adj_chain(DPDims D, AdjIdx ix, const T* O, const T* eR,
+static int ext_adj_chain(DPDims D, AdjIdx ix, Aux ax, const T* O, const T* eR,
                          const T* gate_O2, T* gO, cudaStream_t st) {
   ext_adj_chain_kernel<T><<<n_blocks((long long)D.S * D.B, kAdjThreads),
-                            kAdjThreads, 0, st>>>(D, ix, O, eR, gate_O2, gO);
+                            kAdjThreads, 0, st>>>(D, ix, ax, O, eR, gate_O2,
+                                                  gO);
   return static_cast<int>(cudaGetLastError());
 }
 
 #define EXT_ADJ_EXPORT(SUF, T)                                               \
   RNAELEM_EXPORT int rnaelem_ext_adj_##SUF(                                  \
-      DPDims D, AdjIdx ix, const T* O, const T* P, const T* eR,              \
+      DPDims D, AdjIdx ix, Aux ax, const T* O, const T* P, const T* eR,      \
       const T* gate_O2, const T* ext, const T* lam, T* gO, T* gP, T* geR,    \
       T* DL, cudaStream_t st) {                                              \
-    return ext_adj<T>(D, ix, O, P, eR, gate_O2, ext, lam, gO, gP, geR, DL,   \
-                      st);                                                   \
+    return ext_adj<T>(D, ix, ax, O, P, eR, gate_O2, ext, lam, gO, gP, geR,   \
+                      DL, st);                                               \
   }                                                                          \
   RNAELEM_EXPORT int rnaelem_ext_adj_chain_##SUF(                            \
-      DPDims D, AdjIdx ix, const T* O, const T* eR, const T* gate_O2, T* gO, \
-      cudaStream_t st) {                                                     \
-    return ext_adj_chain<T>(D, ix, O, eR, gate_O2, gO, st);                  \
+      DPDims D, AdjIdx ix, Aux ax, const T* O, const T* eR,                  \
+      const T* gate_O2, T* gO, cudaStream_t st) {                            \
+    return ext_adj_chain<T>(D, ix, ax, O, eR, gate_O2, gO, st);              \
   }
 
 EXT_ADJ_EXPORT(f32, float)

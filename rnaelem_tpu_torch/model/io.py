@@ -110,8 +110,7 @@ def read_model(path, Lp: int, dtype="float64", device=None,
     """Parse a train.model file into (ModelConfig, Params on ``device``).
 
     Mirrors RNAelemReader::read_model (motif_io.hpp:118-262) incl. the
-    required-field check; extra kwargs override config fields (e.g. Lp,
-    with_aux for scanning).
+    required-field check; extra kwargs override config fields (e.g. Lp).
     """
     dev = DEV.resolve(device)
     kv = {}

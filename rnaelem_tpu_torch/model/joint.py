@@ -58,7 +58,6 @@ class ModelConfig:
     no_prf: bool = False
     no_theta: bool = False   # DBG_NO_THETA test mode
     fix_rss: bool = False    # DBG_FIX_RSS test mode
-    with_aux: bool = False
     tau: float = 0.1
     rho_s: float = 0.0
     rho_theta: float = 0.0
@@ -379,26 +378,35 @@ def _diff_factors(cfg: ModelConfig, k: _Kernels, params_b: Params,
 
 
 def batch_factors(cfg: ModelConfig, params: Params, sd_b: SeqData,
-                  bp_ok_b, device=None):
+                  bp_ok_b, device=None, aux_b=None):
     """``batch_factors_pr`` on per-read copies of shared weights."""
     return batch_factors_pr(cfg, per_read(params, len(sd_b.L)), sd_b,
-                            bp_ok_b, device)
+                            bp_ok_b, device, aux_b)
+
+
+def _dense_aux(aux_b):
+    """The dense aux of ``aux_b`` (JAX layout [B, Lp, S, S]) batch-minor."""
+    return {k: torch.movedim(aux_b[k], 0, -1).contiguous()
+            for k in DP.AUX if k in (aux_b or {})}
 
 
 def batch_factors_pr(cfg: ModelConfig, params_b: Params, sd_b: SeqData,
-                     bp_ok_b, device=None):
+                     bp_ok_b, device=None, aux_b=None):
     """Batched (DiffFactors, ConstFactors) for the DP from per-read
     weights.
 
-    sd_b: SeqData with a leading batch axis; bp_ok_b: [B, Lp+1, Wp+1].
+    sd_b: SeqData with a leading batch axis; bp_ok_b: [B, Lp+1, Wp+1];
+    aux_b: the scanner's aux factors (ops/dp.py) or None — dense
+    auxR/auxL/auxPL/auxPR [B, Lp, S, S] (the JAX layout; plain versions
+    only), the class probe "cls" [4, Lp, B] and a "pin" (dp.Pin).
     """
-    if cfg.with_aux:
-        raise NotImplementedError("posterior injection (with_aux, the "
-                                  "scanner path) is not ported yet")
     k = kernels(cfg, device)
     bp_ok_b = torch.as_tensor(bp_ok_b, device=k.device)
     c = _const_factors(cfg, k, sd_b, bp_ok_b)
     d = _diff_factors(cfg, k, params_b, sd_b)
+    if aux_b:
+        d = d._replace(cls=aux_b.get("cls"), **_dense_aux(aux_b))
+        c = c._replace(pin=aux_b.get("pin"))
     return d, c
 
 
@@ -476,30 +484,34 @@ def effective_bp_mask(cfg: ModelConfig, sd: SeqData, device=None):
 
 
 def batch_logZ_parts(cfg: ModelConfig, params: Params, sd_b: SeqData,
-                     bp_ok_b=None, device=None):
+                     bp_ok_b=None, device=None, aux_b=None):
     """``batch_logZ_parts_pr`` on per-read copies of shared weights."""
     return batch_logZ_parts_pr(cfg, per_read(params, len(sd_b.L)), sd_b,
-                               bp_ok_b, device)
+                               bp_ok_b, device, aux_b)
 
 
 def batch_logZ_parts_pr(cfg: ModelConfig, params_b: Params, sd_b: SeqData,
-                        bp_ok_b=None, device=None):
+                        bp_ok_b=None, device=None, aux_b=None):
     """[B, 3] log partition parts at end states (0,0), (0,M-2), (0,M-1)
     from per-read weights (read b's parts depend on its own copy alone).
 
     part_func(ari, nasi) of the reference (motif_trainer.hpp:108-112) is
     a logsumexp over a subset of these.  No-rss models run the forward
     chain (ops/linear.py, K8/K9) on their right emissions; the pair masks
-    play no part there.
+    play no part there.  ``aux_b``: the scanner's aux factors, as
+    ``batch_factors_pr`` takes them (the chain reads only auxR).
     """
     if cfg.no_rss:
         k = kernels(cfg, device)
         L = torch.as_tensor(sd_b.L, device=k.device).long()
-        return LIN.linear_parts(k.dp.st,
-                                right_emissions(cfg, k, params_b, sd_b), L)
+        aux_b = aux_b or {}
+        return LIN.linear_parts(
+            k.dp.st, right_emissions(cfg, k, params_b, sd_b), L,
+            _dense_aux(aux_b).get("auxR"), aux_b.get("pin"),
+            aux_b.get("cls"))
     if bp_ok_b is None:
         bp_ok_b, _ = effective_bp_mask_batch(cfg, sd_b, device)
-    d, c = batch_factors_pr(cfg, params_b, sd_b, bp_ok_b, device)
+    d, c = batch_factors_pr(cfg, params_b, sd_b, bp_ok_b, device, aux_b)
     return kernels(cfg, device).dp.dp_parts(d, c)
 
 

@@ -29,6 +29,16 @@ reverse, four adjoint stages per column, each the kernels K5-K7
 CPU tensors, torch.autograd.grad of the stage's pure function on leaf
 copies of the saved rows.
 
+The scanner (scan/scanner.py) adds "aux" log factors to the transitions
+that emit a base (JAX ``DiffFactors.aux*``): kind R on the right-chain
+transitions (L, T2 and O chains) at base j-1, L on the M chain at base
+j-w, PL and PR on the pair edges at bases j-w and j-1.  The plain versions
+take them dense, [Lp, S, S, B] per kind as in JAX; the kernels take only
+what the scanner uses: a per-read ``Pin`` (a -inf veto at one base on
+every transition outside one class) and the class sums of the transition
+posteriors, the cotangent of the probe ``DiffFactors.cls`` [4, Lp, B]
+(per base: start, in, end and tail mass summed over the kinds).
+
 Cell conventions (span (i, j), i = j - w, bases i..j-1):
   LL: ST_L linear runs inside loops;   P: paired span (i, j-1);
   E:  interior of pair (i-1, j);       M/B/T1/T2: multiloop states;
@@ -36,7 +46,7 @@ Cell conventions (span (i, j), i = j - w, bases i..j-1):
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -45,6 +55,11 @@ from .ep_fast import build_ep_static
 from .semiring import NEG, lam_mul, lse, logadd, mask_neg, safe_log
 
 SPEC_COMBOS = ((0, 1), (1, 0), (1, 1), (1, 2), (2, 1), (2, 2))
+
+# aux kinds and the transition classes of the scanner's posteriors
+AUX = ("auxR", "auxL", "auxPL", "auxPR")
+CLASSES = ("start", "in", "end", "tail")
+CLS_START, CLS_IN, CLS_END, CLS_TAIL = 1, 2, 4, 8
 
 
 class Dims(NamedTuple):
@@ -65,6 +80,19 @@ class DiffFactors(NamedTuple):
     pv: torch.Tensor      # [Lp+1, Wp+1, Tp, B] pair-table emissions
     lam: torch.Tensor     # [2, B] per-read copies
     alphaP: torch.Tensor  # [Lp+1, Wp+1, B] injected P-cell factor
+    auxR: Optional[torch.Tensor] = None   # [Lp, S, S, B] (plain only)
+    auxL: Optional[torch.Tensor] = None
+    auxPL: Optional[torch.Tensor] = None
+    auxPR: Optional[torch.Tensor] = None
+    cls: Optional[torch.Tensor] = None    # [4, Lp, B] class-sum probe:
+    #                                       zeros (the kernels require it)
+
+
+class Pin(NamedTuple):
+    """The scanner's end-pass veto: at base pos[b] of read b only the
+    transitions whose class has ``bit`` survive (JAX aux_end)."""
+    pos: torch.Tensor     # [B] int32 base per read, -1 for none
+    bit: int
 
 
 class ConstFactors(NamedTuple):
@@ -86,6 +114,7 @@ class ConstFactors(NamedTuple):
     L: torch.Tensor        # [B] true length (int64)
     dots_cum: torch.Tensor  # [Lp+1, B] int32
     ep: dict               # misA/misB [4, Lp+1, Wp+1, B], spec_il [6, ...]
+    pin: Optional[Pin] = None
 
 
 # ------------------------------------------------------------ helpers
@@ -114,8 +143,11 @@ def _shear(A, J: int, fill):
 
 
 def _finmax(x, dims, keepdim=False):
-    """Max over dims with -inf replaced by 0 (the shift base)."""
-    m = torch.amax(x, dim=dims, keepdim=keepdim)
+    """Max over dims with -inf replaced by 0 (the shift base), out of the
+    gradient as in JAX: the shift cancels exactly, and differentiating it
+    leaves rounding noise on cotangents that are exactly 0 (posteriors
+    of impossible transitions)."""
+    m = torch.amax(x, dim=dims, keepdim=keepdim).detach()
     return torch.where(torch.isfinite(m), m, torch.zeros_like(m))
 
 
@@ -142,6 +174,25 @@ def _pem_combos(g, ltau: float):
                 if m.any():
                     combos.append((t, a, b, np.where(m, tfac, 0.0)))
     return mbg, combos
+
+
+def class_codes(g):
+    """[4 kinds (R, L, PL, PR), S, S] int32 class bits of transition
+    target t <- source s (JAX scan/scanner.py state_masks): 1 start (the
+    0 -> 1 node crossing), 2 in, 4 end (M-2 -> M-1), 8 tail (R and PR
+    targets at node M-2).  The right kinds read the right nodes, the left
+    kinds the left nodes (their chains run leftwards)."""
+    M, S = g.M, g.S
+    full = lambda m: np.broadcast_to(m, (S, S))
+    Tl, Sl = g.state_l[:, None], g.state_l[None, :]
+    Tr, Sr = g.state_r[:, None], g.state_r[None, :]
+    right = ((Sr == 0) & (Tr == 1), (Tr != 0) & (Tr != M - 1),
+             (Sr == M - 2) & (Tr == M - 1), full(Tr == M - 2))
+    left = ((Tl == 0) & (Sl == 1), (Sl != 0) & (Sl != M - 1),
+            (Tl == M - 2) & (Sl == M - 1), np.zeros((S, S), bool))
+    code = lambda ms: sum(full(m).astype(np.int32) << c
+                          for c, m in enumerate(ms))
+    return np.stack([code(right), code(left), code(left), code(right)])
 
 
 def _csr_by_target(tuples, S: int):
@@ -206,6 +257,17 @@ class DPStatic:
         for (t, a, c2) in g.b12_tuples:
             Hb12[a * S + c2, t] = 1.0
         self.Hb12 = f(Hb12)
+        codes = class_codes(g)
+        self.cls_mask = f(np.stack([(codes >> c) & 1 for c in range(4)],
+                                   axis=1))       # [kind, class, S, S]
+        self.cls_code = torch.as_tensor(codes, device=device)
+        # pair transitions: code -1 none, -2 background, else dense table
+        dense_tab = np.maximum(g.pair_table_index[g.pt_tab], 0)
+        code = np.where(g.pt, np.where(g.pt_isbp, dense_tab, -2), -1)
+        self.pt_code = torch.as_tensor(code, device=device)
+        self.pt_wl = torch.as_tensor(g.pt_wl, device=device)
+        self.pt_wr = torch.as_tensor(g.pt_wr, device=device)
+        self.pt_ltw = f(np.where(g.pt_tau, ltau, 0.0))
         Hop = np.zeros((2, S * S, S))
         for (t, a, c2) in g.op_tuples:
             Hop[g.lam_bucket[t], a * S + c2, t] = 1.0
@@ -273,13 +335,11 @@ class DPStatic:
             off, src, wt = _csr_finite(mat)
             kk[name + "_off"], kk[name + "_s"] = i32(off), i32(src)
             kk[name + "_w"] = f(wt)
+        kk["cls_code"] = i32(codes)
         kk["diag"] = i32(g.diag_mask)
         kk["loopm"] = i32(g.loop_mask)
         kk["bucket"] = i32(g.lam_bucket)
         kk["end_states"] = i32(g.end_states)
-        # pair transitions: code -1 none, -2 background, else dense table
-        dense_tab = np.maximum(g.pair_table_index[g.pt_tab], 0)
-        code = np.where(g.pt, np.where(g.pt_isbp, dense_tab, -2), -1)
         kk["pt_code"] = i32(code)
         kk["pt_wl"] = i32(g.pt_wl)
         kk["pt_wr"] = i32(g.pt_wr)
@@ -405,17 +465,84 @@ def col_rows(d: DiffFactors, h, j: int, st):
     Lp, Wp, Cp, PAD = st.dims.Lp, st.dims.Wp, st.dims.Cp, st.PAD
     iw = torch.clamp(j - torch.arange(Wp + 1, device=st.device), 0, Lp - 1)
     r = j + PAD
-    return dict(lam=d.lam, eR=d.eR[j - 1], eL=d.eL[iw], bgl=d.bg2[iw],
+    rows = dict(lam=d.lam, eR=d.eR[j - 1], eL=d.eL[iw], bgl=d.bg2[iw],
                 bgr=d.bg2[j - 1], pv=d.pv[j], alphaP=d.alphaP[j],
-                emisA=h["emisA"][:, :, j], emisB=h["emisB"][:, r - Cp: r + 1],
-                eSZ=h["eSZ"])
+                emisA=h["emisA"][:, :, j],
+                emisB=h["emisB"][:, r - Cp: r + 1], eSZ=h["eSZ"])
+    # aux rows as JAX aux_row reads them: R, PR at base j-1; L, PL at
+    # bases clip(j - w)
+    for k in AUX:
+        a = getattr(d, k)
+        if a is not None:
+            rows[k] = a[j - 1] if k in ("auxR", "auxPR") else a[iw]
+    if d.cls is not None:
+        rows.update(clsR=d.cls[:, j - 1], clsL=d.cls[:, iw])
+    return rows
 
 
-def _chain(src, eRrow, st):
-    """Right-transition chain: [w,S,B] -> [w,S,B] target-indexed."""
+def aux_of(rows, c, j, st, kinds=("R", "L", "PL", "PR")):
+    """{kind: aux log factors} of the ``kinds`` column j reads — R and PR
+    [S, S, B] at base j-1, L and PL [Wp+1, S, S, B] at bases clip(j - w) —
+    from the dense rows, the class probe (class c of a kind adds
+    cls[c] on its transitions) and the pin; None without aux."""
+    if not (c.pin is not None or "clsR" in rows
+            or any(k in rows for k in AUX)):
+        return None
+    Lp, Wp, S = st.dims.Lp, st.dims.Wp, st.dims.S
+    iw = torch.clamp(j - torch.arange(Wp + 1, device=st.device), 0, Lp - 1)
+    B = rows["eR"].shape[-1]
+    out = {}
+    for kind, key in enumerate(AUX):
+        if key[3:] not in kinds:
+            continue
+        right = key in ("auxR", "auxPR")
+        a = rows.get(key)
+        if a is None:
+            a = torch.zeros(((S, S, B) if right else (Wp + 1, S, S, B)),
+                            dtype=st.dtype, device=st.device)
+        if "clsR" in rows:
+            m = st.cls_mask[kind]                    # [class, S, S]
+            a = a + (torch.einsum("cb,cts->tsb", rows["clsR"], m) if right
+                     else torch.einsum("cwb,cts->wtsb", rows["clsL"], m))
+        if c.pin is not None:
+            pos = c.pin.pos.long()
+            hit = pos == (j - 1) if right else pos[None, :] == iw[:, None]
+            deny = (st.cls_code[kind] & c.pin.bit) == 0          # [S, S]
+            veto = deny[..., None] & hit[..., None, None, :]
+            a = a + torch.where(veto, NEG, 0.0).to(st.dtype)
+        out[key[3:]] = a
+    return out
+
+
+def _chain(src, eRrow, st, aR=None):
+    """Right-transition chain: [w,S,B] -> [w,S,B] target-indexed.  With
+    aux R a log-sum-exp per target: a pin can veto every source near the
+    shared shift, and at f32 exp(src - shift) would flush the ones left."""
+    if aR is not None:
+        return lse(src[:, None] + (st.TR[:, :, None] + aR)[None], axis=2) \
+            + eRrow[None]
     m = _finmax(src, 1, keepdim=True)
     t = torch.einsum("ts,wsb->wtb", st.E_TR, torch.exp(src - m))
     return safe_log(t) + m + eRrow[None]
+
+
+def _pem_dense(rows, c, j, st):
+    """Dense pair emission [w, t, s, B] of column j (JAX pem_dense): the
+    aux path's P, where the factored static matrices cannot carry a
+    per-(t, s) factor."""
+    Lp, Wp = st.dims.Lp, st.dims.Wp
+    iw = torch.clamp(j - torch.arange(Wp + 1, device=st.device), 0, Lp - 1)
+    code = st.pt_code
+    zero = torch.zeros((), dtype=st.dtype, device=st.device)
+    pvt = rows["pv"][:, torch.clamp(code, min=0)]           # [w, t, s, B]
+    pvt = pvt + torch.where(st.pt_wl[None, :, :, None],
+                            c.wsp[iw][:, None, None, :], zero) \
+        + torch.where(st.pt_wr[None, :, :, None],
+                      c.wsp[j - 1][None, None, None, :], zero)
+    bgs = (rows["bgl"] + rows["bgr"][None])[:, None, None, :]
+    pem = torch.where((code == -2)[None, :, :, None], bgs, pvt)
+    return torch.where((code == -1)[None, :, :, None], NEG,
+                       pem + st.pt_ltw[None, :, :, None])
 
 
 def front_col(win, j, rows, c, st):
@@ -425,37 +552,45 @@ def front_col(win, j, rows, c, st):
     lamv = rows["lam"][st.bucket]                 # [S, B]
     eRrow = rows["eR"]
     g_o2 = c.gate_O2[j - 1]
+    ax = aux_of(rows, c, j, st, ("R", "PL", "PR"))
+    aR = None if ax is None else ax["R"]
     # U1: ST_L chain (motif_model.hpp:243-257); width 0 is the diagonal
-    Lcol = _chain(_shift_w(win["L"][0], 1), eRrow, st)
+    Lcol = _chain(_shift_w(win["L"][0], 1), eRrow, st, aR)
     Lcol = torch.cat([st.diag_col[None, :, None].expand_as(Lcol[:1]),
                       Lcol[1:]])
     # U2: P <- pem * (E | P), factored into static-matrix contractions
+    # (dense with aux, as JAX's pem_dense path)
     prevE2 = _shift_w(win["E"], 2)
     prevP2 = _shift_w(win["P"][0], 2)
-    wl, wr = c.wsp[iw], c.wsp[j - 1]
-    bgf = torch.exp(rows["bgl"] + rows["bgr"][None])
-    pvj = rows["pv"]
-    outs = []
-    for src in (prevE2, prevP2):
-        m = _finmax(src, 1, keepdim=True)
-        ex = torch.exp(src - m)
-        acc = torch.einsum("ts,wsb->wtb", st.Mbg, ex) * bgf[:, None, :]
-        for (t, a, b2, mask) in st.combos:
-            fac = pvj[:, t, :]
-            if a:
-                fac = fac + wl
-            if b2:
-                fac = fac + wr
-            acc = acc + torch.einsum("ts,wsb->wtb", mask, ex) \
-                * torch.exp(fac)[:, None, :]
-        outs.append(safe_log(acc) + m)
-    a_pe, a_pp = outs
+    if ax is not None:
+        pem = _pem_dense(rows, c, j, st) + ax["PL"] + ax["PR"][None]
+        a_pe = lse(pem + prevE2[:, None], axis=2)
+        a_pp = lse(pem + prevP2[:, None], axis=2)
+    else:
+        wl, wr = c.wsp[iw], c.wsp[j - 1]
+        bgf = torch.exp(rows["bgl"] + rows["bgr"][None])
+        pvj = rows["pv"]
+        outs = []
+        for src in (prevE2, prevP2):
+            m = _finmax(src, 1, keepdim=True)
+            ex = torch.exp(src - m)
+            acc = torch.einsum("ts,wsb->wtb", st.Mbg, ex) * bgf[:, None, :]
+            for (t, a, b2, mask) in st.combos:
+                fac = pvj[:, t, :]
+                if a:
+                    fac = fac + wl
+                if b2:
+                    fac = fac + wr
+                acc = acc + torch.einsum("ts,wsb->wtb", mask, ex) \
+                    * torch.exp(fac)[:, None, :]
+            outs.append(safe_log(acc) + m)
+        a_pe, a_pp = outs
     a_pp = a_pp + lam_mul(lamv[None], c.stk[j][:, None, :])
     Pcol = logadd(a_pe, a_pp) + rows["alphaP"][:, None, :]
     Pcol = mask_neg(Pcol, c.okP[j][:, None, :])
     # U3: 2 (TT_2_2 / TT_2_P)
     T2col = logadd(
-        _chain(_shift_w(win["T2"], 1), eRrow, st) + g_o2[None, None, :],
+        _chain(_shift_w(win["T2"], 1), eRrow, st, aR) + g_o2[None, None, :],
         Pcol + lam_mul(lamv[None], c.ml2[j][:, None, :]))
     T2col = mask_neg(T2col, c.okB[j][:, None, :])
     return Lcol, Pcol, T2col
@@ -490,11 +625,14 @@ def m_col(j, rows, c, st, Bcol):
     okMj = c.okM[j]                              # [w, B]
     bvecs = mask_neg(Bcol, okMj[:, None, :])
     B = bvecs.shape[-1]
+    ax = aux_of(rows, c, j, st, ("L",))
     x = torch.full((S, B), NEG, dtype=st.dtype, device=st.device)
     out = []
     for w in range(Wp + 1):
         t = x[None, :, :] + st.TL[:, :, None] + eLrows[w][None] \
             + gMs[w][None, None, :]
+        if ax is not None:
+            t = t + ax["L"][w]
         x = mask_neg(logadd(bvecs[w], lse(t, axis=1)), okMj[w][None, :])
         out.append(x)
     return torch.stack(out)
@@ -614,9 +752,9 @@ def o_col(win, j, rows, c, st, Pcol):
     Orows = torch.cat([torch.full((1, S, B), NEG, dtype=st.dtype,
                                   device=st.device), win["O"]], dim=0)
     prevO = Orows[1]
-    m = _finmax(prevO, 0, keepdim=True)
-    t = torch.einsum("ts,sb->tb", st.E_TR, torch.exp(prevO - m))
-    oo = safe_log(t) + m + eRrow + g_o2[None, :]
+    ax = aux_of(rows, c, j, st, ("R",))
+    oo = _chain(prevO[None], eRrow, st, None if ax is None else ax["R"])[0] \
+        + g_o2[None, :]
     mO = _finmax(Orows, (0, 1))
     exO = torch.exp(Orows - mO)
     mP = _finmax(Pcol, (0, 1))
@@ -715,6 +853,9 @@ def init_grads(fs, d: DiffFactors, c: ConstFactors, h):
     gs["lam"] = torch.zeros((2, B), dtype=col.dtype, device=col.device)
     gs["DL"] = z(fs["LL"][: d.pv.shape[0]])
     gs["GSZ"] = z(h["eSZg"])
+    # the scanner's dense aux (plain versions) and class probe
+    gs.update({k: z(getattr(d, k)) for k in AUX + ("cls",)
+               if getattr(d, k) is not None})
     return gs
 
 
@@ -741,6 +882,12 @@ def finish_grads(gs, st):
             gs["eSZ"], gs["GSZ"], gs["emisA"], gs["emisB"])
 
 
+def aux_grads(gs):
+    """Cotangents of the dense aux and of the class probe present in the
+    gradient state: {name: tensor}."""
+    return {k: gs[k] for k in AUX + ("cls",) if k in gs}
+
+
 def lam_total(grads, d: DiffFactors, c: ConstFactors, st):
     """Lambda's whole cotangent [2, B] from the outputs of
     ``finish_grads``: its direct term plus what the hoisted
@@ -756,6 +903,12 @@ def lam_total(grads, d: DiffFactors, c: ConstFactors, st):
 
 def _leaves(**xs):
     return {k: v.detach().requires_grad_(True) for k, v in xs.items()}
+
+
+def _aux_leaves(rows):
+    """Leaf copies of the aux rows in ``rows`` (dense and class probe)."""
+    return _leaves(**{k: rows[k] for k in AUX + ("clsR", "clsL")
+                      if k in rows})
 
 
 def _vjp(outs, gouts, leaves):
@@ -803,6 +956,14 @@ def _accumulate(gs, gr, j, st):
             gs["emisA"][:, :, j] += g
         elif k == "emisB":
             gs["emisB"][:, r - Cp: r + 1] += g
+        elif k in ("auxR", "auxPR"):
+            gs[k][j - 1] += g
+        elif k in ("auxL", "auxPL"):
+            gs[k].index_add_(0, iw, g)
+        elif k == "clsR":
+            gs["cls"][:, j - 1] += g
+        elif k == "clsL":
+            gs["cls"].index_add_(1, iw, g)
         else:                                     # lam, eSZ
             gs[k] += g
 
@@ -814,7 +975,8 @@ def ext_adj_plain(fs, gs, j, d, c, h, st):
     rows = col_rows(d, h, j, st)
     lv = _leaves(winO=windows_of(fs, j, st, ("O",))["O"], Pcol=fs["P"][r],
                  eR=rows["eR"], lam=rows["lam"])
-    rows.update(eR=lv["eR"], lam=lv["lam"])
+    lv.update(_aux_leaves(rows))
+    rows.update({k: v for k, v in lv.items() if k not in ("winO", "Pcol")})
     out = o_col(dict(O=lv["winO"]), j, rows, c, st, lv["Pcol"])
     _accumulate(gs, _vjp([out], [gs["O"][r]], lv), j, st)
 
@@ -864,8 +1026,8 @@ def band_adj_plain(fs, gs, j, d, c, h, st):
                  eL=rows["eL"], bgl=rows["bgl"], bgr=rows["bgr"],
                  pv=rows["pv"], alphaP=rows["alphaP"],
                  lam=rows["lam"])
-    rows.update({k: lv[k] for k in ("eR", "eL", "bgl", "bgr", "pv",
-                                     "alphaP", "lam")})
+    lv.update(_aux_leaves(rows))
+    rows.update({k: v for k, v in lv.items() if not k.startswith("win")})
     w = dict(L=lv["winL"], P=lv["winP"], E=lv["winE"], T2=lv["winT2"],
              T1=lv["winT1"])
     L, P, T2 = front_col(w, j, rows, c, st)
@@ -920,26 +1082,34 @@ PLAIN_ADJ_STAGES = (ext_adj_plain, e_adj_plain, ep_adj_plain,
 HOISTED = ("eSZ", "eSZg", "emisA", "emisB")
 
 
+GRAD_KEYS = ("eR", "eL", "bg2", "pv", "lam", "alphaP") + HOISTED
+
+
 class _DPParts(torch.autograd.Function):
     """[B, 3] log partition parts.  The hoisted exponentials come in as
     inputs, so autograd carries their cotangents on to lambda; lambda's
-    direct terms come out of the outside pass itself, per read."""
+    direct terms come out of the outside pass itself, per read.  ``names``
+    are the DiffFactors fields given (the aux ones only when present)."""
 
     @staticmethod
-    def forward(ctx, dp, c, eR, eL, bg2, pv, lam, alphaP, *hvals):
-        d = DiffFactors(eR=eR, eL=eL, bg2=bg2, pv=pv, lam=lam,
-                        alphaP=alphaP)
-        h = dict(zip(HOISTED, hvals))
+    def forward(ctx, dp, c, names, *vals):
+        n = len(names)
+        d = DiffFactors(**dict(zip(names, vals[:n])))
+        h = dict(zip(HOISTED, vals[n:]))
         state = dp.run_inside(d, c, h)
         ctx.dp, ctx.c, ctx.d, ctx.h, ctx.state = dp, c, d, h, state
+        ctx.names = names
         return dp.extract_parts(state["O"], c)
 
     @staticmethod
     def backward(ctx, gbar):
-        grads = ctx.dp.outside(ctx.state, gbar.contiguous(), ctx.d, ctx.c,
-                               ctx.h)
+        gs = ctx.dp.outside_state(ctx.state, gbar.contiguous(), ctx.d,
+                                  ctx.c, ctx.h)
         ctx.state = None
-        return (None, None) + tuple(grads)
+        grads = dict(zip(GRAD_KEYS, finish_grads(gs, ctx.dp.st)))
+        grads.update(aux_grads(gs))
+        return (None, None, None) + tuple(
+            grads[k] for k in ctx.names + HOISTED)
 
 
 class InsideDP:
@@ -996,14 +1166,18 @@ class InsideDP:
             for stage in ADJ_STAGES:
                 stage(fs, gs, j, d, c, h, st)
 
-    def outside(self, fs, gbar, d, c, h):
-        """The outside pass (JAX dp_bwd): cotangents of (eR, eL, bg2, pv,
-        lam, alphaP, eSZ, eSZg, emisA, emisB), per read, from the inside
-        tables ``fs`` and the parts' cotangent gbar [B, 3]."""
+    def outside_state(self, fs, gbar, d, c, h):
+        """The outside pass (JAX dp_bwd) from the inside tables ``fs`` and
+        the parts' cotangent gbar [B, 3]: the final gradient state."""
         gs = init_grads(fs, d, c, h)
         seed_parts(gs, gbar, c, self.st)
         self.outside_columns(fs, gs, d, c, h, self.dims.Lp + 1, 1)
-        return finish_grads(gs, self.st)
+        return gs
+
+    def outside(self, fs, gbar, d, c, h):
+        """Cotangents of (eR, eL, bg2, pv, lam, alphaP, eSZ, eSZg, emisA,
+        emisB), per read, of the outside pass."""
+        return finish_grads(self.outside_state(fs, gbar, d, c, h), self.st)
 
     def extract_parts(self, Ofin, c: ConstFactors):
         """parts[b, k] = O[L_b, end_states[k], b] (ragged lengths)."""
@@ -1013,8 +1187,11 @@ class InsideDP:
 
     def dp_parts(self, d: DiffFactors, c: ConstFactors):
         h = hoisted(d, c, self.st)
-        return _DPParts.apply(self, c, d.eR, d.eL, d.bg2, d.pv, d.lam,
-                              d.alphaP, *[h[k] for k in HOISTED])
+        names = tuple(k for k in DiffFactors._fields
+                      if getattr(d, k) is not None)
+        return _DPParts.apply(self, c, names,
+                              *[getattr(d, k) for k in names],
+                              *[h[k] for k in HOISTED])
 
 
 def build_dp(g, dims: Dims, energy_tab, dtype=torch.float64, device="cpu"):

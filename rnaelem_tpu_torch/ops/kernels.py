@@ -11,6 +11,12 @@ outputs and scratch with torch, launches on PyTorch's current stream,
 raises when the launch returns a CUDA error, and counts its launches in
 ``KERNELS[name].launches``.  Kernels are instantiated for float32
 (production) and float64 (held to the plain versions).
+
+The scanner's aux factors reach the kernels as an ``Aux`` struct
+(csrc/common.cuh): the grammar's class codes, the evaluation's pin
+(ConstFactors.pin, or none) and, in the outside pass when the class
+probe DiffFactors.cls is given, the class-partial buffers that K7 and K5
+fill and K5's ``cls_red`` sums into the probe's cotangent.
 """
 from __future__ import annotations
 
@@ -24,7 +30,7 @@ from pathlib import Path
 
 import torch
 
-from .dp import GRAD_TABLES
+from .dp import AUX, GRAD_TABLES
 
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
@@ -165,6 +171,12 @@ class ChainDims(ctypes.Structure):
     _fields_ = [(n, ctypes.c_int) for n in ("Lp", "S", "B")]
 
 
+class AuxArg(ctypes.Structure):
+    _fields_ = [("code", ctypes.c_void_p), ("pin", ctypes.c_void_p),
+                ("pin_bit", ctypes.c_int), ("cpR", ctypes.c_void_p),
+                ("cpL", ctypes.c_void_p)]
+
+
 def _ptr_struct(name, fields):
     return type(name, (ctypes.Structure,),
                 {"_fields_": [(f, ctypes.c_void_p) for f in fields]})
@@ -195,27 +207,28 @@ ChainIdx = _ptr_struct("ChainIdx", CHAIN_IDX)
 # exported function -> (leading struct argtypes, number of pointers)
 _SIGS = {
     "score_tables": ((ScoreDims,), 19),
-    "band_front": ((DPDims, BandIdx), 15),
+    "band_front": ((DPDims, BandIdx, AuxArg), 15),
     "band_bif": ((DPDims, BandIdx), 4),
-    "band_m": ((DPDims, BandIdx), 5),
+    "band_m": ((DPDims, BandIdx, AuxArg), 5),
     "band_e": ((DPDims, BandIdx), 8),
     "ep_rowmax": ((DPDims,), 3),
     "ep_shift": ((DPDims,), 2),
     "ep_t": ((DPDims, EpIdx), 5),
     "ep_v": ((DPDims,), 6),
     "ep_out": ((DPDims, EpIdx), 9),
-    "ext_col": ((DPDims, ExtIdx), 6),
-    "ext_adj": ((DPDims, AdjIdx), 10),
-    "ext_adj_chain": ((DPDims, AdjIdx), 4),
+    "ext_col": ((DPDims, ExtIdx, AuxArg), 6),
+    "ext_adj": ((DPDims, AdjIdx, AuxArg), 10),
+    "ext_adj_chain": ((DPDims, AdjIdx, AuxArg), 4),
     "e_adj": ((DPDims, AdjIdx), 12),
-    "m_adj": ((DPDims, AdjIdx), 8),
+    "m_adj": ((DPDims, AdjIdx, AuxArg), 8),
     "t1_adj": ((DPDims,), 6),
     "bif_adj_t1": ((DPDims, AdjIdx), 5),
     "bif_adj_t2": ((DPDims, AdjIdx), 5),
-    "front_adj_t": ((DPDims, AdjIdx), 17),
-    "front_adj_s": ((DPDims, AdjIdx), 17),
-    "front_adj_wb": ((DPDims, AdjIdx), 12),
+    "front_adj_t": ((DPDims, AdjIdx, AuxArg), 17),
+    "front_adj_s": ((DPDims, AdjIdx, AuxArg), 17),
+    "front_adj_wb": ((DPDims, AdjIdx, AuxArg), 12),
     "front_adj_red": ((DPDims,), 4),
+    "cls_red": ((DPDims, AuxArg), 1),
     "ep_go": ((DPDims, AdjIdx), 11),
     "ep_gv": ((DPDims, AdjIdx), 11),
     "ep_gtw": ((DPDims,), 8),
@@ -224,8 +237,8 @@ _SIGS = {
     "ep_gsz": ((DPDims,), 5),
     "ep_gp": ((DPDims, AdjIdx), 10),
     "ep_gl3": ((DPDims, AdjIdx), 10),
-    "chain_fwd": ((ChainDims, ChainIdx), 4),
-    "chain_adj": ((ChainDims, ChainIdx), 5),
+    "chain_fwd": ((ChainDims, ChainIdx, AuxArg), 4),
+    "chain_adj": ((ChainDims, ChainIdx, AuxArg), 5),
 }
 _SUF = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -367,9 +380,40 @@ def _check_column(state, j, d, c, h, st):
     if not torch.equal(d.lam, d.lam[:, :1].expand_as(d.lam)):
         raise ValueError("the kernels take one lambda for the batch: "
                          "per-read copies must be equal")
+    _check_aux(d, c, Lp, B, dt, dev)
     state["_lam"] = d.lam[:, 0].contiguous()
     state["_eSZg"] = h["eSZg"][..., 0].contiguous()
     state["_checked"] = key
+
+
+def _check_aux(d, c, Lp, B, dt, dev):
+    """The scanner's aux as the kernels take it: a pin and a class probe,
+    never dense factors."""
+    if any(getattr(d, k) is not None for k in AUX):
+        raise ValueError("the kernels take the scanner's aux as a pin and a "
+                         "class probe, not dense factors")
+    if d.cls is not None:
+        _req(d.cls, "cls", dt, (4, Lp, B), dev)
+        _req_zero_probe(d.cls)
+    if c.pin is not None:
+        _req(c.pin.pos, "pin", torch.int32, (B,), dev)
+
+
+def _req_zero_probe(cls):
+    """The kernels write the class sums at a zero probe: they never add
+    the probe's values to the transitions, as the plain versions do."""
+    if torch.count_nonzero(cls).item():
+        raise ValueError("the kernels take the class probe as zeros only")
+
+
+def _aux(st, pin, parts=None):
+    """Aux struct for a launch: class codes, the dp.Pin ``pin`` (null for
+    None) and the class-partial buffers ``parts`` (cpR, cpL) or none."""
+    cpR, cpL = (None, None) if parts is None else \
+        (parts[0].data_ptr(), parts[1].data_ptr())
+    return AuxArg(st.k["cls_code"].data_ptr(),
+                  None if pin is None else pin.pos.data_ptr(),
+                  0 if pin is None else int(pin.bit), cpR, cpL)
 
 
 def _dims(st, state, j, d):
@@ -398,10 +442,10 @@ def band_front(state, j, d, c, h, st):
     """K2 stages L, P, T2 of column j (writes rows j of LL, P, T2)."""
     _check_column(state, j, d, c, h, st)
     _call("inside_band", "band_front", st.dtype, _dims(st, state, j, d),
-          _band_idx(st), _p(state["LL"]), _p(state["P"]), _p(state["T2"]),
-          _p(state["E"]), _p(d.eR), _p(d.bg2), _p(d.pv), _p(d.alphaP),
-          _p(c.wsp), _p(state["_lam"]), _p(c.stk), _p(c.ml2), _p(c.gate_O2),
-          _p(c.okP), _p(c.okB))
+          _band_idx(st), _aux(st, c.pin), _p(state["LL"]), _p(state["P"]),
+          _p(state["T2"]), _p(state["E"]), _p(d.eR), _p(d.bg2), _p(d.pv),
+          _p(d.alphaP), _p(c.wsp), _p(state["_lam"]), _p(c.stk), _p(c.ml2),
+          _p(c.gate_O2), _p(c.okP), _p(c.okB))
 
 
 def band_bif(state, j, d, c, h, st):
@@ -416,8 +460,8 @@ def band_m(state, j, d, c, h, st):
     """K2 stage M (sequential multiloop chain) of column j."""
     _check_column(state, j, d, c, h, st)
     _call("inside_band", "band_m", st.dtype, _dims(st, state, j, d),
-          _band_idx(st), _p(state["M"]), _p(state["Bt"]), _p(d.eL),
-          _p(c.gate_M), _p(c.okM))
+          _band_idx(st), _aux(st, c.pin), _p(state["M"]), _p(state["Bt"]),
+          _p(d.eL), _p(c.gate_M), _p(c.okM))
 
 
 def band_e(state, j, d, c, h, st):
@@ -481,8 +525,8 @@ def ext_stage(state, j, d, c, h, st):
     _check_column(state, j, d, c, h, st)
     ix = _idx(st, ExtIdx, EXT_IDX)
     _call("inside_ext", "ext_col", st.dtype, _dims(st, state, j, d), ix,
-          _p(state["O"]), _p(state["P"]), _p(d.eR), _p(c.gate_O2),
-          _p(c.ext), _p(state["_lam"]))
+          _aux(st, c.pin), _p(state["O"]), _p(state["P"]), _p(d.eR),
+          _p(c.gate_O2), _p(c.ext), _p(state["_lam"]))
 
 
 # ----------------------------------------- K5-K7 outside (adjoint) stages
@@ -509,6 +553,8 @@ def _check_adj(fs, gs, j, d, c, h, st):
         _req(gs[k], "grad " + k, dt, ref.shape, dev)
     _req(gs["DL"], "grad DL", dt, fs["LL"][: st.dims.Lp + 1].shape, dev)
     _req(gs["GSZ"], "grad GSZ", dt, h["eSZg"].shape, dev)
+    if d.cls is not None:
+        _req(gs["cls"], "grad cls", dt, d.cls.shape, dev)
     gs["_checked"] = key
 
 
@@ -528,15 +574,30 @@ def _adj_scratch(gs, st, B, dev):
     return scr
 
 
+def _cls_parts(gs, st, B, dev):
+    """The class-partial buffers (cpR, cpL) [4, Wp+1, S, B] of the
+    outside pass (zero; cls_red zeroes what it sums), or None without a
+    class probe."""
+    if "cls" not in gs:
+        return None
+    if "_cls_parts" not in gs:
+        shape = (4, st.dims.Wp + 1, st.dims.S, B)
+        gs["_cls_parts"] = tuple(torch.zeros(shape, dtype=st.dtype,
+                                             device=dev) for _ in range(2))
+    return gs["_cls_parts"]
+
+
 def ext_adj(fs, gs, j, d, c, h, st):
     """K7: adjoint of the O column j."""
     _check_adj(fs, gs, j, d, c, h, st)
     D, ix, dt = _dims(st, fs, j, d), _idx(st, AdjIdx, ADJ_IDX), st.dtype
-    _call("outside_ext", "ext_adj", dt, D, ix, _p(fs["O"]), _p(fs["P"]),
+    ax = _aux(st, c.pin,
+              _cls_parts(gs, st, fs["O"].shape[-1], fs["O"].device))
+    _call("outside_ext", "ext_adj", dt, D, ix, ax, _p(fs["O"]), _p(fs["P"]),
           _p(d.eR), _p(c.gate_O2), _p(c.ext), _p(fs["_lam"]), _p(gs["O"]),
           _p(gs["P"]), _p(gs["eR"]), _p(gs["DL"]))
-    _call("outside_ext", "ext_adj_chain", dt, D, ix, _p(fs["O"]), _p(d.eR),
-          _p(c.gate_O2), _p(gs["O"]))
+    _call("outside_ext", "ext_adj_chain", dt, D, ix, ax, _p(fs["O"]),
+          _p(d.eR), _p(c.gate_O2), _p(gs["O"]))
 
 
 def e_adj(fs, gs, j, d, c, h, st):
@@ -581,12 +642,15 @@ def ep_adj(fs, gs, j, d, c, h, st):
 
 
 def band_adj(fs, gs, j, d, c, h, st):
-    """K5: adjoint of M, B/T1 and L/P/T2 at column j."""
+    """K5: adjoint of M, B/T1 and L/P/T2 at column j (and, with a class
+    probe, the column's class sums)."""
     _check_adj(fs, gs, j, d, c, h, st)
     D, ix, dt = _dims(st, fs, j, d), _idx(st, AdjIdx, ADJ_IDX), st.dtype
     scr = _adj_scratch(gs, st, fs["O"].shape[-1], fs["O"].device)
+    parts = _cls_parts(gs, st, fs["O"].shape[-1], fs["O"].device)
+    ax = _aux(st, c.pin, parts)
     f, g = fs, gs
-    _call("outside_band", "m_adj", dt, D, ix, _p(f["M"]), _p(f["Bt"]),
+    _call("outside_band", "m_adj", dt, D, ix, ax, _p(f["M"]), _p(f["Bt"]),
           _p(d.eL), _p(c.gate_M), _p(c.okM), _p(g["gM"]), _p(g["gB"]),
           _p(g["eL"]))
     _call("outside_band", "t1_adj", dt, D, _p(f["T1"]), _p(f["T2"]),
@@ -594,26 +658,31 @@ def band_adj(fs, gs, j, d, c, h, st):
     for side, out in (("t1", "T1"), ("t2", "T2")):
         _call("outside_band", "bif_adj_" + side, dt, D, ix, _p(f["T1"]),
               _p(f["T2"]), _p(f["Bt"]), _p(g["gB"]), _p(g[out]))
-    _call("outside_band", "front_adj_t", dt, D, ix, _p(f["LL"]), _p(f["P"]),
+    _call("outside_band", "front_adj_t", dt, D, ix, ax, _p(f["LL"]),
+          _p(f["P"]),
           _p(f["T2"]), _p(d.eR), _p(d.bg2), _p(d.pv), _p(d.alphaP),
           _p(c.wsp), _p(fs["_lam"]), _p(c.stk), _p(c.ml2), _p(c.gate_O2),
           _p(g["LL"]), _p(g["P"]), _p(g["T2"]), _p(g["DL"]),
           _p(scr["ePart"]))
-    _call("outside_band", "front_adj_s", dt, D, ix, _p(f["LL"]), _p(f["P"]),
+    _call("outside_band", "front_adj_s", dt, D, ix, ax, _p(f["LL"]),
+          _p(f["P"]),
           _p(f["T2"]), _p(f["E"]), _p(d.eR), _p(d.bg2), _p(d.pv),
           _p(d.alphaP), _p(c.wsp), _p(fs["_lam"]), _p(c.stk), _p(c.gate_O2),
           _p(g["LL"]), _p(g["P"]), _p(g["P"]), _p(g["T2"]), _p(g["E"]))
-    _call("outside_band", "front_adj_wb", dt, D, ix, _p(f["P"]), _p(f["E"]),
+    _call("outside_band", "front_adj_wb", dt, D, ix, ax, _p(f["P"]),
+          _p(f["E"]),
           _p(d.bg2), _p(d.pv), _p(d.alphaP), _p(c.wsp), _p(fs["_lam"]),
           _p(c.stk), _p(g["P"]), _p(g["pv"]), _p(g["alphaP"]),
           _p(scr["bgp"]))
     _call("outside_band", "front_adj_red", dt, D, _p(scr["ePart"]),
           _p(scr["bgp"]), _p(g["eR"]), _p(g["bg2"]))
+    if parts is not None:
+        _call("outside_band", "cls_red", dt, D, ax, _p(g["cls"]))
 
 
 # ------------------------------------------------ K8-K9 no-rss chain
 
-def _check_chain(st, eR, L):
+def _check_chain(st, eR, L, pin):
     dev = eR.device
     if dev.type != "cuda" or st.dtype not in _SUF:
         raise ValueError("chain kernels take float32/float64 CUDA tensors")
@@ -623,28 +692,37 @@ def _check_chain(st, eR, L):
                          % (st.dims.S, tuple(eR.shape)))
     _req(eR, "eR", st.dtype, (Lp, S, B), dev)
     _req(L, "L", torch.int64, (B,), dev)
+    if pin is not None:
+        _req(pin.pos, "pin", torch.int32, (B,), dev)
     return ChainDims(Lp, S, B), _idx(st, ChainIdx, CHAIN_IDX)
 
 
-def chain_fwd(st, eR, L):
+def chain_fwd(st, eR, L, pin=None):
     """K8 on the grammar's DPStatic ``st``: ([B, 3] parts, the chain rows
     [Lp+1, S, B] for K9); rows beyond a read's length are left
-    unwritten."""
-    D, ix = _check_chain(st, eR, L)
+    unwritten.  ``pin``: the scanner's dp.Pin or None."""
+    D, ix = _check_chain(st, eR, L, pin)
     parts = torch.empty((D.B, 3), dtype=eR.dtype, device=eR.device)
     rows = torch.empty((D.Lp + 1, D.S, D.B), dtype=eR.dtype,
                        device=eR.device)
-    _call("linear_fwd", "chain_fwd", st.dtype, D, ix, _p(eR), _p(L),
-          _p(rows), _p(parts))
+    _call("linear_fwd", "chain_fwd", st.dtype, D, ix, _aux(st, pin), _p(eR),
+          _p(L), _p(rows), _p(parts))
     return parts, rows
 
 
-def chain_adj(st, eR, L, rows, gparts):
-    """K9: the cotangent of eR [Lp, S, B] from that of the parts [B, 3]."""
-    D, ix = _check_chain(st, eR, L)
+def chain_adj(st, eR, L, rows, gparts, pin=None, cls=None):
+    """K9: the cotangent of eR [Lp, S, B] from that of the parts [B, 3];
+    with ``cls`` [4, Lp, B] it also writes there the class sums of the
+    transition posteriors per base (the scanner's class probe)."""
+    D, ix = _check_chain(st, eR, L, pin)
     _req(rows, "chain rows", st.dtype, (D.Lp + 1, D.S, D.B), eR.device)
     _req(gparts, "parts cotangent", st.dtype, (D.B, 3), eR.device)
+    if cls is not None:
+        _req(cls, "class sums", st.dtype, (4, D.Lp, D.B), eR.device)
     g_eR = torch.empty_like(eR)
-    _call("linear_adj", "chain_adj", st.dtype, D, ix, _p(eR), _p(L),
+    ax = _aux(st, pin)
+    if cls is not None:
+        ax.cpR = cls.data_ptr()
+    _call("linear_adj", "chain_adj", st.dtype, D, ix, ax, _p(eR), _p(L),
           _p(rows), _p(gparts), _p(g_eR))
     return g_eR

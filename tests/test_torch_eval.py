@@ -83,11 +83,16 @@ def test_cli_eval_matches_reference(tmp_path):
 @pytest.mark.parametrize("x", ["0", "1", "2", "3"])
 def test_model_io_matches_jax(x):
     """params_from_numpy of the JAX reader's params equals the port's own
-    reader, and the port writes the same bytes as the JAX writer."""
+    reader, and the port writes the same bytes as the JAX writer.  The
+    port's config has every field of JAX's but the scanning flag
+    with_aux (the port takes aux as an argument), which the reader
+    leaves off."""
     path = os.path.join(FIX, "%s.model" % x)
     cj, pj = JIO.read_model(path, Lp=LP)
     ct, pt = TIO.read_model(path, Lp=LP, device="cpu")
-    assert ct.__dict__ == cj.__dict__
+    assert set(cj.__dict__) - set(ct.__dict__) == {"with_aux"}
+    assert cj.with_aux is False
+    assert ct.__dict__ == {k: cj.__dict__[k] for k in ct.__dict__}
     conv = params_from_numpy(np.asarray(pj.singles), np.asarray(pj.pairs),
                              np.asarray(pj.lam), device="cpu")
     for a, b in zip(conv, pt):

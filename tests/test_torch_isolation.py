@@ -16,6 +16,8 @@ from rnaelem_tpu_torch.model import io as TIO
 from rnaelem_tpu_torch.model import joint as TJ
 from rnaelem_tpu_torch.model.convert import params_from_numpy
 from rnaelem_tpu_torch.pipeline.ushuffle import negative_for
+from rnaelem_tpu_torch.scan import scanner as SC
+from rnaelem_tpu_torch.scan.driver import Scanner
 from rnaelem_tpu_torch.train import objective as OBJ
 from rnaelem_tpu_torch.train.trainer import Trainer
 
@@ -35,7 +37,7 @@ def test_every_module_imports_without_jax():
     mods = _modules()
     assert "rnaelem_tpu_torch.ops.kernels" in mods and len(mods) >= 15
     for m in ("cli", "native", "pipeline.ushuffle", "train.optim",
-              "train.trainer", "ops.linear"):
+              "train.trainer", "ops.linear", "scan.scanner", "scan.driver"):
         assert "rnaelem_tpu_torch." + m in mods
     code = ("import importlib, sys\n"
             "for m in %r:\n"
@@ -55,6 +57,7 @@ def _entry_points():
     cfg = TJ.ModelConfig(pattern="(.)", Lp=12, max_span=12, max_iloop=4,
                          min_bpp=0.0)
     fix = os.path.join(ROOT, "tests", "fixtures", "0.model")
+    norss = os.path.join(ROOT, "tests", "fixtures", "2.model")
     fq = os.path.join(ROOT, "tests", "fixtures", "0.fq")
     reads = [(np.array([1, 2, 3, 4, 1, 2]), np.full(7, 10))]
     return [
@@ -79,6 +82,12 @@ def _entry_points():
             cfg, TJ.make_seqdata(cfg, reads[0][0]))),
         ("cli eval", lambda: CLI.main(["eval", "-f", fq, "-q", fix])),
         ("cli train", lambda: CLI.main(["train", "-f", fq, "-m", "(.)"])),
+        ("Scanner", lambda: Scanner(cfg, TJ.init_params(
+            TJ.kernels(cfg, "cpu").g, cfg, device="cpu"))),
+        ("scan_posteriors_batch", lambda: SC.scan_posteriors_batch(
+            cfg, TJ.init_params(TJ.kernels(cfg, "cpu").g, cfg, device="cpu"),
+            TJ.stack_seqdata([TJ.make_seqdata(cfg, reads[0][0])], "cpu"))),
+        ("cli scan", lambda: CLI.main(["scan", "-f", fq, "-q", norss])),
     ]
 
 

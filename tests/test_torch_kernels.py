@@ -82,6 +82,19 @@ def test_kernel_wrappers_reject_cpu_tensors(name):
         getattr(K, name)(*args)
 
 
+@pytest.mark.parametrize("nonzero", [False, True])
+def test_kernels_take_the_class_probe_as_zeros_only(nonzero):
+    """The kernels write the class sums without adding the probe to the
+    transitions, so their routes refuse a probe that is not all zero."""
+    cls = torch.zeros((4, 6, 3), dtype=torch.float64)
+    if not nonzero:
+        K._req_zero_probe(cls)
+        return
+    cls[2, 4, 1] = 1e-30
+    with pytest.raises(ValueError, match="zeros only"):
+        K._req_zero_probe(cls)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_score_tables_kernel_matches_plain(dtype):
@@ -339,7 +352,8 @@ def _chain_inputs(pattern, tau, dtype, no_prf=False, n=6, seed=8):
 def test_chain_kernels_match_plain(pattern, tau, no_prf, dtype, tol):
     """K8 (parts) and K9 (the cotangent of eR) against the plain chain
     and its autograd on the same inputs, relative in the max norm; two
-    kernel runs give the same bits."""
+    kernel runs give the same bits; likewise under a pin per read with
+    the class sums of K9 against the plain chain's class probe."""
     _need_cuda()
     st, eR, L, gp = _chain_inputs(pattern, tau, dtype, no_prf)
     K.reset_counts()
@@ -360,6 +374,28 @@ def test_chain_kernels_match_plain(pattern, tau, no_prf, dtype, tol):
         want[fin].abs().max())
     assert not torch.isnan(g).any()
     assert float((g - gw).abs().max()) <= tol * float(gw.abs().max())
+    B = eR.shape[-1]
+    pin = DP.Pin(torch.as_tensor(np.arange(B) * 5 % 30 - 1, dtype=torch.int32,
+                                 device="cuda"), DP.CLS_START)
+    parts, rows = K.chain_fwd(st, eR, L, pin)
+    cls = torch.empty((4, eR.shape[0], B), dtype=eR.dtype, device="cuda")
+    g = K.chain_adj(st, eR, L, rows, gp, pin, cls)
+    cls2 = torch.empty_like(cls)
+    assert torch.equal(g, K.chain_adj(st, eR, L, rows, gp, pin, cls2))
+    assert torch.equal(cls, cls2)
+    leaf = eR.detach().clone().requires_grad_(True)
+    probe = torch.zeros_like(cls, requires_grad=True)
+    want = LIN.chain_plain(st, leaf, L, LIN.chain_aux(
+        st, eR.shape[0], B, pin=pin, cls=probe))
+    gw, gc = torch.autograd.grad(want, [leaf, probe], gp)
+    want = want.detach()
+    fin = torch.isfinite(want)
+    assert torch.equal(fin, torch.isfinite(parts))
+    assert float((parts - want)[fin].abs().max()) <= tol * float(
+        want[fin].abs().max())
+    for a, b in ((g, gw), (cls, gc)):
+        assert not torch.isnan(a).any()
+        assert float((a - b).abs().max()) <= tol * float(b.abs().max())
 
 
 @pytest.mark.gpu
@@ -388,3 +424,85 @@ def test_per_read_gradients_on_the_card_match_cpu(pattern, opts):
         for r in range(b.shape[0]):
             scale = max(1.0, float(b[r].abs().max()))
             assert float((a[r].cpu() - b[r]).abs().max()) <= 1e-9 * scale
+
+
+def _scan_inputs(pattern, opts, device, n=5, seed=11):
+    """A scan config (f64, plain theta) with random weights and a batch
+    of random reads on ``device``."""
+    cfg = J.ModelConfig(pattern=pattern, Lp=40, max_span=24, max_iloop=12,
+                        min_bpp=1e-4, tau=0.1, dtype="float64", **opts)
+    batch = _batch(cfg, "cpu", n=n, seed=seed)
+    rng = np.random.RandomState(seed)
+    p = J.init_params(J.kernels(cfg, "cpu").g, cfg, device="cpu")
+    noise = lambda x: 0.3 * torch.as_tensor(rng.randn(*x.shape))
+    p = J.Params(p.singles + noise(p.singles), p.pairs + noise(p.pairs),
+                 torch.tensor([0.7, 1.3], dtype=torch.float64))
+    if device != "cpu":
+        batch = batch._replace(sd=J.SeqData(*[x.cuda() for x in batch.sd]),
+                               bp_ok=batch.bp_ok.cuda())
+        p = J.Params(*[x.cuda() for x in p])
+    return cfg, p, batch
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pattern,opts", [
+    ("(.....)", {}), ("(.*)", {}), ("..*..", dict(no_rss=True))])
+def test_pinned_parts_and_class_sums_match_plain(pattern, opts):
+    """The pinned forward (K2/K4, or K8) and the class sums of the
+    outside pass (K5/K7 and K5's cls_red, or K9) against the plain
+    versions on the CPU, f64, with a pin per read (one read unpinned);
+    two kernel runs give the same bits."""
+    _need_cuda()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        cfg, p, batch = _scan_inputs(pattern, opts, dev)
+        B = batch.valid.shape[0]
+        pin = DP.Pin(torch.tensor([3, 17, 30, -1, 9][:B], dtype=torch.int32,
+                                  device=dev), DP.CLS_START)
+        runs = []
+        for _ in range(1 if dev == "cpu" else 2):
+            cls = torch.zeros((4, cfg.Lp, B), dtype=torch.float64,
+                              device=dev, requires_grad=True)
+            with torch.enable_grad():
+                parts = J.batch_logZ_parts(cfg, p, batch.sd, batch.bp_ok,
+                                           device=dev,
+                                           aux_b=dict(cls=cls, pin=pin))
+                gw = torch.isfinite(parts).to(parts.dtype)
+                (g,) = torch.autograd.grad(parts, cls, gw)
+            runs.append((parts.detach().cpu(), g.cpu()))
+        if dev == "cuda":
+            assert all(torch.equal(a, b) for a, b in zip(*runs))
+        out[dev] = runs[0]
+    (pc, gc), (pg, gg) = out["cpu"], out["cuda"]
+    fin = torch.isfinite(pc)
+    assert torch.equal(fin, torch.isfinite(pg))
+    assert float((pg - pc)[fin].abs().max()) <= 1e-9 * float(
+        pc[fin].abs().max())
+    assert gc.abs().max() > 0
+    assert float((gg - gc).abs().max()) <= 1e-9 * float(gc.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pattern,opts", [
+    ("(.....)", {}), ("..*..", dict(no_rss=True))])
+def test_scan_posteriors_on_the_card_match_cpu(pattern, opts):
+    """scan_posteriors_batch through the kernels against the plain
+    versions on the CPU, f64: posteriors, E[N] and the pins Ys, Ye."""
+    _need_cuda()
+    from rnaelem_tpu_torch.scan import scanner as SC
+    res = {}
+    for dev in ("cpu", "cuda"):
+        cfg, p, batch = _scan_inputs(pattern, opts, dev, seed=12)
+        K.reset_counts()
+        res[dev] = SC.scan_posteriors_batch(cfg, p, batch.sd, device=dev)
+    names = ("linear_fwd", "linear_adj") if opts else DP_KERNELS
+    for name in names:
+        assert K.KERNELS[name].launches > 0, name
+    for key in ("Pys", "Pyi", "Pye", "PyN", "Z", "Ze", "EN"):
+        a, b = res["cuda"][key], res["cpu"][key]
+        for x, y in (zip(a, b) if key == "EN" else [(a, b)]):
+            x, y = x.cpu(), y
+            assert float((x - y).abs().max()) <= 1e-9 * max(
+                1.0, float(y.abs().max())), key
+    for key in ("Ys", "Ye"):
+        assert torch.equal(res["cuda"][key].cpu(), res["cpu"][key]), key
