@@ -47,23 +47,38 @@ Phases:
      model over the 76 tRNAs (fn within 2e-3 of 0.13662, fn + L2 within
      2e-3 of 1.713098, f32) and `cli train --no-shuffle` on the first 8
      tRNAs (f64) within 0.05 of the reference binary's model;
- 10. one JSON line per kernel (K1-K9), the card line, and the result
+ 10. one JSON line per kernel (K1-K13), the card line, and the result
      line;
  2b. (after phase 2) the scanner's row K: every forward stage and every
      adjoint stage, and the class sums of the column and of the whole
      outside pass, with a random pin per read and with aux = 0 (the class
      probe alone), against the plain versions (dense aux, autograd): f64
-     at B=16 within 1e-9 (the pinned whole pass too, two kernel runs
-     bitwise equal),
+     at B=16 within 1e-9 (the whole pass too, pinned and aux = 0, two
+     kernel runs bitwise equal),
      f32 at B=64 x 100 nt within 1e-4; likewise K8/K9 under a pin with
      K9's class sums (after phase 7); per-call device times of the pinned
      K2, K4, K5, K7, K8, K9 at the main path's shapes (phase 5);
- 11. the scan path: the posterior half (scan_posteriors_batch in the
-     driver's buckets and chunks) of the 76 tRNAs with the reference's
-     converged model, f64 held against the C++ scan (start, end, inner,
-     motif region, exist prob: test_scan_trained_golden's bars), f32 timed
-     with a stage breakdown, its reads with an isfinite mismatch counted
-     (F4), one 64-read chunk timed (CUDA events) beside its bound;
+ 2c. (after phase 2b) rows L and M, the CYK tables: K10-K12 under the
+     scanner's pin set (Ys, Ye and the tail; a read with Ye == L, one with
+     Ys == Ye) against the plain max DP on the card, every stage at column
+     75 and the whole tables, -inf placement identical, f64 at B=16 within
+     1e-12 and f32 at B=64 x 100 nt within 1e-4 (absolute), two kernel runs
+     bitwise equal; K13 against the host traceback on the f64 tables, every
+     read's psihat and pair set identical;
+ 11. the scan path, this slice's: Scanner.scan of the 76 tRNAs with the
+     reference's converged model in the driver's buckets and chunks
+     (posteriors, then the CYK alignment), at f64 (the default) held
+     against every line of the C++ trna_scan_ref.raw
+     (test_scan_trained_golden's bars: posteriors, motif region, exist
+     prob, mot on every read; the reads whose psihat/rss differ counted
+     against test_scan_trained_golden's bar of at most 2 and reported
+     with the port's best score and the best score of the golden's pairs
+     and node path, which must be equal: each such read a tie),
+     at f32 timed with its path differences and F4 count; each timed with
+     a stage breakdown; one posterior chunk (row K) beside its bound; the
+     launch counts of the f64 run; then K10-K12 per column and K13 per
+     chunk timed beside their bounds, K13 checked against the host
+     traceback on the 76 tRNAs;
  12. Scanner.scan of the --no-rss fixture model 2 on 0.fq against every
      line of the C++ scan_2.raw.
 
@@ -86,8 +101,9 @@ sys.path.insert(0, HERE)
 
 # set by main() once the imports succeed (the script must fail cleanly,
 # with no result, where torch, CUDA or the package is missing)
-np = torch = ET = J = DP = K = LIN = MIO = OBJ = TRN = CLI = SC = SCD = None
-seq_to_ints = ints_to_seq = None
+np = torch = ET = J = DP = DMB = K = LIN = MIO = OBJ = TRN = CLI = SC = \
+    SCD = CYK = None
+seq_to_ints = ints_to_seq = FastqReader = None
 
 PATTERN = "(.....)"
 LP = 100               # read length of the main path (and the padded Lp)
@@ -1155,9 +1171,9 @@ def check_pinned(cfg, batch, params, dev, rel, significant, full):
     from the pin and the class probe, autograd): every forward stage at
     column J0, every adjoint stage and the column's class sums, with a
     random pin per read and with aux = 0 (the probe alone); with ``full``
-    also, under the pin, the class sums of the whole outside pass,
-    kernels (two runs, bitwise equal) vs plain.  Returns ({kernel: max
-    abs err}, message)."""
+    also, for both, the class sums of the whole outside pass, kernels
+    (two runs, bitwise equal) vs plain.  Returns ({kernel: max abs err},
+    message)."""
     dp = J.kernels(cfg, dev).dp
     errs, msgs = {}, []
     B = batch.valid.shape[0]
@@ -1170,7 +1186,7 @@ def check_pinned(cfg, batch, params, dev, rel, significant, full):
                 errs[k_] = max(errs.get(k_, 0.0), v)
         msg = "%s: stages %s, adjoints %s" % (
             "pin" if pinned else "aux=0", json.dumps(st_e), json.dumps(ad_e))
-        if full and pinned:
+        if full:
             fwd = dp.extract_parts(dp.run_inside(d, c, DP.hoisted(
                 d, c, dp.st))["O"], c)
             gbar = torch.as_tensor(np.random.RandomState(8).rand(B, 3),
@@ -1183,8 +1199,8 @@ def check_pinned(cfg, batch, params, dev, rel, significant, full):
                 fail("class sums: two kernel runs differ (%s)" % msg)
             fin = torch.isfinite(pp)
             if not torch.equal(fin, torch.isfinite(pk)):
-                fail("pinned parts: -inf pattern differs")
-            ep = grad_compare("pinned parts", pk[fin], pp[fin], rel)
+                fail("parts (%s): -inf pattern differs" % msg)
+            ep = grad_compare("parts (%s)" % msg, pk[fin], pp[fin], rel)
             ec = grad_compare("class sums, whole pass", ck, cp, rel)
             msg += ", whole pass: parts %.3g, class sums %.3g (two kernel " \
                 "runs bitwise equal)" % (ep, ec)
@@ -1295,89 +1311,411 @@ def vec(text):
     return np.array([float(v) for v in text.strip()[1:-1].split(",") if v])
 
 
-def golden_lines(reads, results, gold, strict):
-    """The start, end, inner, motif region and exist prob lines against
-    a C++ scan (test_scan_trained_golden's rules: isfinite pattern equal,
-    atol 2e-4 and rtol 1e-3 on the log posteriors, motif region equal,
-    exist prob within 1e-3).  ``strict`` fails on a miss; otherwise
-    returns the number of reads whose isfinite pattern differs and the
-    largest error on the lines both print finite."""
-    if len(reads) != len(gold):
-        fail("scan: %d records, the golden has %d" % (len(reads), len(gold)))
-    n_fin, worst = 0, 0.0
-    for r, res, g in zip(reads, results, gold):
-        lines = dict(ln.split(": ", 1) for ln in SCD.posterior_lines(*res))
-        if ints_to_seq(r.seq) != g["seq"]:
-            fail("scan: read %s is not the golden's" % r.id)
+def vecint(text):
+    return [int(v) for v in text.strip()[1:-1].split(",") if v]
+
+
+# ------------------------------------------------------------ CYK (rows L, M)
+
+MAX_STAGE_OUT = {"max_band_front": ("LL", "P", "T2"),
+                 "max_band_bif": ("Bt", "T1"), "max_band_m": ("M",),
+                 "max_ep_stage": ("ep",), "max_band_e": ("E",),
+                 "max_ext_stage": ("O",)}
+MAX_KERNEL = {"max_band_front": "inside_band_max",
+              "max_band_bif": "inside_band_max",
+              "max_band_m": "inside_band_max",
+              "max_band_e": "inside_band_max",
+              "max_ep_stage": "inside_ep_max",
+              "max_ext_stage": "inside_ext_max"}
+MAX_TABLE_KERNEL = {"LL": "inside_band_max", "P": "inside_band_max",
+                    "E": "inside_band_max", "M": "inside_band_max",
+                    "Bt": "inside_band_max", "T1": "inside_band_max",
+                    "T2": "inside_band_max", "ep": "inside_ep_max",
+                    "O": "inside_ext_max"}
+CYK_KERNELS = ("inside_band_max", "inside_ep_max", "inside_ext_max",
+               "cyk_traceback")
+SCAN_KERNELS = DP_KERNELS + CYK_KERNELS
+
+
+def max_compare(name, a, b, tol):
+    """Max abs error of kernel cells ``a`` against plain ``b``: the -inf
+    placement must be identical and finite cells within ``tol``."""
+    if not torch.equal(torch.isfinite(a), torch.isfinite(b)) or \
+            not torch.equal(torch.isneginf(a), torch.isneginf(b)):
+        fail("%s: -inf placement differs (%d cells)" % (
+            name, int((torch.isfinite(a) != torch.isfinite(b)).sum())))
+    fin = torch.isfinite(b)
+    if not fin.any():
+        return 0.0
+    err = float((a[fin] - b[fin]).abs().max())
+    if not err <= tol:
+        fail("%s: max abs err %.3g beyond %.0e" % (name, err, tol))
+    return err
+
+
+def cyk_factors(cfg, params, reads, dev, edges):
+    """(scan config, d, c) of ``reads`` (seq, qual) under the CYK pin set:
+    each read's Ys/Ye from the posterior pass, except, with ``edges``,
+    read 0 (Ye == L) and read 1 (Ys == Ye)."""
+    scfg, sp = SCD.scan_config(cfg, params, cfg.Lp)
+    sd = J.stack_seqdata([J.make_seqdata(scfg, s_, q_) for s_, q_ in reads],
+                         dev)
+    res = SC.scan_posteriors_batch(scfg, sp, sd, device=dev)
+    Ys, Ye = res["Ys"].clone(), res["Ye"].clone()
+    L = torch.as_tensor(sd.L, device=dev).long()
+    if edges:
+        Ye[0], Ye[1] = L[0], Ys[1]
+    d, c = J.batch_factors(scfg, sp, sd, res["bp_ok"], device=dev,
+                           aux_b={"pin": CYK.cyk_pins(Ys, Ye, L)})
+    return scfg, d, c
+
+
+def check_max_tables(cfg, reads, params, dev, tol):
+    """K10-K12 against the plain max DP on the card (same inputs): every
+    stage at column J0 on the kernels' earlier columns, and the whole
+    tables; two kernel runs bitwise equal.  Returns ({kernel: max abs
+    err}, the scan config, d, c, the kernels' tables)."""
+    scfg, d, c = cyk_factors(cfg, params, reads, dev, True)
+    mdp = DMB.MaxDP(J.kernels(scfg, dev).dp)
+    runs = [mdp.tables(d, c) for _ in range(2)]
+    for key in MAX_TABLE_KERNEL:
+        if not torch.equal(runs[0][key], runs[1][key]):
+            fail("CYK tables: two kernel runs differ in %s" % key)
+    plain = mdp.tables(d, c, plain=True)
+    errs = {}
+    for key, kn in MAX_TABLE_KERNEL.items():
+        e = max_compare("CYK table %s" % key, runs[0][key], plain[key], tol)
+        errs[kn] = max(errs.get(kn, 0.0), e)
+    state = {k_: v.clone() for k_, v in runs[0].items()
+             if not k_.startswith("_")}
+    r = J0 + mdp.st.PAD
+    for stage, pl in zip(DMB.STAGES, DMB.PLAIN_STAGES):
+        ks = DP.clone_state(state)
+        stage(ks, J0, d, c, mdp.mst)
+        pl(state, J0, d, c, mdp.mst)
+        for key in MAX_STAGE_OUT[stage.__name__]:
+            e = max_compare("%s %s column %d" % (stage.__name__, key, J0),
+                            ks[key][r], state[key][r], tol)
+            kn = MAX_KERNEL[stage.__name__]
+            errs[kn] = max(errs.get(kn, 0.0), e)
+    return errs, scfg, d, c, runs[0]
+
+
+def check_traceback(cfg, d, c, state, dev, what):
+    """K13 against the host traceback on the same tables: every read's
+    psihat and pair set identical.  Returns the reads compared."""
+    k = J.kernels(cfg, dev)
+    mdp = DMB.MaxDP(k.dp)
+    eps = CYK.EPS[k.dtype]
+    psihat, pairs, err = K.cyk_traceback(state, d, c, mdp.mst, eps)
+    psihat, pairs, err = (x.cpu().numpy() for x in (psihat, pairs, err))
+    if err.any():
+        fail("K13 %s: error flags %s" % (what, err.tolist()))
+    host = CYK.host_tracebacks(cfg, k.g, state, d, c, k.dp.st, eps)
+    L = c.L.cpu().numpy()
+    for t, (path, _, cells) in enumerate(host):
+        if not np.array_equal(psihat[t, :L[t]], path):
+            fail("K13 %s: read %d's psihat differs from the host "
+                 "traceback" % (what, t))
+        if sorted(map(tuple, np.argwhere(pairs[t]))) != sorted(cells):
+            fail("K13 %s: read %d's pair set differs from the host "
+                 "traceback" % (what, t))
+    return len(host)
+
+
+def cyk_times(fq, dev):
+    """Per-column device ms of K10-K12 (column J0) and per-chunk ms of
+    K13 on the first tRNA scan chunk (64 reads x bucket 96) at f64 (the
+    scan's default) and f32, beside the plain versions' times (K13's, the
+    host traceback's wall time, at f64) and the bounds; K13 checked
+    against the host traceback on the 76 tRNAs (f64, both chunks)."""
+    reads = [(r.seq, r.qual) for r in FastqReader(fq).reads()]
+    funcs = kernel_functions()
+    out = {}
+    for dtype in ("float64", "float32"):
+        cfg, params = MIO.read_model(GOLD_TRNA, Lp=96, dtype=dtype,
+                                     device=dev)
+        scfg, d, c = cyk_factors(cfg, params, reads[:SCD.SCAN_BATCH], dev,
+                                 False)
+        k = J.kernels(scfg, dev)
+        mdp = DMB.MaxDP(k.dp)
+        state = mdp.tables(d, c)
+        ms, plain_ms, launches = {}, {}, {}
+        for kname in ("inside_band_max", "inside_ep_max", "inside_ext_max"):
+            names = [n for n, kn in MAX_KERNEL.items() if kn == kname]
+            ks, ps = DP.clone_state(state), DP.clone_state(state)
+            kf = [getattr(DMB, n) for n in names]
+            pf = [DMB.PLAIN_STAGES[DMB.STAGES.index(f)] for f in kf]
+            K.reset_counts()
+            for f in kf:
+                f(ks, J0, d, c, mdp.mst)
+            launches[kname] = K.KERNELS[kname].launches
+            ms[kname] = device_ms(
+                lambda: [f(ks, J0, d, c, mdp.mst) for f in kf], REPS,
+                funcs[kname])
+            plain_ms[kname] = cuda_ms(
+                lambda: [f(ps, J0, d, c, mdp.mst) for f in pf], 3)
+            del ks, ps
+        eps = CYK.EPS[k.dtype]
+        ms["cyk_traceback"] = device_ms(
+            lambda: K.cyk_traceback(state, d, c, mdp.mst, eps), 20,
+            funcs["cyk_traceback"])
+        launches["cyk_traceback"] = 1
+        if dtype == "float64":
+            # the host traceback (K13's plain version) at f64 only; the f32
+            # bound counts the same walk
+            stats = {}
+            t0 = time.perf_counter()
+            CYK.host_tracebacks(scfg, k.g, state, d, c, k.dp.st, eps,
+                                stats=stats)
+            plain_ms["cyk_traceback"] = 1e3 * (time.perf_counter() - t0)
+        bnd = max_bounds(scfg, k.dp.st, c, J0, stats,
+                         torch.finfo(k.dtype).bits // 8)
+        out[dtype] = dict(ms=ms, plain_ms=plain_ms, bound=bnd,
+                          launches=launches, stats=stats)
+        if dtype == "float64":
+            n = check_traceback(scfg, d, c, state, dev, "76 tRNAs, chunk 1")
+            del state
+            scfg2, d2, c2 = cyk_factors(cfg, params,
+                                        reads[SCD.SCAN_BATCH:], dev, False)
+            n += check_traceback(scfg2, d2, c2, DMB.MaxDP(J.kernels(
+                scfg2, dev).dp).tables(d2, c2), dev, "76 tRNAs, chunk 2")
+            out["tb_reads"] = n
+        torch.cuda.empty_cache()
+    return out
+
+
+def max_bounds(cfg, st, c, j, stats, itemsize):
+    """Least ms of K10-K12 at column j (the cells and rows K2-K4 count,
+    K11 reading the log mismatch tables misA/misB and the size classes'
+    log energies per group instead of the exponentials per lambda bucket)
+    and of K13 for the chunk: the walked cells' stored values and their
+    chosen candidates' operands read (three values each) and the outputs
+    written; operations, four per candidate scored up to each choice (the
+    reference's first-strictly-greater order)."""
+    B = c.wsp.shape[-1]
+    q = batch_counts(cfg, st, c, B)
+    work = column_work(cfg, st, c, q, j, itemsize, ())
+    by3, ops3 = work["inside_ep"]
+    if q["have_ep"]:
+        C1 = cfg.Cp + 1
+        by3 += itemsize * (-q["pc"] * 4 - B * (cfg.Wp + 1) * 4
+                           - q["eszg"] + 4 * C1 * (C1 + 1) // 2 + 2)
+    Lp, W1 = cfg.Lp, cfg.Wp + 1
+    by13 = itemsize * 4 * stats["cells"] + B * (4 * Lp + (Lp + 1) * W1 + 4)
+    return {"inside_band_max": _ms(*work["inside_band"]),
+            "inside_ep_max": _ms(by3, ops3),
+            "inside_ext_max": _ms(*work["inside_ext"]),
+            "cyk_traceback": _ms(by13, 4.0 * stats["cands"])}
+
+
+def rss_pairs(rss):
+    """The pair cells (j, w) of a structure string's L/R letters."""
+    stack, cells = [], []
+    for p, ch in enumerate(rss):
+        if ch == "L":
+            stack.append(p)
+        elif ch == "R":
+            i = stack.pop()
+            cells.append((p + 1, p + 1 - i))
+    return cells
+
+
+def path_scores(cfg, params, reads, recs, dev):
+    """For reads whose psihat or rss differs from the golden's: (the
+    port's optimal score, the best score of an alignment with the
+    golden's pairs and node path) from the plain max DP on the card: the
+    CYK tables under the port's Ys/Ye pins, then the same tables with
+    bp_ok the golden's pairs alone and dense aux vetoes that keep, at
+    each base, only emissions of the golden's node there, paired where
+    the golden pairs it and unpaired elsewhere."""
+    scfg, sp = SCD.scan_config(cfg, params, 96)
+    g = J.kernels(scfg, dev).g
+    sd = J.stack_seqdata([J.make_seqdata(scfg, r.seq, r.qual)
+                          for r in reads], dev)
+    L = torch.as_tensor(sd.L, device=dev).long()
+    Ys = torch.tensor([int(m["motif region"].split(" - ")[0])
+                       for m, _ in recs], device=dev)
+    Ye = torch.tensor([int(m["motif region"].split(" - ")[1])
+                       for m, _ in recs], device=dev)
+    pins = CYK.cyk_pins(Ys, Ye, L)
+    bp, _ = J.effective_bp_mask_batch(scfg, sd, dev)
+    mdp = DMB.MaxDP(J.kernels(scfg, dev).dp)
+    S, Lp, W1 = g.S, scfg.Lp, scfg.Wp + 1
+    gbp = torch.zeros((len(reads), Lp + 1, W1), dtype=torch.bool)
+    aux = np.zeros((4, len(reads), Lp, S, S))
+    sr, sl = np.asarray(g.state_r), np.asarray(g.state_l)
+    for t, (_, gold) in enumerate(recs):
+        psi, rss = vecint(gold["psihat"]), gold["rss"]
+        for j_, w_ in rss_pairs(rss):
+            gbp[t, j_, w_] = True
+        for p, node in enumerate(psi):
+            paired = rss[p] in "LR"
+            right = np.where(sr[:, None] == node, 0.0, -np.inf) * np.ones(S)
+            left = np.where(sl[None, :] == node, 0.0, -np.inf) * np.ones((S,
+                                                                         1))
+            aux[0, t, p] = -np.inf if paired else right   # R (target)
+            aux[1, t, p] = -np.inf if paired else left    # L (source)
+            aux[2, t, p] = left if paired else -np.inf    # PL (source)
+            aux[3, t, p] = right if paired else -np.inf   # PR (target)
+    out = []
+    ends = list(g.end_states[1:])
+    for bp_t, extra in ((bp, {}), (gbp.to(dev), {
+            k_: torch.as_tensor(aux[n], dtype=params.lam.dtype, device=dev)
+            for n, k_ in enumerate(DP.AUX)})):
+        d, c = J.batch_factors(scfg, sp, sd, bp_t, device=dev,
+                               aux_b=dict(extra, pin=pins))
+        O = mdp.tables(d, c, plain=True)["O"]
+        out.append([float(O[int(L[t]) + mdp.st.PAD, ends, t].max())
+                    for t in range(len(reads))])
+    return list(zip(*out))
+
+
+def golden_records(reads, text, gold, strict, what):
+    """Every line of a scan against the C++ trna_scan_ref.raw: the
+    posteriors, region, exist prob and mot at test_scan_trained_golden's
+    bars when ``strict``, psihat/rss byte-equal counted.  Returns (ids of
+    the reads whose psihat or rss differs, reads with an isfinite
+    mismatch, largest log error on lines both print finite, [(record,
+    golden)] of the differing reads)."""
+    mine = parse_raw(text)
+    if len(mine) != len(gold):
+        fail("%s: %d records, the golden has %d" % (what, len(mine),
+                                                    len(gold)))
+    diff, n_fin, worst, pairs = [], 0, 0.0, []
+    for r, m, g_ in zip(reads, mine, gold):
+        if m["seq"] != g_["seq"]:
+            fail("%s: read %s is not the golden's" % (what, m["id"]))
         fin_diff = False
         for key in ("start", "end", "inner"):
-            a, b = vec(lines[key]), vec(g[key])
+            a, b = vec(m[key]), vec(g_[key])
             if a.shape != b.shape:
-                fail("scan %s %s: shape %s vs %s" % (r.id, key, a.shape,
-                                                     b.shape))
+                fail("%s %s %s: shape %s vs %s" % (what, m["id"], key,
+                                                   a.shape, b.shape))
             fin_diff |= bool((np.isfinite(a) != np.isfinite(b)).any())
             both = np.isfinite(a) & np.isfinite(b)
             err = np.abs(a[both] - b[both])
             worst = max(worst, float(err.max()) if err.size else 0.0)
             if strict and (fin_diff or (err > 2e-4 + 1e-3 * np.abs(
                     b[both])).any()):
-                fail("scan %s %s: differs from the golden (max %.3g, "
-                     "isfinite differs: %s)" % (r.id, key, float(
-                         err.max()) if err.size else 0.0, fin_diff))
+                fail("%s %s %s: differs from the golden" % (what, m["id"],
+                                                            key))
         n_fin += fin_diff
-        if strict and (lines["motif region"] != g["motif region"] or abs(
-                float(lines["exist prob"]) - float(g["exist prob"])) > 1e-3):
-            fail("scan %s: motif region / exist prob %s %s vs %s %s" % (
-                r.id, lines["motif region"], lines["exist prob"],
-                g["motif region"], g["exist prob"]))
-    return n_fin, worst
+        if strict and (m["motif region"] != g_["motif region"] or abs(
+                float(m["exist prob"]) - float(g_["exist prob"])) > 1e-3
+                or m["mot"] != g_["mot"]):
+            fail("%s %s: motif region / exist prob / mot differ" % (
+                what, m["id"]))
+        if (m["psihat"], m["rss"]) != (g_["psihat"], g_["rss"]):
+            diff.append(m["id"])
+            pairs.append((m, g_))
+    return diff, n_fin, worst, pairs
 
 
-def scan_trna(tmp, dev):
-    """Phase 11: the scanner's posterior half on the 76 tRNAs with the
-    reference's converged model, in the driver's buckets and chunks: f64
-    held against the C++ scan, f32 timed with a stage breakdown (the scan
-    path's launch counts are those of the timed f32 run) and its reads
-    with an isfinite mismatch counted (F4).  Returns the numbers."""
-    fq = os.path.join(tmp, "trna.fq")
-    write_fq(fq, trna_seqs())
-    gold = parse_raw(open(GOLD_TRNA_SCAN).read())
-    out = {}
-    cfg, params = MIO.read_model(GOLD_TRNA, Lp=96, dtype="float64",
-                                 device=dev)
-    t0 = time.perf_counter()
-    reads, res, _, _ = SCD.Scanner(cfg, params, dev).posteriors(fq)
-    torch.cuda.synchronize()
-    out["f64_s"] = time.perf_counter() - t0
-    _, out["f64_err"] = golden_lines(reads, res, gold, strict=True)
-    cfg, params = MIO.read_model(GOLD_TRNA, Lp=96, dtype="float32",
-                                 device=dev)
-    sc = SCD.Scanner(cfg, params, dev)
-    sc.posteriors(fq)                                     # warm-up
+def scan_run(sc, fq, dev, marked):
+    """One Scanner.scan of ``fq``: (records text, total ms, stage ms,
+    chunks, launches); ``marked`` times the stages (the device
+    synchronised around each) and counts the launches of this run."""
     stamps = []
 
     def mark(stage):
         torch.cuda.synchronize()
         stamps.append((stage, time.perf_counter()))
 
+    buf = io.StringIO()
     K.reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    reads, res, _, _ = sc.posteriors(fq, mark)
+    sc.scan(fq, buf, log=io.StringIO(), mark=mark if marked else None)
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
-    out["launches"] = {n: kk.launches for n, kk in K.KERNELS.items()}
+    launches = {n: kk.launches for n, kk in K.KERNELS.items()}
     stages = {}
     for (_, a), (name, b) in zip(stamps, stamps[1:]):
         if name != "begin":
             stages[name] = stages.get(name, 0.0) + 1e3 * (b - a)
     stages["host"] = 1e3 * total - sum(stages.values())
-    out.update(total_ms=1e3 * total, seqs_per_s=len(reads) / total,
-               stages=stages, chunks=sum(1 for n, _ in stamps
-                                         if n == "begin"))
-    out["f4_reads"], out["f32_err"] = golden_lines(reads, res, gold,
-                                                   strict=False)
-    # row K's unit: one scan chunk (the first 64 reads, bucket 96)
+    return (buf.getvalue(), 1e3 * total, stages,
+            sum(1 for n, _ in stamps if n == "begin"), launches)
+
+
+def scan_trna(tmp, dev):
+    """Phase 11: Scanner.scan of the 76 tRNAs with the reference's
+    converged model in the driver's buckets and chunks (posteriors, then
+    the CYK alignment of each chunk): at f64, the scan's default, every
+    line held against the C++ scan (test_scan_trained_golden's bars:
+    posteriors, motif region, exist prob and mot on every read; the reads
+    whose psihat/rss differ counted against its bar of at most 2, each
+    reported with the port's best score and the best score of the
+    golden's pairs and node path, which must be equal: a tie); at f32 its
+    path differences and F4 count printed; each dtype run twice (records
+    equal), the second timed with a stage breakdown and its launches
+    counted; one posterior chunk (row K) timed beside its bound.  Returns
+    the numbers."""
+    fq = os.path.join(tmp, "trna.fq")
+    write_fq(fq, trna_seqs())
+    gold = parse_raw(open(GOLD_TRNA_SCAN).read())
+    reads = list(FastqReader(fq).reads())
+    out = {"fq": fq}
+    for dtype in ("float64", "float32"):
+        cfg, params = MIO.read_model(GOLD_TRNA, Lp=96, dtype=dtype,
+                                     device=dev)
+        sc = SCD.Scanner(cfg, params, dev)
+        text, first_ms, _, _, _ = scan_run(sc, fq, dev, False)
+        text2, total, stages, chunks, launches = scan_run(sc, fq, dev, True)
+        if text2 != text:
+            fail("scan %s: two runs wrote different records" % dtype)
+        strict = dtype == "float64"
+        diff, n_fin, worst, recs = golden_records(reads, text, gold, strict,
+                                                  "scan %s" % dtype)
+        o = dict(total_ms=total, first_ms=first_ms, stages=stages,
+                 chunks=chunks, launches=launches, diff=diff, n_fin=n_fin,
+                 worst=worst, seqs_per_s=len(reads) * 1e3 / total)
+        if strict and diff:
+            byid = {r.id: r for r in reads}
+            o["scores"] = path_scores(cfg, params,
+                                      [byid[m["id"]] for m, _ in recs],
+                                      recs, dev)
+        out[dtype] = o
+        print("scan of the 76 tRNAs (trna_noshuffle_ref.model, Scanner.scan, "
+              "%s%s): %.1f ms (%.1f seqs/s; first run %.1f ms) in %d chunks, "
+              "stages (ms, the device synchronised around each) %s; reads "
+              "whose psihat or rss differs from trna_scan_ref.raw: %d %s%s; "
+              "reads with an isfinite mismatch %d, largest log error on "
+              "lines both print finite %.3g" % (
+                  dtype, ", the default" if strict else "", total,
+                  o["seqs_per_s"], first_ms, chunks,
+                  json.dumps({k_: round(v, 2) for k_, v in stages.items()}),
+                  len(diff), json.dumps(diff),
+                  "" if "scores" not in o else
+                  " (port's best score, best score of the golden's pairs "
+                  "and nodes: %s)" % json.dumps(
+                      [[float("%.12g" % a), float("%.12g" % b)]
+                       for a, b in o["scores"]]),
+                  n_fin, worst), flush=True)
+        if strict:
+            # a differing read is a tie when the golden's alignment scores
+            # the port's optimum: the reference chose among exactly equal
+            # alignments by the rounding of its own sums
+            off = [m["id"] for (m, _), (a, b) in zip(recs, o.get("scores", []))
+                   if not abs(a - b) <= 1e-9 * (1.0 + abs(a))]
+            print("scan f64: psihat/rss byte-equal to trna_scan_ref.raw on "
+                  "%d of %d reads: test_scan_trained_golden's bar (all but "
+                  "at most 2) %s; the golden's pairs and nodes score the "
+                  "port's optimum within 1e-9 relative on %d of the %d "
+                  "differing reads (ties)" % (
+                      len(reads) - len(diff), len(reads),
+                      "met" if len(diff) <= 2 else "NOT met",
+                      len(diff) - len(off), len(diff)), flush=True)
+            if off:
+                fail("scan f64: reads %s differ from the golden and are no "
+                     "ties: the golden's alignment scores other than the "
+                     "port's optimum" % off)
+        del sc
+        torch.cuda.empty_cache()
+    # row K's unit: one posterior chunk (the first 64 reads, bucket 96)
+    cfg, params = MIO.read_model(GOLD_TRNA, Lp=96, dtype="float32",
+                                 device=dev)
     scfg, sparams = SCD.scan_config(cfg, params, 96)
     sd = J.stack_seqdata([J.make_seqdata(scfg, r.seq, r.qual)
                           for r in reads[:SCD.SCAN_BATCH]], dev)
@@ -1387,20 +1725,10 @@ def scan_trna(tmp, dev):
     out["chunk_launches"] = {n: kk.launches for n, kk in K.KERNELS.items()}
     out["chunk_ms"] = cuda_ms(call, 3)
     out["chunk_bound"] = scan_chunk_bound(scfg, sparams, sd, dev, 4)
-    print("scan posteriors, 76 tRNAs (trna_noshuffle_ref.model, buckets of "
-          "32, chunks of %d): f64 %.2f s, start/end/inner/region/exist prob "
-          "lines all within the golden's bars (largest log error %.3g); f32 "
-          "%.1f ms (%.1f seqs/s) in %d chunks, stages (ms, the device "
-          "synchronised around each) %s; f32 reads with an isfinite mismatch "
-          "against the golden (F4): %d of %d (largest log error on lines both "
-          "print finite %.3g); one chunk (64 reads x bucket 96, f32) %.2f ms, "
+    print("row K: one posterior chunk (64 reads x bucket 96, f32) %.2f ms, "
           "launches %s, bound %.4f ms by %s" % (
-              SCD.SCAN_BATCH, out["f64_s"], out["f64_err"], out["total_ms"],
-              out["seqs_per_s"], out["chunks"], json.dumps(
-                  {k_: round(v, 2) for k_, v in stages.items()}),
-              out["f4_reads"], len(reads), out["f32_err"], out["chunk_ms"],
-              json.dumps(out["chunk_launches"]), out["chunk_bound"][0],
-              out["chunk_bound"][1]), flush=True)
+              out["chunk_ms"], json.dumps(out["chunk_launches"]),
+              out["chunk_bound"][0], out["chunk_bound"][1]), flush=True)
     return out
 
 
@@ -1478,8 +1806,8 @@ def main():
                     help="write the torch.profiler kernel table of one "
                          "main-path batch_fn_grad to this file")
     args = ap.parse_args()
-    global np, torch, ET, J, DP, K, LIN, MIO, OBJ, TRN, CLI, SC, SCD
-    global seq_to_ints, ints_to_seq
+    global np, torch, ET, J, DP, DMB, K, LIN, MIO, OBJ, TRN, CLI, SC, SCD
+    global CYK, seq_to_ints, ints_to_seq, FastqReader
     try:
         import numpy as np
         import torch
@@ -1491,11 +1819,14 @@ def main():
         from rnaelem_tpu_torch import cli as CLI
         from rnaelem_tpu_torch.alphabet import ints_to_seq, seq_to_ints
         from rnaelem_tpu_torch.energy import tables as ET
+        from rnaelem_tpu_torch.io.fastq import FastqReader
         from rnaelem_tpu_torch.model import io as MIO
         from rnaelem_tpu_torch.model import joint as J
         from rnaelem_tpu_torch.ops import dp as DP
+        from rnaelem_tpu_torch.ops import dp_maxb as DMB
         from rnaelem_tpu_torch.ops import kernels as K
         from rnaelem_tpu_torch.ops import linear as LIN
+        from rnaelem_tpu_torch.scan import cyk as CYK
         from rnaelem_tpu_torch.scan import driver as SCD
         from rnaelem_tpu_torch.scan import scanner as SC
         from rnaelem_tpu_torch.train import objective as OBJ
@@ -1585,6 +1916,25 @@ def main():
     print("check pinned stages and class sums (row K) f32 B=%d x %d nt, "
           "column %d, 1e-4 relative: %s" % (B_SCAN, LP, j0, msg), flush=True)
     del b64
+
+    # ---- phase 2c: rows L and M, the CYK tables (K10-K12) under the pin
+    # set against the plain max DP, and the traceback K13 against the host
+    e_max64, cfg_m, dm, cm, tabs_m = check_max_tables(cfg64, small, p64,
+                                                      dev, 1e-12)
+    n_tb = check_traceback(cfg_m, dm, cm, tabs_m, dev, "B=16 random weights")
+    del tabs_m, dm, cm
+    e_max32, *_ = check_max_tables(cfg32, reads[:B_SCAN], p32, dev, 1e-4)
+    err.update(e_max32)
+    err["cyk_traceback"] = 0.0
+    print("check CYK tables (rows L, M; K10-K12) under the pin set (Ys, Ye, "
+          "tail; a read with Ye == L, one with Ys == Ye) vs the plain max DP, "
+          "column %d stages and whole tables, -inf placement identical, two "
+          "runs bitwise equal: f64 B=%d max abs err %s (<= 1e-12); f32 B=%d x "
+          "%d nt %s (<= 1e-4); K13 vs the host traceback on the f64 tables: "
+          "%d reads' psihat and pair sets identical" % (
+              J0, len(small), json.dumps(e_max64), B_SCAN, LP,
+              json.dumps(e_max32), n_tb), flush=True)
+    torch.cuda.empty_cache()
 
     # ---- phases 3-4: full gradient and masks, small batch
     check_full_gradient(cfg64, cfg32, small, dev)
@@ -1735,7 +2085,7 @@ def main():
         lambda: OBJ.batch_fn_grad(cfg32, p32, batch, device=dev), 2)
     wall_us, busy_us = wall_us / 2, busy_us / 2
     fg_dev = {n: sum(per.get(f, 0.0) for f in fn_) / 1e3
-              for n, fn_ in funcs.items()}
+              for n, fn_ in funcs.items() if n not in CYK_KERNELS}
     print("profile: batch_fn_grad %.1f ms wall (profiler on, mean of 2), "
           "device busy %.1f ms (%.1f%%); device ms per fn+grad by kernel %s"
           % (wall_us / 1e3, busy_us / 1e3, 100.0 * busy_us / wall_us,
@@ -1746,7 +2096,8 @@ def main():
           "2), device busy %.1f ms (%.1f%%); device ms by kernel %s"
           % (wall_m / 2e3, busy_m / 2e3, 100.0 * busy_m / wall_m,
              json.dumps({n: sum(per_m.get(f, 0.0) for f in fn_) / 1e3
-                         for n, fn_ in funcs.items()})), flush=True)
+                         for n, fn_ in funcs.items()
+                         if n not in CYK_KERNELS})), flush=True)
     if args.profile:
         os.makedirs(os.path.dirname(os.path.abspath(args.profile)),
                     exist_ok=True)
@@ -1766,12 +2117,30 @@ def main():
         # ---- phase 9: the C++ goldens on the card
         golden_trna_eval(tmp, dev)
         golden_small8_train(tmp, dev)
-        # ---- phases 11-12: the scan path (this slice's main path)
+        # ---- phases 11-12: the scan path (this slice's main path: the
+        # structure-model scan at f64, its default)
         scan = scan_trna(tmp, dev)
         scan_nr = scan_norss(tmp, dev)
-        for n in DP_KERNELS:
-            if scan["launches"][n] <= 0:
+        for n in SCAN_KERNELS:
+            if scan["float64"]["launches"][n] <= 0:
                 fail("kernel %s was not launched on the scan path" % n)
+        # ---- phase 5 (rows L, M): per-column and per-chunk times
+        cyk = cyk_times(scan["fq"], dev)
+        for dtype in ("float64", "float32"):
+            ct_ = cyk[dtype]
+            print("CYK kernels on a 64-read tRNA scan chunk (bucket 96), %s: "
+                  "device ms per column %d (K10-K12) and per chunk (K13) %s, "
+                  "launches %s; plain %s (K13's: the host traceback, wall "
+                  "ms); bounds %s; K13 walked %d cells, %d candidates up to "
+                  "the choices" % (
+                      dtype, J0, json.dumps(ct_["ms"]),
+                      json.dumps(ct_["launches"]),
+                      json.dumps(ct_["plain_ms"]), json.dumps(ct_["bound"]),
+                      ct_["stats"]["cells"], ct_["stats"]["cands"]),
+                  flush=True)
+        print("K13 vs the host traceback on the 76 tRNAs (f64 tables): %d "
+              "reads' psihat and pair sets identical" % cyk["tb_reads"],
+              flush=True)
         for n in CHAIN_KERNELS:
             if scan_nr[n] <= 0:
                 fail("kernel %s was not launched on the no-rss scan" % n)
@@ -1790,13 +2159,23 @@ def main():
     # "launches_fn_grad" and "ms_fn_grad" (device time) one batch_fn_grad
     bnd = bounds(cfg32, st, c32, k32.tab, j0, B_MAIN, 4)
     bnd.update(chain_bounds(lin, Lc.cpu().numpy(), LP, 4))
+    c64 = cyk["float64"]
+    bnd.update(c64["bound"])
+    ms.update(c64["ms"])
+    plain_ms.update(c64["plain_ms"])
+    for name in CYK_KERNELS:
+        unit[name] = ("one 64-read tRNA scan chunk, f64" if
+                      name == "cyk_traceback" else
+                      "column %d of a 64-read tRNA scan chunk, f64" % J0,
+                      c64["launches"][name])
+        fg_dev[name] = None
     rows = []
     for name, kern in K.KERNELS.items():
         bms, by = bnd[name]
         u, n_unit = unit[name]
         chain = name in CHAIN_KERNELS
         launches = (step_nr if chain else step)["launches"]
-        n_scan = (scan_nr if chain else scan["launches"])[name]
+        n_scan = (scan_nr if chain else scan["float64"]["launches"])[name]
         rows.append({
             "name": name, "route": "cuda", "source": kern.source,
             "replaces": kern.replaces, "launches": n_scan,
@@ -1811,7 +2190,7 @@ def main():
         print("kernel %s: %.4f ms per %s of %d launches (plain %.3f ms, "
               "bound %.4f ms by %s; with the pin %s ms); %d launches on the "
               "scan path, %d in the production step, %d on the evaluation "
-              "path, %d per fn+grad (%.3f ms of device time)" % (
+              "path, %d per fn+grad (%s ms of device time)" % (
                   name, ms[name], u, n_unit, plain_ms[name], bms, by,
                   ms_pin.get(name), n_scan, launches[name],
                   eval_launches[name], per_fg[name], fg_dev[name]),

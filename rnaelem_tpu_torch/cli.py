@@ -2,21 +2,27 @@
 
 Modes of the rnaelem binary (application.hpp:76-301, main.cpp:20-163):
 
+* ``normal`` (the default): ``train``, then ``scan`` the same FASTQ file
+  with the trained model, the records to --out2 (JAX cli.py do_train
+  with also_scan);
 * ``train``: learn a motif model from a FASTQ file (Adam over minibatches
   with k-let shuffled negatives, or L-BFGS-B over the whole file with
   --no-shuffle); the model goes to --out1, interim snapshots to --out3;
 * ``eval``: the objective's value over a FASTQ file (motif_eval.hpp:23-54,
   no shuffle) to --out1 as ``fn: %.17g`` and its gradient, in the
   reference's parameter order, to --out2 as ``gr: [...]``;
-* ``scan``: scan a FASTQ file with a --no-rss model (-q): the 10-line
-  record of every read (motif start/end/inner posteriors, Viterbi motif
-  path, region, exist prob) to --out1 and the E[N] line to stderr
-  (motif_scanner.hpp); a structure model needs CYK, not ported yet;
+* ``scan``: scan a FASTQ file with a model (-q): the 10-line record of
+  every read (motif start/end/inner posteriors, the Viterbi motif path
+  psihat and structure rss, region, exist prob) to --out1 and the E[N]
+  line to stderr (motif_scanner.hpp);
 * ``gen-neg``: the shuffled negatives the trainer draws, -i iterations
   of the whole file, as FASTA to --out1.
 
 Models are read with Lp rounded up from the file's longest read.  Work
-runs on CUDA unless --device says otherwise.
+runs on CUDA unless --device says otherwise.  Training and evaluation
+default to float32 on CUDA; scanning (``scan`` and the scan half of
+``normal``) defaults to float64 everywhere: the reference scans in
+double, and at float32 the posterior lines below about e^-87 miss it.
 """
 from __future__ import annotations
 
@@ -25,9 +31,7 @@ import sys
 
 import numpy as np
 
-LATER = ("the default mode 'normal' (train, then scan) and scanning "
-         "structure models wait for the CYK slice; --array, --mesh and "
-         "'array-eval' wait for the multi-GPU port")
+LATER = "--array, --mesh and 'array-eval' wait for the multi-GPU port"
 
 
 def _round_up(n, m=16):
@@ -60,7 +64,8 @@ def build_parser():
         prog="rnaelem-torch",
         description="RNA sequence-structure motif learning (PyTorch/CUDA). "
                     "Not ported yet: " + LATER + ".")
-    p.add_argument("mode", choices=["train", "eval", "scan", "gen-neg"])
+    p.add_argument("mode", nargs="?", default="normal",
+                   choices=["normal", "train", "eval", "scan", "gen-neg"])
     p.add_argument("-f", "--fastq", dest="seq_fname", required=True)
     p.add_argument("-m", "--motif-pattern", dest="pattern",
                    default="~NONE~")
@@ -93,7 +98,10 @@ def build_parser():
                    help="reads per minibatch (train: default 100, -1 the "
                         "whole file; eval: default 0, the whole file)")
     p.add_argument("--dtype", default=None,
-                   help="float32 (CUDA default) or float64 (CPU default)")
+                   help="float32 or float64; train and eval default to "
+                        "float32 on CUDA and float64 on the CPU, scan to "
+                        "float64 (at float32 its posterior lines below about "
+                        "e^-87 miss the reference's)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
     return p
@@ -101,6 +109,10 @@ def build_parser():
 
 def _dtype(args):
     return args.dtype or ("float64" if args.device == "cpu" else "float32")
+
+
+def _scan_dtype(args):
+    return args.dtype or "float64"
 
 
 def _build_cfg(args, Lp):
@@ -149,7 +161,7 @@ def _parse_param_set(s):
     return out or None
 
 
-def do_train(args):
+def do_train(args, also_scan=False):
     from .model import io as MIO
     from .train.trainer import Trainer
     Lp = _round_up(_fq_maxlen(args.seq_fname))
@@ -176,6 +188,14 @@ def do_train(args):
     out1 = _out_stream(args.out1)
     MIO.write_model(out1, cfg, params)
     _close(out1)
+    if also_scan:
+        import dataclasses
+        from . import device as DEV
+        from .model import joint as J
+        dt = _scan_dtype(args)
+        params = J.Params(*[x.detach().to(DEV.torch_dtype(dt))
+                            for x in params])
+        _scan_to(args.out2, dataclasses.replace(cfg, dtype=dt), params, args)
 
 
 def do_eval(args):
@@ -196,20 +216,23 @@ def do_eval(args):
         _close(o)
 
 
-def do_scan(args):
-    from .model import io as MIO
-    from .scan.driver import Scanner, check_scannable
-    if args.model_fname == "~NONE~":
-        raise SystemExit("require sequence and model filenames")
-    Lp = _round_up(_fq_maxlen(args.seq_fname))
-    cfg, params = MIO.read_model(args.model_fname, Lp=Lp, dtype=_dtype(args),
-                                 device=args.device)
-    check_scannable(cfg)
-    out = _out_stream(args.out1)
+def _scan_to(name, cfg, params, args):
+    from .scan.driver import Scanner
+    out = _out_stream(name)
     try:
         Scanner(cfg, params, args.device).scan(args.seq_fname, out)
     finally:
         _close(out)
+
+
+def do_scan(args):
+    from .model import io as MIO
+    if args.model_fname == "~NONE~":
+        raise SystemExit("require sequence and model filenames")
+    Lp = _round_up(_fq_maxlen(args.seq_fname))
+    cfg, params = MIO.read_model(args.model_fname, Lp=Lp,
+                                 dtype=_scan_dtype(args), device=args.device)
+    _scan_to(args.out1, cfg, params, args)
 
 
 def do_genneg(args):
@@ -228,6 +251,9 @@ def do_genneg(args):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    if args.mode == "normal":
+        do_train(args, also_scan=True)
+        return
     {"train": do_train, "eval": do_eval, "scan": do_scan,
      "gen-neg": do_genneg}[args.mode](args)
 

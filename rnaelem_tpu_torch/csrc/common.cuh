@@ -22,37 +22,60 @@ struct DPDims {
   int n_pt;  // pair transitions (t, s) of the grammar (outside kernels)
 };
 
-// The scanner's aux transition factors (scan/scanner.py, ops/dp.py), as
-// the kernels take them: never dense [Lp, S, S, B] factors, but a per-read
-// pin and the class sums of the transition posteriors.  Emission kinds:
-// R (right-chain transitions, base j-1), L (M chain, base j-w), PL and PR
-// (pair edges, bases j-w and j-1).  code[(kind * S + t) * S + s] holds the
-// class bits of transition t <- s: 1 start, 2 in, 4 end, 8 tail.  At the
-// pinned base of a read only the transitions with pin_bit survive (the
-// end pass's -inf vetoes).  The adjoint kernels add each transition's
-// posterior into the class partials of its base: cpR [4, Wp+1, S, B] for
-// base j-1 (slot w of the source state's thread, slot 0 the O chain's),
-// cpL [4, Wp+1, S, B] for base j-w; the column's last K5 function sums
-// them.  For the no-rss chain cpR is the class sums [4, Lp, B] themselves.
+// The scanner's aux transition factors (scan/scanner.py, scan/cyk.py,
+// ops/dp.py), as the kernels take them: never dense [Lp, S, S, B] factors,
+// but a per-read pin set and the class sums of the transition posteriors.
+// Emission kinds: R (right-chain transitions, base j-1), L (M chain, base
+// j-w), PL and PR (pair edges, bases j-w and j-1).  code[(kind * S + t) *
+// S + s] holds the class bits of transition t <- s: 1 start, 2 in, 4 end,
+// 8 tail.  A pin set holds up to kMaxPins entries (the end pass: one, the
+// start at Ys; CYK: the start at Ys, the end at Ye and the tail at L-1
+// when Ye == L); entry k pins base pin[k][b] of read b (-1: none) for the
+// kinds in its mask pin_kinds[k] (bit kind), where only the transitions
+// whose class has pin_bit[k] survive.  The vetoes add up: at a base that
+// several entries pin, a transition must carry every pinned bit.  Entries
+// are filled from 0; pin[0] == null means no pin.  The adjoint kernels
+// add each transition's posterior into the class partials of its base:
+// cpR [4, Wp+1, S, B] for base j-1 (slot w of the source state's thread,
+// slot 0 the O chain's), cpL [4, Wp+1, S, B] for base j-w; the column's
+// last K5 function sums them.  For the no-rss chain cpR is the class sums
+// [4, Lp, B] themselves.
 enum { kAuxR = 0, kAuxL = 1, kAuxPL = 2, kAuxPR = 3 };
+#define kMaxPins 3
 
 struct Aux {
-  const int* code;  // [4, S, S]
-  const int* pin;   // [B] pinned base of each read (-1: none), or null
-  int pin_bit;      // the class bit that survives at the pinned base
-  void* cpR;        // class partials (scalar type), or null
+  const int* code;              // [4, S, S]
+  const int* pin[kMaxPins];     // [B] pinned base of each read (-1: none)
+  int pin_bit[kMaxPins];        // the class bit that survives there
+  int pin_kinds[kMaxPins];      // bit k: the entry vetoes kind k
+  void* cpR;                    // class partials (scalar type), or null
   void* cpL;
 };
 
-// is base p of read b pinned?
-__device__ __forceinline__ bool pinned(const Aux& a, int b, int p) {
-  return a.pin != nullptr && a.pin[b] == p;
+__host__ __device__ __forceinline__ bool has_pin(const Aux& a) {
+  return a.pin[0] != nullptr;
 }
 
-// does a pin at this base veto transition t <- s of the kind?
-__device__ __forceinline__ bool vetoed(const Aux& a, bool pin, int kind,
+// the class bits a transition of the kind emitting base p of read b must
+// carry (0: the base is not pinned for the kind); the walk stops at the
+// first empty entry, so an unpinned launch pays one test
+__device__ __forceinline__ int pin_req(const Aux& a, int b, int p,
+                                       int kind) {
+  int req = 0;
+#pragma unroll
+  for (int k = 0; k < kMaxPins; ++k) {
+    if (a.pin[k] == nullptr) break;
+    if (((a.pin_kinds[k] >> kind) & 1) && a.pin[k][b] == p)
+      req |= a.pin_bit[k];
+  }
+  return req;
+}
+
+// does a pin requiring the class bits ``req`` veto transition t <- s of
+// the kind?
+__device__ __forceinline__ bool vetoed(const Aux& a, int req, int kind,
                                        int t, int s, int S) {
-  return pin && !(a.code[(kind * S + t) * S + s] & a.pin_bit);
+  return req != 0 && (a.code[(kind * S + t) * S + s] & req) != req;
 }
 
 template <typename T>
@@ -103,6 +126,32 @@ struct LSE {
   __device__ __forceinline__ T result() const {
     return s > (T)0 ? m + lg(s) : ninf<T>();
   }
+};
+
+// Running max, the max semiring's accumulator (the interface of LSE).
+template <typename T>
+struct MaxAcc {
+  T m;
+  __device__ __forceinline__ MaxAcc() : m(ninf<T>()) {}
+  __device__ __forceinline__ void add(T x) {
+    if (x > m) m = x;
+  }
+  __device__ __forceinline__ T result() const { return m; }
+};
+
+// Semiring policies of the forward column kernels: SumSR for the inside
+// DP (K2-K4, log-sum-exp), MaxSR for the CYK tables (K10-K12, max).
+// Acc accumulates a sum of log terms, plus() adds two.
+template <typename T>
+struct SumSR {
+  using Acc = LSE<T>;
+  __device__ __forceinline__ static T plus(T a, T b) { return logadd(a, b); }
+};
+
+template <typename T>
+struct MaxSR {
+  using Acc = MaxAcc<T>;
+  __device__ __forceinline__ static T plus(T a, T b) { return a > b ? a : b; }
 };
 
 // log(s) + shift for an exp-space sum; zero sums give -inf

@@ -42,7 +42,7 @@ __global__ void chain_adj_kernel(ChainDims D, ChainIdx ix, Aux ax, const T* eR,
     if (s < S) {
       g_eR[((long long)p * S + s) * B + b] = g[s];
       const T os = Osave[((long long)p * S + s) * B + b];
-      const bool pin = kAux && pinned(ax, b, p);
+      const int pin = kAux ? pin_req(ax, b, p, kAuxR) : 0;
       if (os > ninf<T>()) {
         for (int k = ix.rtr_off[s]; k < ix.rtr_off[s + 1]; ++k) {
           const int t = ix.rtr_t[k];
@@ -74,7 +74,7 @@ template <typename T>
 static int chain_adj(ChainDims D, ChainIdx ix, Aux ax, const T* eR,
                      const long long* L, const T* Osave, const T* gparts,
                      T* g_eR, cudaStream_t st) {
-  const bool aux = ax.pin || ax.cpR;
+  const bool aux = has_pin(ax) || ax.cpR;
   auto kern = aux ? chain_adj_kernel<T, true> : chain_adj_kernel<T, false>;
   kern<<<D.B, chain_threads(D.S), (aux ? 5 : 1) * D.S * sizeof(T), st>>>(
       D, ix, ax, eR, L, Osave, gparts, g_eR);

@@ -25,7 +25,7 @@ __global__ void chain_fwd_kernel(ChainDims D, ChainIdx ix, Aux ax, const T* eR,
     T nxt = ninf<T>();
     if (t < S) {
       const T e = eR[((long long)p * S + t) * B + b];
-      const bool pin = kPin && pinned(ax, b, p);
+      const int pin = kPin ? pin_req(ax, b, p, kAuxR) : 0;
       T m = ninf<T>();
       for (int k = ix.rt_off[t]; k < ix.rt_off[t + 1]; ++k) {
         if (vetoed(ax, pin, kAuxR, t, ix.rt_s[k], S)) continue;
@@ -55,7 +55,8 @@ template <typename T>
 static int chain_fwd(ChainDims D, ChainIdx ix, Aux ax, const T* eR,
                      const long long* L, T* Osave, T* parts,
                      cudaStream_t st) {
-  auto kern = ax.pin ? chain_fwd_kernel<T, true> : chain_fwd_kernel<T, false>;
+  auto kern = has_pin(ax) ? chain_fwd_kernel<T, true>
+                          : chain_fwd_kernel<T, false>;
   kern<<<D.B, chain_threads(D.S), D.S * sizeof(T), st>>>(D, ix, ax, eR, L,
                                                          Osave, parts);
   return static_cast<int>(cudaGetLastError());

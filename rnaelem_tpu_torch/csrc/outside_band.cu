@@ -130,7 +130,7 @@ __global__ void m_adj_kernel(DPDims D, AdjIdx ix, Aux ax, const T* M,
       if (w >= 1) {
         const T y = M[TIDX(r, w - 1, t, b)] + eL[((long long)iw * S + t) * B + b]
                     + gate_M[(long long)iw * B + b];
-        const bool pinL = pinned(ax, b, iw);
+        const int pinL = pin_req(ax, b, iw, kAuxL);
         if (y > ninf<T>())
           for (int k = ix.ltr_off[t]; k < ix.ltr_off[t + 1]; ++k) {
             const int tt = ix.ltr_t[k];
@@ -236,7 +236,8 @@ __global__ void front_adj_t_kernel(DPDims D, AdjIdx ix, Aux ax, const T* LL,
   const T eRt = eR[((long long)(j - 1) * S + t) * B + b];
   const T gate = gate_O2[(long long)(j - 1) * B + b];
   const T Pv = P[TIDX(r, w, t, b)];
-  const bool pinR = pinned(ax, b, j - 1);
+  const int pinR = pin_req(ax, b, j - 1, kAuxR);
+  const int pinPR = pin_req(ax, b, j - 1, kAuxPR);
   T epart = (T)0;
   // T2 = logadd(chain, P + ml2)
   const T g2 = gT2[TIDX(r, w, t, b)], T2v = T2[TIDX(r, w, t, b)];
@@ -261,12 +262,12 @@ __global__ void front_adj_t_kernel(DPDims D, AdjIdx ix, Aux ax, const T* LL,
     const T bgsum = bg2[(long long)iw * B + b] + bg2[(long long)(j - 1) * B + b];
     const T wl = wsp[(long long)iw * B + b], wr = wsp[(long long)(j - 1) * B + b];
     const T* pvw = pv + ((long long)j * W1 + w) * D.Tp * B + b;
-    const bool pinL = pinned(ax, b, iw);
+    const int pinPL = pin_req(ax, b, iw, kAuxPL);
     LSE<T> app;
     for (int s = 0; s < S; ++s) {
       const int code = ix.pt_code[t * S + s];
-      if (code == -1 || vetoed(ax, pinL, kAuxPL, t, s, S) ||
-          vetoed(ax, pinR, kAuxPR, t, s, S))
+      if (code == -1 || vetoed(ax, pinPL, kAuxPL, t, s, S) ||
+          vetoed(ax, pinPR, kAuxPR, t, s, S))
         continue;
       app.add(pem_of(D, ix, code, t, s, bgsum, wl, wr, pvw) +
               P[TIDX(r - 1, w - 2, s, b)]);
@@ -286,12 +287,12 @@ __device__ __forceinline__ void front_adj_s_pair(
     const DPDims& D, const AdjIdx& ix, const Aux& ax, const T* P, const T* E,
     const T* bg2, const T* pv, const T* alphaP, const T* wsp, const T* lam,
     const T* stk, const T* gP_r, T* gP, T* gE, int w, int s, int b,
-    bool pinR, T clsR[4], T clsL[4]) {
+    int pinPR, T clsR[4], T clsL[4]) {
   const int S = D.S, B = D.B, W1 = D.Wp + 1, Lp = D.Lp, j = D.j;
   const int r = j + D.PAD;
   const long long cell = ((long long)j * W1 + w) * B + b;
   const int iw = clip_row(j - w, Lp);
-  const bool pinL = pinned(ax, b, iw);
+  const int pinPL = pin_req(ax, b, iw, kAuxPL);
   const T bgsum = bg2[(long long)iw * B + b] + bg2[(long long)(j - 1) * B + b];
   const T wl = wsp[(long long)iw * B + b], wr = wsp[(long long)(j - 1) * B + b];
   const T* pvw = pv + ((long long)j * W1 + w) * D.Tp * B + b;
@@ -300,8 +301,8 @@ __device__ __forceinline__ void front_adj_s_pair(
   T ge = (T)0, gp = (T)0;
   for (int t = 0; t < S; ++t) {
     const int code = ix.pt_code[t * S + s];
-    if (code == -1 || vetoed(ax, pinL, kAuxPL, t, s, S) ||
-        vetoed(ax, pinR, kAuxPR, t, s, S))
+    if (code == -1 || vetoed(ax, pinPL, kAuxPL, t, s, S) ||
+        vetoed(ax, pinPR, kAuxPR, t, s, S))
       continue;
     const T Pt = P[TIDX(r, w, t, b)], g = gP_r[TIDX(r, w, t, b)];
     if (g == (T)0 || !(Pt > ninf<T>())) continue;
@@ -340,7 +341,8 @@ __global__ void front_adj_s_kernel(DPDims D, AdjIdx ix, Aux ax, const T* LL,
   const T gate = gate_O2[(long long)(j - 1) * B + b];
   const T xl = LL[TIDX(r - 1, w - 1, s, b)];
   const T x2 = T2[TIDX(r - 1, w - 1, s, b)];
-  const bool pinR = pinned(ax, b, j - 1);
+  const int pinR = pin_req(ax, b, j - 1, kAuxR);
+  const int pinPR = pin_req(ax, b, j - 1, kAuxPR);
   // class partials: R and PR at base j-1, PL at base j-w
   T clsR[4] = {0, 0, 0, 0}, clsL[4] = {0, 0, 0, 0};
   T al = (T)0, a2 = (T)0;
@@ -358,7 +360,7 @@ __global__ void front_adj_s_kernel(DPDims D, AdjIdx ix, Aux ax, const T* LL,
   gLL[TIDX(r - 1, w - 1, s, b)] += al;
   gT2[TIDX(r - 1, w - 1, s, b)] += a2;
   if (w >= 2) front_adj_s_pair(D, ix, ax, P, E, bg2, pv, alphaP, wsp, lam,
-                               stk, gP_r, gP, gE, w, s, b, pinR, clsR, clsL);
+                               stk, gP_r, gP, gE, w, s, b, pinPR, clsR, clsL);
   if (ax.cpR) {
     T* cpR = static_cast<T*>(ax.cpR);
     T* cpL = static_cast<T*>(ax.cpL);
@@ -393,11 +395,12 @@ __global__ void front_adj_wb_kernel(DPDims D, AdjIdx ix, Aux ax, const T* P,
     const T* pvw = pv + ((long long)j * W1 + w) * D.Tp * B + b;
     T* gpvw = gpv + ((long long)j * W1 + w) * D.Tp * B + b;
     const T ap = alphaP[cell];
-    const bool pinL = pinned(ax, b, iw), pinR = pinned(ax, b, j - 1);
+    const int pinPL = pin_req(ax, b, iw, kAuxPL);
+    const int pinPR = pin_req(ax, b, j - 1, kAuxPR);
     for (int k = 0; k < D.n_pt; ++k) {
       const int t = ix.ptl_t[k], s = ix.ptl_s[k];
-      if (vetoed(ax, pinL, kAuxPL, t, s, S) ||
-          vetoed(ax, pinR, kAuxPR, t, s, S))
+      if (vetoed(ax, pinPL, kAuxPL, t, s, S) ||
+          vetoed(ax, pinPR, kAuxPR, t, s, S))
         continue;
       const int code = ix.pt_code[t * S + s];
       const T Pt = P[TIDX(r, w, t, b)], g = gP[TIDX(r, w, t, b)];

@@ -40,7 +40,7 @@ __global__ void ext_adj_kernel(DPDims D, AdjIdx ix, Aux ax, const T* O,
   const T gate = gate_O2[(long long)(j - 1) * B + b];
   if (w == 0) {
     // eR[j-1][s]: the O chain of target s
-    const bool pinR = pinned(ax, b, j - 1);
+    const int pinR = pin_req(ax, b, j - 1, kAuxR);
     LSE<T> oo;
     for (int k = ix.rt_off[s]; k < ix.rt_off[s + 1]; ++k) {
       if (vetoed(ax, pinR, kAuxR, s, ix.rt_s[k], S)) continue;
@@ -102,7 +102,7 @@ __global__ void ext_adj_chain_kernel(DPDims D, AdjIdx ix, Aux ax,
   const T ov = O[((long long)(r - 1) * S + s) * B + b];
   if (!(ov > ninf<T>())) return;
   const T gate = gate_O2[(long long)(j - 1) * B + b];
-  const bool pinR = pinned(ax, b, j - 1);
+  const int pinR = pin_req(ax, b, j - 1, kAuxR);
   T acc = (T)0, cls[4] = {0, 0, 0, 0};
   for (int k = ix.rtr_off[s]; k < ix.rtr_off[s + 1]; ++k) {
     const int t = ix.rtr_t[k];

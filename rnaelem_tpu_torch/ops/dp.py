@@ -88,11 +88,27 @@ class DiffFactors(NamedTuple):
     #                                       zeros (the kernels require it)
 
 
+KINDS_ALL = 15          # bit k: aux kind k, in AUX order (R, L, PL, PR)
+KINDS_RIGHT = 1 | 8    # R and PR, the kinds that emit base j-1
+MAX_PINS = 3
+
+
 class Pin(NamedTuple):
-    """The scanner's end-pass veto: at base pos[b] of read b only the
-    transitions whose class has ``bit`` survive (JAX aux_end)."""
+    """One entry of the scanner's pin set: at base pos[b] of read b only
+    the transitions of the entry's kinds whose class has ``bit`` survive
+    (JAX aux_end, scan/cyk.py _pin_aux).  ConstFactors.pin holds one Pin
+    (the end pass) or a tuple of up to MAX_PINS (CYK: start, end, tail);
+    their vetoes add up."""
     pos: torch.Tensor     # [B] int32 base per read, -1 for none
     bit: int
+    kinds: int = KINDS_ALL
+
+
+def pin_set(pin) -> tuple:
+    """The entries of a ConstFactors.pin: None, one Pin or a tuple."""
+    if pin is None:
+        return ()
+    return (pin,) if isinstance(pin, Pin) else tuple(pin)
 
 
 class ConstFactors(NamedTuple):
@@ -461,14 +477,16 @@ def windows_of(tabs, j: int, st, keys=("L", "P", "T1", "E", "T2", "O")):
 
 def col_rows(d: DiffFactors, h, j: int, st):
     """The row slices of the differentiable inputs that column j reads
-    (JAX ``col_rows``); emisB holds rows j-Cp..j in ascending order."""
+    (JAX ``col_rows``); emisB holds rows j-Cp..j in ascending order.  The
+    max DP (ops/dp_maxb.py) passes no hoisted tensors (h None)."""
     Lp, Wp, Cp, PAD = st.dims.Lp, st.dims.Wp, st.dims.Cp, st.PAD
     iw = torch.clamp(j - torch.arange(Wp + 1, device=st.device), 0, Lp - 1)
     r = j + PAD
     rows = dict(lam=d.lam, eR=d.eR[j - 1], eL=d.eL[iw], bgl=d.bg2[iw],
-                bgr=d.bg2[j - 1], pv=d.pv[j], alphaP=d.alphaP[j],
-                emisA=h["emisA"][:, :, j],
-                emisB=h["emisB"][:, r - Cp: r + 1], eSZ=h["eSZ"])
+                bgr=d.bg2[j - 1], pv=d.pv[j], alphaP=d.alphaP[j])
+    if h is not None:
+        rows.update(emisA=h["emisA"][:, :, j],
+                    emisB=h["emisB"][:, r - Cp: r + 1], eSZ=h["eSZ"])
     # aux rows as JAX aux_row reads them: R, PR at base j-1; L, PL at
     # bases clip(j - w)
     for k in AUX:
@@ -484,9 +502,9 @@ def aux_of(rows, c, j, st, kinds=("R", "L", "PL", "PR")):
     """{kind: aux log factors} of the ``kinds`` column j reads — R and PR
     [S, S, B] at base j-1, L and PL [Wp+1, S, S, B] at bases clip(j - w) —
     from the dense rows, the class probe (class c of a kind adds
-    cls[c] on its transitions) and the pin; None without aux."""
-    if not (c.pin is not None or "clsR" in rows
-            or any(k in rows for k in AUX)):
+    cls[c] on its transitions) and the pin set; None without aux."""
+    pins = pin_set(c.pin)
+    if not (pins or "clsR" in rows or any(k in rows for k in AUX)):
         return None
     Lp, Wp, S = st.dims.Lp, st.dims.Wp, st.dims.S
     iw = torch.clamp(j - torch.arange(Wp + 1, device=st.device), 0, Lp - 1)
@@ -504,10 +522,12 @@ def aux_of(rows, c, j, st, kinds=("R", "L", "PL", "PR")):
             m = st.cls_mask[kind]                    # [class, S, S]
             a = a + (torch.einsum("cb,cts->tsb", rows["clsR"], m) if right
                      else torch.einsum("cwb,cts->wtsb", rows["clsL"], m))
-        if c.pin is not None:
-            pos = c.pin.pos.long()
+        for p in pins:
+            if not (p.kinds >> kind) & 1:
+                continue
+            pos = p.pos.long()
             hit = pos == (j - 1) if right else pos[None, :] == iw[:, None]
-            deny = (st.cls_code[kind] & c.pin.bit) == 0          # [S, S]
+            deny = (st.cls_code[kind] & p.bit) == 0              # [S, S]
             veto = deny[..., None] & hit[..., None, None, :]
             a = a + torch.where(veto, NEG, 0.0).to(st.dtype)
         out[key[3:]] = a

@@ -30,13 +30,14 @@ from pathlib import Path
 
 import torch
 
-from .dp import AUX, GRAD_TABLES
+from .dp import AUX, GRAD_TABLES, MAX_PINS, pin_set
 
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 SOURCES = ("score_tables.cu", "inside_band.cu", "inside_ep.cu",
            "inside_ext.cu", "outside_band.cu", "outside_ep.cu",
-           "outside_ext.cu", "linear_fwd.cu", "linear_adj.cu")
+           "outside_ext.cu", "linear_fwd.cu", "linear_adj.cu",
+           "cyk_traceback.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 LIB_NAME = "librnaelem_kernels.so"
@@ -77,6 +78,19 @@ KERNELS = {
     "linear_adj": Kernel("linear_adj",
                          "rnaelem_tpu_torch/csrc/linear_adj.cu",
                          "rnaelem_tpu/model/joint.py:594"),
+    # K10-K12: the max-semiring instantiations of K2-K4 (the CYK tables)
+    "inside_band_max": Kernel("inside_band_max",
+                              "rnaelem_tpu_torch/csrc/inside_band.cu",
+                              "rnaelem_tpu/ops/dp_maxb.py:137"),
+    "inside_ep_max": Kernel("inside_ep_max",
+                            "rnaelem_tpu_torch/csrc/inside_ep.cu",
+                            "rnaelem_tpu/ops/dp_maxb.py:219"),
+    "inside_ext_max": Kernel("inside_ext_max",
+                             "rnaelem_tpu_torch/csrc/inside_ext.cu",
+                             "rnaelem_tpu/ops/dp_maxb.py:340"),
+    "cyk_traceback": Kernel("cyk_traceback",
+                            "rnaelem_tpu_torch/csrc/cyk_traceback.cu",
+                            "rnaelem_tpu/ops/dp_maxb.py:459"),
 }
 
 
@@ -172,9 +186,11 @@ class ChainDims(ctypes.Structure):
 
 
 class AuxArg(ctypes.Structure):
-    _fields_ = [("code", ctypes.c_void_p), ("pin", ctypes.c_void_p),
-                ("pin_bit", ctypes.c_int), ("cpR", ctypes.c_void_p),
-                ("cpL", ctypes.c_void_p)]
+    _fields_ = [("code", ctypes.c_void_p),
+                ("pin", ctypes.c_void_p * MAX_PINS),
+                ("pin_bit", ctypes.c_int * MAX_PINS),
+                ("pin_kinds", ctypes.c_int * MAX_PINS),
+                ("cpR", ctypes.c_void_p), ("cpL", ctypes.c_void_p)]
 
 
 def _ptr_struct(name, fields):
@@ -198,11 +214,25 @@ ADJ_IDX = ("rt_off", "rt_s", "rt_w", "rtr_off", "rtr_t", "rtr_w", "ltr_off",
            "k2_idx", "k2a_off", "k2a_k")
 CHAIN_IDX = ("rt_off", "rt_s", "rt_w", "rtr_off", "rtr_t", "rtr_w",
              "end_states")
+TB_IDX = ("rt_off", "rt_s", "rt_w", "lt_off", "lt_s", "lt_w", "pt_code",
+          "pt_wl", "pt_wr", "pt_lt", "loopm", "bucket", "end_states",
+          "state_l", "state_r", "op_off", "op_a", "op_c", "b12_off", "b12_a",
+          "b12_c", "ept_off", "ept_s1", "ept_s2", "ept_s3")
+TB_DATA = ("LL", "P", "E", "M", "Bt", "T1", "T2", "O", "eR", "eL", "bg2",
+           "pv", "wsp", "gate_O2", "gate_M", "hp", "stk", "ext", "ml2", "mlE",
+           "misA", "misB", "SZ", "spec_il", "lam", "C", "L", "dcum")
 BandIdx = _ptr_struct("BandIdx", BAND_IDX)
 AdjIdx = _ptr_struct("AdjIdx", ADJ_IDX)
 EpIdx = _ptr_struct("EpIdx", EP_IDX)
 ExtIdx = _ptr_struct("ExtIdx", EXT_IDX)
 ChainIdx = _ptr_struct("ChainIdx", CHAIN_IDX)
+TbIdx = _ptr_struct("TbIdx", TB_IDX)
+TbData = _ptr_struct("TbData", TB_DATA)
+
+
+class TbCfg(ctypes.Structure):
+    _fields_ = [("eps", ctypes.c_double), ("cap", ctypes.c_int)]
+
 
 # exported function -> (leading struct argtypes, number of pointers)
 _SIGS = {
@@ -239,6 +269,15 @@ _SIGS = {
     "ep_gl3": ((DPDims, AdjIdx), 10),
     "chain_fwd": ((ChainDims, ChainIdx, AuxArg), 4),
     "chain_adj": ((ChainDims, ChainIdx, AuxArg), 5),
+    "band_front_max": ((DPDims, BandIdx, AuxArg), 15),
+    "band_bif_max": ((DPDims, BandIdx), 4),
+    "band_m_max": ((DPDims, BandIdx, AuxArg), 5),
+    "band_e_max": ((DPDims, BandIdx), 8),
+    "ep_t_max": ((DPDims, EpIdx), 4),
+    "ep_v_max": ((DPDims,), 7),
+    "ep_out_max": ((DPDims, EpIdx), 8),
+    "ext_col_max": ((DPDims, ExtIdx, AuxArg), 6),
+    "cyk_traceback": ((DPDims, TbIdx, AuxArg, TbData, TbCfg), 4),
 }
 _SUF = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -342,21 +381,40 @@ def _check_column(state, j, d, c, h, st):
     the batch: the per-read copies (there for per-read gradients) must be
     equal, and their first column goes into state['_lam'] and
     state['_eSZg']."""
+    key = (id(d), id(c), id(h), id(st))
+    if _check_tables(state, j, d, c, st, key):
+        return
+    Lp, Wp, Cp = st.dims.Lp, st.dims.Wp, st.dims.Cp
+    dt, dev = st.dtype, state["O"].device
+    B = state["O"].shape[-1]
+    R, W1, C1 = Lp + 1 + st.PAD, Wp + 1, Cp + 1
+    _req(state["ep"], "ep", dt, (R, W1, st.dims.S, B), dev)
+    for name, t, shape in (
+            ("eSZg", h["eSZg"], (2, 4, C1, C1, B)),
+            ("emisA", h["emisA"], (2, 4, Lp + 1, W1, B)),
+            ("emisB", h["emisB"], (2, R, W1, 4, B))):
+        _req(t, name, dt, shape, dev)
+    state["_eSZg"] = h["eSZg"][..., 0].contiguous()
+    state["_checked"] = key
+
+
+def _check_tables(state, j, d, c, st, key):
+    """The checks the sum DP's and the max DP's column stages share:
+    tables, factors, constants, one lambda for the batch (into
+    state['_lam']) and the aux.  True if ``key`` was checked already."""
     if not 1 <= j <= st.dims.Lp:
         raise ValueError("column %d outside 1..%d" % (j, st.dims.Lp))
-    key = (id(d), id(c), id(h), id(st))
     if state.get("_checked") == key:
-        return
-    Lp, Wp, Cp, S = st.dims.Lp, st.dims.Wp, st.dims.Cp, st.dims.S
+        return True
+    Lp, Wp, S = st.dims.Lp, st.dims.Wp, st.dims.S
     dt, dev = st.dtype, state["O"].device
     if dev.type != "cuda" or dt not in _SUF:
         raise ValueError("column kernels take float32/float64 CUDA tensors")
     B = state["O"].shape[-1]
-    R, W1, C1 = Lp + 1 + st.PAD, Wp + 1, Cp + 1
+    R, W1 = Lp + 1 + st.PAD, Wp + 1
     for k in TABLE_KEYS:
         _req(state[k], k, dt, (R, W1, S, B), dev)
     _req(state["O"], "O", dt, (R, S, B), dev)
-    _req(state["ep"], "ep", dt, (R, W1, S, B), dev)
     Tp = d.pv.shape[2]
     for name, t, shape in (
             ("eR", d.eR, (Lp, S, B)), ("eL", d.eL, (Lp, S, B)),
@@ -364,10 +422,7 @@ def _check_column(state, j, d, c, h, st):
             ("alphaP", d.alphaP, (Lp + 1, W1, B)),
             ("wsp", c.wsp, (Lp, B)), ("gate_O2", c.gate_O2, (Lp, B)),
             ("gate_M", c.gate_M, (Lp, B)),
-            ("spec_il", c.ep["spec_il"], (6, Lp + 1, W1, B)),
-            ("eSZg", h["eSZg"], (2, 4, C1, C1, B)),
-            ("emisA", h["emisA"], (2, 4, Lp + 1, W1, B)),
-            ("emisB", h["emisB"], (2, R, W1, 4, B))):
+            ("spec_il", c.ep["spec_il"], (6, Lp + 1, W1, B))):
         _req(t, name, dt, shape, dev)
     for name in ("hp", "stk", "ext", "ml2", "mlE"):
         _req(getattr(c, name), name, dt, (Lp + 1, W1, B), dev)
@@ -382,8 +437,7 @@ def _check_column(state, j, d, c, h, st):
                          "per-read copies must be equal")
     _check_aux(d, c, Lp, B, dt, dev)
     state["_lam"] = d.lam[:, 0].contiguous()
-    state["_eSZg"] = h["eSZg"][..., 0].contiguous()
-    state["_checked"] = key
+    return False
 
 
 def _check_aux(d, c, Lp, B, dt, dev):
@@ -395,8 +449,15 @@ def _check_aux(d, c, Lp, B, dt, dev):
     if d.cls is not None:
         _req(d.cls, "cls", dt, (4, Lp, B), dev)
         _req_zero_probe(d.cls)
-    if c.pin is not None:
-        _req(c.pin.pos, "pin", torch.int32, (B,), dev)
+    _check_pins(c.pin, B, dev)
+
+
+def _check_pins(pin, B, dev):
+    pins = pin_set(pin)
+    if len(pins) > MAX_PINS:
+        raise ValueError("the kernels take at most %d pins" % MAX_PINS)
+    for p in pins:
+        _req(p.pos, "pin", torch.int32, (B,), dev)
 
 
 def _req_zero_probe(cls):
@@ -407,13 +468,19 @@ def _req_zero_probe(cls):
 
 
 def _aux(st, pin, parts=None):
-    """Aux struct for a launch: class codes, the dp.Pin ``pin`` (null for
-    None) and the class-partial buffers ``parts`` (cpR, cpL) or none."""
+    """Aux struct for a launch: class codes, the pin set ``pin`` (a
+    dp.Pin, a tuple of them or None) and the class-partial buffers
+    ``parts`` (cpR, cpL) or none."""
     cpR, cpL = (None, None) if parts is None else \
         (parts[0].data_ptr(), parts[1].data_ptr())
+    pins = pin_set(pin)
+    pad = lambda xs: list(xs) + [0] * (MAX_PINS - len(xs))
     return AuxArg(st.k["cls_code"].data_ptr(),
-                  None if pin is None else pin.pos.data_ptr(),
-                  0 if pin is None else int(pin.bit), cpR, cpL)
+                  (ctypes.c_void_p * MAX_PINS)(
+                      *pad([p.pos.data_ptr() for p in pins])),
+                  (ctypes.c_int * MAX_PINS)(*pad([int(p.bit) for p in pins])),
+                  (ctypes.c_int * MAX_PINS)(
+                      *pad([int(p.kinds) for p in pins])), cpR, cpL)
 
 
 def _dims(st, state, j, d):
@@ -692,8 +759,7 @@ def _check_chain(st, eR, L, pin):
                          % (st.dims.S, tuple(eR.shape)))
     _req(eR, "eR", st.dtype, (Lp, S, B), dev)
     _req(L, "L", torch.int64, (B,), dev)
-    if pin is not None:
-        _req(pin.pos, "pin", torch.int32, (B,), dev)
+    _check_pins(pin, B, dev)
     return ChainDims(Lp, S, B), _idx(st, ChainIdx, CHAIN_IDX)
 
 
@@ -726,3 +792,141 @@ def chain_adj(st, eR, L, rows, gparts, pin=None, cls=None):
     _call("linear_adj", "chain_adj", st.dtype, D, ix, ax, _p(eR), _p(L),
           _p(rows), _p(gparts), _p(g_eR))
     return g_eR
+
+
+# ------------------------------------- K10-K12 the CYK tables (max DP)
+#
+# The max-semiring instantiations of K2-K4 (ops/dp_maxb.py, same stage
+# signatures with the MaxStatic ``mst`` for the sum DP's ``h`` and ``st``).
+
+def _check_max_column(state, j, d, c, mst):
+    """K10-K12's inputs: those of K2-K4 without the hoisted exponentials,
+    plus the log mismatch tables and the size classes' log energies."""
+    st = mst.st
+    key = (id(d), id(c), id(mst))
+    if _check_tables(state, j, d, c, st, key):
+        return
+    Lp, W1, C1 = st.dims.Lp, st.dims.Wp + 1, st.dims.Cp + 1
+    dt, dev = st.dtype, state["O"].device
+    B = state["O"].shape[-1]
+    _req(state["ep"], "ep", dt, (Lp + 1 + st.PAD, W1, st.dims.S, B), dev)
+    for name in ("misA", "misB"):
+        _req(c.ep[name], name, dt, (4, Lp + 1, W1, B), dev)
+    _req(mst.SZg, "SZ", dt, (4, C1, C1), dev)
+    if bool((state["_lam"] < 0).any()):
+        raise ValueError("the CYK tables need lambda >= 0")
+    state["_checked"] = key
+
+
+def max_band_front(state, j, d, c, mst):
+    """K10 stages L, P, T2 of column j."""
+    _check_max_column(state, j, d, c, mst)
+    st = mst.st
+    _call("inside_band_max", "band_front_max", st.dtype,
+          _dims(st, state, j, d), _band_idx(st), _aux(st, c.pin),
+          _p(state["LL"]), _p(state["P"]), _p(state["T2"]), _p(state["E"]),
+          _p(d.eR), _p(d.bg2), _p(d.pv), _p(d.alphaP), _p(c.wsp),
+          _p(state["_lam"]), _p(c.stk), _p(c.ml2), _p(c.gate_O2), _p(c.okP),
+          _p(c.okB))
+
+
+def max_band_bif(state, j, d, c, mst):
+    """K10 stages B and T1 of column j."""
+    _check_max_column(state, j, d, c, mst)
+    st = mst.st
+    _call("inside_band_max", "band_bif_max", st.dtype, _dims(st, state, j, d),
+          _band_idx(st), _p(state["Bt"]), _p(state["T1"]), _p(state["T2"]),
+          _p(c.okB))
+
+
+def max_band_m(state, j, d, c, mst):
+    """K10 stage M of column j."""
+    _check_max_column(state, j, d, c, mst)
+    st = mst.st
+    _call("inside_band_max", "band_m_max", st.dtype, _dims(st, state, j, d),
+          _band_idx(st), _aux(st, c.pin), _p(state["M"]), _p(state["Bt"]),
+          _p(d.eL), _p(c.gate_M), _p(c.okM))
+
+
+def max_band_e(state, j, d, c, mst):
+    """K10 stage E of column j (reads the K11 ep term)."""
+    _check_max_column(state, j, d, c, mst)
+    st = mst.st
+    _call("inside_band_max", "band_e_max", st.dtype, _dims(st, state, j, d),
+          _band_idx(st), _p(state["E"]), _p(state["LL"]), _p(state["M"]),
+          _p(state["ep"][j + st.PAD]), _p(state["_lam"]), _p(c.hp),
+          _p(c.mlE), _p(c.okE))
+
+
+def max_ep_stage(state, j, d, c, mst):
+    """K11: the TT_E_P internal-loop maximum of column j into row j of
+    the ep table (log space: no shifts)."""
+    _check_max_column(state, j, d, c, mst)
+    st = mst.st
+    ep_row = state["ep"][j + st.PAD]
+    if not st.have_ep:
+        ep_row.fill_(float("-inf"))
+        return
+    dt, dev = st.dtype, state["O"].device
+    B = state["O"].shape[-1]
+    W1, C1 = st.dims.Wp + 1, st.dims.Cp + 1
+    scr = state.get("_ep_scratch")
+    if scr is None:
+        scr = dict(
+            T=torch.empty((C1, W1, st.n_ar, B), dtype=dt, device=dev),
+            V=torch.empty((2, W1, C1, st.n_ar, B), dtype=dt, device=dev))
+        state["_ep_scratch"] = scr
+    D = _dims(st, state, j, d)
+    ix = _idx(st, EpIdx, EP_IDX)
+    _call("inside_ep_max", "ep_t_max", dt, D, ix, _p(state["P"]),
+          _p(state["LL"]), _p(c.dots_cum), _p(scr["T"]))
+    _call("inside_ep_max", "ep_v_max", dt, D, _p(scr["T"]), _p(c.ep["misA"]),
+          _p(c.ep["misB"]), _p(mst.SZg), _p(c.C), _p(state["_lam"]),
+          _p(scr["V"]))
+    _call("inside_ep_max", "ep_out_max", dt, D, ix, _p(state["P"]),
+          _p(state["LL"]), _p(scr["V"]), _p(c.dots_cum), _p(c.ep["spec_il"]),
+          _p(state["_lam"]), _p(c.C), _p(ep_row))
+
+
+def max_ext_stage(state, j, d, c, mst):
+    """K12: the exterior O column j of the CYK tables."""
+    _check_max_column(state, j, d, c, mst)
+    st = mst.st
+    _call("inside_ext_max", "ext_col_max", st.dtype, _dims(st, state, j, d),
+          _idx(st, ExtIdx, EXT_IDX), _aux(st, c.pin), _p(state["O"]),
+          _p(state["P"]), _p(d.eR), _p(c.gate_O2), _p(c.ext),
+          _p(state["_lam"]))
+
+
+# ------------------------------------------------ K13 the CYK traceback
+
+def cyk_traceback(state, d, c, mst, eps: float):
+    """K13 on the CYK tables ``state`` of K10-K12 (one warp per read):
+    (psihat [B, Lp] int32 node ids, pair cells [B, Lp+1, Wp+1] uint8,
+    err [B] int32: 0 ok, 1 step guard or stack exhausted, 2 no candidate
+    within ``eps``).  The tables must be complete (every column run)."""
+    st = mst.st
+    _check_max_column(state, st.dims.Lp, d, c, mst)
+    dev = state["O"].device
+    Lp, W1 = st.dims.Lp, st.dims.Wp + 1
+    B = state["O"].shape[-1]
+    psihat = torch.zeros((B, Lp), dtype=torch.int32, device=dev)
+    pairs = torch.zeros((B, Lp + 1, W1), dtype=torch.uint8, device=dev)
+    err = torch.empty((B,), dtype=torch.int32, device=dev)
+    cap = 3 * (Lp + 2) + 8
+    stack = torch.empty((B, cap, 4), dtype=torch.int32, device=dev)
+    kk = dict(st.k, **mst.k)
+    ix = TbIdx(*[kk[f].data_ptr() if f in kk else 0 for f in TB_IDX])
+    tens = {k: state[k] for k in ("LL", "P", "E", "M", "Bt", "T1", "T2",
+                                  "O")}
+    tens.update(eR=d.eR, eL=d.eL, bg2=d.bg2, pv=d.pv, wsp=c.wsp,
+                gate_O2=c.gate_O2, gate_M=c.gate_M, hp=c.hp, stk=c.stk,
+                ext=c.ext, ml2=c.ml2, mlE=c.mlE, misA=c.ep["misA"],
+                misB=c.ep["misB"], SZ=mst.SZg, spec_il=c.ep["spec_il"],
+                lam=state["_lam"], C=c.C, L=c.L, dcum=c.dots_cum)
+    _req(c.L, "L", torch.int64, (B,), dev)
+    data = TbData(*[tens[f].data_ptr() for f in TB_DATA])
+    _call("cyk_traceback", "cyk_traceback", st.dtype,
+          _dims(st, state, Lp, d), ix, _aux(st, c.pin), data,
+          TbCfg(float(eps), cap), _p(psihat), _p(pairs), _p(err), _p(stack))
+    return psihat, pairs, err

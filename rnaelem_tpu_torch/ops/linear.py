@@ -29,13 +29,14 @@ from __future__ import annotations
 
 import torch
 
+from .dp import pin_set
 from .semiring import NEG, lse
 
 
 def chain_aux(st, Lp, B, auxR=None, pin=None, cls=None):
     """Dense auxR [Lp, S, S, B] of the chain from its parts (None if
     none): the given auxR, the class probe on the R kind's classes, the
-    pin's -inf vetoes."""
+    pin set's -inf vetoes."""
     if auxR is None and pin is None and cls is None:
         return None
     S = st.dims.S
@@ -43,10 +44,12 @@ def chain_aux(st, Lp, B, auxR=None, pin=None, cls=None):
         if auxR is None else auxR
     if cls is not None:
         a = a + torch.einsum("cpb,cts->ptsb", cls, st.cls_mask[0])
-    if pin is not None:
-        hit = pin.pos.long()[None, :] == torch.arange(
+    for p in pin_set(pin):
+        if not p.kinds & 1:
+            continue
+        hit = p.pos.long()[None, :] == torch.arange(
             Lp, device=st.device)[:, None]                    # [Lp, B]
-        deny = (st.cls_code[0] & pin.bit) == 0
+        deny = (st.cls_code[0] & p.bit) == 0
         a = a + torch.where(deny[None, :, :, None] & hit[:, None, None, :],
                             NEG, 0.0).to(st.dtype)
     return a

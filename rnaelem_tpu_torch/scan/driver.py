@@ -4,15 +4,13 @@ alignment (JAX scan/driver.py).
 Produces the 10-line raw record stream of the reference scanner
 (motif_scanner.hpp:237-252) and the aggregated E[N] log line
 (motif_scanner.hpp:947) that draw_motif consumes.  Reads are grouped in
-length buckets of 32 and scanned SCAN_BATCH at a time through
-scan.scanner.scan_posteriors_batch; ragged last chunks are not padded
-(the kernels do not specialise on the batch size).
-
-The alignment lines (psihat, rss, mot) of a --no-rss model come from the
-host Viterbi chain ``_chain_viterbi``; a structure model needs the CYK
-alignment, which is not ported yet: ``Scanner.scan`` refuses such a model
-before it writes anything, and ``Scanner.posteriors`` gives its posterior
-half alone.
+length buckets of 32 and scanned SCAN_BATCH at a time: the posteriors
+through scan.scanner.scan_posteriors_batch, then, for a structure model,
+the chunk's Viterbi alignments (psihat and rss) through scan.cyk.cyk_batch
+(the CYK tables and their traceback, K10-K13 on the card) on the same
+min-BPP masks; ragged last chunks are not padded (the kernels do not
+specialise on the batch size).  A --no-rss model's psihat comes from the
+host Viterbi chain ``_chain_viterbi`` and its rss is all 'O'.
 """
 from __future__ import annotations
 
@@ -28,6 +26,7 @@ from ..io.fastq import FastqReader
 from ..model import joint as J
 from ..model.io import _g
 from ..ops import dp as DP
+from . import cyk as CYK
 from . import scanner as SC
 
 SCAN_BATCH = 64
@@ -70,27 +69,18 @@ def _bucket_of(L: int, lo: int = 32, step: int = 32) -> int:
     return max(lo, ((L + step - 1) // step) * step)
 
 
-def check_scannable(cfg: J.ModelConfig):
-    """A full scan record needs the motif alignment: the host Viterbi
-    chain for --no-rss models; CYK for structure models, not ported."""
-    if not cfg.no_rss:
-        raise NotImplementedError(
-            "scanning a structure model needs the CYK/Viterbi alignment "
-            "(rows L and M), which the port does not have yet (the CYK "
-            "slice, ROADMAP item 9); this build scans --no-rss models")
-
-
 class Scanner:
     def __init__(self, cfg: J.ModelConfig, params: J.Params, device=None):
         self.device = DEV.resolve(device)
         self.cfg0 = cfg
         self.params0 = J.Params(*[x.to(self.device) for x in params])
 
-    def posteriors(self, fq_path: str, mark=None):
-        """The posterior half of a scan: (reads, per read (Pys [L],
-        Pye [L+1], Pyi [L], Ys, Ye) as numpy, E[N] singles and pairs
+    def _run(self, fq_path: str, mark):
+        """(reads, per read (Pys [L], Pye [L+1], Pyi [L], Ys, Ye, its
+        alignment (psihat [L], rss) from the chunk's CYK pass for a
+        structure model, else None) as numpy, E[N] singles and pairs
         summed over the reads, the grammar).  ``mark`` goes to
-        scan_posteriors_batch."""
+        scan_posteriors_batch and cyk_batch."""
         reads = list(FastqReader(fq_path).reads())
         buckets = {}
         for idx, r in enumerate(reads):
@@ -115,32 +105,43 @@ class Scanner:
                                                device=self.device, mark=mark)
                 EN_singles += J._np(res["EN"].singles)
                 EN_pairs += J._np(res["EN"].pairs)
+                aln = [None] * len(chunk)
+                if not cfg.no_rss:
+                    aln = CYK.cyk_batch(cfg, params, sd_b, res["Ys"],
+                                        res["Ye"], res["bp_ok"],
+                                        device=self.device, mark=mark)
                 out = {k: J._np(res[k]) for k in ("Pys", "Pye", "Pyi", "Ys",
                                                    "Ye")}
                 for t, i in enumerate(chunk):
                     L = len(reads[i].seq)
                     results[i] = (out["Pys"][t][:L], out["Pye"][t][:L + 1],
                                   out["Pyi"][t][:L], int(out["Ys"][t]),
-                                  int(out["Ye"][t]))
+                                  int(out["Ye"][t]), aln[t])
         return reads, results, (EN_singles, EN_pairs), g0
 
-    def scan(self, fq_path: str, out, log=None):
+    def scan(self, fq_path: str, out, log=None, mark=None):
         """Write the 10-line record of every read to ``out`` and the E[N]
-        line to ``log`` (stderr by default)."""
-        check_scannable(self.cfg0)
+        line to ``log`` (stderr by default).  ``mark`` goes to the
+        posterior and CYK passes."""
         if log is None:
             log = sys.stderr
         t0 = time.time()
-        reads, results, (EN_singles, EN_pairs), g0 = self.posteriors(fq_path)
+        reads, results, (EN_singles, EN_pairs), g0 = self._run(fq_path,
+                                                                mark)
         if not reads:
             print("E[N]: []", file=log)
             return
         M = g0.M
-        for r, (Pys, Pye, Pyi, Ys, Ye) in zip(reads, results):
+        for r, (Pys, Pye, Pyi, Ys, Ye, aln) in zip(reads, results):
             L = len(r.seq)
-            cfg, params = scan_config(self.cfg0, self.params0, _bucket_of(L))
-            psihat = _chain_viterbi(cfg, params, g0, r.seq, r.qual, Ys, Ye,
-                                    L)
+            if aln is None:
+                cfg, params = scan_config(self.cfg0, self.params0,
+                                          _bucket_of(L))
+                psihat = _chain_viterbi(cfg, params, g0, r.seq, r.qual, Ys,
+                                        Ye, L)
+                rss = "O" * L
+            else:
+                psihat, rss = aln
             mot = "".join(" " if (p == 0 or p == M - 1) else g0.nodes[int(p)]
                           for p in psihat)
             out.write(f"id: {r.id}\n")
@@ -151,7 +152,7 @@ class Scanner:
             for line in lines[3:]:
                 out.write(line + "\n")
             out.write(f"seq: {ints_to_seq(r.seq)}\n")
-            out.write("rss: " + "O" * L + "\n")
+            out.write(f"rss: {rss}\n")
             out.write(f"mot: {mot}\n")
         en_tabs = []
         for t, sz in enumerate(g0.table_sizes):

@@ -82,7 +82,8 @@ def scan_posteriors_batch(cfg: J.ModelConfig, params: J.Params,
     axis) under plain-theta weights (driver.scan_config).  Returns a dict
     of Pys, Pyi [B, Lp], Pye [B, Lp+1], PyN, Z, Ze [B], Ys, Ye [B] int64,
     EN (Params: the expected emission counts summed over the valid
-    reads) and eff [B].  Rows where ``valid`` is 0 (padding) have zero
+    reads), eff [B] and bp_ok [B, Lp+1, Wp+1] (the min-BPP masks, which
+    the CYK pass reuses).  Rows where ``valid`` is 0 (padding) have zero
     posteriors and add nothing to EN.  ``mark(stage)``, if given, is
     called at the start (begin) and after each stage: masks,
     pass1_forward, pass1_outside, end_forward, end_outside."""
@@ -139,4 +140,4 @@ def scan_posteriors_batch(cfg: J.ModelConfig, params: J.Params,
                     dim=1) + (pos == L[:, None]) * pye_L[:, None]
     Ye = _argmax_last(torch.where(pos <= L[:, None], Pye, -1.0))
     return dict(Pys=Pys, Pyi=Pyi, Pye=Pye, PyN=PyN, Z=z.detach(),
-                Ze=ze.detach(), Ys=Ys, Ye=Ye, EN=EN, eff=eff)
+                Ze=ze.detach(), Ys=Ys, Ye=Ye, EN=EN, eff=eff, bp_ok=bp_ok)

@@ -3,6 +3,8 @@ versions.  The card-only tests carry the ``gpu`` marker and skip without
 a CUDA device; this file imports no JAX, so on the card it runs alone:
     python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -11,6 +13,7 @@ from rnaelem_tpu_torch.alphabet import seq_to_ints
 from rnaelem_tpu_torch.energy import tables as ET
 from rnaelem_tpu_torch.model import joint as J
 from rnaelem_tpu_torch.ops import dp as DP
+from rnaelem_tpu_torch.ops import dp_maxb as DMB
 from rnaelem_tpu_torch.ops import kernels as K
 from rnaelem_tpu_torch.ops import linear as LIN
 from rnaelem_tpu_torch.train import objective as OBJ
@@ -49,7 +52,10 @@ def _need_cuda():
 @pytest.mark.parametrize("name", ["score_tables", "band_front", "band_bif",
                                   "band_m", "band_e", "ep_stage",
                                   "ext_stage", "ext_adj", "e_adj", "ep_adj",
-                                  "band_adj", "chain_fwd", "chain_adj"])
+                                  "band_adj", "chain_fwd", "chain_adj",
+                                  "max_band_front", "max_band_bif",
+                                  "max_band_m", "max_band_e", "max_ep_stage",
+                                  "max_ext_stage", "cyk_traceback"])
 def test_kernel_wrappers_reject_cpu_tensors(name):
     """A wrapper launches its kernel or raises: handed CPU tensors it
     raises before building anything (the CPU path is the dispatcher's
@@ -76,6 +82,10 @@ def test_kernel_wrappers_reject_cpu_tensors(name):
     d, c = J.batch_factors(cfg, params, batch.sd, batch.bp_ok, device="cpu")
     h, state = k.dp.start(d, c)
     args = (state, 1, d, c, h, k.dp.st)
+    if name.startswith("max_") or name == "cyk_traceback":
+        mst = DMB.MaxStatic.of(k.dp.st)
+        args = (state, d, c, mst, 1e-9) if name == "cyk_traceback" else \
+            (state, 1, d, c, mst)
     if name.endswith("_adj"):
         args = (state, DP.init_grads(state, d, c, h)) + args[1:]
     with pytest.raises(ValueError, match="CUDA"):
@@ -506,3 +516,154 @@ def test_scan_posteriors_on_the_card_match_cpu(pattern, opts):
                 1.0, float(y.abs().max())), key
     for key in ("Ys", "Ye"):
         assert torch.equal(res["cuda"][key].cpu(), res["cpu"][key]), key
+
+
+def _cyk_inputs(pattern, dtype, device, seed=13):
+    """A scan config with random weights, a batch of random reads and the
+    CYK pin set: read 0 its posterior Ys/Ye, read 1 Ye == L, read 2 Ys ==
+    Ye, the rest their posterior pins."""
+    cfg, p, batch = _scan_inputs(pattern, {}, "cpu", n=6, seed=seed)
+    from rnaelem_tpu_torch.scan import scanner as SC
+    res = SC.scan_posteriors_batch(cfg, p, batch.sd, device="cpu")
+    Ys, Ye = res["Ys"].clone(), res["Ye"].clone()
+    L = batch.sd.L.long()
+    Ye[1], Ye[2] = L[1], Ys[2]
+    cfg = dataclasses.replace(cfg, dtype=dtype)
+    dt = torch.float32 if dtype == "float32" else torch.float64
+    p = J.Params(*[x.to(device, dt) for x in p])
+    sd = J.SeqData(*[x.to(device) for x in batch.sd])
+    from rnaelem_tpu_torch.scan import cyk as CYK
+    pins = CYK.cyk_pins(Ys.to(device), Ye.to(device), sd.L)
+    d, c = J.batch_factors(cfg, p, sd, res["bp_ok"].to(device),
+                           device=device, aux_b={"pin": pins})
+    return cfg, d, c, (Ys, Ye, res["bp_ok"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pattern", ["(.....)", "(.*)"])
+@pytest.mark.parametrize("dtype,tol", [("float64", 1e-12), ("float32", 1e-4)])
+def test_max_kernels_match_plain(pattern, dtype, tol):
+    """K10-K12 under the CYK pin set against the plain max DP on the same
+    card tensors: every stage of one column on the kernels' own earlier
+    columns, and the whole tables (identical -inf placement, finite cells
+    within tol); two kernel runs give the same bits."""
+    _need_cuda()
+    cfg, d, c, _ = _cyk_inputs(pattern, dtype, "cuda")
+    mdp = DMB.MaxDP(J.kernels(cfg, "cuda").dp)
+    K.reset_counts()
+    runs = [mdp.tables(d, c) for _ in range(2)]
+    for name in ("inside_band_max", "inside_ep_max", "inside_ext_max"):
+        assert K.KERNELS[name].launches > 0, name
+    plain = mdp.tables(d, c, plain=True)
+    j0 = cfg.Lp - 5
+    col = DP.clone_state(runs[0])
+    ref = DP.clone_state(runs[0])
+    for kern, pl in zip(DMB.STAGES, DMB.PLAIN_STAGES):
+        kern(col, j0, d, c, mdp.mst)
+        pl(ref, j0, d, c, mdp.mst)
+    r = j0 + mdp.st.PAD
+    for key in ("LL", "P", "E", "M", "Bt", "T1", "T2", "ep", "O"):
+        assert torch.equal(runs[0][key], runs[1][key]), key
+        for a, b in ((runs[0][key], plain[key]), (col[key][r], ref[key][r])):
+            assert torch.equal(torch.isfinite(a), torch.isfinite(b)), key
+            fin = torch.isfinite(b)
+            if fin.any():
+                assert float((a[fin] - b[fin]).abs().max()) <= tol, key
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pattern", ["(.....)", "(.*)"])
+def test_cyk_traceback_kernel_matches_host(pattern):
+    """K13 against its plain version (the host traceback) on the same
+    f64 tables of K10-K12: every read's psihat and pair set identical."""
+    _need_cuda()
+    from rnaelem_tpu_torch.scan import cyk as CYK
+    cfg, d, c, _ = _cyk_inputs(pattern, "float64", "cuda", seed=14)
+    k = J.kernels(cfg, "cuda")
+    mdp = DMB.MaxDP(k.dp)
+    state = mdp.tables(d, c)
+    K.reset_counts()
+    psihat, pairs, err = K.cyk_traceback(state, d, c, mdp.mst, 1e-9)
+    assert K.KERNELS["cyk_traceback"].launches == 1
+    assert not err.any()
+    host = CYK.host_tracebacks(cfg, k.g, state, d, c, k.dp.st, 1e-9)
+    L = c.L.cpu().numpy()
+    for t, (path, _, cells) in enumerate(host):
+        np.testing.assert_array_equal(psihat[t, :L[t]].cpu().numpy(), path)
+        got = sorted(map(tuple, np.argwhere(pairs[t].cpu().numpy())))
+        assert got == sorted(cells), t
+
+
+@pytest.mark.gpu
+def test_pin_set_parts_and_class_sums_match_plain():
+    """The sum DP (K2/K4 forward, K5/K7 class sums) under CYK's pin set
+    of three entries (start, end, and the tail on the right kinds only)
+    against the plain versions on the CPU, f64."""
+    _need_cuda()
+    from rnaelem_tpu_torch.scan import cyk as CYK
+    from rnaelem_tpu_torch.scan import scanner as SC
+    cfg, p, batch = _scan_inputs("(.....)", {}, "cpu", seed=15)
+    res = SC.scan_posteriors_batch(cfg, p, batch.sd, device="cpu")
+    Ys, Ye = res["Ys"], res["Ye"].clone()
+    Ye[1] = batch.sd.L[1]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        cfg, p, batch = _scan_inputs("(.....)", {}, dev, seed=15)
+        B = batch.valid.shape[0]
+        L = batch.sd.L.long()
+        pins = CYK.cyk_pins(Ys.to(dev), Ye.to(dev), L)
+        cls = torch.zeros((4, cfg.Lp, B), dtype=torch.float64, device=dev,
+                          requires_grad=True)
+        with torch.enable_grad():
+            parts = J.batch_logZ_parts(cfg, p, batch.sd, batch.bp_ok,
+                                       device=dev,
+                                       aux_b=dict(cls=cls, pin=pins))
+            (g,) = torch.autograd.grad(parts, cls,
+                                       torch.isfinite(parts).to(parts.dtype))
+        out[dev] = (parts.detach().cpu(), g.cpu())
+    (pc, gc), (pg, gg) = out["cpu"], out["cuda"]
+    fin = torch.isfinite(pc)
+    assert fin.any() and torch.equal(fin, torch.isfinite(pg))
+    assert float((pg - pc)[fin].abs().max()) <= 1e-9 * float(
+        pc[fin].abs().max())
+    assert float((gg - gc).abs().max()) <= 1e-9 * float(gc.abs().max())
+
+
+@pytest.mark.gpu
+def test_structure_scan_on_the_card_matches_cpu():
+    """Scanner.scan of the structure fixture model 0 on 0.fq at f64:
+    the card (K1-K7, K10-K13) and the CPU write the same records but for
+    the posteriors' last digits; the CYK kernels launched."""
+    _need_cuda()
+    import io
+    import os
+    from rnaelem_tpu_torch.model import io as MIO
+    from rnaelem_tpu_torch.scan import driver as SCD
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    text = {}
+    for dev in ("cpu", "cuda"):
+        cfg, params = MIO.read_model(os.path.join(root, "tests", "fixtures",
+                                                  "0.model"), Lp=48,
+                                     device=dev)
+        buf = io.StringIO()
+        K.reset_counts()
+        SCD.Scanner(cfg, params, dev).scan(
+            os.path.join(root, "tests", "fixtures", "0.fq"), buf,
+            log=io.StringIO())
+        text[dev] = buf.getvalue().splitlines()
+    for name in ("inside_band_max", "inside_ep_max", "inside_ext_max",
+                 "cyk_traceback"):
+        assert K.KERNELS[name].launches > 0, name
+    assert len(text["cpu"]) == len(text["cuda"])
+    for a, b in zip(text["cuda"], text["cpu"]):
+        key = a.split(": ", 1)[0]
+        if key in ("start", "end", "inner", "exist prob"):
+            x = np.array([float(v) for v in
+                          a.split(": ", 1)[1].strip("[]").split(",")])
+            y = np.array([float(v) for v in
+                          b.split(": ", 1)[1].strip("[]").split(",")])
+            np.testing.assert_array_equal(np.isfinite(x), np.isfinite(y))
+            fin = np.isfinite(y)
+            np.testing.assert_allclose(x[fin], y[fin], rtol=1e-5, atol=1e-9)
+        else:
+            assert a == b, key

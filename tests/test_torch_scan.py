@@ -3,7 +3,8 @@ plain versions on the CPU, f64) against the JAX package and the RNAelem
 C++ goldens: the DP with dense aux and its aux/weight cotangents, the
 class probe against masked sums of those cotangents, scan_posteriors_batch
 on the four fixture models, Scanner.scan and the scan command line of the
---no-rss model 2, and the refusal to scan a structure model before CYK."""
+--no-rss model 2 (tests/test_torch_cyk_scan.py scans the structure
+models)."""
 import io
 import os
 import subprocess
@@ -288,21 +289,3 @@ def test_cli_scan_norss_equals_jax_cli(jax_scan2, tmp_path):
     CLI.main(["scan", "-q", os.path.join(FIX, "2.model"), "-f", FQ,
               "--out1", str(out), "--device", "cpu"])
     assert out.read_bytes() == jax_scan2[0]
-
-
-# --------------------------------------- (e) structure models wait for CYK
-
-def test_structure_model_scan_raises_before_writing(tmp_path):
-    """Scanning a structure model needs CYK: Scanner.scan and the command
-    line raise NotImplementedError naming it, and write nothing."""
-    path = os.path.join(FIX, "0.model")
-    cfg, params = TIO.read_model(path, Lp=48, device="cpu")
-    buf, log = io.StringIO(), io.StringIO()
-    with pytest.raises(NotImplementedError, match="CYK"):
-        TD.Scanner(cfg, params, "cpu").scan(FQ, buf, log=log)
-    assert buf.getvalue() == "" and log.getvalue() == ""
-    out = tmp_path / "scan.raw"
-    with pytest.raises(NotImplementedError, match="CYK"):
-        CLI.main(["scan", "-q", path, "-f", FQ, "--out1", str(out),
-                  "--device", "cpu"])
-    assert not out.exists()
