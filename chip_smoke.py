@@ -25,7 +25,9 @@ Phases:
      kernels' mask cells that differ lie within 1e-3 (log) of it;
   5. per-call device times of K1-K7 (torch.profiler, the kernel's own
      functions over 200 calls) at the main path's shapes, and the plain
-     versions' times (CUDA events);
+     versions' times (CUDA events); rows C and D, the torch glue of the
+     factors and the hoisted terms, forward and backward, device ms and
+     launches per call beside their bounds;
   6. the flagship evaluation path: B=128 reads x 100 nt, pattern
      (.....), max-span 50, max-iloop 30, min_bpp 1e-4, tau 0.1, f32: the
      masks (stack_reads), then batch_fn_grad, one warm-up (the launch
@@ -80,7 +82,22 @@ Phases:
      chunk timed beside their bounds, K13 checked against the host
      traceback on the 76 tRNAs;
  12. Scanner.scan of the --no-rss fixture model 2 on 0.fq against every
-     line of the C++ scan_2.raw.
+     line of the C++ scan_2.raw;
+ 13. row N, data parallelism (parallel/mesh.py) and the file array
+     (parallel/arrayjob.py): N1, a one-rank NCCL group (TCP store on
+     localhost) runs the sharded per-read step on the evaluation path's
+     batch (B=128 x 100 nt, f32), bitwise equal to batch_fn_grad_pr, its
+     sharded masks equal to stack_reads', the gather timed beside its
+     bound; N2, two ranks on the one card (gloo, subprocesses of this
+     script) split that batch 64/64, bitwise equal to one rank, then run
+     the production step (Trainer, (.....), 1 warm-up + 4 steps) to a
+     model byte-identical to the one-rank Trainer's, with a stage
+     breakdown per rank (two ranks sharing one card: not a scaling
+     figure); N3, the same over NCCL on cuda:0 and cuda:1 and a launch on
+     cuda:1 from device 0, only with two cards (else reported as
+     skipped); then ArrayEvaluator with 2 local array-eval slaves on the
+     card (f64, the 76 tRNAs) within 1e-9 of eval_file; one JSON line for
+     row N before the kernels line.
 
 Run from the repository root:  python3 chip_smoke.py
 Exits non-zero and prints no result without CUDA or without the package.
@@ -102,7 +119,7 @@ sys.path.insert(0, HERE)
 # set by main() once the imports succeed (the script must fail cleanly,
 # with no result, where torch, CUDA or the package is missing)
 np = torch = ET = J = DP = DMB = K = LIN = MIO = OBJ = TRN = CLI = SC = \
-    SCD = CYK = None
+    SCD = CYK = MESH = AJ = None
 seq_to_ints = ints_to_seq = FastqReader = None
 
 PATTERN = "(.....)"
@@ -937,27 +954,34 @@ def write_fq(path, seqs, flagged=True):
                 i, s_, "+" * len(s_), "!" if flagged else "+"))
 
 
-def production_step(pattern, no_rss, tmp, dev):
-    """The Trainer's step as bench.py times it (64 random reads x 100 nt,
-    numpy seed 0, 64 fresh negatives per step, f32, Adam): one warm-up
-    step and STEPS timed steps, each stage timed with the device
-    synchronised around it.  Returns a dict of the step's numbers; the
-    launch counts are those of this run alone."""
+def step_fq(no_rss, tmp):
+    """The production step's FASTQ (64 random reads x 100 nt, numpy seed
+    0) under ``tmp``."""
     rng = np.random.RandomState(0)
     fq = os.path.join(tmp, "step_%s.fq" % ("norss" if no_rss else "rss"))
     with open(fq, "w") as f:
         for i in range(N_POS):
             s_ = "".join("ACGU"[c] for c in rng.randint(0, 4, LP))
             f.write("@r%d\n%s\n+\n%s!\n" % (i, s_, chr(33 + 10) * LP))
+    return fq
+
+
+def step_trainer(pattern, no_rss, fq, dev, group=None):
+    """The production step's Trainer (f32, Adam, flat start) on ``fq``."""
     cfg = J.ModelConfig(pattern=pattern, Lp=LP, max_span=50, max_iloop=30,
                         min_bpp=MIN_BPP, tau=0.1, rho_theta=0.1,
                         rho_lambda=0.1, no_rss=no_rss, dtype="float32")
+    dev = dev if group is None else group.device
     params = J.init_params(J.kernels(cfg, dev).g, cfg, device=dev)
     tr = TRN.Trainer(cfg, params, max_iter=1 + STEPS, batch_size=N_POS,
-                     kmer_shuf=2, device=dev)
+                     kmer_shuf=2, device=dev, group=group)
     tr.set_fq(fq)
-    rec = {}
+    return cfg, tr
 
+
+def stage_timer(rec):
+    """timed(key, fn): ``fn`` with the device synchronised around each
+    call and its seconds appended to rec[key]."""
     def timed(key, fn):
         def run(*a, **kw):
             torch.cuda.synchronize()
@@ -967,6 +991,20 @@ def production_step(pattern, no_rss, tmp, dev):
             rec.setdefault(key, []).append(time.perf_counter() - t0)
             return out
         return run
+    return timed
+
+
+def production_step(pattern, no_rss, tmp, dev):
+    """The Trainer's step as bench.py times it (64 random reads x 100 nt,
+    numpy seed 0, 64 fresh negatives per step, f32, Adam): one warm-up
+    step and STEPS timed steps, each stage timed with the device
+    synchronised around it.  Returns a dict of the step's numbers (the
+    trained model's text among them); the launch counts are those of this
+    run alone."""
+    fq = step_fq(no_rss, tmp)
+    cfg, tr = step_trainer(pattern, no_rss, fq, dev)
+    rec = {}
+    timed = stage_timer(rec)
 
     starts, fns = [], []
     objective = tr._objective
@@ -1019,7 +1057,8 @@ def production_step(pattern, no_rss, tmp, dev):
                fn_grad_ms=mean("fn_grad"), reduce_ms=mean("reduce"),
                adam_ms=1e3 * float(np.mean(steps[1:] - np.asarray(
                    rec["objective"][1:]))),
-               fn=[float(v) for v in fns], launches=launches)
+               fn=[float(v) for v in fns], launches=launches, fq=fq,
+               model="\n".join(MIO.model_lines(cfg, tr.params)) + "\n")
     out["seqs_per_s"] = 2 * N_POS * 1e3 / out["step_ms"]
     out["grad_err"] = check_step_gradient(last, dev)
     print("production step %s f32, %d reads + %d fresh negatives x %d nt: "
@@ -1796,6 +1835,445 @@ def scan_chunk_bound(cfg, params, sd, dev, itemsize):
     by += 4 * B + 2 * 4 * cfg.Lp * B * itemsize
     return _ms(by, ops)
 
+# ------------------------------------------------------------ rows C, D
+
+def glue_profile(fn, reps, exclude):
+    """(device ms, kernel launches) per call of ``fn``: every CUDA kernel
+    the profiler sees over ``reps`` calls after a warm-up, those whose
+    function is in ``exclude`` left out."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us, n = 0.0, 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and \
+                _function_name(e.name) not in exclude:
+            us += e.time_range.end - e.time_range.start
+            n += 1
+    return us / reps / 1e3, n / reps
+
+
+def _nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts
+               if torch.is_tensor(t))
+
+
+def glue_rows(cfg, params, batch, dev, funcs):
+    """Rows C and D, the torch glue around the kernels, at the main path's
+    shapes: C the factors (model/joint.batch_factors_pr without K1's
+    launch: masks into score inputs, one-hot emission contractions, the
+    constants) and the backward of the factors into the per-read weights;
+    D the hoisted exp-space tensors (ops/dp.hoisted) and their backward
+    into lambda.  Each: device ms and launches per call (profiler, 20
+    calls), CUDA-event ms, and the bound, the bytes of its inputs and
+    outputs once over HBM."""
+    B = batch.valid.shape[0]
+    leaves = J.Params(*[x.detach().clone().requires_grad_(True)
+                        for x in J.per_read(params, B)])
+    st = J.kernels(cfg, dev).dp.st
+    with torch.enable_grad():
+        d, c = J.batch_factors_pr(cfg, leaves, batch.sd, batch.bp_ok, dev)
+        lam = d.lam.detach().requires_grad_(True)
+        h = DP.hoisted(d._replace(lam=lam), c, st)
+    outs_c = [d.eR, d.eL, d.bg2, d.pv, d.lam]
+    cot_c = [torch.randn_like(x) for x in outs_c]
+    outs_d = [h[k] for k in ("eSZ", "eSZg", "emisA", "emisB")]
+    cot_d = [torch.randn_like(x) for x in outs_d]
+    sd_in = _nbytes(*batch.sd, batch.bp_ok)
+    made = _nbytes(*d) + _nbytes(c.wsp, c.gate_O2, c.gate_M, c.seq, c.C, c.L,
+                                 c.dots_cum)
+    k1_in = _nbytes(*J.score_inputs(cfg, J.kernels(cfg, dev), batch.sd,
+                                    batch.bp_ok))
+    bytes_ = {
+        "C": sd_in + made + k1_in,
+        "C backward": _nbytes(*cot_c, *leaves),
+        "D": _nbytes(lam, c.ep["misA"], c.ep["misB"], c.C, *outs_d),
+        "D backward": _nbytes(*cot_d, lam)}
+
+    def fwd_c():
+        with torch.enable_grad():
+            J.batch_factors_pr(cfg, leaves, batch.sd, batch.bp_ok, dev)
+
+    def fwd_d():
+        with torch.enable_grad():
+            DP.hoisted(d._replace(lam=lam), c, st)
+
+    calls = {
+        "C": fwd_c,
+        "C backward": lambda: torch.autograd.grad(
+            outs_c, list(leaves), cot_c, retain_graph=True,
+            allow_unused=True),
+        "D": fwd_d,
+        "D backward": lambda: torch.autograd.grad(outs_d, [lam], cot_d,
+                                                  retain_graph=True)}
+    out = {}
+    for name, fn in calls.items():
+        ms, n = glue_profile(fn, 20, funcs["score_tables"])
+        out[name] = dict(ms=ms, launches=n, event_ms=cuda_ms(fn, 5),
+                         bytes=bytes_[name],
+                         bound_ms=bytes_[name] / MEM_BPS * 1e3,
+                         bound_by="bytes")
+    print("rows C, D (torch glue, B=%d x %d nt %s f32, per call: device ms "
+          "and launches of its kernels, K1 left out; CUDA-event ms; bound = "
+          "its inputs and outputs once over HBM): %s" % (
+              B, LP, PATTERN, json.dumps(out)), flush=True)
+    return out
+
+
+# ------------------------------------------------------------ row N
+
+def free_port():
+    """A free TCP port on localhost (the one-rank NCCL group's store)."""
+    import socket
+    with socket.socket() as so:
+        so.bind(("localhost", 0))
+        return so.getsockname()[1]
+
+
+def per_read_arrays(f, grads, eff):
+    """{name: host array} of per-read outputs (f, the Params leaves,
+    eff)."""
+    out = dict(zip(J.Params._fields, grads), f=f, eff=eff)
+    return {k: v.detach().cpu().numpy() for k, v in out.items()}
+
+
+def bit_diff(a, b):
+    """Names of the arrays of ``b`` that ``a`` does not hold bit for bit,
+    each with the largest difference and the first read that differs."""
+    out = {}
+    for k in b:
+        if a[k].shape != b[k].shape or a[k].tobytes() != b[k].tobytes():
+            d = np.abs(a[k].astype(np.float64) - b[k]).reshape(
+                len(b[k]), -1).max(axis=1) if a[k].shape == b[k].shape \
+                else np.array([np.inf])
+            out[k] = (float(d.max()), int(np.flatnonzero(d)[0])
+                      if d.any() else -1)
+    return out
+
+
+def run_ranks(cmds, log_dir, timeout):
+    """Start one subprocess per command, wait for all; kill every rank and
+    fail as soon as one exits non-zero (its peers would wait in a
+    collective), or at the timeout."""
+    logs = [open(os.path.join(log_dir, "rank%d.log" % r), "w+")
+            for r in range(len(cmds))]
+    procs = [subprocess.Popen(c, stdout=lg, stderr=subprocess.STDOUT)
+             for c, lg in zip(cmds, logs)]
+    deadline = time.time() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            bad = [r for r, p in enumerate(procs) if p.poll() not in (None, 0)]
+            if bad or time.time() > deadline:
+                r = bad[0] if bad else 0
+                logs[r].seek(0)
+                fail("rank %d of %s %s:\n%s" % (
+                    r, os.path.basename(log_dir), "failed (exit %s)"
+                    % procs[r].returncode if bad else "timed out",
+                    logs[r].read()[-3000:]))
+            time.sleep(0.5)
+        for r, p in enumerate(procs):
+            if p.returncode != 0:
+                logs[r].seek(0)
+                fail("rank %d of %s failed (exit %d):\n%s" % (
+                    r, os.path.basename(log_dir), p.returncode,
+                    logs[r].read()[-3000:]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for lg in logs:
+            lg.close()
+
+
+def mesh_n1(cfg, reads, params, dev):
+    """N1: a one-rank NCCL group (TCP on localhost) runs the sharded
+    per-read step (make_sharded_per_read) on the flagship batch: bitwise
+    equal to batch_fn_grad_pr on the same batch, its sharded masks equal
+    to stack_reads', and the gather timed (CUDA events) beside its bound,
+    the bytes it moves over HBM."""
+    g = MESH.init_group("localhost:%d" % free_port(), 1, 0, device=dev)
+    try:
+        if g.backend != "nccl":
+            fail("N1: backend %s, expected nccl" % g.backend)
+        rows = OBJ.host_rows(cfg, reads)
+        step = MESH.make_sharded_per_read(cfg, g)
+        K.reset_counts()
+        got = per_read_arrays(*step(params, rows))
+        torch.cuda.synchronize()
+        launches = {n: kk.launches for n, kk in K.KERNELS.items()
+                    if kk.launches}
+        batch = OBJ.stack_reads(cfg, reads, device=dev)
+        out = OBJ.batch_fn_grad_pr(cfg, params, batch, device=dev)
+        ref = per_read_arrays(*out)
+        bad = bit_diff(got, ref)
+        if bad:
+            fail("N1: the one-rank group's per-read outputs differ from "
+                 "batch_fn_grad_pr (max diff, first read): %s"
+                 % json.dumps(bad))
+        keep, me = MESH.make_sharded_bp_masks(cfg, g)(cfg, rows.sds)
+        if not (torch.equal(keep, batch.bp_ok) and
+                torch.equal(me, batch.eff)):
+            fail("N1: make_sharded_bp_masks differs from stack_reads' masks")
+        cols = [out[0], *out[1], out[2]]
+        gather_ms = cuda_ms(lambda: MESH.gather_rows(g, cols), 20)
+        nbytes = sum(c.numel() * c.element_size() for c in cols)
+        bound = 2 * nbytes / MEM_BPS * 1e3   # read once, written once
+        step_ms = cuda_ms(lambda: step(params, rows), 2)
+        plain_ms = cuda_ms(lambda: OBJ.batch_fn_grad_pr(
+            cfg, params, OBJ.stack_reads(cfg, reads, device=dev),
+            device=dev), 2)
+    finally:
+        g.close()
+    print("N1 (row N, one NCCL rank, TCP store on localhost, B=%d x %d nt %s "
+          "f32): per-read f, gradients and eff bitwise equal to "
+          "batch_fn_grad_pr; sharded masks equal to stack_reads'; the gather "
+          "(one all_gather_into_tensor of %d bytes) %.4f ms (CUDA events, 20 "
+          "calls; bound %.5f ms, its bytes over HBM); the group's step (host "
+          "rows -> shard masks -> fn+grad -> gather) %.1f ms vs stack_reads + "
+          "batch_fn_grad_pr %.1f ms; launches per step %s" % (
+              B_MAIN, LP, PATTERN, nbytes, gather_ms, bound, step_ms,
+              plain_ms, json.dumps(launches)), flush=True)
+    return dict(ref=ref, gather_ms=gather_ms, gather_bytes=nbytes,
+                bound_ms=bound, step_ms=step_ms, plain_step_ms=plain_ms,
+                launches=launches)
+
+
+def mesh_worker(args):
+    """One rank of N2/N3 (a subprocess of this script): the sharded
+    per-read step on the flagship batch (rank 0 saves the gathered
+    outputs), then the production step on the group (Trainer, Adam, 64
+    reads + 64 negatives, 1 warm-up + STEPS steps) with a stage breakdown;
+    rank 0 writes the model's text."""
+    devs = args.mesh_devices.split(",")
+    rank = args.mesh_worker
+    g = MESH.init_group("file://" + os.path.join(args.mesh_out, "store"),
+                        len(devs), rank, device=devs[rank],
+                        backend=args.mesh_backend)
+    try:
+        cfg32 = cfg_for("float32")
+        p32 = random_params(cfg32, g.device)
+        got = per_read_arrays(*MESH.make_sharded_per_read(cfg32, g)(
+            p32, OBJ.host_rows(cfg32, main_reads())))
+        if rank == 0:
+            np.savez(os.path.join(args.mesh_out, "per_read.npz"), **got)
+        cfg, tr = step_trainer(PATTERN, False, args.mesh_fq, None, group=g)
+        rec, starts = {}, []
+        timed = stage_timer(rec)
+        saved = {n: getattr(OBJ, n) for n in (
+            "device_batch", "batch_fn_grad_pr", "reduce_per_read")}
+        gather = MESH.gather_rows
+        objective = tr._objective
+
+        def step_objective(x, it):
+            starts.append(time.perf_counter())
+            return objective(x, it)
+
+        tr._objective = step_objective
+        for n, key in (("device_batch", "shard_masks"),
+                       ("batch_fn_grad_pr", "fn_grad"),
+                       ("reduce_per_read", "reduce")):
+            setattr(OBJ, n, timed(key, saved[n]))
+        MESH.gather_rows = timed("gather", gather)
+        try:
+            K.reset_counts()
+            tr.train()
+            torch.cuda.synchronize()
+            t_end = time.perf_counter()
+        finally:
+            for n, f in saved.items():
+                setattr(OBJ, n, f)
+            MESH.gather_rows = gather
+        mean = lambda k: 1e3 * float(np.mean(rec[k][1:]))
+        res = dict(rank=rank, device=str(g.device), backend=g.backend,
+                   step_ms=1e3 * float(np.mean(np.diff(starts + [t_end])[1:])),
+                   shard_masks_ms=mean("shard_masks"),
+                   fn_grad_ms=mean("fn_grad"), gather_ms=mean("gather"),
+                   reduce_ms=mean("reduce"),
+                   launches={n: kk.launches for n, kk in K.KERNELS.items()
+                             if kk.launches})
+        with open(os.path.join(args.mesh_out, "rank%d.json" % rank),
+                  "w") as f:
+            json.dump(res, f)
+        if rank == 0:
+            with open(os.path.join(args.mesh_out, "model.txt"), "w") as f:
+                MIO.write_model(f, cfg, tr.params)
+    finally:
+        g.close()
+
+
+def mesh_ranks(tmp, name, devices, backend, n1, step):
+    """N2/N3: the ranks of ``devices`` as subprocesses of this script;
+    their gathered per-read outputs bitwise equal to one rank's, their
+    model byte-identical to the one-rank Trainer's after the same steps.
+    Returns the ranks' stage breakdowns."""
+    out_dir = os.path.join(tmp, name)
+    os.makedirs(out_dir)
+    t0 = time.time()
+    run_ranks([[sys.executable, os.path.abspath(__file__),
+                "--mesh-worker", str(r), "--mesh-devices", ",".join(devices),
+                "--mesh-backend", backend, "--mesh-fq", step["fq"],
+                "--mesh-out", out_dir] for r in range(len(devices))],
+              out_dir, 600)
+    wall = time.time() - t0
+    got = dict(np.load(os.path.join(out_dir, "per_read.npz")))
+    bad = bit_diff(got, n1["ref"])
+    if bad:
+        fail("%s: the ranks' per-read outputs differ from one rank's (max "
+             "diff, first read): %s" % (name, json.dumps(bad)))
+    with open(os.path.join(out_dir, "model.txt")) as f:
+        model = f.read()
+    if model != step["model"]:
+        fail("%s: the %d-step model differs from the one-rank Trainer's"
+             % (name, STEPS))
+    ranks = []
+    for r in range(len(devices)):
+        with open(os.path.join(out_dir, "rank%d.json" % r)) as f:
+            ranks.append(json.load(f))
+    print("%s (%d ranks, %s, devices %s; %.1f s with the ranks' start-up): "
+          "per-read f, gradients and eff of B=%d x %d nt bitwise equal to one "
+          "rank's; the production step's model after 1 + %d steps "
+          "byte-identical to the one-rank Trainer's; per rank, ms per step "
+          "(mean of %d after the warm-up): %s" % (
+              name, len(devices), backend, ",".join(devices), wall, B_MAIN,
+              LP, STEPS, STEPS, json.dumps([{k: (round(v, 3) if
+                                                 isinstance(v, float) else v)
+                                             for k, v in rk.items()}
+                                            for rk in ranks])), flush=True)
+    return dict(wall_s=wall, ranks=ranks)
+
+
+def launch_on_second_card(cfg, reads, params):
+    """N3's launch check: batch_fn_grad_pr on cuda:1 from a process whose
+    current device is 0 gives cuda:0's bits and leaves device 0
+    current."""
+    torch.cuda.set_device(0)
+    outs = []
+    for d in ("cuda:0", "cuda:1"):
+        p = J.Params(*[x.to(d) for x in params])
+        outs.append(per_read_arrays(*OBJ.batch_fn_grad_pr(
+            cfg, p, OBJ.stack_reads(cfg, reads, device=d), device=d)))
+        if torch.cuda.current_device() != 0:
+            fail("N3: a launch on %s changed the current device" % d)
+    bad = bit_diff(outs[1], outs[0])
+    if bad:
+        fail("N3: batch_fn_grad_pr on cuda:1 differs from cuda:0: %s"
+             % json.dumps(bad))
+
+
+def array_eval_check(tmp, dev):
+    """The file-array evaluation: ArrayEvaluator with 2 local array-eval
+    slaves of the port's CLI on the card (f64, the 76 tRNAs, the
+    reference's converged model) against eval_file of the snapshot the
+    master wrote, within 1e-9 relative."""
+    fq = os.path.join(tmp, "trna.fq")
+    Lp = CLI._round_up(CLI._fq_maxlen(fq))
+    cfg, params = MIO.read_model(GOLD_TRNA, Lp=Lp, dtype="float64",
+                                 device=dev)
+    env = dict(os.environ, PYTHONPATH=HERE)
+    ev = AJ.ArrayEvaluator(cfg, 2, os.path.join(tmp, "arr"), fq,
+                           submit=lambda argv, n: AJ.submit_local(
+                               argv, n, env), device=dev)
+    t0 = time.time()
+    fn, gr, eff = ev(params)
+    wall = time.time() - t0
+    cfg_rt, p_rt = MIO.read_model(ev.tmp, Lp=Lp, dtype="float64", device=dev)
+    fr, grr, er = OBJ.eval_file(cfg_rt, p_rt, fq, device=dev)
+    errs = dict(fn=abs(fn - fr) / abs(fr), eff=abs(eff - er) / abs(er),
+                gr=float(np.abs(gr - grr).max() / np.abs(grr).max()))
+    print("array evaluation (2 local array-eval slaves on the card, 76 "
+          "tRNAs, f64, the reference's converged model): fn %.12f, sum eff "
+          "%.6f; relative error vs eval_file of the snapshot %s (<= 1e-9); "
+          "%.1f s wall per evaluation (the slaves' start-up included)"
+          % (fn, eff, json.dumps(errs), wall), flush=True)
+    if not max(errs.values()) <= 1e-9:
+        fail("array evaluation differs from eval_file: %s"
+             % json.dumps(errs))
+    return dict(wall_s=wall, errs=errs)
+
+
+def launch_cost(dev, rounds=5, reps=3):
+    """fn+grad of the evaluation path's batch (f32) under three launch
+    wrappers, interleaved over rounds in this one process: "none" launches
+    on the current stream with no device switch (the wrapper of PR 6),
+    "always" enters torch.cuda.device on every launch, "checked" is
+    ops/kernels._call (a switch only when the tensors' device is not the
+    current one); and "torch_sums", the wrapper of PR 6 with the glue's
+    per-read sums (ops/dp.read_sum, the batch-invariance repair of PR 7)
+    replaced by torch's own sum, the parent's reductions.  Per call: host
+    ms until batch_fn_grad returns, wall ms to a synchronize, CUDA-event
+    ms; means and minima over rounds x reps."""
+    import ctypes
+
+    def wrapper(mode):
+        def call(kernel, fname, like, *args):
+            L = K.lib()
+            fn = getattr(L, "rnaelem_%s_%s" % (fname, K._SUF[like.dtype]))
+            if mode == "none":
+                rc = fn(*args, ctypes.c_void_p(
+                    torch.cuda.current_stream().cuda_stream))
+            else:
+                with torch.cuda.device(like.device):
+                    rc = fn(*args, ctypes.c_void_p(
+                        torch.cuda.current_stream(like.device).cuda_stream))
+            if rc != 0:
+                fail("launch_cost: kernel %s failed (%d)" % (fname, rc))
+            K.KERNELS[kernel].launches += 1
+        return call
+
+    cfg = cfg_for("float32")
+    params = random_params(cfg, dev)
+    batch = OBJ.stack_reads(cfg, main_reads(), device=dev)
+    K.reset_counts()
+    shipped, read_sum = K._call, DP.read_sum
+    torch_sum = lambda x, ndims: x.sum(dim=tuple(range(ndims)))
+    modes = {"none": wrapper("none"), "always": wrapper("always"),
+             "checked": shipped, "torch_sums": wrapper("none")}
+    rec = {m: dict(host_ms=[], wall_ms=[], event_ms=[]) for m in modes}
+    out = {}
+    try:
+        for r in range(rounds + 1):
+            for m, call in modes.items():
+                K._call = call
+                DP.read_sum = torch_sum if m == "torch_sums" else read_sum
+                for _ in range(reps):
+                    torch.cuda.synchronize()
+                    s = torch.cuda.Event(enable_timing=True)
+                    e = torch.cuda.Event(enable_timing=True)
+                    t0 = time.perf_counter()
+                    s.record()
+                    f, g, _ = OBJ.batch_fn_grad(cfg, params, batch,
+                                                device=dev)
+                    t1 = time.perf_counter()
+                    e.record()
+                    torch.cuda.synchronize()
+                    t2 = time.perf_counter()
+                    out[m] = (f, g)
+                    if r:   # round 0 warms each wrapper up
+                        rec[m]["host_ms"].append((t1 - t0) * 1e3)
+                        rec[m]["wall_ms"].append((t2 - t0) * 1e3)
+                        rec[m]["event_ms"].append(s.elapsed_time(e))
+    finally:
+        K._call, DP.read_sum = shipped, read_sum
+    for m in ("none", "always"):
+        if not (torch.equal(out[m][0], out["checked"][0]) and all(
+                torch.equal(a, b) for a, b in zip(out[m][1],
+                                                  out["checked"][1]))):
+            fail("launch_cost: wrapper %s changed fn+grad" % m)
+    if rel_err(out["torch_sums"][0], out["checked"][0]) > 1e-5:
+        fail("launch_cost: torch's sums changed fn")
+    res = {m: {k: dict(mean=float(np.mean(v)), min=float(np.min(v)))
+               for k, v in rv.items()} for m, rv in rec.items()}
+    print(json.dumps({"launch_cost": res, "launches_per_fn_grad": sum(
+        kk.launches for kk in K.KERNELS.values()) // (
+            len(modes) * (rounds + 1) * reps), "card": card_line()}),
+        flush=True)
+
+
 # ------------------------------------------------------------ main
 
 def main():
@@ -1805,9 +2283,18 @@ def main():
     ap.add_argument("--profile", default="",
                     help="write the torch.profiler kernel table of one "
                          "main-path batch_fn_grad to this file")
+    ap.add_argument("--launch-cost", action="store_true",
+                    help="only time fn+grad under three kernel-launch "
+                         "wrappers (see launch_cost) and exit")
+    # one rank of N2/N3, started by this script itself
+    ap.add_argument("--mesh-worker", type=int, default=-1,
+                    help=argparse.SUPPRESS)
+    for flag in ("--mesh-devices", "--mesh-backend", "--mesh-fq",
+                 "--mesh-out"):
+        ap.add_argument(flag, default="", help=argparse.SUPPRESS)
     args = ap.parse_args()
     global np, torch, ET, J, DP, DMB, K, LIN, MIO, OBJ, TRN, CLI, SC, SCD
-    global CYK, seq_to_ints, ints_to_seq, FastqReader
+    global CYK, MESH, AJ, seq_to_ints, ints_to_seq, FastqReader
     try:
         import numpy as np
         import torch
@@ -1826,6 +2313,8 @@ def main():
         from rnaelem_tpu_torch.ops import dp_maxb as DMB
         from rnaelem_tpu_torch.ops import kernels as K
         from rnaelem_tpu_torch.ops import linear as LIN
+        from rnaelem_tpu_torch.parallel import arrayjob as AJ
+        from rnaelem_tpu_torch.parallel import mesh as MESH
         from rnaelem_tpu_torch.scan import cyk as CYK
         from rnaelem_tpu_torch.scan import driver as SCD
         from rnaelem_tpu_torch.scan import scanner as SC
@@ -1838,6 +2327,12 @@ def main():
         fail("the port imported jax or the JAX package")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.mesh_worker >= 0:
+        mesh_worker(args)
+        return
+    if args.launch_cost:
+        launch_cost(DEVICE)
+        return
     dev = DEVICE
     t_start = time.time()
     card = card_line()
@@ -2042,6 +2537,7 @@ def main():
           "function %s" % (j0, B_MAIN, LP, json.dumps(ms_pin),
                            json.dumps(k5_fn)), flush=True)
     del rows_p, cls_c
+    glue = glue_rows(cfg32, p32, bm, dev, funcs)
 
     # ---- phase 6: the evaluation path
     K.reset_counts()
@@ -2117,6 +2613,20 @@ def main():
         # ---- phase 9: the C++ goldens on the card
         golden_trna_eval(tmp, dev)
         golden_small8_train(tmp, dev)
+        # ---- phase 13: row N, data parallelism and the file array
+        torch.cuda.empty_cache()
+        n1 = mesh_n1(cfg32, reads, p32, dev)
+        n2 = mesh_ranks(tmp, "N2", ["cuda:0", "cuda:0"], "gloo", n1, step)
+        n3 = "skipped: one CUDA device (N3 needs two)"
+        if torch.cuda.device_count() >= 2:
+            launch_on_second_card(cfg32, reads[:16], p32)
+            n3 = mesh_ranks(tmp, "N3", ["cuda:0", "cuda:1"], "nccl", n1,
+                            step)
+        else:
+            print("N3 (two cards over NCCL, launches on cuda:1 from device "
+                  "0): skipped, this machine has one CUDA device; not "
+                  "counted as a pass", flush=True)
+        arr = array_eval_check(tmp, dev)
         # ---- phases 11-12: the scan path (this slice's main path: the
         # structure-model scan at f64, its default)
         scan = scan_trna(tmp, dev)
@@ -2200,6 +2710,18 @@ def main():
           "bound %.4f ms by %s; measured %.3f ms per batch (stack_reads)"
           % (B_MAIN, LP, mb_ms, mb_by, mask_ms), flush=True)
     print("chip_smoke total %.1f s" % (time.time() - t_start))
+    print(json.dumps({"row_n": {
+        "name": "data parallelism", "route": "torch.distributed",
+        "source": "rnaelem_tpu_torch/parallel/mesh.py",
+        "replaces": "rnaelem_tpu/parallel/mesh.py:126",
+        "gather_ms": n1["gather_ms"], "gather_bytes": n1["gather_bytes"],
+        "bound_ms": n1["bound_ms"], "bound_by": "bytes",
+        "library_ms": n1["gather_ms"], "library": "NCCL all_gather",
+        "collectives_per_step": 1, "launches_per_step": n1["launches"],
+        "step_ms_one_rank": n1["step_ms"],
+        "plain_step_ms": n1["plain_step_ms"], "n2": n2, "n3": n3,
+        "array": arr}}))
+    print(json.dumps({"rows_c_d": glue}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -16,7 +16,17 @@ Modes of the rnaelem binary (application.hpp:76-301, main.cpp:20-163):
   psihat and structure rss, region, exist prob) to --out1 and the E[N]
   line to stderr (motif_scanner.hpp);
 * ``gen-neg``: the shuffled negatives the trainer draws, -i iterations
-  of the whole file, as FASTA to --out1.
+  of the whole file, as FASTA to --out1;
+* ``array-eval``: one slave of the file-array evaluation (-a/--array >
+  1, the reference's TR_ARRAY protocol, parallel/arrayjob.py): the
+  objective over its slice of the FASTQ file into ``<--tmp>-<task id>``.
+
+Training runs data-parallel over a torch.distributed group
+(parallel/mesh.py) with ``--mesh N`` (N ranks on the first N cards of
+this host, or N processes on the CPU; -1, the default, every card when
+there is more than one), or as one rank of a group that spans hosts with
+``--coordinator host:port --num-processes P --process-id i`` on every
+host.  Only rank 0 writes --out1 and --out3 and runs ``normal``'s scan.
 
 Models are read with Lp rounded up from the file's longest read.  Work
 runs on CUDA unless --device says otherwise.  Training and evaluation
@@ -27,11 +37,15 @@ double, and at float32 the posterior lines below about e^-87 miss it.
 from __future__ import annotations
 
 import argparse
+import os
+import shutil
+import subprocess
 import sys
+import tempfile
+import threading
+import time
 
 import numpy as np
-
-LATER = "--array, --mesh and 'array-eval' wait for the multi-GPU port"
 
 
 def _round_up(n, m=16):
@@ -62,10 +76,10 @@ def _close(o):
 def build_parser():
     p = argparse.ArgumentParser(
         prog="rnaelem-torch",
-        description="RNA sequence-structure motif learning (PyTorch/CUDA). "
-                    "Not ported yet: " + LATER + ".")
+        description="RNA sequence-structure motif learning (PyTorch/CUDA)")
     p.add_argument("mode", nargs="?", default="normal",
-                   choices=["normal", "train", "eval", "scan", "gen-neg"])
+                   choices=["normal", "train", "eval", "array-eval", "scan",
+                            "gen-neg"])
     p.add_argument("-f", "--fastq", dest="seq_fname", required=True)
     p.add_argument("-m", "--motif-pattern", dest="pattern",
                    default="~NONE~")
@@ -87,6 +101,34 @@ def build_parser():
     p.add_argument("--lambda-prior", type=float, default=0.0)
     p.add_argument("-p", "--min-bpp", type=float, default=1e-4)
     p.add_argument("--param-set", default="")
+    p.add_argument("-a", "--array", type=int, default=1,
+                   help="evaluate the objective through this many "
+                        "array-eval slaves (the reference's TR_ARRAY file "
+                        "protocol); > 1 turns the group off")
+    p.add_argument("--tmp", default="~NULL~",
+                   help="file prefix of the array's model snapshot and "
+                        "slave files (default tmp<pid> here)")
+    p.add_argument("--sge-option-file", default="~DEFAULT~",
+                   help="cluster submit template for --array "
+                        "(arrayjob_manager.hpp:32-108 format); "
+                        "~DEFAULT~ runs slaves as local subprocesses")
+    p.add_argument("--font", default="~DEFAULT~")
+    p.add_argument("-t", "--thread", type=int, default=1)
+    # parsed but unused, as the reference binary does: its --pict is
+    # stored and never consumed (application.hpp:98-100, 323)
+    p.add_argument("--pict", dest="pic_fname", default="~NONE~",
+                   help="accepted for reference CLI compatibility")
+    p.add_argument("--mesh", type=int, default=-1,
+                   help="data-parallel ranks: -1 every local CUDA device "
+                        "when there is more than one, 0 off, N the first N "
+                        "devices (N processes with --device cpu)")
+    p.add_argument("--coordinator", default="",
+                   help="join a group as one rank: host:port (or a "
+                        "file:// store) that every rank reaches")
+    p.add_argument("--num-processes", type=int, default=0,
+                   help="ranks in the --coordinator group")
+    p.add_argument("--process-id", type=int, default=-1,
+                   help="this process's rank in the --coordinator group")
     p.add_argument("--no-rss", action="store_true")
     p.add_argument("--no-profile", dest="no_prf", action="store_true")
     p.add_argument("--no-energy", dest="no_ene", action="store_true")
@@ -134,17 +176,16 @@ def _build_cfg(args, Lp):
         dtype=_dtype(args))
 
 
-def _load_or_build_model(args, Lp):
+def _load_or_build_model(args, Lp, device):
     from .model import io as MIO
     from .model import joint as J
     if args.model_fname != "~NONE~":
         return MIO.read_model(args.model_fname, Lp=Lp, dtype=_dtype(args),
-                              device=args.device)
+                              device=device)
     if args.pattern == "~NONE~":
         raise SystemExit("require motif pattern or model")
     cfg = _build_cfg(args, Lp)
-    params = J.init_params(J.kernels(cfg, args.device).g, cfg,
-                           device=args.device)
+    params = J.init_params(J.kernels(cfg, device).g, cfg, device=device)
     return cfg, params
 
 
@@ -161,30 +202,82 @@ def _parse_param_set(s):
     return out or None
 
 
+def _group(args):
+    """This process's rank of the --coordinator group, or None (no
+    coordinator, or --array > 1)."""
+    if not args.coordinator or args.array > 1:
+        return None
+    if args.num_processes < 1 or \
+            not 0 <= args.process_id < args.num_processes:
+        raise SystemExit("--coordinator needs --num-processes P and "
+                         "--process-id 0..P-1")
+    import torch.distributed as dist
+    from .parallel import mesh as MESH
+    group = MESH.init_group(args.coordinator, args.num_processes,
+                            args.process_id, device=args.device)
+    devs = [None] * group.world_size
+    dist.all_gather_object(devs, str(group.device), group=group.pg)
+    if group.rank == 0:
+        print("mesh: %d ranks (data-parallel), backend %s, devices %s"
+              % (group.world_size, group.backend, " ".join(devs)),
+              file=sys.stderr)
+    return group
+
+
+def _array_evaluator(args, cfg):
+    """The master of --array N slaves (the reference's TR_ARRAY file
+    protocol): local subprocesses, or the --sge-option-file template's
+    scheduler."""
+    from .parallel import arrayjob as AJ
+    tmp = args.tmp if args.tmp not in ("~NULL~", "~COUT~", "~CERR~") \
+        else "tmp%d" % os.getpid()
+    submit = AJ.submit_local
+    if args.sge_option_file != "~DEFAULT~":
+        submit = AJ.GridEngineOptions.load(
+            args.sge_option_file).submitter(show=True)
+    return AJ.ArrayEvaluator(cfg, args.array, tmp, args.seq_fname,
+                             args.lik_ratio, submit=submit,
+                             sge_option_file=args.sge_option_file,
+                             device=args.device)
+
+
 def do_train(args, also_scan=False):
     from .model import io as MIO
     from .train.trainer import Trainer
-    Lp = _round_up(_fq_maxlen(args.seq_fname))
-    cfg, params = _load_or_build_model(args, Lp)
-    if cfg.Lp < Lp:
-        import dataclasses
-        cfg = dataclasses.replace(cfg, Lp=Lp)
-    batch_size = 100 if args.batch_size is None else args.batch_size
-    print("motif pattern:", cfg.pattern, file=sys.stderr)
-    print("batch size:", batch_size, file=sys.stderr)
-    interim = _out_stream(args.out3) if args.out3 != "~COUT~" else None
+    group = _group(args)
     try:
-        tr = Trainer(cfg, params, max_iter=args.max_iter, eps=args.epsilon,
-                     lambda_init=args.lambda_init, kmer_shuf=args.kmer_shuf,
-                     batch_size=batch_size, no_shuffle=args.no_shuffle,
-                     lik_ratio=args.lik_ratio, interim_out=interim,
-                     mask_indices=_parse_param_set(args.param_set),
-                     device=args.device)
-        tr.set_fq(args.seq_fname)
-        params = tr.train()
+        dev = args.device if group is None else group.device
+        Lp = _round_up(_fq_maxlen(args.seq_fname))
+        cfg, params = _load_or_build_model(args, Lp, dev)
+        if cfg.Lp < Lp:
+            import dataclasses
+            cfg = dataclasses.replace(cfg, Lp=Lp)
+        batch_size = 100 if args.batch_size is None else args.batch_size
+        print("motif pattern:", cfg.pattern, file=sys.stderr)
+        print("batch size:", batch_size, file=sys.stderr)
+        # every rank trains the same numbers; rank 0 alone writes
+        writer = group is None or group.rank == 0
+        interim = _out_stream(args.out3) \
+            if args.out3 != "~COUT~" and writer else None
+        array_eval = _array_evaluator(args, cfg) if args.array > 1 else None
+        try:
+            tr = Trainer(cfg, params, max_iter=args.max_iter,
+                         eps=args.epsilon, lambda_init=args.lambda_init,
+                         kmer_shuf=args.kmer_shuf, batch_size=batch_size,
+                         no_shuffle=args.no_shuffle,
+                         lik_ratio=args.lik_ratio, interim_out=interim,
+                         mask_indices=_parse_param_set(args.param_set),
+                         device=dev, group=group, array_eval=array_eval)
+            tr.set_fq(args.seq_fname)
+            params = tr.train()
+        finally:
+            if interim is not None:
+                _close(interim)
     finally:
-        if interim is not None:
-            _close(interim)
+        if group is not None:
+            group.close()
+    if not writer:
+        return
     out1 = _out_stream(args.out1)
     MIO.write_model(out1, cfg, params)
     _close(out1)
@@ -195,7 +288,22 @@ def do_train(args, also_scan=False):
         dt = _scan_dtype(args)
         params = J.Params(*[x.detach().to(DEV.torch_dtype(dt))
                             for x in params])
-        _scan_to(args.out2, dataclasses.replace(cfg, dtype=dt), params, args)
+        _scan_to(args.out2, dataclasses.replace(cfg, dtype=dt), params,
+                 args, dev)
+
+
+def _task_id(args) -> int:
+    """The array-eval slave's 1-based rank: the template's task-id
+    variable (arrayjob_manager.hpp:110-119), else SLURM_ARRAY_TASK_ID or
+    SGE_TASK_ID."""
+    tid_env = None
+    if args.sge_option_file != "~DEFAULT~":
+        from .parallel.arrayjob import GridEngineOptions
+        tid_env = GridEngineOptions.load(args.sge_option_file).task_id_env
+    if tid_env and tid_env in os.environ:
+        return int(os.environ[tid_env])
+    return int(os.environ.get("SLURM_ARRAY_TASK_ID",
+                              os.environ.get("SGE_TASK_ID", "1")))
 
 
 def do_eval(args):
@@ -206,6 +314,21 @@ def do_eval(args):
     Lp = _round_up(_fq_maxlen(args.seq_fname))
     cfg, params = MIO.read_model(args.model_fname, Lp=Lp, dtype=_dtype(args),
                                  device=args.device)
+    if args.mode == "array-eval":
+        # one slave: its slice of the file, 17 digits to <tmp>-<tid>
+        # (motif_eval.hpp:23-54)
+        tid = _task_id(args)
+        fn, gr, eff = eval_file(cfg, params, args.seq_fname, args.lik_ratio,
+                                batch_size=args.batch_size or 0,
+                                shard=(tid - 1, args.array),
+                                device=args.device)
+        with open(args.tmp + "-" + str(tid), "w") as tmp:
+            print("index:", tid, "/", args.array, file=tmp)
+            print("fn: %.17g" % fn, file=tmp)
+            print("gr: [" + ",".join("%.17g" % v for v in gr) + "]",
+                  file=tmp)
+            print("sum eff: %.17g" % eff, file=tmp)
+        return
     fn, gr, _ = eval_file(cfg, params, args.seq_fname, args.lik_ratio,
                           batch_size=args.batch_size or 0,
                           device=args.device)
@@ -216,11 +339,11 @@ def do_eval(args):
         _close(o)
 
 
-def _scan_to(name, cfg, params, args):
+def _scan_to(name, cfg, params, args, device):
     from .scan.driver import Scanner
     out = _out_stream(name)
     try:
-        Scanner(cfg, params, args.device).scan(args.seq_fname, out)
+        Scanner(cfg, params, device).scan(args.seq_fname, out)
     finally:
         _close(out)
 
@@ -232,7 +355,7 @@ def do_scan(args):
     Lp = _round_up(_fq_maxlen(args.seq_fname))
     cfg, params = MIO.read_model(args.model_fname, Lp=Lp,
                                  dtype=_scan_dtype(args), device=args.device)
-    _scan_to(args.out1, cfg, params, args)
+    _scan_to(args.out1, cfg, params, args, args.device)
 
 
 def do_genneg(args):
@@ -249,13 +372,121 @@ def do_genneg(args):
     _close(out)
 
 
+def _mesh_size(args) -> int:
+    """Ranks that --mesh asks for: -1 every local CUDA device (1 on the
+    CPU), 0 off, N the first N devices (N processes on the CPU)."""
+    if args.mesh == 0:
+        return 1
+    import torch
+    if torch.device(args.device).type != "cuda":
+        return max(1, args.mesh)
+    count = torch.cuda.device_count()
+    n = count if args.mesh < 0 else args.mesh
+    if n > count:
+        raise SystemExit("--mesh %d: this host has %d CUDA devices"
+                         % (n, count))
+    return n
+
+
+def _watch_ranks(procs, tmpdir, stop):
+    """Fail the whole command as soon as a spawned rank fails, rather than
+    when rank 0's next collective times out."""
+    while not stop.wait(0.5):
+        for p, log in procs:
+            if p.poll() not in (None, 0):
+                print(_rank_failed(p, log), file=sys.stderr, flush=True)
+                for q, _ in procs:
+                    if q.poll() is None:
+                        q.kill()
+                shutil.rmtree(tmpdir, ignore_errors=True)
+                os._exit(1)
+
+
+def _rank_failed(p, log) -> str:
+    log.flush()
+    log.seek(0)
+    return "a rank of --mesh failed (exit %s):\n%s" % (
+        p.returncode, log.read()[-3000:])
+
+
+def _run_mesh(argv, args, n: int):
+    """--mesh N: this process becomes rank 0 and starts ranks 1..N-1 as
+    subprocesses of the same command line, all joined through a file
+    store in a fresh temporary directory (one code path with the
+    multi-host --coordinator)."""
+    import torch
+    from .parallel.mesh import TIMEOUT_S
+    tmpdir = tempfile.mkdtemp(prefix="rnaelem-mesh-")
+    url = "file://" + os.path.join(tmpdir, "store")
+
+    def rank_argv(r):
+        return argv + ["--coordinator", url, "--num-processes", str(n),
+                       "--process-id", str(r)]
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [x for x in [os.environ.get("PYTHONPATH")] if x]))
+    if torch.device(args.device).type == "cpu" and \
+            "OMP_NUM_THREADS" not in os.environ:
+        # N ranks on one host's cores: each its share of the threads
+        k = max(1, (os.cpu_count() or 1) // n)
+        env["OMP_NUM_THREADS"] = str(k)
+        torch.set_num_threads(k)
+    procs, stop = [], threading.Event()
+    try:
+        for r in range(1, n):
+            log = open(os.path.join(tmpdir, "rank%d.log" % r), "w+")
+            procs.append((subprocess.Popen(
+                [sys.executable, "-m", "rnaelem_tpu_torch.cli"]
+                + rank_argv(r), stdout=subprocess.DEVNULL, stderr=log,
+                env=env), log))
+        threading.Thread(target=_watch_ranks, args=(procs, tmpdir, stop),
+                         daemon=True).start()
+        main(rank_argv(0))
+        stop.set()
+        deadline = time.time() + TIMEOUT_S
+        for p, log in procs:
+            p.wait(timeout=max(1.0, deadline - time.time()))
+            if p.returncode != 0:
+                raise SystemExit(_rank_failed(p, log))
+    finally:
+        stop.set()
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+        shutil.rmtree(tmpdir, ignore_errors=True)
+
+
+def _warn_ignored(args):
+    # loudly ignored reference flags (--pict, which the reference itself
+    # parses and never consumes, stays silent)
+    if args.font != "~DEFAULT~":
+        print("warning: --font is ignored; figures are SVG (the elem "
+              "pipeline's draw_motif), no FreeType font is needed",
+              file=sys.stderr)
+    if args.thread != 1:
+        print("warning: --thread is ignored; sequences are batched "
+              "through one device kernel — use --mesh for multi-GPU "
+              "data parallelism", file=sys.stderr)
+
+
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
+    _warn_ignored(args)
+    if args.mode in ("normal", "train") and args.array <= 1 \
+            and not args.coordinator:
+        n = _mesh_size(args)
+        if n > 1:
+            _run_mesh(argv, args, n)
+            return
     if args.mode == "normal":
         do_train(args, also_scan=True)
         return
-    {"train": do_train, "eval": do_eval, "scan": do_scan,
-     "gen-neg": do_genneg}[args.mode](args)
+    {"train": do_train, "eval": do_eval, "array-eval": do_eval,
+     "scan": do_scan, "gen-neg": do_genneg}[args.mode](args)
 
 
 if __name__ == "__main__":

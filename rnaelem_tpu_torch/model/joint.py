@@ -313,6 +313,24 @@ def _emission_parts(cfg: ModelConfig, k: _Kernels, sd: SeqData):
     return seq, ws, oh4.to(k.dtype)
 
 
+class _OneHot(torch.autograd.Function):
+    """v[b, n, t] = sum_k oh[b, n, k] w[b, t, k] for a one-hot ``oh``
+    (exact: one product per cell).  The weights' cotangent is summed per
+    read by DP.read_sum: a read's gradient has the same bits in any batch
+    (a batched matrix product's order depends on the batch size)."""
+
+    @staticmethod
+    def forward(ctx, oh, w):
+        ctx.save_for_backward(oh)
+        return torch.einsum("bnk,btk->bnt", oh, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        (oh,) = ctx.saved_tensors
+        prod = oh[:, :, None, :] * g[:, :, :, None]        # [b, n, t, k]
+        return None, DP.read_sum(torch.movedim(prod, 1, 0), 1)
+
+
 def _single_emissions(cfg, k, singles, seq, ws, oh4, tid, ws_flags):
     """Per-state single emissions + positional weight, [B, Lp, S]: the
     table of each state's node picked by a one-hot contraction (not a
@@ -326,7 +344,7 @@ def _single_emissions(cfg, k, singles, seq, ws, oh4, tid, ws_flags):
     if cfg.no_prf:
         return torch.zeros((B, Lp, g.S), dtype=dt, device=dev) + w
     slot = torch.as_tensor(g.single_table_index[tid], device=dev)
-    v = torch.einsum("blk,bsk->bls", oh4, singles[:, slot])
+    v = _OneHot.apply(oh4, singles[:, slot])
     return torch.where((seq > 0)[:, :, None], v, zero) + w
 
 
@@ -357,8 +375,8 @@ def _diff_factors(cfg: ModelConfig, k: _Kernels, params_b: Params,
     if cfg.no_prf:
         bg2 = torch.zeros((B, Lp), dtype=dt, device=dev)
     else:
-        bg2 = torch.where(seq > 0, torch.einsum("blk,bk->bl", oh4,
-                                                singles[:, 0]), zero)
+        bg2 = torch.where(seq > 0, _OneHot.apply(oh4, singles[:, :1])[..., 0],
+                          zero)
     j, w = _grid(cfg, dev)
     i = torch.clamp(j - w, 0, Lp - 1)
     bt = k.tab["bp"][seq[:, i], seq[:, torch.clamp(j - 1, 0, Lp - 1)]
@@ -368,7 +386,8 @@ def _diff_factors(cfg: ModelConfig, k: _Kernels, params_b: Params,
         pv = torch.zeros((B, Lp + 1, cfg.Wp + 1, Tp), dtype=dt, device=dev)
     else:
         oh6 = torch.nn.functional.one_hot(torch.clamp(bt - 1, 0, 5), 6)
-        pvv = torch.einsum("bjwk,btk->bjwt", oh6.to(dt), pairs)
+        pvv = _OneHot.apply(oh6.to(dt).reshape(B, -1, 6), pairs).reshape(
+            B, Lp + 1, cfg.Wp + 1, Tp)
         pv = torch.where((bt > 0)[..., None], pvv, zero)
     mv = lambda x: torch.movedim(x, 0, -1).contiguous()
     return DP.DiffFactors(

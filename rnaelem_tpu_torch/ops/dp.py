@@ -404,6 +404,62 @@ class DPStatic:
         self.k = kk
 
 
+def read_sum(x, ndims: int):
+    """Sum ``x`` over its first ``ndims`` dims in one fixed order: padded
+    with zeros to a power of two, then halves added elementwise.  Every
+    output gets the same bits whatever the other dims hold, so a read's
+    sum does not depend on the batch it came in (a torch reduction picks
+    its order from the number of outputs, the batch size among them)."""
+    n = int(np.prod(x.shape[:ndims], dtype=np.int64))
+    x = x.reshape((n,) + tuple(x.shape[ndims:]))
+    p = 1 << max(0, n - 1).bit_length()
+    if p > n:
+        x = torch.cat([x, x.new_zeros((p - n,) + tuple(x.shape[1:]))])
+    while x.shape[0] > 1:
+        h = x.shape[0] // 2
+        x = x[:h] + x[h:]
+    return x[0]
+
+
+class _LamExp(torch.autograd.Function):
+    """exp(lam_mul(lam[b], X)) for b = 0, 1, stacked [2, *X.shape], for
+    lam [2, B] and X [..., B] (or [..., 1]); lambda's cotangent is summed
+    per read by read_sum."""
+
+    @staticmethod
+    def forward(ctx, lam, X):
+        out = torch.stack([torch.exp(lam_mul(lam[b], X)) for b in range(2)])
+        ctx.save_for_backward(out, X)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out, X = ctx.saved_tensors
+        t = g * out * torch.where(torch.isneginf(X), torch.zeros_like(X), X)
+        return torch.stack([read_sum(t[b], t.dim() - 2)
+                            for b in range(2)]), None
+
+
+class _RowScale(torch.autograd.Function):
+    """x * exp(l + r[None])[:, None, :] for x [w, t, B], l [w, B] and r
+    [B] (or None); the cotangents of l and r are summed per read by
+    read_sum (a torch sum over t or w picks its order from B on the
+    CPU)."""
+
+    @staticmethod
+    def forward(ctx, x, l, r):
+        f = torch.exp(l if r is None else l + r[None])
+        ctx.save_for_backward(x, f)
+        ctx.has_r = r is not None
+        return x * f[:, None, :]
+
+    @staticmethod
+    def backward(ctx, g):
+        x, f = ctx.saved_tensors
+        gl = read_sum(torch.movedim(g * x, 1, 0), 1) * f
+        return g * f[:, None, :], gl, read_sum(gl, 1) if ctx.has_r else None
+
+
 def hoisted(d: DiffFactors, c: ConstFactors, st: DPStatic):
     """Per-evaluation exp-space energy tensors (lambda flows here):
     eSZ [2, n_cls, Cp+1 (dl), Cp+1 (u1), B] with the per-read C cap
@@ -419,17 +475,14 @@ def hoisted(d: DiffFactors, c: ConstFactors, st: DPStatic):
              <= c.C[None, None, :])
     SZT = torch.as_tensor(np.ascontiguousarray(
         np.transpose(st.SZ, (0, 2, 1))), dtype=dt, device=dev)[..., None]
-    eSZs = torch.stack([torch.exp(lam_mul(lam[b], SZT))
-                        for b in range(2)])  # [2, n_cls, dl, u1, B]
+    eSZs = _LamExp.apply(lam, SZT)           # [2, n_cls, dl, u1, B]
     eSZ = eSZs * cmask
     grp = torch.as_tensor(st.grp, device=dev)
     eSZg = torch.zeros((2, 4) + tuple(eSZs.shape[2:]), dtype=dt,
                        device=dev).index_add_(1, grp, eSZs)
     misA, misB = c.ep["misA"], c.ep["misB"]
-    emisA = torch.stack([torch.exp(lam_mul(lam[b], misA))
-                         for b in range(2)])
-    eB = torch.stack([torch.exp(lam_mul(lam[b], misB)).permute(1, 2, 0, 3)
-                      for b in range(2)])                # [2, Lp+1, w, 4, B]
+    emisA = _LamExp.apply(lam, misA)
+    eB = _LamExp.apply(lam, misB).permute(0, 2, 3, 1, 4)  # [2, Lp+1, w, 4, B]
     pad = torch.zeros((2, PAD) + tuple(eB.shape[2:]), dtype=dt, device=dev)
     emisB = torch.cat([pad, eB], dim=1).contiguous()
     return dict(eSZ=eSZ.contiguous(), eSZg=eSZg, emisA=emisA.contiguous(),
@@ -588,21 +641,21 @@ def front_col(win, j, rows, c, st):
         a_pp = lse(pem + prevP2[:, None], axis=2)
     else:
         wl, wr = c.wsp[iw], c.wsp[j - 1]
-        bgf = torch.exp(rows["bgl"] + rows["bgr"][None])
         pvj = rows["pv"]
         outs = []
         for src in (prevE2, prevP2):
             m = _finmax(src, 1, keepdim=True)
             ex = torch.exp(src - m)
-            acc = torch.einsum("ts,wsb->wtb", st.Mbg, ex) * bgf[:, None, :]
+            acc = _RowScale.apply(torch.einsum("ts,wsb->wtb", st.Mbg, ex),
+                                  rows["bgl"], rows["bgr"])
             for (t, a, b2, mask) in st.combos:
                 fac = pvj[:, t, :]
                 if a:
                     fac = fac + wl
                 if b2:
                     fac = fac + wr
-                acc = acc + torch.einsum("ts,wsb->wtb", mask, ex) \
-                    * torch.exp(fac)[:, None, :]
+                acc = acc + _RowScale.apply(
+                    torch.einsum("ts,wsb->wtb", mask, ex), fac, None)
             outs.append(safe_log(acc) + m)
         a_pe, a_pp = outs
     a_pp = a_pp + lam_mul(lamv[None], c.stk[j][:, None, :])
@@ -894,10 +947,10 @@ def finish_grads(gs, st):
     """Cotangents of (eR, eL, bg2, pv, lam, alphaP, eSZ, eSZg, emisA,
     emisB) from a gradient state, every one per read: the kernels'
     per-cell lambda partials are summed per bucket into lambda's [2, B]
-    (plain sums in a fixed order)."""
-    DLs = gs["DL"].sum(dim=(0, 1))                       # [S, B]
+    (read_sum: the same bits for a read in any batch)."""
+    DLs = read_sum(gs["DL"], 2)                          # [S, B]
     lam = gs["lam"] + torch.stack(
-        [DLs[st.bucket == b].sum(dim=0) for b in range(2)])
+        [read_sum(DLs[st.bucket == b], 1) for b in range(2)])
     return (gs["eR"], gs["eL"], gs["bg2"], gs["pv"], lam, gs["alphaP"],
             gs["eSZ"], gs["GSZ"], gs["emisA"], gs["emisB"])
 
@@ -1147,17 +1200,18 @@ class InsideDP:
     def run_columns(self, state, d, c, h, j0: int, j1: int):
         """Columns j0..j1-1, every stage in update order.  On the card the
         B/T1, M and O stages (which need only L, P and T2 of the column)
-        run on a side stream, concurrently with the internal-loop stage;
-        events order the two streams (E needs M; the next column's
-        B needs this column's T2)."""
+        run on a side stream of the state's device, concurrently with the
+        internal-loop stage; events order the two streams (E needs M; the
+        next column's B needs this column's T2)."""
         st = self.st
         if state["O"].device.type != "cuda":
             for j in range(j0, j1):
                 for stage in STAGES:
                     stage(state, j, d, c, h, st)
             return
-        main = torch.cuda.current_stream()
-        side = state.setdefault("_side_stream", torch.cuda.Stream())
+        dev = state["O"].device
+        main = torch.cuda.current_stream(dev)
+        side = state.setdefault("_side_stream", torch.cuda.Stream(dev))
         for j in range(j0, j1):
             band_front(state, j, d, c, h, st)
             side.wait_stream(main)

@@ -401,8 +401,8 @@ class MaxDP:
     def run_columns(self, state, d, c, j0: int, j1: int, plain=False):
         """Columns j0..j1-1, every stage in update order (``plain``: the
         plain versions whatever the device).  On the card B/T1, M and O
-        run on a side stream beside the internal-loop stage, as in the
-        sum DP."""
+        run on a side stream of the state's device beside the
+        internal-loop stage, as in the sum DP."""
         mst = self.mst
         if plain or state["O"].device.type != "cuda":
             stages = PLAIN_STAGES if plain else STAGES
@@ -410,8 +410,9 @@ class MaxDP:
                 for stage in stages:
                     stage(state, j, d, c, mst)
             return
-        main = torch.cuda.current_stream()
-        side = state.setdefault("_side_stream", torch.cuda.Stream())
+        dev = state["O"].device
+        main = torch.cuda.current_stream(dev)
+        side = state.setdefault("_side_stream", torch.cuda.Stream(dev))
         for j in range(j0, j1):
             max_band_front(state, j, d, c, mst)
             side.wait_stream(main)

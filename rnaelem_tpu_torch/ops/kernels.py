@@ -7,10 +7,10 @@ a hash of the sources and flags.  Nothing is compiled or imported from
 CUDA when this module is imported.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
-outputs and scratch with torch, launches on PyTorch's current stream,
-raises when the launch returns a CUDA error, and counts its launches in
-``KERNELS[name].launches``.  Kernels are instantiated for float32
-(production) and float64 (held to the plain versions).
+outputs and scratch with torch, launches on the current stream of its
+tensors' device, raises when the launch returns a CUDA error, and counts
+its launches in ``KERNELS[name].launches``.  Kernels are instantiated for
+float32 (production) and float64 (held to the plain versions).
 
 The scanner's aux factors reach the kernels as an ``Aux`` struct
 (csrc/common.cuh): the grammar's class codes, the evaluation's pin
@@ -20,6 +20,7 @@ fill and K5's ``cls_red`` sums into the probe's cotangent.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -304,15 +305,21 @@ def lib():
     return _lib
 
 
-def _call(kernel: str, fname: str, dtype, *args):
-    """Launch rnaelem_<fname>_<type> on the current stream; raise on a
-    CUDA error; count the launch against ``kernel``."""
-    if dtype not in _SUF:
-        raise TypeError("kernels take float32 or float64, not %s" % dtype)
+def _call(kernel: str, fname: str, like, *args):
+    """Launch rnaelem_<fname>_<type> for the dtype of the tensor ``like``
+    on its device's current stream, that device made current for the
+    launch when it is not (a process may hold tensors on several cards);
+    raise on a CUDA error; count the launch against ``kernel``."""
+    if like.dtype not in _SUF:
+        raise TypeError("kernels take float32 or float64, not %s"
+                        % like.dtype)
     L = lib()
-    fn = getattr(L, "rnaelem_%s_%s" % (fname, _SUF[dtype]))
-    stream = torch.cuda.current_stream().cuda_stream
-    rc = fn(*args, ctypes.c_void_p(stream))
+    fn = getattr(L, "rnaelem_%s_%s" % (fname, _SUF[like.dtype]))
+    dev = like.device.index
+    with contextlib.nullcontext() if dev == torch.cuda.current_device() \
+            else torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(*args, ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError("CUDA kernel %s failed: %s (%d)" % (
             fname, L.rnaelem_error_string(rc).decode(), rc))
@@ -363,8 +370,8 @@ def score_tables(tab, seq, L, bp_ok, dots_cum, Wp: int, max_span: int,
     out.update({k: e(g, torch.bool) for k in ("okP", "okE", "okM", "okB")})
     p = ScoreDims(Lp, Wp, B, max_span, turn, int(no_ene), int(fix_rss),
                   (ctypes.c_int * N_TABLES)(*offs))
-    _call("score_tables", "score_tables", dt, p, _p(packed), _p(seq), _p(L),
-          _p(bp_ok), _p(dots_cum), *[_p(out[k]) for k in (
+    _call("score_tables", "score_tables", packed, p, _p(packed), _p(seq),
+          _p(L), _p(bp_ok), _p(dots_cum), *[_p(out[k]) for k in (
               "hp", "stk", "ext", "ml2", "mlE", "misA", "misB", "spec_il",
               "t_out", "t_in", "okP", "okE", "okM", "okB")])
     return out
@@ -508,7 +515,7 @@ def _band_idx(st):
 def band_front(state, j, d, c, h, st):
     """K2 stages L, P, T2 of column j (writes rows j of LL, P, T2)."""
     _check_column(state, j, d, c, h, st)
-    _call("inside_band", "band_front", st.dtype, _dims(st, state, j, d),
+    _call("inside_band", "band_front", state["O"], _dims(st, state, j, d),
           _band_idx(st), _aux(st, c.pin), _p(state["LL"]), _p(state["P"]),
           _p(state["T2"]), _p(state["E"]), _p(d.eR), _p(d.bg2), _p(d.pv),
           _p(d.alphaP), _p(c.wsp), _p(state["_lam"]), _p(c.stk), _p(c.ml2),
@@ -518,7 +525,7 @@ def band_front(state, j, d, c, h, st):
 def band_bif(state, j, d, c, h, st):
     """K2 stages B and T1 of column j."""
     _check_column(state, j, d, c, h, st)
-    _call("inside_band", "band_bif", st.dtype, _dims(st, state, j, d),
+    _call("inside_band", "band_bif", state["O"], _dims(st, state, j, d),
           _band_idx(st), _p(state["Bt"]), _p(state["T1"]),
           _p(state["T2"]), _p(c.okB))
 
@@ -526,7 +533,7 @@ def band_bif(state, j, d, c, h, st):
 def band_m(state, j, d, c, h, st):
     """K2 stage M (sequential multiloop chain) of column j."""
     _check_column(state, j, d, c, h, st)
-    _call("inside_band", "band_m", st.dtype, _dims(st, state, j, d),
+    _call("inside_band", "band_m", state["O"], _dims(st, state, j, d),
           _band_idx(st), _aux(st, c.pin), _p(state["M"]), _p(state["Bt"]),
           _p(d.eL), _p(c.gate_M), _p(c.okM))
 
@@ -534,7 +541,7 @@ def band_m(state, j, d, c, h, st):
 def band_e(state, j, d, c, h, st):
     """K2 stage E of column j (reads the K3 ep term)."""
     _check_column(state, j, d, c, h, st)
-    _call("inside_band", "band_e", st.dtype, _dims(st, state, j, d),
+    _call("inside_band", "band_e", state["O"], _dims(st, state, j, d),
           _band_idx(st), _p(state["E"]), _p(state["LL"]), _p(state["M"]),
           _p(state["ep"][j + st.PAD]), _p(state["_lam"]), _p(c.hp), _p(c.mlE),
           _p(c.okE))
@@ -565,25 +572,25 @@ def ep_stage(state, j, d, c, h, st):
         state["_ep_scratch"] = scr
     D = _dims(st, state, j, d)
     ix = _idx(st, EpIdx, EP_IDX)
-    _call("inside_ep", "ep_rowmax", dt, D, _p(state["P"]), _p(state["LL"]),
-          _p(scr["rowmax"]))
+    _call("inside_ep", "ep_rowmax", state["O"], D, _p(state["P"]),
+          _p(state["LL"]), _p(scr["rowmax"]))
     _ep_tv(state, j, d, c, h, st)
-    _call("inside_ep", "ep_out", dt, D, ix, _p(state["P"]), _p(state["LL"]),
-          _p(scr["V"]), _p(scr["shift"]), _p(c.dots_cum),
+    _call("inside_ep", "ep_out", state["O"], D, ix, _p(state["P"]),
+          _p(state["LL"]), _p(scr["V"]), _p(scr["shift"]), _p(c.dots_cum),
           _p(c.ep["spec_il"]), _p(state["_lam"]), _p(c.C), _p(ep_row))
 
 
 def _ep_tv(state, j, d, c, h, st):
     """K3's shifts, T and V of column j into the state's scratch (rows
     up to j must be final and in the per-row maxima)."""
-    dt, scr = st.dtype, state["_ep_scratch"]
+    scr = state["_ep_scratch"]
     D = _dims(st, state, j, d)
-    _call("inside_ep", "ep_shift", dt, D, _p(scr["rowmax"]),
+    _call("inside_ep", "ep_shift", state["O"], D, _p(scr["rowmax"]),
           _p(scr["shift"]))
-    _call("inside_ep", "ep_t", dt, D, _idx(st, EpIdx, EP_IDX),
+    _call("inside_ep", "ep_t", state["O"], D, _idx(st, EpIdx, EP_IDX),
           _p(state["P"]), _p(state["LL"]), _p(c.dots_cum), _p(scr["shift"]),
           _p(scr["T"]))
-    _call("inside_ep", "ep_v", dt, D, _p(scr["T"]), _p(h["emisA"]),
+    _call("inside_ep", "ep_v", state["O"], D, _p(scr["T"]), _p(h["emisA"]),
           _p(h["emisB"]), _p(state["_eSZg"]), _p(c.C), _p(scr["V"]))
 
 
@@ -591,7 +598,7 @@ def ext_stage(state, j, d, c, h, st):
     """K4: the exterior O column j (writes row j of O)."""
     _check_column(state, j, d, c, h, st)
     ix = _idx(st, ExtIdx, EXT_IDX)
-    _call("inside_ext", "ext_col", st.dtype, _dims(st, state, j, d), ix,
+    _call("inside_ext", "ext_col", state["O"], _dims(st, state, j, d), ix,
           _aux(st, c.pin), _p(state["O"]), _p(state["P"]), _p(d.eR),
           _p(c.gate_O2), _p(c.ext), _p(state["_lam"]))
 
@@ -657,21 +664,21 @@ def _cls_parts(gs, st, B, dev):
 def ext_adj(fs, gs, j, d, c, h, st):
     """K7: adjoint of the O column j."""
     _check_adj(fs, gs, j, d, c, h, st)
-    D, ix, dt = _dims(st, fs, j, d), _idx(st, AdjIdx, ADJ_IDX), st.dtype
+    D, ix = _dims(st, fs, j, d), _idx(st, AdjIdx, ADJ_IDX)
     ax = _aux(st, c.pin,
               _cls_parts(gs, st, fs["O"].shape[-1], fs["O"].device))
-    _call("outside_ext", "ext_adj", dt, D, ix, ax, _p(fs["O"]), _p(fs["P"]),
-          _p(d.eR), _p(c.gate_O2), _p(c.ext), _p(fs["_lam"]), _p(gs["O"]),
-          _p(gs["P"]), _p(gs["eR"]), _p(gs["DL"]))
-    _call("outside_ext", "ext_adj_chain", dt, D, ix, ax, _p(fs["O"]),
+    _call("outside_ext", "ext_adj", fs["O"], D, ix, ax, _p(fs["O"]),
+          _p(fs["P"]), _p(d.eR), _p(c.gate_O2), _p(c.ext), _p(fs["_lam"]),
+          _p(gs["O"]), _p(gs["P"]), _p(gs["eR"]), _p(gs["DL"]))
+    _call("outside_ext", "ext_adj_chain", fs["O"], D, ix, ax, _p(fs["O"]),
           _p(d.eR), _p(c.gate_O2), _p(gs["O"]))
 
 
 def e_adj(fs, gs, j, d, c, h, st):
     """K5: adjoint of E at column j (fills gs['gM'] and gs['gep'])."""
     _check_adj(fs, gs, j, d, c, h, st)
-    D, ix, dt = _dims(st, fs, j, d), _idx(st, AdjIdx, ADJ_IDX), st.dtype
-    _call("outside_band", "e_adj", dt, D, ix, _p(fs["E"]), _p(fs["LL"]),
+    D, ix = _dims(st, fs, j, d), _idx(st, AdjIdx, ADJ_IDX)
+    _call("outside_band", "e_adj", fs["O"], D, ix, _p(fs["E"]), _p(fs["LL"]),
           _p(fs["M"]), _p(fs["ep"]), _p(fs["_lam"]), _p(c.hp), _p(c.mlE),
           _p(gs["E"]), _p(gs["LL"]), _p(gs["gM"]), _p(gs["gep"]),
           _p(gs["DL"]))
@@ -683,28 +690,28 @@ def ep_adj(fs, gs, j, d, c, h, st):
     _check_adj(fs, gs, j, d, c, h, st)
     if not st.have_ep:
         return
-    D, ix, dt = _dims(st, fs, j, d), _idx(st, AdjIdx, ADJ_IDX), st.dtype
+    D, ix = _dims(st, fs, j, d), _idx(st, AdjIdx, ADJ_IDX)
     _ep_tv(fs, j, d, c, h, st)
     fscr = fs["_ep_scratch"]
     scr = _adj_scratch(gs, st, fs["O"].shape[-1], fs["O"].device)
     ctx = (_p(fs["P"]), _p(fs["LL"]), _p(fscr["shift"]),
            _p(c.ep["spec_il"]), _p(fs["_lam"]), _p(c.dots_cum), _p(c.C))
-    _call("outside_ep", "ep_go", dt, D, ix, *ctx, _p(fs["ep"]),
+    _call("outside_ep", "ep_go", fs["O"], D, ix, *ctx, _p(fs["ep"]),
           _p(gs["gep"]), _p(scr["GO"]), _p(gs["DL"]))
-    _call("outside_ep", "ep_gv", dt, D, ix, *ctx, _p(fscr["V"]),
+    _call("outside_ep", "ep_gv", fs["O"], D, ix, *ctx, _p(fscr["V"]),
           _p(scr["GO"]), _p(scr["gV"]), _p(gs["LL"]))
-    _call("outside_ep", "ep_gtw", dt, D, _p(fscr["T"]), _p(scr["gV"]),
+    _call("outside_ep", "ep_gtw", fs["O"], D, _p(fscr["T"]), _p(scr["gV"]),
           _p(h["emisA"]), _p(h["emisB"]), _p(fs["_eSZg"]), _p(c.C),
           _p(scr["gT"]), _p(scr["gW"]))
-    _call("outside_ep", "ep_gmb", dt, D, _p(scr["gW"]), _p(h["emisA"]),
+    _call("outside_ep", "ep_gmb", fs["O"], D, _p(scr["gW"]), _p(h["emisA"]),
           _p(fs["_eSZg"]), _p(c.C), _p(gs["emisB"]))
-    _call("outside_ep", "ep_gma", dt, D, _p(scr["gW"]), _p(h["emisB"]),
+    _call("outside_ep", "ep_gma", fs["O"], D, _p(scr["gW"]), _p(h["emisB"]),
           _p(fs["_eSZg"]), _p(c.C), _p(gs["emisA"]))
-    _call("outside_ep", "ep_gsz", dt, D, _p(scr["gW"]), _p(h["emisA"]),
+    _call("outside_ep", "ep_gsz", fs["O"], D, _p(scr["gW"]), _p(h["emisA"]),
           _p(h["emisB"]), _p(c.C), _p(gs["GSZ"]))
-    _call("outside_ep", "ep_gp", dt, D, ix, *ctx, _p(scr["gT"]),
+    _call("outside_ep", "ep_gp", fs["O"], D, ix, *ctx, _p(scr["gT"]),
           _p(scr["GO"]), _p(gs["P"]))
-    _call("outside_ep", "ep_gl3", dt, D, ix, *ctx, _p(scr["gT"]),
+    _call("outside_ep", "ep_gl3", fs["O"], D, ix, *ctx, _p(scr["gT"]),
           _p(scr["GO"]), _p(gs["LL"]))
 
 
@@ -712,39 +719,39 @@ def band_adj(fs, gs, j, d, c, h, st):
     """K5: adjoint of M, B/T1 and L/P/T2 at column j (and, with a class
     probe, the column's class sums)."""
     _check_adj(fs, gs, j, d, c, h, st)
-    D, ix, dt = _dims(st, fs, j, d), _idx(st, AdjIdx, ADJ_IDX), st.dtype
+    D, ix = _dims(st, fs, j, d), _idx(st, AdjIdx, ADJ_IDX)
     scr = _adj_scratch(gs, st, fs["O"].shape[-1], fs["O"].device)
     parts = _cls_parts(gs, st, fs["O"].shape[-1], fs["O"].device)
     ax = _aux(st, c.pin, parts)
     f, g = fs, gs
-    _call("outside_band", "m_adj", dt, D, ix, ax, _p(f["M"]), _p(f["Bt"]),
+    _call("outside_band", "m_adj", fs["O"], D, ix, ax, _p(f["M"]), _p(f["Bt"]),
           _p(d.eL), _p(c.gate_M), _p(c.okM), _p(g["gM"]), _p(g["gB"]),
           _p(g["eL"]))
-    _call("outside_band", "t1_adj", dt, D, _p(f["T1"]), _p(f["T2"]),
+    _call("outside_band", "t1_adj", fs["O"], D, _p(f["T1"]), _p(f["T2"]),
           _p(f["Bt"]), _p(g["T1"]), _p(g["T2"]), _p(g["gB"]))
     for side, out in (("t1", "T1"), ("t2", "T2")):
-        _call("outside_band", "bif_adj_" + side, dt, D, ix, _p(f["T1"]),
+        _call("outside_band", "bif_adj_" + side, fs["O"], D, ix, _p(f["T1"]),
               _p(f["T2"]), _p(f["Bt"]), _p(g["gB"]), _p(g[out]))
-    _call("outside_band", "front_adj_t", dt, D, ix, ax, _p(f["LL"]),
+    _call("outside_band", "front_adj_t", fs["O"], D, ix, ax, _p(f["LL"]),
           _p(f["P"]),
           _p(f["T2"]), _p(d.eR), _p(d.bg2), _p(d.pv), _p(d.alphaP),
           _p(c.wsp), _p(fs["_lam"]), _p(c.stk), _p(c.ml2), _p(c.gate_O2),
           _p(g["LL"]), _p(g["P"]), _p(g["T2"]), _p(g["DL"]),
           _p(scr["ePart"]))
-    _call("outside_band", "front_adj_s", dt, D, ix, ax, _p(f["LL"]),
+    _call("outside_band", "front_adj_s", fs["O"], D, ix, ax, _p(f["LL"]),
           _p(f["P"]),
           _p(f["T2"]), _p(f["E"]), _p(d.eR), _p(d.bg2), _p(d.pv),
           _p(d.alphaP), _p(c.wsp), _p(fs["_lam"]), _p(c.stk), _p(c.gate_O2),
           _p(g["LL"]), _p(g["P"]), _p(g["P"]), _p(g["T2"]), _p(g["E"]))
-    _call("outside_band", "front_adj_wb", dt, D, ix, ax, _p(f["P"]),
+    _call("outside_band", "front_adj_wb", fs["O"], D, ix, ax, _p(f["P"]),
           _p(f["E"]),
           _p(d.bg2), _p(d.pv), _p(d.alphaP), _p(c.wsp), _p(fs["_lam"]),
           _p(c.stk), _p(g["P"]), _p(g["pv"]), _p(g["alphaP"]),
           _p(scr["bgp"]))
-    _call("outside_band", "front_adj_red", dt, D, _p(scr["ePart"]),
+    _call("outside_band", "front_adj_red", fs["O"], D, _p(scr["ePart"]),
           _p(scr["bgp"]), _p(g["eR"]), _p(g["bg2"]))
     if parts is not None:
-        _call("outside_band", "cls_red", dt, D, ax, _p(g["cls"]))
+        _call("outside_band", "cls_red", fs["O"], D, ax, _p(g["cls"]))
 
 
 # ------------------------------------------------ K8-K9 no-rss chain
@@ -771,7 +778,7 @@ def chain_fwd(st, eR, L, pin=None):
     parts = torch.empty((D.B, 3), dtype=eR.dtype, device=eR.device)
     rows = torch.empty((D.Lp + 1, D.S, D.B), dtype=eR.dtype,
                        device=eR.device)
-    _call("linear_fwd", "chain_fwd", st.dtype, D, ix, _aux(st, pin), _p(eR),
+    _call("linear_fwd", "chain_fwd", eR, D, ix, _aux(st, pin), _p(eR),
           _p(L), _p(rows), _p(parts))
     return parts, rows
 
@@ -789,7 +796,7 @@ def chain_adj(st, eR, L, rows, gparts, pin=None, cls=None):
     ax = _aux(st, pin)
     if cls is not None:
         ax.cpR = cls.data_ptr()
-    _call("linear_adj", "chain_adj", st.dtype, D, ix, ax, _p(eR), _p(L),
+    _call("linear_adj", "chain_adj", eR, D, ix, ax, _p(eR), _p(L),
           _p(rows), _p(gparts), _p(g_eR))
     return g_eR
 
@@ -822,7 +829,7 @@ def max_band_front(state, j, d, c, mst):
     """K10 stages L, P, T2 of column j."""
     _check_max_column(state, j, d, c, mst)
     st = mst.st
-    _call("inside_band_max", "band_front_max", st.dtype,
+    _call("inside_band_max", "band_front_max", state["O"],
           _dims(st, state, j, d), _band_idx(st), _aux(st, c.pin),
           _p(state["LL"]), _p(state["P"]), _p(state["T2"]), _p(state["E"]),
           _p(d.eR), _p(d.bg2), _p(d.pv), _p(d.alphaP), _p(c.wsp),
@@ -834,16 +841,16 @@ def max_band_bif(state, j, d, c, mst):
     """K10 stages B and T1 of column j."""
     _check_max_column(state, j, d, c, mst)
     st = mst.st
-    _call("inside_band_max", "band_bif_max", st.dtype, _dims(st, state, j, d),
-          _band_idx(st), _p(state["Bt"]), _p(state["T1"]), _p(state["T2"]),
-          _p(c.okB))
+    _call("inside_band_max", "band_bif_max", state["O"],
+          _dims(st, state, j, d), _band_idx(st), _p(state["Bt"]),
+          _p(state["T1"]), _p(state["T2"]), _p(c.okB))
 
 
 def max_band_m(state, j, d, c, mst):
     """K10 stage M of column j."""
     _check_max_column(state, j, d, c, mst)
     st = mst.st
-    _call("inside_band_max", "band_m_max", st.dtype, _dims(st, state, j, d),
+    _call("inside_band_max", "band_m_max", state["O"], _dims(st, state, j, d),
           _band_idx(st), _aux(st, c.pin), _p(state["M"]), _p(state["Bt"]),
           _p(d.eL), _p(c.gate_M), _p(c.okM))
 
@@ -852,7 +859,7 @@ def max_band_e(state, j, d, c, mst):
     """K10 stage E of column j (reads the K11 ep term)."""
     _check_max_column(state, j, d, c, mst)
     st = mst.st
-    _call("inside_band_max", "band_e_max", st.dtype, _dims(st, state, j, d),
+    _call("inside_band_max", "band_e_max", state["O"], _dims(st, state, j, d),
           _band_idx(st), _p(state["E"]), _p(state["LL"]), _p(state["M"]),
           _p(state["ep"][j + st.PAD]), _p(state["_lam"]), _p(c.hp),
           _p(c.mlE), _p(c.okE))
@@ -878,12 +885,12 @@ def max_ep_stage(state, j, d, c, mst):
         state["_ep_scratch"] = scr
     D = _dims(st, state, j, d)
     ix = _idx(st, EpIdx, EP_IDX)
-    _call("inside_ep_max", "ep_t_max", dt, D, ix, _p(state["P"]),
+    _call("inside_ep_max", "ep_t_max", state["O"], D, ix, _p(state["P"]),
           _p(state["LL"]), _p(c.dots_cum), _p(scr["T"]))
-    _call("inside_ep_max", "ep_v_max", dt, D, _p(scr["T"]), _p(c.ep["misA"]),
-          _p(c.ep["misB"]), _p(mst.SZg), _p(c.C), _p(state["_lam"]),
-          _p(scr["V"]))
-    _call("inside_ep_max", "ep_out_max", dt, D, ix, _p(state["P"]),
+    _call("inside_ep_max", "ep_v_max", state["O"], D, _p(scr["T"]),
+          _p(c.ep["misA"]), _p(c.ep["misB"]), _p(mst.SZg), _p(c.C),
+          _p(state["_lam"]), _p(scr["V"]))
+    _call("inside_ep_max", "ep_out_max", state["O"], D, ix, _p(state["P"]),
           _p(state["LL"]), _p(scr["V"]), _p(c.dots_cum), _p(c.ep["spec_il"]),
           _p(state["_lam"]), _p(c.C), _p(ep_row))
 
@@ -892,7 +899,7 @@ def max_ext_stage(state, j, d, c, mst):
     """K12: the exterior O column j of the CYK tables."""
     _check_max_column(state, j, d, c, mst)
     st = mst.st
-    _call("inside_ext_max", "ext_col_max", st.dtype, _dims(st, state, j, d),
+    _call("inside_ext_max", "ext_col_max", state["O"], _dims(st, state, j, d),
           _idx(st, ExtIdx, EXT_IDX), _aux(st, c.pin), _p(state["O"]),
           _p(state["P"]), _p(d.eR), _p(c.gate_O2), _p(c.ext),
           _p(state["_lam"]))
@@ -926,7 +933,7 @@ def cyk_traceback(state, d, c, mst, eps: float):
                 lam=state["_lam"], C=c.C, L=c.L, dcum=c.dots_cum)
     _req(c.L, "L", torch.int64, (B,), dev)
     data = TbData(*[tens[f].data_ptr() for f in TB_DATA])
-    _call("cyk_traceback", "cyk_traceback", st.dtype,
+    _call("cyk_traceback", "cyk_traceback", state["O"],
           _dims(st, state, Lp, d), ix, _aux(st, c.pin), data,
           TbCfg(float(eps), cap), _p(psihat), _p(pairs), _p(err), _p(stack))
     return psihat, pairs, err

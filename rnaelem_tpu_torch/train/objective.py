@@ -86,70 +86,100 @@ def batch_bp_masks(cfg: J.ModelConfig, sd_batch, device=None):
     return J.effective_bp_mask_batch(cfg, sd_batch, device)
 
 
-def stack_reads(cfg: J.ModelConfig, reads, negatives=None,
-                bp_cache=None, bp_fn=None, device=None) -> BatchData:
-    """Pack reads (+ optional shuffled negatives) into a batch on
-    ``device``.
+class HostRows(NamedTuple):
+    """The host half of a batch, one entry per row (reads, then
+    negatives): what stack_reads packs before anything goes to a device.
+    Every rank of a data-parallel group builds the same rows and moves
+    only its own shard of them (parallel/mesh.py)."""
+    sds: list           # per-row J.SeqData (numpy)
+    restrict_ari: list  # bool: restriction is motif-present
+    lik_sign: list      # +-1.0 for lik-ratio mode (0.0 on padding rows)
+    is_neg: list        # bool: shuffled negative
+    valid: list         # bool: False on padding rows
+    keys: list          # mask cache key (Lp, sequence bytes) or None
+
+
+def host_rows(cfg: J.ModelConfig, reads, negatives=None) -> HostRows:
+    """Pack reads (+ optional shuffled negatives) into per-row host
+    arrays.
 
     reads: list of (seq_codes, quals) tuples. negatives: list of
     seq_codes (quality all zero, restricted to motif-absent,
-    motif_trainer.hpp:228-245).  bp_cache (optional, mutated): maps
-    (Lp, sequence bytes) -> (bp_ok, eff) numpy; masks are
-    parameter-independent so positives need them computed only once.
-    """
-    dev = DEV.resolve(device)
-    sds, ari, sign, neg, keys = [], [], [], [], []
+    motif_trainer.hpp:228-245).  Only reads get a mask cache key: a
+    negative is drawn afresh every iteration."""
+    rows = HostRows([], [], [], [], [], [])
     for seq, quals in reads:
         sd = J.make_seqdata(cfg, seq, quals)
-        sds.append(sd)
-        ari.append(bool(sd.has_motif))
-        sign.append(-1.0 if bool(sd.has_motif) else 1.0)
-        neg.append(False)
-        keys.append((cfg.Lp, np.asarray(seq).tobytes()))
+        _append(rows, sd, bool(sd.has_motif),
+                -1.0 if bool(sd.has_motif) else 1.0, False, True,
+                (cfg.Lp, np.asarray(seq).tobytes()))
     for seq in negatives or []:
         q = np.zeros(len(seq) + 1, np.int64)
-        sds.append(J.make_seqdata(cfg, seq, q))
-        ari.append(False)
-        sign.append(1.0)
-        neg.append(True)
-        keys.append(None)
-    sd = J.stack_seqdata(sds, dev)
+        _append(rows, J.make_seqdata(cfg, seq, q), False, 1.0, True, True,
+                None)
+    return rows
+
+
+def _append(rows: HostRows, *entry):
+    for field, x in zip(rows, entry):
+        field.append(x)
+
+
+def device_batch(cfg: J.ModelConfig, rows: HostRows, bp_cache=None,
+                 bp_fn=None, device=None) -> BatchData:
+    """Stack host rows into a batch on ``device`` and add their pair
+    masks.  bp_cache (optional, mutated): maps (Lp, sequence bytes) ->
+    (bp_ok, eff) numpy; masks are parameter-independent so positives
+    need them computed only once.  Padding rows (valid False) get empty
+    masks and eff 0, and no mask pass."""
+    dev = DEV.resolve(device)
+    sd = J.stack_seqdata(rows.sds, dev)
     if bp_fn is None:
         bp_fn = batch_bp_masks
 
-    if bp_cache is None:
+    if bp_cache is None and all(rows.valid):
         bp_ok, eff = (torch.as_tensor(x, device=dev)
                       for x in bp_fn(cfg, sd, dev))
     else:
-        miss = [i for i, k in enumerate(keys)
-                if k is None or k not in bp_cache]
+        cache = {} if bp_cache is None else bp_cache
+        keys = rows.keys
+        miss = [i for i, k in enumerate(keys) if rows.valid[i]
+                and (k is None or k not in cache)]
         Lp, Wp = cfg.Lp, cfg.Wp
-        bp_np = np.zeros((len(sds), Lp + 1, Wp + 1), bool)
-        eff_np = np.zeros(len(sds))
+        bp_np = np.zeros((len(keys), Lp + 1, Wp + 1), bool)
+        eff_np = np.zeros(len(keys))
         if miss:
-            mb, me = bp_fn(cfg, J.stack_seqdata([sds[i] for i in miss],
+            mb, me = bp_fn(cfg, J.stack_seqdata([rows.sds[i] for i in miss],
                                                 dev), dev)
             mb, me = J._np(mb), J._np(me)
             for t, i in enumerate(miss):
                 bp_np[i], eff_np[i] = mb[t], me[t]
-                if keys[i] is not None:
+                if keys[i] is not None and bp_cache is not None:
                     bp_cache[keys[i]] = (mb[t], float(me[t]))
         for i, k in enumerate(keys):
-            if k is not None and k in bp_cache and i not in miss:
-                bp_np[i], eff_np[i] = bp_cache[k]
+            if k is not None and k in cache and i not in miss:
+                bp_np[i], eff_np[i] = cache[k]
         bp_ok = torch.as_tensor(bp_np, device=dev)
         eff = torch.as_tensor(eff_np, device=dev)
 
     dt = DEV.torch_dtype(cfg.dtype)
     return BatchData(
         sd=sd,
-        restrict_ari=torch.as_tensor(ari, device=dev),
-        lik_sign=torch.as_tensor(sign, dtype=dt, device=dev),
-        is_neg=torch.as_tensor(neg, device=dev),
-        valid=torch.ones(len(sds), dtype=torch.bool, device=dev),
+        restrict_ari=torch.as_tensor(rows.restrict_ari, device=dev),
+        lik_sign=torch.as_tensor(rows.lik_sign, dtype=dt, device=dev),
+        is_neg=torch.as_tensor(rows.is_neg, device=dev),
+        valid=torch.as_tensor(rows.valid, device=dev),
         bp_ok=bp_ok,
         eff=eff.to(dt),
     )
+
+
+def stack_reads(cfg: J.ModelConfig, reads, negatives=None,
+                bp_cache=None, bp_fn=None, device=None) -> BatchData:
+    """Pack reads (+ optional shuffled negatives) into a batch on
+    ``device``: ``host_rows`` then ``device_batch``."""
+    return device_batch(cfg, host_rows(cfg, reads, negatives), bp_cache,
+                        bp_fn, device)
 
 
 def _per_read_terms(cfg, parts, batch: BatchData, lik_ratio: bool):

@@ -10,9 +10,13 @@ on the first evaluation.
 Each evaluation is one batch of per-read values and gradients on the
 device (objective.batch_fn_grad_pr) reduced in read order on the host
 (objective.reduce_per_read), so the sum does not depend on how the batch
-was laid out.  Batches are built when they are needed, in the order the
-JAX package's trainer builds them; the multi-GPU and file-array modes of
-the JAX package are not part of this trainer.
+was laid out.  With a data-parallel ``group`` (parallel/mesh.py) every
+rank draws the same batch, evaluates its own shard of rows and gathers
+the others' per-read values before the same reduction; with an
+``array_eval`` (parallel/arrayjob.py, the reference's TR_ARRAY file
+protocol) every evaluation goes to the array's slaves instead.  Batches
+are built when they are needed, in the order the JAX package's trainer
+builds them, with no prefetch thread.
 """
 from __future__ import annotations
 
@@ -38,16 +42,20 @@ def log(*a):
 
 
 class Trainer:
-    """Trains ``params`` (a Params on ``device``; None means CUDA) on the
-    FASTQ file given to ``set_fq``."""
+    """Trains ``params`` (a Params on ``device``; None means CUDA; with a
+    ``group``, on the group's device) on the FASTQ file given to
+    ``set_fq``."""
 
     def __init__(self, cfg: J.ModelConfig, params: J.Params,
                  max_iter: int = 100, eps: float = 1e-5,
                  lambda_init: float = 0.0, kmer_shuf: int = 2,
                  batch_size: int = 100, no_shuffle: bool = False,
                  lik_ratio: bool = False, interim_out=None,
-                 mask_indices=None, device=None):
-        self.device = DEV.resolve(device)
+                 mask_indices=None, device=None, group=None,
+                 array_eval=None):
+        # a group fixes the device: each rank evaluates on its own card
+        self.device = group.device if group is not None \
+            else DEV.resolve(device)
         self.cfg = cfg
         self.params = params
         self.g = J.kernels(cfg, self.device).g
@@ -60,6 +68,11 @@ class Trainer:
         self.lik_ratio = lik_ratio
         self.interim_out = interim_out
         self.mask_indices = mask_indices  # TR_MASK (motif_mask_trainer)
+        self.group = group
+        self._group_steps = {}   # per length bucket: the sharded step
+        self.array_eval = array_eval
+        # every rank trains the same numbers; rank 0 alone writes
+        self._writer = group is None or group.rank == 0
         self.qr = FastqBatchReader()
         self._bp_cache = OBJ.BpMaskCache()
         self._eval_cnt = 0
@@ -74,6 +87,15 @@ class Trainer:
         Lp = min(self.cfg.Lp, max(32, ((Lmax + 31) // 32) * 32))
         return self.cfg if Lp == self.cfg.Lp \
             else dataclasses.replace(self.cfg, Lp=Lp)
+
+    def _funcs_for(self, cfg):
+        """The group's sharded step for one bucket config (it stacks,
+        masks and evaluates this rank's rows), built once per bucket."""
+        if cfg not in self._group_steps:
+            from ..parallel import mesh as MESH
+            self._group_steps[cfg] = MESH.make_sharded_per_read(
+                cfg, self.group, self.lik_ratio)
+        return self._group_steps[cfg]
 
     def set_fq(self, path: str):
         self.qr.open(path)
@@ -119,21 +141,48 @@ class Trainer:
                     ints_to_seq(r.seq), self.kmer_shuf, iter_cnt)))
         return dict(epoch_end=epoch_end, reads=reads, negs=negs)
 
-    def _objective(self, x, iter_cnt):
-        """One fn/gr evaluation over the next minibatch
-        (motif_trainer.hpp:595-633)."""
-        self.params = J.unpack_params(self.g, x, self.params)
-        got = self._read_batch_host(iter_cnt)
-        if got["epoch_end"] and self.interim_out is not None:
+    def _interim(self):
+        if self.interim_out is not None and self._writer:
             self.interim_out.write(
                 MIO.interim_line(self.cfg, self.params) + "\n")
             self.interim_out.flush()
+
+    def _objective_array(self, x):
+        """One distributed fn/gr evaluation through the file-based array
+        protocol (motif_trainer.hpp:608-614): broadcast = model snapshot
+        file, all-reduce = parse-and-sum of slave files.  The snapshot
+        rides the same 6-significant-digit model writer the reference
+        broadcasts with, its per-step quantization included."""
+        self.params = J.unpack_params(self.g, x, self.params)
+        self._interim()
+        fn, gr, eff = self.array_eval(self.params)
+        if not self._eff_logged:
+            log("considered BP (sum eff):", eff)
+            self._eff_logged = True
+        self._eval_cnt += 1
+        return fn, np.asarray(gr)
+
+    def _objective(self, x, iter_cnt):
+        """One fn/gr evaluation over the next minibatch
+        (motif_trainer.hpp:595-633)."""
+        if self.array_eval is not None:
+            return self._objective_array(x)
+        self.params = J.unpack_params(self.g, x, self.params)
+        got = self._read_batch_host(iter_cnt)
+        if got["epoch_end"]:
+            self._interim()
         cfg_b = self._bucket_cfg(got["reads"], got["negs"])
-        batch = OBJ.stack_reads(cfg_b, got["reads"],
-                                None if self.no_shuffle else got["negs"],
-                                bp_cache=self._bp_cache, device=self.device)
-        f_b, gr_b, eff_b = OBJ.batch_fn_grad_pr(
-            cfg_b, self.params, batch, self.lik_ratio, self.device)
+        negs = None if self.no_shuffle else got["negs"]
+        if self.group is None:
+            batch = OBJ.stack_reads(cfg_b, got["reads"], negs,
+                                    bp_cache=self._bp_cache,
+                                    device=self.device)
+            f_b, gr_b, eff_b = OBJ.batch_fn_grad_pr(
+                cfg_b, self.params, batch, self.lik_ratio, self.device)
+        else:
+            f_b, gr_b, eff_b = self._funcs_for(cfg_b)(
+                self.params, OBJ.host_rows(cfg_b, got["reads"], negs),
+                self._bp_cache)
         fn, grads, eff = OBJ.reduce_per_read(f_b, gr_b, eff_b)
         gr = J.pack_params(self.g, grads)
         if not self._eff_logged:

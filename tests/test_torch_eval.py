@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from rnaelem_tpu.model import io as JIO
+from rnaelem_tpu_torch import cli as TCLI
 from rnaelem_tpu_torch.model import io as TIO
 from rnaelem_tpu_torch.model.convert import params_from_numpy
 from rnaelem_tpu_torch.train import objective as OBJ
@@ -78,6 +79,30 @@ def test_cli_eval_matches_reference(tmp_path):
     assert gr_line == "gr: [" + ",".join("%.17g" % v for v in gr) + "]"
     assert fn == pytest.approx(fn_g, abs=1e-6)
     np.testing.assert_allclose(gr, gr_g, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("flag,warning", [
+    (["-t", "4"], "--thread is ignored"),
+    (["--font", "Arial.ttf"], "--font is ignored"),
+    (["--pict", "motif.png"], None)], ids=["thread", "font", "pict"])
+def test_cli_takes_the_reference_flags(flag, warning, tmp_path, capsys):
+    """-t/--thread, --font and --pict parse as the JAX CLI takes them:
+    --thread and --font warn that they are ignored (--thread points at
+    --mesh), --pict is silent (the reference parses it and never reads
+    it); eval's output is the golden's."""
+    fn_g, _ = _golden("2")
+    out1 = tmp_path / "fn.txt"
+    TCLI.main(["eval", "-f", os.path.join(FIX, "0.fq"), "-q",
+               os.path.join(FIX, "2.model"), "--out1", str(out1),
+               "--out2", "~NULL~", "--device", "cpu"] + flag)
+    err = capsys.readouterr().err
+    if warning is None:
+        assert "warning" not in err
+    else:
+        assert "warning: " + warning in err
+        assert ("--mesh" in err) == (flag[0] == "-t")
+    assert float(out1.read_text().split(":")[1]) == pytest.approx(
+        fn_g, abs=1e-6)
 
 
 @pytest.mark.parametrize("x", ["0", "1", "2", "3"])

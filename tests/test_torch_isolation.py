@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of rnaelem_tpu_torch (the
-command line included) pulls in neither JAX nor the JAX package, and its
-entry points run on CUDA unless the caller passes device="cpu"."""
+command line and parallel/ included) pulls in neither JAX nor the JAX
+package, and its entry points run on CUDA unless the caller passes
+device="cpu"."""
 import os
 import pkgutil
 import subprocess
@@ -15,6 +16,7 @@ from rnaelem_tpu_torch import cli as CLI
 from rnaelem_tpu_torch.model import io as TIO
 from rnaelem_tpu_torch.model import joint as TJ
 from rnaelem_tpu_torch.model.convert import params_from_numpy
+from rnaelem_tpu_torch.parallel import mesh as MESH
 from rnaelem_tpu_torch.pipeline.ushuffle import negative_for
 from rnaelem_tpu_torch.scan import scanner as SC
 from rnaelem_tpu_torch.scan.driver import Scanner
@@ -37,7 +39,8 @@ def test_every_module_imports_without_jax():
     mods = _modules()
     assert "rnaelem_tpu_torch.ops.kernels" in mods and len(mods) >= 15
     for m in ("cli", "native", "pipeline.ushuffle", "train.optim",
-              "train.trainer", "ops.linear", "scan.scanner", "scan.driver"):
+              "train.trainer", "ops.linear", "scan.scanner", "scan.driver",
+              "parallel.mesh", "parallel.arrayjob"):
         assert "rnaelem_tpu_torch." + m in mods
     code = ("import importlib, sys\n"
             "for m in %r:\n"
@@ -88,6 +91,7 @@ def _entry_points():
             cfg, TJ.init_params(TJ.kernels(cfg, "cpu").g, cfg, device="cpu"),
             TJ.stack_seqdata([TJ.make_seqdata(cfg, reads[0][0])], "cpu"))),
         ("cli scan", lambda: CLI.main(["scan", "-f", fq, "-q", norss])),
+        ("init_group", lambda: MESH.init_group("file:///nonexistent", 1, 0)),
     ]
 
 

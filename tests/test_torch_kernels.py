@@ -436,6 +436,78 @@ def test_per_read_gradients_on_the_card_match_cpu(pattern, opts):
             assert float((a[r].cpu() - b[r]).abs().max()) <= 1e-9 * scale
 
 
+def _to(batch, dev, lo=0, hi=None):
+    """Rows lo:hi of a batch, on ``dev``."""
+    cut = lambda x: x[lo:hi].to(dev)
+    return OBJ.BatchData(*[J.SeqData(*[cut(x) for x in f])
+                           if isinstance(f, J.SeqData) else cut(f)
+                           for f in batch])
+
+
+def _random_params(cfg, dev, seed=9):
+    rng = np.random.RandomState(seed)
+    p = J.init_params(J.kernels(cfg, "cpu").g, cfg, device="cpu",
+                      dtype="float64")
+    noise = lambda x: 0.3 * torch.as_tensor(rng.randn(*x.shape))
+    dt = torch.float32 if cfg.dtype == "float32" else torch.float64
+    return J.Params(*[x.to(dt).to(dev) for x in (
+        p.singles + noise(p.singles), p.pairs + noise(p.pairs),
+        torch.tensor([0.7, 1.3], dtype=torch.float64))])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pattern,opts", [
+    ("(.....)", {}), ("..*..", dict(no_rss=True))])
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_per_read_outputs_do_not_depend_on_the_batch(pattern, opts, dtype):
+    """On the card a read's f, every gradient leaf and eff have the same
+    bits in any batch: the whole batch against its two parts (a
+    data-parallel group gathers the shards' values and must train the
+    single device's model), and the masks likewise."""
+    _need_cuda()
+    cfg = J.ModelConfig(pattern=pattern, Lp=40, max_span=24, max_iloop=12,
+                        min_bpp=1e-4, tau=0.1, dtype=dtype, **opts)
+    batch = _to(_batch(cfg, "cpu", n=9, seed=9), "cuda")
+    p = _random_params(cfg, "cuda")
+    whole = OBJ.batch_fn_grad_pr(cfg, p, batch, device="cuda")
+    parts = [OBJ.batch_fn_grad_pr(cfg, p, _to(batch, "cuda", lo, hi),
+                                  device="cuda")
+             for lo, hi in ((0, 4), (4, None))]
+    f, g, e = [[x[i] for x in parts] for i in range(3)]
+    assert torch.equal(whole[0], torch.cat(f))
+    assert torch.equal(whole[2], torch.cat(e))
+    for k, leaf in enumerate(whole[1]):
+        assert torch.equal(leaf, torch.cat([x[k] for x in g])), k
+    keep, eff = OBJ.batch_bp_masks(cfg, batch.sd, "cuda")
+    for lo, hi in ((0, 4), (4, None)):
+        kp, ep = OBJ.batch_bp_masks(cfg, _to(batch, "cuda", lo, hi).sd,
+                                    "cuda")
+        assert torch.equal(kp, keep[lo:hi]) and torch.equal(ep, eff[lo:hi])
+
+
+@pytest.mark.gpu
+def test_launches_follow_the_tensors_device():
+    """Kernels launch on the device of their tensors, whatever device is
+    current: batch_fn_grad_pr on cuda:1 from a process whose current
+    device is 0 gives cuda:0's bits (needs two cards)."""
+    _need_cuda()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    cfg = _cfg("float64")
+    torch.cuda.set_device(0)
+    outs = []
+    for dev in ("cuda:0", "cuda:1"):
+        K.reset_counts()
+        out = OBJ.batch_fn_grad_pr(cfg, _random_params(cfg, dev),
+                                   _to(_batch(cfg, "cpu"), dev), device=dev)
+        torch.cuda.synchronize(dev)
+        assert K.KERNELS["outside_ep"].launches > 0
+        assert torch.cuda.current_device() == 0
+        outs.append([out[0].cpu(), *[x.cpu() for x in out[1]], out[2].cpu()])
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
 def _scan_inputs(pattern, opts, device, n=5, seed=11):
     """A scan config (f64, plain theta) with random weights and a batch
     of random reads on ``device``."""
