@@ -3,7 +3,9 @@
 
 Phases:
   1. the card's name and power limit; build the hand-written kernels
-     (csrc/*.cu, nvcc for sm_90a) and time the build;
+     (csrc/*.cu, nvcc for sm_90a) and time the build; K3's and K6's
+     shared memory as ops/kernels.ep_smem_bytes sizes it (the launch
+     checks) against the kernels' own layouts;
   2. hold every kernel against its plain PyTorch version on the card:
      K1 score tables (ints/bools equal, floats within 1e-6 relative), the
      column stages of K2-K4 one by one (f64 at B=16 within 1e-9 relative,
@@ -24,16 +26,20 @@ Phases:
      masks equal but for cells within 1e-9 of the threshold; the f32
      kernels' mask cells that differ lie within 1e-3 (log) of it;
   5. per-call device times of K1-K7 (torch.profiler, the kernel's own
-     functions over 200 calls) at the main path's shapes, and the plain
-     versions' times (CUDA events); rows C and D, the torch glue of the
+     functions over 200 calls) at the main path's shapes, K3's and K6's
+     by CUDA function, and the plain versions' times (CUDA events); rows
+     C and D, the torch glue of the
      factors and the hoisted terms, forward and backward, device ms and
      launches per call beside their bounds;
   6. the flagship evaluation path: B=128 reads x 100 nt, pattern
      (.....), max-span 50, max-iloop 30, min_bpp 1e-4, tau 0.1, f32: the
-     masks (stack_reads), then batch_fn_grad, one warm-up (the launch
-     counts are read from it) and 3 timed repetitions (CUDA events), the
-     forward alone too; two profiled batch_fn_grad and two stack_reads
-     (device busy share, device time per kernel);
+     masks (stack_reads; their S=1 pass must launch K3 and K6), then
+     batch_fn_grad, one warm-up (the launch counts are read from it) and
+     3 timed repetitions (CUDA events), the forward alone too, and 3
+     more timed on the host clock to the call's return and to a
+     synchronize (host-bound when the two agree); two profiled
+     batch_fn_grad and two stack_reads (device busy share, device time
+     per kernel);
   7. the no-rss chain K8/K9 against its plain version (..*.., f64 within
      1e-9 and f32 within 1e-4 relative, at B=16 and B=128 x 100 nt; two
      runs bitwise equal); per-call times of K8/K9;
@@ -112,6 +118,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
@@ -178,8 +185,9 @@ def kernel_functions():
     out = {}
     for name, kern in K.KERNELS.items():
         with open(os.path.join(HERE, kern.source)) as f:
-            out[name] = set(re.findall(r"__global__\s+void\s+(\w+)",
-                                       f.read()))
+            out[name] = set(re.findall(
+                r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?"
+                r"(\w+)", f.read()))
     return out
 
 
@@ -229,8 +237,38 @@ def device_profile(fn, reps):
 def device_ms(fn, reps, functions):
     """Device ms per call of ``fn`` in the given CUDA functions (the
     profiler's per-kernel device time over ``reps`` calls)."""
+    return device_ms_by_function(fn, reps, functions)[0]
+
+
+def device_ms_by_function(fn, reps, functions):
+    """(device ms per call of ``fn`` in the given CUDA functions, {function:
+    its ms per call})."""
     per, _, _, _ = device_profile(fn, reps)
-    return sum(per.get(f, 0.0) for f in functions) / 1e3
+    by = {f: per.get(f, 0.0) / 1e3 for f in sorted(functions)}
+    return sum(by.values()), by
+
+
+def check_ep_smem():
+    """K3's and K6's dynamic shared memory as ops/kernels.ep_smem_bytes
+    sizes it (the launch checks) against the size the kernels' own layout
+    takes (csrc/ep_col.cuh), over the grammars' range of S = n_ar, Cp
+    and Wp (which must not enter) and both types.  Returns the number of
+    cases."""
+    n = 0
+    for S in (1, 15, 29, 47, 91):
+        for Cp, Wp in ((30, 50), (30, 400), (12, 24), (4, 20), (43, 60)):
+            for dt, it in ((torch.float32, 4), (torch.float64, 8)):
+                D = K.DPDims(100, Wp, Cp, S, 8, Wp + 1, 1, 1, S, 1, 1, 1,
+                             0, 0, 0)
+                for which, name in ((0, "inside_ep"), (1, "outside_ep")):
+                    c_ = int(K.lib().rnaelem_ep_smem_bytes(which, D, it))
+                    py = K.ep_smem_bytes(name, S, S, Cp, dt)
+                    if c_ != py:
+                        fail("%s shared memory: the kernel's layout takes %d "
+                             "bytes, ep_smem_bytes says %d (S=%d, Cp=%d, "
+                             "Wp=%d, %s)" % (name, c_, py, S, Cp, Wp, dt))
+                    n += 1
+    return n
 
 
 def cuda_ms(fn, reps):
@@ -293,6 +331,30 @@ def batch_factors_for(cfg, reads, dev, params):
     batch = OBJ.stack_reads(cfg, reads, device=dev)
     d, c = J.batch_factors(cfg, params, batch.sd, batch.bp_ok, device=dev)
     return batch, d, c
+
+
+def ep_column_ms(cfg, reads, params, dev, funcs, j0):
+    """Device ms of K3 (inside_ep) and K6 (outside_ep) at column j0 for
+    ``reads`` (the kernel forward's tables; the outside pass run through
+    the later columns first), by CUDA function."""
+    _, d, c = batch_factors_for(cfg, reads, dev, params)
+    dp = J.kernels(cfg, dev).dp
+    st = dp.st
+    h = DP.hoisted(d, c, st)
+    fs = dp.run_inside(d, c, h)
+    ks = DP.clone_state(fs)
+    out = {"inside_ep": device_ms_by_function(
+        lambda: DP.ep_stage(ks, j0, d, c, h, st), REPS // 4,
+        funcs["inside_ep"])}
+    gs = DP.init_grads(fs, d, c, h)
+    gbar = torch.ones((len(reads), 3), dtype=st.dtype, device=dev)
+    DP.seed_parts(gs, gbar, c, st)
+    dp.outside_columns(fs, gs, d, c, h, cfg.Lp + 1, j0 + 1)
+    kg = DP.clone_state(gs)
+    out["outside_ep"] = device_ms_by_function(
+        lambda: DP.ep_adj(fs, kg, j0, d, c, h, st), REPS // 4,
+        funcs["outside_ep"])
+    return out
 
 
 def plain_parts(cfg, params, batch, dev):
@@ -474,9 +536,9 @@ def column_work(cfg, st, c, q, j, itemsize, need):
     cotangent it adds to is read and written); where the extent depends
     on the data (the band masks, the per-read loop cap C, finite exterior
     energies) only what this batch needs is counted.  The scratch that
-    the kernels' functions pass to one another (K3's T and V, K5's column
-    cotangents of M and B and its eR/bg2 partials, K6's double-precision
-    GO, gV, gT and gW) is not counted: a fused kernel would not move it.
+    the kernels' functions pass to one another (K3's and K6's partial
+    sums of their blocks, K5's column cotangents of M and B and its
+    eR/bg2 partials) is not counted: a fused kernel would not move it.
     Operations are the stage's arithmetic, summed over its functions.
 
     ``need`` names the groups of leaf cotangents the caller keeps besides
@@ -2196,6 +2258,75 @@ def array_eval_check(tmp, dev):
     return dict(wall_s=wall, errs=errs)
 
 
+# One change each to the launch constants of the fused K3/K6 blocks
+# (csrc/ep_col.cuh, csrc/outside_ep.cu): (file, shipped text, variant)
+EP_VARIANTS = {
+    "shipped": (),
+    "K6 256 threads": (
+        ("outside_ep.cu", "kEpAdjThreads = 512", "kEpAdjThreads = 256"),),
+    "K6 1 block per SM": (
+        ("outside_ep.cu", "__launch_bounds__(kEpAdjThreads, 2)",
+         "__launch_bounds__(kEpAdjThreads, 1)"),),
+    "K6 1024 threads": (
+        ("outside_ep.cu", "kEpAdjThreads = 512", "kEpAdjThreads = 1024"),
+        ("outside_ep.cu", "__launch_bounds__(kEpAdjThreads, 2)",
+         "__launch_bounds__(kEpAdjThreads, 1)")),
+    "K3 512 threads": (
+        ("ep_col.cuh", "kEpThreads = 256", "kEpThreads = 512"),),
+    "1 range of x": (("ep_col.cuh", "kEpXSplit = 4", "kEpXSplit = 1"),),
+    "8 ranges of x": (("ep_col.cuh", "kEpXSplit = 4", "kEpXSplit = 8"),),
+}
+
+
+def ep_variants(dev):
+    """K3's and K6's device ms per column J0 (f32 at B=128 and B=33, f64
+    at B=64: the main path, one block per SM, a scan chunk; S=29) and the
+    masks' ms per 128-read batch (f32, CUDA events), for the shipped
+    kernels and for EP_VARIANTS, each built from a patched copy of csrc
+    under build/ep_variants/ (its own kernel build).  One JSON line per
+    variant: the numbers behind the launch constants of ep_col.cuh."""
+    import shutil
+    cfg32, cfg64 = cfg_for("float32"), cfg_for("float64")
+    reads = main_reads()
+    p32, p64 = random_params(cfg32, dev), random_params(cfg64, dev)
+    sd = J.stack_seqdata([J.make_seqdata(cfg32, s, q) for s, q in reads],
+                         dev)
+    funcs = kernel_functions()
+    shipped_src, shipped_split = K.CSRC, K.EP_XSPLIT
+    root = os.path.join(HERE, "build", "ep_variants")
+    for i, (name, subs) in enumerate(EP_VARIANTS.items()):
+        src = os.path.join(root, "v%d" % i, "csrc")
+        shutil.rmtree(src, ignore_errors=True)
+        shutil.copytree(shipped_src, src)
+        split = shipped_split
+        for fname, a, b in subs:
+            path = os.path.join(src, fname)
+            with open(path) as f:
+                text = f.read()
+            if a not in text:
+                fail("ep variant %r: %r not in %s" % (name, a, fname))
+            with open(path, "w") as f:
+                f.write(text.replace(a, b))
+            m = re.match(r"kEpXSplit = (\d+)", b)
+            split = int(m.group(1)) if m else split
+        K.CSRC, K.EP_XSPLIT, K._lib = Path(src), split, None
+        try:
+            t0 = time.time()
+            K.lib()
+            rec = {"variant": name, "build_s": round(time.time() - t0, 1)}
+            for key, cfg, rd, p in (("f32_B128", cfg32, reads, p32),
+                                    ("f32_B33", cfg32, reads[:33], p32),
+                                    ("f64_B64", cfg64, reads[:64], p64)):
+                out = ep_column_ms(cfg, rd, p, dev, funcs, J0)
+                rec[key] = {n: v[0] for n, v in out.items()}
+            rec["masks_ms"] = cuda_ms(
+                lambda: J.effective_bp_mask_batch(cfg32, sd, dev), 3)
+        finally:
+            K.CSRC, K.EP_XSPLIT, K._lib = shipped_src, shipped_split, None
+        print(json.dumps(rec), flush=True)
+    print("card: %s" % card_line(), flush=True)
+
+
 def launch_cost(dev, rounds=5, reps=3):
     """fn+grad of the evaluation path's batch (f32) under three launch
     wrappers, interleaved over rounds in this one process: "none" launches
@@ -2286,6 +2417,10 @@ def main():
     ap.add_argument("--launch-cost", action="store_true",
                     help="only time fn+grad under three kernel-launch "
                          "wrappers (see launch_cost) and exit")
+    ap.add_argument("--ep-variants", action="store_true",
+                    help="only time K3/K6 and the masks for variants of "
+                         "the fused blocks' launch constants (see "
+                         "ep_variants) and exit")
     # one rank of N2/N3, started by this script itself
     ap.add_argument("--mesh-worker", type=int, default=-1,
                     help=argparse.SUPPRESS)
@@ -2333,6 +2468,9 @@ def main():
     if args.launch_cost:
         launch_cost(DEVICE)
         return
+    if args.ep_variants:
+        ep_variants(DEVICE)
+        return
     dev = DEVICE
     t_start = time.time()
     card = card_line()
@@ -2342,6 +2480,8 @@ def main():
     t0 = time.time()
     K.lib()
     print("kernel build: %.1f s" % (time.time() - t0), flush=True)
+    print("K3/K6 shared memory: ep_smem_bytes equals the kernels' layout in "
+          "%d cases" % check_ep_smem(), flush=True)
     if args.ptxas:
         _, log = K.build(("-Xptxas", "-v"))
         os.makedirs(os.path.dirname(os.path.abspath(args.ptxas)),
@@ -2449,7 +2589,7 @@ def main():
     sargs = (k32.tab, seq, L, bp_ok, dots_cum, cfg32.Wp, cfg32.max_span,
              cfg32.turn, cfg32.no_ene, cfg32.fix_rss)
     funcs = kernel_functions()
-    ms, plain_ms, unit = {}, {}, {}
+    ms, plain_ms, unit, ms_fn = {}, {}, {}, {}
     K.reset_counts()
     ET.score_tables(*sargs)
     unit["score_tables"] = ("batch", K.KERNELS["score_tables"].launches)
@@ -2465,16 +2605,13 @@ def main():
               "inside_ep": ("ep_stage",), "inside_ext": ("ext_stage",)}
     for kname, names in groups.items():
         ks, ps = DP.clone_state(state), DP.clone_state(state)
-        if "_ep_scratch" in state:
-            ks["_ep_scratch"] = {k: v.clone() for k, v in
-                                 state["_ep_scratch"].items()}
         kf = [getattr(DP, n) for n in names]
         pf = [getattr(DP, n + "_plain") for n in names]
         K.reset_counts()
         for f in kf:
             f(ks, j0, d32, c32, h32, st)
         unit[kname] = ("column %d" % j0, K.KERNELS[kname].launches)
-        ms[kname] = device_ms(
+        ms[kname], ms_fn[kname] = device_ms_by_function(
             lambda: [f(ks, j0, d32, c32, h32, st) for f in kf], REPS,
             funcs[kname])
         plain_ms[kname] = cuda_ms(
@@ -2496,12 +2633,23 @@ def main():
         for f in kf:
             f(fs, kg, j0, d32, c32, h32, st)
         unit[kname] = ("column %d" % j0, K.KERNELS[kname].launches)
-        ms[kname] = device_ms(
+        ms[kname], ms_fn[kname] = device_ms_by_function(
             lambda: [f(fs, kg, j0, d32, c32, h32, st) for f in kf], REPS,
             funcs[kname])
         plain_ms[kname] = cuda_ms(
             lambda: [f(fs, pg, j0, d32, c32, h32, st) for f in pf], 3)
         del kg, pg
+    # one block per (read, range of x): at B=33 the 132 blocks take one
+    # SM each, so their time is one block's, at B=128 the card's
+    # throughput for the main path's 512 blocks
+    wave = ep_column_ms(cfg32, reads[:33], p32, dev, funcs, j0)
+    print("K3 and K6 device ms per column %d at B=33 (132 blocks, one per "
+          "SM: one block's time), f32: %s" % (j0, json.dumps(
+              {n: v[0] for n, v in wave.items()})), flush=True)
+    print("K3 (inside_ep) and K6 (outside_ep) device ms per column %d by "
+          "CUDA function (B=%d x %d nt, f32): %s" % (
+              j0, B_MAIN, LP, json.dumps({n: ms_fn[n] for n in (
+                  "inside_ep", "outside_ep")})), flush=True)
     del state, fs, gs
     lin, eRc, Lc, gpc = chain_inputs(norss_cfg("float32"), reads, dev)
     _, rows_c = K.chain_fwd(lin, eRc, Lc)
@@ -2545,10 +2693,17 @@ def main():
     batch = OBJ.stack_reads(cfg32, reads, device=dev)
     torch.cuda.synchronize()
     mask_warm_s = time.time() - t0
+    mask_launches = {n: kk.launches for n, kk in K.KERNELS.items()}
+    print("masks (stack_reads, S=1, B=%d) launches: %s" % (
+        B_MAIN, json.dumps(mask_launches)), flush=True)
+    for n in ("inside_ep", "outside_ep"):
+        if mask_launches[n] <= 0:
+            fail("the masks' S=1 pass did not launch %s" % n)
     fn, grads, eff = OBJ.batch_fn_grad(cfg32, p32, batch, device=dev)
     torch.cuda.synchronize()
     warm_s = time.time() - t0
     eval_launches = {n: kk.launches for n, kk in K.KERNELS.items()}
+    launches_fg = sum(eval_launches.values()) - sum(mask_launches.values())
     print("evaluation path launches (masks + fn+grad, B=%d): %s"
           % (B_MAIN, json.dumps(eval_launches)), flush=True)
     for n in DP_KERNELS:
@@ -2568,6 +2723,17 @@ def main():
                     reps)
     fwd_ms = cuda_ms(lambda: OBJ.batch_total(cfg32, p32, batch, device=dev),
                      reps)
+    host, wall = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        OBJ.batch_fn_grad(cfg32, p32, batch, device=dev)
+        host.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    print("fn+grad: %d kernel launches; host ms to the call's return %s, "
+          "wall ms to a synchronize %s (host ~ wall: host-bound)" % (
+              launches_fg, json.dumps(host), json.dumps(wall)), flush=True)
     print("evaluation path: B=%d x %d nt %s W=50 C=30 min_bpp=%g tau=0.1 "
           "f32: fn %.6f sum eff %.4f; masks (stack_reads) %.3f ms/batch "
           "(first %.1f s); batch_fn_grad %.3f ms/batch (%.1f seqs/s); "

@@ -482,11 +482,15 @@ def main(argv=None):
         if n > 1:
             _run_mesh(argv, args, n)
             return
-    if args.mode == "normal":
-        do_train(args, also_scan=True)
-        return
-    {"train": do_train, "eval": do_eval, "array-eval": do_eval,
-     "scan": do_scan, "gen-neg": do_genneg}[args.mode](args)
+    from .ops.kernels import SharedMemoryLimit
+    try:
+        if args.mode == "normal":
+            do_train(args, also_scan=True)
+            return
+        {"train": do_train, "eval": do_eval, "array-eval": do_eval,
+         "scan": do_scan, "gen-neg": do_genneg}[args.mode](args)
+    except SharedMemoryLimit as e:   # a pattern too wide for the card
+        raise SystemExit(str(e))
 
 
 if __name__ == "__main__":

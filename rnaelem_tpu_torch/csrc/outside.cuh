@@ -53,23 +53,6 @@ struct AdjIdx {  // grammar index lists (int32 unless noted)
   const int* opc_off;  // by c (O state): t, a
   const int* opc_t;
   const int* opc_a;
-  const int* p13_s1;   // [n13] inner-pair state of pairs13 entry p
-  const int* p13_s3;   // [n13] right-flank state
-  const int* p13_ar;   // [n13] its AR pair
-  const int* ar_off;   // [n_ar+1] pairs13 by AR pair
-  const int* ar_p;
-  const int* s1_off;   // [S+1] pairs13 by s1
-  const int* s1_k;
-  const int* s3_off;   // [S+1] pairs13 by s3
-  const int* s3_k;
-  const int* k2_s2;    // [n2] left-flank state of K2 entry k
-  const int* k2_ar;    // [n2] its AR pair
-  const int* k2_bu;    // [n2] lambda bucket of its target
-  const int* k2_tgt;   // [n2] target state
-  const int* k2_off;   // [S+1] K2 entries by target
-  const int* k2_idx;
-  const int* k2a_off;  // [n_ar+1] K2 entries by AR pair
-  const int* k2a_k;
 };
 
 // d(lam * x)/d lam for lam_mul: -inf energies carry no lambda term

@@ -242,6 +242,21 @@ def _csr_finite(mat):
 
 # ------------------------------------------------------------ static
 
+def chain_lists(g):
+    """TT_E_P chain factorization (motif_model.hpp:315-335): a quadruple
+    (tgt, s1, s2, s3) is a node path l -> a -> c -> r; pairs13 = distinct
+    (s1, s3) -> AR = distinct (a, r) -> K2 = distinct (s2, AR index) ->
+    target state.  Returns the three sorted lists."""
+    ep_all = g.ep_tuples if len(g.ep_tuples) else np.zeros((0, 4), np.int64)
+    l_, r_ = g.state_l, g.state_r
+    pairs13 = sorted(set((int(q[1]), int(q[3])) for q in ep_all))
+    ar_list = sorted(set((int(l_[q[1]]), int(r_[q[3]])) for q in ep_all))
+    ar_of = {p: i for i, p in enumerate(ar_list)}
+    k2_list = sorted(set(
+        (int(q[2]), ar_of[(int(l_[q[1]]), int(r_[q[3]]))]) for q in ep_all))
+    return pairs13, ar_list, k2_list
+
+
 class DPStatic:
     """Grammar- and shape-derived constants on one device: the exp-space
     matrices the plain versions contract with, and the index lists the
@@ -301,19 +316,9 @@ class DPStatic:
         self.ru_ok = f((np.arange(Wp + 1)[:, None]
                         + np.arange(Cp + 1)[None, :]) <= Wp)
 
-        # TT_E_P chain factorization (motif_model.hpp:315-335): a
-        # quadruple (tgt, s1, s2, s3) is a node path l -> a -> c -> r;
-        # pairs13 = distinct (s1, s3) -> AR = distinct (a, r) ->
-        # K2 = distinct (s2, AR) -> target state
-        ep_all = g.ep_tuples if len(g.ep_tuples) else \
-            np.zeros((0, 4), np.int64)
         l_, r_ = g.state_l, g.state_r
-        pairs13 = sorted(set((int(q[1]), int(q[3])) for q in ep_all))
-        ar_list = sorted(set((int(l_[q[1]]), int(r_[q[3]])) for q in ep_all))
+        pairs13, ar_list, k2_list = chain_lists(g)
         ar_of = {p: i for i, p in enumerate(ar_list)}
-        k2_list = sorted(set(
-            (int(q[2]), ar_of[(int(l_[q[1]]), int(r_[q[3]]))])
-            for q in ep_all))
         self.n13, self.n_ar, self.n2 = len(pairs13), len(ar_list), \
             len(k2_list)
         self.have_ep = self.n13 > 0
@@ -380,7 +385,8 @@ class DPStatic:
             n13r, n2r = np.arange(self.n13), np.arange(self.n2)
             for name, key, n, vals in (
                     ("s1", p13_s1, S, (n13r,)), ("s3", p13_s3, S, (n13r,)),
-                    ("k2a", k2_ar, self.n_ar, (n2r,))):
+                    ("k2a", k2_ar, self.n_ar, (n2r,)),
+                    ("k2s", k2_s2, S, (n2r,))):
                 off, (v,) = _csr_by(key, n, *vals)
                 kk[name + "_off"], kk[name + "_k"] = i32(off), i32(v)
 
@@ -493,7 +499,10 @@ def init_state(st: DPStatic, B: int):
     """Inside tables with PAD front rows of -inf: LL, P, E, M, Bt, T1, T2
     and the internal-loop term ep [Lp+1+PAD, Wp+1, S, B], O [Lp+1+PAD, S,
     B].  LL at width 0 is the grammar diagonal; O starts at
-    end_states[0].  The outside pass reads every table, ep included."""
+    end_states[0].  The outside pass reads every table, ep included.
+    ep_shift [Lp+1, 3, B] holds the kernels' per-(column, read) exp-space
+    shifts of the ep term: K3 writes a column's, K6 reads them (the plain
+    versions neither write nor read it)."""
     Lp, Wp, S = st.dims.Lp, st.dims.Wp, st.dims.S
     PAD, dt, dev = st.PAD, st.dtype, st.device
     R = Lp + 1 + PAD
@@ -503,6 +512,7 @@ def init_state(st: DPStatic, B: int):
     O = torch.full((R, S, B), NEG, dtype=dt, device=dev)
     O[PAD, int(st.g.end_states[0])] = 0.0
     state["O"] = O
+    state["ep_shift"] = torch.zeros((Lp + 1, 3, B), dtype=dt, device=dev)
     return state
 
 
@@ -919,10 +929,10 @@ def init_grads(fs, d: DiffFactors, c: ConstFactors, h):
     gs.update(eR=z(d.eR), eL=z(d.eL), bg2=z(d.bg2), pv=z(d.pv),
               alphaP=z(d.alphaP))
     gs.update({k: z(h[k]) for k in ("eSZ", "emisA", "emisB")})
-    # lambda's direct terms, all per read: the plain stages' [2, B]
-    # cotangent, the kernels' per-cell partials DL[j, w, target, read]
-    # (summed per bucket in finish_grads) and their size-weight partials
-    # GSZ [2, 4, Cp+1, Cp+1, B]
+    # lambda's direct terms, all per read: the [2, B] cotangent (the plain
+    # stages' and K6's small-loop term), K5's and K7's per-cell partials
+    # DL[j, w, target, read] (summed per bucket in finish_grads) and K6's
+    # size-weight partials GSZ [2, 4, Cp+1, Cp+1, B]
     gs["lam"] = torch.zeros((2, B), dtype=col.dtype, device=col.device)
     gs["DL"] = z(fs["LL"][: d.pv.shape[0]])
     gs["GSZ"] = z(h["eSZg"])

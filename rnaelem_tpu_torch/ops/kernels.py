@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -203,16 +204,14 @@ BAND_IDX = ("rt_off", "rt_s", "rt_w", "lt_off", "lt_s", "lt_w", "pt_lt",
             "diag", "loopm", "bucket", "pt_code", "pt_wl", "pt_wr",
             "b12_off", "b12_a", "b12_c")
 EP_IDX = ("p13_s1", "p13_s3", "ar_off", "ar_p", "k2_s2", "k2_ar", "k2_bu",
-          "k2_off", "k2_idx")
+          "k2_off", "k2_idx", "p13_ar", "k2_tgt", "s1_off", "s1_k", "s3_off",
+          "s3_k", "k2a_off", "k2a_k", "k2s_off", "k2s_k")
 EXT_IDX = ("rt_off", "rt_s", "rt_w", "bucket", "op_off", "op_a", "op_c")
 ADJ_IDX = ("rt_off", "rt_s", "rt_w", "rtr_off", "rtr_t", "rtr_w", "ltr_off",
            "ltr_t", "ltr_w", "pt_lt", "loopm", "bucket", "pt_code", "pt_wl",
            "pt_wr", "ptl_t", "ptl_s", "b12a_off", "b12a_t", "b12a_c",
            "b12c_off", "b12c_t", "b12c_a", "op_off", "op_a", "op_c",
-           "opa_off", "opa_t", "opa_c", "opc_off", "opc_t", "opc_a",
-           "p13_s1", "p13_s3", "p13_ar", "ar_off", "ar_p", "s1_off", "s1_k",
-           "s3_off", "s3_k", "k2_s2", "k2_ar", "k2_bu", "k2_tgt", "k2_off",
-           "k2_idx", "k2a_off", "k2a_k")
+           "opa_off", "opa_t", "opa_c", "opc_off", "opc_t", "opc_a")
 CHAIN_IDX = ("rt_off", "rt_s", "rt_w", "rtr_off", "rtr_t", "rtr_w",
              "end_states")
 TB_IDX = ("rt_off", "rt_s", "rt_w", "lt_off", "lt_s", "lt_w", "pt_code",
@@ -242,11 +241,8 @@ _SIGS = {
     "band_bif": ((DPDims, BandIdx), 4),
     "band_m": ((DPDims, BandIdx, AuxArg), 5),
     "band_e": ((DPDims, BandIdx), 8),
-    "ep_rowmax": ((DPDims,), 3),
-    "ep_shift": ((DPDims,), 2),
-    "ep_t": ((DPDims, EpIdx), 5),
-    "ep_v": ((DPDims,), 6),
-    "ep_out": ((DPDims, EpIdx), 9),
+    "ep_fwd": ((DPDims, EpIdx), 12),
+    "ep_fwd_red": ((DPDims,), 3),
     "ext_col": ((DPDims, ExtIdx, AuxArg), 6),
     "ext_adj": ((DPDims, AdjIdx, AuxArg), 10),
     "ext_adj_chain": ((DPDims, AdjIdx, AuxArg), 4),
@@ -260,14 +256,8 @@ _SIGS = {
     "front_adj_wb": ((DPDims, AdjIdx, AuxArg), 12),
     "front_adj_red": ((DPDims,), 4),
     "cls_red": ((DPDims, AuxArg), 1),
-    "ep_go": ((DPDims, AdjIdx), 11),
-    "ep_gv": ((DPDims, AdjIdx), 11),
-    "ep_gtw": ((DPDims,), 8),
-    "ep_gmb": ((DPDims,), 5),
-    "ep_gma": ((DPDims,), 5),
-    "ep_gsz": ((DPDims,), 5),
-    "ep_gp": ((DPDims, AdjIdx), 10),
-    "ep_gl3": ((DPDims, AdjIdx), 10),
+    "ep_adj": ((DPDims, EpIdx), 19),
+    "ep_adj_red": ((DPDims,), 8),
     "chain_fwd": ((ChainDims, ChainIdx, AuxArg), 4),
     "chain_adj": ((ChainDims, ChainIdx, AuxArg), 5),
     "band_front_max": ((DPDims, BandIdx, AuxArg), 15),
@@ -299,6 +289,9 @@ def lib():
                     fn.argtypes = list(structs) + \
                         [ctypes.c_void_p] * (nptr + 1)
                     fn.restype = ctypes.c_int
+            L.rnaelem_ep_smem_bytes.argtypes = [ctypes.c_int, DPDims,
+                                                ctypes.c_int]
+            L.rnaelem_ep_smem_bytes.restype = ctypes.c_longlong
             L.rnaelem_error_string.argtypes = [ctypes.c_int]
             L.rnaelem_error_string.restype = ctypes.c_char_p
             _lib = L
@@ -396,6 +389,7 @@ def _check_column(state, j, d, c, h, st):
     B = state["O"].shape[-1]
     R, W1, C1 = Lp + 1 + st.PAD, Wp + 1, Cp + 1
     _req(state["ep"], "ep", dt, (R, W1, st.dims.S, B), dev)
+    _req(state["ep_shift"], "ep_shift", dt, (Lp + 1, 3, B), dev)
     for name, t, shape in (
             ("eSZg", h["eSZg"], (2, 4, C1, C1, B)),
             ("emisA", h["emisA"], (2, 4, Lp + 1, W1, B)),
@@ -547,51 +541,88 @@ def band_e(state, j, d, c, h, st):
           _p(c.okE))
 
 
+# K3's and K6's fused blocks (csrc/ep_col.cuh): one read and one of
+# EP_XSPLIT (kEpXSplit) ranges of x per block; the blocks' partials are
+# EP_XSPLIT deep
+EP_XSPLIT = 4
+SMEM_LIMIT = 232448      # dynamic shared memory a block may take (H100)
+
+
+class SharedMemoryLimit(ValueError):
+    """A fused block of K3 or K6 would need more shared memory than a
+    block may take."""
+
+
+def ep_smem_bytes(kernel, S, n_ar, Cp, dtype):
+    """Dynamic shared memory of one block of K3 (``kernel`` "inside_ep")
+    or K6 ("outside_ep"): the layouts EpFwdLayout and EpAdjLayout of
+    csrc/ep_col.cuh.  The span Wp does not enter: what a block keeps per
+    width lives in a ring of Cp+1 rows."""
+    it = torch.empty((), dtype=dtype).element_size()
+    C1 = Cp + 1
+    tri = C1 * (C1 + 1) // 2      # W, gW and GSZ live on dl + u1 <= Cp
+    if kernel == "inside_ep":     # exP, exL3, mAB, T, W, V, out ring, and
+        n = (2 * C1 * S + 16 * C1 + C1 * n_ar + 2 * tri + 2 * C1 * n_ar
+             + C1 * S + 4 * 256)  # red [4][kEpThreads]
+        return it * n
+    if kernel == "outside_ep":    # doubles: mAB, T, W, V, gW, go ring,
+        n_a = (16 * C1 + C1 * n_ar + 4 * tri + 2 * C1 * n_ar   # gL3, gmA
+               + C1 * S + C1 * S + 8 * C1 + 8 * tri + 12)      # ring, gsz,
+        return 8 * n_a + it * 2 * C1 * S   # glam; scalar: exP, exL3
+    raise ValueError("no fused block for kernel %r" % kernel)
+
+
+@functools.lru_cache(maxsize=None)
+def ep_check(kernel, S, n_ar, Cp, dtype):
+    """Raise SharedMemoryLimit where a block of K3 or K6 would need more
+    shared memory than SMEM_LIMIT; the message names the largest max
+    internal loop (-c) that fits."""
+    smem = ep_smem_bytes(kernel, S, n_ar, Cp, dtype)
+    if smem <= SMEM_LIMIT:
+        return
+    fit = Cp
+    while fit > 1 and ep_smem_bytes(kernel, S, n_ar, fit, dtype) > SMEM_LIMIT:
+        fit -= 1
+    raise SharedMemoryLimit(
+        "%s: a block needs %d bytes of shared memory (S=%d, n_ar=%d, max "
+        "internal loop %d, %s), more than the %d a block may take; "
+        "-c/--max-internal-loop %d fits this pattern at this dtype (the "
+        "span -w does not enter)"
+        % (kernel, smem, S, n_ar, Cp, str(dtype).replace("torch.", ""),
+           SMEM_LIMIT, fit))
+
+
 def ep_stage(state, j, d, c, h, st):
     """K3: the TT_E_P internal-loop term of column j into row j of the
-    ep table."""
+    ep table (two launches: the fused blocks, then the sum of their
+    partials).  The per-(column, read) shifts go into the state's
+    ep_shift [Lp+1, 3, B], which K6 reads."""
+    ep_check("inside_ep", st.dims.S, st.n_ar, st.dims.Cp, st.dtype)
     _check_column(state, j, d, c, h, st)
-    ep_row = state["ep"][j + st.PAD]
     if not st.have_ep:
-        ep_row.fill_(float("-inf"))
+        state["ep"][j + st.PAD].fill_(float("-inf"))
         return
     dt, dev = st.dtype, state["O"].device
     B = state["O"].shape[-1]
-    W1, C1 = st.dims.Wp + 1, st.dims.Cp + 1
+    W1, C1, S = st.dims.Wp + 1, st.dims.Cp + 1, st.dims.S
     scr = state.get("_ep_scratch")
     if scr is None:
         # per-row maxima of P and of LL up to width Cp, for the rows the
-        # state holds now; ep_rowmax adds each new row as it is done
+        # state holds now; the fused blocks add each new row as it is done
         rowmax = torch.stack([state["P"].amax(dim=(1, 2)),
                               state["LL"][:, :C1].amax(dim=(1, 2))])
         scr = dict(
             rowmax=rowmax.contiguous(),
-            shift=torch.empty((3, B), dtype=dt, device=dev),
-            T=torch.empty((C1, W1, st.n_ar, B), dtype=dt, device=dev),
-            V=torch.empty((2, W1, C1, st.n_ar, B), dtype=dt, device=dev))
+            part=torch.empty((EP_XSPLIT, W1, S, B), dtype=dt, device=dev))
         state["_ep_scratch"] = scr
     D = _dims(st, state, j, d)
-    ix = _idx(st, EpIdx, EP_IDX)
-    _call("inside_ep", "ep_rowmax", state["O"], D, _p(state["P"]),
-          _p(state["LL"]), _p(scr["rowmax"]))
-    _ep_tv(state, j, d, c, h, st)
-    _call("inside_ep", "ep_out", state["O"], D, ix, _p(state["P"]),
-          _p(state["LL"]), _p(scr["V"]), _p(scr["shift"]), _p(c.dots_cum),
-          _p(c.ep["spec_il"]), _p(state["_lam"]), _p(c.C), _p(ep_row))
-
-
-def _ep_tv(state, j, d, c, h, st):
-    """K3's shifts, T and V of column j into the state's scratch (rows
-    up to j must be final and in the per-row maxima)."""
-    scr = state["_ep_scratch"]
-    D = _dims(st, state, j, d)
-    _call("inside_ep", "ep_shift", state["O"], D, _p(scr["rowmax"]),
-          _p(scr["shift"]))
-    _call("inside_ep", "ep_t", state["O"], D, _idx(st, EpIdx, EP_IDX),
-          _p(state["P"]), _p(state["LL"]), _p(c.dots_cum), _p(scr["shift"]),
-          _p(scr["T"]))
-    _call("inside_ep", "ep_v", state["O"], D, _p(scr["T"]), _p(h["emisA"]),
-          _p(h["emisB"]), _p(state["_eSZg"]), _p(c.C), _p(scr["V"]))
+    _call("inside_ep", "ep_fwd", state["O"], D, _idx(st, EpIdx, EP_IDX),
+          _p(state["P"]), _p(state["LL"]), _p(h["emisA"]), _p(h["emisB"]),
+          _p(state["_eSZg"]), _p(c.ep["spec_il"]), _p(state["_lam"]),
+          _p(c.dots_cum), _p(c.C), _p(scr["rowmax"]), _p(state["ep_shift"]),
+          _p(scr["part"]))
+    _call("inside_ep", "ep_fwd_red", state["O"], D, _p(scr["part"]),
+          _p(state["ep_shift"]), _p(state["ep"]))
 
 
 def ext_stage(state, j, d, c, h, st):
@@ -627,6 +658,7 @@ def _check_adj(fs, gs, j, d, c, h, st):
         _req(gs[k], "grad " + k, dt, ref.shape, dev)
     _req(gs["DL"], "grad DL", dt, fs["LL"][: st.dims.Lp + 1].shape, dev)
     _req(gs["GSZ"], "grad GSZ", dt, h["eSZg"].shape, dev)
+    _req(gs["lam"], "grad lam", dt, (2, fs["O"].shape[-1]), dev)
     if d.cls is not None:
         _req(gs["cls"], "grad cls", dt, d.cls.shape, dev)
     gs["_checked"] = key
@@ -637,13 +669,15 @@ def _adj_scratch(gs, st, B, dev):
     if scr is None:
         W1, C1, S, dt = st.dims.Wp + 1, st.dims.Cp + 1, st.dims.S, st.dtype
         e = lambda *shape: torch.empty(shape, dtype=dt, device=dev)
-        # K6's chain scratch is double at either type (outside_ep.cu)
-        a = lambda *shape: torch.empty(shape, dtype=torch.float64,
-                                       device=dev)
         scr = dict(ePart=e(W1, S, B), bgp=e(W1, B))
         if st.have_ep:
-            scr.update(GO=a(W1, S, B), gV=a(2, W1, C1, st.n_ar, B),
-                       gT=a(C1, W1, st.n_ar, B), gW=a(2, C1, W1, C1, B))
+            # K6's blocks' partials of the sums across x (right flank,
+            # emisA row j, the size weights' triangle dl + u1 <= Cp,
+            # lambda's small-loop term per (bucket, special))
+            scr.update(gL3p=e(EP_XSPLIT, C1, S, B),
+                       gmAp=e(EP_XSPLIT, 8, W1, B),
+                       gszp=e(EP_XSPLIT, 8, C1 * (C1 + 1) // 2, B),
+                       glamp=e(EP_XSPLIT, 2, 6, B))
         gs["_adj_scratch"] = scr
     return scr
 
@@ -685,34 +719,24 @@ def e_adj(fs, gs, j, d, c, h, st):
 
 
 def ep_adj(fs, gs, j, d, c, h, st):
-    """K6: adjoint of the internal-loop term at column j (K3's shifts, T
-    and V are recomputed first)."""
+    """K6: adjoint of the internal-loop term at column j (two launches:
+    the fused blocks, which form K3's chain themselves from the shifts
+    K3 kept in fs['ep_shift'], then the sum of their partials)."""
+    ep_check("outside_ep", st.dims.S, st.n_ar, st.dims.Cp, st.dtype)
     _check_adj(fs, gs, j, d, c, h, st)
     if not st.have_ep:
         return
-    D, ix = _dims(st, fs, j, d), _idx(st, AdjIdx, ADJ_IDX)
-    _ep_tv(fs, j, d, c, h, st)
-    fscr = fs["_ep_scratch"]
     scr = _adj_scratch(gs, st, fs["O"].shape[-1], fs["O"].device)
-    ctx = (_p(fs["P"]), _p(fs["LL"]), _p(fscr["shift"]),
-           _p(c.ep["spec_il"]), _p(fs["_lam"]), _p(c.dots_cum), _p(c.C))
-    _call("outside_ep", "ep_go", fs["O"], D, ix, *ctx, _p(fs["ep"]),
-          _p(gs["gep"]), _p(scr["GO"]), _p(gs["DL"]))
-    _call("outside_ep", "ep_gv", fs["O"], D, ix, *ctx, _p(fscr["V"]),
-          _p(scr["GO"]), _p(scr["gV"]), _p(gs["LL"]))
-    _call("outside_ep", "ep_gtw", fs["O"], D, _p(fscr["T"]), _p(scr["gV"]),
-          _p(h["emisA"]), _p(h["emisB"]), _p(fs["_eSZg"]), _p(c.C),
-          _p(scr["gT"]), _p(scr["gW"]))
-    _call("outside_ep", "ep_gmb", fs["O"], D, _p(scr["gW"]), _p(h["emisA"]),
-          _p(fs["_eSZg"]), _p(c.C), _p(gs["emisB"]))
-    _call("outside_ep", "ep_gma", fs["O"], D, _p(scr["gW"]), _p(h["emisB"]),
-          _p(fs["_eSZg"]), _p(c.C), _p(gs["emisA"]))
-    _call("outside_ep", "ep_gsz", fs["O"], D, _p(scr["gW"]), _p(h["emisA"]),
-          _p(h["emisB"]), _p(c.C), _p(gs["GSZ"]))
-    _call("outside_ep", "ep_gp", fs["O"], D, ix, *ctx, _p(scr["gT"]),
-          _p(scr["GO"]), _p(gs["P"]))
-    _call("outside_ep", "ep_gl3", fs["O"], D, ix, *ctx, _p(scr["gT"]),
-          _p(scr["GO"]), _p(gs["LL"]))
+    D = _dims(st, fs, j, d)
+    _call("outside_ep", "ep_adj", fs["O"], D, _idx(st, EpIdx, EP_IDX),
+          _p(fs["P"]), _p(fs["LL"]), _p(fs["ep"]), _p(gs["gep"]), _p(fs["ep_shift"]),
+          _p(h["emisA"]), _p(h["emisB"]), _p(fs["_eSZg"]),
+          _p(c.ep["spec_il"]), _p(fs["_lam"]), _p(c.dots_cum), _p(c.C),
+          _p(gs["P"]), _p(gs["LL"]), _p(gs["emisB"]), _p(scr["gL3p"]),
+          _p(scr["gmAp"]), _p(scr["gszp"]), _p(scr["glamp"]))
+    _call("outside_ep", "ep_adj_red", fs["O"], D, _p(scr["gL3p"]),
+          _p(scr["gmAp"]), _p(scr["gszp"]), _p(scr["glamp"]), _p(gs["LL"]),
+          _p(gs["emisA"]), _p(gs["GSZ"]), _p(gs["lam"]))
 
 
 def band_adj(fs, gs, j, d, c, h, st):

@@ -457,19 +457,25 @@ def _random_params(cfg, dev, seed=9):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("pattern,opts", [
-    ("(.....)", {}), ("..*..", dict(no_rss=True))])
+    ("(.....)", {}), ("..*..", dict(no_rss=True)), (".....*.....", {})])
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 def test_per_read_outputs_do_not_depend_on_the_batch(pattern, opts, dtype):
     """On the card a read's f, every gradient leaf and eff have the same
     bits in any batch: the whole batch against its two parts (a
     data-parallel group gathers the shards' values and must train the
-    single device's model), and the masks likewise."""
+    single device's model), and the masks likewise.  The structure
+    models run through the fused K3 and K6 (one block per read and range
+    of x)."""
     _need_cuda()
     cfg = J.ModelConfig(pattern=pattern, Lp=40, max_span=24, max_iloop=12,
                         min_bpp=1e-4, tau=0.1, dtype=dtype, **opts)
     batch = _to(_batch(cfg, "cpu", n=9, seed=9), "cuda")
     p = _random_params(cfg, "cuda")
+    K.reset_counts()
     whole = OBJ.batch_fn_grad_pr(cfg, p, batch, device="cuda")
+    if not cfg.no_rss:
+        assert K.KERNELS["inside_ep"].launches > 0
+        assert K.KERNELS["outside_ep"].launches > 0
     parts = [OBJ.batch_fn_grad_pr(cfg, p, _to(batch, "cuda", lo, hi),
                                   device="cuda")
              for lo, hi in ((0, 4), (4, None))]
@@ -483,6 +489,175 @@ def test_per_read_outputs_do_not_depend_on_the_batch(pattern, opts, dtype):
         kp, ep = OBJ.batch_bp_masks(cfg, _to(batch, "cuda", lo, hi).sd,
                                     "cuda")
         assert torch.equal(kp, keep[lo:hi]) and torch.equal(ep, eff[lo:hi])
+
+
+def _paired_rss(rng, s, min_loop=3):
+    """A random nested structure on ``s`` whose pairs are canonical or
+    G-U, so that the energy model admits it."""
+    ok = ("AU", "UA", "GC", "CG", "GU", "UG")
+    rss, opened = [], []
+    for p, ch in enumerate(s):
+        if opened and p - opened[-1] > min_loop and \
+                s[opened[-1]] + ch in ok and rng.rand() < 0.5:
+            opened.pop()
+            rss.append(")")
+        elif rng.rand() < 0.25:
+            opened.append(p)
+            rss.append("(")
+        else:
+            rss.append(".")
+    for p in opened:
+        rss[p] = "."
+    return "".join(rss)
+
+
+def _ep_reads(cfg, n, seed):
+    """n random reads of Lp-40..Lp nt (loop caps C_b = min(L, span) - 7
+    below Cp for the short ones), a random structure each under fix_rss."""
+    rng = np.random.RandomState(seed)
+    reads = []
+    for i in range(n):
+        L = int(rng.randint(max(12, cfg.Lp - 40), cfg.Lp + 1))
+        s = "".join("ACGU"[c] for c in rng.randint(0, 4, L))
+        q = rng.randint(0, 40, L + 1)
+        q[-1] = 0 if i % 2 else 9
+        reads.append((seq_to_ints(s), q,
+                      _paired_rss(rng, s) if cfg.fix_rss else ""))
+    return reads
+
+
+def _ep_inputs(cfg, reads, null=False, seed=21):
+    """(InsideDP, factors, hoisted terms, the kernel forward's tables, a
+    parts cotangent) on the card for ``reads``: the grammar's DP with
+    random weights, or the masks' S=1 DP."""
+    sd = J.stack_seqdata([J.make_seqdata(cfg, *r) for r in reads], "cuda")
+    k = J.kernels(cfg, "cuda")
+    rng = np.random.RandomState(seed)
+    if null:
+        dp = k.dp_null
+        d, c = J._null_batch_factors(cfg, k, sd,
+                                     J._candidate_pairs(cfg, k, sd))
+    else:
+        dp = k.dp
+        bp, _ = J.effective_bp_mask_batch(cfg, sd, device="cuda")
+        d, c = J.batch_factors(cfg, _random_params(cfg, "cuda", seed), sd,
+                               bp, device="cuda")
+    h = DP.hoisted(d, c, dp.st)
+    fs = dp.run_inside(d, c, h)
+    gbar = torch.as_tensor(rng.rand(len(reads), 3), dtype=dp.st.dtype,
+                           device="cuda")
+    return dp, d, c, h, fs, gbar
+
+
+EP_CASES = {
+    "S29-f64": dict(pattern="(.....)", dtype="float64"),
+    "S15-f64": dict(pattern="...", dtype="float64"),
+    "S91-f64": dict(pattern=".....*.....", dtype="float64", n=3),
+    "S1-f64": dict(pattern="(.....)", dtype="float64", null=True),
+    "fix_rss-f64": dict(pattern="(.*)", dtype="float64", fix_rss=True),
+    "no_ene-f64": dict(pattern="(.*)", dtype="float64", no_ene=True),
+    "short-f64": dict(pattern="(.....)", dtype="float64", Lp=36),
+    "S91-f64-wide": dict(pattern=".....*.....", dtype="float64", n=3,
+                         Lp=120, max_span=110),
+    "S29-f32-c32": dict(pattern="(.....)", dtype="float32", max_iloop=32),
+    "S29-f32-B33": dict(pattern="(.....)", dtype="float32", n=33),
+    "S91-f32": dict(pattern=".....*.....", dtype="float32"),
+    "S1-f32-B33": dict(pattern="(.....)", dtype="float32", null=True,
+                       n=33),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(EP_CASES))
+def test_fused_ep_kernels_match_plain(case):
+    """K3 (ep_stage) on every third column and K6 (ep_adj) on one against
+    ep_stage_plain and ep_adj_plain on identical inputs, at the default
+    spans (Cp=30, Wp=50; Wp=36 for the short reads, Wp=110 for the wide
+    ones, Cp=32 the widest max internal loop every pattern fits) with
+    loop caps below Cp: S=1 (the masks' null grammar), 15, 29 and 91,
+    fix_rss and no_ene, B=5 and 33 (blocks of one read, ranges of x); f64
+    within 1e-9 and f32 within 1e-4 relative; a second run of each
+    kernel gives the same bits.  The outside pass reads the shifts of the
+    forward from its cloned state."""
+    _need_cuda()
+    kw = dict(EP_CASES[case])
+    n, null = kw.pop("n", 5), kw.pop("null", False)
+    opts = dict(Lp=60, max_span=50, max_iloop=30, min_bpp=0.0, tau=0.1)
+    opts.update(kw)
+    cfg = J.ModelConfig(**opts)
+    dp, d, c, h, fs, gbar = _ep_inputs(cfg, _ep_reads(cfg, n, 17), null)
+    st = dp.st
+    assert st.have_ep
+    tol = 1e-9 if cfg.dtype == "float64" else 1e-4
+    r = lambda j: j + st.PAD
+    K.reset_counts()
+    seen, cols = 0, range(1, cfg.Lp + 1, 3)
+    for j in cols:
+        ks = DP.clone_state(fs)
+        ps = DP.clone_state(fs)
+        K.ep_stage(ks, j, d, c, h, st)
+        again = ks["ep"][r(j)].clone()
+        K.ep_stage(ks, j, d, c, h, st)
+        assert torch.equal(again, ks["ep"][r(j)])
+        DP.ep_stage_plain(ps, j, d, c, h, st)
+        a, b = ks["ep"][r(j)], ps["ep"][r(j)]
+        fin = torch.isfinite(b)
+        if cfg.dtype == "float64":
+            assert torch.equal(torch.isfinite(a), fin), j
+        else:   # f32 exp space flushes cells far below a read's maximum
+            top = torch.where(fin, b, torch.full_like(b, -1e30)).reshape(
+                -1, n).amax(0)
+            fin = fin & (b >= top - 50.0)
+            assert torch.isfinite(a[fin]).all(), j
+        if fin.any():     # column 1 holds no internal loop
+            seen += 1
+            err = (a[fin] - b[fin]).abs() / b[fin].abs().clamp(min=1.0)
+            assert float(err.max()) <= tol, j
+    assert seen >= 3
+    assert K.KERNELS["inside_ep"].launches == 2 * 2 * len(cols)
+    gs = DP.init_grads(fs, d, c, h)
+    DP.seed_parts(gs, gbar, c, st)
+    j0 = cfg.Lp // 2
+    dp.outside_columns(fs, gs, d, c, h, cfg.Lp + 1, j0 + 1)
+    kg, kg2, pg = (DP.clone_state(gs) for _ in range(3))
+    K.reset_counts()
+    K.ep_adj(fs, kg, j0, d, c, h, st)
+    K.ep_adj(fs, kg2, j0, d, c, h, st)
+    assert K.KERNELS["outside_ep"].launches == 2 * 2
+    assert K.KERNELS["inside_ep"].launches == 0
+    for k_ in kg:
+        if not k_.startswith("_"):
+            assert torch.equal(kg[k_], kg2[k_]), k_
+    DP.ep_adj_plain(fs, pg, j0, d, c, h, st)
+    for k_ in DP.GRAD_TABLES + ("emisA", "emisB"):
+        a, b = kg[k_], pg[k_]
+        assert not torch.isnan(a).any(), k_
+        scale = max(1.0, float(b.abs().max()))
+        assert float((a - b).abs().max()) <= tol * scale, k_
+    lk = DP.lam_total(DP.finish_grads(kg, st), d, c, st)
+    lp = DP.lam_total(DP.finish_grads(pg, st), d, c, st)
+    assert float((lk - lp).abs().max()) <= tol * max(
+        1.0, float(lp.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_fused_ep_kernels_do_not_depend_on_the_batch(dtype):
+    """K3's ep table and the outside pass's cotangents through K6 of a
+    batch of 9 reads and of its parts 0:4 and 4:9 have the same bits per
+    read."""
+    _need_cuda()
+    cfg = J.ModelConfig(pattern="(.....)", Lp=60, max_span=50,
+                        max_iloop=30, min_bpp=0.0, tau=0.1, dtype=dtype)
+    reads = _ep_reads(cfg, 9, 23)
+    dp, d, c, h, fs, gbar = _ep_inputs(cfg, reads)
+    whole = dp.outside_state(fs, gbar, d, c, h)
+    for lo, hi in ((0, 4), (4, 9)):
+        dq, cq, hq, fq, _ = _ep_inputs(cfg, reads[lo:hi])[1:]
+        assert torch.equal(fs["ep"][..., lo:hi], fq["ep"])
+        part = dp.outside_state(fq, gbar[lo:hi], dq, cq, hq)
+        for k_ in DP.GRAD_TABLES + ("DL", "GSZ", "emisA", "emisB"):
+            assert torch.equal(whole[k_][..., lo:hi], part[k_]), k_
 
 
 @pytest.mark.gpu
