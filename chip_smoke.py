@@ -5,7 +5,8 @@ Phases:
   1. the card's name and power limit; build the hand-written kernels
      (csrc/*.cu, nvcc for sm_90a) and time the build; K3's and K6's
      shared memory as ops/kernels.ep_smem_bytes sizes it (the launch
-     checks) against the kernels' own layouts;
+     checks) against the kernels' own layouts, and the M chain's (K2's
+     band_m, K5's m_adj) as band_smem_bytes sizes it;
   2. hold every kernel against its plain PyTorch version on the card:
      K1 score tables (ints/bools equal, floats within 1e-6 relative), the
      column stages of K2-K4 one by one (f64 at B=16 within 1e-9 relative,
@@ -26,8 +27,9 @@ Phases:
      masks equal but for cells within 1e-9 of the threshold; the f32
      kernels' mask cells that differ lie within 1e-3 (log) of it;
   5. per-call device times of K1-K7 (torch.profiler, the kernel's own
-     functions over 200 calls) at the main path's shapes, K3's and K6's
-     by CUDA function, and the plain versions' times (CUDA events); rows
+     functions over 200 calls) at the main path's shapes, K2's, K3's, K5's
+     and K6's by CUDA function (K2's and K5's also under the pin and per
+     masks batch), and the plain versions' times (CUDA events); rows
      C and D, the torch glue of the
      factors and the hoisted terms, forward and backward, device ms and
      launches per call beside their bounds;
@@ -155,6 +157,7 @@ STEPS = 4              # timed production steps after one warm-up
 DP_KERNELS = ("score_tables", "inside_band", "inside_ep", "inside_ext",
               "outside_band", "outside_ep", "outside_ext")
 CHAIN_KERNELS = ("linear_fwd", "linear_adj")
+BAND_KERNELS = ("inside_band", "outside_band")   # K2, K5
 TRNA_FA = os.path.join(HERE, "tests", "fixtures", "material", "positive.fa")
 GOLD_TRNA = os.path.join(HERE, "tests", "golden", "trna_noshuffle_ref.model")
 GOLD_SMALL8 = os.path.join(HERE, "tests", "golden", "trna_small8_ref.model")
@@ -271,6 +274,25 @@ def check_ep_smem():
     return n
 
 
+def check_band_smem():
+    """The M chain's dynamic shared memory (K2's band_m, K5's m_adj) as
+    ops/kernels.band_smem_bytes sizes it against csrc/mchain.cuh's own
+    layout, over the grammars' range of S and both types.  Returns the
+    number of cases."""
+    n = 0
+    for S in (1, 15, 29, 47, 78, 91, 153):
+        for dt, it in ((torch.float32, 4), (torch.float64, 8)):
+            for which, name in ((0, "inside_band"), (1, "outside_band")):
+                c_ = int(K.lib().rnaelem_band_smem_bytes(which, S, it))
+                py = K.band_smem_bytes(name, S, dt)
+                if c_ != py:
+                    fail("%s M-chain shared memory: the kernel's layout takes "
+                         "%d bytes, band_smem_bytes says %d (S=%d, %s)"
+                         % (name, c_, py, S, dt))
+                n += 1
+    return n
+
+
 def cuda_ms(fn, reps):
     """Mean ms per call over ``reps`` calls after one warm-up (events)."""
     fn()
@@ -354,6 +376,34 @@ def ep_column_ms(cfg, reads, params, dev, funcs, j0):
     out["outside_ep"] = device_ms_by_function(
         lambda: DP.ep_adj(fs, kg, j0, d, c, h, st), REPS // 4,
         funcs["outside_ep"])
+    return out
+
+
+def band_column_ms(cfg, reads, params, dev, funcs, j0):
+    """Device ms of K2 (inside_band: band_front, band_bif, band_m, band_e)
+    and K5 (outside_band: e_adj, band_adj) at column j0 for ``reads`` (the
+    kernel forward's tables; the outside pass run through the later
+    columns first), by CUDA function."""
+    _, d, c = batch_factors_for(cfg, reads, dev, params)
+    dp = J.kernels(cfg, dev).dp
+    st = dp.st
+    h = DP.hoisted(d, c, st)
+    fs = dp.run_inside(d, c, h)
+    ks = DP.clone_state(fs)
+    fwd = [getattr(DP, n) for n in ("band_front", "band_bif", "band_m",
+                                    "band_e")]
+    out = {"inside_band": device_ms_by_function(
+        lambda: [f(ks, j0, d, c, h, st) for f in fwd], REPS // 4,
+        funcs["inside_band"])}
+    gs = DP.init_grads(fs, d, c, h)
+    gbar = torch.ones((len(reads), 3), dtype=st.dtype, device=dev)
+    DP.seed_parts(gs, gbar, c, st)
+    dp.outside_columns(fs, gs, d, c, h, cfg.Lp + 1, j0 + 1)
+    kg = DP.clone_state(gs)
+    out["outside_band"] = device_ms_by_function(
+        lambda: [DP.e_adj(fs, kg, j0, d, c, h, st),
+                 DP.band_adj(fs, kg, j0, d, c, h, st)], REPS // 4,
+        funcs["outside_band"])
     return out
 
 
@@ -1312,18 +1362,18 @@ def check_pinned(cfg, batch, params, dev, rel, significant, full):
 def pinned_times(dp, d, c, j0, funcs):
     """Device ms per column j0 of the pinned K2 and K4 stages (a pin per
     read in ``c``) and of K5 and K7 with the class probe in ``d`` (the
-    outside pass run through the later columns first), and K5's ms by
-    CUDA function."""
+    outside pass run through the later columns first), and K2's and K5's
+    ms by CUDA function."""
     st = dp.st
     h = DP.hoisted(d, c, st)
     fs = dp.run_inside(d, c, h)
-    out = {}
+    out, per_fn = {}, {}
     for kname, names in (("inside_band", ("band_front", "band_bif", "band_m",
                                           "band_e")),
                          ("inside_ext", ("ext_stage",))):
         ks = DP.clone_state(fs)
         kf = [getattr(DP, n) for n in names]
-        out[kname] = device_ms(
+        out[kname], per_fn[kname] = device_ms_by_function(
             lambda: [f(ks, j0, d, c, h, st) for f in kf], REPS, funcs[kname])
     gs = DP.init_grads(fs, d, c, h)
     B = c.wsp.shape[-1]
@@ -1331,7 +1381,6 @@ def pinned_times(dp, d, c, j0, funcs):
                                       dtype=st.dtype, device=fs["O"].device),
                   c, st)
     dp.outside_columns(fs, gs, d, c, h, dp.dims.Lp + 1, j0 + 1)
-    per_fn = {}
     for kname, names in (("outside_band", ("e_adj", "band_adj")),
                          ("outside_ext", ("ext_adj",))):
         kg = DP.clone_state(gs)
@@ -1341,7 +1390,16 @@ def pinned_times(dp, d, c, j0, funcs):
         per_fn[kname] = {f: per[f] / 1e3 for f in sorted(funcs[kname])
                          if f in per}
         out[kname] = sum(per_fn[kname].values())
-    return out, per_fn["outside_band"]
+    return out, {k: per_fn[k] for k in BAND_KERNELS}
+
+
+def masks_by_function(cfg, sd, dev, funcs):
+    """Device ms of K2's and K5's CUDA functions over one masks batch
+    (the S=1 pass of effective_bp_mask_batch, every column)."""
+    per, _, _, _ = device_profile(
+        lambda: J.effective_bp_mask_batch(cfg, sd, dev), 3)
+    return {k: {f: per.get(f, 0.0) / 1e3 for f in sorted(funcs[k])}
+            for k in BAND_KERNELS}
 
 
 def check_chain_pinned(small, reads, dev):
@@ -2278,23 +2336,40 @@ EP_VARIANTS = {
 }
 
 
-def ep_variants(dev):
-    """K3's and K6's device ms per column J0 (f32 at B=128 and B=33, f64
-    at B=64: the main path, one block per SM, a scan chunk; S=29) and the
-    masks' ms per 128-read batch (f32, CUDA events), for the shipped
-    kernels and for EP_VARIANTS, each built from a patched copy of csrc
-    under build/ep_variants/ (its own kernel build).  One JSON line per
-    variant: the numbers behind the launch constants of ep_col.cuh."""
+BAND_VARIANTS = {
+    "shipped": (),
+    "M chain 16 bytes of reads per block (4 f32, 2 f64)": (
+        ("mchain.cuh", "kMGroupBytes = 32", "kMGroupBytes = 16"),),
+    "M chain 64 bytes of reads per block (16 f32, 8 f64)": (
+        ("mchain.cuh", "kMGroupBytes = 32", "kMGroupBytes = 64"),),
+    "M chain ring of 2 stages": (
+        ("mchain.cuh", "kMRing = 4", "kMRing = 2"),),
+    "M chain ring of 8 stages": (
+        ("mchain.cuh", "kMRing = 4", "kMRing = 8"),),
+    "band_bif 1 thread per cell": (
+        ("inside_band.cu", "kBifHalves = 2", "kBifHalves = 1"),),
+    "band_bif 4 threads per cell": (
+        ("inside_band.cu", "kBifHalves = 2", "kBifHalves = 4"),),
+    "band_bif (sum DP) chunks of 16 dk": (
+        ("inside_band.cu", "static const int n = 8;",
+         "static const int n = 16;"),),
+    "band_bif (sum DP) chunks of 32 dk": (
+        ("inside_band.cu", "static const int n = 8;",
+         "static const int n = 32;"),),
+    "bif_adj chunks of 16": (
+        ("outside_band.cu", "kBifChunk = 8", "kBifChunk = 16"),),
+    "bif_adj 8 warps": (("outside_band.cu", "kBifWarps = 4", "kBifWarps = 8"),),
+}
+
+
+def patched_builds(variants, root):
+    """For each variant (name, substitutions (file, old, new) in csrc),
+    point ops/kernels at a patched copy of csrc under ``root`` (its own
+    kernel build) and yield the name; the shipped sources are restored
+    after each."""
     import shutil
-    cfg32, cfg64 = cfg_for("float32"), cfg_for("float64")
-    reads = main_reads()
-    p32, p64 = random_params(cfg32, dev), random_params(cfg64, dev)
-    sd = J.stack_seqdata([J.make_seqdata(cfg32, s, q) for s, q in reads],
-                         dev)
-    funcs = kernel_functions()
     shipped_src, shipped_split = K.CSRC, K.EP_XSPLIT
-    root = os.path.join(HERE, "build", "ep_variants")
-    for i, (name, subs) in enumerate(EP_VARIANTS.items()):
+    for i, (name, subs) in enumerate(variants.items()):
         src = os.path.join(root, "v%d" % i, "csrc")
         shutil.rmtree(src, ignore_errors=True)
         shutil.copytree(shipped_src, src)
@@ -2304,25 +2379,73 @@ def ep_variants(dev):
             with open(path) as f:
                 text = f.read()
             if a not in text:
-                fail("ep variant %r: %r not in %s" % (name, a, fname))
+                fail("variant %r: %r not in %s" % (name, a, fname))
             with open(path, "w") as f:
                 f.write(text.replace(a, b))
             m = re.match(r"kEpXSplit = (\d+)", b)
             split = int(m.group(1)) if m else split
         K.CSRC, K.EP_XSPLIT, K._lib = Path(src), split, None
         try:
-            t0 = time.time()
-            K.lib()
-            rec = {"variant": name, "build_s": round(time.time() - t0, 1)}
-            for key, cfg, rd, p in (("f32_B128", cfg32, reads, p32),
-                                    ("f32_B33", cfg32, reads[:33], p32),
-                                    ("f64_B64", cfg64, reads[:64], p64)):
-                out = ep_column_ms(cfg, rd, p, dev, funcs, J0)
-                rec[key] = {n: v[0] for n, v in out.items()}
-            rec["masks_ms"] = cuda_ms(
-                lambda: J.effective_bp_mask_batch(cfg32, sd, dev), 3)
+            yield name
         finally:
             K.CSRC, K.EP_XSPLIT, K._lib = shipped_src, shipped_split, None
+
+
+def band_variants(dev):
+    """K2's and K5's device ms per column J0 (f32 at B=128 and B=33, f64
+    at B=64: the main path, a batch that is no multiple of the reads per
+    M-chain block, a scan chunk; S=29) and the masks' ms per 128-read
+    batch (f32, CUDA events), for the shipped kernels and for
+    BAND_VARIANTS, each built from a patched copy of csrc under
+    build/band_variants/.  One JSON line per variant: the numbers behind
+    the launch constants of csrc/mchain.cuh, band_bif and bif_adj."""
+    cfg32, cfg64 = cfg_for("float32"), cfg_for("float64")
+    reads = main_reads()
+    p32, p64 = random_params(cfg32, dev), random_params(cfg64, dev)
+    sd = J.stack_seqdata([J.make_seqdata(cfg32, s, q) for s, q in reads],
+                         dev)
+    funcs = kernel_functions()
+    for name in patched_builds(BAND_VARIANTS,
+                               os.path.join(HERE, "build", "band_variants")):
+        t0 = time.time()
+        K.lib()
+        rec = {"variant": name, "build_s": round(time.time() - t0, 1)}
+        for key, cfg, rd, p in (("f32_B128", cfg32, reads, p32),
+                                ("f32_B33", cfg32, reads[:33], p32),
+                                ("f64_B64", cfg64, reads[:64], p64)):
+            out = band_column_ms(cfg, rd, p, dev, funcs, J0)
+            rec[key] = {n: v[0] for n, v in out.items()}
+        rec["masks_ms"] = cuda_ms(
+            lambda: J.effective_bp_mask_batch(cfg32, sd, dev), 3)
+        print(json.dumps(rec), flush=True)
+    print("card: %s" % card_line(), flush=True)
+
+
+def ep_variants(dev):
+    """K3's and K6's device ms per column J0 (f32 at B=128 and B=33, f64
+    at B=64: the main path, one block per SM, a scan chunk; S=29) and the
+    masks' ms per 128-read batch (f32, CUDA events), for the shipped
+    kernels and for EP_VARIANTS, each built from a patched copy of csrc
+    under build/ep_variants/ (its own kernel build).  One JSON line per
+    variant: the numbers behind the launch constants of ep_col.cuh."""
+    cfg32, cfg64 = cfg_for("float32"), cfg_for("float64")
+    reads = main_reads()
+    p32, p64 = random_params(cfg32, dev), random_params(cfg64, dev)
+    sd = J.stack_seqdata([J.make_seqdata(cfg32, s, q) for s, q in reads],
+                         dev)
+    funcs = kernel_functions()
+    for name in patched_builds(EP_VARIANTS,
+                               os.path.join(HERE, "build", "ep_variants")):
+        t0 = time.time()
+        K.lib()
+        rec = {"variant": name, "build_s": round(time.time() - t0, 1)}
+        for key, cfg, rd, p in (("f32_B128", cfg32, reads, p32),
+                                ("f32_B33", cfg32, reads[:33], p32),
+                                ("f64_B64", cfg64, reads[:64], p64)):
+            out = ep_column_ms(cfg, rd, p, dev, funcs, J0)
+            rec[key] = {n: v[0] for n, v in out.items()}
+        rec["masks_ms"] = cuda_ms(
+            lambda: J.effective_bp_mask_batch(cfg32, sd, dev), 3)
         print(json.dumps(rec), flush=True)
     print("card: %s" % card_line(), flush=True)
 
@@ -2421,6 +2544,10 @@ def main():
                     help="only time K3/K6 and the masks for variants of "
                          "the fused blocks' launch constants (see "
                          "ep_variants) and exit")
+    ap.add_argument("--band-variants", action="store_true",
+                    help="only time K2/K5 and the masks for variants of "
+                         "the M chain's, band_bif's and bif_adj's launch "
+                         "constants (see band_variants) and exit")
     # one rank of N2/N3, started by this script itself
     ap.add_argument("--mesh-worker", type=int, default=-1,
                     help=argparse.SUPPRESS)
@@ -2471,6 +2598,9 @@ def main():
     if args.ep_variants:
         ep_variants(DEVICE)
         return
+    if args.band_variants:
+        band_variants(DEVICE)
+        return
     dev = DEVICE
     t_start = time.time()
     card = card_line()
@@ -2482,6 +2612,8 @@ def main():
     print("kernel build: %.1f s" % (time.time() - t0), flush=True)
     print("K3/K6 shared memory: ep_smem_bytes equals the kernels' layout in "
           "%d cases" % check_ep_smem(), flush=True)
+    print("M chain (K2, K5) shared memory: band_smem_bytes equals the "
+          "kernels' layout in %d cases" % check_band_smem(), flush=True)
     if args.ptxas:
         _, log = K.build(("-Xptxas", "-v"))
         os.makedirs(os.path.dirname(os.path.abspath(args.ptxas)),
@@ -2667,8 +2799,15 @@ def main():
     plain_ms["linear_adj"] = cuda_ms(lambda: torch.autograd.grad(
         graph, leaf, gpc, retain_graph=True), 3)
     del graph, leaf, rows_c
-    ms_pin, k5_fn = pinned_times(dp32, *scan_factors(cfg32, bm, p32, dev,
-                                                     True), j0, funcs)
+    ms_pin, pin_fn = pinned_times(dp32, *scan_factors(cfg32, bm, p32, dev,
+                                                      True), j0, funcs)
+    mask_fn = masks_by_function(cfg32, bm.sd, dev, funcs)
+    ms_by_fn = {k: {"column": ms_fn[k], "pinned": pin_fn[k],
+                    "masks_batch": mask_fn[k]} for k in BAND_KERNELS}
+    print("K2 (inside_band) and K5 (outside_band) device ms by CUDA "
+          "function: per column %d (B=%d x %d nt, f32), the same under the "
+          "pin with the class probe, and per masks batch (S=1, every "
+          "column): %s" % (j0, B_MAIN, LP, json.dumps(ms_by_fn)), flush=True)
     sd_c = J.stack_seqdata([J.make_seqdata(cfg32, s_, q_) for s_, q_ in reads],
                            dev)
     pin_c = random_pin(sd_c, dev)
@@ -2681,9 +2820,8 @@ def main():
     ms_pin["linear_adj"] = device_ms(lambda: K.chain_adj(
         lin, eRc, Lc, rows_p, gpc, pin_c, cls_c), REPS, funcs["linear_adj"])
     print("pinned per-call device ms (a pin per read and the class probe, "
-          "column %d / one batch, B=%d x %d nt, f32): %s; outside_band by "
-          "function %s" % (j0, B_MAIN, LP, json.dumps(ms_pin),
-                           json.dumps(k5_fn)), flush=True)
+          "column %d / one batch, B=%d x %d nt, f32): %s" % (
+              j0, B_MAIN, LP, json.dumps(ms_pin)), flush=True)
     del rows_p, cls_c
     glue = glue_rows(cfg32, p32, bm, dev, funcs)
 
@@ -2862,7 +3000,8 @@ def main():
             "max_abs_err_pin": err_pin.get(name),
             "launches_step": launches[name],
             "launches_eval_path": eval_launches[name],
-            "launches_fn_grad": per_fg[name], "ms_fn_grad": fg_dev[name]})
+            "launches_fn_grad": per_fg[name], "ms_fn_grad": fg_dev[name],
+            "ms_by_function": ms_by_fn.get(name)})
         print("kernel %s: %.4f ms per %s of %d launches (plain %.3f ms, "
               "bound %.4f ms by %s; with the pin %s ms); %d launches on the "
               "scan path, %d in the production step, %d on the evaluation "

@@ -123,6 +123,21 @@ struct LSE {
       s += ex(x - m);
     }
   }
+  // N terms at once (in index order): one rescale to the chunk's
+  // maximum, then the terms' exps, independent of each other and without
+  // branches (exp(-inf) adds 0, a rescale by exp(0) multiplies by 1)
+  template <int N>
+  __device__ __forceinline__ void add_n(const T (&x)[N]) {
+    T mc = ninf<T>();
+#pragma unroll
+    for (int i = 0; i < N; ++i) mc = x[i] > mc ? x[i] : mc;
+    if (!(mc > ninf<T>())) return;
+    const T mn = mc > m ? mc : m;
+    s = s * ex(m - mn);
+    m = mn;
+#pragma unroll
+    for (int i = 0; i < N; ++i) s += ex(x[i] - m);
+  }
   __device__ __forceinline__ T result() const {
     return s > (T)0 ? m + lg(s) : ninf<T>();
   }
@@ -135,6 +150,11 @@ struct MaxAcc {
   __device__ __forceinline__ MaxAcc() : m(ninf<T>()) {}
   __device__ __forceinline__ void add(T x) {
     if (x > m) m = x;
+  }
+  template <int N>
+  __device__ __forceinline__ void add_n(const T (&x)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) m = x[i] > m ? x[i] : m;
   }
   __device__ __forceinline__ T result() const { return m; }
 };
@@ -183,6 +203,37 @@ __device__ __forceinline__ T finite_or_zero(T m) {
 
 static inline int ceil_div(long long a, int b) {
   return static_cast<int>((a + b - 1) / b);
+}
+
+static const int kSmemLimit = 232448;  // dynamic shared memory per block
+
+// raise the dynamic shared memory limit of kernel ``fn`` on the current
+// device once (a table keyed by kernel and device)
+static int allow_smem(const void* fn, long long bytes) {
+  if (bytes > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
+  if (bytes <= 48 * 1024) return 0;
+  struct Entry {
+    const void* fn;
+    int dev;
+    long long bytes;
+  };
+  static Entry seen[64];
+  static int n_seen = 0;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  for (int i = 0; i < n_seen; ++i)
+    if (seen[i].fn == fn && seen[i].dev == dev && seen[i].bytes >= bytes)
+      return 0;
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  for (int i = 0; i < n_seen; ++i)
+    if (seen[i].fn == fn && seen[i].dev == dev) {
+      seen[i].bytes = bytes;
+      return 0;
+    }
+  if (n_seen < 64) seen[n_seen++] = {fn, dev, bytes};
+  return 0;
 }
 
 RNAELEM_EXPORT const char* rnaelem_error_string(int code);

@@ -32,7 +32,6 @@
 
 static const int kEpThreads = 256;  // K3's threads per block (one read)
 static const int kEpXSplit = 4;     // blocks per read: ranges of x
-static const int kSmemLimit = 232448;  // dynamic shared memory per block
 
 struct EpIdx {  // the chain's grammar lists (int32)
   const int* p13_s1;   // [n13] inner-pair state of pairs13 entry p
@@ -327,20 +326,3 @@ __device__ void ep_form_v(const EpBlock<T, C>& k, int x) {
   }
 }
 
-// raise the block's dynamic shared memory limit for ``fn`` on the current
-// device once
-template <typename F>
-static int allow_smem(F fn, long long bytes) {
-  if (bytes > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
-  if (bytes <= 48 * 1024) return 0;
-  static long long set[64] = {0};
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
-  if (set[dev] >= bytes) return 0;
-  cudaError_t e = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  set[dev] = bytes;
-  return 0;
-}

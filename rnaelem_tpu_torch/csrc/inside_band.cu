@@ -25,18 +25,18 @@
 // write is coalesced in the batch-minor layout; sums are direct log-space
 // online log-sum-exps (maxima for K10) over the grammar's sparse lists
 // (right/left transitions and split tuples in CSR by target: no dense S x
-// S work, no max-shift underflow).  The B sum gives each (w, target, 32
-// reads) a block whose eight warps split dk and merge in shared memory, so
-// the longest serial chain is w/8 steps.  The M chain runs one block per
-// read, one thread per target state, with the previous cell in shared
-// memory and the next step's loads issued before the current step's
-// arithmetic.  The scanner's pin set (common.cuh Aux: the end pass's start
+// S work, no max-shift underflow).  The B sum gives each (w, target, read)
+// cell two threads, each a contiguous slice of dk whose loads go out in
+// chunks, merged in order.  The M chain (csrc/mchain.cuh) runs one block
+// per group of reads, one thread per (state, read), the step's inputs
+// staged by cp.async a few steps ahead, one barrier per step.  The
+// scanner's pin set (common.cuh Aux: the end pass's start
 // pin, CYK's start, end and tail pins) vetoes transitions at the pinned
 // bases: the L/T2 chains and P skip the vetoed transitions that emit
 // them, the M chain likewise (base j-w).  The pin test is a template flag
 // chosen at launch, so an evaluation without a pin runs the loops without
 // it.
-#include "common.cuh"
+#include "mchain.cuh"
 
 #define TIDX(r, w, s, b) ((((long long)(r) * W1 + (w)) * S + (s)) * B + (b))
 
@@ -150,37 +150,68 @@ __global__ void band_front_kernel(DPDims D, BandIdx ix, Aux ax, T* LL, T* P,
   T2[TIDX(r, w, t, b)] = T2v;
 }
 
-// ---- B (TT_B_12) and T1 of column j: one block per (32 reads, t, w),
-// the eight warps splitting dk = 1..w.
+// ---- B (TT_B_12) and T1 of column j: kBifHalves threads per (w, t, b)
+// cell, each taking one contiguous slice of dk = 1..w, the block 32 reads
+// x kBifWidths consecutive widths of one target t (the widest first).  A
+// thread walks its slice tuple by tuple in chunks of BifChunk<SR> dk: a
+// chunk's loads go out together, and its log-sum-exp takes one rescale;
+// the cell's first thread merges the slices in order (the T2 row of a dk
+// is the same for every width: the block shares it in L1).  The chunk is
+// 8 dk for the sum DP, whose masks leave few live cells, and 32 (one per
+// tuple at the default span) for the CYK tables, whose cells are dense:
+// the faster of 8, 16 and 32 for each (PERF.md, the launch constants).
 // B(i, j) = sum over split tuples (t, a, c) and dk of
 // T1(i, j-dk)[a] * T2(j-dk, j)[c]; dk = 0 and 2-cells of width 0 excluded.
+static const int kBifWidths = 4;
+static const int kBifHalves = 2;
+template <class SR>
+struct BifChunk {
+  static const int n = 8;
+};
+template <typename T>
+struct BifChunk<MaxSR<T>> {
+  static const int n = 32;
+};
+
 template <typename T, class SR>
-__global__ void band_bif_kernel(DPDims D, BandIdx ix, T* Bt, T* T1,
-                                const T* T2, const bool* okB) {
+__global__ void __launch_bounds__(32 * kBifWidths * kBifHalves)
+band_bif_kernel(DPDims D, BandIdx ix, T* __restrict__ Bt, T* __restrict__ T1,
+                const T* __restrict__ T2, const bool* __restrict__ okB) {
   const int S = D.S, B = D.B, W1 = D.Wp + 1, j = D.j;
-  const int b = blockIdx.x * 32 + threadIdx.x;
-  const int t = blockIdx.y, w = blockIdx.z;
+  const int nbx = (B + 31) / 32, blk = blockIdx.x;
+  const int b = (blk % nbx) * 32 + threadIdx.x;
+  const int t = (blk / nbx) % S;
+  const int wl = threadIdx.y / kBifHalves, half = threadIdx.y % kBifHalves;
+  const int w = D.Wp - ((blk / (nbx * S)) * kBifWidths + wl);
   const int r = j + D.PAD;
-  __shared__ T part[8][32];
-  const bool ok = b < B && okB[((long long)j * W1 + w) * B + b];
+  __shared__ T part[kBifWidths * kBifHalves][32];
+  const bool ok = b < B && w >= 0 && okB[((long long)j * W1 + w) * B + b];
+  constexpr int CH = BifChunk<SR>::n;
   typename SR::Acc acc;
-  if (ok) {
-    const int k0 = ix.b12_off[t], k1 = ix.b12_off[t + 1];
-    for (int dk = 1 + threadIdx.y; dk <= w; dk += blockDim.y) {
-      for (int k = k0; k < k1; ++k) {
-        const T x1 = T1[TIDX(r - dk, w - dk, ix.b12_a[k], b)];
-        if (!(x1 > ninf<T>())) continue;
-        acc.add(x1 + T2[TIDX(r, dk, ix.b12_c[k], b)]);
+  if (ok && w >= 1) {
+    const long long s1 = (long long)(W1 + 1) * S * B, s2 = (long long)S * B;
+    const int per = (w + kBifHalves - 1) / kBifHalves, lo = half * per;
+    const int n = (lo + per < w ? lo + per : w) - lo;  // dk = lo+1 .. lo+n
+    for (int k = ix.b12_off[t]; n > 0 && k < ix.b12_off[t + 1]; ++k) {
+      const T* p1 = T1 + TIDX(r - 1 - lo, w - 1 - lo, ix.b12_a[k], b);
+      const T* p2 = T2 + TIDX(r, 1 + lo, ix.b12_c[k], b);
+      for (int d0 = 0; d0 < n; d0 += CH) {
+        T x[CH];
+#pragma unroll
+        for (int i = 0; i < CH; ++i, p1 -= s1, p2 += s2)
+          x[i] = d0 + i < n ? *p1 + *p2 : ninf<T>();
+        acc.add_n(x);
       }
     }
   }
   part[threadIdx.y][threadIdx.x] = acc.result();
   __syncthreads();
-  if (threadIdx.y != 0 || b >= B) return;
+  if (half != 0 || b >= B || w < 0) return;
   T Bv = ninf<T>(), T1v = ninf<T>();
   if (ok) {
     typename SR::Acc all;
-    for (int y = 0; y < blockDim.y; ++y) all.add(part[y][threadIdx.x]);
+    for (int h = 0; h < kBifHalves; ++h)
+      all.add(part[wl * kBifHalves + h][threadIdx.x]);
     Bv = all.result();
     T1v = SR::plus(T2[TIDX(r, w, t, b)], Bv);
   }
@@ -189,57 +220,103 @@ __global__ void band_bif_kernel(DPDims D, BandIdx ix, T* Bt, T* T1,
 }
 
 // ---- M chain (TT_M_M / TT_M_B), sequential over w within column j
-// (motif_model.hpp:346-366): one block per read, one thread per target.
-// Each step thread s publishes y[s] = M(w-1)[s] + eL[s] + gate in shared
-// memory, then thread t takes the log-sum-exp of y + TL[t, :] over its
-// left-transition sources.
+// (motif_model.hpp:346-366): one block per group of G reads, thread
+// (s, g) the cell of state s of read g (csrc/mchain.cuh).  Step w: each
+// thread takes its ring stage (Bt, eL, gate_M, okM of step w, copied
+// kMRing - 1 steps ahead), publishes y = M(w-1)[s] + eL[s] + gate, and
+// after the step's barrier takes the log-sum-exp of Bt and y + TL[s, :]
+// over its left-transition sources (their y in the published row) in
+// one pass: the terms' exps do not wait on each other.
 template <typename T, class SR, bool kPin>
-__global__ void band_m_kernel(DPDims D, BandIdx ix, Aux ax, T* M, const T* Bt,
-                              const T* eL, const T* gate_M, const bool* okM) {
-  extern __shared__ unsigned char smem_raw[];
-  T* y = reinterpret_cast<T*>(smem_raw);  // [S]
+__global__ void __launch_bounds__(1024)
+band_m_kernel(DPDims D, BandIdx ix, Aux ax, T* M, const T* Bt, const T* eL,
+              const T* gate_M, const bool* okM) {
+  constexpr int G = MGroup<T>::G, R = kMRing;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   const int S = D.S, B = D.B, W1 = D.Wp + 1, Lp = D.Lp, j = D.j;
-  const int b = blockIdx.x, t = threadIdx.x;
-  const int r = j + D.PAD;
-  const T* ltw = static_cast<const T*>(ix.lt_w);
-  const int k0 = t < S ? ix.lt_off[t] : 0, k1 = t < S ? ix.lt_off[t + 1] : 0;
-  // loads of step w, issued one step ahead
-  T bt_n = ninf<T>(), el_n = ninf<T>(), gm_n = (T)0;
-  bool ok_n = false;
-  auto fetch = [&](int w) {
-    int iw = j - w;
-    iw = iw < 0 ? 0 : (iw > Lp - 1 ? Lp - 1 : iw);
-    ok_n = okM[((long long)j * W1 + w) * B + b];
-    gm_n = gate_M[(long long)iw * B + b];
-    if (t < S) {
-      bt_n = Bt[TIDX(r, w, t, b)];
-      el_n = eL[((long long)iw * S + t) * B + b];
+  const MLayout lay(S, G, 1, 3, sizeof(T));
+  const int n = (int)lay.n;
+  T* ybuf = reinterpret_cast<T*>(smem_raw + lay.buf);     // [2][n]
+  T* ring = reinterpret_cast<T*>(smem_raw + lay.ring);    // [R][3][n]
+  int* rok = reinterpret_cast<int*>(smem_raw + lay.ok);   // [R][n]
+  const int tid = threadIdx.x, g = tid % G, s = tid / G;
+  const int b = blockIdx.x * G + g;
+  const bool live = s < S && b < B;
+  // this cell's rows: (w, s, b) of the column's tables at w = 0, the
+  // eL and gate_M rows at row 0 and okM at w = 0
+  const long long SB = (long long)S * B;
+  const long long cell0 = TIDX(j + D.PAD, 0, s, b);
+  const T* eLs = eL + (long long)s * B + b;
+  const T* gms = gate_M + b;
+  const bool* oks = okM + (long long)j * W1 * B + b;
+  // the cells of the step being issued, advanced one step per call
+  const T* pBt = Bt + cell0;
+  const bool* pok = oks;
+  auto issue = [&](int w) {
+    if (w < W1 && live) {
+      const int q = w & (R - 1), iw = clip_row(j - w, Lp);
+      T* st = ring + q * 3 * n + tid;
+      cp_async_t(st, pBt);
+      cp_async_t(st + n, eLs + iw * SB);
+      cp_async_t(st + 2 * n, gms + (long long)iw * B);
+      cp_async<4>(rok + q * n + tid, ok_word(pok));
+      pBt += SB;
+      pok += B;
     }
+    cp_async_commit();
   };
-  fetch(0);
+  for (int w = 0; w < R - 1; ++w) issue(w);
+  // the state's left-transition sources, the first kMSrc in registers
+  const T* ltw = static_cast<const T*>(ix.lt_w);
+  const int k0 = live ? ix.lt_off[s] : 0, k1 = live ? ix.lt_off[s + 1] : 0;
+  int src[kMSrc];
+  T wt[kMSrc];
+#pragma unroll
+  for (int q = 0; q < kMSrc; ++q) {
+    src[q] = k0 + q < k1 ? ix.lt_s[k0 + q] * G + g : 0;
+    wt[q] = k0 + q < k1 ? ltw[k0 + q] : (T)0;
+  }
+  PinRegs pr;
+  if (kPin && live) pr = pin_regs(ax, b, kAuxL);
   T x = ninf<T>();
   for (int w = 0; w < W1; ++w) {
-    const T bt = bt_n, el = el_n, gm = gm_n;
-    const bool ok = ok_n;
-    if (w + 1 < W1) fetch(w + 1);
-    if (t < S) y[t] = x + el + gm;
-    __syncthreads();
+    issue(w + R - 1);
+    cp_async_wait<R - 1>();
+    T* y = ybuf + (w & 1) * n;
+    T bt = ninf<T>();
+    bool ok = false;
+    if (live) {
+      const T* st = ring + (w & (R - 1)) * 3 * n + tid;
+      bt = st[0];
+      y[tid] = x + st[n] + st[2 * n];
+      ok = ok_byte(rok[(w & (R - 1)) * n + tid], oks + (long long)w * B);
+    } else if (tid < n) {
+      y[tid] = ninf<T>();
+    }
+    mchain_sync();
+    if (!live) continue;
     T cur = ninf<T>();
-    if (t < S && ok) {
-      const int iw = j - w < 0 ? 0 : (j - w > Lp - 1 ? Lp - 1 : j - w);
-      const int pinL = kPin ? pin_req(ax, b, iw, kAuxL) : 0;
+    if (ok) {
+      const int pinL = kPin ? pin_req_reg(ax, pr, clip_row(j - w, Lp)) : 0;
+      T terms[kMSrc + 1];
+      terms[0] = bt;
+#pragma unroll
+      for (int q = 0; q < kMSrc; ++q)
+        terms[q + 1] =
+            k0 + q < k1 &&
+                    !(kPin && vetoed(ax, pinL, kAuxL, s, src[q] / G, S))
+                ? y[src[q]] + wt[q]
+                : ninf<T>();
       typename SR::Acc acc;
-      for (int k = k0; k < k1; ++k) {
-        if (vetoed(ax, pinL, kAuxL, t, ix.lt_s[k], S)) continue;
-        acc.add(y[ix.lt_s[k]] + ltw[k]);
+      acc.add_n(terms);
+      for (int k = k0 + kMSrc; k < k1; ++k) {
+        if (kPin && vetoed(ax, pinL, kAuxL, s, ix.lt_s[k], S)) continue;
+        acc.add(y[ix.lt_s[k] * G + g] + ltw[k]);
       }
-      cur = SR::plus(bt, acc.result());
+      cur = acc.result();
     }
-    __syncthreads();
-    if (t < S) {
-      x = cur;
-      M[TIDX(r, w, t, b)] = cur;
-    }
+    x = cur;
+    M[cell0 + w * SB] = cur;
   }
 }
 
@@ -293,20 +370,25 @@ static int front(DPDims D, BandIdx ix, Aux ax, T* LL, T* P, T* T2, const T* E,
 template <typename T, class SR>
 static int bif(DPDims D, BandIdx ix, T* Bt, T* T1, const T* T2,
                const bool* okB, cudaStream_t st) {
-  dim3 block(32, 8);
-  dim3 grid((D.B + 31) / 32, D.S, D.Wp + 1);
-  band_bif_kernel<T, SR><<<grid, block, 0, st>>>(D, ix, Bt, T1, T2, okB);
+  const long long n = (long long)((D.B + 31) / 32) * D.S *
+                      ((D.Wp + kBifWidths) / kBifWidths);
+  if (n >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  band_bif_kernel<T, SR><<<(int)n, dim3(32, kBifWidths * kBifHalves), 0,
+                           st>>>(D, ix, Bt, T1, T2, okB);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, class SR>
 static int mchain(DPDims D, BandIdx ix, Aux ax, T* M, const T* Bt, const T* eL,
                   const T* gate_M, const bool* okM, cudaStream_t st) {
-  int threads = ((D.S + 31) / 32) * 32;
+  constexpr int G = MGroup<T>::G;
+  const long long bytes = mchain_layout(0, D.S, sizeof(T)).total;
   auto kern = has_pin(ax) ? band_m_kernel<T, SR, true>
                           : band_m_kernel<T, SR, false>;
-  kern<<<D.B, threads, D.S * sizeof(T), st>>>(D, ix, ax, M, Bt, eL, gate_M,
-                                              okM);
+  const int rc = allow_smem((const void*)kern, bytes);
+  if (rc) return rc;
+  kern<<<(D.B + G - 1) / G, mchain_threads(D.S, G), bytes, st>>>(
+      D, ix, ax, M, Bt, eL, gate_M, okM);
   return static_cast<int>(cudaGetLastError());
 }
 

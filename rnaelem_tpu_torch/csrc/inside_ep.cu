@@ -347,7 +347,7 @@ static int ep_fwd(DPDims D, EpIdx ix, const T* P, const T* LL,
                   cudaStream_t st) {
   const long long smem =
       EpFwdLayout(D.S, D.n_ar, D.Cp + 1).total * sizeof(T);
-  int rc = allow_smem(ep_fwd_kernel<T>, smem);
+  int rc = allow_smem((const void*)ep_fwd_kernel<T>, smem);
   if (rc) return rc;
   dim3 grid(D.B, kEpXSplit);
   ep_fwd_kernel<T><<<grid, kEpThreads, smem, st>>>(

@@ -69,6 +69,14 @@ __device__ __forceinline__ T share(T g, T x, T y) {
                                                        : (T)0;
 }
 
+// share without a branch around the exp (the same value), for the M
+// chain's serial steps
+template <typename T>
+__device__ __forceinline__ T share_sel(T g, T x, T y) {
+  const T e = ex(x - y);
+  return (g != (T)0 && y > ninf<T>() && x > ninf<T>()) ? g * e : (T)0;
+}
+
 static inline int n_blocks(long long n, int threads) {
   return static_cast<int>((n + threads - 1) / threads);
 }

@@ -342,7 +342,7 @@ static int ep_adj(DPDims D, EpIdx ix, const T* P, const T* LL, const T* EP,
                   cudaStream_t st) {
   const long long smem =
       EpAdjLayout(D.S, D.n_ar, D.Cp + 1).bytes(sizeof(T));
-  int rc = allow_smem(ep_adj_kernel<T>, smem);
+  int rc = allow_smem((const void*)ep_adj_kernel<T>, smem);
   if (rc) return rc;
   dim3 grid(D.B, kEpXSplit);
   ep_adj_kernel<T><<<grid, kEpAdjThreads, smem, st>>>(

@@ -1243,12 +1243,30 @@ class InsideDP:
         return self.run_inside(d, c, hoisted(d, c, self.st))
 
     def outside_columns(self, fs, gs, d, c, h, j1: int, j0: int):
-        """Adjoint stages of columns j1-1 down to j0, in stream order:
-        column j's adjoint ends before column j-1's starts."""
+        """Adjoint stages of columns j1-1 down to j0: column j's adjoint
+        ends before column j-1's starts.  On the card K5's M chain (which
+        needs only E's adjoint) runs on a side stream of the state's
+        device, concurrently with the internal-loop adjoint K6; events
+        order the two streams (the rest of K5 needs the chain)."""
         st = self.st
+        if fs["O"].device.type != "cuda":
+            for j in range(j1 - 1, j0 - 1, -1):
+                for stage in ADJ_STAGES:
+                    stage(fs, gs, j, d, c, h, st)
+            return
+        from . import kernels as K
+        dev = fs["O"].device
+        main = torch.cuda.current_stream(dev)
+        side = gs.setdefault("_side_stream", torch.cuda.Stream(dev))
         for j in range(j1 - 1, j0 - 1, -1):
-            for stage in ADJ_STAGES:
-                stage(fs, gs, j, d, c, h, st)
+            ext_adj(fs, gs, j, d, c, h, st)
+            e_adj(fs, gs, j, d, c, h, st)
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                K.m_adj_stage(fs, gs, j, d, c, h, st)
+            ep_adj(fs, gs, j, d, c, h, st)
+            main.wait_stream(side)
+            K.band_adj_tail(fs, gs, j, d, c, h, st)
 
     def outside_state(self, fs, gbar, d, c, h):
         """The outside pass (JAX dp_bwd) from the inside tables ``fs`` and

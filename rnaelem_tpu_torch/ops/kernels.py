@@ -247,14 +247,10 @@ _SIGS = {
     "ext_adj": ((DPDims, AdjIdx, AuxArg), 10),
     "ext_adj_chain": ((DPDims, AdjIdx, AuxArg), 4),
     "e_adj": ((DPDims, AdjIdx), 12),
-    "m_adj": ((DPDims, AdjIdx, AuxArg), 8),
-    "t1_adj": ((DPDims,), 6),
-    "bif_adj_t1": ((DPDims, AdjIdx), 5),
-    "bif_adj_t2": ((DPDims, AdjIdx), 5),
-    "front_adj_t": ((DPDims, AdjIdx, AuxArg), 17),
-    "front_adj_s": ((DPDims, AdjIdx, AuxArg), 17),
-    "front_adj_wb": ((DPDims, AdjIdx, AuxArg), 12),
-    "front_adj_red": ((DPDims,), 4),
+    "m_adj": ((DPDims, AdjIdx, AuxArg), 10),
+    "bif_adj": ((DPDims, AdjIdx), 6),
+    "front_adj_t": ((DPDims, AdjIdx, AuxArg), 19),
+    "front_adj_sw": ((DPDims, AdjIdx, AuxArg), 23),
     "cls_red": ((DPDims, AuxArg), 1),
     "ep_adj": ((DPDims, EpIdx), 19),
     "ep_adj_red": ((DPDims,), 8),
@@ -292,6 +288,8 @@ def lib():
             L.rnaelem_ep_smem_bytes.argtypes = [ctypes.c_int, DPDims,
                                                 ctypes.c_int]
             L.rnaelem_ep_smem_bytes.restype = ctypes.c_longlong
+            L.rnaelem_band_smem_bytes.argtypes = [ctypes.c_int] * 3
+            L.rnaelem_band_smem_bytes.restype = ctypes.c_longlong
             L.rnaelem_error_string.argtypes = [ctypes.c_int]
             L.rnaelem_error_string.restype = ctypes.c_char_p
             _lib = L
@@ -526,6 +524,7 @@ def band_bif(state, j, d, c, h, st):
 
 def band_m(state, j, d, c, h, st):
     """K2 stage M (sequential multiloop chain) of column j."""
+    band_check("inside_band", st.dims.S, st.dtype)
     _check_column(state, j, d, c, h, st)
     _call("inside_band", "band_m", state["O"], _dims(st, state, j, d),
           _band_idx(st), _aux(st, c.pin), _p(state["M"]), _p(state["Bt"]),
@@ -549,8 +548,9 @@ SMEM_LIMIT = 232448      # dynamic shared memory a block may take (H100)
 
 
 class SharedMemoryLimit(ValueError):
-    """A fused block of K3 or K6 would need more shared memory than a
-    block may take."""
+    """A block of K3's or K6's fused kernels, or of the M chain's (K2,
+    K5, K10), would need more shared memory or threads than a block may
+    take."""
 
 
 def ep_smem_bytes(kernel, S, n_ar, Cp, dtype):
@@ -590,6 +590,45 @@ def ep_check(kernel, S, n_ar, Cp, dtype):
         "span -w does not enter)"
         % (kernel, smem, S, n_ar, Cp, str(dtype).replace("torch.", ""),
            SMEM_LIMIT, fit))
+
+
+# the M chain's blocks (csrc/mchain.cuh): a group of BAND_GROUP_BYTES'
+# worth of reads (8 at f32, 4 at f64), one thread per (state, read), their
+# inputs staged in a ring of BAND_RING steps
+BAND_RING = 4            # kMRing
+BAND_GROUP_BYTES = 32    # kMGroupBytes
+MAX_THREADS = 1024       # threads a block may take
+
+
+def band_smem_bytes(kernel, S, dtype):
+    """Dynamic shared memory of one M-chain block of K2's band_m (kernel
+    "inside_band", K10's too) or K5's m_adj ("outside_band"): MLayout of
+    csrc/mchain.cuh, two slots of the published row and a ring of
+    BAND_RING stages of the step's inputs with their okM words.  It
+    depends on S and the type only: neither the span Wp nor B enters."""
+    it = torch.empty((), dtype=dtype).element_size()
+    n = S * (BAND_GROUP_BYTES // it)
+    nbuf, nring = {"inside_band": (1, 3), "outside_band": (2, 9)}[kernel]
+    return 2 * nbuf * n * it + BAND_RING * (nring * n * it + 4 * n)
+
+
+@functools.lru_cache(maxsize=None)
+def band_check(kernel, S, dtype):
+    """Raise SharedMemoryLimit where an M-chain block of K2/K10
+    ("inside_band") or K5 ("outside_band") would need more shared memory
+    than SMEM_LIMIT or more threads than a block may take (one per state
+    and read of the group)."""
+    it = torch.empty((), dtype=dtype).element_size()
+    G = BAND_GROUP_BYTES // it
+    threads = -(-S * G // 32) * 32
+    smem = band_smem_bytes(kernel, S, dtype)
+    if smem > SMEM_LIMIT or threads > MAX_THREADS:
+        raise SharedMemoryLimit(
+            "%s: an M-chain block of %d reads needs %d bytes of shared "
+            "memory and %d threads (S=%d, %s); a block may take %d bytes "
+            "and %d threads: this grammar has too many states"
+            % (kernel, G, smem, threads, S,
+               str(dtype).replace("torch.", ""), SMEM_LIMIT, MAX_THREADS))
 
 
 def ep_stage(state, j, d, c, h, st):
@@ -669,7 +708,10 @@ def _adj_scratch(gs, st, B, dev):
     if scr is None:
         W1, C1, S, dt = st.dims.Wp + 1, st.dims.Cp + 1, st.dims.S, st.dtype
         e = lambda *shape: torch.empty(shape, dtype=dt, device=dev)
-        scr = dict(ePart=e(W1, S, B), bgp=e(W1, B))
+        # done: front_adj_sw's count of finished blocks (its last block
+        # resets it)
+        scr = dict(ePart=e(W1, S, B), bgp=e(W1, B),
+                   done=torch.zeros(1, dtype=torch.int32, device=dev))
         if st.have_ep:
             # K6's blocks' partials of the sums across x (right flank,
             # emisA row j, the size weights' triangle dl + u1 <= Cp,
@@ -740,40 +782,50 @@ def ep_adj(fs, gs, j, d, c, h, st):
 
 
 def band_adj(fs, gs, j, d, c, h, st):
-    """K5: adjoint of M, B/T1 and L/P/T2 at column j (and, with a class
-    probe, the column's class sums)."""
+    """K5: adjoint of M, B/T1 and L/P/T2 at column j in four launches (and,
+    with a class probe, the column's class sums in a fifth): m_adj_stage,
+    then band_adj_tail."""
+    m_adj_stage(fs, gs, j, d, c, h, st)
+    band_adj_tail(fs, gs, j, d, c, h, st)
+
+
+def m_adj_stage(fs, gs, j, d, c, h, st):
+    """K5's M chain at column j (with T1's share of B's cotangent): it
+    needs only e_adj's gM, so the outside pass may run it beside K6."""
+    band_check("outside_band", st.dims.S, st.dtype)
+    _check_adj(fs, gs, j, d, c, h, st)
+    D, ix = _dims(st, fs, j, d), _idx(st, AdjIdx, ADJ_IDX)
+    ax = _aux(st, c.pin,
+              _cls_parts(gs, st, fs["O"].shape[-1], fs["O"].device))
+    f, g = fs, gs
+    _call("outside_band", "m_adj", fs["O"], D, ix, ax, _p(f["M"]), _p(f["Bt"]),
+          _p(d.eL), _p(c.gate_M), _p(c.okM), _p(g["gM"]), _p(f["T1"]),
+          _p(g["T1"]), _p(g["gB"]), _p(g["eL"]))
+
+
+def band_adj_tail(fs, gs, j, d, c, h, st):
+    """The rest of K5 at column j after m_adj_stage: B's splits, the
+    front, the column's sums (and the class sums)."""
     _check_adj(fs, gs, j, d, c, h, st)
     D, ix = _dims(st, fs, j, d), _idx(st, AdjIdx, ADJ_IDX)
     scr = _adj_scratch(gs, st, fs["O"].shape[-1], fs["O"].device)
     parts = _cls_parts(gs, st, fs["O"].shape[-1], fs["O"].device)
     ax = _aux(st, c.pin, parts)
     f, g = fs, gs
-    _call("outside_band", "m_adj", fs["O"], D, ix, ax, _p(f["M"]), _p(f["Bt"]),
-          _p(d.eL), _p(c.gate_M), _p(c.okM), _p(g["gM"]), _p(g["gB"]),
-          _p(g["eL"]))
-    _call("outside_band", "t1_adj", fs["O"], D, _p(f["T1"]), _p(f["T2"]),
-          _p(f["Bt"]), _p(g["T1"]), _p(g["T2"]), _p(g["gB"]))
-    for side, out in (("t1", "T1"), ("t2", "T2")):
-        _call("outside_band", "bif_adj_" + side, fs["O"], D, ix, _p(f["T1"]),
-              _p(f["T2"]), _p(f["Bt"]), _p(g["gB"]), _p(g[out]))
+    _call("outside_band", "bif_adj", fs["O"], D, ix, _p(f["T1"]),
+          _p(f["T2"]), _p(f["Bt"]), _p(g["gB"]), _p(g["T1"]), _p(g["T2"]))
     _call("outside_band", "front_adj_t", fs["O"], D, ix, ax, _p(f["LL"]),
           _p(f["P"]),
           _p(f["T2"]), _p(d.eR), _p(d.bg2), _p(d.pv), _p(d.alphaP),
           _p(c.wsp), _p(fs["_lam"]), _p(c.stk), _p(c.ml2), _p(c.gate_O2),
-          _p(g["LL"]), _p(g["P"]), _p(g["T2"]), _p(g["DL"]),
-          _p(scr["ePart"]))
-    _call("outside_band", "front_adj_s", fs["O"], D, ix, ax, _p(f["LL"]),
-          _p(f["P"]),
-          _p(f["T2"]), _p(f["E"]), _p(d.eR), _p(d.bg2), _p(d.pv),
-          _p(d.alphaP), _p(c.wsp), _p(fs["_lam"]), _p(c.stk), _p(c.gate_O2),
-          _p(g["LL"]), _p(g["P"]), _p(g["P"]), _p(g["T2"]), _p(g["E"]))
-    _call("outside_band", "front_adj_wb", fs["O"], D, ix, ax, _p(f["P"]),
-          _p(f["E"]),
-          _p(d.bg2), _p(d.pv), _p(d.alphaP), _p(c.wsp), _p(fs["_lam"]),
-          _p(c.stk), _p(g["P"]), _p(g["pv"]), _p(g["alphaP"]),
-          _p(scr["bgp"]))
-    _call("outside_band", "front_adj_red", fs["O"], D, _p(scr["ePart"]),
-          _p(scr["bgp"]), _p(g["eR"]), _p(g["bg2"]))
+          _p(f["T1"]), _p(g["T1"]), _p(g["LL"]), _p(g["P"]), _p(g["T2"]),
+          _p(g["DL"]), _p(scr["ePart"]))
+    _call("outside_band", "front_adj_sw", fs["O"], D, ix, ax, _p(f["LL"]),
+          _p(f["P"]), _p(f["T2"]), _p(f["E"]), _p(d.eR), _p(d.bg2),
+          _p(d.pv), _p(d.alphaP), _p(c.wsp), _p(fs["_lam"]), _p(c.stk),
+          _p(c.gate_O2), _p(g["LL"]), _p(g["P"]), _p(g["T2"]), _p(g["E"]),
+          _p(g["pv"]), _p(g["alphaP"]), _p(scr["bgp"]), _p(scr["ePart"]),
+          _p(g["eR"]), _p(g["bg2"]), _p(scr["done"]))
     if parts is not None:
         _call("outside_band", "cls_red", fs["O"], D, ax, _p(g["cls"]))
 
@@ -872,6 +924,7 @@ def max_band_bif(state, j, d, c, mst):
 
 def max_band_m(state, j, d, c, mst):
     """K10 stage M of column j."""
+    band_check("inside_band", mst.st.dims.S, mst.st.dtype)
     _check_max_column(state, j, d, c, mst)
     st = mst.st
     _call("inside_band_max", "band_m_max", state["O"], _dims(st, state, j, d),

@@ -465,7 +465,8 @@ def test_per_read_outputs_do_not_depend_on_the_batch(pattern, opts, dtype):
     data-parallel group gathers the shards' values and must train the
     single device's model), and the masks likewise.  The structure
     models run through the fused K3 and K6 (one block per read and range
-    of x)."""
+    of x) and the M chain's read groups of K2 and K5 (9 reads: groups of
+    8 or 4 that the parts 0:4 and 4:9 cut differently)."""
     _need_cuda()
     cfg = J.ModelConfig(pattern=pattern, Lp=40, max_span=24, max_iloop=12,
                         min_bpp=1e-4, tau=0.1, dtype=dtype, **opts)
@@ -474,8 +475,9 @@ def test_per_read_outputs_do_not_depend_on_the_batch(pattern, opts, dtype):
     K.reset_counts()
     whole = OBJ.batch_fn_grad_pr(cfg, p, batch, device="cuda")
     if not cfg.no_rss:
-        assert K.KERNELS["inside_ep"].launches > 0
-        assert K.KERNELS["outside_ep"].launches > 0
+        for name in ("inside_band", "inside_ep", "outside_band",
+                     "outside_ep"):
+            assert K.KERNELS[name].launches > 0, name
     parts = [OBJ.batch_fn_grad_pr(cfg, p, _to(batch, "cuda", lo, hi),
                                   device="cuda")
              for lo, hi in ((0, 4), (4, None))]
@@ -658,6 +660,118 @@ def test_fused_ep_kernels_do_not_depend_on_the_batch(dtype):
         part = dp.outside_state(fq, gbar[lo:hi], dq, cq, hq)
         for k_ in DP.GRAD_TABLES + ("DL", "GSZ", "emisA", "emisB"):
             assert torch.equal(whole[k_][..., lo:hi], part[k_]), k_
+
+
+def _band_inputs(cfg, reads, null=False, pinned=False, seed=21):
+    """_ep_inputs, and with ``pinned`` the scanner's aux: a pin per read
+    (start class, the last read unpinned) and the class probe."""
+    if not pinned:
+        return _ep_inputs(cfg, reads, null, seed)
+    sd = J.stack_seqdata([J.make_seqdata(cfg, *r) for r in reads], "cuda")
+    k = J.kernels(cfg, "cuda")
+    rng = np.random.RandomState(seed)
+    pos = (rng.rand(len(reads)) * J._np(sd.L)).astype(np.int32)
+    pos[-1] = -1
+    aux = {"cls": torch.zeros((4, cfg.Lp, len(reads)), dtype=k.dp.st.dtype,
+                              device="cuda"),
+           "pin": DP.Pin(torch.as_tensor(pos, device="cuda"), DP.CLS_START)}
+    bp, _ = J.effective_bp_mask_batch(cfg, sd, device="cuda")
+    d, c = J.batch_factors(cfg, _random_params(cfg, "cuda", seed), sd, bp,
+                           device="cuda", aux_b=aux)
+    h = DP.hoisted(d, c, k.dp.st)
+    fs = k.dp.run_inside(d, c, h)
+    gbar = torch.as_tensor(rng.rand(len(reads), 3), dtype=k.dp.st.dtype,
+                           device="cuda")
+    gbar = torch.where(torch.isfinite(k.dp.extract_parts(fs["O"], c)), gbar,
+                       0.0)
+    return k.dp, d, c, h, fs, gbar
+
+
+BAND_CASES = {
+    "S29-f64": dict(pattern="(.....)", dtype="float64"),
+    "S29-f32-B33": dict(pattern="(.....)", dtype="float32", n=33),
+    "S1-f64": dict(pattern="(.....)", dtype="float64", null=True),
+    "S1-f32-B33": dict(pattern="(.....)", dtype="float32", null=True,
+                       n=33),
+    "S78-f32": dict(pattern="..........", dtype="float32"),
+    "S91-f64": dict(pattern=".....*.....", dtype="float64"),
+    "S91-f32-B33": dict(pattern=".....*.....", dtype="float32", n=33),
+    "S29-f64-pin": dict(pattern="(.....)", dtype="float64", pinned=True),
+    "S29-f32-pin-B33": dict(pattern="(.....)", dtype="float32",
+                            pinned=True, n=33),
+    "S91-f64-pin": dict(pattern=".....*.....", dtype="float64",
+                        pinned=True),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(BAND_CASES))
+def test_m_chain_kernels_match_plain(case):
+    """K2's stages (band_front, band_bif, band_m, band_e) and K5's (e_adj,
+    band_adj) at one column against their plain versions on identical
+    inputs: the masks' null grammar (S=1), S=29, 78 and 91 (an M-chain
+    block of 8 or 4 reads spans several warps), B=5 and 33 (not a
+    multiple of the reads per block), and the scanner's pin with the
+    class probe; f64 within 1e-9 and f32 within 1e-4 relative; a second
+    run of each kernel gives the same bits; K5 takes five launches per
+    column, six with the class probe."""
+    _need_cuda()
+    kw = dict(BAND_CASES[case])
+    n, null = kw.pop("n", 5), kw.pop("null", False)
+    pinned = kw.pop("pinned", False)
+    opts = dict(Lp=60, max_span=50, max_iloop=30, min_bpp=0.0, tau=0.1)
+    opts.update(kw)
+    cfg = J.ModelConfig(**opts)
+    dp, d, c, h, fs, gbar = _band_inputs(cfg, _ep_reads(cfg, n, 19), null,
+                                         pinned)
+    st, j0 = dp.st, 40
+    r, f32 = j0 + st.PAD, cfg.dtype == "float32"
+    tol = 1e-4 if f32 else 1e-9
+    for name, outs in (("band_front", ("LL", "P", "T2")),
+                       ("band_bif", ("Bt", "T1")), ("band_m", ("M",)),
+                       ("band_e", ("E",))):
+        ks, ps = DP.clone_state(fs), DP.clone_state(fs)
+        getattr(K, name)(ks, j0, d, c, h, st)
+        first = {k_: ks[k_][r].clone() for k_ in outs}
+        getattr(K, name)(ks, j0, d, c, h, st)
+        getattr(DP, name + "_plain")(ps, j0, d, c, h, st)
+        for k_ in outs:
+            a, b = ks[k_][r], ps[k_][r]
+            assert torch.equal(first[k_], a), (name, k_)
+            fin = torch.isfinite(b)
+            if f32:     # cells far below a read's maximum may flush
+                top = torch.where(fin, b, torch.full_like(b, -1e30)).reshape(
+                    -1, n).amax(0)
+                fin = fin & (b >= top - 50.0)
+                assert torch.isfinite(a[fin]).all(), (name, k_)
+            else:
+                assert torch.equal(torch.isfinite(a), fin), (name, k_)
+            err = (a[fin] - b[fin]).abs() / b[fin].abs().clamp(min=1.0)
+            assert fin.sum() == 0 or float(err.max()) <= tol, (name, k_)
+    gs = DP.init_grads(fs, d, c, h)
+    DP.seed_parts(gs, gbar, c, st)
+    dp.outside_columns(fs, gs, d, c, h, cfg.Lp + 1, j0 + 1)
+    kg, kg2, pg = (DP.clone_state(gs) for _ in range(3))
+    K.reset_counts()
+    for g_ in (kg, kg2):
+        K.e_adj(fs, g_, j0, d, c, h, st)
+        K.band_adj(fs, g_, j0, d, c, h, st)
+    assert K.KERNELS["outside_band"].launches == 2 * (6 if pinned else 5)
+    for k_ in kg:
+        if not k_.startswith("_"):
+            assert torch.equal(kg[k_], kg2[k_]), k_
+    DP.e_adj_plain(fs, pg, j0, d, c, h, st)
+    DP.band_adj_plain(fs, pg, j0, d, c, h, st)
+    pairs = [(kg[k_][:r], pg[k_][:r]) for k_ in DP.GRAD_TABLES]
+    pairs += [(kg[k_], pg[k_]) for k_ in
+              ("eR", "eL", "bg2", "pv", "alphaP", "gM", "gep")
+              + (("cls",) if pinned else ())]
+    pairs.append((DP.lam_total(DP.finish_grads(kg, st), d, c, st),
+                  DP.lam_total(DP.finish_grads(pg, st), d, c, st)))
+    for i, (a, b) in enumerate(pairs):
+        assert not torch.isnan(a).any(), i
+        scale = max(1.0, float(b.abs().max()))
+        assert float((a - b).abs().max()) <= tol * scale, i
 
 
 @pytest.mark.gpu
