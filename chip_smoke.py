@@ -3,8 +3,8 @@
 
 Phases:
   1. the card's name and power limit; build the hand-written kernels
-     (csrc/*.cu, nvcc for sm_90a) and time the build; K3's and K6's
-     shared memory as ops/kernels.ep_smem_bytes sizes it (the launch
+     (csrc/*.cu, nvcc for sm_90a) and time the build; K3's, K6's and
+     K11's shared memory as ops/kernels.ep_smem_bytes sizes it (the launch
      checks) against the kernels' own layouts, and the M chain's (K2's
      band_m, K5's m_adj) as band_smem_bytes sizes it;
   2. hold every kernel against its plain PyTorch version on the card:
@@ -88,7 +88,8 @@ Phases:
      a stage breakdown; one posterior chunk (row K) beside its bound; the
      launch counts of the f64 run; then K10-K12 per column and K13 per
      chunk timed beside their bounds, K13 checked against the host
-     traceback on the 76 tRNAs;
+     traceback on the 76 tRNAs; K11 and K12 also on the second chunk
+     (12 reads: K11's ranges of x follow B);
  12. Scanner.scan of the --no-rss fixture model 2 on 0.fq against every
      line of the C++ scan_2.raw;
  13. row N, data parallelism (parallel/mesh.py) and the file array
@@ -252,8 +253,8 @@ def device_ms_by_function(fn, reps, functions):
 
 
 def check_ep_smem():
-    """K3's and K6's dynamic shared memory as ops/kernels.ep_smem_bytes
-    sizes it (the launch checks) against the size the kernels' own layout
+    """K3's, K6's and K11's dynamic shared memory as
+    ops/kernels.ep_smem_bytes sizes it (the launch checks) against the size the kernels' own layout
     takes (csrc/ep_col.cuh), over the grammars' range of S = n_ar, Cp
     and Wp (which must not enter) and both types.  Returns the number of
     cases."""
@@ -263,7 +264,8 @@ def check_ep_smem():
             for dt, it in ((torch.float32, 4), (torch.float64, 8)):
                 D = K.DPDims(100, Wp, Cp, S, 8, Wp + 1, 1, 1, S, 1, 1, 1,
                              0, 0, 0)
-                for which, name in ((0, "inside_ep"), (1, "outside_ep")):
+                for which, name in ((0, "inside_ep"), (1, "outside_ep"),
+                                    (2, "inside_ep_max")):
                     c_ = int(K.lib().rnaelem_ep_smem_bytes(which, D, it))
                     py = K.ep_smem_bytes(name, S, S, Cp, dt)
                     if c_ != py:
@@ -376,6 +378,52 @@ def ep_column_ms(cfg, reads, params, dev, funcs, j0):
     out["outside_ep"] = device_ms_by_function(
         lambda: DP.ep_adj(fs, kg, j0, d, c, h, st), REPS // 4,
         funcs["outside_ep"])
+    return out
+
+
+def ext_column_ms(cfg, reads, params, dev, funcs, j0, null=False):
+    """Device ms of K4 (inside_ext) at column j0 for ``reads`` on the
+    kernel forward's tables of the grammar's DP, or with ``null`` of the
+    masks' S=1 DP."""
+    sd = J.stack_seqdata([J.make_seqdata(cfg, s_, q_) for s_, q_ in reads],
+                         dev)
+    k = J.kernels(cfg, dev)
+    if null:
+        dp = k.dp_null
+        d, c = J._null_batch_factors(cfg, k, sd,
+                                     J._candidate_pairs(cfg, k, sd))
+    else:
+        dp = k.dp
+        bp, _ = J.effective_bp_mask_batch(cfg, sd, device=dev)
+        d, c = J.batch_factors(cfg, params, sd, bp, device=dev)
+    st = dp.st
+    h = DP.hoisted(d, c, st)
+    ks = DP.clone_state(dp.run_inside(d, c, h))
+    return device_ms(lambda: DP.ext_stage(ks, j0, d, c, h, st), REPS // 4,
+                     funcs["inside_ext"])
+
+
+def trna_reads(tmp):
+    """The 76 tRNAs as (seq, qual) reads, through a FASTQ file in tmp."""
+    fq = os.path.join(tmp, "trna.fq")
+    write_fq(fq, trna_seqs())
+    return [(r.seq, r.qual) for r in FastqReader(fq).reads()]
+
+
+def cyk_column_ms(reads, dev, funcs, dtype, j0=J0):
+    """Device ms of K11 (inside_ep_max) and K12 (inside_ext_max) at column
+    j0 of the CYK tables of ``reads`` (a tRNA scan chunk, bucket 96, the
+    reference's converged model, the CYK pin set)."""
+    cfg, params = MIO.read_model(GOLD_TRNA, Lp=96, dtype=dtype, device=dev)
+    scfg, d, c = cyk_factors(cfg, params, reads, dev, False)
+    mdp = DMB.MaxDP(J.kernels(scfg, dev).dp)
+    state = mdp.tables(d, c)
+    out = {}
+    for kname, f in (("inside_ep_max", DMB.max_ep_stage),
+                     ("inside_ext_max", DMB.max_ext_stage)):
+        ks = DP.clone_state(state)
+        out[kname] = device_ms(lambda: f(ks, j0, d, c, mdp.mst), REPS // 4,
+                               funcs[kname])
     return out
 
 
@@ -1632,6 +1680,10 @@ def cyk_times(fq, dev):
                          torch.finfo(k.dtype).bits // 8)
         out[dtype] = dict(ms=ms, plain_ms=plain_ms, bound=bnd,
                           launches=launches, stats=stats)
+        # K11 and K12 on the second chunk (12 reads): K11's ranges of x
+        # follow B
+        out[dtype]["ms_chunk2"] = cyk_column_ms(reads[SCD.SCAN_BATCH:], dev,
+                                                funcs, dtype)
         if dtype == "float64":
             n = check_traceback(scfg, d, c, state, dev, "76 tRNAs, chunk 1")
             del state
@@ -2333,6 +2385,93 @@ EP_VARIANTS = {
         ("ep_col.cuh", "kEpThreads = 256", "kEpThreads = 512"),),
     "1 range of x": (("ep_col.cuh", "kEpXSplit = 4", "kEpXSplit = 1"),),
     "8 ranges of x": (("ep_col.cuh", "kEpXSplit = 4", "kEpXSplit = 8"),),
+    "K11 512 threads": (
+        ("inside_ep.cu", "kEpMaxThreads = 256", "kEpMaxThreads = 512"),),
+    "K11 128 threads": (
+        ("inside_ep.cu", "kEpMaxThreads = 256", "kEpMaxThreads = 128"),),
+    "K11 at least 4 ranges of x": (
+        ("inside_ep.cu", "kEpMaxMinSplit = 1", "kEpMaxMinSplit = 4"),),
+    "K11 ranges for two waves": (
+        ("inside_ep.cu", "per_sm * device_sms() / D.B",
+         "2 * per_sm * device_sms() / D.B"),),
+}
+
+
+# K11 with one piece of its step taken out, or another block shape: times
+# only (without a piece the tables are wrong), to find where a step's time
+# goes
+EP_PROBES = {
+    "shipped": (),
+    "K11 without T/W": (
+        ("inside_ep.cu", "    ep_max_tw(k, x, ix, tl,",
+         "    if (0) ep_max_tw(k, x, ix, tl,"),),
+    "K11 without V": (
+        ("inside_ep.cu", "    ep_max_v(k, x);", "    if (0) ep_max_v(k, x);"),),
+    "K11 without out": (
+        ("inside_ep.cu", "    ep_max_out(k, x, ix, ol,",
+         "    if (0) ep_max_out(k, x, ix, ol,"),),
+    "K11 without the merge": (
+        ("inside_ep.cu",
+         "  if (!last) return;\n  for (int i = threadIdx.x; i < W1 * S;",
+         "  if (last || !last) return;\n  for (int i = threadIdx.x; "
+         "i < W1 * S;"),),
+    "K11 without the steps": (
+        ("inside_ep.cu",
+         "  for (int x = x0; x <= x1; ++x) {\n    const int q = (x - x0) & 1;",
+         "  for (int x = x0; x < x0; ++x) {\n    const int q = (x - x0) & 1;"),),
+    "K11 512 threads": (
+        ("inside_ep.cu", "kEpMaxThreads = 256", "kEpMaxThreads = 512"),),
+    "K11 512 threads, 2 blocks per SM by registers": (
+        ("inside_ep.cu", "kEpMaxThreads = 256", "kEpMaxThreads = 512"),
+        ("inside_ep.cu", "__launch_bounds__(kEpMaxThreads)",
+         "__launch_bounds__(kEpMaxThreads, 2)")),
+    "K11 4 blocks per SM by registers": (
+        ("inside_ep.cu", "__launch_bounds__(kEpMaxThreads)",
+         "__launch_bounds__(kEpMaxThreads, 4)"),),
+}
+
+
+def ep_probes(dev):
+    """K11's device ms per column J0 on the tRNA scan's chunks (f64 B=64
+    and B=12, f32 B=64) for EP_PROBES, each built from a patched copy of
+    csrc under build/ep_probes/, and the shipped ep_max_kernel's ptxas
+    lines.  One JSON line per probe."""
+    with tempfile.TemporaryDirectory() as tmp:
+        trna = trna_reads(tmp)
+    funcs = kernel_functions()
+    _, log = K.build(("-Xptxas", "-v"))
+    sec = log.split("== inside_ep.cu")[-1].split("== ")[0].splitlines()
+    keep = [i for i, ln in enumerate(sec)
+            if "ep_max_kernel" in ln or "warning" in ln]
+    print("ptxas, inside_ep.cu ep_max_kernel (shipped):\n" + "\n".join(
+        sec[i] for j in keep for i in range(j, min(j + 3, len(sec)))),
+        flush=True)
+    for name in patched_builds(EP_PROBES,
+                               os.path.join(HERE, "build", "ep_probes")):
+        t0 = time.time()
+        K.lib()
+        rec = {"probe": name, "build_s": round(time.time() - t0, 1)}
+        for key, dtype, rd in (("K11_f64_B64", "float64", trna[:64]),
+                               ("K11_f64_B12", "float64", trna[64:]),
+                               ("K11_f32_B64", "float32", trna[:64])):
+            rec[key] = cyk_column_ms(rd, dev, funcs, dtype)["inside_ep_max"]
+        print(json.dumps(rec), flush=True)
+    print("card: %s" % card_line(), flush=True)
+
+
+EXT_VARIANTS = {
+    "shipped": (),
+    "16 width slices": (
+        ("inside_ext.cu", "kExtSlices = 32", "kExtSlices = 16"),),
+    "64 width slices": (
+        ("inside_ext.cu", "kExtSlices = 32", "kExtSlices = 64"),),
+    "16 bytes of reads per block at most": (
+        ("inside_ext.cu", "kExtGroupBytes = 32", "kExtGroupBytes = 16"),),
+    "64 bytes of reads per block at most": (
+        ("inside_ext.cu", "kExtGroupBytes = 32", "kExtGroupBytes = 64"),),
+    "1 width per load batch": (("inside_ext.cu", "kExtW = 2", "kExtW = 1"),),
+    "4 splits per load batch": (
+        ("inside_ext.cu", "kExtOps = 2", "kExtOps = 4"),),
 }
 
 
@@ -2391,7 +2530,7 @@ def patched_builds(variants, root):
             K.CSRC, K.EP_XSPLIT, K._lib = shipped_src, shipped_split, None
 
 
-def band_variants(dev):
+def band_variants(dev, variants):
     """K2's and K5's device ms per column J0 (f32 at B=128 and B=33, f64
     at B=64: the main path, a batch that is no multiple of the reads per
     M-chain block, a scan chunk; S=29) and the masks' ms per 128-read
@@ -2405,7 +2544,7 @@ def band_variants(dev):
     sd = J.stack_seqdata([J.make_seqdata(cfg32, s, q) for s, q in reads],
                          dev)
     funcs = kernel_functions()
-    for name in patched_builds(BAND_VARIANTS,
+    for name in patched_builds(variants,
                                os.path.join(HERE, "build", "band_variants")):
         t0 = time.time()
         K.lib()
@@ -2421,20 +2560,24 @@ def band_variants(dev):
     print("card: %s" % card_line(), flush=True)
 
 
-def ep_variants(dev):
+def ep_variants(dev, variants):
     """K3's and K6's device ms per column J0 (f32 at B=128 and B=33, f64
-    at B=64: the main path, one block per SM, a scan chunk; S=29) and the
-    masks' ms per 128-read batch (f32, CUDA events), for the shipped
-    kernels and for EP_VARIANTS, each built from a patched copy of csrc
-    under build/ep_variants/ (its own kernel build).  One JSON line per
-    variant: the numbers behind the launch constants of ep_col.cuh."""
+    at B=64: the main path, one block per SM, a scan chunk; S=29), K11's
+    (the CYK tables of the tRNA scan's chunks: f64 at B=64 and B=12, f32
+    at B=64) and the masks' ms per 128-read batch (f32, CUDA events), for
+    the shipped kernels and for ``variants`` (EP_VARIANTS), each built from
+    a patched copy of csrc under build/ep_variants/ (its own kernel
+    build).  One JSON line per variant: the numbers behind the launch
+    constants of ep_col.cuh and of K11's blocks."""
     cfg32, cfg64 = cfg_for("float32"), cfg_for("float64")
     reads = main_reads()
     p32, p64 = random_params(cfg32, dev), random_params(cfg64, dev)
     sd = J.stack_seqdata([J.make_seqdata(cfg32, s, q) for s, q in reads],
                          dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        trna = trna_reads(tmp)
     funcs = kernel_functions()
-    for name in patched_builds(EP_VARIANTS,
+    for name in patched_builds(variants,
                                os.path.join(HERE, "build", "ep_variants")):
         t0 = time.time()
         K.lib()
@@ -2444,6 +2587,53 @@ def ep_variants(dev):
                                 ("f64_B64", cfg64, reads[:64], p64)):
             out = ep_column_ms(cfg, rd, p, dev, funcs, J0)
             rec[key] = {n: v[0] for n, v in out.items()}
+        for key, dtype, rd in (("K11_f64_B64", "float64", trna[:64]),
+                               ("K11_f64_B12", "float64", trna[64:]),
+                               ("K11_f32_B64", "float32", trna[:64])):
+            rec[key] = cyk_column_ms(rd, dev, funcs, dtype)["inside_ep_max"]
+        rec["masks_ms"] = cuda_ms(
+            lambda: J.effective_bp_mask_batch(cfg32, sd, dev), 3)
+        print(json.dumps(rec), flush=True)
+    print("card: %s" % card_line(), flush=True)
+
+
+def ext_variants(dev, variants):
+    """K4's device ms per column J0 (f32 B=128: the main path's S=29 and
+    the masks' S=1; f64 B=64, S=29) and K12's (the CYK tables of the tRNA
+    scan's chunks, f64 B=64 and B=12, f32 B=64), and the masks' ms per
+    128-read batch (f32, CUDA events), for the shipped kernels and for
+    ``variants`` (EXT_VARIANTS), each built from a patched copy of csrc
+    under build/ext_variants/; the shipped build's registers and spills
+    of ext_col_kernel (nvcc -Xptxas -v).  One JSON line per variant: the
+    numbers behind the launch constants of inside_ext.cu."""
+    cfg32, cfg64 = cfg_for("float32"), cfg_for("float64")
+    reads = main_reads()
+    p32, p64 = random_params(cfg32, dev), random_params(cfg64, dev)
+    sd = J.stack_seqdata([J.make_seqdata(cfg32, s, q) for s, q in reads],
+                         dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        trna = trna_reads(tmp)
+    funcs = kernel_functions()
+    _, log = K.build(("-Xptxas", "-v"))
+    sec = log.split("== inside_ext.cu")[-1].split("== ")[0]
+    print("ptxas, inside_ext.cu (shipped):\n" + "\n".join(
+        ln for ln in sec.splitlines() if "Function properties" in ln
+        or "registers" in ln or "spill" in ln or "Compiling entry" in ln),
+        flush=True)
+    for name in patched_builds(variants,
+                               os.path.join(HERE, "build", "ext_variants")):
+        t0 = time.time()
+        K.lib()
+        rec = {"variant": name, "build_s": round(time.time() - t0, 1)}
+        rec["K4_f32_B128"] = ext_column_ms(cfg32, reads, p32, dev, funcs, J0)
+        rec["K4_f32_B128_S1"] = ext_column_ms(cfg32, reads, p32, dev, funcs,
+                                              J0, null=True)
+        rec["K4_f64_B64"] = ext_column_ms(cfg64, reads[:64], p64, dev, funcs,
+                                          J0)
+        for key, dtype, rd in (("K12_f64_B64", "float64", trna[:64]),
+                               ("K12_f64_B12", "float64", trna[64:]),
+                               ("K12_f32_B64", "float32", trna[:64])):
+            rec[key] = cyk_column_ms(rd, dev, funcs, dtype)["inside_ext_max"]
         rec["masks_ms"] = cuda_ms(
             lambda: J.effective_bp_mask_batch(cfg32, sd, dev), 3)
         print(json.dumps(rec), flush=True)
@@ -2548,6 +2738,18 @@ def main():
                     help="only time K2/K5 and the masks for variants of "
                          "the M chain's, band_bif's and bif_adj's launch "
                          "constants (see band_variants) and exit")
+    ap.add_argument("--ext-variants", action="store_true",
+                    help="only time K4/K12 and the masks for variants of "
+                         "inside_ext.cu's launch constants, with the "
+                         "shipped build's ptxas lines (see ext_variants), "
+                         "and exit")
+    ap.add_argument("--ep-probes", action="store_true",
+                    help="only time K11 with one piece of its step taken "
+                         "out (see ep_probes) and exit")
+    ap.add_argument("--shipped-only", action="store_true",
+                    help="with --ep-variants, --band-variants or "
+                         "--ext-variants: time the sources as they are, "
+                         "no patched copy")
     # one rank of N2/N3, started by this script itself
     ap.add_argument("--mesh-worker", type=int, default=-1,
                     help=argparse.SUPPRESS)
@@ -2595,11 +2797,19 @@ def main():
     if args.launch_cost:
         launch_cost(DEVICE)
         return
+    pick = (lambda v: {"shipped": ()}) if args.shipped_only else \
+        (lambda v: v)
     if args.ep_variants:
-        ep_variants(DEVICE)
+        ep_variants(DEVICE, pick(EP_VARIANTS))
         return
     if args.band_variants:
-        band_variants(DEVICE)
+        band_variants(DEVICE, pick(BAND_VARIANTS))
+        return
+    if args.ext_variants:
+        ext_variants(DEVICE, pick(EXT_VARIANTS))
+        return
+    if args.ep_probes:
+        ep_probes(DEVICE)
         return
     dev = DEVICE
     t_start = time.time()
@@ -2610,8 +2820,8 @@ def main():
     t0 = time.time()
     K.lib()
     print("kernel build: %.1f s" % (time.time() - t0), flush=True)
-    print("K3/K6 shared memory: ep_smem_bytes equals the kernels' layout in "
-          "%d cases" % check_ep_smem(), flush=True)
+    print("K3/K6/K11 shared memory: ep_smem_bytes equals the kernels' layout "
+          "in %d cases" % check_ep_smem(), flush=True)
     print("M chain (K2, K5) shared memory: band_smem_bytes equals the "
           "kernels' layout in %d cases" % check_band_smem(), flush=True)
     if args.ptxas:
@@ -2944,13 +3154,14 @@ def main():
             ct_ = cyk[dtype]
             print("CYK kernels on a 64-read tRNA scan chunk (bucket 96), %s: "
                   "device ms per column %d (K10-K12) and per chunk (K13) %s, "
-                  "launches %s; plain %s (K13's: the host traceback, wall "
-                  "ms); bounds %s; K13 walked %d cells, %d candidates up to "
-                  "the choices" % (
-                      dtype, J0, json.dumps(ct_["ms"]),
-                      json.dumps(ct_["launches"]),
-                      json.dumps(ct_["plain_ms"]), json.dumps(ct_["bound"]),
-                      ct_["stats"]["cells"], ct_["stats"]["cands"]),
+                  "launches %s; K11 and K12 on the second chunk (12 reads) "
+                  "%s; plain %s (K13's: the host traceback, wall ms); bounds "
+                  "%s; K13 walked %d cells, %d candidates up to the choices"
+                  % (dtype, J0, json.dumps(ct_["ms"]),
+                     json.dumps(ct_["launches"]),
+                     json.dumps(ct_["ms_chunk2"]),
+                     json.dumps(ct_["plain_ms"]), json.dumps(ct_["bound"]),
+                     ct_["stats"]["cells"], ct_["stats"]["cands"]),
                   flush=True)
         print("K13 vs the host traceback on the 76 tRNAs (f64 tables): %d "
               "reads' psihat and pair sets identical" % cyk["tb_reads"],

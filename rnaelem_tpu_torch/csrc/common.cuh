@@ -81,6 +81,26 @@ __device__ __forceinline__ bool vetoed(const Aux& a, int req, int kind,
 template <typename T>
 __device__ __forceinline__ T ninf() { return -(T)INFINITY; }
 
+// ---- cp.async (Ampere and later): 4- or 8-byte copies into shared memory
+template <int N>
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem) {
+  static_assert(N == 4 || N == 8, "cp.async.ca takes 4, 8 or 16 bytes");
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
+               "l"(gmem), "n"(N));
+}
+template <typename T>
+__device__ __forceinline__ void cp_async_t(T* smem, const T* gmem) {
+  cp_async<sizeof(T)>(smem, gmem);
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
 // add posterior mass x of transition t <- s of the kind to its classes
 template <typename T>
 __device__ __forceinline__ void add_classes(const Aux& a, int kind, int t,
@@ -114,6 +134,21 @@ template <typename T>
 struct LSE {
   T m, s;
   __device__ __forceinline__ LSE() : m(ninf<T>()), s((T)0) {}
+  // a partial sum kept as (max, scaled sum), as scale() gives it back
+  __device__ __forceinline__ LSE(T m_, T s_) : m(m_), s(s_) {}
+  __device__ __forceinline__ T scale() const { return s; }
+  // add a partial sum; merge(a, b) and merge(b, a) give the same bits
+  __device__ __forceinline__ void merge(const LSE& o) {
+    if (!(o.s > (T)0)) return;
+    if (!(s > (T)0)) {
+      m = o.m;
+      s = o.s;
+      return;
+    }
+    const T mn = m > o.m ? m : o.m;
+    s = s * ex(m - mn) + o.s * ex(o.m - mn);
+    m = mn;
+  }
   __device__ __forceinline__ void add(T x) {
     if (!(x > ninf<T>())) return;
     if (x > m) {
@@ -148,6 +183,11 @@ template <typename T>
 struct MaxAcc {
   T m;
   __device__ __forceinline__ MaxAcc() : m(ninf<T>()) {}
+  __device__ __forceinline__ MaxAcc(T m_, T) : m(m_) {}
+  __device__ __forceinline__ T scale() const { return (T)0; }
+  __device__ __forceinline__ void merge(const MaxAcc& o) {
+    if (o.m > m) m = o.m;
+  }
   __device__ __forceinline__ void add(T x) {
     if (x > m) m = x;
   }
@@ -206,6 +246,17 @@ static inline int ceil_div(long long a, int b) {
 }
 
 static const int kSmemLimit = 232448;  // dynamic shared memory per block
+
+// the current device's number of SMs (read once per device)
+static int device_sms() {
+  static int sms[64] = {0};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) dev = 0;
+  if (sms[dev] == 0)
+    cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+  return sms[dev] > 0 ? sms[dev] : 1;
+}
 
 // raise the dynamic shared memory limit of kernel ``fn`` on the current
 // device once (a table keyed by kernel and device)

@@ -1,7 +1,8 @@
 // Shared pieces of the fused internal-loop kernels K3 (inside_ep.cu,
-// forward) and K6 (outside_ep.cu, adjoint): one block owns one read and a
-// fixed range of the left gap x of column j, walks x, and forms the
-// column's chain for one x at a time in shared memory:
+// forward), K6 (outside_ep.cu, adjoint) and K11 (inside_ep.cu, the CYK
+// tables' max, the same chain in log space): one block owns one read and
+// a range of the left gap x of column j, walks x, and forms the column's
+// chain for one x at a time in shared memory:
 //
 //   T[dl, ar]   = sum_{p in ar} exP(j-dl, x-dl)[s1p] * exL3(dl)[s3p]
 //   W_bu[dl, u1] = [dl + u1 <= C_b] (sum_g mB_bu,g(dl) * eSZg_bu[g, dl, u1]
@@ -92,27 +93,44 @@ static int ep_x_work(int x, int Wp, int Cp) {
   return n;
 }
 
-struct EpXRanges {  // range xr walks x0[xr]..x1[xr] (empty if x1 < x0)
+// n ranges: range k walks x0[k]..x1[k] (empty if x1 < x0)
+static void ep_split_x(int Wp, int Cp, int n, int* x0, int* x1) {
+  long long tot = 0;
+  for (int x = 0; x <= Wp; ++x) tot += ep_x_work(x, Wp, Cp);
+  for (int k = 0; k < n; ++k) {
+    x0[k] = Wp + 1;
+    x1[k] = Wp;
+  }
+  long long cum = 0;
+  for (int x = 0; x <= Wp; ++x) {
+    const int k = (int)(cum * n / tot);
+    if (x0[k] > x) x0[k] = x;
+    x1[k] = x;
+    cum += ep_x_work(x, Wp, Cp);
+  }
+}
+
+struct EpXRanges {  // K3's and K6's kEpXSplit ranges
   int x0[kEpXSplit], x1[kEpXSplit];
 };
 
 static EpXRanges ep_x_ranges(int Wp, int Cp) {
   EpXRanges q;
-  long long tot = 0;
-  for (int x = 0; x <= Wp; ++x) tot += ep_x_work(x, Wp, Cp);
-  for (int k = 0; k < kEpXSplit; ++k) {
-    q.x0[k] = Wp + 1;
-    q.x1[k] = Wp;
-  }
-  long long cum = 0;
-  for (int x = 0; x <= Wp; ++x) {
-    const int k = (int)(cum * kEpXSplit / tot);
-    if (q.x0[k] > x) q.x0[k] = x;
-    q.x1[k] = x;
-    cum += ep_x_work(x, Wp, Cp);
-  }
+  ep_split_x(Wp, Cp, kEpXSplit, q.x0, q.x1);
   return q;
 }
+
+// K11's ranges: their number n follows the batch (ep_max_ranges in
+// inside_ep.cu), at most kEpMaxSplit.  Range k keeps its partial rows,
+// widths x0[k]..min(x1[k] + Cp, Wp), from row base(k) = x0[k] + k * Cp of
+// a buffer of Wp + 1 + n * Cp rows: the rows of range k never reach those
+// of range k + 1.
+static const int kEpMaxSplit = 16;
+
+struct EpMaxRanges {
+  int n;
+  int x0[kEpMaxSplit], x1[kEpMaxSplit];
+};
 
 // triangle cells (dl, u1) with dl + u1 <= Cp, dl-major
 __host__ __device__ __forceinline__ int tri_cells(int C1) {
@@ -170,6 +188,31 @@ struct EpAdjLayout {
   }
   __host__ __device__ long long bytes(int itemsize) const {
     return 8 * n_a + itemsize * n_t;
+  }
+};
+
+// K11 (all scalar type T): L3 [C1][S] (row j, once per block), then
+// kEpMaxStages stages of a step's inputs, each Pm [C1][S] (the P cells
+// (j-dl, x-dl)), LBm [C1][S] (the LL cells (j-x, u1)), mAB [8][C1] (misA
+// by u1 rows 0-3, misB by dl rows 4-7) and il [8] (the six specials'
+// energies at width x + dk), then Tm [C1][n_ar], Wm [2][tri], Vm
+// [2][C1][n_ar] and the ring of out rows [C1][S].
+static const int kEpMaxStages = 2;  // K11: step x+1's inputs load during x
+
+struct EpMaxLayout {  // stage q's Pm at Pm + q * stage, and so on
+  long long L3, stage, Pm, LBm, mAB, il, Tm, Wm, Vm, out, total;
+  __host__ __device__ EpMaxLayout(int S, int NA, int C1) {
+    stage = 2LL * C1 * S + 8LL * C1 + 8;
+    L3 = 0;
+    Pm = L3 + (long long)C1 * S;
+    LBm = Pm + (long long)C1 * S;
+    mAB = LBm + (long long)C1 * S;
+    il = mAB + 8LL * C1;
+    Tm = Pm + kEpMaxStages * stage;
+    Wm = Tm + (long long)C1 * NA;
+    Vm = Wm + 2LL * tri_cells(C1);
+    out = Vm + 2LL * C1 * NA;
+    total = out + (long long)C1 * S;
   }
 };
 

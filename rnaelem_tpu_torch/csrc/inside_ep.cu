@@ -34,186 +34,312 @@
 // kept: the per-read cap dl + u1 <= C, the x + u1 <= Wp geometry, the
 // specials' dk + dl <= C, and the fix_rss dot gating of both flanks.
 //
-// K11 (three launches, the max semiring in log space; no shifts): ep_t
-// writes T, one thread per (dl, x, ar, read); ep_v runs one thread per
-// (x, u1, read) holding 32 AR accumulators per bucket in registers, with
-// T and the inner-pair weights staged per dl in shared memory for the
-// block's u1 threads; ep_out gives each (w, target, 32 reads) a block
-// whose eight warps split the left gap u1 and the specials.  K11's W is
-// the max over the size classes of log energies times lambda: max_c lam
-// * E_c = lam * max_c E_c holds for lam >= 0 only, which the caller
-// asserts (the JAX max DP makes the same step).
+// K11 design (one launch per column, the max semiring in log space: no
+// shifts): ep_max gives each (read, range of x) a block of kEpMaxThreads
+// threads on ep_col.cuh's walk.  Per step x it forms T[dl, ar] = max_p
+// P(j-dl, x-dl)[s1p] + L3(dl)[s3p], W_bu[dl, u1] = lam_bu * max_g ((misB_g
+// + SZg[g, dl, u1]) + misA_g) on the triangle dl + u1 <= C_b, V_bu[u1, ar]
+// = max_dl T + W_bu, and adds max over the K2 entries k of LB(j-x,
+// u1)[s2k] + V_bu(k)[u1, ar(k)] (and the six specials, (LB + T) + lam_bu
+// * il, their own association as in the plain version) into a ring of
+// Cp+1 output widths; T, W and V never reach device memory.  The step's
+// inputs (the P and LL cells, misA, misB, the specials' energies) are
+// copied into the second of two stages by cp.async while the step before
+// computes.  A thread has a fixed AR pair for T and a fixed target for
+// the output, their grammar lists held in registers for the block's life
+// (EpList), so a step's loops read no index from device memory.  The
+// number of ranges follows B (ep_max_ranges: the device's resident
+// blocks divided among the reads, one wave); each range writes its
+// widths' partial maxima, and the last block of a read to finish (an integer counter per
+// read, reset for the next column) takes the max over the ranges into the
+// ep row.  Max is exact and commutes with rounding (fl(max(a, b) + c) =
+// max(fl(a + c), fl(b + c))), so any split and any grouping of the maxima
+// gives the plain version's bits; the additions inside a candidate keep
+// its order.  K11's W is the max over the size classes of log energies
+// times lambda: max_c lam * E_c = lam * max_c E_c holds for lam >= 0 only,
+// which the caller asserts (the JAX max DP makes the same step).
 #include "ep_col.cuh"
 
-#define AR_CHUNK 32
+// ---- K11: the phases of one step x of a block (ep_max_kernel)
 
-// ---- K11's T[dl, x, ar] = max_{p in ar} P(j-dl, x-dl)[s1p] + LL(j,
-// dl)[s3p] (log space); grid (32 reads, 8 AR, (dl, x)): no per-thread
-// index division
+// step x's inputs into a stage's buffers (cp.async; misB rows before 0
+// and the specials' widths beyond Wp are -inf, stored directly)
 template <typename T>
-__global__ void ep_t_max_kernel(DPDims D, EpIdx ix, const T* P, const T* LL,
-                                const int* dcum, T* Tb) {
-  const int S = D.S, B = D.B, W1 = D.Wp + 1, n_ar = D.n_ar;
-  const int b = blockIdx.x * 32 + threadIdx.x;
-  const int ar = blockIdx.y * 8 + threadIdx.y;
-  const int dl = blockIdx.z / W1, x = blockIdx.z % W1;
-  if (b >= B || ar >= n_ar) return;
-  const int j = D.j, r = j + D.PAD;
-  T acc = ninf<T>();
-  if (x >= dl && (!D.fix_rss || right_dots(dcum, j, dl, B, b))) {
-    const int v = x - dl;
-    for (int k = ix.ar_off[ar]; k < ix.ar_off[ar + 1]; ++k) {
-      const int p = ix.ar_p[k];
-      const T t = P[TIDX(r - dl, v, ix.p13_s1[p], b)] +
-                  LL[TIDX(r, dl, ix.p13_s3[p], b)];
-      if (t > acc) acc = t;
-    }
+__device__ void ep_max_stage(const EpBlock<T, T>& k, int x, const T* P,
+                             const T* LL, const T* misA, const T* misB,
+                             const T* spec_il, T* Pm, T* LBm, T* mAB,
+                             T* il) {
+  const int S = k.S, B = k.B, W1 = k.W1, C1 = k.C1, b = k.b, j = k.j;
+  const int dmax = x < k.Cp ? x : k.Cp;
+  const int umax = k.Cp < k.Wp - x ? k.Cp : k.Wp - x;
+  for (int i = threadIdx.x; i < (dmax + 1) * S; i += blockDim.x) {
+    const int dl = i / S, s = i % S;
+    cp_async_t(Pm + i, P + TIDX(k.r - dl, x - dl, s, b));
   }
-  Tb[(((long long)blockIdx.z) * n_ar + ar) * B + b] = acc;
+  for (int i = threadIdx.x; i < (umax + 1) * S; i += blockDim.x) {
+    const int u1 = i / S, s = i % S;
+    cp_async_t(LBm + i, LL + TIDX(k.r - x, u1, s, b));
+  }
+  // misA, misB [4, Lp+1, W1, B]
+  for (int i = threadIdx.x; i < 4 * (umax + 1); i += blockDim.x) {
+    const int g = i / (umax + 1), u1 = i % (umax + 1);
+    cp_async_t(mAB + g * C1 + u1,
+               misA + (((long long)g * (k.Lp + 1) + j) * W1 + (x + u1)) * B +
+                   b);
+  }
+  for (int i = threadIdx.x; i < 4 * (dmax + 1); i += blockDim.x) {
+    const int g = i / (dmax + 1), dl = i % (dmax + 1);
+    T* dst = mAB + (4 + g) * C1 + dl;
+    if (j - dl >= 0)
+      cp_async_t(dst, misB + (((long long)g * (k.Lp + 1) + (j - dl)) * W1 +
+                              (x - dl)) * B + b);
+    else
+      *dst = ninf<T>();
+  }
+  // spec_il [6, Lp+1, W1, B] at width x + dk (ci 0: dk 0; 1-3: 1; 4-5: 2)
+  if (threadIdx.x < 6) {
+    const int ci = threadIdx.x, w = x + (ci == 0 ? 0 : (ci < 4 ? 1 : 2));
+    if (w <= k.Wp)
+      cp_async_t(il + ci, spec_il + (((long long)ci * (k.Lp + 1) + j) * W1 +
+                                     w) * B + b);
+    else
+      il[ci] = ninf<T>();
+  }
 }
 
-// ---- K11's V_bu[x, u1, ar] = max_dl T[dl, x, ar] + lam_bu * W[dl, x,
-// u1] with the log-space W[dl, x, u1] = max_g (misB[g, j-dl, x-dl] +
-// SZ[g, dl, u1]) + misA[g, j, x+u1] (SZ: the size classes' log energies,
-// max per group), -inf past the cap; misB and misA are [4, Lp+1, W1, B],
-// SZ [4, C1, C1].
-// One block per (32 reads, 8 u1 values, x); per dl warp y stages rows
-// q = y, y+8, ... of T[dl, x, :, reads] and row y = group of misB in
-// shared memory, which all the block's u1 threads read; each thread
-// keeps AR_CHUNK accumulators per bucket in registers.
+// A thread's fixed list: the pairs13 entries of its AR pair (T) or the
+// K2 entries of its target (out), packed, the first kEpMaxList held in
+// registers for the block's life; the rest, if any, read at each use.
+static const int kEpMaxList = 8;
+
+__device__ __forceinline__ int ep_t_entry(const EpIdx& ix, int q) {
+  const int p = ix.ar_p[q];
+  return ix.p13_s1[p] | (ix.p13_s3[p] << 16);   // s1, s3
+}
+__device__ __forceinline__ int ep_k2_entry(const EpIdx& ix, int kk) {
+  const int e = ix.k2_idx[kk];
+  return ix.k2_s2[e] | (ix.k2_ar[e] << 12) | (ix.k2_bu[e] << 24);  // s2, ar, bu
+}
+
+struct EpList {
+  int off, n;  // entries off..off+n-1 of the CSR list
+  int e[kEpMaxList];
+  template <class F>
+  __device__ __forceinline__ void load(int off_, int end, F entry) {
+    off = off_;
+    n = end - off_;
+#pragma unroll
+    for (int q = 0; q < kEpMaxList; ++q) e[q] = q < n ? entry(off + q) : 0;
+  }
+  // f(packed entry) over the list, in its order
+  template <class F, class G>
+  __device__ __forceinline__ void each(F f, G entry) const {
+#pragma unroll
+    for (int q = 0; q < kEpMaxList; ++q)
+      if (q < n) f(e[q]);
+    for (int q = kEpMaxList; q < n; ++q) f(entry(off + q));
+  }
+};
+
+// T and W of step x (its stage copied, L3 formed); T: thread (ar, lane)
+// with ar's list tl takes dl = lane, lane + lanes, ...
 template <typename T>
-__global__ void ep_v_max_kernel(DPDims D, const T* Tb, const T* mA,
-                                const T* mB, const T* sz, const int* Cb,
-                                const T* lam, T* Vb) {
-  const int B = D.B, W1 = D.Wp + 1, C1 = D.Cp + 1, n_ar = D.n_ar;
-  const int Lp = D.Lp;
-  const int lane = threadIdx.x, ty = threadIdx.y, b = blockIdx.x * 32 + lane;
-  const int u1 = blockIdx.y * 8 + ty;
-  const int x = blockIdx.z;
-  const int j = D.j;
-  __shared__ T tsh[AR_CHUNK][32];
-  __shared__ T msh[8][32];
-  const bool live = b < B && u1 < C1 && x + u1 <= D.Wp;
-  const int cap = live ? Cb[b] : -1;
-  // the outer-pair weights at (j, x+u1), per group: they do not depend
-  // on dl
-  T ma[4];
-#pragma unroll
-  for (int q = 0; q < 4; ++q)
-    ma[q] = live
-        ? mA[(((long long)q * (Lp + 1) + j) * W1 + (x + u1)) * B + b]
-        : ninf<T>();
-  const T lam0 = lam[0], lam1 = lam[1];
-  const int dl_end = x < C1 - 1 ? x : C1 - 1;
-  for (int ar0 = 0; ar0 < n_ar; ar0 += AR_CHUNK) {
-    const int nq = n_ar - ar0 < AR_CHUNK ? n_ar - ar0 : AR_CHUNK;
-    T v0[AR_CHUNK], v1[AR_CHUNK];
-#pragma unroll
-    for (int q = 0; q < AR_CHUNK; ++q) v0[q] = v1[q] = ninf<T>();
-    for (int dl = 0; dl <= dl_end; ++dl) {
-      __syncthreads();
-      for (int q = ty; q < nq; q += 8)
-        tsh[q][lane] = b < B
-            ? Tb[(((long long)dl * W1 + x) * n_ar + ar0 + q) * B + b]
-            : ninf<T>();
-      // misB rows before 0 are -inf
-      msh[ty][lane] = b < B && ty < 4 && j - dl >= 0
-          ? mB[(((long long)ty * (Lp + 1) + (j - dl)) * W1 + (x - dl)) * B +
-               b]
-          : ninf<T>();
-      __syncthreads();
-      if (dl + u1 > cap) continue;  // also !live (cap = -1)
-      const T* szp = sz + (long long)dl * C1 + u1;  // [4, C1 (dl), C1 (u1)]
-      T wr = ninf<T>();
+__device__ void ep_max_tw(const EpBlock<T, T>& k, int x, const EpIdx& ix,
+                          const EpList& tl, int ar, int lane, int lanes,
+                          const T* Pm, const T* L3, const T* mAB,
+                          const T* SZg, T lam0, T lam1) {
+  const int S = k.S, NA = k.NA, C1 = k.C1;
+  const int dmax = x < k.Cp ? x : k.Cp;
+  const int umax = k.Cp < k.Wp - x ? k.Cp : k.Wp - x;
+  auto tent = [&](int q) { return ep_t_entry(ix, q); };
+  for (int dl = lane; ar >= 0 && dl <= dmax; dl += lanes) {
+    T t = ninf<T>();
+    tl.each([&](int pe) {
+      const T v = Pm[dl * S + (pe & 0xffff)] + L3[dl * S + (pe >> 16)];
+      t = v > t ? v : t;
+    }, tent);
+    k.Tm[dl * NA + ar] = t;
+  }
+  const int nu = umax + 1;
+  for (int i = threadIdx.x; i < (dmax + 1) * nu; i += blockDim.x) {
+    const int dl = i / nu, u1 = i % nu;
+    if (dl + u1 > k.Cp) continue;
+    T wr = ninf<T>();
+    if (dl + u1 <= k.cap) {
 #pragma unroll
       for (int g = 0; g < 4; ++g) {
-        const T v = msh[g][lane] + szp[(long long)g * C1 * C1] + ma[g];
+        const T v = (mAB[(4 + g) * C1 + dl] +
+                     SZg[((long long)g * C1 + dl) * C1 + u1]) +
+                    mAB[g * C1 + u1];
         wr = v > wr ? v : wr;
       }
-      const T w0 = lam_mul(lam0, wr), w1 = lam_mul(lam1, wr);
-      if (!(w0 > ninf<T>()) && !(w1 > ninf<T>())) continue;
-#pragma unroll
-      for (int q = 0; q < AR_CHUNK; ++q) {
-        if (q < nq) {
-          const T tv = tsh[q][lane];
-          const T a0 = tv + w0, a1 = tv + w1;
-          if (a0 > v0[q]) v0[q] = a0;
-          if (a1 > v1[q]) v1[q] = a1;
-        }
-      }
     }
-    if (b < B && u1 < C1) {
-      // V layout [2, W1 (x), C1 (u1), n_ar, B]
-#pragma unroll
-      for (int q = 0; q < AR_CHUNK; ++q) {
-        if (q < nq) {
-          Vb[((((long long)x) * C1 + u1) * n_ar + ar0 + q) * B + b] = v0[q];
-          Vb[(((long long)(W1 + x) * C1 + u1) * n_ar + ar0 + q) * B + b] =
-              v1[q];
-        }
-      }
-    }
+    k.W(0, dl, u1) = lam_mul(lam0, wr);
+    k.W(1, dl, u1) = lam_mul(lam1, wr);
   }
 }
 
-// ---- K11's ep[w, t] = max over K2 entries k of target t of
-//   max_{u1 <= min(Cp, w)} LL(j-w+u1, u1)[s2k] + V_bu(k)[w-u1, u1, ar(k)]
-//   and of the six base-coupled specials.
-// One block per (32 reads, t, w): warp y takes u1 = y, y+8, ... and the
-// special ci = y; the partial maxima meet in shared memory.
+// V of step x (T and W formed): V_bu[u1, ar] = max_dl T[dl, ar] + W_bu
 template <typename T>
-__global__ void ep_out_max_kernel(DPDims D, EpIdx ix, const T* P,
-                                  const T* LL, const T* Vb, const int* dcum,
-                                  const T* spec_il, const T* lam,
-                                  const int* Cb, T* ep) {
-  const int S = D.S, B = D.B, W1 = D.Wp + 1, C1 = D.Cp + 1, n_ar = D.n_ar;
-  const int b = blockIdx.x * 32 + threadIdx.x;
-  const int t = blockIdx.y, w = blockIdx.z, y = threadIdx.y;
-  const int j = D.j, r = j + D.PAD, Lp = D.Lp;
-  __shared__ T part[8][32];
-  T acc = ninf<T>();
-  if (b < B) {
-    const int ulim = w < D.Cp ? w : D.Cp;
-    const int dks[6] = {0, 1, 1, 1, 2, 2}, dls[6] = {1, 0, 1, 2, 1, 2};
-    const bool spec = !D.no_ene && y < 6;
-    const int dk = spec ? dks[y] : 0, dl = spec ? dls[y] : 0;
-    const bool spec_ok = spec && dk + dl <= Cb[b] && w >= dk + dl &&
-        (!D.fix_rss || (left_dots(dcum, j, w - dk, dk, B, b) &&
-                        right_dots(dcum, j, dl, B, b)));
-    for (int kk = ix.k2_off[t]; kk < ix.k2_off[t + 1]; ++kk) {
-      const int k = ix.k2_idx[kk];
-      const int s2 = ix.k2_s2[k], ar = ix.k2_ar[k], bu = ix.k2_bu[k];
-      for (int u1 = y; u1 <= ulim; u1 += blockDim.y) {
-        const int x = w - u1;
-        if (D.fix_rss && !left_dots(dcum, j, x, u1, B, b)) continue;
-        const T vv = Vb[((((long long)bu * W1 + x) * C1 + u1) * n_ar + ar) *
-                            B + b];
-        if (!(vv > ninf<T>())) continue;
-        const T v = LL[TIDX(r - x, u1, s2, b)] + vv;
-        if (v > acc) acc = v;
-      }
-      if (!spec_ok) continue;
-      // lf = LL(j-w+dk, dk); tar = max_{p in ar} P(j-dl, w-dk-dl) + L3(dl)
-      const T lf = LL[TIDX(r - (w - dk), dk, s2, b)];
-      T tar = ninf<T>();
-      for (int q = ix.ar_off[ar]; q < ix.ar_off[ar + 1]; ++q) {
-        const int p = ix.ar_p[q];
-        const T v = P[TIDX(r - dl, w - dk - dl, ix.p13_s1[p], b)] +
-                    LL[TIDX(r, dl, ix.p13_s3[p], b)];
-        if (v > tar) tar = v;
-      }
-      const T il = spec_il[(((long long)y * (Lp + 1) + j) * W1 + w) * B + b];
-      const T v = lf + tar + lam_mul(lam[bu], il);
-      if (v > acc) acc = v;
+__device__ void ep_max_v(const EpBlock<T, T>& k, int x) {
+  const int NA = k.NA;
+  const int dmax = x < k.Cp ? x : k.Cp;
+  const int umax = k.Cp < k.Wp - x ? k.Cp : k.Wp - x;
+  for (int i = threadIdx.x; i < (umax + 1) * NA; i += blockDim.x) {
+    const int u1 = i / NA, ar = i % NA;
+    T v0 = ninf<T>(), v1 = ninf<T>();
+    const int dend = dmax < k.cap - u1 ? dmax : k.cap - u1;
+    for (int dl = 0, t0 = u1; dl <= dend; t0 += k.C1 - dl, ++dl) {
+      const T t = k.Tm[dl * NA + ar];   // t0 = tri_index(C1, dl, u1)
+      const T a0 = t + k.Wm[t0], a1 = t + k.Wm[k.ntri + t0];
+      v0 = a0 > v0 ? a0 : v0;
+      v1 = a1 > v1 ? a1 : v1;
     }
+    k.V(0, u1, ar) = v0;
+    k.V(1, u1, ar) = v1;
   }
-  part[y][threadIdx.x] = acc;
+}
+
+// the ring's widths x..x+umax: out[x + u1, t] = max(out, max over the K2
+// entries k of t of LB(j-x, u1)[s2k] + V_bu(k)[u1, ar(k)], and over the
+// specials of left gap dk = u1 of (LB + T[dl, ar(k)]) + lam_bu * il);
+// thread (t, lane) with t's list ol takes u1 = lane, lane + lanes, ...
+template <typename T>
+__device__ void ep_max_out(const EpBlock<T, T>& k, int x, const EpIdx& ix,
+                           const EpList& ol, int t, int lane, int lanes,
+                           const T* LBm, const T* il, T lam0, T lam1,
+                           const int* dcum, T* out) {
+  const int S = k.S, NA = k.NA, C1 = k.C1;
+  const int dmax = x < k.Cp ? x : k.Cp;
+  const int umax = k.Cp < k.Wp - x ? k.Cp : k.Wp - x;
+  const int xs = x % C1;
+  auto kent = [&](int q) { return ep_k2_entry(ix, q); };
+  for (int u1 = lane; t >= 0 && u1 <= umax; u1 += lanes) {
+    if (k.fix_rss && !left_dots(dcum, k.j, x, u1, k.B, k.b)) continue;
+    const T* lb = LBm + u1 * S;
+    T acc = ninf<T>();
+    ol.each([&](int pe) {
+      const T v = k.V(pe >> 24, u1, (pe >> 12) & 0xfff);
+      const T a = lb[pe & 0xfff] + v;
+      acc = a > acc ? a : acc;
+    }, kent);
+    if (!k.no_ene && u1 <= 2) {
+      for (int dl = 0; dl <= 2 && dl <= dmax; ++dl) {
+        const int ci = spec_ci(u1, dl);
+        if (ci < 0 || u1 + dl > k.cap) continue;
+        const T e0 = lam_mul(lam0, il[ci]), e1 = lam_mul(lam1, il[ci]);
+        const T* tm = k.Tm + dl * NA;
+        ol.each([&](int pe) {
+          const T a = (lb[pe & 0xfff] + tm[(pe >> 12) & 0xfff]) +
+                      ((pe >> 24) ? e1 : e0);
+          acc = a > acc ? a : acc;
+        }, kent);
+      }
+    }
+    T* o = out + ring_slot(xs, u1, C1) * S + t;
+    if (acc > *o) *o = acc;
+  }
+}
+
+static const int kEpMaxThreads = 256;  // K11's threads per block
+
+// ---- K11, fused: one block per (read, range of x) of column j; the last
+// block of a read to finish merges the ranges' partial rows into ep
+template <typename T>
+__global__ void __launch_bounds__(kEpMaxThreads)
+ep_max_kernel(DPDims D, EpMaxRanges xq, EpIdx ix, const T* P, const T* LL,
+              const T* misA, const T* misB, const T* SZg, const T* spec_il,
+              const T* lam, const int* dcum, const int* Cb, T* part,
+              int* done, T* ep) {
+  extern __shared__ __align__(16) unsigned char ep_smem[];
+  __shared__ bool last;
+  EpBlock<T, T> k;
+  k.init(D, Cb, blockIdx.x);
+  const int xr = blockIdx.y, S = k.S, B = k.B, W1 = k.W1, b = k.b;
+  const int C1 = k.C1;
+  const EpMaxLayout lay(S, k.NA, C1);
+  T* sm = reinterpret_cast<T*>(ep_smem);
+  T* L3 = sm + lay.L3;
+  T* out = sm + lay.out;   // ring [C1][S]: width w at slot w % C1
+  k.Tm = sm + lay.Tm;
+  k.Wm = sm + lay.Wm;
+  k.Vm = sm + lay.Vm;
+  const T lam0 = lam[0], lam1 = lam[1];
+  // the thread's T role (AR pair tar, lane of tlanes) and out role
+  // (target tt, lane of olanes), their lists in registers
+  const int tid = threadIdx.x, tlanes = kEpMaxThreads / k.NA;
+  const int olanes = kEpMaxThreads / S;
+  const int tar = tid < tlanes * k.NA ? tid % k.NA : -1;
+  const int tt = tid < olanes * S ? tid % S : -1;
+  EpList tl, ol;
+  tl.load(tar >= 0 ? ix.ar_off[tar] : 0, tar >= 0 ? ix.ar_off[tar + 1] : 0,
+          [&](int q) { return ep_t_entry(ix, q); });
+  ol.load(tt >= 0 ? ix.k2_off[tt] : 0, tt >= 0 ? ix.k2_off[tt + 1] : 0,
+          [&](int q) { return ep_k2_entry(ix, q); });
+  // L3[dl][s] = LL(j, dl)[s], the right-flank dot gate folded in
+  for (int i = threadIdx.x; i < C1 * S; i += blockDim.x) {
+    const int dl = i / S, s = i % S;
+    const bool ok = !k.fix_rss || right_dots(dcum, k.j, dl, B, b);
+    L3[i] = ok ? LL[TIDX(k.r, dl, s, b)] : ninf<T>();
+    out[i] = ninf<T>();
+  }
+  const int x0 = xq.x0[xr], x1 = xq.x1[xr];
+  const int wend = x1 < x0 ? -1 : (x1 + k.Cp < k.Wp ? x1 + k.Cp : k.Wp);
+  // the range's partial row of width w: row w + xr * Cp of part
+  T* pb = part + (long long)xr * k.Cp * S * B + b;
+  auto flush = [&](int w) {
+    T* o = out + (w % C1) * S;
+    for (int t = threadIdx.x; t < S; t += blockDim.x) {
+      pb[((long long)w * S + t) * B] = o[t];
+      o[t] = ninf<T>();
+    }
+  };
+  auto stage = [&](int x, int q) {
+    T* s0 = sm + q * lay.stage;
+    ep_max_stage(k, x, P, LL, misA, misB, spec_il, s0 + lay.Pm,
+                 s0 + lay.LBm, s0 + lay.mAB, s0 + lay.il);
+  };
+  if (x0 <= x1) stage(x0, 0);
+  cp_async_commit();
+  cp_async_wait<0>();
   __syncthreads();
-  if (y != 0 || b >= B) return;
-  T m = ninf<T>();
-  for (int q = 0; q < blockDim.y; ++q)
-    if (part[q][threadIdx.x] > m) m = part[q][threadIdx.x];
-  ep[((long long)w * S + t) * B + b] = m;
+  for (int x = x0; x <= x1; ++x) {
+    const int q = (x - x0) & 1;
+    const T* s0 = sm + q * lay.stage;
+    // stage q ^ 1 held step x-1's inputs, read before the last barrier
+    if (x < x1) stage(x + 1, q ^ 1);
+    cp_async_commit();
+    if (x > x0) flush(x - 1);   // no later x reaches width x - 1
+    ep_max_tw(k, x, ix, tl, tar, tid / k.NA, tlanes, s0 + lay.Pm,
+              L3, s0 + lay.mAB, SZg, lam0, lam1);
+    __syncthreads();
+    ep_max_v(k, x);
+    __syncthreads();
+    ep_max_out(k, x, ix, ol, tt, tid / S, olanes, s0 + lay.LBm,
+               s0 + lay.il, lam0, lam1, dcum, out);
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+  for (int w = x1; w <= wend; ++w) flush(w);
+  // the last block of the read takes the max over the ranges' rows (read
+  // through L2: other blocks wrote them)
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(done + b, 1) == xq.n - 1;
+  __syncthreads();
+  if (!last) return;
+  for (int i = threadIdx.x; i < W1 * S; i += blockDim.x) {
+    const int w = i / S, t = i % S;
+    T m = ninf<T>();
+    for (int q = 0; q < xq.n; ++q) {
+      const int a = xq.x0[q], z = xq.x1[q];
+      if (z < a || w < a || w > z + k.Cp) continue;
+      const T v = __ldcg(part + ((long long)(q * k.Cp + w) * S + t) * B + b);
+      m = v > m ? v : m;
+    }
+    ep[((long long)w * S + t) * B + b] = m;
+  }
+  if (threadIdx.x == 0) done[b] = 0;
 }
 
 // ---- K3, fused: one block per (read, range of x) of column j
@@ -365,38 +491,52 @@ static int ep_fwd_red(DPDims D, const T* part, const T* shift, T* ep,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K11's ranges of x for a batch of B reads: the blocks the device holds
+// at once (its SMs times the blocks of this size an SM holds), divided
+// among the reads and rounded down, so that the grid is one wave (a
+// partial second wave costs a whole block's walk); at least kEpMaxMinSplit
+// and at most kEpMaxSplit per read
+static const int kEpMaxMinSplit = 1;
+
 template <typename T>
-static int ep_t_max(DPDims D, EpIdx ix, const T* P, const T* LL,
-                    const int* dcum, T* Tb, cudaStream_t st) {
-  dim3 block(32, 8);
-  dim3 grid((D.B + 31) / 32, (D.n_ar + 7) / 8, (D.Cp + 1) * (D.Wp + 1));
-  ep_t_max_kernel<T><<<grid, block, 0, st>>>(D, ix, P, LL, dcum, Tb);
-  return static_cast<int>(cudaGetLastError());
+static int ep_max_ranges(const DPDims& D) {
+  const long long smem =
+      EpMaxLayout(D.S, D.n_ar, D.Cp + 1).total * sizeof(T);
+  int per_sm = 1;
+  if (allow_smem((const void*)ep_max_kernel<T>, smem) != 0 ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, ep_max_kernel<T>, kEpMaxThreads, (size_t)smem) !=
+          cudaSuccess ||
+      per_sm < 1)
+    per_sm = 1;
+  const int n = D.B > 0 ? per_sm * device_sms() / D.B : kEpMaxSplit;
+  return n < kEpMaxMinSplit ? kEpMaxMinSplit
+                            : (n > kEpMaxSplit ? kEpMaxSplit : n);
 }
 
 template <typename T>
-static int ep_v_max(DPDims D, const T* Tb, const T* mA, const T* mB,
-                    const T* sz, const int* Cb, const T* lam, T* Vb,
-                    cudaStream_t st) {
-  dim3 block(32, 8);
-  dim3 grid((D.B + 31) / 32, (D.Cp + 1 + 7) / 8, D.Wp + 1);
-  ep_v_max_kernel<T><<<grid, block, 0, st>>>(D, Tb, mA, mB, sz, Cb, lam, Vb);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-static int ep_out_max(DPDims D, EpIdx ix, const T* P, const T* LL,
-                      const T* Vb, const int* dcum, const T* spec_il,
-                      const T* lam, const int* Cb, T* ep, cudaStream_t st) {
-  dim3 block(32, 8);
-  dim3 grid((D.B + 31) / 32, D.S, D.Wp + 1);
-  ep_out_max_kernel<T><<<grid, block, 0, st>>>(D, ix, P, LL, Vb, dcum,
-                                               spec_il, lam, Cb, ep);
+static int ep_max(DPDims D, EpIdx ix, const T* P, const T* LL,
+                  const T* misA, const T* misB, const T* SZg,
+                  const T* spec_il, const T* lam, const int* dcum,
+                  const int* Cb, T* part, int* done, T* ep, cudaStream_t st) {
+  const long long smem =
+      EpMaxLayout(D.S, D.n_ar, D.Cp + 1).total * sizeof(T);
+  if (D.S > kEpMaxThreads || D.n_ar > kEpMaxThreads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int rc = allow_smem((const void*)ep_max_kernel<T>, smem);
+  if (rc) return rc;
+  EpMaxRanges xq;
+  xq.n = ep_max_ranges<T>(D);
+  ep_split_x(D.Wp, D.Cp, xq.n, xq.x0, xq.x1);
+  dim3 grid(D.B, xq.n);
+  ep_max_kernel<T><<<grid, kEpMaxThreads, smem, st>>>(
+      D, xq, ix, P, LL, misA, misB, SZg, spec_il, lam, dcum, Cb, part, done,
+      ep);
   return static_cast<int>(cudaGetLastError());
 }
 
 // K3: rnaelem_ep_fwd_<type>, rnaelem_ep_fwd_red_<type>; K11:
-// rnaelem_ep_<fn>_max_<type>
+// rnaelem_ep_max_<type>
 #define EP_EXPORTS(SUF, T)                                                   \
   RNAELEM_EXPORT int rnaelem_ep_fwd_##SUF(                                   \
       DPDims D, EpIdx ix, const T* P, const T* LL, const T* emisA,           \
@@ -411,33 +551,32 @@ static int ep_out_max(DPDims D, EpIdx ix, const T* P, const T* LL,
                                               cudaStream_t st) {             \
     return ep_fwd_red<T>(D, part, shift, ep, st);                            \
   }                                                                          \
-  RNAELEM_EXPORT int rnaelem_ep_t_max_##SUF(DPDims D, EpIdx ix, const T* P,  \
-                                            const T* LL, const int* dcum,    \
-                                            T* Tb, cudaStream_t st) {        \
-    return ep_t_max<T>(D, ix, P, LL, dcum, Tb, st);                          \
-  }                                                                          \
-  RNAELEM_EXPORT int rnaelem_ep_v_max_##SUF(DPDims D, const T* Tb,          \
-                                            const T* misA, const T* misB,    \
-                                            const T* SZ, const int* Cb,      \
-                                            const T* lam, T* Vb,             \
-                                            cudaStream_t st) {               \
-    return ep_v_max<T>(D, Tb, misA, misB, SZ, Cb, lam, Vb, st);              \
-  }                                                                          \
-  RNAELEM_EXPORT int rnaelem_ep_out_max_##SUF(                               \
-      DPDims D, EpIdx ix, const T* P, const T* LL, const T* Vb,              \
-      const int* dcum, const T* spec_il, const T* lam, const int* Cb, T* ep, \
+  RNAELEM_EXPORT int rnaelem_ep_max_##SUF(                                   \
+      DPDims D, EpIdx ix, const T* P, const T* LL, const T* misA,            \
+      const T* misB, const T* SZg, const T* spec_il, const T* lam,           \
+      const int* dcum, const int* Cb, T* part, int* done, T* ep,             \
       cudaStream_t st) {                                                     \
-    return ep_out_max<T>(D, ix, P, LL, Vb, dcum, spec_il, lam, Cb, ep, st);  \
+    return ep_max<T>(D, ix, P, LL, misA, misB, SZg, spec_il, lam, dcum, Cb, \
+                     part, done, ep, st);                                    \
   }
 
 EP_EXPORTS(f32, float)
 EP_EXPORTS(f64, double)
 
-// dynamic shared memory of K3's and K6's fused blocks (ops/kernels.py
-// ep_smem_bytes mirrors it): which 0 = K3 (ep_fwd), 1 = K6 (ep_adj)
+// dynamic shared memory of K3's, K6's and K11's fused blocks
+// (ops/kernels.py ep_smem_bytes mirrors it): which 0 = K3 (ep_fwd), 1 = K6
+// (ep_adj), 2 = K11 (ep_max)
 RNAELEM_EXPORT long long rnaelem_ep_smem_bytes(int which, DPDims D,
                                                int itemsize) {
   if (which == 0)
     return EpFwdLayout(D.S, D.n_ar, D.Cp + 1).total * itemsize;
+  if (which == 2)
+    return EpMaxLayout(D.S, D.n_ar, D.Cp + 1).total * itemsize;
   return EpAdjLayout(D.S, D.n_ar, D.Cp + 1).bytes(itemsize);
+}
+
+// K11's ranges of x per read for the batch and grammar of D on the
+// current device (the wrapper sizes the partial rows by it)
+RNAELEM_EXPORT int rnaelem_ep_max_ranges(DPDims D, int itemsize) {
+  return itemsize == 8 ? ep_max_ranges<double>(D) : ep_max_ranges<float>(D);
 }

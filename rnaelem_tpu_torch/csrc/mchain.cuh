@@ -64,26 +64,6 @@ __host__ __device__ __forceinline__ MLayout mchain_layout(int which, int S,
                     : MLayout(S, G, 2, 9, itemsize);
 }
 
-// ---- cp.async (Ampere and later): 4- or 8-byte copies, one group per step
-template <int N>
-__device__ __forceinline__ void cp_async(void* smem, const void* gmem) {
-  static_assert(N == 4 || N == 8, "cp.async.ca takes 4, 8 or 16 bytes");
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
-               "l"(gmem), "n"(N));
-}
-template <typename T>
-__device__ __forceinline__ void cp_async_t(T* smem, const T* gmem) {
-  cp_async<sizeof(T)>(smem, gmem);
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // okM is a bool table: copy the aligned 4-byte word that holds the cell
 // (it lies in the same page as the cell) and pick the byte out
 __device__ __forceinline__ const void* ok_word(const bool* p) {

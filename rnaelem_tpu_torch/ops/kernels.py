@@ -260,9 +260,7 @@ _SIGS = {
     "band_bif_max": ((DPDims, BandIdx), 4),
     "band_m_max": ((DPDims, BandIdx, AuxArg), 5),
     "band_e_max": ((DPDims, BandIdx), 8),
-    "ep_t_max": ((DPDims, EpIdx), 4),
-    "ep_v_max": ((DPDims,), 7),
-    "ep_out_max": ((DPDims, EpIdx), 8),
+    "ep_max": ((DPDims, EpIdx), 12),
     "ext_col_max": ((DPDims, ExtIdx, AuxArg), 6),
     "cyk_traceback": ((DPDims, TbIdx, AuxArg, TbData, TbCfg), 4),
 }
@@ -288,6 +286,8 @@ def lib():
             L.rnaelem_ep_smem_bytes.argtypes = [ctypes.c_int, DPDims,
                                                 ctypes.c_int]
             L.rnaelem_ep_smem_bytes.restype = ctypes.c_longlong
+            L.rnaelem_ep_max_ranges.argtypes = [DPDims, ctypes.c_int]
+            L.rnaelem_ep_max_ranges.restype = ctypes.c_int
             L.rnaelem_band_smem_bytes.argtypes = [ctypes.c_int] * 3
             L.rnaelem_band_smem_bytes.restype = ctypes.c_longlong
             L.rnaelem_error_string.argtypes = [ctypes.c_int]
@@ -540,24 +540,25 @@ def band_e(state, j, d, c, h, st):
           _p(c.okE))
 
 
-# K3's and K6's fused blocks (csrc/ep_col.cuh): one read and one of
-# EP_XSPLIT (kEpXSplit) ranges of x per block; the blocks' partials are
-# EP_XSPLIT deep
+# K3's, K6's and K11's fused blocks (csrc/ep_col.cuh): one read and one
+# of EP_XSPLIT (kEpXSplit) ranges of x per block, K3's and K6's partials
+# EP_XSPLIT deep (K11's ranges follow the batch: rnaelem_ep_max_ranges)
 EP_XSPLIT = 4
+EP_MAX_THREADS = 256     # K11's threads per block (kEpMaxThreads)
 SMEM_LIMIT = 232448      # dynamic shared memory a block may take (H100)
 
 
 class SharedMemoryLimit(ValueError):
-    """A block of K3's or K6's fused kernels, or of the M chain's (K2,
-    K5, K10), would need more shared memory or threads than a block may
-    take."""
+    """A block of K3's, K6's or K11's fused kernels, or of the M chain's
+    (K2, K5, K10), would need more shared memory or threads than a block
+    may take."""
 
 
 def ep_smem_bytes(kernel, S, n_ar, Cp, dtype):
-    """Dynamic shared memory of one block of K3 (``kernel`` "inside_ep")
-    or K6 ("outside_ep"): the layouts EpFwdLayout and EpAdjLayout of
-    csrc/ep_col.cuh.  The span Wp does not enter: what a block keeps per
-    width lives in a ring of Cp+1 rows."""
+    """Dynamic shared memory of one block of K3 (``kernel`` "inside_ep"),
+    K6 ("outside_ep") or K11 ("inside_ep_max"): the layouts EpFwdLayout,
+    EpAdjLayout and EpMaxLayout of csrc/ep_col.cuh.  The span Wp does not
+    enter: what a block keeps per width lives in a ring of Cp+1 rows."""
     it = torch.empty((), dtype=dtype).element_size()
     C1 = Cp + 1
     tri = C1 * (C1 + 1) // 2      # W, gW and GSZ live on dl + u1 <= Cp
@@ -569,14 +570,24 @@ def ep_smem_bytes(kernel, S, n_ar, Cp, dtype):
         n_a = (16 * C1 + C1 * n_ar + 4 * tri + 2 * C1 * n_ar   # gL3, gmA
                + C1 * S + C1 * S + 8 * C1 + 8 * tri + 12)      # ring, gsz,
         return 8 * n_a + it * 2 * C1 * S   # glam; scalar: exP, exL3
+    if kernel == "inside_ep_max":  # L3, two stages (P and LL cells, misA
+        n = (C1 * S + 2 * (2 * C1 * S + 8 * C1 + 8)    # and misB, the
+             + C1 * n_ar + 2 * tri + 2 * C1 * n_ar      # specials' il),
+             + C1 * S)                                  # T, W, V, out ring
+        return it * n
     raise ValueError("no fused block for kernel %r" % kernel)
 
 
 @functools.lru_cache(maxsize=None)
 def ep_check(kernel, S, n_ar, Cp, dtype):
-    """Raise SharedMemoryLimit where a block of K3 or K6 would need more
-    shared memory than SMEM_LIMIT; the message names the largest max
+    """Raise SharedMemoryLimit where a block of K3, K6 or K11 would need
+    more shared memory than SMEM_LIMIT; the message names the largest max
     internal loop (-c) that fits."""
+    if kernel == "inside_ep_max" and max(S, n_ar) > EP_MAX_THREADS:
+        raise SharedMemoryLimit(
+            "inside_ep_max: a block of %d threads holds one thread per "
+            "target state and per AR pair (S=%d, n_ar=%d): this grammar has "
+            "too many states" % (EP_MAX_THREADS, S, n_ar))
     smem = ep_smem_bytes(kernel, S, n_ar, Cp, dtype)
     if smem <= SMEM_LIMIT:
         return
@@ -944,32 +955,35 @@ def max_band_e(state, j, d, c, mst):
 
 def max_ep_stage(state, j, d, c, mst):
     """K11: the TT_E_P internal-loop maximum of column j into row j of
-    the ep table (log space: no shifts)."""
-    _check_max_column(state, j, d, c, mst)
+    the ep table (log space: no shifts), one launch: the fused blocks
+    (one read and one range of x each), the last block of a read merging
+    the ranges' partial rows."""
     st = mst.st
+    ep_check("inside_ep_max", st.dims.S, st.n_ar, st.dims.Cp, st.dtype)
+    _check_max_column(state, j, d, c, mst)
     ep_row = state["ep"][j + st.PAD]
     if not st.have_ep:
         ep_row.fill_(float("-inf"))
         return
-    dt, dev = st.dtype, state["O"].device
-    B = state["O"].shape[-1]
-    W1, C1 = st.dims.Wp + 1, st.dims.Cp + 1
-    scr = state.get("_ep_scratch")
-    if scr is None:
-        scr = dict(
-            T=torch.empty((C1, W1, st.n_ar, B), dtype=dt, device=dev),
-            V=torch.empty((2, W1, C1, st.n_ar, B), dtype=dt, device=dev))
-        state["_ep_scratch"] = scr
     D = _dims(st, state, j, d)
-    ix = _idx(st, EpIdx, EP_IDX)
-    _call("inside_ep_max", "ep_t_max", state["O"], D, ix, _p(state["P"]),
-          _p(state["LL"]), _p(c.dots_cum), _p(scr["T"]))
-    _call("inside_ep_max", "ep_v_max", state["O"], D, _p(scr["T"]),
-          _p(c.ep["misA"]), _p(c.ep["misB"]), _p(mst.SZg), _p(c.C),
-          _p(state["_lam"]), _p(scr["V"]))
-    _call("inside_ep_max", "ep_out_max", state["O"], D, ix, _p(state["P"]),
-          _p(state["LL"]), _p(scr["V"]), _p(c.dots_cum), _p(c.ep["spec_il"]),
-          _p(state["_lam"]), _p(c.C), _p(ep_row))
+    scr = state.get("_ep_max_scratch")
+    if scr is None:
+        # the ranges' partial rows (W1 + n * Cp of them: csrc/ep_col.cuh
+        # EpMaxRanges) and each read's count of finished blocks
+        B, dev = state["O"].shape[-1], state["O"].device
+        with torch.cuda.device(dev):
+            n = int(lib().rnaelem_ep_max_ranges(
+                D, torch.empty((), dtype=st.dtype).element_size()))
+        rows = st.dims.Wp + 1 + n * st.dims.Cp
+        scr = dict(part=torch.empty((rows, st.dims.S, B), dtype=st.dtype,
+                                    device=dev),
+                   done=torch.zeros(B, dtype=torch.int32, device=dev))
+        state["_ep_max_scratch"] = scr
+    _call("inside_ep_max", "ep_max", state["O"], D,
+          _idx(st, EpIdx, EP_IDX), _p(state["P"]), _p(state["LL"]),
+          _p(c.ep["misA"]), _p(c.ep["misB"]), _p(mst.SZg),
+          _p(c.ep["spec_il"]), _p(state["_lam"]), _p(c.dots_cum), _p(c.C),
+          _p(scr["part"]), _p(scr["done"]), _p(ep_row))
 
 
 def max_ext_stage(state, j, d, c, mst):

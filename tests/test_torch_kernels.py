@@ -955,6 +955,187 @@ def test_cyk_traceback_kernel_matches_host(pattern):
         assert got == sorted(cells), t
 
 
+def _cyk_chunk(n, dtype, seed, pattern="(.....)"):
+    """CYK inputs on the card at the scan's spans (W=50, C=30, Lp=60):
+    n random reads, random weights, the CYK pin set from the card's
+    posterior pass (read 0 with Ye == L, read 1 with Ys == Ye)."""
+    from rnaelem_tpu_torch.scan import cyk as CYK
+    from rnaelem_tpu_torch.scan import scanner as SC
+    cfg = J.ModelConfig(pattern=pattern, Lp=60, max_span=50, max_iloop=30,
+                        min_bpp=1e-4, tau=0.1, dtype=dtype)
+    sd = J.stack_seqdata([J.make_seqdata(cfg, *r)
+                          for r in _ep_reads(cfg, n, seed)], "cuda")
+    p = _random_params(cfg, "cuda", seed)
+    res = SC.scan_posteriors_batch(cfg, p, sd, device="cuda")
+    Ys, Ye = res["Ys"].clone(), res["Ye"].clone()
+    L = torch.as_tensor(sd.L, device="cuda").long()
+    Ye[0], Ye[1] = L[0], Ys[1]
+    d, c = J.batch_factors(cfg, p, sd, res["bp_ok"], device="cuda",
+                           aux_b={"pin": CYK.cyk_pins(Ys, Ye, L)})
+    return cfg, d, c
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,pattern", [(12, "(.....)"), (64, "(.....)"),
+                                       (5, ".....*.....")])
+def test_fused_cyk_ep_kernel_matches_plain_bitwise(n, pattern):
+    """K11 (max_ep_stage) against the max DP's ep_stage_plain at f64 on a
+    12- and a 64-read chunk (K11's ranges of x follow B) and on S=91 (13
+    entries per list: more than a thread holds in registers) under the
+    CYK pin set, on every column of the kernels' tables: the same bits
+    (max commutes with rounding; each candidate keeps the plain version's
+    order of additions); one launch per column, a second run the same
+    bits, and no T or V table in the state, only the ranges' partial
+    rows."""
+    _need_cuda()
+    cfg, d, c = _cyk_chunk(n, "float64", 40 + n, pattern)
+    mdp = DMB.MaxDP(J.kernels(cfg, "cuda").dp)
+    state = mdp.tables(d, c)
+    ks, ps = DP.clone_state(state), DP.clone_state(state)
+    st = mdp.st
+    finite = 0
+    for j in range(1, cfg.Lp + 1):
+        r = j + st.PAD
+        K.reset_counts()
+        K.max_ep_stage(ks, j, d, c, mdp.mst)
+        first = ks["ep"][r].clone()
+        K.max_ep_stage(ks, j, d, c, mdp.mst)
+        assert K.KERNELS["inside_ep_max"].launches == 2
+        assert torch.equal(first, ks["ep"][r]), j
+        DMB.ep_stage_plain(ps, j, d, c, mdp.mst)
+        a, b = ks["ep"][r], ps["ep"][r]
+        assert torch.equal(torch.isneginf(a), torch.isneginf(b)), j
+        assert torch.equal(a, b), j
+        finite += int(torch.isfinite(b).sum())
+    assert finite > 0
+    assert torch.equal(ks["ep"], state["ep"])
+    scr = [k_ for k_ in ks if k_.startswith("_ep")]
+    assert scr == ["_ep_max_scratch"], scr
+    part = ks["_ep_max_scratch"]["part"]
+    assert part.shape[1:] == (st.dims.S, n)
+    assert part.shape[0] <= st.dims.Wp + 1 + 16 * st.dims.Cp
+
+
+def _f64(x):
+    """``x`` (a tensor, dict or named tuple of them) with its float
+    tensors in float64."""
+    if torch.is_tensor(x):
+        return x.double() if x.is_floating_point() else x
+    if isinstance(x, dict):
+        return {k_: _f64(v) for k_, v in x.items()}
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*[_f64(v) for v in x])
+    if isinstance(x, (list, tuple)):
+        return type(x)(_f64(v) for v in x)
+    return x
+
+
+EXT_CASES = {
+    "K4-S29": dict(kernel="inside_ext"),
+    "K4-S29-pin": dict(kernel="inside_ext", pinned=True),
+    "K4-S1": dict(kernel="inside_ext", null=True),
+    "K4-S1-pin": dict(kernel="inside_ext", null=True, pinned=True),
+    "K12-S29": dict(kernel="inside_ext_max"),
+    "K12-S29-pin": dict(kernel="inside_ext_max", pinned=True),
+    "K12-S1": dict(kernel="inside_ext_max", null=True),
+    "K12-S1-pin": dict(kernel="inside_ext_max", null=True, pinned=True),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("case", sorted(EXT_CASES))
+def test_ext_kernels_match_plain(case, dtype):
+    """K4 (ext_stage) and K12 (max_ext_stage) on every third column
+    against their plain versions on the same tables, at S=29 and at the
+    masks' S=1, with a pin per read (start class; the last read unpinned)
+    and without: K4 within 1e-9 (f64) and 1e-4 (f32, against the plain
+    version at f64 on the same inputs) relative, K12 within 1e-12 (f64)
+    and 1e-4 (f32) absolute, -inf placement identical; a second run gives
+    the same bits; one launch per column."""
+    _need_cuda()
+    kw = EXT_CASES[case]
+    null, pinned = kw.get("null", False), kw.get("pinned", False)
+    cfg = J.ModelConfig(pattern="(.....)", Lp=60, max_span=50, max_iloop=30,
+                        min_bpp=0.0, tau=0.1, dtype=dtype)
+    n = 33
+    dp, d, c, h, fs, _ = _ep_inputs(cfg, _ep_reads(cfg, n, 29), null)
+    if pinned:
+        pos = np.random.RandomState(3).randint(0, 40, n).astype(np.int32)
+        pos[-1] = -1
+        c = c._replace(pin=DP.Pin(torch.as_tensor(pos, device="cuda"),
+                                  DP.CLS_START))
+    st = dp.st
+    assert st.dims.S == (1 if null else 29)
+    f32 = dtype == "float32"
+    if kw["kernel"] == "inside_ext":
+        h = DP.hoisted(d, c, st)
+        state = dp.run_inside(d, c, h)
+        kern = lambda s_, j: K.ext_stage(s_, j, d, c, h, st)
+        plain = lambda s_, j: DP.ext_stage_plain(s_, j, d, c, h, st)
+        rel, tol = True, (1e-4 if f32 else 1e-9)
+    else:
+        mdp = DMB.MaxDP(dp)
+        state = mdp.tables(d, c)
+        kern = lambda s_, j: K.max_ext_stage(s_, j, d, c, mdp.mst)
+        plain = lambda s_, j: DMB.ext_stage_plain(s_, j, d, c, mdp.mst)
+        rel, tol = False, (1e-4 if f32 else 1e-12)
+    ks, ps = DP.clone_state(state), DP.clone_state(state)
+    if rel and f32:
+        # the plain sum's f32 exp space flushes cells far below its
+        # column's maxima: K4 at f32 is held to the plain version at f64
+        # on the same inputs
+        st64 = J.kernels(dataclasses.replace(cfg, dtype="float64"),
+                         "cuda")
+        st64 = (st64.dp_null if null else st64.dp).st
+        ps, d64, c64, h64 = (_f64(x) for x in (ps, d, c, h))
+        plain = lambda s_, j: DP.ext_stage_plain(s_, j, d64, c64, h64, st64)
+    seen = 0
+    for j in range(1, cfg.Lp + 1, 3):
+        r = j + st.PAD
+        K.reset_counts()
+        kern(ks, j)
+        first = ks["O"][r].clone()
+        kern(ks, j)
+        assert K.KERNELS[kw["kernel"]].launches == 2
+        assert torch.equal(first, ks["O"][r]), j
+        plain(ps, j)
+        a, b = ks["O"][r].to(ps["O"].dtype), ps["O"][r]
+        fin = torch.isfinite(b)
+        assert torch.equal(torch.isfinite(a), fin), j
+        if fin.any():
+            seen += 1
+            err = (a[fin] - b[fin]).abs()
+            if rel:
+                err = err / b[fin].abs().clamp(min=1.0)
+            assert float(err.max()) <= tol, (j, float(err.max()))
+    assert seen >= 5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("null", [False, True])
+def test_ext_kernel_does_not_depend_on_the_batch(null):
+    """A read's K4 column has the same bits alone (one read per block) and
+    inside a batch of 128 (8 reads per block at S=29; one at S=1, where
+    128 blocks fill the card), f32, on the same tables."""
+    _need_cuda()
+    cfg = J.ModelConfig(pattern="(.....)", Lp=60, max_span=50, max_iloop=30,
+                        min_bpp=0.0, tau=0.1, dtype="float32")
+    reads = _ep_reads(cfg, 128, 31)
+    dp, d, c, h, fs, _ = _ep_inputs(cfg, reads, null)
+    st = dp.st
+    for i in (0, 77, 127):
+        d1, c1, h1, f1, _ = _ep_inputs(cfg, [reads[i]], null)[1:]
+        s1 = {k_: v[..., i:i + 1].contiguous() for k_, v in fs.items()
+              if not k_.startswith("_")}
+        sb = DP.clone_state(fs)
+        for j in (1, 30, cfg.Lp):
+            K.ext_stage(sb, j, d, c, h, st)
+            K.ext_stage(s1, j, d1, c1, h1, st)
+            r = j + st.PAD
+            assert torch.equal(sb["O"][r][..., i:i + 1], s1["O"][r]), (i, j)
+
+
 @pytest.mark.gpu
 def test_pin_set_parts_and_class_sums_match_plain():
     """The sum DP (K2/K4 forward, K5/K7 class sums) under CYK's pin set
