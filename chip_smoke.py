@@ -4,9 +4,10 @@
 Phases:
   1. the card's name and power limit; build the hand-written kernels
      (csrc/*.cu, nvcc for sm_90a) and time the build; K3's, K6's and
-     K11's shared memory as ops/kernels.ep_smem_bytes sizes it (the launch
-     checks) against the kernels' own layouts, and the M chain's (K2's
-     band_m, K5's m_adj) as band_smem_bytes sizes it;
+     K11's layouts as ops/kernels.ep_smem_bytes and the device plan
+     (ep_plan) size them (the launch plans) against the kernels' own
+     layouts and workspace stride, and the M chain's (K2's band_m, K5's
+     m_adj) as band_smem_bytes sizes it for every group and ring;
   2. hold every kernel against its plain PyTorch version on the card:
      K1 score tables (ints/bools equal, floats within 1e-6 relative), the
      column stages of K2-K4 one by one (f64 at B=16 within 1e-9 relative,
@@ -57,8 +58,10 @@ Phases:
      model over the 76 tRNAs (fn within 2e-3 of 0.13662, fn + L2 within
      2e-3 of 1.713098, f32) and `cli train --no-shuffle` on the first 8
      tRNAs (f64) within 0.05 of the reference binary's model;
- 10. one JSON line per kernel (K1-K13), the card line, and the result
-     line;
+ 10. one JSON line per kernel (K1-K13) and per variant of a launch plan
+     that phase 14's paths ran (K6's and K11's device variants, K3's,
+     the M chain in groups of 4 reads at f32), the card line, and the
+     result line;
  2b. (after phase 2) the scanner's row K: every forward stage and every
      adjoint stage, and the class sums of the column and of the whole
      outside pass, with a random pin per read and with aux = 0 (the class
@@ -106,7 +109,24 @@ Phases:
      cuda:1 from device 0, only with two cards (else reported as
      skipped); then ArrayEvaluator with 2 local array-eval slaves on the
      card (f64, the 76 tRNAs) within 1e-9 of eval_file; one JSON line for
-     row N before the kernels line.
+     row N before the kernels line;
+ 14. the wide grammars, whose blocks outgrow shared memory or a block's
+     threads (ops/kernels.ep_plan, band_plan): fn+grad per read of 12
+     dots (S=105) at -c 30 f64, `.....*.....` at -c 40 f64, 16 dots
+     (S=171) at -c 40 f64 (K3, K6 in their device variants) and 14 dots
+     (S=136) at -c 30 f32 (K6 device, the M chain in groups of 4), each
+     run with the launch counts set to 0 before it (every kernel of the
+     path launched, in its plan's variant), two runs bitwise equal,
+     against the f64 plain version (f64 within 1e-9 per read; f32 each
+     read within 1e-2, the sums within 1e-3), every stage at one column
+     against its plain version (1e-9 / 1e-4); the CYK tables of 12 dots
+     (K11's device variant) bitwise equal to the plain max DP and K13's
+     paths to the host traceback; at `.....*.....` -c 30 (both fit) K3,
+     K6 and K11 in the device variant bitwise equal to the shared one,
+     and the M chain (K2, K5 pinned with the class probe, K10) bitwise
+     equal across every group of reads and the small ring; each
+     variant's device ms per column beside the shared variant's, its
+     bound and the plain version's ms.
 
 Run from the repository root:  python3 chip_smoke.py
 Exits non-zero and prints no result without CUDA or without the package.
@@ -190,8 +210,8 @@ def kernel_functions():
     for name, kern in K.KERNELS.items():
         with open(os.path.join(HERE, kern.source)) as f:
             out[name] = set(re.findall(
-                r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?"
-                r"(\w+)", f.read()))
+                r"__global__\s+void\s+(?:__launch_bounds__\((?:[^()]|"
+                r"\([^()]*\))*\)\s+)?(\w+)", f.read()))
     return out
 
 
@@ -253,25 +273,36 @@ def device_ms_by_function(fn, reps, functions):
 
 
 def check_ep_smem():
-    """K3's, K6's and K11's dynamic shared memory as
-    ops/kernels.ep_smem_bytes sizes it (the launch checks) against the size the kernels' own layout
-    takes (csrc/ep_col.cuh), over the grammars' range of S = n_ar, Cp
-    and Wp (which must not enter) and both types.  Returns the number of
-    cases."""
+    """K3's, K6's and K11's layout bytes as ops/kernels.ep_smem_bytes sizes
+    them (the launch plans) against the size the kernels' own layout takes
+    (csrc/ep_col.cuh), and the device variant's block bytes (ep_plan)
+    against the kernels' workspace stride, over the grammars' range of S
+    = n_ar (to 300), Cp (to 43) and Wp (which must not enter) and both
+    types; the plan takes the shared variant exactly where the layout
+    fits a block.  Returns the number of cases."""
     n = 0
-    for S in (1, 15, 29, 47, 91):
-        for Cp, Wp in ((30, 50), (30, 400), (12, 24), (4, 20), (43, 60)):
+    for S in (1, 15, 29, 47, 91, 105, 136, 171, 300):
+        for Cp, Wp in ((30, 50), (30, 400), (12, 24), (4, 20), (40, 50),
+                       (43, 60)):
             for dt, it in ((torch.float32, 4), (torch.float64, 8)):
                 D = K.DPDims(100, Wp, Cp, S, 8, Wp + 1, 1, 1, S, 1, 1, 1,
                              0, 0, 0)
                 for which, name in ((0, "inside_ep"), (1, "outside_ep"),
                                     (2, "inside_ep_max")):
                     c_ = int(K.lib().rnaelem_ep_smem_bytes(which, D, it))
+                    ws = int(K.lib().rnaelem_ep_ws_bytes(which, D, it))
                     py = K.ep_smem_bytes(name, S, S, Cp, dt)
-                    if c_ != py:
-                        fail("%s shared memory: the kernel's layout takes %d "
-                             "bytes, ep_smem_bytes says %d (S=%d, Cp=%d, "
-                             "Wp=%d, %s)" % (name, c_, py, S, Cp, Wp, dt))
+                    dev_ = K.ep_plan(name, S, S, Cp, dt, variant="device")
+                    plan = K.ep_plan(name, S, S, Cp, dt)
+                    if c_ != py or ws != dev_.block_bytes or \
+                            (plan.variant == "shared") != (
+                                c_ <= K.SMEM_LIMIT):
+                        fail("%s layout: the kernel's takes %d bytes (a "
+                             "workspace slice %d), ep_smem_bytes says %d, "
+                             "the device plan %d, the plan %s (S=%d, Cp=%d, "
+                             "Wp=%d, %s)" % (name, c_, ws, py,
+                                             dev_.block_bytes, plan, S, Cp,
+                                             Wp, dt))
                     n += 1
     return n
 
@@ -279,19 +310,28 @@ def check_ep_smem():
 def check_band_smem():
     """The M chain's dynamic shared memory (K2's band_m, K5's m_adj) as
     ops/kernels.band_smem_bytes sizes it against csrc/mchain.cuh's own
-    layout, over the grammars' range of S and both types.  Returns the
-    number of cases."""
+    layout, over the grammars' range of S (to 1024), both types and every
+    (reads per block, ring) pair a plan may pick; the plan's block fits.
+    Returns the number of cases."""
     n = 0
-    for S in (1, 15, 29, 47, 78, 91, 153):
+    for S in (1, 15, 29, 47, 78, 91, 136, 153, 171, 300, 691, 1024):
         for dt, it in ((torch.float32, 4), (torch.float64, 8)):
+            shapes = [(g, 4) for g in (8, 4, 2, 1) if g * it <= 32]
             for which, name in ((0, "inside_band"), (1, "outside_band")):
-                c_ = int(K.lib().rnaelem_band_smem_bytes(which, S, it))
-                py = K.band_smem_bytes(name, S, dt)
-                if c_ != py:
-                    fail("%s M-chain shared memory: the kernel's layout takes "
-                         "%d bytes, band_smem_bytes says %d (S=%d, %s)"
-                         % (name, c_, py, S, dt))
-                n += 1
+                for G, R in shapes + [(1, 2)]:
+                    c_ = int(K.lib().rnaelem_band_smem_bytes(which, S, G, R,
+                                                             it))
+                    py = K.band_smem_bytes(name, S, dt, G, R)
+                    if c_ != py:
+                        fail("%s M-chain shared memory: the kernel's layout "
+                             "takes %d bytes, band_smem_bytes says %d (S=%d, "
+                             "G=%d, R=%d, %s)" % (name, c_, py, S, G, R, dt))
+                    n += 1
+                plan = K.band_plan(name, S, dt)
+                if plan.threads > K.MAX_THREADS or \
+                        plan.smem > K.SMEM_LIMIT or plan.threads < S * plan.G:
+                    fail("%s: the plan %s does not fit a block" % (name,
+                                                                   plan))
     return n
 
 
@@ -381,10 +421,9 @@ def ep_column_ms(cfg, reads, params, dev, funcs, j0):
     return out
 
 
-def ext_column_ms(cfg, reads, params, dev, funcs, j0, null=False):
-    """Device ms of K4 (inside_ext) at column j0 for ``reads`` on the
-    kernel forward's tables of the grammar's DP, or with ``null`` of the
-    masks' S=1 DP."""
+def ext_inputs(cfg, reads, params, dev, null):
+    """(DP, d, c, hoisted terms, the kernel forward's tables) of ``reads``
+    for the grammar's DP, or with ``null`` the masks' S=1 DP."""
     sd = J.stack_seqdata([J.make_seqdata(cfg, s_, q_) for s_, q_ in reads],
                          dev)
     k = J.kernels(cfg, dev)
@@ -396,11 +435,33 @@ def ext_column_ms(cfg, reads, params, dev, funcs, j0, null=False):
         dp = k.dp
         bp, _ = J.effective_bp_mask_batch(cfg, sd, device=dev)
         d, c = J.batch_factors(cfg, params, sd, bp, device=dev)
+    h = DP.hoisted(d, c, dp.st)
+    return dp, d, c, h, dp.run_inside(d, c, h)
+
+
+def ext_column_ms(cfg, reads, params, dev, funcs, j0, null=False):
+    """Device ms of K4 (inside_ext) at column j0 for ``reads`` on the
+    kernel forward's tables of the grammar's DP, or with ``null`` of the
+    masks' S=1 DP."""
+    dp, d, c, h, fs = ext_inputs(cfg, reads, params, dev, null)
     st = dp.st
-    h = DP.hoisted(d, c, st)
-    ks = DP.clone_state(dp.run_inside(d, c, h))
+    ks = DP.clone_state(fs)
     return device_ms(lambda: DP.ext_stage(ks, j0, d, c, h, st), REPS // 4,
                      funcs["inside_ext"])
+
+
+def ext_adj_column_ms(cfg, reads, params, dev, funcs, j0, null=False):
+    """Device ms of K7 (outside_ext) at column j0, as ext_column_ms takes
+    K4's, the outside pass run through the later columns first."""
+    dp, d, c, h, fs = ext_inputs(cfg, reads, params, dev, null)
+    st = dp.st
+    gs = DP.init_grads(fs, d, c, h)
+    DP.seed_parts(gs, torch.ones((len(reads), 3), dtype=st.dtype,
+                                 device=dev), c, st)
+    dp.outside_columns(fs, gs, d, c, h, cfg.Lp + 1, j0 + 1)
+    kg = DP.clone_state(gs)
+    return device_ms(lambda: DP.ext_adj(fs, kg, j0, d, c, h, st),
+                     REPS // 4, funcs["outside_ext"])
 
 
 def trna_reads(tmp):
@@ -2007,6 +2068,357 @@ def scan_chunk_bound(cfg, params, sd, dev, itemsize):
     by += 4 * B + 2 * 4 * cfg.Lp * B * itemsize
     return _ms(by, ops)
 
+# ------------------------------------------------------------ wide grammars
+
+# The shapes whose blocks outgrow shared memory or a block's threads
+# (ops/kernels.ep_plan, band_plan): (pattern, -c, type, reads, their
+# length range, Lp, column of the per-stage checks and times)
+WIDE = (("." * 12, 30, "float64", 6, 60, 80, 80, J0),
+        (".....*.....", 40, "float64", 6, 60, 80, 80, J0),
+        ("." * 14, 30, "float32", 6, 60, 80, 80, J0),
+        ("." * 16, 40, "float64", 3, 40, 60, 60, 55))
+EP_KERNELS = ("inside_ep", "outside_ep", "inside_ep_max")
+WIDE_SAME = ".....*....."   # both variants fit at -c 30: bitwise and times
+
+
+def wide_cfg(pattern, c_, dtype, Lp):
+    return J.ModelConfig(pattern=pattern, Lp=Lp, max_span=50, max_iloop=c_,
+                         min_bpp=MIN_BPP, tau=0.1, dtype=dtype)
+
+
+def plans_of(st):
+    """{kernel: its launch plan} of K3, K6, K11 and the M chains for the
+    grammar, -c and type of ``st``."""
+    S, n_ar, Cp, dt = st.dims.S, st.n_ar, st.dims.Cp, st.dtype
+    out = {kn: K.ep_plan(kn, S, n_ar, Cp, dt) for kn in EP_KERNELS}
+    out.update({kn: K.band_plan(kn, S, dt) for kn in BAND_KERNELS})
+    out["inside_band_max"] = K.band_plan("inside_band", S, dt)
+    return out
+
+
+def wide_case(case, dev, funcs):
+    """One shape of WIDE: fn+grad per read through the kernels (the launch
+    counts set to 0 before it and read after: every kernel of the path
+    launched, in the variants its plans name), a second run bitwise equal,
+    against the plain versions at f64 (f64 within 1e-9 per read; f32
+    each read's gradient within 1e-2 of its max norm, their sums and f
+    within 1e-3 relative); every stage and adjoint stage at column j0
+    against its plain version (1e-9 / 1e-4 relative); K3's, K6's, K2's
+    and K5's device ms per column j0 in their plans' variants, their
+    bounds and plain times."""
+    pattern, c_, dtype, n, lmin, lmax, Lp, j0 = case
+    cfg = wide_cfg(pattern, c_, dtype, Lp)
+    cfg64 = dataclasses.replace(cfg, dtype="float64")
+    reads = make_reads(np.random.RandomState(3), n, lmin, lmax)
+    p, p64 = random_params(cfg, dev), random_params(cfg64, dev)
+    b, b64 = (OBJ.stack_reads(x, reads, device=dev) for x in (cfg, cfg64))
+    dp = J.kernels(cfg, dev).dp
+    st = dp.st
+    plans = plans_of(st)
+    K.reset_counts()
+    fk, gk = full_grads(cfg, p, b, dev, plain=False)
+    torch.cuda.synchronize()
+    launches = {kn: K.KERNELS[kn].launches for kn in DP_KERNELS}
+    variants = {kn: dict(K.KERNELS[kn].variants) for kn in DP_KERNELS
+                if K.KERNELS[kn].variants}
+    for kn in DP_KERNELS:
+        if launches[kn] <= 0:
+            fail("wide %s -c %d %s: kernel %s was not launched"
+                 % (pattern, c_, dtype, kn))
+    for kn in EP_KERNELS[:2] + BAND_KERNELS:
+        if variants.get(kn, {}).get(plans[kn].name, 0) <= 0:
+            fail("wide %s: %s did not run its plan's variant %s (%s)"
+                 % (pattern, kn, plans[kn].name, variants.get(kn)))
+    fk2, gk2 = full_grads(cfg, p, b, dev, plain=False)
+    if not torch.equal(fk, fk2) or not all(
+            torch.equal(x, y) for x, y in zip(gk, gk2)):
+        fail("wide %s: two kernel runs differ" % pattern)
+    fp, gp = full_grads(cfg64, p64, b64, dev, plain=True)
+    axes = (0, 0, 0, -1)
+    errs = {nm: worst_read(a, c__, ax)
+            for nm, a, c__, ax in zip(GRAD_NAMES, gk, gp, axes)}
+    errs["f"] = rel_err(fk, fp)
+    if dtype == "float64":
+        bar = {k_: 1e-9 for k_ in errs}
+    else:
+        bar = {k_: 1e-2 for k_ in errs}
+        bar["f"] = 1e-3
+        sums = {nm: rel_err(a.sum(0), c__.sum(0))
+                for nm, a, c__ in zip(GRAD_NAMES[:3], gk, gp)}
+        errs.update({"sum " + k_: v for k_, v in sums.items()})
+        bar.update({"sum " + k_: 1e-3 for k_ in sums})
+    for k_, e in errs.items():
+        if not e <= bar[k_]:
+            fail("wide %s -c %d %s fn+grad: %s error %.3g beyond %.0e"
+                 % (pattern, c_, dtype, k_, e, bar[k_]))
+    rel = 1e-9 if dtype == "float64" else 1e-4
+    _, d, c = batch_factors_for(cfg, reads, dev, p)
+    stage_err = check_stages(dp, d, c, j0, rel, dtype == "float32")
+    stage_err.update(check_adj_stages(dp, d, c, j0, rel))
+    # device ms per column j0 in the plans' variants, beside bounds
+    itemsize = torch.finfo(st.dtype).bits // 8
+    bnd = bounds(cfg, st, c, J.kernels(cfg, dev).tab, j0, n, itemsize)
+    ms = {kn: v[0] for kn, v in {
+        **ep_column_ms(cfg, reads, p, dev, funcs, j0),
+        **band_column_ms(cfg, reads, p, dev, funcs, j0)}.items()}
+    plain_ms = wide_plain_ms(dp, d, c, j0)
+    rec = dict(pattern=pattern, S=st.dims.S, n_ar=st.n_ar, c=c_,
+               dtype=dtype, reads=n, Lp=Lp, column=j0,
+               plans={kn: pl.name for kn, pl in plans.items()},
+               launches=launches, variants=variants,
+               err={k_: float(v) for k_, v in errs.items()},
+               stage_err=stage_err, ms=ms, plain_ms=plain_ms,
+               bound={kn: bnd[kn] for kn in ms})
+    print("wide grammar %s (S=%d, n_ar=%d) -c %d %s, %d reads x %d-%d nt: "
+          "plans %s; fn+grad per read vs the plain version (f64) %s; stages "
+          "at column %d %s; launches %s, by variant %s; device ms per column "
+          "%d %s, plain %s, bounds %s" % (
+              pattern, st.dims.S, st.n_ar, c_, dtype, n, lmin, lmax,
+              json.dumps(rec["plans"]), json.dumps(rec["err"]), j0,
+              json.dumps(stage_err), json.dumps(launches),
+              json.dumps(variants), j0, json.dumps(ms),
+              json.dumps(plain_ms), json.dumps(rec["bound"])), flush=True)
+    return rec, cfg, reads, p
+
+
+def wide_plain_ms(dp, d, c, j0):
+    """The plain versions' ms (CUDA events) of K2-K7's stages at column
+    j0, per kernel, on the kernel forward's tables."""
+    st = dp.st
+    h = DP.hoisted(d, c, st)
+    fs = dp.run_inside(d, c, h)
+    out = {}
+    for kn, names in (("inside_band", ("band_front", "band_bif", "band_m",
+                                       "band_e")),
+                      ("inside_ep", ("ep_stage",)),
+                      ("inside_ext", ("ext_stage",))):
+        ps = DP.clone_state(fs)
+        pf = [getattr(DP, nm + "_plain") for nm in names]
+        out[kn] = cuda_ms(lambda: [f(ps, j0, d, c, h, st) for f in pf], 3)
+    gs = DP.init_grads(fs, d, c, h)
+    DP.seed_parts(gs, torch.ones((c.wsp.shape[-1], 3), dtype=st.dtype,
+                                 device=fs["O"].device), c, st)
+    dp.outside_columns(fs, gs, d, c, h, dp.dims.Lp + 1, j0 + 1)
+    for kn, names in (("outside_band", ("e_adj", "band_adj")),
+                      ("outside_ep", ("ep_adj",)),
+                      ("outside_ext", ("ext_adj",))):
+        pg = DP.clone_state(gs)
+        pf = [getattr(DP, nm + "_plain") for nm in names]
+        out[kn] = cuda_ms(lambda: [f(fs, pg, j0, d, c, h, st) for f in pf],
+                          3)
+    return out
+
+
+def wide_cyk(cfg, reads, p, dev, funcs):
+    """The CYK tables of a wide grammar (f64: K11 in its device variant)
+    under the scanner's pin set (the path: the launch counts set to 0
+    before the tables and read after), two runs and the plain max DP
+    bitwise equal, K13's paths identical to the host traceback; K11's
+    device ms per column J0, its bound and the plain stage's ms."""
+    scfg, d, c = cyk_factors(cfg, p, reads, dev, True)
+    mdp = DMB.MaxDP(J.kernels(scfg, dev).dp)
+    st = mdp.st
+    plan = K.ep_plan("inside_ep_max", st.dims.S, st.n_ar, st.dims.Cp,
+                     st.dtype)
+    K.reset_counts()
+    tabs = mdp.tables(d, c)
+    torch.cuda.synchronize()
+    launches = {kn: K.KERNELS[kn].launches for kn in CYK_KERNELS[:3]}
+    n_var = K.KERNELS["inside_ep_max"].variants.get(plan.name, 0)
+    if min(launches.values()) <= 0 or n_var <= 0:
+        fail("wide CYK: launches %s, K11's %s variant %d" % (
+            launches, plan.name, n_var))
+    again = mdp.tables(d, c)
+    plain = mdp.tables(d, c, plain=True)
+    e = {}
+    for key, kn in MAX_TABLE_KERNEL.items():
+        if not torch.equal(tabs[key], again[key]):
+            fail("wide CYK tables: two kernel runs differ in %s" % key)
+        e[kn] = max(e.get(kn, 0.0), max_compare(
+            "wide CYK table %s" % key, tabs[key], plain[key], 0.0))
+    del again, plain
+    n_tb = check_traceback(scfg, d, c, tabs, dev, "wide %s" % cfg.pattern)
+    ks = DP.clone_state(tabs)
+    ms = device_ms(lambda: DMB.max_ep_stage(ks, J0, d, c, mdp.mst),
+                   REPS // 4, funcs["inside_ep_max"])
+    ps = DP.clone_state(tabs)
+    plain = cuda_ms(lambda: DMB.PLAIN_STAGES[DMB.STAGES.index(
+        DMB.max_ep_stage)](ps, J0, d, c, mdp.mst), 3)
+    bnd = max_bounds(scfg, st, c, J0, {"cells": 0, "cands": 0},
+                     torch.finfo(st.dtype).bits // 8)["inside_ep_max"]
+    print("wide grammar %s CYK tables (f64, K11 %s variant) vs the plain "
+          "max DP: max abs err %s (bitwise), K13 paths of %d reads "
+          "identical to the host traceback; K11 %.4f ms per column %d "
+          "(plain %.3f, bound %.5f by %s)" % (
+              cfg.pattern, plan.variant, json.dumps(e), n_tb, ms, J0,
+              plain, bnd[0], bnd[1]), flush=True)
+    return dict(err=e["inside_ep_max"], ms=ms, plain_ms=plain, bound=bnd,
+                variant=plan.variant, launches=n_var)
+
+
+def same_shape_variants(dev, funcs):
+    """Where both fit (`.....*.....`, -c 30, f64 and f32, 8 reads): K3,
+    K6 and K11 in the shared and the device variant (ep_plan's keyword)
+    bitwise equal, each variant's device ms per column J0; the M chain
+    (K2's band_m, K5's band_adj pinned with the class probe, K10's
+    band_m_max) bitwise equal across every group of reads the type takes
+    and the small ring, K2's and K5's ms per column J0 for each."""
+    out = {}
+    reads = make_reads(np.random.RandomState(4), 8, 70, LP)
+    for dtype in ("float64", "float32"):
+        cfg = wide_cfg(WIDE_SAME, 30, dtype, LP)
+        p = random_params(cfg, dev)
+        dp = J.kernels(cfg, dev).dp
+        st = dp.st
+        S, r = st.dims.S, J0 + st.PAD
+        _, d, c = batch_factors_for(cfg, reads, dev, p)
+        h = DP.hoisted(d, c, st)
+        fs = dp.run_inside(d, c, h)
+        gs = DP.init_grads(fs, d, c, h)
+        DP.seed_parts(gs, torch.ones((len(reads), 3), dtype=st.dtype,
+                                     device=dev), c, st)
+        dp.outside_columns(fs, gs, d, c, h, cfg.Lp + 1, J0 + 1)
+        mdp = DMB.MaxDP(dp)
+        tabs = mdp.tables(d, c)
+        rec = {}
+        got = {}
+        for v in ("shared", "device"):
+            pl = {kn: K.ep_plan(kn, S, st.n_ar, st.dims.Cp, st.dtype,
+                                variant=v) for kn in EP_KERNELS}
+            a, g_, m = (DP.clone_state(x) for x in (fs, gs, tabs))
+            K.ep_stage(a, J0, d, c, h, st, plan=pl["inside_ep"])
+            K.ep_adj(fs, g_, J0, d, c, h, st, plan=pl["outside_ep"])
+            K.max_ep_stage(m, J0, d, c, mdp.mst, plan=pl["inside_ep_max"])
+            got[v] = [x.clone() for x in [a["ep"][r], a["ep_shift"],
+                                          m["ep"][r]] + [
+                g_[k_] for k_ in sorted(g_) if not k_.startswith("_")]]
+            rec[v] = {
+                "inside_ep": device_ms(lambda: K.ep_stage(
+                    a, J0, d, c, h, st, plan=pl["inside_ep"]), REPS // 4,
+                    funcs["inside_ep"]),
+                "outside_ep": device_ms(lambda: K.ep_adj(
+                    fs, g_, J0, d, c, h, st, plan=pl["outside_ep"]),
+                    REPS // 4, funcs["outside_ep"]),
+                "inside_ep_max": device_ms(lambda: K.max_ep_stage(
+                    m, J0, d, c, mdp.mst, plan=pl["inside_ep_max"]),
+                    REPS // 4, funcs["inside_ep_max"])}
+        for i, (x, y) in enumerate(zip(got["shared"], got["device"])):
+            if not torch.equal(x, y):
+                fail("%s %s: the device variant differs from the shared "
+                     "one (output %d)" % (WIDE_SAME, dtype, i))
+        # the M chain across groups of reads, pinned with the class probe
+        dq, cq, hq, fq, gbq = scan_factors_pinned(cfg, reads, p, dev)
+        gq = DP.init_grads(fq, dq, cq, hq)
+        DP.seed_parts(gq, gbq, cq, st)
+        dp.outside_columns(fq, gq, dq, cq, hq, cfg.Lp + 1, J0 + 1)
+        K.e_adj(fq, gq, J0, dq, cq, hq, st)
+        it = torch.finfo(st.dtype).bits // 8
+        shapes = [(g, 4) for g in (8, 4, 2, 1) if g * it <= 32] + [(1, 2)]
+        ref, mrec = None, {}
+        for G, R in shapes:
+            bp = {kn: K.band_plan(kn, S, st.dtype, G=G, R=R)
+                  for kn in BAND_KERNELS}
+            a, g_, m = (DP.clone_state(x) for x in (fq, gq, tabs))
+            K.band_m(a, J0, dq, cq, hq, st, plan=bp["inside_band"])
+            K.band_adj(fq, g_, J0, dq, cq, hq, st, plan=bp["outside_band"])
+            K.max_band_m(m, J0, d, c, mdp.mst, plan=bp["inside_band"])
+            cur = [x.clone() for x in [a["M"][r], m["M"][r]] + [
+                g_[k_] for k_ in sorted(g_) if not k_.startswith("_")]]
+            if ref is None:
+                ref = cur
+            elif not all(torch.equal(x, y) for x, y in zip(ref, cur)):
+                fail("%s %s: the M chain in groups of %d reads (ring %d) "
+                     "differs from groups of %d" % (WIDE_SAME, dtype, G, R,
+                                                    shapes[0][0]))
+            mrec[bp["inside_band"].name] = {
+                "band_m": device_ms(lambda: K.band_m(
+                    a, J0, dq, cq, hq, st, plan=bp["inside_band"]),
+                    REPS // 4, funcs["inside_band"]),
+                "m_adj": device_ms(lambda: K.m_adj_stage(
+                    fq, g_, J0, dq, cq, hq, st, plan=bp["outside_band"]),
+                    REPS // 4, funcs["outside_band"])}
+        rec["m_chain"] = mrec
+        out[dtype] = rec
+        print("%s -c 30 %s, 8 reads x 70-%d nt, column %d: K3, K6, K11 in "
+              "the device variant bitwise equal to the shared one; device "
+              "ms per column %s; the M chain (K2 band_m, K5 pinned with the "
+              "class probe, K10) bitwise equal across (reads per block, "
+              "ring) %s, ms %s" % (
+                  WIDE_SAME, dtype, LP, J0,
+                  json.dumps({v: rec[v] for v in ("shared", "device")}),
+                  [list(x) for x in shapes], json.dumps(mrec)), flush=True)
+        del fs, gs, tabs, fq, gq
+        torch.cuda.empty_cache()
+    return out
+
+
+def scan_factors_pinned(cfg, reads, p, dev):
+    """(d, c, h, the kernel forward's tables, a parts cotangent) of
+    ``reads`` under a random pin per read with the class probe."""
+    batch = OBJ.stack_reads(cfg, reads, device=dev)
+    d, c = scan_factors(cfg, batch, p, dev, True)
+    dp = J.kernels(cfg, dev).dp
+    h = DP.hoisted(d, c, dp.st)
+    fs = dp.run_inside(d, c, h)
+    gbar = torch.ones((len(reads), 3), dtype=dp.st.dtype, device=dev)
+    gbar = torch.where(torch.isfinite(dp.extract_parts(fs["O"], c)), gbar,
+                       0.0)
+    return d, c, h, fs, gbar
+
+
+def wide_phase(dev):
+    """P4 on the card: WIDE's fn+grad paths, the CYK tables of the first
+    (f64), the variants at a shape where both fit.  Returns the kernel
+    rows of the variants the paths ran."""
+    funcs = kernel_functions()
+    recs, rows = [], []
+    cyk = None
+    for case in WIDE:
+        rec, cfg, reads, p = wide_case(case, dev, funcs)
+        recs.append(rec)
+        if cyk is None:
+            cyk = wide_cyk(cfg, reads, p, dev, funcs)
+        torch.cuda.empty_cache()
+    same = same_shape_variants(dev, funcs)
+    # one row per variant a path ran that the main path does not (the
+    # device variants; the M chain in groups other than 32 bytes' worth of
+    # reads), its times and bound at the first shape that ran it
+    launched, first = {}, {}
+    for rec in recs:
+        main_g = "G=%d,R=4" % (32 // (8 if rec["dtype"] == "float64"
+                                      else 4))
+        for kn, per in rec["variants"].items():
+            for v, n_ in per.items():
+                if v in ("shared", main_g):
+                    continue
+                launched[(kn, v)] = launched.get((kn, v), 0) + n_
+                first.setdefault((kn, v), rec)
+    for (kn, v), n_ in sorted(launched.items()):
+        rec, kern = first[(kn, v)], K.KERNELS[kn]
+        rows.append({
+            "name": "%s [%s]" % (kn, v), "route": "cuda",
+            "source": kern.source, "replaces": kern.replaces,
+            "launches": n_, "max_abs_err": rec["stage_err"].get(kn, 0.0),
+            "ms": rec["ms"][kn], "plain_ms": rec["plain_ms"][kn],
+            "bound_ms": rec["bound"][kn][0],
+            "bound_by": rec["bound"][kn][1], "library_ms": None,
+            "unit": "column %d, %s -c %d %s, %d reads" % (
+                rec["column"], rec["pattern"], rec["c"], rec["dtype"],
+                rec["reads"])})
+    if cyk["variant"] == "device":
+        kern = K.KERNELS["inside_ep_max"]
+        rows.append({
+            "name": "inside_ep_max [device]", "route": "cuda",
+            "source": kern.source, "replaces": kern.replaces,
+            "launches": cyk["launches"], "max_abs_err": cyk["err"],
+            "ms": cyk["ms"],
+            "plain_ms": cyk["plain_ms"], "bound_ms": cyk["bound"][0],
+            "bound_by": cyk["bound"][1], "library_ms": None,
+            "unit": "column %d of the CYK tables, %s f64" % (
+                J0, WIDE[0][0])})
+    return dict(cases=recs, cyk=cyk, same=same), rows
+
+
 # ------------------------------------------------------------ rows C, D
 
 def glue_profile(fn, reps, exclude):
@@ -2475,16 +2887,30 @@ EXT_VARIANTS = {
 }
 
 
+# K7's launch constants (csrc/outside_ext.cu), one change each, and a
+# probe: the state's lists read from device memory at each use (not
+# staged in shared memory), the parent's dependent index loads
+ADJ_VARIANTS = {
+    "shipped": (),
+    "2 list entries per load batch": (
+        ("outside_ext.cu", "kAdjOps = 1", "kAdjOps = 2"),),
+    "no register bound at f32": (
+        ("outside_ext.cu", "kAdjMinBlocks = 4", "kAdjMinBlocks = 1"),),
+    "16 bytes of reads per block at most": (
+        ("outside_ext.cu", "kAdjGroupBytes = 32", "kAdjGroupBytes = 16"),),
+    "64 width slices, 16 bytes of reads": (
+        ("outside_ext.cu", "kAdjSlices = 32", "kAdjSlices = 64"),
+        ("outside_ext.cu", "kAdjGroupBytes = 32", "kAdjGroupBytes = 16")),
+    "lists not staged": (
+        ("outside_ext.cu",
+         "  for (int i = threadIdx.x; i < ro.stride; i += blockDim.x)\n"
+         "    li[i] = lx.idx[(long long)s * ro.stride + i];",
+         "  li = const_cast<int*>(lx.idx) + (long long)s * ro.stride;"),),
+}
+
+
 BAND_VARIANTS = {
     "shipped": (),
-    "M chain 16 bytes of reads per block (4 f32, 2 f64)": (
-        ("mchain.cuh", "kMGroupBytes = 32", "kMGroupBytes = 16"),),
-    "M chain 64 bytes of reads per block (16 f32, 8 f64)": (
-        ("mchain.cuh", "kMGroupBytes = 32", "kMGroupBytes = 64"),),
-    "M chain ring of 2 stages": (
-        ("mchain.cuh", "kMRing = 4", "kMRing = 2"),),
-    "M chain ring of 8 stages": (
-        ("mchain.cuh", "kMRing = 4", "kMRing = 8"),),
     "band_bif 1 thread per cell": (
         ("inside_band.cu", "kBifHalves = 2", "kBifHalves = 1"),),
     "band_bif 4 threads per cell": (
@@ -2615,11 +3041,7 @@ def ext_variants(dev, variants):
         trna = trna_reads(tmp)
     funcs = kernel_functions()
     _, log = K.build(("-Xptxas", "-v"))
-    sec = log.split("== inside_ext.cu")[-1].split("== ")[0]
-    print("ptxas, inside_ext.cu (shipped):\n" + "\n".join(
-        ln for ln in sec.splitlines() if "Function properties" in ln
-        or "registers" in ln or "spill" in ln or "Compiling entry" in ln),
-        flush=True)
+    print_ptxas(log, "inside_ext.cu")
     for name in patched_builds(variants,
                                os.path.join(HERE, "build", "ext_variants")):
         t0 = time.time()
@@ -2634,6 +3056,51 @@ def ext_variants(dev, variants):
                                ("K12_f64_B12", "float64", trna[64:]),
                                ("K12_f32_B64", "float32", trna[:64])):
             rec[key] = cyk_column_ms(rd, dev, funcs, dtype)["inside_ext_max"]
+        rec["masks_ms"] = cuda_ms(
+            lambda: J.effective_bp_mask_batch(cfg32, sd, dev), 3)
+        print(json.dumps(rec), flush=True)
+    print("card: %s" % card_line(), flush=True)
+
+
+def print_ptxas(log, src):
+    """The registers and spills nvcc -Xptxas -v gave the kernels of one
+    source."""
+    sec = log.split("== " + src)[-1].split("== ")[0]
+    print("ptxas, %s (shipped):\n" % src + "\n".join(
+        ln for ln in sec.splitlines() if "Function properties" in ln
+        or "registers" in ln or "spill" in ln or "Compiling entry" in ln),
+        flush=True)
+
+
+def ext_adj_variants(dev, variants):
+    """K7's device ms per column J0 (f32 B=128: the main path's S=29 and
+    the masks' S=1; f64 B=64, S=29) and the masks' ms per 128-read batch
+    (f32, CUDA events), for the shipped kernel and for ``variants``
+    (ADJ_VARIANTS), each built from a patched copy of csrc under
+    build/adj_variants/; the shipped build's registers and spills of
+    ext_adj_kernel.  One JSON line per variant: the numbers behind the
+    launch constants of outside_ext.cu."""
+    cfg32, cfg64 = cfg_for("float32"), cfg_for("float64")
+    reads = main_reads()
+    p32, p64 = random_params(cfg32, dev), random_params(cfg64, dev)
+    sd = J.stack_seqdata([J.make_seqdata(cfg32, s, q) for s, q in reads],
+                         dev)
+    funcs = kernel_functions()
+    print_ptxas(K.build(("-Xptxas", "-v"))[1], "outside_ext.cu")
+    for name in patched_builds(variants,
+                               os.path.join(HERE, "build", "adj_variants")):
+        t0 = time.time()
+        K.lib()
+        rec = {"variant": name, "build_s": round(time.time() - t0, 1)}
+        sec = K.build(("-Xptxas", "-v"))[1].split("== outside_ext.cu")[-1]
+        rec["ptxas"] = re.findall(r"Used (\d+) registers|(\d+) bytes spill "
+                                  r"stores", sec.split("== ")[0])
+        rec["K7_f32_B128"] = ext_adj_column_ms(cfg32, reads, p32, dev, funcs,
+                                               J0)
+        rec["K7_f32_B128_S1"] = ext_adj_column_ms(cfg32, reads, p32, dev,
+                                                  funcs, J0, null=True)
+        rec["K7_f64_B64"] = ext_adj_column_ms(cfg64, reads[:64], p64, dev,
+                                              funcs, J0)
         rec["masks_ms"] = cuda_ms(
             lambda: J.effective_bp_mask_batch(cfg32, sd, dev), 3)
         print(json.dumps(rec), flush=True)
@@ -2736,20 +3203,28 @@ def main():
                          "ep_variants) and exit")
     ap.add_argument("--band-variants", action="store_true",
                     help="only time K2/K5 and the masks for variants of "
-                         "the M chain's, band_bif's and bif_adj's launch "
-                         "constants (see band_variants) and exit")
+                         "band_bif's and bif_adj's launch constants (see "
+                         "band_variants) and exit")
     ap.add_argument("--ext-variants", action="store_true",
                     help="only time K4/K12 and the masks for variants of "
                          "inside_ext.cu's launch constants, with the "
                          "shipped build's ptxas lines (see ext_variants), "
                          "and exit")
+    ap.add_argument("--ext-adj-variants", action="store_true",
+                    help="only time K7 and the masks for variants of "
+                         "outside_ext.cu's launch constants, with the "
+                         "shipped build's ptxas lines (see "
+                         "ext_adj_variants), and exit")
     ap.add_argument("--ep-probes", action="store_true",
                     help="only time K11 with one piece of its step taken "
                          "out (see ep_probes) and exit")
+    ap.add_argument("--wide", action="store_true",
+                    help="only build, check the launch plans' layouts and "
+                         "run phase 14 (the wide grammars), and exit")
     ap.add_argument("--shipped-only", action="store_true",
-                    help="with --ep-variants, --band-variants or "
-                         "--ext-variants: time the sources as they are, "
-                         "no patched copy")
+                    help="with --ep-variants, --band-variants, "
+                         "--ext-variants or --ext-adj-variants: time the "
+                         "sources as they are, no patched copy")
     # one rank of N2/N3, started by this script itself
     ap.add_argument("--mesh-worker", type=int, default=-1,
                     help=argparse.SUPPRESS)
@@ -2808,6 +3283,9 @@ def main():
     if args.ext_variants:
         ext_variants(DEVICE, pick(EXT_VARIANTS))
         return
+    if args.ext_adj_variants:
+        ext_adj_variants(DEVICE, pick(ADJ_VARIANTS))
+        return
     if args.ep_probes:
         ep_probes(DEVICE)
         return
@@ -2820,16 +3298,23 @@ def main():
     t0 = time.time()
     K.lib()
     print("kernel build: %.1f s" % (time.time() - t0), flush=True)
-    print("K3/K6/K11 shared memory: ep_smem_bytes equals the kernels' layout "
-          "in %d cases" % check_ep_smem(), flush=True)
+    print("K3/K6/K11 layouts: ep_smem_bytes and the device plan's block "
+          "bytes equal the kernels' layout and workspace stride in %d cases"
+          % check_ep_smem(), flush=True)
     print("M chain (K2, K5) shared memory: band_smem_bytes equals the "
-          "kernels' layout in %d cases" % check_band_smem(), flush=True)
+          "kernels' layout in %d cases (S to 1024, every group and ring a "
+          "plan may pick)" % check_band_smem(), flush=True)
     if args.ptxas:
         _, log = K.build(("-Xptxas", "-v"))
         os.makedirs(os.path.dirname(os.path.abspath(args.ptxas)),
                     exist_ok=True)
         with open(args.ptxas, "w") as f:
             f.write(log)
+    if args.wide:
+        _, rows_w = wide_phase(dev)
+        print(json.dumps({"kernels": rows_w}))
+        print("card: %s" % card_line(), flush=True)
+        return
 
     # ---- phase 2: kernels vs plain versions
     small = make_reads(np.random.RandomState(0), *SMALL)
@@ -3052,14 +3537,21 @@ def main():
     warm_s = time.time() - t0
     eval_launches = {n: kk.launches for n, kk in K.KERNELS.items()}
     launches_fg = sum(eval_launches.values()) - sum(mask_launches.values())
-    print("evaluation path launches (masks + fn+grad, B=%d): %s"
-          % (B_MAIN, json.dumps(eval_launches)), flush=True)
+    print("evaluation path launches (masks + fn+grad, B=%d): %s; by the "
+          "variant of the launch plans: %s" % (
+              B_MAIN, json.dumps(eval_launches), json.dumps(
+                  {n: kk.variants for n, kk in K.KERNELS.items()
+                   if kk.variants})), flush=True)
     for n in DP_KERNELS:
         if eval_launches[n] <= 0:
             fail("kernel %s was not launched on the evaluation path" % n)
     K.reset_counts()
     OBJ.batch_fn_grad(cfg32, p32, batch, device=dev)
     per_fg = {n: kk.launches for n, kk in K.KERNELS.items()}
+    print("K7 (outside_ext): %d launches per fn+grad, one per column of %d "
+          "(two per column before its single entry point); %d launches of "
+          "all kernels per fn+grad" % (per_fg["outside_ext"], LP,
+                                        sum(per_fg.values())), flush=True)
     if not np.isfinite(float(fn)):
         fail("main path fn is not finite: %s" % float(fn))
     if any(not bool(torch.isfinite(g).all()) for g in grads):
@@ -3169,6 +3661,14 @@ def main():
         for n in CHAIN_KERNELS:
             if scan_nr[n] <= 0:
                 fail("kernel %s was not launched on the no-rss scan" % n)
+    # ---- phase 14: the wide grammars (the device variants, the M chain's
+    # smaller groups of reads)
+    torch.cuda.empty_cache()
+    t_wide = time.time()
+    wide, wide_rows = wide_phase(dev)
+    print("wide grammars phase: %.1f s; variant rows %s" % (
+        time.time() - t_wide, json.dumps([r["name"] for r in wide_rows])),
+        flush=True)
 
     # ---- phase 10: the kernel table
     # ms (the profiler's device time of the kernel's own functions over
@@ -3238,7 +3738,7 @@ def main():
         "plain_step_ms": n1["plain_step_ms"], "n2": n2, "n3": n3,
         "array": arr}}))
     print(json.dumps({"rows_c_d": glue}))
-    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"kernels": rows + wide_rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -258,6 +258,18 @@ static int device_sms() {
   return sms[dev] > 0 ? sms[dev] : 1;
 }
 
+// reads per block of a kernel whose block holds G reads of one state (the
+// read fastest, so that a row's reads are one sector at G = max_bytes /
+// itemsize): the largest of max_bytes' worth, halved down to 1, that
+// gives the grid (the reads' groups x S blocks) one block per SM
+template <typename T>
+static int read_group(int B, int S, int max_bytes) {
+  const int sms = device_sms();
+  int G = max_bytes / (int)sizeof(T);
+  while (G > 1 && (long long)((B + G - 1) / G) * S < sms) G /= 2;
+  return G;
+}
+
 // raise the dynamic shared memory limit of kernel ``fn`` on the current
 // device once (a table keyed by kernel and device)
 static int allow_smem(const void* fn, long long bytes) {

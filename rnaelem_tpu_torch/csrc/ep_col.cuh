@@ -216,6 +216,31 @@ struct EpMaxLayout {  // stage q's Pm at Pm + q * stage, and so on
   }
 };
 
+// Where a block's layout does not fit in shared memory (a wide grammar or
+// a wide -c: ops/kernels.ep_plan decides on the host, from S, n_ar, Cp
+// and the type), the same kernel body runs with the layout in a slice of
+// a device workspace, one per block, kDev = true: the same arithmetic in
+// the same order on the same addresses' values, so it gives the shared
+// variant's bits; __syncthreads orders a block's device-memory accesses
+// as it orders its shared ones.  Each block's slice starts on a 256-byte
+// boundary.
+__host__ __device__ __forceinline__ long long ep_ws_stride(long long bytes) {
+  return (bytes + 255) / 256 * 256;
+}
+
+// the base of a block's layout: its workspace slice (kDev) or the dynamic
+// shared memory
+template <bool kDev>
+__device__ __forceinline__ unsigned char* ep_base(unsigned char* smem,
+                                                  unsigned char* ws,
+                                                  long long bytes) {
+  if constexpr (kDev)
+    return ws + ((long long)blockIdx.y * gridDim.x + blockIdx.x) *
+                    ep_ws_stride(bytes);
+  else
+    return smem;
+}
+
 // the ring slot of width x + u1 (u1 <= Cp), given xs = x % C1
 __device__ __forceinline__ int ring_slot(int xs, int u1, int C1) {
   const int s = xs + u1;

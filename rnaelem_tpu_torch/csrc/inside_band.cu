@@ -223,20 +223,22 @@ band_bif_kernel(DPDims D, BandIdx ix, T* __restrict__ Bt, T* __restrict__ T1,
 // (motif_model.hpp:346-366): one block per group of G reads, thread
 // (s, g) the cell of state s of read g (csrc/mchain.cuh).  Step w: each
 // thread takes its ring stage (Bt, eL, gate_M, okM of step w, copied
-// kMRing - 1 steps ahead), publishes y = M(w-1)[s] + eL[s] + gate, and
-// after the step's barrier takes the log-sum-exp of Bt and y + TL[s, :]
-// over its left-transition sources (their y in the published row) in
-// one pass: the terms' exps do not wait on each other.
-template <typename T, class SR, bool kPin>
+// R - 1 steps ahead), publishes y = M(w-1)[s] and eL[s], and after the
+// step's barrier takes the log-sum-exp (K10: the max) of Bt and ((y[s'] +
+// TL[s, s']) + eL[s']) + gate over its left-transition sources s' (their
+// y and eL in the published row) in one pass: the terms' exps do not wait
+// on each other.  The terms keep the plain versions' association, so K10
+// equals the plain max DP bit for bit.
+template <typename T, class SR, bool kPin, int G, int R>
 __global__ void __launch_bounds__(1024)
 band_m_kernel(DPDims D, BandIdx ix, Aux ax, T* M, const T* Bt, const T* eL,
               const T* gate_M, const bool* okM) {
-  constexpr int G = MGroup<T>::G, R = kMRing;
+  static_assert((R & (R - 1)) == 0, "the ring's stages: a power of 2");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int S = D.S, B = D.B, W1 = D.Wp + 1, Lp = D.Lp, j = D.j;
-  const MLayout lay(S, G, 1, 3, sizeof(T));
+  const MLayout lay(S, G, R, 2, 3, sizeof(T));
   const int n = (int)lay.n;
-  T* ybuf = reinterpret_cast<T*>(smem_raw + lay.buf);     // [2][n]
+  T* ybuf = reinterpret_cast<T*>(smem_raw + lay.buf);     // [2][2][n]
   T* ring = reinterpret_cast<T*>(smem_raw + lay.ring);    // [R][3][n]
   int* rok = reinterpret_cast<int*>(smem_raw + lay.ok);   // [R][n]
   const int tid = threadIdx.x, g = tid % G, s = tid / G;
@@ -282,16 +284,20 @@ band_m_kernel(DPDims D, BandIdx ix, Aux ax, T* M, const T* Bt, const T* eL,
   for (int w = 0; w < W1; ++w) {
     issue(w + R - 1);
     cp_async_wait<R - 1>();
-    T* y = ybuf + (w & 1) * n;
-    T bt = ninf<T>();
+    T* y = ybuf + (w & 1) * 2 * n;   // [n] M(w-1), then [n] eL of step w
+    T* eLw = y + n;
+    T bt = ninf<T>(), gt = (T)0;
     bool ok = false;
     if (live) {
       const T* st = ring + (w & (R - 1)) * 3 * n + tid;
       bt = st[0];
-      y[tid] = x + st[n] + st[2 * n];
+      gt = st[2 * n];
+      y[tid] = x;
+      eLw[tid] = st[n];
       ok = ok_byte(rok[(w & (R - 1)) * n + tid], oks + (long long)w * B);
     } else if (tid < n) {
       y[tid] = ninf<T>();
+      eLw[tid] = ninf<T>();
     }
     mchain_sync();
     if (!live) continue;
@@ -305,13 +311,14 @@ band_m_kernel(DPDims D, BandIdx ix, Aux ax, T* M, const T* Bt, const T* eL,
         terms[q + 1] =
             k0 + q < k1 &&
                     !(kPin && vetoed(ax, pinL, kAuxL, s, src[q] / G, S))
-                ? y[src[q]] + wt[q]
+                ? ((y[src[q]] + wt[q]) + eLw[src[q]]) + gt
                 : ninf<T>();
       typename SR::Acc acc;
       acc.add_n(terms);
       for (int k = k0 + kMSrc; k < k1; ++k) {
         if (kPin && vetoed(ax, pinL, kAuxL, s, ix.lt_s[k], S)) continue;
-        acc.add(y[ix.lt_s[k] * G + g] + ltw[k]);
+        const int c = ix.lt_s[k] * G + g;
+        acc.add(((y[c] + ltw[k]) + eLw[c]) + gt);
       }
       cur = acc.result();
     }
@@ -378,18 +385,24 @@ static int bif(DPDims D, BandIdx ix, T* Bt, T* T1, const T* T2,
   return static_cast<int>(cudaGetLastError());
 }
 
+// the M chain in blocks of G reads with a ring of R stages (the plan's)
 template <typename T, class SR>
 static int mchain(DPDims D, BandIdx ix, Aux ax, T* M, const T* Bt, const T* eL,
-                  const T* gate_M, const bool* okM, cudaStream_t st) {
-  constexpr int G = MGroup<T>::G;
-  const long long bytes = mchain_layout(0, D.S, sizeof(T)).total;
-  auto kern = has_pin(ax) ? band_m_kernel<T, SR, true>
-                          : band_m_kernel<T, SR, false>;
-  const int rc = allow_smem((const void*)kern, bytes);
-  if (rc) return rc;
-  kern<<<(D.B + G - 1) / G, mchain_threads(D.S, G), bytes, st>>>(
-      D, ix, ax, M, Bt, eL, gate_M, okM);
-  return static_cast<int>(cudaGetLastError());
+                  const T* gate_M, const bool* okM, int G_, int R_,
+                  cudaStream_t st) {
+  if (mchain_threads(D.S, G_) > 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return mchain_dispatch(G_, R_, [&](auto g, auto r) {
+    constexpr int G = decltype(g)::value, R = decltype(r)::value;
+    const long long bytes = mchain_layout(0, D.S, G, R, sizeof(T)).total;
+    auto kern = has_pin(ax) ? band_m_kernel<T, SR, true, G, R>
+                            : band_m_kernel<T, SR, false, G, R>;
+    const int rc = allow_smem((const void*)kern, bytes);
+    if (rc) return rc;
+    kern<<<(D.B + G - 1) / G, mchain_threads(D.S, G), bytes, st>>>(
+        D, ix, ax, M, Bt, eL, gate_M, okM);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 template <typename T, class SR>
@@ -421,11 +434,10 @@ static int ecol(DPDims D, BandIdx ix, T* E, const T* LL, const T* M,
                                             cudaStream_t st) {               \
     return bif<T, SR>(D, ix, Bt, T1, T2, okB, st);                           \
   }                                                                          \
-  RNAELEM_EXPORT int rnaelem_band_m_##SUF(DPDims D, BandIdx ix, Aux ax,      \
-                                          T* M, const T* Bt, const T* eL,    \
-                                          const T* gate_M, const bool* okM,  \
-                                          cudaStream_t st) {                 \
-    return mchain<T, SR>(D, ix, ax, M, Bt, eL, gate_M, okM, st);             \
+  RNAELEM_EXPORT int rnaelem_band_m_##SUF(                                   \
+      DPDims D, BandIdx ix, Aux ax, T* M, const T* Bt, const T* eL,          \
+      const T* gate_M, const bool* okM, int G, int R, cudaStream_t st) {     \
+    return mchain<T, SR>(D, ix, ax, M, Bt, eL, gate_M, okM, G, R, st);       \
   }                                                                          \
   RNAELEM_EXPORT int rnaelem_band_e_##SUF(                                   \
       DPDims D, BandIdx ix, T* E, const T* LL, const T* M, const T* ep,      \

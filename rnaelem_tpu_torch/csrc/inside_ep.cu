@@ -62,9 +62,19 @@
 
 // ---- K11: the phases of one step x of a block (ep_max_kernel)
 
-// step x's inputs into a stage's buffers (cp.async; misB rows before 0
-// and the specials' widths beyond Wp are -inf, stored directly)
-template <typename T>
+// a stage's copy: cp.async into shared memory, or a plain load and store
+// where the stage lies in the device workspace (kDev)
+template <bool kDev, typename T>
+__device__ __forceinline__ void stage_copy(T* dst, const T* src) {
+  if constexpr (kDev)
+    *dst = *src;
+  else
+    cp_async_t(dst, src);
+}
+
+// step x's inputs into a stage's buffers (misB rows before 0 and the
+// specials' widths beyond Wp are -inf, stored directly)
+template <bool kDev, typename T>
 __device__ void ep_max_stage(const EpBlock<T, T>& k, int x, const T* P,
                              const T* LL, const T* misA, const T* misB,
                              const T* spec_il, T* Pm, T* LBm, T* mAB,
@@ -74,16 +84,16 @@ __device__ void ep_max_stage(const EpBlock<T, T>& k, int x, const T* P,
   const int umax = k.Cp < k.Wp - x ? k.Cp : k.Wp - x;
   for (int i = threadIdx.x; i < (dmax + 1) * S; i += blockDim.x) {
     const int dl = i / S, s = i % S;
-    cp_async_t(Pm + i, P + TIDX(k.r - dl, x - dl, s, b));
+    stage_copy<kDev>(Pm + i, P + TIDX(k.r - dl, x - dl, s, b));
   }
   for (int i = threadIdx.x; i < (umax + 1) * S; i += blockDim.x) {
     const int u1 = i / S, s = i % S;
-    cp_async_t(LBm + i, LL + TIDX(k.r - x, u1, s, b));
+    stage_copy<kDev>(LBm + i, LL + TIDX(k.r - x, u1, s, b));
   }
   // misA, misB [4, Lp+1, W1, B]
   for (int i = threadIdx.x; i < 4 * (umax + 1); i += blockDim.x) {
     const int g = i / (umax + 1), u1 = i % (umax + 1);
-    cp_async_t(mAB + g * C1 + u1,
+    stage_copy<kDev>(mAB + g * C1 + u1,
                misA + (((long long)g * (k.Lp + 1) + j) * W1 + (x + u1)) * B +
                    b);
   }
@@ -91,7 +101,7 @@ __device__ void ep_max_stage(const EpBlock<T, T>& k, int x, const T* P,
     const int g = i / (dmax + 1), dl = i % (dmax + 1);
     T* dst = mAB + (4 + g) * C1 + dl;
     if (j - dl >= 0)
-      cp_async_t(dst, misB + (((long long)g * (k.Lp + 1) + (j - dl)) * W1 +
+      stage_copy<kDev>(dst, misB + (((long long)g * (k.Lp + 1) + (j - dl)) * W1 +
                               (x - dl)) * B + b);
     else
       *dst = ninf<T>();
@@ -100,7 +110,7 @@ __device__ void ep_max_stage(const EpBlock<T, T>& k, int x, const T* P,
   if (threadIdx.x < 6) {
     const int ci = threadIdx.x, w = x + (ci == 0 ? 0 : (ci < 4 ? 1 : 2));
     if (w <= k.Wp)
-      cp_async_t(il + ci, spec_il + (((long long)ci * (k.Lp + 1) + j) * W1 +
+      stage_copy<kDev>(il + ci, spec_il + (((long long)ci * (k.Lp + 1) + j) * W1 +
                                      w) * B + b);
     else
       il[ci] = ninf<T>();
@@ -141,24 +151,41 @@ struct EpList {
   }
 };
 
+// A thread's role in T (or out): AR pair (target) ``first``, of the
+// ``cov`` that the block's threads cover at once (all of them where there
+// are at most kEpMaxThreads), at lane ``lane`` of ``lanes``; a grammar
+// with more takes first + cov, first + 2 cov, ... too, their lists read
+// at that step (only the first is held in registers)
+struct EpRole {
+  int first, cov, lane, lanes;
+};
+
 // T and W of step x (its stage copied, L3 formed); T: thread (ar, lane)
 // with ar's list tl takes dl = lane, lane + lanes, ...
 template <typename T>
 __device__ void ep_max_tw(const EpBlock<T, T>& k, int x, const EpIdx& ix,
-                          const EpList& tl, int ar, int lane, int lanes,
-                          const T* Pm, const T* L3, const T* mAB,
-                          const T* SZg, T lam0, T lam1) {
+                          const EpList& tl, const EpRole& ro, const T* Pm,
+                          const T* L3, const T* mAB, const T* SZg, T lam0,
+                          T lam1) {
   const int S = k.S, NA = k.NA, C1 = k.C1;
   const int dmax = x < k.Cp ? x : k.Cp;
   const int umax = k.Cp < k.Wp - x ? k.Cp : k.Wp - x;
   auto tent = [&](int q) { return ep_t_entry(ix, q); };
-  for (int dl = lane; ar >= 0 && dl <= dmax; dl += lanes) {
-    T t = ninf<T>();
-    tl.each([&](int pe) {
-      const T v = Pm[dl * S + (pe & 0xffff)] + L3[dl * S + (pe >> 16)];
-      t = v > t ? v : t;
-    }, tent);
-    k.Tm[dl * NA + ar] = t;
+  auto rows = [&](const EpList& l, int ar) {
+    for (int dl = ro.lane; dl <= dmax; dl += ro.lanes) {
+      T t = ninf<T>();
+      l.each([&](int pe) {
+        const T v = Pm[dl * S + (pe & 0xffff)] + L3[dl * S + (pe >> 16)];
+        t = v > t ? v : t;
+      }, tent);
+      k.Tm[dl * NA + ar] = t;
+    }
+  };
+  if (ro.first >= 0) rows(tl, ro.first);
+  for (int ar = ro.first + ro.cov; ro.first >= 0 && ar < NA; ar += ro.cov) {
+    EpList l;
+    l.load(ix.ar_off[ar], ix.ar_off[ar + 1], tent);
+    rows(l, ar);
   }
   const int nu = umax + 1;
   for (int i = threadIdx.x; i < (dmax + 1) * nu; i += blockDim.x) {
@@ -200,21 +227,17 @@ __device__ void ep_max_v(const EpBlock<T, T>& k, int x) {
   }
 }
 
-// the ring's widths x..x+umax: out[x + u1, t] = max(out, max over the K2
-// entries k of t of LB(j-x, u1)[s2k] + V_bu(k)[u1, ar(k)], and over the
-// specials of left gap dk = u1 of (LB + T[dl, ar(k)]) + lam_bu * il);
-// thread (t, lane) with t's list ol takes u1 = lane, lane + lanes, ...
-template <typename T>
-__device__ void ep_max_out(const EpBlock<T, T>& k, int x, const EpIdx& ix,
-                           const EpList& ol, int t, int lane, int lanes,
-                           const T* LBm, const T* il, T lam0, T lam1,
-                           const int* dcum, T* out) {
+// ep_max_out for target t and its list ol
+template <typename T, class F>
+__device__ void ep_max_out_t(const EpBlock<T, T>& k, int x, const EpList& ol,
+                             int t, int lane, int lanes, const T* LBm,
+                             const T* il, T lam0, T lam1, const int* dcum,
+                             T* out, F kent) {
   const int S = k.S, NA = k.NA, C1 = k.C1;
   const int dmax = x < k.Cp ? x : k.Cp;
   const int umax = k.Cp < k.Wp - x ? k.Cp : k.Wp - x;
   const int xs = x % C1;
-  auto kent = [&](int q) { return ep_k2_entry(ix, q); };
-  for (int u1 = lane; t >= 0 && u1 <= umax; u1 += lanes) {
+  for (int u1 = lane; u1 <= umax; u1 += lanes) {
     if (k.fix_rss && !left_dots(dcum, k.j, x, u1, k.B, k.b)) continue;
     const T* lb = LBm + u1 * S;
     T acc = ninf<T>();
@@ -241,16 +264,48 @@ __device__ void ep_max_out(const EpBlock<T, T>& k, int x, const EpIdx& ix,
   }
 }
 
+// the ring's widths x..x+umax: out[x + u1, t] = max(out, max over the K2
+// entries k of t of LB(j-x, u1)[s2k] + V_bu(k)[u1, ar(k)], and over the
+// specials of left gap dk = u1 of (LB + T[dl, ar(k)]) + lam_bu * il);
+// thread (t, lane) with t's list ol takes u1 = lane, lane + lanes, ...
+template <typename T>
+__device__ void ep_max_out(const EpBlock<T, T>& k, int x, const EpIdx& ix,
+                           const EpList& ol, const EpRole& ro, const T* LBm,
+                           const T* il, T lam0, T lam1, const int* dcum,
+                           T* out) {
+  auto kent = [&](int q) { return ep_k2_entry(ix, q); };
+  if (ro.first >= 0)
+    ep_max_out_t(k, x, ol, ro.first, ro.lane, ro.lanes, LBm, il, lam0, lam1,
+                 dcum, out, kent);
+  for (int t = ro.first + ro.cov; ro.first >= 0 && t < k.S; t += ro.cov) {
+    EpList l;
+    l.load(ix.k2_off[t], ix.k2_off[t + 1], kent);
+    ep_max_out_t(k, x, l, t, ro.lane, ro.lanes, LBm, il, lam0, lam1, dcum,
+                 out, kent);
+  }
+}
+
 static const int kEpMaxThreads = 256;  // K11's threads per block
 
+// the role of thread tid among n items (AR pairs or targets)
+__device__ __forceinline__ EpRole ep_role(int tid, int n) {
+  EpRole r;
+  r.cov = n < kEpMaxThreads ? n : kEpMaxThreads;
+  r.lanes = kEpMaxThreads / r.cov;
+  r.first = tid < r.lanes * r.cov ? tid % r.cov : -1;
+  r.lane = tid / r.cov;
+  return r;
+}
+
 // ---- K11, fused: one block per (read, range of x) of column j; the last
-// block of a read to finish merges the ranges' partial rows into ep
-template <typename T>
+// block of a read to finish merges the ranges' partial rows into ep.  kDev:
+// the layout in the block's slice of the workspace ws
+template <typename T, bool kDev>
 __global__ void __launch_bounds__(kEpMaxThreads)
 ep_max_kernel(DPDims D, EpMaxRanges xq, EpIdx ix, const T* P, const T* LL,
               const T* misA, const T* misB, const T* SZg, const T* spec_il,
               const T* lam, const int* dcum, const int* Cb, T* part,
-              int* done, T* ep) {
+              int* done, T* ep, unsigned char* ws) {
   extern __shared__ __align__(16) unsigned char ep_smem[];
   __shared__ bool last;
   EpBlock<T, T> k;
@@ -258,19 +313,18 @@ ep_max_kernel(DPDims D, EpMaxRanges xq, EpIdx ix, const T* P, const T* LL,
   const int xr = blockIdx.y, S = k.S, B = k.B, W1 = k.W1, b = k.b;
   const int C1 = k.C1;
   const EpMaxLayout lay(S, k.NA, C1);
-  T* sm = reinterpret_cast<T*>(ep_smem);
+  T* sm = reinterpret_cast<T*>(
+      ep_base<kDev>(ep_smem, ws, lay.total * (long long)sizeof(T)));
   T* L3 = sm + lay.L3;
   T* out = sm + lay.out;   // ring [C1][S]: width w at slot w % C1
   k.Tm = sm + lay.Tm;
   k.Wm = sm + lay.Wm;
   k.Vm = sm + lay.Vm;
   const T lam0 = lam[0], lam1 = lam[1];
-  // the thread's T role (AR pair tar, lane of tlanes) and out role
-  // (target tt, lane of olanes), their lists in registers
-  const int tid = threadIdx.x, tlanes = kEpMaxThreads / k.NA;
-  const int olanes = kEpMaxThreads / S;
-  const int tar = tid < tlanes * k.NA ? tid % k.NA : -1;
-  const int tt = tid < olanes * S ? tid % S : -1;
+  // the thread's T role (AR pairs) and out role (targets), the lists of
+  // its first AR pair and first target in registers
+  const EpRole tr = ep_role(threadIdx.x, k.NA), orl = ep_role(threadIdx.x, S);
+  const int tar = tr.first, tt = orl.first;
   EpList tl, ol;
   tl.load(tar >= 0 ? ix.ar_off[tar] : 0, tar >= 0 ? ix.ar_off[tar + 1] : 0,
           [&](int q) { return ep_t_entry(ix, q); });
@@ -296,7 +350,7 @@ ep_max_kernel(DPDims D, EpMaxRanges xq, EpIdx ix, const T* P, const T* LL,
   };
   auto stage = [&](int x, int q) {
     T* s0 = sm + q * lay.stage;
-    ep_max_stage(k, x, P, LL, misA, misB, spec_il, s0 + lay.Pm,
+    ep_max_stage<kDev>(k, x, P, LL, misA, misB, spec_il, s0 + lay.Pm,
                  s0 + lay.LBm, s0 + lay.mAB, s0 + lay.il);
   };
   if (x0 <= x1) stage(x0, 0);
@@ -310,13 +364,13 @@ ep_max_kernel(DPDims D, EpMaxRanges xq, EpIdx ix, const T* P, const T* LL,
     if (x < x1) stage(x + 1, q ^ 1);
     cp_async_commit();
     if (x > x0) flush(x - 1);   // no later x reaches width x - 1
-    ep_max_tw(k, x, ix, tl, tar, tid / k.NA, tlanes, s0 + lay.Pm,
-              L3, s0 + lay.mAB, SZg, lam0, lam1);
+    ep_max_tw(k, x, ix, tl, tr, s0 + lay.Pm, L3, s0 + lay.mAB, SZg, lam0,
+              lam1);
     __syncthreads();
     ep_max_v(k, x);
     __syncthreads();
-    ep_max_out(k, x, ix, ol, tt, tid / S, olanes, s0 + lay.LBm,
-               s0 + lay.il, lam0, lam1, dcum, out);
+    ep_max_out(k, x, ix, ol, orl, s0 + lay.LBm, s0 + lay.il, lam0, lam1,
+               dcum, out);
     cp_async_wait<0>();
     __syncthreads();
   }
@@ -342,20 +396,22 @@ ep_max_kernel(DPDims D, EpMaxRanges xq, EpIdx ix, const T* P, const T* LL,
   if (threadIdx.x == 0) done[b] = 0;
 }
 
-// ---- K3, fused: one block per (read, range of x) of column j
-template <typename T>
+// ---- K3, fused: one block per (read, range of x) of column j.  kDev:
+// the layout in the block's slice of the workspace ws
+template <typename T, bool kDev>
 __global__ void __launch_bounds__(kEpThreads)
 ep_fwd_kernel(DPDims D, EpXRanges xq, EpIdx ix, const T* P, const T* LL,
               const T* emisA, const T* emisB, const T* eSZg,
               const T* spec_il, const T* lam, const int* dcum, const int* Cb,
-              T* rowmax, T* shift, T* part) {
+              T* rowmax, T* shift, T* part, unsigned char* ws) {
   extern __shared__ __align__(16) unsigned char ep_smem[];
   EpBlock<T, T> k;
   k.init(D, Cb, blockIdx.x);
   const int xr = blockIdx.y, S = k.S, B = k.B, W1 = k.W1, b = k.b;
   const int C1 = k.C1;
   const EpFwdLayout lay(S, k.NA, C1);
-  T* sm = reinterpret_cast<T*>(ep_smem);
+  T* sm = reinterpret_cast<T*>(
+      ep_base<kDev>(ep_smem, ws, lay.total * (long long)sizeof(T)));
   k.exP = sm + lay.exP;
   k.exL3 = sm + lay.exL3;
   k.LL = LL;
@@ -465,20 +521,23 @@ __global__ void ep_fwd_red_kernel(DPDims D, const T* part, const T* shift,
 
 static const int kThreads = 256;
 
+// K3 with its layout in shared memory, or (ws not null: the plan's
+// device variant) in ws, B x kEpXSplit slices of ep_ws_stride(layout)
 template <typename T>
 static int ep_fwd(DPDims D, EpIdx ix, const T* P, const T* LL,
                   const T* emisA, const T* emisB, const T* eSZg,
                   const T* spec_il, const T* lam, const int* dcum,
                   const int* Cb, T* rowmax, T* shift, T* part,
-                  cudaStream_t st) {
+                  unsigned char* ws, cudaStream_t st) {
   const long long smem =
-      EpFwdLayout(D.S, D.n_ar, D.Cp + 1).total * sizeof(T);
-  int rc = allow_smem((const void*)ep_fwd_kernel<T>, smem);
+      ws ? 0 : EpFwdLayout(D.S, D.n_ar, D.Cp + 1).total * sizeof(T);
+  auto kern = ws ? ep_fwd_kernel<T, true> : ep_fwd_kernel<T, false>;
+  int rc = allow_smem((const void*)kern, smem);
   if (rc) return rc;
   dim3 grid(D.B, kEpXSplit);
-  ep_fwd_kernel<T><<<grid, kEpThreads, smem, st>>>(
+  kern<<<grid, kEpThreads, smem, st>>>(
       D, ep_x_ranges(D.Wp, D.Cp), ix, P, LL, emisA, emisB, eSZg, spec_il,
-      lam, dcum, Cb, rowmax, shift, part);
+      lam, dcum, Cb, rowmax, shift, part, ws);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -499,14 +558,14 @@ static int ep_fwd_red(DPDims D, const T* part, const T* shift, T* ep,
 static const int kEpMaxMinSplit = 1;
 
 template <typename T>
-static int ep_max_ranges(const DPDims& D) {
+static int ep_max_ranges(const DPDims& D, bool dev) {
   const long long smem =
-      EpMaxLayout(D.S, D.n_ar, D.Cp + 1).total * sizeof(T);
+      dev ? 0 : EpMaxLayout(D.S, D.n_ar, D.Cp + 1).total * sizeof(T);
+  auto kern = dev ? ep_max_kernel<T, true> : ep_max_kernel<T, false>;
   int per_sm = 1;
-  if (allow_smem((const void*)ep_max_kernel<T>, smem) != 0 ||
+  if (allow_smem((const void*)kern, smem) != 0 ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, ep_max_kernel<T>, kEpMaxThreads, (size_t)smem) !=
-          cudaSuccess ||
+          &per_sm, kern, kEpMaxThreads, (size_t)smem) != cudaSuccess ||
       per_sm < 1)
     per_sm = 1;
   const int n = D.B > 0 ? per_sm * device_sms() / D.B : kEpMaxSplit;
@@ -514,24 +573,26 @@ static int ep_max_ranges(const DPDims& D) {
                             : (n > kEpMaxSplit ? kEpMaxSplit : n);
 }
 
+// K11 in shared memory, or (ws not null: the plan's device variant) in
+// ws, B x ep_max_ranges(D, true) slices of ep_ws_stride(layout)
 template <typename T>
 static int ep_max(DPDims D, EpIdx ix, const T* P, const T* LL,
                   const T* misA, const T* misB, const T* SZg,
                   const T* spec_il, const T* lam, const int* dcum,
-                  const int* Cb, T* part, int* done, T* ep, cudaStream_t st) {
+                  const int* Cb, T* part, int* done, T* ep,
+                  unsigned char* ws, cudaStream_t st) {
   const long long smem =
-      EpMaxLayout(D.S, D.n_ar, D.Cp + 1).total * sizeof(T);
-  if (D.S > kEpMaxThreads || D.n_ar > kEpMaxThreads)
-    return static_cast<int>(cudaErrorInvalidValue);
-  int rc = allow_smem((const void*)ep_max_kernel<T>, smem);
+      ws ? 0 : EpMaxLayout(D.S, D.n_ar, D.Cp + 1).total * sizeof(T);
+  auto kern = ws ? ep_max_kernel<T, true> : ep_max_kernel<T, false>;
+  int rc = allow_smem((const void*)kern, smem);
   if (rc) return rc;
   EpMaxRanges xq;
-  xq.n = ep_max_ranges<T>(D);
+  xq.n = ep_max_ranges<T>(D, ws != nullptr);
   ep_split_x(D.Wp, D.Cp, xq.n, xq.x0, xq.x1);
   dim3 grid(D.B, xq.n);
-  ep_max_kernel<T><<<grid, kEpMaxThreads, smem, st>>>(
-      D, xq, ix, P, LL, misA, misB, SZg, spec_il, lam, dcum, Cb, part, done,
-      ep);
+  kern<<<grid, kEpMaxThreads, smem, st>>>(D, xq, ix, P, LL, misA, misB, SZg,
+                                          spec_il, lam, dcum, Cb, part, done,
+                                          ep, ws);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -542,9 +603,9 @@ static int ep_max(DPDims D, EpIdx ix, const T* P, const T* LL,
       DPDims D, EpIdx ix, const T* P, const T* LL, const T* emisA,           \
       const T* emisB, const T* eSZg, const T* spec_il, const T* lam,         \
       const int* dcum, const int* Cb, T* rowmax, T* shift, T* part,          \
-      cudaStream_t st) {                                                     \
+      unsigned char* ws, cudaStream_t st) {                                  \
     return ep_fwd<T>(D, ix, P, LL, emisA, emisB, eSZg, spec_il, lam, dcum,  \
-                     Cb, rowmax, shift, part, st);                           \
+                     Cb, rowmax, shift, part, ws, st);                       \
   }                                                                          \
   RNAELEM_EXPORT int rnaelem_ep_fwd_red_##SUF(DPDims D, const T* part,       \
                                               const T* shift, T* ep,         \
@@ -555,9 +616,9 @@ static int ep_max(DPDims D, EpIdx ix, const T* P, const T* LL,
       DPDims D, EpIdx ix, const T* P, const T* LL, const T* misA,            \
       const T* misB, const T* SZg, const T* spec_il, const T* lam,           \
       const int* dcum, const int* Cb, T* part, int* done, T* ep,             \
-      cudaStream_t st) {                                                     \
+      unsigned char* ws, cudaStream_t st) {                                  \
     return ep_max<T>(D, ix, P, LL, misA, misB, SZg, spec_il, lam, dcum, Cb, \
-                     part, done, ep, st);                                    \
+                     part, done, ep, ws, st);                                \
   }
 
 EP_EXPORTS(f32, float)
@@ -575,8 +636,17 @@ RNAELEM_EXPORT long long rnaelem_ep_smem_bytes(int which, DPDims D,
   return EpAdjLayout(D.S, D.n_ar, D.Cp + 1).bytes(itemsize);
 }
 
+// a device-variant block's slice of the workspace (ep_col.cuh
+// ep_ws_stride; ops/kernels.ep_plan's block_bytes mirrors it)
+RNAELEM_EXPORT long long rnaelem_ep_ws_bytes(int which, DPDims D,
+                                             int itemsize) {
+  return ep_ws_stride(rnaelem_ep_smem_bytes(which, D, itemsize));
+}
+
 // K11's ranges of x per read for the batch and grammar of D on the
-// current device (the wrapper sizes the partial rows by it)
-RNAELEM_EXPORT int rnaelem_ep_max_ranges(DPDims D, int itemsize) {
-  return itemsize == 8 ? ep_max_ranges<double>(D) : ep_max_ranges<float>(D);
+// current device, for the shared (dev 0) or the device variant (the
+// wrapper sizes the partial rows and the workspace by it)
+RNAELEM_EXPORT int rnaelem_ep_max_ranges(DPDims D, int itemsize, int dev) {
+  return itemsize == 8 ? ep_max_ranges<double>(D, dev != 0)
+                       : ep_max_ranges<float>(D, dev != 0);
 }

@@ -155,21 +155,11 @@ ext_col_kernel(DPDims D, ExtIdx ix, Aux ax, T* O, const T* P, const T* eR,
         SR::plus(chain[g], Acc(pm[0][g], ps[0][g]).result());
 }
 
-// reads per block: the largest of kExtGroupBytes' worth, halved down to 1,
-// that gives the grid (reads' groups x S) one block per SM
-template <typename T>
-static int ext_group(int B, int S) {
-  const int sms = device_sms();
-  int G = kExtGroupBytes / (int)sizeof(T);
-  while (G > 1 && (long long)((B + G - 1) / G) * S < sms) G /= 2;
-  return G;
-}
-
 template <typename T, class SR>
 static int ext_col(DPDims D, ExtIdx ix, Aux ax, T* O, const T* P, const T* eR,
                    const T* gate_O2, const T* ext, const T* lam,
                    cudaStream_t st) {
-  const int G = ext_group<T>(D.B, D.S);
+  const int G = read_group<T>(D.B, D.S, kExtGroupBytes);
   dim3 grid((D.B + G - 1) / G, D.S);
   ext_col_kernel<T, SR><<<grid, G * kExtSlices, 0, st>>>(
       D, ix, ax, O, P, eR, gate_O2, ext, lam, G);

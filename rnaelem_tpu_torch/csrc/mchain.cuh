@@ -8,28 +8,27 @@
 // read fastest, so one (w, s) row of the group in the batch-minor tables
 // is G consecutive values: one 32-byte sector at G = 8 (f32) or G = 4
 // (f64).  The inputs of step w (each thread copies the cells it reads
-// itself) are staged into a shared-memory ring of kMRing stages with
-// cp.async while the steps before it compute, so no step waits on device
-// memory; the only cross-thread exchange is the published row of the
-// step, double-buffered so that one barrier per step suffices (a warp
-// barrier where the group's threads fit in one warp).  The ring is sized
-// by S, G and kMRing, never by the span Wp.  Every sum keeps the order of
-// the read's own transition lists, so a read's result does not depend on
-// its group or on B.
+// itself) are staged into a shared-memory ring of R stages with cp.async
+// while the steps before it compute, so no step waits on device memory;
+// the only cross-thread exchange is the published row of the step,
+// double-buffered so that one barrier per step suffices (a warp barrier
+// where the group's threads fit in one warp).  The ring is sized by S, G
+// and R, never by the span Wp.  G and R are template parameters that
+// ops/kernels.band_plan picks on the host from S and the type: G = 32
+// bytes' worth of reads, else 4, 2 or 1, the first with S x G <= 1024
+// threads whose layout fits a block's shared memory, with R = kMRing,
+// else R = kMRingSmall at G = 1.  Every sum keeps the order of the read's
+// own transition lists, so a read's result does not depend on its group,
+// its ring or on B.
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
-static const int kMRing = 4;         // ring stages (steps in flight)
-static const int kMGroupBytes = 32;  // a (w, s) row of a block's reads
-static const int kMSrc = 4;          // transitions per state held in registers
-static_assert((kMRing & (kMRing - 1)) == 0, "the ring's stages: a power of 2");
-
-// reads per block: one 32-byte sector of a (w, s) row
-template <typename T>
-struct MGroup {
-  static const int G = kMGroupBytes / sizeof(T);
-};
+static const int kMRing = 4;       // ring stages (steps in flight)
+static const int kMRingSmall = 2;  // the ring of a grammar too wide for 4
+static const int kMSrc = 4;        // transitions per state held in registers
 
 // threads of a block: S * G, rounded up to whole warps
 __host__ __device__ __forceinline__ int mchain_threads(int S, int G) {
@@ -40,28 +39,51 @@ __host__ __device__ __forceinline__ int mchain_threads(int S, int G) {
 // launch's size) and in the kernel (its pointers); ops/kernels.py
 // band_smem_bytes mirrors it.  n = S * G cells per row; a row buffer of
 // two slots [2][nbuf][n] (scalar type) for the published values, then the
-// ring [kMRing][nring][n] (scalar type) and its okM words [kMRing][n]
-// (int).  band_m: nbuf 1 (y), nring 3 (Bt, eL, gate_M).  m_adj: nbuf 2
+// ring [R][nring][n] (scalar type) and its okM words [R][n] (int).
+// band_m: nbuf 2 (M(w-1) and eL), nring 3 (Bt, eL, gate_M).  m_adj: nbuf 2
 // (the cotangent and value of M(w)), nring 9 (M(w), gM, Bt, M(w-1), eL,
 // gate_M, eL's cotangent as it stands, T1 and its cotangent).
 struct MLayout {
   long long n, buf, ring, ok, total;
-  __host__ __device__ MLayout(int S, int G, int nbuf, int nring,
+  __host__ __device__ MLayout(int S, int G, int R, int nbuf, int nring,
                               int itemsize) {
     n = (long long)S * G;
     buf = 0;
     ring = buf + 2LL * nbuf * n * itemsize;
-    ok = ring + (long long)kMRing * nring * n * itemsize;
-    total = ok + (long long)kMRing * n * 4;
+    ok = ring + (long long)R * nring * n * itemsize;
+    total = ok + (long long)R * n * 4;
   }
 };
 
 // the layouts' (nbuf, nring) of the two kernels: which 0 = band_m, 1 = m_adj
 __host__ __device__ __forceinline__ MLayout mchain_layout(int which, int S,
+                                                          int G, int R,
                                                           int itemsize) {
-  const int G = kMGroupBytes / itemsize;
-  return which == 0 ? MLayout(S, G, 1, 3, itemsize)
-                    : MLayout(S, G, 2, 9, itemsize);
+  return which == 0 ? MLayout(S, G, R, 2, 3, itemsize)
+                    : MLayout(S, G, R, 2, 9, itemsize);
+}
+
+// launch f(G, R) as compile-time constants for the plan's (G, R) (the
+// pairs ops/kernels.band_plan picks); anything else is refused
+template <class F>
+static int mchain_dispatch(int G, int R, F f) {
+  using std::integral_constant;
+  if (R == kMRing) {
+    switch (G) {
+      case 8: return f(integral_constant<int, 8>(),
+                       integral_constant<int, kMRing>());
+      case 4: return f(integral_constant<int, 4>(),
+                       integral_constant<int, kMRing>());
+      case 2: return f(integral_constant<int, 2>(),
+                       integral_constant<int, kMRing>());
+      case 1: return f(integral_constant<int, 1>(),
+                       integral_constant<int, kMRing>());
+    }
+  } else if (R == kMRingSmall && G == 1) {
+    return f(integral_constant<int, 1>(),
+             integral_constant<int, kMRingSmall>());
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // okM is a bool table: copy the aligned 4-byte word that holds the cell

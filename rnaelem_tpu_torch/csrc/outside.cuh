@@ -44,15 +44,6 @@ struct AdjIdx {  // grammar index lists (int32 unless noted)
   const int* b12c_off; // [S+1] split tuples by c: t, a
   const int* b12c_t;
   const int* b12c_a;
-  const int* op_off;   // [S+1] exterior splits (t, a, c) by target: a, c
-  const int* op_a;
-  const int* op_c;
-  const int* opa_off;  // by a (P state): t, c
-  const int* opa_t;
-  const int* opa_c;
-  const int* opc_off;  // by c (O state): t, a
-  const int* opc_t;
-  const int* opc_a;
 };
 
 // d(lam * x)/d lam for lam_mul: -inf energies carry no lambda term

@@ -108,7 +108,7 @@ __global__ void e_adj_kernel(DPDims D, AdjIdx ix, const T* E, const T* LL,
 
 // ---- M chain backwards over w: one block per group of G reads, thread
 // (s, g) the cell of state s of read g (csrc/mchain.cuh).  Step w takes
-// its ring stage (copied kMRing - 1 steps ahead), forms the cotangent gc
+// its ring stage (copied R - 1 steps ahead), forms the cotangent gc
 // of M(w)[s] (gM plus the carry from step w+1), writes gB (the M chain's
 // share plus T1 = T2 + B's; front_adj_t adds T1's share of T2),
 // publishes gc and M(w)[s], and after the step's barrier gathers, as a
@@ -117,15 +117,16 @@ __global__ void e_adj_kernel(DPDims D, AdjIdx ix, const T* E, const T* LL,
 // in a register, and each row is written once.  With the class probe it
 // writes the L-class partials of slot (w, s): it is the column's first
 // writer of cpL (cls_red zeroes what it sums).
-template <typename T, bool kPin>
+template <typename T, bool kPin, int G, int R>
 __global__ void __launch_bounds__(1024)
 m_adj_kernel(DPDims D, AdjIdx ix, Aux ax, const T* M, const T* Bt,
              const T* eL, const T* gate_M, const bool* okM, const T* gM,
              const T* T1, const T* gT1, T* gB, T* geL) {
-  constexpr int G = MGroup<T>::G, R = kMRing, NR = 9;
+  static_assert((R & (R - 1)) == 0, "the ring's stages: a power of 2");
+  constexpr int NR = 9;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int S = D.S, B = D.B, W1 = D.Wp + 1, Lp = D.Lp, j = D.j;
-  const MLayout lay(S, G, 2, NR, sizeof(T));
+  const MLayout lay(S, G, R, 2, NR, sizeof(T));
   const int n = (int)lay.n;
   T* buf = reinterpret_cast<T*>(smem_raw + lay.buf);      // [2][2][n]
   T* ring = reinterpret_cast<T*>(smem_raw + lay.ring);    // [R][NR][n]
@@ -715,18 +716,25 @@ static bool too_big(const DPDims& D) {
   kern<T><<<n_blocks(n, kAdjThreads), kAdjThreads, 0, st>>>(__VA_ARGS__);   \
   return static_cast<int>(cudaGetLastError())
 
+// K5's M chain in blocks of G reads with a ring of R stages (the plan's)
 template <typename T>
 static int m_adj(DPDims D, AdjIdx ix, Aux ax, const T* M, const T* Bt,
                  const T* eL, const T* gate_M, const bool* okM, const T* gM,
-                 const T* T1, const T* gT1, T* gB, T* geL, cudaStream_t st) {
-  constexpr int G = MGroup<T>::G;
-  const long long bytes = mchain_layout(1, D.S, sizeof(T)).total;
-  auto kern = has_pin(ax) ? m_adj_kernel<T, true> : m_adj_kernel<T, false>;
-  const int rc = allow_smem((const void*)kern, bytes);
-  if (rc) return rc;
-  kern<<<(D.B + G - 1) / G, mchain_threads(D.S, G), bytes, st>>>(
-      D, ix, ax, M, Bt, eL, gate_M, okM, gM, T1, gT1, gB, geL);
-  return static_cast<int>(cudaGetLastError());
+                 const T* T1, const T* gT1, T* gB, T* geL, int G_, int R_,
+                 cudaStream_t st) {
+  if (mchain_threads(D.S, G_) > 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return mchain_dispatch(G_, R_, [&](auto g, auto r) {
+    constexpr int G = decltype(g)::value, R = decltype(r)::value;
+    const long long bytes = mchain_layout(1, D.S, G, R, sizeof(T)).total;
+    auto kern = has_pin(ax) ? m_adj_kernel<T, true, G, R>
+                            : m_adj_kernel<T, false, G, R>;
+    const int rc = allow_smem((const void*)kern, bytes);
+    if (rc) return rc;
+    kern<<<(D.B + G - 1) / G, mchain_threads(D.S, G), bytes, st>>>(
+        D, ix, ax, M, Bt, eL, gate_M, okM, gM, T1, gT1, gB, geL);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 template <typename T>
@@ -759,9 +767,9 @@ static int front_adj_sw(DPDims D, AdjIdx ix, Aux ax, const T* LL,
   RNAELEM_EXPORT int rnaelem_m_adj_##SUF(                                    \
       DPDims D, AdjIdx ix, Aux ax, const T* M, const T* Bt, const T* eL,     \
       const T* gate_M, const bool* okM, const T* gM, const T* T1,            \
-      const T* gT1, T* gB, T* geL, cudaStream_t st) {                        \
+      const T* gT1, T* gB, T* geL, int G, int R, cudaStream_t st) {          \
     return m_adj<T>(D, ix, ax, M, Bt, eL, gate_M, okM, gM, T1, gT1, gB, geL, \
-                    st);                                                     \
+                    G, R, st);                                               \
   }                                                                          \
   RNAELEM_EXPORT int rnaelem_bif_adj_##SUF(                                  \
       DPDims D, AdjIdx ix, const T* T1, const T* T2, const T* Bt,            \
@@ -806,8 +814,9 @@ BAND_ADJ_EXPORTS(f64, double)
 
 // the M-chain blocks' dynamic shared memory in bytes (csrc/mchain.cuh
 // MLayout; ops/kernels.py band_smem_bytes mirrors it): which 0 = K2's
-// band_m (K10's too), 1 = K5's m_adj
-RNAELEM_EXPORT long long rnaelem_band_smem_bytes(int which, int S,
-                                                 int itemsize) {
-  return mchain_layout(which, S, itemsize).total;
+// band_m (K10's too), 1 = K5's m_adj, in blocks of G reads with a ring of
+// R stages
+RNAELEM_EXPORT long long rnaelem_band_smem_bytes(int which, int S, int G,
+                                                 int R, int itemsize) {
+  return mchain_layout(which, S, G, R, itemsize).total;
 }

@@ -65,20 +65,22 @@ __device__ __forceinline__ float least_normal<float>() { return FLT_MIN; }
 template <>
 __device__ __forceinline__ double least_normal<double>() { return DBL_MIN; }
 
-template <typename T>
+// kDev: the layout in the block's slice of the workspace ws (ep_col.cuh)
+template <typename T, bool kDev>
 __global__ void __launch_bounds__(kEpAdjThreads, 2)
 ep_adj_kernel(DPDims D, EpXRanges xq, EpIdx ix, const T* P, const T* LL,
               const T* EP, const T* gEP, const T* shift, const T* emisA,
               const T* emisB, const T* eSZg, const T* spec_il, const T* lam,
               const int* dcum, const int* Cb, T* gP, T* gLL, T* gemisB,
-              T* gL3p, T* gmAp, T* gszp, T* glamp) {
+              T* gL3p, T* gmAp, T* gszp, T* glamp, unsigned char* ws) {
   extern __shared__ __align__(16) unsigned char ep_smem[];
   EpBlock<T, A> k;
   k.init(D, Cb, blockIdx.x);
   const int xr = blockIdx.y, S = k.S, B = k.B, W1 = k.W1, C1 = k.C1;
   const int NA = k.NA, b = k.b, r = k.r;
   const EpAdjLayout lay(S, NA, C1);
-  A* am = reinterpret_cast<A*>(ep_smem);
+  A* am = reinterpret_cast<A*>(
+      ep_base<kDev>(ep_smem, ws, lay.bytes(sizeof(T))));
   T* tm = reinterpret_cast<T*>(am + lay.n_a);
   k.mAB = am + lay.mAB;
   k.Tm = am + lay.Tm;  // T, then gT
@@ -339,16 +341,17 @@ static int ep_adj(DPDims D, EpIdx ix, const T* P, const T* LL, const T* EP,
                   const T* emisB, const T* eSZg, const T* spec_il,
                   const T* lam, const int* dcum, const int* Cb, T* gP,
                   T* gLL, T* gemisB, T* gL3p, T* gmAp, T* gszp, T* glamp,
-                  cudaStream_t st) {
+                  unsigned char* ws, cudaStream_t st) {
   const long long smem =
-      EpAdjLayout(D.S, D.n_ar, D.Cp + 1).bytes(sizeof(T));
-  int rc = allow_smem((const void*)ep_adj_kernel<T>, smem);
+      ws ? 0 : EpAdjLayout(D.S, D.n_ar, D.Cp + 1).bytes(sizeof(T));
+  auto kern = ws ? ep_adj_kernel<T, true> : ep_adj_kernel<T, false>;
+  int rc = allow_smem((const void*)kern, smem);
   if (rc) return rc;
   dim3 grid(D.B, kEpXSplit);
-  ep_adj_kernel<T><<<grid, kEpAdjThreads, smem, st>>>(
+  kern<<<grid, kEpAdjThreads, smem, st>>>(
       D, ep_x_ranges(D.Wp, D.Cp), ix, P, LL, EP, gEP, shift, emisA, emisB,
       eSZg, spec_il, lam, dcum, Cb, gP, gLL, gemisB, gL3p, gmAp, gszp,
-      glamp);
+      glamp, ws);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -370,10 +373,10 @@ static int ep_adj_red(DPDims D, const T* gL3p, const T* gmAp, const T* gszp,
       const T* gEP, const T* shift, const T* emisA, const T* emisB,          \
       const T* eSZg, const T* spec_il, const T* lam, const int* dcum,        \
       const int* Cb, T* gP, T* gLL, T* gemisB, T* gL3p, T* gmAp, T* gszp,    \
-      T* glamp, cudaStream_t st) {                                           \
+      T* glamp, unsigned char* ws, cudaStream_t st) {                        \
     return ep_adj<T>(D, ix, P, LL, EP, gEP, shift, emisA, emisB, eSZg,       \
                      spec_il, lam, dcum, Cb, gP, gLL, gemisB, gL3p, gmAp,    \
-                     gszp, glamp, st);                                       \
+                     gszp, glamp, ws, st);                                   \
   }                                                                          \
   RNAELEM_EXPORT int rnaelem_ep_adj_red_##SUF(                               \
       DPDims D, const T* gL3p, const T* gmAp, const T* gszp,                 \

@@ -9,8 +9,14 @@ CUDA when this module is imported.
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs and scratch with torch, launches on the current stream of its
 tensors' device, raises when the launch returns a CUDA error, and counts
-its launches in ``KERNELS[name].launches``.  Kernels are instantiated for
+its launches in ``KERNELS[name].launches`` (and per variant of a launch
+plan in ``KERNELS[name].variants``).  Kernels are instantiated for
 float32 (production) and float64 (held to the plain versions).
+
+The blocks of K3, K6 and K11 and of the M chain (K2, K5, K10) hold
+scratch sized by the grammar, the max internal loop and the type: their
+launch plans (ep_plan, band_plan) are worked out on the host from those
+alone, before any launch, and always name a hand-written kernel.
 
 The scanner's aux factors reach the kernels as an ``Aux`` struct
 (csrc/common.cuh): the grammar's class codes, the evaluation's pin
@@ -29,7 +35,9 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from .dp import AUX, GRAD_TABLES, MAX_PINS, pin_set
@@ -46,11 +54,13 @@ LIB_NAME = "librnaelem_kernels.so"
 
 
 class Kernel:
-    """One hand-written kernel (a .cu source) and its launch count."""
+    """One hand-written kernel (a .cu source), its launch count and the
+    count of each variant of its launch plan that ran."""
 
     def __init__(self, name: str, source: str, replaces: str):
         self.name, self.source, self.replaces = name, source, replaces
         self.launches = 0
+        self.variants = {}
 
 
 KERNELS = {
@@ -99,6 +109,7 @@ KERNELS = {
 def reset_counts():
     for k in KERNELS.values():
         k.launches = 0
+        k.variants = {}
 
 
 # ---------------------------------------------------------------- build
@@ -210,8 +221,7 @@ EXT_IDX = ("rt_off", "rt_s", "rt_w", "bucket", "op_off", "op_a", "op_c")
 ADJ_IDX = ("rt_off", "rt_s", "rt_w", "rtr_off", "rtr_t", "rtr_w", "ltr_off",
            "ltr_t", "ltr_w", "pt_lt", "loopm", "bucket", "pt_code", "pt_wl",
            "pt_wr", "ptl_t", "ptl_s", "b12a_off", "b12a_t", "b12a_c",
-           "b12c_off", "b12c_t", "b12c_a", "op_off", "op_a", "op_c",
-           "opa_off", "opa_t", "opa_c", "opc_off", "opc_t", "opc_a")
+           "b12c_off", "b12c_t", "b12c_a")
 CHAIN_IDX = ("rt_off", "rt_s", "rt_w", "rtr_off", "rtr_t", "rtr_w",
              "end_states")
 TB_IDX = ("rt_off", "rt_s", "rt_w", "lt_off", "lt_s", "lt_w", "pt_code",
@@ -234,33 +244,38 @@ class TbCfg(ctypes.Structure):
     _fields_ = [("eps", ctypes.c_double), ("cap", ctypes.c_int)]
 
 
-# exported function -> (leading struct argtypes, number of pointers)
+class ExtAdjListsArg(ctypes.Structure):  # csrc/outside_ext.cu ExtAdjLists
+    _fields_ = [("idx", ctypes.c_void_p), ("wt", ctypes.c_void_p)] + [
+        (n, ctypes.c_int) for n in ("nA", "nC", "nO", "nR", "nT")]
+
+
+# exported function -> (leading struct argtypes, number of pointers[,
+# number of trailing ints])
 _SIGS = {
     "score_tables": ((ScoreDims,), 19),
     "band_front": ((DPDims, BandIdx, AuxArg), 15),
     "band_bif": ((DPDims, BandIdx), 4),
-    "band_m": ((DPDims, BandIdx, AuxArg), 5),
+    "band_m": ((DPDims, BandIdx, AuxArg), 5, 2),
     "band_e": ((DPDims, BandIdx), 8),
-    "ep_fwd": ((DPDims, EpIdx), 12),
+    "ep_fwd": ((DPDims, EpIdx), 13),
     "ep_fwd_red": ((DPDims,), 3),
     "ext_col": ((DPDims, ExtIdx, AuxArg), 6),
-    "ext_adj": ((DPDims, AdjIdx, AuxArg), 10),
-    "ext_adj_chain": ((DPDims, AdjIdx, AuxArg), 4),
+    "ext_adj": ((DPDims, ExtAdjListsArg, AuxArg), 10),
     "e_adj": ((DPDims, AdjIdx), 12),
-    "m_adj": ((DPDims, AdjIdx, AuxArg), 10),
+    "m_adj": ((DPDims, AdjIdx, AuxArg), 10, 2),
     "bif_adj": ((DPDims, AdjIdx), 6),
     "front_adj_t": ((DPDims, AdjIdx, AuxArg), 19),
     "front_adj_sw": ((DPDims, AdjIdx, AuxArg), 23),
     "cls_red": ((DPDims, AuxArg), 1),
-    "ep_adj": ((DPDims, EpIdx), 19),
+    "ep_adj": ((DPDims, EpIdx), 20),
     "ep_adj_red": ((DPDims,), 8),
     "chain_fwd": ((ChainDims, ChainIdx, AuxArg), 4),
     "chain_adj": ((ChainDims, ChainIdx, AuxArg), 5),
     "band_front_max": ((DPDims, BandIdx, AuxArg), 15),
     "band_bif_max": ((DPDims, BandIdx), 4),
-    "band_m_max": ((DPDims, BandIdx, AuxArg), 5),
+    "band_m_max": ((DPDims, BandIdx, AuxArg), 5, 2),
     "band_e_max": ((DPDims, BandIdx), 8),
-    "ep_max": ((DPDims, EpIdx), 12),
+    "ep_max": ((DPDims, EpIdx), 13),
     "ext_col_max": ((DPDims, ExtIdx, AuxArg), 6),
     "cyk_traceback": ((DPDims, TbIdx, AuxArg, TbData, TbCfg), 4),
 }
@@ -277,18 +292,23 @@ def lib():
         if _lib is None:
             path, _ = build()
             L = ctypes.CDLL(str(path))
-            for name, (structs, nptr) in _SIGS.items():
+            for name, sig in _SIGS.items():
+                structs, nptr, nint = (sig + (0,))[:3]
                 for suf in _SUF.values():
                     fn = getattr(L, "rnaelem_%s_%s" % (name, suf))
-                    fn.argtypes = list(structs) + \
-                        [ctypes.c_void_p] * (nptr + 1)
+                    fn.argtypes = list(structs) + [ctypes.c_void_p] * nptr \
+                        + [ctypes.c_int] * nint + [ctypes.c_void_p]
                     fn.restype = ctypes.c_int
             L.rnaelem_ep_smem_bytes.argtypes = [ctypes.c_int, DPDims,
                                                 ctypes.c_int]
             L.rnaelem_ep_smem_bytes.restype = ctypes.c_longlong
-            L.rnaelem_ep_max_ranges.argtypes = [DPDims, ctypes.c_int]
+            L.rnaelem_ep_ws_bytes.argtypes = [ctypes.c_int, DPDims,
+                                              ctypes.c_int]
+            L.rnaelem_ep_ws_bytes.restype = ctypes.c_longlong
+            L.rnaelem_ep_max_ranges.argtypes = [DPDims, ctypes.c_int,
+                                                ctypes.c_int]
             L.rnaelem_ep_max_ranges.restype = ctypes.c_int
-            L.rnaelem_band_smem_bytes.argtypes = [ctypes.c_int] * 3
+            L.rnaelem_band_smem_bytes.argtypes = [ctypes.c_int] * 5
             L.rnaelem_band_smem_bytes.restype = ctypes.c_longlong
             L.rnaelem_error_string.argtypes = [ctypes.c_int]
             L.rnaelem_error_string.restype = ctypes.c_char_p
@@ -296,11 +316,12 @@ def lib():
     return _lib
 
 
-def _call(kernel: str, fname: str, like, *args):
+def _call(kernel: str, fname: str, like, *args, variant=None):
     """Launch rnaelem_<fname>_<type> for the dtype of the tensor ``like``
     on its device's current stream, that device made current for the
     launch when it is not (a process may hold tensors on several cards);
-    raise on a CUDA error; count the launch against ``kernel``."""
+    raise on a CUDA error; count the launch against ``kernel`` (and
+    against its plan's ``variant``, if any)."""
     if like.dtype not in _SUF:
         raise TypeError("kernels take float32 or float64, not %s"
                         % like.dtype)
@@ -314,7 +335,10 @@ def _call(kernel: str, fname: str, like, *args):
     if rc != 0:
         raise RuntimeError("CUDA kernel %s failed: %s (%d)" % (
             fname, L.rnaelem_error_string(rc).decode(), rc))
-    KERNELS[kernel].launches += 1
+    k = KERNELS[kernel]
+    k.launches += 1
+    if variant is not None:
+        k.variants[variant] = k.variants.get(variant, 0) + 1
 
 
 def _p(t):
@@ -522,13 +546,15 @@ def band_bif(state, j, d, c, h, st):
           _p(state["T2"]), _p(c.okB))
 
 
-def band_m(state, j, d, c, h, st):
-    """K2 stage M (sequential multiloop chain) of column j."""
-    band_check("inside_band", st.dims.S, st.dtype)
+def band_m(state, j, d, c, h, st, plan=None):
+    """K2 stage M (sequential multiloop chain) of column j, in blocks of
+    ``plan`` (band_plan's for the grammar, unless given)."""
+    plan = plan or band_plan("inside_band", st.dims.S, st.dtype)
     _check_column(state, j, d, c, h, st)
     _call("inside_band", "band_m", state["O"], _dims(st, state, j, d),
           _band_idx(st), _aux(st, c.pin), _p(state["M"]), _p(state["Bt"]),
-          _p(d.eL), _p(c.gate_M), _p(c.okM))
+          _p(d.eL), _p(c.gate_M), _p(c.okM), plan.G, plan.R,
+          variant=plan.name)
 
 
 def band_e(state, j, d, c, h, st):
@@ -540,25 +566,31 @@ def band_e(state, j, d, c, h, st):
           _p(c.okE))
 
 
-# K3's, K6's and K11's fused blocks (csrc/ep_col.cuh): one read and one
-# of EP_XSPLIT (kEpXSplit) ranges of x per block, K3's and K6's partials
-# EP_XSPLIT deep (K11's ranges follow the batch: rnaelem_ep_max_ranges)
+# ------------------------------------------------------- launch plans
+#
+# K3's, K6's and K11's fused blocks (csrc/ep_col.cuh) take one read and
+# one of EP_XSPLIT (kEpXSplit) ranges of x per block, K3's and K6's
+# partials EP_XSPLIT deep (K11's ranges follow the batch and the variant:
+# rnaelem_ep_max_ranges).  The M chain's blocks (csrc/mchain.cuh) take a
+# group of G reads, one thread per (state, read), their inputs staged in a
+# ring of R steps.  What a block keeps grows with the grammar (S, n_ar),
+# the max internal loop Cp and the type, never with the span Wp or B:
+# the plans below pick, from those alone and before any launch, the
+# hand-written kernel's variant that takes the shape.
 EP_XSPLIT = 4
-EP_MAX_THREADS = 256     # K11's threads per block (kEpMaxThreads)
 SMEM_LIMIT = 232448      # dynamic shared memory a block may take (H100)
-
-
-class SharedMemoryLimit(ValueError):
-    """A block of K3's, K6's or K11's fused kernels, or of the M chain's
-    (K2, K5, K10), would need more shared memory or threads than a block
-    may take."""
+MAX_THREADS = 1024       # threads a block may take
+EP_WS_ALIGN = 256        # a block's workspace slice starts on this boundary
+BAND_GROUP_BYTES = 32    # a (w, s) row of an M-chain block's reads at most
+BAND_RING = 4            # kMRing
+BAND_RING_SMALL = 2      # kMRingSmall
 
 
 def ep_smem_bytes(kernel, S, n_ar, Cp, dtype):
-    """Dynamic shared memory of one block of K3 (``kernel`` "inside_ep"),
-    K6 ("outside_ep") or K11 ("inside_ep_max"): the layouts EpFwdLayout,
-    EpAdjLayout and EpMaxLayout of csrc/ep_col.cuh.  The span Wp does not
-    enter: what a block keeps per width lives in a ring of Cp+1 rows."""
+    """Bytes of one block's layout of K3 (``kernel`` "inside_ep"), K6
+    ("outside_ep") or K11 ("inside_ep_max"): EpFwdLayout, EpAdjLayout and
+    EpMaxLayout of csrc/ep_col.cuh.  The span Wp does not enter: what a
+    block keeps per width lives in a ring of Cp+1 rows."""
     it = torch.empty((), dtype=dtype).element_size()
     C1 = Cp + 1
     tri = C1 * (C1 + 1) // 2      # W, gW and GSZ live on dl + u1 <= Cp
@@ -578,76 +610,130 @@ def ep_smem_bytes(kernel, S, n_ar, Cp, dtype):
     raise ValueError("no fused block for kernel %r" % kernel)
 
 
+class EpPlan(NamedTuple):
+    """How K3, K6 or K11 runs a shape: ``variant`` "shared" (the block's
+    layout in ``smem`` bytes of shared memory) or "device" (the same
+    kernel body, the layout in a slice of ``block_bytes`` of a device
+    workspace per block: csrc/ep_col.cuh ep_base)."""
+    kernel: str
+    variant: str
+    smem: int
+    block_bytes: int
+
+    @property
+    def name(self):
+        return self.variant
+
+
 @functools.lru_cache(maxsize=None)
-def ep_check(kernel, S, n_ar, Cp, dtype):
-    """Raise SharedMemoryLimit where a block of K3, K6 or K11 would need
-    more shared memory than SMEM_LIMIT; the message names the largest max
-    internal loop (-c) that fits."""
-    if kernel == "inside_ep_max" and max(S, n_ar) > EP_MAX_THREADS:
-        raise SharedMemoryLimit(
-            "inside_ep_max: a block of %d threads holds one thread per "
-            "target state and per AR pair (S=%d, n_ar=%d): this grammar has "
-            "too many states" % (EP_MAX_THREADS, S, n_ar))
-    smem = ep_smem_bytes(kernel, S, n_ar, Cp, dtype)
-    if smem <= SMEM_LIMIT:
-        return
-    fit = Cp
-    while fit > 1 and ep_smem_bytes(kernel, S, n_ar, fit, dtype) > SMEM_LIMIT:
-        fit -= 1
-    raise SharedMemoryLimit(
-        "%s: a block needs %d bytes of shared memory (S=%d, n_ar=%d, max "
-        "internal loop %d, %s), more than the %d a block may take; "
-        "-c/--max-internal-loop %d fits this pattern at this dtype (the "
-        "span -w does not enter)"
-        % (kernel, smem, S, n_ar, Cp, str(dtype).replace("torch.", ""),
-           SMEM_LIMIT, fit))
+def ep_plan(kernel, S, n_ar, Cp, dtype, variant=None):
+    """The launch plan of K3 ("inside_ep"), K6 ("outside_ep") or K11
+    ("inside_ep_max") for a grammar (S states, n_ar AR pairs), max
+    internal loop Cp and type: the shared variant where its layout fits
+    the SMEM_LIMIT bytes a block may take, else the device variant, whose
+    blocks give the same bits.  ``variant`` forces one ("shared" raises
+    ValueError where it does not fit)."""
+    layout = ep_smem_bytes(kernel, S, n_ar, Cp, dtype)
+    if variant is None:
+        variant = "shared" if layout <= SMEM_LIMIT else "device"
+    if variant == "shared":
+        if layout > SMEM_LIMIT:
+            raise ValueError(
+                "%s: the shared variant's block needs %d bytes of shared "
+                "memory (S=%d, n_ar=%d, Cp=%d, %s), more than %d"
+                % (kernel, layout, S, n_ar, Cp,
+                   str(dtype).replace("torch.", ""), SMEM_LIMIT))
+        return EpPlan(kernel, "shared", layout, 0)
+    if variant == "device":
+        return EpPlan(kernel, "device", 0,
+                      -(-layout // EP_WS_ALIGN) * EP_WS_ALIGN)
+    raise ValueError("ep_plan: variant %r is neither 'shared' nor "
+                     "'device'" % (variant,))
 
 
-# the M chain's blocks (csrc/mchain.cuh): a group of BAND_GROUP_BYTES'
-# worth of reads (8 at f32, 4 at f64), one thread per (state, read), their
-# inputs staged in a ring of BAND_RING steps
-BAND_RING = 4            # kMRing
-BAND_GROUP_BYTES = 32    # kMGroupBytes
-MAX_THREADS = 1024       # threads a block may take
-
-
-def band_smem_bytes(kernel, S, dtype):
+def band_smem_bytes(kernel, S, dtype, G, R=BAND_RING):
     """Dynamic shared memory of one M-chain block of K2's band_m (kernel
-    "inside_band", K10's too) or K5's m_adj ("outside_band"): MLayout of
-    csrc/mchain.cuh, two slots of the published row and a ring of
-    BAND_RING stages of the step's inputs with their okM words.  It
-    depends on S and the type only: neither the span Wp nor B enters."""
+    "inside_band", K10's too) or K5's m_adj ("outside_band") in blocks of
+    G reads with a ring of R stages: MLayout of csrc/mchain.cuh, two slots
+    of the published row and the ring of the step's inputs with their okM
+    words.  Neither the span Wp nor B enters."""
     it = torch.empty((), dtype=dtype).element_size()
-    n = S * (BAND_GROUP_BYTES // it)
-    nbuf, nring = {"inside_band": (1, 3), "outside_band": (2, 9)}[kernel]
-    return 2 * nbuf * n * it + BAND_RING * (nring * n * it + 4 * n)
+    n = S * G
+    nbuf, nring = {"inside_band": (2, 3), "outside_band": (2, 9)}[kernel]
+    return 2 * nbuf * n * it + R * (nring * n * it + 4 * n)
+
+
+class BandPlan(NamedTuple):
+    """How the M chain of K2/K10 ("inside_band") or K5 ("outside_band")
+    runs a grammar: blocks of G reads and ``threads`` threads (one per
+    state and read), a ring of R stages, ``smem`` bytes."""
+    kernel: str
+    G: int
+    R: int
+    threads: int
+    smem: int
+
+    @property
+    def name(self):
+        return "G=%d,R=%d" % (self.G, self.R)
 
 
 @functools.lru_cache(maxsize=None)
-def band_check(kernel, S, dtype):
-    """Raise SharedMemoryLimit where an M-chain block of K2/K10
-    ("inside_band") or K5 ("outside_band") would need more shared memory
-    than SMEM_LIMIT or more threads than a block may take (one per state
-    and read of the group)."""
+def band_plan(kernel, S, dtype, G=None, R=None):
+    """The M chain's launch plan for S states at ``dtype``: the first of
+    32 bytes' worth of reads per block (8 f32, 4 f64), 4, 2 and 1 whose
+    block (S x G threads, the layout with a ring of BAND_RING stages, or
+    of BAND_RING_SMALL at G = 1) fits a block.  A read's results do not
+    depend on G or R.  ``G`` and ``R`` force a group and a ring (ValueError
+    where the block does not fit).  A grammar of more than MAX_THREADS
+    states has no M-chain block (one thread per state)."""
     it = torch.empty((), dtype=dtype).element_size()
-    G = BAND_GROUP_BYTES // it
-    threads = -(-S * G // 32) * 32
-    smem = band_smem_bytes(kernel, S, dtype)
-    if smem > SMEM_LIMIT or threads > MAX_THREADS:
-        raise SharedMemoryLimit(
-            "%s: an M-chain block of %d reads needs %d bytes of shared "
-            "memory and %d threads (S=%d, %s); a block may take %d bytes "
-            "and %d threads: this grammar has too many states"
-            % (kernel, G, smem, threads, S,
-               str(dtype).replace("torch.", ""), SMEM_LIMIT, MAX_THREADS))
+    groups = tuple(g for g in (8, 4, 2, 1) if g * it <= BAND_GROUP_BYTES)
+    if G is not None:
+        if G not in groups:
+            raise ValueError("band_plan: G=%r is not one of %s at %s"
+                             % (G, groups, dtype))
+        groups = (G,)
+    for g in groups:
+        rings = (BAND_RING, BAND_RING_SMALL) if g == 1 else (BAND_RING,)
+        if R is not None:
+            if R not in rings:
+                raise ValueError("band_plan: R=%r is not one of %s at G=%d"
+                                 % (R, rings, g))
+            rings = (R,)
+        for r in rings:
+            threads = -(-S * g // 32) * 32
+            smem = band_smem_bytes(kernel, S, dtype, g, r)
+            if threads <= MAX_THREADS and smem <= SMEM_LIMIT:
+                return BandPlan(kernel, g, r, threads, smem)
+    raise ValueError(
+        "%s: no M-chain block takes %d states at %s%s (one thread per "
+        "state and read, at most %d threads)"
+        % (kernel, S, str(dtype).replace("torch.", ""),
+           "" if G is None else " in groups of %d reads" % G, MAX_THREADS))
 
 
-def ep_stage(state, j, d, c, h, st):
+def _workspace(scr, plan, blocks, dev):
+    """The device variant's workspace (``blocks`` slices of the plan's
+    block bytes), kept in the scratch dict ``scr`` and grown when a later
+    call needs more; a null pointer for the shared variant."""
+    if plan.variant != "device":
+        return ctypes.c_void_p(None)
+    need = blocks * plan.block_bytes
+    ws = scr.get("ws")
+    if ws is None or ws.numel() < need:
+        ws = torch.empty(need, dtype=torch.uint8, device=dev)
+        scr["ws"] = ws
+    return _p(ws)
+
+
+def ep_stage(state, j, d, c, h, st, plan=None):
     """K3: the TT_E_P internal-loop term of column j into row j of the
-    ep table (two launches: the fused blocks, then the sum of their
-    partials).  The per-(column, read) shifts go into the state's
-    ep_shift [Lp+1, 3, B], which K6 reads."""
-    ep_check("inside_ep", st.dims.S, st.n_ar, st.dims.Cp, st.dtype)
+    ep table (two launches: the fused blocks, in ``plan``'s variant, then
+    the sum of their partials).  The per-(column, read) shifts go into
+    the state's ep_shift [Lp+1, 3, B], which K6 reads."""
+    plan = plan or ep_plan("inside_ep", st.dims.S, st.n_ar, st.dims.Cp,
+                           st.dtype)
     _check_column(state, j, d, c, h, st)
     if not st.have_ep:
         state["ep"][j + st.PAD].fill_(float("-inf"))
@@ -666,11 +752,12 @@ def ep_stage(state, j, d, c, h, st):
             part=torch.empty((EP_XSPLIT, W1, S, B), dtype=dt, device=dev))
         state["_ep_scratch"] = scr
     D = _dims(st, state, j, d)
+    ws = _workspace(scr, plan, B * EP_XSPLIT, dev)
     _call("inside_ep", "ep_fwd", state["O"], D, _idx(st, EpIdx, EP_IDX),
           _p(state["P"]), _p(state["LL"]), _p(h["emisA"]), _p(h["emisB"]),
           _p(state["_eSZg"]), _p(c.ep["spec_il"]), _p(state["_lam"]),
           _p(c.dots_cum), _p(c.C), _p(scr["rowmax"]), _p(state["ep_shift"]),
-          _p(scr["part"]))
+          _p(scr["part"]), ws, variant=plan.name)
     _call("inside_ep", "ep_fwd_red", state["O"], D, _p(scr["part"]),
           _p(state["ep_shift"]), _p(state["ep"]))
 
@@ -748,17 +835,64 @@ def _cls_parts(gs, st, B, dev):
     return gs["_cls_parts"]
 
 
+EXT_ADJ_LISTS = ("opa", "opc", "op", "rtr", "rt")
+
+
+def ext_adj_lists(st):
+    """K7's lists per state s (csrc/outside_ext.cu ExtAdjLists), built
+    once per DPStatic on the host from its CSR lists: int32 rows [S,
+    stride] of the lists' lengths at s, bucket[s] and the lists padded to
+    the longest (nA, nC, nO, nR, nT), scalar rows [S, nR + nT] of the
+    chain's weights, and those five widths."""
+    got = st.__dict__.get("_ext_adj_lists")
+    if got is not None:
+        return got
+    k = {n: st.k[n].cpu().numpy() for n in (
+        "opa_off", "opa_t", "opa_c", "opc_off", "opc_t", "opc_a", "op_off",
+        "op_a", "op_c", "rtr_off", "rtr_t", "rtr_w", "rt_off", "rt_s",
+        "rt_w", "bucket", "cls_code")}
+    S = st.dims.S
+    lens = np.stack([np.diff(k[n + "_off"]) for n in EXT_ADJ_LISTS], 1)
+    caps = [max(1, int(v)) for v in lens.max(0)]
+    nA, nC, nO, nR, nT = caps
+    code, bu = k["cls_code"][0], k["bucket"]   # kind R: code[t, s], t <- s
+    idx = np.zeros((S, 6 + 3 * nA + 3 * nC + 2 * nO + 2 * nR + 2 * nT),
+                   np.int32)
+    wt = np.zeros((S, nR + nT))
+    for s in range(S):
+        seg = {n: slice(k[n + "_off"][s], k[n + "_off"][s + 1])
+               for n in EXT_ADJ_LISTS}
+        ta, ca = k["opa_t"][seg["opa"]], k["opa_c"][seg["opa"]]
+        tc, ac = k["opc_t"][seg["opc"]], k["opc_a"][seg["opc"]]
+        tr, ur = k["rtr_t"][seg["rtr"]], k["rt_s"][seg["rt"]]
+        cols = ((ta, nA), (ca, nA), (bu[ta], nA), (tc, nC), (ac, nC),
+                (bu[tc], nC), (k["op_a"][seg["op"]], nO),
+                (k["op_c"][seg["op"]], nO), (tr, nR), (code[tr, s], nR),
+                (ur, nT), (code[s, ur], nT))
+        idx[s, :6] = list(lens[s]) + [bu[s]]
+        o = 6
+        for v, n in cols:
+            idx[s, o:o + len(v)] = v
+            o += n
+        wt[s, :len(tr)] = k["rtr_w"][seg["rtr"]]
+        wt[s, nR:nR + len(ur)] = k["rt_w"][seg["rt"]]
+    got = (torch.as_tensor(idx, device=st.device),
+           torch.as_tensor(wt, dtype=st.dtype, device=st.device), tuple(caps))
+    st._ext_adj_lists = got
+    return got
+
+
 def ext_adj(fs, gs, j, d, c, h, st):
-    """K7: adjoint of the O column j."""
+    """K7: adjoint of the O column j (one launch)."""
     _check_adj(fs, gs, j, d, c, h, st)
-    D, ix = _dims(st, fs, j, d), _idx(st, AdjIdx, ADJ_IDX)
+    idx, wt, caps = ext_adj_lists(st)
     ax = _aux(st, c.pin,
               _cls_parts(gs, st, fs["O"].shape[-1], fs["O"].device))
-    _call("outside_ext", "ext_adj", fs["O"], D, ix, ax, _p(fs["O"]),
-          _p(fs["P"]), _p(d.eR), _p(c.gate_O2), _p(c.ext), _p(fs["_lam"]),
-          _p(gs["O"]), _p(gs["P"]), _p(gs["eR"]), _p(gs["DL"]))
-    _call("outside_ext", "ext_adj_chain", fs["O"], D, ix, ax, _p(fs["O"]),
-          _p(d.eR), _p(c.gate_O2), _p(gs["O"]))
+    _call("outside_ext", "ext_adj", fs["O"], _dims(st, fs, j, d),
+          ExtAdjListsArg(idx.data_ptr(), wt.data_ptr(), *caps), ax,
+          _p(fs["O"]), _p(fs["P"]), _p(d.eR), _p(c.gate_O2), _p(c.ext),
+          _p(fs["_lam"]), _p(gs["O"]), _p(gs["P"]), _p(gs["eR"]),
+          _p(gs["DL"]))
 
 
 def e_adj(fs, gs, j, d, c, h, st):
@@ -771,39 +905,45 @@ def e_adj(fs, gs, j, d, c, h, st):
           _p(gs["DL"]))
 
 
-def ep_adj(fs, gs, j, d, c, h, st):
+def ep_adj(fs, gs, j, d, c, h, st, plan=None):
     """K6: adjoint of the internal-loop term at column j (two launches:
-    the fused blocks, which form K3's chain themselves from the shifts
-    K3 kept in fs['ep_shift'], then the sum of their partials)."""
-    ep_check("outside_ep", st.dims.S, st.n_ar, st.dims.Cp, st.dtype)
+    the fused blocks, in ``plan``'s variant, which form K3's chain
+    themselves from the shifts K3 kept in fs['ep_shift'], then the sum of
+    their partials)."""
+    plan = plan or ep_plan("outside_ep", st.dims.S, st.n_ar, st.dims.Cp,
+                           st.dtype)
     _check_adj(fs, gs, j, d, c, h, st)
     if not st.have_ep:
         return
-    scr = _adj_scratch(gs, st, fs["O"].shape[-1], fs["O"].device)
+    B, dev = fs["O"].shape[-1], fs["O"].device
+    scr = _adj_scratch(gs, st, B, dev)
     D = _dims(st, fs, j, d)
+    ws = _workspace(scr, plan, B * EP_XSPLIT, dev)
     _call("outside_ep", "ep_adj", fs["O"], D, _idx(st, EpIdx, EP_IDX),
           _p(fs["P"]), _p(fs["LL"]), _p(fs["ep"]), _p(gs["gep"]), _p(fs["ep_shift"]),
           _p(h["emisA"]), _p(h["emisB"]), _p(fs["_eSZg"]),
           _p(c.ep["spec_il"]), _p(fs["_lam"]), _p(c.dots_cum), _p(c.C),
           _p(gs["P"]), _p(gs["LL"]), _p(gs["emisB"]), _p(scr["gL3p"]),
-          _p(scr["gmAp"]), _p(scr["gszp"]), _p(scr["glamp"]))
+          _p(scr["gmAp"]), _p(scr["gszp"]), _p(scr["glamp"]), ws,
+          variant=plan.name)
     _call("outside_ep", "ep_adj_red", fs["O"], D, _p(scr["gL3p"]),
           _p(scr["gmAp"]), _p(scr["gszp"]), _p(scr["glamp"]), _p(gs["LL"]),
           _p(gs["emisA"]), _p(gs["GSZ"]), _p(gs["lam"]))
 
 
-def band_adj(fs, gs, j, d, c, h, st):
+def band_adj(fs, gs, j, d, c, h, st, plan=None):
     """K5: adjoint of M, B/T1 and L/P/T2 at column j in four launches (and,
-    with a class probe, the column's class sums in a fifth): m_adj_stage,
-    then band_adj_tail."""
-    m_adj_stage(fs, gs, j, d, c, h, st)
+    with a class probe, the column's class sums in a fifth): m_adj_stage
+    (in ``plan``'s blocks), then band_adj_tail."""
+    m_adj_stage(fs, gs, j, d, c, h, st, plan)
     band_adj_tail(fs, gs, j, d, c, h, st)
 
 
-def m_adj_stage(fs, gs, j, d, c, h, st):
-    """K5's M chain at column j (with T1's share of B's cotangent): it
+def m_adj_stage(fs, gs, j, d, c, h, st, plan=None):
+    """K5's M chain at column j (with T1's share of B's cotangent), in
+    blocks of ``plan`` (band_plan's for the grammar, unless given): it
     needs only e_adj's gM, so the outside pass may run it beside K6."""
-    band_check("outside_band", st.dims.S, st.dtype)
+    plan = plan or band_plan("outside_band", st.dims.S, st.dtype)
     _check_adj(fs, gs, j, d, c, h, st)
     D, ix = _dims(st, fs, j, d), _idx(st, AdjIdx, ADJ_IDX)
     ax = _aux(st, c.pin,
@@ -811,7 +951,8 @@ def m_adj_stage(fs, gs, j, d, c, h, st):
     f, g = fs, gs
     _call("outside_band", "m_adj", fs["O"], D, ix, ax, _p(f["M"]), _p(f["Bt"]),
           _p(d.eL), _p(c.gate_M), _p(c.okM), _p(g["gM"]), _p(f["T1"]),
-          _p(g["T1"]), _p(g["gB"]), _p(g["eL"]))
+          _p(g["T1"]), _p(g["gB"]), _p(g["eL"]), plan.G, plan.R,
+          variant=plan.name)
 
 
 def band_adj_tail(fs, gs, j, d, c, h, st):
@@ -933,14 +1074,16 @@ def max_band_bif(state, j, d, c, mst):
           _p(state["T1"]), _p(state["T2"]), _p(c.okB))
 
 
-def max_band_m(state, j, d, c, mst):
-    """K10 stage M of column j."""
-    band_check("inside_band", mst.st.dims.S, mst.st.dtype)
-    _check_max_column(state, j, d, c, mst)
+def max_band_m(state, j, d, c, mst, plan=None):
+    """K10 stage M of column j, in blocks of ``plan`` (band_plan's for
+    the grammar, unless given)."""
     st = mst.st
+    plan = plan or band_plan("inside_band", st.dims.S, st.dtype)
+    _check_max_column(state, j, d, c, mst)
     _call("inside_band_max", "band_m_max", state["O"], _dims(st, state, j, d),
           _band_idx(st), _aux(st, c.pin), _p(state["M"]), _p(state["Bt"]),
-          _p(d.eL), _p(c.gate_M), _p(c.okM))
+          _p(d.eL), _p(c.gate_M), _p(c.okM), plan.G, plan.R,
+          variant=plan.name)
 
 
 def max_band_e(state, j, d, c, mst):
@@ -953,37 +1096,43 @@ def max_band_e(state, j, d, c, mst):
           _p(c.mlE), _p(c.okE))
 
 
-def max_ep_stage(state, j, d, c, mst):
+def max_ep_stage(state, j, d, c, mst, plan=None):
     """K11: the TT_E_P internal-loop maximum of column j into row j of
     the ep table (log space: no shifts), one launch: the fused blocks
-    (one read and one range of x each), the last block of a read merging
-    the ranges' partial rows."""
+    (one read and one range of x each, in ``plan``'s variant), the last
+    block of a read merging the ranges' partial rows."""
     st = mst.st
-    ep_check("inside_ep_max", st.dims.S, st.n_ar, st.dims.Cp, st.dtype)
+    plan = plan or ep_plan("inside_ep_max", st.dims.S, st.n_ar, st.dims.Cp,
+                           st.dtype)
     _check_max_column(state, j, d, c, mst)
     ep_row = state["ep"][j + st.PAD]
     if not st.have_ep:
         ep_row.fill_(float("-inf"))
         return
     D = _dims(st, state, j, d)
+    B, dev = state["O"].shape[-1], state["O"].device
     scr = state.get("_ep_max_scratch")
-    if scr is None:
+    if scr is None or scr["variant"] != plan.variant:
         # the ranges' partial rows (W1 + n * Cp of them: csrc/ep_col.cuh
-        # EpMaxRanges) and each read's count of finished blocks
-        B, dev = state["O"].shape[-1], state["O"].device
+        # EpMaxRanges; n follows B and the variant) and each read's count
+        # of finished blocks
         with torch.cuda.device(dev):
             n = int(lib().rnaelem_ep_max_ranges(
-                D, torch.empty((), dtype=st.dtype).element_size()))
+                D, torch.empty((), dtype=st.dtype).element_size(),
+                int(plan.variant == "device")))
         rows = st.dims.Wp + 1 + n * st.dims.Cp
         scr = dict(part=torch.empty((rows, st.dims.S, B), dtype=st.dtype,
                                     device=dev),
-                   done=torch.zeros(B, dtype=torch.int32, device=dev))
+                   done=torch.zeros(B, dtype=torch.int32, device=dev),
+                   ranges=n, variant=plan.variant)
         state["_ep_max_scratch"] = scr
+    ws = _workspace(scr, plan, B * scr["ranges"], dev)
     _call("inside_ep_max", "ep_max", state["O"], D,
           _idx(st, EpIdx, EP_IDX), _p(state["P"]), _p(state["LL"]),
           _p(c.ep["misA"]), _p(c.ep["misB"]), _p(mst.SZg),
           _p(c.ep["spec_il"]), _p(state["_lam"]), _p(c.dots_cum), _p(c.C),
-          _p(scr["part"]), _p(scr["done"]), _p(ep_row))
+          _p(scr["part"]), _p(scr["done"]), _p(ep_row), ws,
+          variant=plan.name)
 
 
 def max_ext_stage(state, j, d, c, mst):

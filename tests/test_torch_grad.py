@@ -158,3 +158,11 @@ def test_dp_parts_alphaP_cotangent_matches_jax():
     want = np.asarray(want)
     assert np.abs(want).max() > 0
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-10)
+
+
+def test_batch_fn_grad_of_a_wide_grammar_matches_jax():
+    """An all-dot pattern of 12 dots (S = n_ar = 105, the width whose K6
+    and K11 blocks outgrow shared memory at f64 and -c 30, so that the
+    card runs their device variants): the port's plain path against the
+    JAX package, fn and gradient within 1e-9, on short reads."""
+    _check(*_setup("." * 12, 6, max_span=12))

@@ -1209,3 +1209,205 @@ def test_structure_scan_on_the_card_matches_cpu():
             np.testing.assert_allclose(x[fin], y[fin], rtol=1e-5, atol=1e-9)
         else:
             assert a == b, key
+
+
+VARIANT_CASES = {
+    "S29-f64": dict(pattern="(.....)", dtype="float64"),
+    "S29-f32": dict(pattern="(.....)", dtype="float32"),
+    "S91-f64": dict(pattern=".....*.....", dtype="float64", n=3),
+    "S91-f32": dict(pattern=".....*.....", dtype="float32", n=3),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(VARIANT_CASES))
+def test_device_variant_equals_the_shared_variant_bitwise(case):
+    """K3 (ep_stage), K6 (ep_adj) and K11 (max_ep_stage) forced into the
+    device variant (their layout in a device workspace) through
+    ep_plan's keyword give the shared variant's bits at -c 30, where both
+    fit: the ep rows and shifts of every third column, one column's
+    cotangents, and the CYK tables' ep rows; each launch counts under its
+    variant."""
+    _need_cuda()
+    kw = dict(VARIANT_CASES[case])
+    n = kw.pop("n", 5)
+    cfg = J.ModelConfig(Lp=60, max_span=50, max_iloop=30, min_bpp=0.0,
+                        tau=0.1, **kw)
+    dp, d, c, h, fs, gbar = _ep_inputs(cfg, _ep_reads(cfg, n, 17))
+    st = dp.st
+    plans = {v: {k_: K.ep_plan(k_, st.dims.S, st.n_ar, st.dims.Cp,
+                               st.dtype, variant=v)
+                 for k_ in ("inside_ep", "outside_ep", "inside_ep_max")}
+             for v in ("shared", "device")}
+    assert K.ep_plan("outside_ep", st.dims.S, st.n_ar, st.dims.Cp,
+                     st.dtype) == plans["shared"]["outside_ep"]
+    r = lambda j: j + st.PAD
+    cols = range(2, cfg.Lp + 1, 3)
+    K.reset_counts()
+    for j in cols:
+        a, b = DP.clone_state(fs), DP.clone_state(fs)
+        K.ep_stage(a, j, d, c, h, st, plan=plans["shared"]["inside_ep"])
+        K.ep_stage(b, j, d, c, h, st, plan=plans["device"]["inside_ep"])
+        assert torch.equal(a["ep"][r(j)], b["ep"][r(j)]), j
+        assert torch.equal(a["ep_shift"], b["ep_shift"]), j
+    assert K.KERNELS["inside_ep"].variants == {"shared": len(cols),
+                                               "device": len(cols)}
+    gs = DP.init_grads(fs, d, c, h)
+    DP.seed_parts(gs, gbar, c, st)
+    j0 = cfg.Lp // 2
+    dp.outside_columns(fs, gs, d, c, h, cfg.Lp + 1, j0 + 1)
+    got = {}
+    K.reset_counts()
+    for v in ("shared", "device"):
+        g_ = DP.clone_state(gs)
+        K.ep_adj(fs, g_, j0, d, c, h, st, plan=plans[v]["outside_ep"])
+        got[v] = g_
+    for k_ in got["shared"]:
+        if not k_.startswith("_"):
+            assert torch.equal(got["shared"][k_], got["device"][k_]), k_
+    assert K.KERNELS["outside_ep"].variants == {"shared": 1, "device": 1}
+    mdp = DMB.MaxDP(dp)
+    tabs = mdp.tables(d, c)
+    for j in cols:
+        a, b = DP.clone_state(tabs), DP.clone_state(tabs)
+        K.max_ep_stage(a, j, d, c, mdp.mst,
+                       plan=plans["shared"]["inside_ep_max"])
+        K.max_ep_stage(b, j, d, c, mdp.mst,
+                       plan=plans["device"]["inside_ep_max"])
+        assert torch.equal(a["ep"][r(j)], b["ep"][r(j)]), j
+        assert torch.equal(a["ep"][r(j)], tabs["ep"][r(j)]), j
+    assert K.KERNELS["inside_ep_max"].variants["device"] == len(cols)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("pattern", ["(.....)", ".....*....."])
+def test_m_chain_does_not_depend_on_its_group(pattern, dtype):
+    """K2's band_m, K5's M chain (band_adj, pinned with the class probe)
+    and K10's band_m_max, forced through band_plan's keywords into every
+    group of reads the type takes (8, 4, 2, 1 at f32; 4, 2, 1 at f64)
+    and the small ring at G = 1, give the same bits (B=13: no multiple of
+    a group)."""
+    _need_cuda()
+    cfg = J.ModelConfig(pattern=pattern, Lp=60, max_span=50, max_iloop=30,
+                        min_bpp=0.0, tau=0.1, dtype=dtype)
+    reads = _ep_reads(cfg, 13, 19)
+    dp, d, c, h, fs, gbar = _band_inputs(cfg, reads, pinned=True)
+    st, j0 = dp.st, 40
+    S, r = st.dims.S, j0 + st.PAD
+    groups = (8, 4, 2, 1) if dtype == "float32" else (4, 2, 1)
+    shapes = [(g_, 4) for g_ in groups] + [(1, 2)]
+    gs = DP.init_grads(fs, d, c, h)
+    DP.seed_parts(gs, gbar, c, st)
+    dp.outside_columns(fs, gs, d, c, h, cfg.Lp + 1, j0 + 1)
+    K.e_adj(fs, gs, j0, d, c, h, st)
+    d0, c0, h0, f0 = _ep_inputs(cfg, reads)[1:5]
+    mdp = DMB.MaxDP(dp)
+    tabs = mdp.tables(d0, c0)
+    ref = None
+    K.reset_counts()
+    for G, R in shapes:
+        out = {}
+        a = DP.clone_state(fs)
+        K.band_m(a, j0, d, c, h, st,
+                 plan=K.band_plan("inside_band", S, st.dtype, G=G, R=R))
+        out["M"] = a["M"][r]
+        g_ = DP.clone_state(gs)
+        K.band_adj(fs, g_, j0, d, c, h, st,
+                   plan=K.band_plan("outside_band", S, st.dtype, G=G, R=R))
+        out.update({"grad " + k_: v for k_, v in g_.items()
+                    if not k_.startswith("_")})
+        m = DP.clone_state(tabs)
+        K.max_band_m(m, j0, d0, c0, mdp.mst,
+                     plan=K.band_plan("inside_band", S, st.dtype, G=G, R=R))
+        out["max M"] = m["M"][r]
+        if ref is None:
+            ref = out
+            assert torch.equal(out["max M"], tabs["M"][r])
+        for k_ in ref:
+            assert torch.equal(ref[k_], out[k_]), (G, R, k_)
+    want = {"G=%d,R=%d" % s_: 1 for s_ in shapes}
+    assert K.KERNELS["outside_band"].variants == want
+    assert K.KERNELS["inside_band_max"].variants == want
+
+
+K7_CASES = {
+    "S29": dict(),
+    "S29-pin": dict(pinned=True),
+    "S1": dict(null=True),
+    "S1-pin": dict(null=True, pinned=True),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("case", sorted(K7_CASES))
+def test_ext_adjoint_kernel_matches_plain(case, dtype):
+    """K7 (ext_adj), one launch per column, against ext_adj_plain on the
+    same tables at every fourth column, at S=29 and the masks' S=1,
+    B=33, with a pin per read (start class; the last read unpinned) and
+    the class probe, and without: the cotangents within 1e-9 (f64) and
+    1e-4 (f32, against the plain version at f64 on the same inputs: the
+    plain sum's f32 exp space flushes splits whose P and O cells lie far
+    below their column's maxima) relative to their max norm, lambda's
+    whole cotangent too, and with the probe the column's class sums (K7's
+    partials, cpR slot 0); a second run gives the same bits."""
+    _need_cuda()
+    kw = K7_CASES[case]
+    null, pinned = kw.get("null", False), kw.get("pinned", False)
+    cfg = J.ModelConfig(pattern="(.....)", Lp=60, max_span=50, max_iloop=30,
+                        min_bpp=0.0, tau=0.1, dtype=dtype)
+    n = 33
+    dp, d, c, h, _, gbar = _ep_inputs(cfg, _ep_reads(cfg, n, 29), null)
+    st = dp.st
+    if pinned:
+        pos = np.random.RandomState(3).randint(0, 40, n).astype(np.int32)
+        pos[-1] = -1
+        c = c._replace(pin=DP.Pin(torch.as_tensor(pos, device="cuda"),
+                                  DP.CLS_START))
+        d = d._replace(cls=torch.zeros((4, cfg.Lp, n), dtype=st.dtype,
+                                       device="cuda"))
+    h = DP.hoisted(d, c, st)
+    fs = dp.run_inside(d, c, h)
+    gbar = torch.where(torch.isfinite(dp.extract_parts(fs["O"], c)), gbar,
+                       0.0)
+    assert st.dims.S == (1 if null else 29)
+    f32 = dtype == "float32"
+    tol = 1e-4 if f32 else 1e-9
+    # the plain version's inputs (at f64 for the f32 kernel)
+    pfs, pd, pc, ph = (_f64(x) for x in (DP.clone_state(fs), d, c, h)) \
+        if f32 else (fs, d, c, h)
+    pst = st
+    if f32:
+        k64 = J.kernels(dataclasses.replace(cfg, dtype="float64"), "cuda")
+        pst = (k64.dp_null if null else k64.dp).st
+    gs = DP.init_grads(fs, d, c, h)
+    DP.seed_parts(gs, gbar, c, st)
+    j1 = cfg.Lp + 1
+    for j0 in range(cfg.Lp - 2, 1, -4):
+        dp.outside_columns(fs, gs, d, c, h, j1, j0 + 1)
+        j1 = j0 + 1
+        kg, kg2 = (DP.clone_state(gs) for _ in range(2))
+        pg = _f64(DP.clone_state(gs)) if f32 else DP.clone_state(gs)
+        K.reset_counts()
+        K.ext_adj(fs, kg, j0, d, c, h, st)
+        K.ext_adj(fs, kg2, j0, d, c, h, st)
+        assert K.KERNELS["outside_ext"].launches == 2
+        for k_ in kg:
+            if not k_.startswith("_"):
+                assert torch.equal(kg[k_], kg2[k_]), (j0, k_)
+        DP.ext_adj_plain(pfs, pg, j0, pd, pc, ph, pst)
+        rows = j0 + st.PAD + 1
+        pairs = [(kg[k_][:rows], pg[k_][:rows]) for k_ in DP.GRAD_TABLES]
+        pairs += [(kg["eR"], pg["eR"]),
+                  (DP.lam_total(DP.finish_grads(kg, st), d, c, st),
+                   DP.lam_total(DP.finish_grads(pg, pst), pd, pc, pst))]
+        if pinned:
+            parts = K._cls_parts(kg, st, n, fs["O"].device)
+            pairs.append((parts[0][:, 0].sum(1),
+                          (pg["cls"] - _f64(gs["cls"]))[:, j0 - 1]))
+        for i, (a, b) in enumerate(pairs):
+            assert not torch.isnan(a).any(), (j0, i)
+            scale = max(1.0, float(b.abs().max()))
+            err = float((a.to(b.dtype) - b).abs().max())
+            assert err <= tol * scale, (j0, i, err)
