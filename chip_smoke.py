@@ -7,13 +7,21 @@ Phases:
      K11's layouts as ops/kernels.ep_smem_bytes and the device plan
      (ep_plan) size them (the launch plans) against the kernels' own
      layouts and workspace stride, and the M chain's (K2's band_m, K5's
-     m_adj) as band_smem_bytes sizes it for every group and ring;
+     m_adj) as band_smem_bytes sizes it for every group and ring (S to
+     1,378: threads striding over the states, the device variant's
+     workspace slice);
   2. hold every kernel against its plain PyTorch version on the card:
      K1 score tables (ints/bools equal, floats within 1e-6 relative), the
      column stages of K2-K4 one by one (f64 at B=16 within 1e-9 relative,
      f32 at the main path's shapes within 1e-4 relative on the cells f32
      exp space resolves), the adjoint stages of K5-K7 one by one on one
      column (f64 within 1e-9, f32 within 1e-4, relative in the max norm),
+     rows C and D, K14-K17 (the factors and their adjoint, the hoisted
+     exponentials and lambda's cotangent) over (.....), ..*.. --no-rss,
+     theta_softmax, no_theta, no_prf and fix_rss: f64 at B=16 within
+     1e-12 and f32 at B=128 x 100 nt within 1e-6 relative (max norm), the
+     constants identical, K15's contraction bitwise the plain sums, two
+     runs and the first 8 of 16 reads bitwise equal;
      and the full inside DP: f64 kernels vs the f64 plain version (parts
      within 1e-9 absolute), f32 kernels vs the f64 plain version (within
      2e-3 absolute);
@@ -30,10 +38,11 @@ Phases:
   5. per-call device times of K1-K7 (torch.profiler, the kernel's own
      functions over 200 calls) at the main path's shapes, K2's, K3's, K5's
      and K6's by CUDA function (K2's and K5's also under the pin and per
-     masks batch), and the plain versions' times (CUDA events); rows
-     C and D, the torch glue of the
-     factors and the hoisted terms, forward and backward, device ms and
-     launches per call beside their bounds;
+     masks batch), and the plain versions' times (CUDA events); K14-K17
+     per call (200 calls) beside their bounds and plain versions; rows C
+     and D as the main path runs them (K14-K17 and the glue left), device
+     ms, kernel launches (at most 8 per fn+grad) and memcpy/memset events
+     per call beside their bounds;
   6. the flagship evaluation path: B=128 reads x 100 nt, pattern
      (.....), max-span 50, max-iloop 30, min_bpp 1e-4, tau 0.1, f32: the
      masks (stack_reads; their S=1 pass must launch K3 and K6), then
@@ -42,7 +51,9 @@ Phases:
      more timed on the host clock to the call's return and to a
      synchronize (host-bound when the two agree); two profiled
      batch_fn_grad and two stack_reads (device busy share, device time
-     per kernel);
+     per kernel, the hand-written kernels' launches beside the
+     profiler's count of all kernel launches, torch's by name, memcpy and
+     memset events apart);
   7. the no-rss chain K8/K9 against its plain version (..*.., f64 within
      1e-9 and f32 within 1e-4 relative, at B=16 and B=128 x 100 nt; two
      runs bitwise equal); per-call times of K8/K9;
@@ -58,7 +69,7 @@ Phases:
      model over the 76 tRNAs (fn within 2e-3 of 0.13662, fn + L2 within
      2e-3 of 1.713098, f32) and `cli train --no-shuffle` on the first 8
      tRNAs (f64) within 0.05 of the reference binary's model;
- 10. one JSON line per kernel (K1-K13) and per variant of a launch plan
+ 10. one JSON line per kernel (K1-K17) and per variant of a launch plan
      that phase 14's paths ran (K6's and K11's device variants, K3's,
      the M chain in groups of 4 reads at f32), the card line, and the
      result line;
@@ -126,7 +137,19 @@ Phases:
      and the M chain (K2, K5 pinned with the class probe, K10) bitwise
      equal across every group of reads and the small ring; each
      variant's device ms per column beside the shared variant's, its
-     bound and the plain version's ms.
+     bound and the plain version's ms.  Past 1,024 states, 44 dots
+     (S=1,081, 3 reads) and 50 dots (S=1,378, 2 reads) of 40-50 nt, -w
+     40, -c 10, each alone (the plain DP's dense split matrices take S^3
+     values): fn+grad per read at f64 and f32 (the launch counts set to
+     0 before each, every kernel of the path in its plan's variant,
+     K14-K17 included) against the f64 plain version (f64 within 1e-9;
+     f32 each read within 1e-2, the sums within 1e-3), two f64 runs
+     bitwise equal, every stage at column 30 against its plain version
+     (f64 1e-9), the no-rss path's K14/K15/K8/K9 launched and K8/K9
+     against the plain chain (f64 1e-9, f32 1e-4), the M chain (K2, K5
+     pinned with the class probe, K10) bitwise equal across every plan
+     band_plan gives it (rings of 4 and 2, the device variant), each
+     plan's ms per column.
 
 Run from the repository root:  python3 chip_smoke.py
 Exits non-zero and prints no result without CUDA or without the package.
@@ -204,10 +227,20 @@ def card_line():
     return out.splitlines()[0] if out else "nvidia-smi printed nothing"
 
 
+# kernels whose source holds another kernel's functions too: their own
+KERNEL_OWN_FUNCTIONS = {"factors": {"factors_kernel"},
+                        "factors_adj": {"factors_adj_kernel"},
+                        "hoisted": {"hoisted_kernel"},
+                        "hoisted_adj": {"hoisted_adj_kernel"}}
+
+
 def kernel_functions():
-    """{kernel: names of the __global__ functions of its source}."""
-    out = {}
+    """{kernel: names of the __global__ functions of its source} (or its
+    own, KERNEL_OWN_FUNCTIONS)."""
+    out = dict(KERNEL_OWN_FUNCTIONS)
     for name, kern in K.KERNELS.items():
+        if name in out:
+            continue
         with open(os.path.join(HERE, kern.source)) as f:
             out[name] = set(re.findall(
                 r"__global__\s+void\s+(?:__launch_bounds__\((?:[^()]|"
@@ -310,11 +343,14 @@ def check_ep_smem():
 def check_band_smem():
     """The M chain's dynamic shared memory (K2's band_m, K5's m_adj) as
     ops/kernels.band_smem_bytes sizes it against csrc/mchain.cuh's own
-    layout, over the grammars' range of S (to 1024), both types and every
-    (reads per block, ring) pair a plan may pick; the plan's block fits.
-    Returns the number of cases."""
+    layout, over the grammars' range of S (to 1,378: 50 dots), both types
+    and every (reads per block, ring) pair a plan may pick; the plan's
+    block fits (its threads, ``cells`` states a thread, take the S x G
+    cells; the device variant's workspace slice is the layout, 256-byte
+    aligned).  Returns the number of cases."""
     n = 0
-    for S in (1, 15, 29, 47, 78, 91, 136, 153, 171, 300, 691, 1024):
+    for S in (1, 15, 29, 47, 78, 91, 136, 153, 171, 300, 691, 1024, 1081,
+              1378):
         for dt, it in ((torch.float32, 4), (torch.float64, 8)):
             shapes = [(g, 4) for g in (8, 4, 2, 1) if g * it <= 32]
             for which, name in ((0, "inside_band"), (1, "outside_band")):
@@ -328,10 +364,18 @@ def check_band_smem():
                              "G=%d, R=%d, %s)" % (name, c_, py, S, G, R, dt))
                     n += 1
                 plan = K.band_plan(name, S, dt)
+                layout = int(K.lib().rnaelem_band_smem_bytes(
+                    which, S, plan.G, plan.R, it))
                 if plan.threads > K.MAX_THREADS or \
-                        plan.smem > K.SMEM_LIMIT or plan.threads < S * plan.G:
-                    fail("%s: the plan %s does not fit a block" % (name,
-                                                                   plan))
+                        plan.smem > K.SMEM_LIMIT or \
+                        plan.threads * plan.cells < S * plan.G or \
+                        (plan.variant == "device") != (plan.smem == 0) or \
+                        (plan.variant == "device" and plan.block_bytes !=
+                         -(-layout // K.EP_WS_ALIGN) * K.EP_WS_ALIGN):
+                    fail("%s: the plan %s (%s, %d cells a thread, %d "
+                         "workspace bytes a block) does not fit a block"
+                         % (name, plan, plan.variant, plan.cells,
+                            plan.block_bytes))
     return n
 
 
@@ -897,16 +941,17 @@ def outside_grads(dp, fs, d, c, h, gbar, stages):
 
 def full_grads(cfg, params, batch, dev, plain):
     """(f [B], per-read gradients of f w.r.t. singles, pairs and lam, and
-    alphaP's cotangent): per-read copies of the weights, the outside pass
-    through the kernels or the plain versions."""
+    alphaP's cotangent): per-read copies of the weights, the factors, the
+    hoisted tensors and the outside pass through the kernels (K14-K17,
+    K1-K7) or the plain versions."""
     dp = J.kernels(cfg, dev).dp
     leaves = [x.detach().clone().requires_grad_(True)
               for x in J.per_read(params, batch.valid.shape[0])]
     with torch.enable_grad():
         d, c = J.batch_factors_pr(cfg, J.Params(*leaves), batch.sd,
-                                  batch.bp_ok, device=dev)
+                                  batch.bp_ok, device=dev, plain=plain)
         d = d._replace(alphaP=d.alphaP.requires_grad_(True))
-        h = DP.hoisted(d, c, dp.st)
+        h = (DP.hoisted_plain if plain else DP.hoisted)(d, c, dp.st)
     with torch.no_grad():
         fs = plain_forward(dp, d, c, h) if plain else dp.run_inside(d, c, h)
         parts = dp.extract_parts(fs["O"], c)
@@ -1055,13 +1100,14 @@ def check_full_gradient(cfg64, cfg32, small, dev):
 
 
 def plain_posterior(cfg, sd, dev):
-    """Pair posteriors [B, Lp+1, Wp+1] of the motif-free pass with every
-    forward and adjoint stage in its plain version."""
+    """Pair posteriors [B, Lp+1, Wp+1] of the motif-free pass with the
+    factors (not K14), the hoisted tensors (not K16) and every forward
+    and adjoint stage in their plain versions."""
     k = J.kernels(cfg, dev)
     bp0 = J._candidate_pairs(cfg, k, sd)
-    d, c = J._null_batch_factors(cfg, k, sd, bp0)
+    d, c = J._null_batch_factors(cfg, k, sd, bp0, plain=True)
     dp = k.dp_null
-    h = DP.hoisted(d, c, dp.st)
+    h = DP.hoisted_plain(d, c, dp.st)
     fs = plain_forward(dp, d, c, h)
     gbar = torch.zeros((bp0.shape[0], 3), dtype=k.dtype, device=k.device)
     gbar[:, 0] = 1.0
@@ -1997,10 +2043,15 @@ def scan_trna(tmp, dev):
     out["chunk_launches"] = {n: kk.launches for n, kk in K.KERNELS.items()}
     out["chunk_ms"] = cuda_ms(call, 3)
     out["chunk_bound"] = scan_chunk_bound(scfg, sparams, sd, dev, 4)
+    n_all, n_cp, n_hand, other = launch_census(
+        device_profile(call, 2)[1], 2, kernel_functions())
     print("row K: one posterior chunk (64 reads x bucket 96, f32) %.2f ms, "
-          "launches %s, bound %.4f ms by %s" % (
+          "launches %s, bound %.4f ms by %s; the profiler's kernel launches "
+          "%g (%g the hand-written kernels', %g torch's: %s), %g "
+          "memcpy/memset events apart" % (
               out["chunk_ms"], json.dumps(out["chunk_launches"]),
-              out["chunk_bound"][0], out["chunk_bound"][1]), flush=True)
+              out["chunk_bound"][0], out["chunk_bound"][1], n_all, n_hand,
+              n_all - n_hand, json.dumps(other), n_cp), flush=True)
     return out
 
 
@@ -2313,10 +2364,11 @@ def same_shape_variants(dev, funcs):
         dp.outside_columns(fq, gq, dq, cq, hq, cfg.Lp + 1, J0 + 1)
         K.e_adj(fq, gq, J0, dq, cq, hq, st)
         it = torch.finfo(st.dtype).bits // 8
-        shapes = [(g, 4) for g in (8, 4, 2, 1) if g * it <= 32] + [(1, 2)]
+        shapes = [(g, 4, 1) for g in (8, 4, 2, 1) if g * it <= 32] + [
+            (1, 2, 1), (1, 4, 2), (1, 4, 4), (1, 2, 4)]
         ref, mrec = None, {}
-        for G, R in shapes:
-            bp = {kn: K.band_plan(kn, S, st.dtype, G=G, R=R)
+        for G, R, nc in shapes:
+            bp = {kn: K.band_plan(kn, S, st.dtype, G=G, R=R, cells=nc)
                   for kn in BAND_KERNELS}
             a, g_, m = (DP.clone_state(x) for x in (fq, gq, tabs))
             K.band_m(a, J0, dq, cq, hq, st, plan=bp["inside_band"])
@@ -2327,9 +2379,9 @@ def same_shape_variants(dev, funcs):
             if ref is None:
                 ref = cur
             elif not all(torch.equal(x, y) for x, y in zip(ref, cur)):
-                fail("%s %s: the M chain in groups of %d reads (ring %d) "
-                     "differs from groups of %d" % (WIDE_SAME, dtype, G, R,
-                                                    shapes[0][0]))
+                fail("%s %s: the M chain in groups of %d reads (ring %d, "
+                     "%d cells a thread) differs from groups of %d" % (
+                         WIDE_SAME, dtype, G, R, nc, shapes[0][0]))
             mrec[bp["inside_band"].name] = {
                 "band_m": device_ms(lambda: K.band_m(
                     a, J0, dq, cq, hq, st, plan=bp["inside_band"]),
@@ -2343,7 +2395,7 @@ def same_shape_variants(dev, funcs):
               "the device variant bitwise equal to the shared one; device "
               "ms per column %s; the M chain (K2 band_m, K5 pinned with the "
               "class probe, K10) bitwise equal across (reads per block, "
-              "ring) %s, ms %s" % (
+              "ring, cells a thread) %s, ms %s" % (
                   WIDE_SAME, dtype, LP, J0,
                   json.dumps({v: rec[v] for v in ("shared", "device")}),
                   [list(x) for x in shapes], json.dumps(mrec)), flush=True)
@@ -2366,6 +2418,215 @@ def scan_factors_pinned(cfg, reads, p, dev):
     return d, c, h, fs, gbar
 
 
+# Grammars past 1,024 states (the M chain's threads stride over the
+# states, K8/K9's too): (pattern, -c, reads, their length range, Lp,
+# max-span, column of the per-stage checks and times).  The plain DP's
+# dense split matrices take S^3 values (21 GB at f64 for 50 dots), so each
+# shape runs alone with the DPs of the others freed.
+WIDE_BIG = (("." * 44, 10, 3, 40, 50, 50, 40, 30),
+            ("." * 50, 10, 2, 40, 50, 50, 40, 30))
+
+
+def free_dps():
+    """Drop the cached DPs (their plain matrices) and the allocator's
+    free blocks."""
+    J._kernels_cached.cache_clear()
+    torch.cuda.empty_cache()
+
+
+def m_chain_variants(cfg, reads, p, dev, funcs, j0):
+    """The M chain at column j0 in every plan band_plan gives the grammar
+    at G = 1 (the rings of 4 and 2 where the block fits shared memory, and
+    the device variant), each with the cells a thread the grammar needs
+    and with 4 (forced: the build no grammar here takes on its own): K2's
+    band_m with K10's band_m_max, and K5's band_adj pinned with the class
+    probe, each bitwise equal across its plans; each plan's device ms per
+    column (band_m, m_adj)."""
+    dp = J.kernels(cfg, dev).dp
+    st = dp.st
+    S, r = st.dims.S, j0 + st.PAD
+    _, d, c = batch_factors_for(cfg, reads, dev, p)
+    mdp = DMB.MaxDP(dp)
+    tabs = mdp.tables(d, c)
+    dq, cq, hq, fq, gbq = scan_factors_pinned(cfg, reads, p, dev)
+    gq = DP.init_grads(fq, dq, cq, hq)
+    DP.seed_parts(gq, gbq, cq, st)
+    dp.outside_columns(fq, gq, dq, cq, hq, cfg.Lp + 1, j0 + 1)
+    K.e_adj(fq, gq, j0, dq, cq, hq, st)
+    rec = {}
+    for kn in BAND_KERNELS:
+        plans = []
+        for nc in (None, 4):
+            for R in (K.BAND_RING, K.BAND_RING_SMALL):
+                for v in ("shared", "device"):
+                    try:
+                        plans.append(K.band_plan(kn, S, st.dtype, G=1, R=R,
+                                                 variant=v, cells=nc))
+                    except ValueError:
+                        continue
+        ref = None
+        for pl in plans:
+            if kn == "inside_band":
+                a, m = DP.clone_state(fq), DP.clone_state(tabs)
+                K.band_m(a, j0, dq, cq, hq, st, plan=pl)
+                K.max_band_m(m, j0, d, c, mdp.mst, plan=pl)
+                cur = [a["M"][r].clone(), m["M"][r].clone()]
+                ms = device_ms(lambda: K.band_m(a, j0, dq, cq, hq, st,
+                                                plan=pl), REPS // 8,
+                               funcs["inside_band"])
+            else:
+                g_ = DP.clone_state(gq)
+                K.band_adj(fq, g_, j0, dq, cq, hq, st, plan=pl)
+                cur = [g_[k_].clone() for k_ in sorted(g_)
+                       if not k_.startswith("_")]
+                ms = device_ms(lambda: K.m_adj_stage(fq, g_, j0, dq, cq, hq,
+                                                     st, plan=pl),
+                               REPS // 8, funcs["outside_band"])
+            if ref is None:
+                ref = (pl, cur)
+            elif not all(torch.equal(x, y) for x, y in zip(ref[1], cur)):
+                fail("%d dots %s: %s's M chain in plan %s differs from plan "
+                     "%s" % (len(cfg.pattern), cfg.dtype, kn, pl.name,
+                             ref[0].name))
+            rec["%s %s" % ("band_m" if kn == "inside_band" else "m_adj",
+                           pl.name)] = ms
+    return rec
+
+
+def wide_big_case(case, dev, funcs):
+    """One shape of WIDE_BIG: fn+grad per read through the kernels at f64
+    and f32 (the launch counts set to 0 before each: every kernel of the
+    path launched, the M chain in its plan's variant), two f64 runs
+    bitwise equal, against the f64 plain version (f64 within 1e-9 per
+    read; f32 each read within 1e-2, the sums and f within 1e-3); every
+    stage and adjoint stage at column j0 against its plain version (f64,
+    1e-9 relative); the no-rss chain K8/K9 (with K14 for eR) launched and
+    against its plain version (f64 within 1e-9, f32 within 1e-4); the M
+    chain bitwise across its plans (m_chain_variants)."""
+    pattern, c_, n, lmin, lmax, Lp, span, j0 = case
+    cfg64 = J.ModelConfig(pattern=pattern, Lp=Lp, max_span=span,
+                          max_iloop=c_, min_bpp=MIN_BPP, tau=0.1,
+                          dtype="float64")
+    cfg32 = dataclasses.replace(cfg64, dtype="float32")
+    reads = make_reads(np.random.RandomState(3), n, lmin, lmax)
+    t0 = time.time()
+    rec = dict(pattern="%d dots" % len(pattern), c=c_, reads=n, Lp=Lp,
+               column=j0, launches={}, variants={}, err={})
+    res = {}
+    for cfg in (cfg64, cfg32):
+        p = random_params(cfg, dev)
+        b = OBJ.stack_reads(cfg, reads, device=dev)
+        st = J.kernels(cfg, dev).dp.st
+        plans = plans_of(st)
+        K.reset_counts()
+        res[cfg.dtype] = full_grads(cfg, p, b, dev, plain=False)
+        torch.cuda.synchronize()
+        path = DP_KERNELS + ROWS_CD_KERNELS
+        launches = {kn: K.KERNELS[kn].launches for kn in path}
+        variants = {kn: dict(K.KERNELS[kn].variants) for kn in path
+                    if K.KERNELS[kn].variants}
+        for kn in path:
+            if launches[kn] <= 0:
+                fail("wide %d dots %s: kernel %s was not launched"
+                     % (len(pattern), cfg.dtype, kn))
+        for kn in EP_KERNELS[:2] + BAND_KERNELS:
+            if variants.get(kn, {}).get(plans[kn].name, 0) <= 0:
+                fail("wide %d dots %s: %s did not run its plan's variant %s "
+                     "(%s)" % (len(pattern), cfg.dtype, kn, plans[kn].name,
+                               variants.get(kn)))
+        rec["launches"][cfg.dtype] = launches
+        rec["variants"][cfg.dtype] = variants
+        rec.setdefault("plans", {})[cfg.dtype] = {
+            kn: pl.name for kn, pl in plans.items()}
+        if cfg is cfg64:
+            f2, g2 = full_grads(cfg, p, b, dev, plain=False)
+            if not torch.equal(res[cfg.dtype][0], f2) or not all(
+                    torch.equal(x, y) for x, y in zip(res[cfg.dtype][1], g2)):
+                fail("wide %d dots: two kernel runs differ" % len(pattern))
+            del f2, g2
+            res["plain"] = full_grads(cfg, p, b, dev, plain=True)
+            S = st.dims.S
+    fp, gp = res["plain"]
+    axes = (0, 0, 0, -1)
+    for dtype, (fk, gk) in ((k_, res[k_]) for k_ in ("float64", "float32")):
+        errs = {nm: worst_read(a, c__, ax)
+                for nm, a, c__, ax in zip(GRAD_NAMES, gk, gp, axes)}
+        errs["f"] = rel_err(fk, fp)
+        bar = {k_: 1e-9 if dtype == "float64" else 1e-2 for k_ in errs}
+        if dtype == "float32":
+            bar["f"] = 1e-3
+            sums = {"sum " + nm: rel_err(a.sum(0), c__.sum(0))
+                    for nm, a, c__ in zip(GRAD_NAMES[:3], gk, gp)}
+            errs.update(sums)
+            bar.update({k_: 1e-3 for k_ in sums})
+        for k_, e in errs.items():
+            if not e <= bar[k_]:
+                fail("wide %d dots %s fn+grad: %s error %.3g beyond %.0e"
+                     % (len(pattern), dtype, k_, e, bar[k_]))
+        rec["err"][dtype] = errs
+    del res
+    p64 = random_params(cfg64, dev)
+    dp = J.kernels(cfg64, dev).dp
+    _, d, c = batch_factors_for(cfg64, reads, dev, p64)
+    rec["stage_err"] = check_stages(dp, d, c, j0, 1e-9, False)
+    rec["stage_err"].update(check_adj_stages(dp, d, c, j0, 1e-9))
+    rec["plain_ms"] = wide_plain_ms(dp, d, c, j0)
+    itemsize = 8
+    rec["bound"] = bounds(cfg64, dp.st, c, J.kernels(cfg64, dev).tab, j0, n,
+                          itemsize)
+    rec["ms"] = {kn: v[0] for kn, v in band_column_ms(
+        cfg64, reads, p64, dev, funcs, j0).items()}
+    del d, c, dp
+    free_dps()
+    chain = {}
+    for cfg, rel in ((cfg64, 1e-9), (cfg32, 1e-4)):
+        ncfg = dataclasses.replace(cfg, no_rss=True)
+        lin, eR, L, gpc = chain_inputs(ncfg, reads, dev)
+        sd = J.stack_seqdata([J.make_seqdata(ncfg, s_, q_)
+                              for s_, q_ in reads], dev)
+        leaves = [x.detach().clone().requires_grad_(True)
+                  for x in J.per_read(random_params(ncfg, dev), n)]
+        K.reset_counts()
+        with torch.enable_grad():
+            parts = J.batch_logZ_parts_pr(ncfg, J.Params(*leaves), sd,
+                                          device=dev)
+            torch.autograd.grad(parts[torch.isfinite(parts)].sum(),
+                                leaves[0])
+        torch.cuda.synchronize()
+        for kn in CHAIN_KERNELS + ("factors", "factors_adj"):
+            if K.KERNELS[kn].launches <= 0:
+                fail("wide %d dots no-rss %s: %s was not launched"
+                     % (len(pattern), cfg.dtype, kn))
+        pk, rows = K.chain_fwd(lin, eR, L)
+        gk = K.chain_adj(lin, eR, L, rows, gpc)
+        pp, gpl = plain_chain(lin, eR, L, gpc)
+        fin = torch.isfinite(pp)
+        chain[cfg.dtype] = dict(
+            fwd=grad_compare("wide linear_fwd", pk[fin], pp[fin], rel),
+            adj=grad_compare("wide linear_adj", gk, gpl, rel))
+    rec["chain"] = chain
+    rec["m_chain"] = {}
+    for cfg in (cfg64, cfg32):
+        rec["m_chain"][cfg.dtype] = m_chain_variants(
+            cfg, reads, random_params(cfg, dev), dev, funcs, j0)
+        free_dps()
+    rec["S"], rec["seconds"] = S, time.time() - t0
+    print("wide grammar %d dots (S=%d) -c %d, %d reads x %d-%d nt, -w %d: "
+          "plans %s; fn+grad per read vs the f64 plain version %s; stages "
+          "at column %d (f64) %s; launches %s, by variant %s; K8/K9 vs plain "
+          "%s; the M chain bitwise across its plans, device ms per column "
+          "%d %s; K2/K5 ms per column (f64) %s, plain %s, bounds %s; %.1f s"
+          % (len(pattern), S, c_, n, lmin, lmax, span,
+             json.dumps(rec["plans"]), json.dumps(rec["err"]), j0,
+             json.dumps(rec["stage_err"]), json.dumps(rec["launches"]),
+             json.dumps(rec["variants"]), json.dumps(chain), j0,
+             json.dumps(rec["m_chain"]), json.dumps(rec["ms"]),
+             json.dumps(rec["plain_ms"]),
+             json.dumps({k_: rec["bound"][k_] for k_ in BAND_KERNELS}),
+             rec["seconds"]), flush=True)
+    return rec
+
+
 def wide_phase(dev):
     """P4 on the card: WIDE's fn+grad paths, the CYK tables of the first
     (f64), the variants at a shape where both fit.  Returns the kernel
@@ -2380,6 +2641,11 @@ def wide_phase(dev):
             cyk = wide_cyk(cfg, reads, p, dev, funcs)
         torch.cuda.empty_cache()
     same = same_shape_variants(dev, funcs)
+    big = []
+    for case in WIDE_BIG:
+        free_dps()
+        big.append(wide_big_case(case, dev, funcs))
+    free_dps()
     # one row per variant a path ran that the main path does not (the
     # device variants; the M chain in groups other than 32 bytes' worth of
     # reads), its times and bound at the first shape that ran it
@@ -2416,15 +2682,382 @@ def wide_phase(dev):
             "bound_by": cyk["bound"][1], "library_ms": None,
             "unit": "column %d of the CYK tables, %s f64" % (
                 J0, WIDE[0][0])})
-    return dict(cases=recs, cyk=cyk, same=same), rows
+    for rec in big:       # the M chain past 1,024 states (f64 path's plan)
+        for kn in BAND_KERNELS:
+            v = rec["plans"]["float64"][kn]
+            kern = K.KERNELS[kn]
+            rows.append({
+                "name": "%s [%s]" % (kn, v), "route": "cuda",
+                "source": kern.source, "replaces": kern.replaces,
+                "launches": rec["variants"]["float64"].get(kn, {}).get(v, 0),
+                "max_abs_err": rec["stage_err"].get(kn, 0.0),
+                "ms": rec["ms"][kn], "plain_ms": rec["plain_ms"][kn],
+                "bound_ms": rec["bound"][kn][0],
+                "bound_by": rec["bound"][kn][1], "library_ms": None,
+                "unit": "column %d, %s (S=%d) -c %d f64, %d reads" % (
+                    rec["column"], rec["pattern"], rec["S"], rec["c"],
+                    rec["reads"])})
+    return dict(cases=recs, cyk=cyk, same=same, big=big), rows
 
 
 # ------------------------------------------------------------ rows C, D
 
+# K14-K17 against their plain versions (phase 2): (pattern, config
+# changes) of the cases, each at f64 B=16 and at f32 B=128 x 100 nt
+ROWS_CD_CASES = (
+    (PATTERN, {}), (PATTERN, {"theta_softmax": True}),
+    (PATTERN, {"no_theta": True}), (PATTERN, {"no_prf": True}),
+    (PATTERN, {"fix_rss": True}), (NORSS, {"no_rss": True}),
+    (NORSS, {"no_rss": True, "theta_softmax": True}))
+ROWS_CD_KERNELS = ("factors", "factors_adj", "hoisted", "hoisted_adj")
+
+
+def random_rss(rng, L):
+    """A dot-bracket structure of length L: a stem of up to 8 nested
+    pairs around a random spot, dots elsewhere."""
+    rss = ["."] * L
+    m = int(rng.randint(1, 9))
+    i0 = int(rng.randint(0, max(1, L - 2 * m - 4)))
+    for k in range(m):
+        if i0 + 2 * m + 3 - k < L:
+            rss[i0 + k], rss[i0 + 2 * m + 3 - k] = "(", ")"
+    return "".join(rss)
+
+
+def rows_cd_batch(cfg, reads, dev, seed):
+    """(SeqData, pair masks) of ``reads`` (with a random structure per
+    read under fix_rss)."""
+    rng = np.random.RandomState(seed)
+    sds = [J.make_seqdata(cfg, s_, q_, random_rss(rng, len(s_))
+                          if cfg.fix_rss else "") for s_, q_ in reads]
+    sd = J.stack_seqdata(sds, dev)
+    bp = None if cfg.no_rss else J.effective_bp_mask_batch(cfg, sd, dev)[0]
+    return sd, bp
+
+
+def rows_cd_weights(cfg, B, dev, seed):
+    """Per-read weights, each read its own (numpy seed): singles [B, ns,
+    4], pairs [B, Tp, 6], lam [B, 2]."""
+    p = J.init_params(J.kernels(cfg, "cpu").g, cfg, device="cpu",
+                      dtype="float64")
+    rng = np.random.RandomState(seed)
+    dt = torch.float32 if cfg.dtype == "float32" else torch.float64
+    f = lambda x: torch.as_tensor(x, dtype=dt, device=dev)
+    return [f(p.singles.numpy()[None] + 0.5 * rng.randn(
+                B, *p.singles.shape)),
+            f(p.pairs.numpy()[None] + 0.5 * rng.randn(B, *p.pairs.shape)),
+            f(0.5 + rng.rand(B, 2))]
+
+
+def factors_run(cfg, sd, bp, weights, cots, plain):
+    """K14/K15 (or with ``plain`` the plain version and its autograd) on
+    per-read weights: (the factors [eR, eL, bg2, pv] or [eR], the
+    constants, the cotangents of singles and pairs (None: no dependence))."""
+    k = J.kernels(cfg, DEVICE)
+    leaves = [w.detach().clone().requires_grad_(True) for w in weights[:2]]
+    pw = J.Params(leaves[0], leaves[1], weights[2])
+    with torch.enable_grad():
+        if cfg.no_rss:
+            outs = [J.right_emissions(cfg, k, pw, sd, plain=plain)]
+            consts = []
+        else:
+            d, c = J.batch_factors_pr(cfg, pw, sd, bp, DEVICE, plain=plain)
+            outs = [d.eR, d.eL, d.bg2, d.pv]
+            consts = [c.wsp, c.gate_O2, c.gate_M, c.seq, c.C, c.L,
+                      c.dots_cum, d.alphaP, c.hp, c.ep["misA"], c.okP]
+        need = [o.requires_grad for o in outs]
+        grads = [None, None]
+        if cots and any(need):
+            gr = torch.autograd.grad(
+                [o for o, n_ in zip(outs, need) if n_], leaves,
+                [g for g, n_ in zip(cots, need) if n_], allow_unused=True)
+            grads = list(gr)
+    return [o.detach() for o in outs], consts, grads
+
+
+def plain_contraction(cfg, sd, cots):
+    """K15's contraction part as the plain version forms it (no
+    log-softmax): per state, base and read the read_sum over positions of
+    the one-hot products (model/joint._OneHot's adjoint), into the states'
+    slots in ascending state order (singles[:, slot]'s index adjoint),
+    bg2's + eL's + eR's; per table and pair type the read_sum over pair
+    cells."""
+    k = J.kernels(cfg, DEVICE)
+    g = k.g
+    dt = cots[0].dtype
+    seq = sd.seq.long()
+    Lp, B = seq.shape[1], seq.shape[0]
+    ns = int((g.single_table_index >= 0).sum())
+    valid = (seq > 0).T                                     # [Lp, B]
+    oh4 = torch.nn.functional.one_hot(torch.clamp(seq - 1, 0, 3), 4).to(
+        dt).permute(1, 0, 2)                                # [Lp, B, 4]
+    zero = torch.zeros((), dtype=dt, device=seq.device)
+    contr = lambda oh, gm: DP.read_sum(oh * gm[:, :, None], 1)
+    paths = []
+    for gi, tid in ((0, g.tid_r), (1, g.tid_l)):
+        acc = torch.zeros((B, ns, 4), dtype=dt, device=seq.device)
+        if gi < len(cots):
+            slots = np.mod(g.single_table_index[tid], ns)
+            for s_ in range(g.S):
+                gm = torch.where(valid, cots[gi][:, s_], zero)
+                acc[:, slots[s_]] = acc[:, slots[s_]] + contr(oh4, gm)
+        paths.append(acc)
+    bg = torch.zeros((B, ns, 4), dtype=dt, device=seq.device)
+    if len(cots) > 2:
+        bg[:, 0] = contr(oh4, torch.where(valid, cots[2], zero))
+    singles = (bg + paths[1]) + paths[0]
+    if len(cots) < 4:
+        return singles, None
+    Wp = cfg.Wp
+    j = torch.arange(Lp + 1, device=seq.device)[:, None]
+    w = torch.arange(Wp + 1, device=seq.device)[None, :]
+    i = torch.clamp(j - w, 0, Lp - 1).expand(-1, Wp + 1)
+    jj = torch.clamp(j - 1, 0, Lp - 1).expand(-1, Wp + 1)
+    bt = k.tab["bp"][seq[:, i], seq[:, jj]].reshape(B, -1).T   # [n, B]
+    oh6 = torch.nn.functional.one_hot(torch.clamp(bt - 1, 0, 5), 6).to(dt)
+    gpv = cots[3].reshape(-1, cots[3].shape[2], B)            # [n, Tp, B]
+    pairs = torch.stack([contr(oh6, torch.where(bt > 0, gpv[:, t], zero))
+                         for t in range(gpv.shape[1])], 1)
+    return singles, pairs
+
+
+def hoisted_run(cfg, d, c, lam, cots, plain, st=None):
+    """K16/K17 (or the plain version and its autograd) for per-read
+    lambda [2, B]: (the four tensors, lambda's cotangent); ``st`` the
+    grammar's DPStatic (default: the pattern's)."""
+    st = J.kernels(cfg, DEVICE).dp.st if st is None else st
+    leaf = lam.detach().clone().requires_grad_(True)
+    with torch.enable_grad():
+        dd = d._replace(lam=leaf)
+        h = DP.hoisted_plain(dd, c, st) if plain else DP.hoisted(dd, c, st)
+        outs = [h[k_] for k_ in DP.HOISTED]
+        (gl,) = torch.autograd.grad(outs, [leaf], cots)
+    return [o.detach() for o in outs], gl
+
+
+def check_rows_cd(dev):
+    """K14-K17 against their plain versions on the card over
+    ROWS_CD_CASES: f64 at B=16 within 1e-12 and f32 at B=128 x 100 nt
+    within 1e-6 relative (max norm) for every factor, cotangent and
+    hoisted tensor; the constants identical; K15's contraction part (the
+    cases without the log-softmax) bitwise equal to the plain version's
+    sums; two runs bitwise equal; the first 8 reads of a 16-read batch
+    bitwise equal to those 8 alone.  Returns {kernel: max abs err} of the
+    f32 runs."""
+    small = make_reads(np.random.RandomState(0), *SMALL)
+    reads = main_reads()
+    errs, msgs = {k_: 0.0 for k_ in ROWS_CD_KERNELS}, []
+    for pattern, change in ROWS_CD_CASES:
+        for dtype, rr, rel in (("float64", small, 1e-12),
+                               ("float32", reads, 1e-6)):
+            cfg = dataclasses.replace(cfg_for(dtype), pattern=pattern,
+                                      **change)
+            name = "%s %s %s B=%d" % (pattern, json.dumps(change), dtype,
+                                      len(rr))
+            sd, bp = rows_cd_batch(cfg, rr, dev, 11)
+            wts = rows_cd_weights(cfg, len(rr), dev, 12)
+            rng = np.random.RandomState(13)
+            outs_p, consts_p, gp = factors_run(cfg, sd, bp, wts, [], True)
+            cots = [torch.as_tensor(rng.randn(*o.shape), dtype=o.dtype,
+                                    device=dev) for o in outs_p]
+            outs_p, consts_p, gp = factors_run(cfg, sd, bp, wts, cots, True)
+            outs_k, consts_k, gk = factors_run(cfg, sd, bp, wts, cots, False)
+            outs_k2, consts_k2, gk2 = factors_run(cfg, sd, bp, wts, cots,
+                                                  False)
+            ef = max(grad_compare("factors %s" % name, a, b_, rel)
+                     for a, b_ in zip(outs_k, outs_p))
+            for a, b_ in zip(consts_k, consts_p):
+                if not torch.equal(a, b_):
+                    fail("factors %s: a constant differs from the plain "
+                         "version's" % name)
+            ea = 0.0
+            for a, b_ in zip(gk, gp):
+                if (a is None) != (b_ is None):
+                    fail("factors_adj %s: the weights' dependence differs"
+                         % name)
+                if a is not None:
+                    ea = max(ea, grad_compare("factors_adj %s" % name, a, b_,
+                                              rel))
+            same = all(torch.equal(a, b_) for a, b_ in zip(
+                outs_k + consts_k, outs_k2 + consts_k2)) and all(
+                a is None or torch.equal(a, b_) for a, b_ in zip(gk, gk2))
+            if not same:
+                fail("factors %s: two kernel runs differ" % name)
+            bitwise = "n/a"
+            if not cfg.theta_softmax and gk[0] is not None:
+                ref = plain_contraction(cfg, sd, cots)
+                for a, b_ in zip(gk, ref):
+                    if b_ is not None and not torch.equal(a, b_):
+                        fail("factors_adj %s: the contraction differs from "
+                             "the plain version's sums (max %.3g)" % (
+                                 name, float((a - b_).abs().max())))
+                bitwise = all(b_ is None or torch.equal(a, b_)
+                              for a, b_ in zip(gk, gp))
+            # the first 8 reads alone
+            sd8 = J.SeqData(*[x[:8] for x in sd])
+            bp8 = None if bp is None else bp[:8]
+            o8, c8, g8 = factors_run(cfg, sd8, bp8, [w[:8] for w in wts],
+                                     [cc[..., :8] for cc in cots], False)
+            if not all(torch.equal(a, b_[..., :8]) for a, b_ in zip(
+                    o8, outs_k)) or not all(
+                    a is None or torch.equal(a, b_[:8])
+                    for a, b_ in zip(g8, gk)):
+                fail("factors %s: the first 8 reads differ from those 8 "
+                     "alone" % name)
+            msg = "%s: K14 %.3g, K15 %.3g (bitwise vs plain autograd: %s)" % (
+                name, ef, ea, bitwise)
+            if not cfg.no_rss:
+                k = J.kernels(cfg, dev)
+                d, c = J.batch_factors(cfg, J.Params(*[w[0] for w in wts]),
+                                       sd, bp, dev)
+                lam = wts[2].T          # per-read copies: a strided view
+                with torch.no_grad():
+                    outs_p = list(DP.hoisted_plain(d._replace(lam=lam), c,
+                                                   k.dp.st).values())
+                hc = [torch.as_tensor(rng.randn(*o.shape), dtype=o.dtype,
+                                      device=dev) for o in outs_p]
+                hp_, glp = hoisted_run(cfg, d, c, lam, hc, True)
+                hk, glk = hoisted_run(cfg, d, c, lam, hc, False)
+                hk2, glk2 = hoisted_run(cfg, d, c, lam, hc, False)
+                eh = max(grad_compare("hoisted %s" % name, a, b_, rel)
+                         for a, b_ in zip(hk, hp_))
+                eg = grad_compare("hoisted_adj %s" % name, glk, glp, rel)
+                direct = K.hoisted_adj(k.dp.st, lam, c, hc)
+                K.reset_counts()
+                total = DP.lam_total((None,) * 4 + (torch.zeros_like(glk),
+                                                    None) + tuple(hc),
+                                     d._replace(lam=lam), c, k.dp.st)
+                if (K.KERNELS["hoisted"].launches,
+                        K.KERNELS["hoisted_adj"].launches) != (0, 1):
+                    fail("hoisted %s: lam_total launched K16 %d times and "
+                         "K17 %d times (want 0 and 1)" % (
+                             name, K.KERNELS["hoisted"].launches,
+                             K.KERNELS["hoisted_adj"].launches))
+                if not (all(torch.equal(a, b_) for a, b_ in zip(hk, hk2))
+                        and torch.equal(glk, glk2)
+                        and torch.equal(glk, direct)
+                        and torch.equal(glk, total)):
+                    fail("hoisted %s: two kernel runs (or K17 alone, or "
+                         "lam_total) differ" % name)
+                c8 = c._replace(C=c.C[:8].contiguous(), ep={
+                    k_: v[..., :8].contiguous() for k_, v in c.ep.items()})
+                hk8, glk8 = hoisted_run(cfg, d, c8, lam[:, :8].contiguous(),
+                                        [x[..., :8] for x in hc], False)
+                if not all(torch.equal(a, b_[..., :8]) for a, b_ in zip(
+                        hk8, hk)) or not torch.equal(glk8, glk[:, :8]):
+                    fail("hoisted %s: the first 8 reads differ from those 8 "
+                         "alone" % name)
+                msg += ", K16 %.3g, K17 %.3g" % (eh, eg)
+                if dtype == "float32":
+                    errs["hoisted"] = max(errs["hoisted"], eh)
+                    errs["hoisted_adj"] = max(errs["hoisted_adj"], eg)
+            if dtype == "float32":
+                errs["factors"] = max(errs["factors"], ef)
+                errs["factors_adj"] = max(errs["factors_adj"], ea)
+            msgs.append(msg)
+            torch.cuda.empty_cache()
+    msgs.append(check_null_factors(dev, errs))
+    print("check rows C, D (K14-K17) vs the plain versions, max abs err "
+          "(f64 B=16 within 1e-12, f32 B=%d x %d nt within 1e-6 relative, "
+          "max norm; constants identical; K15's contraction bitwise the "
+          "plain sums; two runs and the first 8 of 16 reads bitwise "
+          "equal): %s" % (B_MAIN, LP, "; ".join(msgs)), flush=True)
+    return errs
+
+
+def same_fields(name, ours, plain, rel):
+    """Every field of two DiffFactors or ConstFactors (a dict field by
+    key): of the same dtype and shape, the integer and bool ones and the
+    ``rel`` None ones identical, the rest within ``rel`` (grad_compare);
+    returns the max abs error."""
+    e = 0.0
+    for f_ in ours._fields:
+        a, b_ = getattr(ours, f_), getattr(plain, f_)
+        pairs = [(f_ + "." + k_, a[k_], b_[k_]) for k_ in sorted(b_)] \
+            if isinstance(b_, dict) else [(f_, a, b_)]
+        if isinstance(b_, dict) and sorted(a) != sorted(b_):
+            fail("%s: %s holds %s, the plain version %s" % (
+                name, f_, sorted(a), sorted(b_)))
+        for fk, x, y in pairs:
+            if (x is None) != (y is None):
+                fail("%s: %s is None in one version only" % (name, fk))
+            if y is None:
+                continue
+            if x.dtype != y.dtype or x.shape != y.shape:
+                fail("%s: %s is %s %s, the plain version's %s %s" % (
+                    name, fk, x.dtype, tuple(x.shape), y.dtype,
+                    tuple(y.shape)))
+            if rel is None or not y.is_floating_point():
+                if not torch.equal(x, y):
+                    fail("%s: %s differs from the plain version's" % (
+                        name, fk))
+            else:
+                e = max(e, grad_compare("%s %s" % (name, fk), x, y, rel))
+    return e
+
+
+def check_null_factors(dev, errs):
+    """The masks' motif-free factors at their shapes (the S = 1 grammar,
+    B = 128 x 100 nt): K14 in mode "null" (one launch) against the plain
+    _null_batch_factors, every ConstFactors field identical and every
+    DiffFactors field within 1e-12 (f64) / 1e-6 (f32) relative; K16 there
+    (lambda 1) against hoisted_plain and K17 against its autograd, within
+    the same bars.  Returns the line's text; folds the f32 errors into
+    ``errs``."""
+    reads = main_reads()
+    out = []
+    for dtype, rel in (("float64", 1e-12), ("float32", 1e-6)):
+        cfg = cfg_for(dtype)
+        name = "null (masks) %s B=%d" % (dtype, len(reads))
+        k = J.kernels(cfg, dev)
+        sd = J.stack_seqdata([J.make_seqdata(cfg, s_, q_)
+                              for s_, q_ in reads], dev)
+        bp0 = J._candidate_pairs(cfg, k, sd)
+        K.reset_counts()
+        dk, ck = J._null_batch_factors(cfg, k, sd, bp0)
+        if K.KERNELS["factors"].launches != 1:
+            fail("factors %s: K14 launched %d times (want 1)"
+                 % (name, K.KERNELS["factors"].launches))
+        dp_, cp_ = J._null_batch_factors(cfg, k, sd, bp0, plain=True)
+        same_fields("factors %s constants" % name, ck, cp_, None)
+        ef = same_fields("factors %s" % name, dk, dp_, rel)
+        st = k.dp_null.st
+        rng = np.random.RandomState(14)
+        with torch.no_grad():
+            want = DP.hoisted_plain(dp_, cp_, st)
+        hc = [torch.as_tensor(rng.randn(*want[n_].shape), dtype=k.dtype,
+                              device=dev) for n_ in DP.HOISTED]
+        hp_, glp = hoisted_run(cfg, dp_, cp_, dp_.lam, hc, True, st)
+        K.reset_counts()
+        hk, glk = hoisted_run(cfg, dk, ck, dk.lam, hc, False, st)
+        if (K.KERNELS["hoisted"].launches,
+                K.KERNELS["hoisted_adj"].launches) != (1, 1):
+            fail("hoisted %s: K16 and K17 launched %d and %d times (want 1 "
+                 "each)" % (name, K.KERNELS["hoisted"].launches,
+                            K.KERNELS["hoisted_adj"].launches))
+        eh = max(grad_compare("hoisted %s" % name, a, b_, rel)
+                 for a, b_ in zip(hk, hp_))
+        eg = grad_compare("hoisted_adj %s" % name, glk, glp, rel)
+        out.append("%s: K14 %.3g (constants identical), K16 %.3g, K17 %.3g"
+                   % (name, ef, eh, eg))
+        if dtype == "float32":
+            errs["factors"] = max(errs["factors"], ef)
+            errs["hoisted"] = max(errs["hoisted"], eh)
+            errs["hoisted_adj"] = max(errs["hoisted_adj"], eg)
+        torch.cuda.empty_cache()
+    return "; ".join(out)
+
+
+def is_copy_event(name):
+    """A memcpy or memset of the profiler's device events (not a kernel)."""
+    return name.startswith(("Memcpy", "Memset", "memcpy", "memset"))
+
+
 def glue_profile(fn, reps, exclude):
-    """(device ms, kernel launches) per call of ``fn``: every CUDA kernel
-    the profiler sees over ``reps`` calls after a warm-up, those whose
-    function is in ``exclude`` left out."""
+    """(device ms, kernel launches, memcpy and memset events) per call of
+    ``fn``: every CUDA event the profiler sees over ``reps`` calls after a
+    warm-up, those whose function is in ``exclude`` left out, the copies
+    and fills counted apart from the kernels."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -2432,13 +3065,40 @@ def glue_profile(fn, reps, exclude):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us, n = 0.0, 0
+    us, n, cp = 0.0, 0, 0
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA and \
-                _function_name(e.name) not in exclude:
-            us += e.time_range.end - e.time_range.start
-            n += 1
-    return us / reps / 1e3, n / reps
+        if e.device_type != torch.autograd.DeviceType.CUDA or \
+                _function_name(e.name) in exclude:
+            continue
+        if is_copy_event(e.name):
+            cp += 1
+            continue
+        us += e.time_range.end - e.time_range.start
+        n += 1
+    return us / reps / 1e3, n / reps, cp / reps
+
+
+def launch_census(prof, reps, funcs):
+    """From a profile of ``reps`` calls: (kernel launches per call, memcpy
+    and memset events per call, the hand-written kernels' launches per
+    call, {name of every other kernel: launches per call})."""
+    own = set().union(*funcs.values())
+    n, cp, hand, other = 0, 0, 0, {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if is_copy_event(e.name):
+            cp += 1
+            continue
+        n += 1
+        fn_ = _function_name(e.name)
+        if fn_ in own:
+            hand += 1
+        else:
+            other[fn_[:80]] = other.get(fn_[:80], 0) + 1
+    return (n / reps, cp / reps, hand / reps,
+            {k_: v / reps for k_, v in sorted(other.items(),
+                                              key=lambda kv: -kv[1])})
 
 
 def _nbytes(*ts):
@@ -2447,14 +3107,14 @@ def _nbytes(*ts):
 
 
 def glue_rows(cfg, params, batch, dev, funcs):
-    """Rows C and D, the torch glue around the kernels, at the main path's
-    shapes: C the factors (model/joint.batch_factors_pr without K1's
-    launch: masks into score inputs, one-hot emission contractions, the
-    constants) and the backward of the factors into the per-read weights;
-    D the hoisted exp-space tensors (ops/dp.hoisted) and their backward
-    into lambda.  Each: device ms and launches per call (profiler, 20
-    calls), CUDA-event ms, and the bound, the bytes of its inputs and
-    outputs once over HBM."""
+    """Rows C and D at the main path's shapes, as the main path runs them:
+    C the factors (model/joint.batch_factors_pr without K1's launch: K14
+    and whatever torch glue remains) and their backward into the per-read
+    weights (K15), D the hoisted exp-space tensors (ops/dp.hoisted: K16)
+    and their backward into lambda (K17).  Each: device ms, kernel
+    launches and memcpy/memset events per call (profiler, 20 calls),
+    CUDA-event ms, and the bound, the bytes of its inputs and outputs once
+    over HBM."""
     B = batch.valid.shape[0]
     leaves = J.Params(*[x.detach().clone().requires_grad_(True)
                         for x in J.per_read(params, B)])
@@ -2463,20 +3123,22 @@ def glue_rows(cfg, params, batch, dev, funcs):
         d, c = J.batch_factors_pr(cfg, leaves, batch.sd, batch.bp_ok, dev)
         lam = d.lam.detach().requires_grad_(True)
         h = DP.hoisted(d._replace(lam=lam), c, st)
-    outs_c = [d.eR, d.eL, d.bg2, d.pv, d.lam]
+    outs_c = [d.eR, d.eL, d.bg2, d.pv]
     cot_c = [torch.randn_like(x) for x in outs_c]
     outs_d = [h[k] for k in ("eSZ", "eSZg", "emisA", "emisB")]
     cot_d = [torch.randn_like(x) for x in outs_d]
-    sd_in = _nbytes(*batch.sd, batch.bp_ok)
-    made = _nbytes(*d) + _nbytes(c.wsp, c.gate_O2, c.gate_M, c.seq, c.C, c.L,
-                                 c.dots_cum)
-    k1_in = _nbytes(*J.score_inputs(cfg, J.kernels(cfg, dev), batch.sd,
-                                    batch.bp_ok))
+    weights = _nbytes(*leaves[:2])
+    reads_in = _nbytes(batch.sd.seq, batch.sd.ws, batch.sd.L, batch.sd.dots)
+    # K14's outputs: the factors, alphaP, the DP's constants and K1's
+    # inputs (the codes and lengths int64, the dot counts batch-major)
+    made = _nbytes(*outs_c, d.alphaP, c.wsp, c.gate_O2, c.seq, c.C, c.L,
+                   c.dots_cum) + _nbytes(c.seq, c.L, c.dots_cum)
     bytes_ = {
-        "C": sd_in + made + k1_in,
-        "C backward": _nbytes(*cot_c, *leaves),
+        "C": reads_in + weights + made,
+        "C backward": _nbytes(*cot_c, batch.sd.seq) + 2 * weights,
         "D": _nbytes(lam, c.ep["misA"], c.ep["misB"], c.C, *outs_d),
-        "D backward": _nbytes(*cot_d, lam)}
+        "D backward": _nbytes(*cot_d, lam, c.ep["misA"], c.ep["misB"], c.C)
+        + _nbytes(lam)}
 
     def fwd_c():
         with torch.enable_grad():
@@ -2489,23 +3151,113 @@ def glue_rows(cfg, params, batch, dev, funcs):
     calls = {
         "C": fwd_c,
         "C backward": lambda: torch.autograd.grad(
-            outs_c, list(leaves), cot_c, retain_graph=True,
+            outs_c, list(leaves[:2]), cot_c, retain_graph=True,
             allow_unused=True),
         "D": fwd_d,
         "D backward": lambda: torch.autograd.grad(outs_d, [lam], cot_d,
                                                   retain_graph=True)}
     out = {}
     for name, fn in calls.items():
-        ms, n = glue_profile(fn, 20, funcs["score_tables"])
-        out[name] = dict(ms=ms, launches=n, event_ms=cuda_ms(fn, 5),
-                         bytes=bytes_[name],
+        ms, n, cp = glue_profile(fn, 20, funcs["score_tables"])
+        out[name] = dict(ms=ms, launches=n, memcpy_memset=cp,
+                         event_ms=cuda_ms(fn, 5), bytes=bytes_[name],
                          bound_ms=bytes_[name] / MEM_BPS * 1e3,
                          bound_by="bytes")
-    print("rows C, D (torch glue, B=%d x %d nt %s f32, per call: device ms "
-          "and launches of its kernels, K1 left out; CUDA-event ms; bound = "
-          "its inputs and outputs once over HBM): %s" % (
-              B, LP, PATTERN, json.dumps(out)), flush=True)
+    total = sum(v["launches"] for v in out.values())
+    print("rows C, D (K14-K17 and the torch glue left, B=%d x %d nt %s f32, "
+          "per call: device ms, kernel launches, memcpy/memset events apart; "
+          "K1 left out; CUDA-event ms; bound = its inputs and outputs once "
+          "over HBM): %s; %g kernel launches per fn+grad for the two rows"
+          % (B, LP, PATTERN, json.dumps(out), total), flush=True)
+    if total > 8:
+        fail("rows C and D launch %g kernels per fn+grad (more than 8)"
+             % total)
     return out
+
+
+def plain_factors(cfg, k, params_b, sd, bp):
+    """K14's outputs as the plain version forms them: _diff_factors and
+    the constants of _const_factors (without K1)."""
+    d = J._diff_factors(cfg, k, params_b, sd)
+    seq, L, _, dots_cum = J.score_inputs(cfg, k, sd, bp)
+    W = torch.clamp(L, max=cfg.max_span)
+    C = torch.clamp(W - 2 - (2 if cfg.turn == 0 else 5),
+                    max=cfg.max_iloop).to(torch.int32)
+    ws = torch.as_tensor(sd.ws, device=k.device).to(k.dtype)
+    return d, (seq.T.contiguous(), C, ws.T.contiguous(),
+               dots_cum.T.contiguous())
+
+
+def rows_cd_times(cfg, params, batch, dev, funcs):
+    """K14-K17 at the main path's shapes (B=128 x 100 nt, f32): device ms
+    per call (the profiler, REPS calls) of the kernel alone, the plain
+    versions' ms (CUDA events) and the bounds (bytes of inputs and outputs
+    once over HBM against the operations over the f32 peak).  Returns
+    (ms, plain_ms, bounds, unit) by kernel."""
+    k = J.kernels(cfg, dev)
+    st = k.dp.st
+    B = batch.valid.shape[0]
+    reads = J._card_reads(k, batch.sd)
+    wts = [x.detach().clone() for x in J.per_read(params, B)]
+    out = K.factors(st, cfg, "dp", *reads, singles=wts[0], pairs=wts[1])
+    cot = [torch.randn_like(out[n]) for n in ("eR", "eL", "bg2", "pv")]
+    d, c = J.batch_factors_pr(cfg, J.Params(*wts), batch.sd, batch.bp_ok,
+                              dev)
+    lam = wts[2].T
+    hk = K.hoisted(st, lam, c)
+    hcot = [torch.randn_like(x) for x in hk]
+    calls = {
+        "factors": lambda: K.factors(st, cfg, "dp", *reads, singles=wts[0],
+                                     pairs=wts[1]),
+        "factors_adj": lambda: K.factors_adj(st, cfg, "dp", reads[0],
+                                             wts[0], wts[1], *cot),
+        "hoisted": lambda: K.hoisted(st, lam, c),
+        "hoisted_adj": lambda: K.hoisted_adj(st, lam, c, hcot)}
+    ms = {n: device_ms(fn, REPS, funcs[n]) for n, fn in calls.items()}
+    leaves = [x.clone().requires_grad_(True) for x in wts[:2]]
+    with torch.enable_grad():
+        dp_, _ = plain_factors(cfg, k, J.Params(*leaves, wts[2]), batch.sd,
+                               batch.bp_ok)
+        lam_l = lam.detach().clone().requires_grad_(True)
+        hp = DP.hoisted_plain(d._replace(lam=lam_l), c, st)
+    outs_p = [dp_.eR, dp_.eL, dp_.bg2, dp_.pv]
+    outs_h = [hp[n] for n in DP.HOISTED]
+    plain = {
+        "factors": cuda_ms(lambda: plain_factors(
+            cfg, k, J.Params(*wts), batch.sd, batch.bp_ok), 5),
+        "factors_adj": cuda_ms(lambda: torch.autograd.grad(
+            outs_p, leaves, cot, retain_graph=True), 5),
+        "hoisted": cuda_ms(lambda: DP.hoisted_plain(d._replace(lam=lam), c,
+                                                    st), 5),
+        "hoisted_adj": cuda_ms(lambda: torch.autograd.grad(
+            outs_h, [lam_l], hcot, retain_graph=True), 5)}
+    Lp, S, W1 = cfg.Lp, st.dims.S, cfg.Wp + 1
+    consts = ("alphaP", "seq64", "seqT", "L64", "dcum", "dcumT", "gate", "C",
+              "wsp")
+    by = {"factors": _nbytes(*reads, *wts[:2], *out.values()),
+          "factors_adj": _nbytes(*cot, reads[0]) + 2 * _nbytes(*wts[:2]),
+          "hoisted": _nbytes(c.ep["misA"], c.ep["misB"], c.C, lam, *hk),
+          "hoisted_adj": _nbytes(*hcot, c.ep["misA"], c.ep["misB"], c.C,
+                                 lam) + _nbytes(lam)}
+    # operations: K15 one product and one add per one-hot term (8 per
+    # (position, state) of eR and eL, 4 per bg2 position, 6 per pair cell
+    # and table); K17 three per term of its sums; K14/K16 one per output
+    # value
+    ops = {"factors": float(sum(out[n_].numel() for n_ in out
+                                if n_ not in consts)),
+           "factors_adj": 2.0 * B * (8 * Lp * S + 4 * Lp
+                                     + 6 * (Lp + 1) * W1 * wts[1].shape[1]),
+           "hoisted": float(sum(x.numel() for x in hk)),
+           "hoisted_adj": 3.0 * sum(x.numel() for x in hcot)}
+    bnd = {n: max((by[n] / MEM_BPS * 1e3, "bytes"),
+                  (ops[n] / PEAK_F32 * 1e3, "operations")) for n in calls}
+    unit = {}
+    for n, fn in calls.items():
+        K.reset_counts()
+        fn()
+        unit[n] = ("batch", K.KERNELS[n].launches)
+    del out, cot, hk, hcot, outs_p, outs_h
+    return ms, plain, bnd, unit
 
 
 # ------------------------------------------------------------ row N
@@ -3187,51 +3939,10 @@ def launch_cost(dev, rounds=5, reps=3):
 
 # ------------------------------------------------------------ main
 
-def main():
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--ptxas", default="",
-                    help="also write nvcc -Xptxas -v output to this file")
-    ap.add_argument("--profile", default="",
-                    help="write the torch.profiler kernel table of one "
-                         "main-path batch_fn_grad to this file")
-    ap.add_argument("--launch-cost", action="store_true",
-                    help="only time fn+grad under three kernel-launch "
-                         "wrappers (see launch_cost) and exit")
-    ap.add_argument("--ep-variants", action="store_true",
-                    help="only time K3/K6 and the masks for variants of "
-                         "the fused blocks' launch constants (see "
-                         "ep_variants) and exit")
-    ap.add_argument("--band-variants", action="store_true",
-                    help="only time K2/K5 and the masks for variants of "
-                         "band_bif's and bif_adj's launch constants (see "
-                         "band_variants) and exit")
-    ap.add_argument("--ext-variants", action="store_true",
-                    help="only time K4/K12 and the masks for variants of "
-                         "inside_ext.cu's launch constants, with the "
-                         "shipped build's ptxas lines (see ext_variants), "
-                         "and exit")
-    ap.add_argument("--ext-adj-variants", action="store_true",
-                    help="only time K7 and the masks for variants of "
-                         "outside_ext.cu's launch constants, with the "
-                         "shipped build's ptxas lines (see "
-                         "ext_adj_variants), and exit")
-    ap.add_argument("--ep-probes", action="store_true",
-                    help="only time K11 with one piece of its step taken "
-                         "out (see ep_probes) and exit")
-    ap.add_argument("--wide", action="store_true",
-                    help="only build, check the launch plans' layouts and "
-                         "run phase 14 (the wide grammars), and exit")
-    ap.add_argument("--shipped-only", action="store_true",
-                    help="with --ep-variants, --band-variants, "
-                         "--ext-variants or --ext-adj-variants: time the "
-                         "sources as they are, no patched copy")
-    # one rank of N2/N3, started by this script itself
-    ap.add_argument("--mesh-worker", type=int, default=-1,
-                    help=argparse.SUPPRESS)
-    for flag in ("--mesh-devices", "--mesh-backend", "--mesh-fq",
-                 "--mesh-out"):
-        ap.add_argument(flag, default="", help=argparse.SUPPRESS)
-    args = ap.parse_args()
+def load_package():
+    """Import torch and the port into this module's globals; fail (no
+    result) without CUDA, without the package beside this script, or
+    where the port brought in JAX."""
     global np, torch, ET, J, DP, DMB, K, LIN, MIO, OBJ, TRN, CLI, SC, SCD
     global CYK, MESH, AJ, seq_to_ints, ints_to_seq, FastqReader
     try:
@@ -3266,6 +3977,55 @@ def main():
         fail("the port imported jax or the JAX package")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--ptxas", default="",
+                    help="also write nvcc -Xptxas -v output to this file")
+    ap.add_argument("--profile", default="",
+                    help="write the torch.profiler kernel table of one "
+                         "main-path batch_fn_grad to this file")
+    ap.add_argument("--launch-cost", action="store_true",
+                    help="only time fn+grad under three kernel-launch "
+                         "wrappers (see launch_cost) and exit")
+    ap.add_argument("--ep-variants", action="store_true",
+                    help="only time K3/K6 and the masks for variants of "
+                         "the fused blocks' launch constants (see "
+                         "ep_variants) and exit")
+    ap.add_argument("--band-variants", action="store_true",
+                    help="only time K2/K5 and the masks for variants of "
+                         "band_bif's and bif_adj's launch constants (see "
+                         "band_variants) and exit")
+    ap.add_argument("--ext-variants", action="store_true",
+                    help="only time K4/K12 and the masks for variants of "
+                         "inside_ext.cu's launch constants, with the "
+                         "shipped build's ptxas lines (see ext_variants), "
+                         "and exit")
+    ap.add_argument("--ext-adj-variants", action="store_true",
+                    help="only time K7 and the masks for variants of "
+                         "outside_ext.cu's launch constants, with the "
+                         "shipped build's ptxas lines (see "
+                         "ext_adj_variants), and exit")
+    ap.add_argument("--ep-probes", action="store_true",
+                    help="only time K11 with one piece of its step taken "
+                         "out (see ep_probes) and exit")
+    ap.add_argument("--wide", action="store_true",
+                    help="only build, check the launch plans' layouts and "
+                         "run phase 14 (the wide grammars, 44 and 50 dots "
+                         "among them), and exit")
+    ap.add_argument("--shipped-only", action="store_true",
+                    help="with --ep-variants, --band-variants, "
+                         "--ext-variants or --ext-adj-variants: time the "
+                         "sources as they are, no patched copy")
+    # one rank of N2/N3, started by this script itself
+    ap.add_argument("--mesh-worker", type=int, default=-1,
+                    help=argparse.SUPPRESS)
+    for flag in ("--mesh-devices", "--mesh-backend", "--mesh-fq",
+                 "--mesh-out"):
+        ap.add_argument(flag, default="", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    load_package()
     if args.mesh_worker >= 0:
         mesh_worker(args)
         return
@@ -3348,6 +4108,8 @@ def main():
           "(within 1e-4 relative, max norm)" % (j0, json.dumps(a32)),
           flush=True)
     err.update(a32)
+    # rows C and D: the factors and the hoisted exponentials, K14-K17
+    err.update(check_rows_cd(dev))
 
     parts_k64 = J.batch_logZ_parts(cfg64, p64, b16.sd, b16.bp_ok, device=dev)
     parts_p64 = plain_parts(cfg64, p64, b16, dev)
@@ -3518,6 +4280,15 @@ def main():
           "column %d / one batch, B=%d x %d nt, f32): %s" % (
               j0, B_MAIN, LP, json.dumps(ms_pin)), flush=True)
     del rows_p, cls_c
+    ms_cd, plain_cd, bnd_cd, unit_cd = rows_cd_times(cfg32, p32, bm, dev,
+                                                     funcs)
+    ms.update(ms_cd)
+    plain_ms.update(plain_cd)
+    unit.update(unit_cd)
+    print("K14-K17 (rows C, D) device ms per call (B=%d x %d nt, f32, %d "
+          "calls): %s; plain %s; bounds %s" % (
+              B_MAIN, LP, REPS, json.dumps(ms_cd), json.dumps(plain_cd),
+              json.dumps(bnd_cd)), flush=True)
     glue = glue_rows(cfg32, p32, bm, dev, funcs)
 
     # ---- phase 6: the evaluation path
@@ -3529,7 +4300,7 @@ def main():
     mask_launches = {n: kk.launches for n, kk in K.KERNELS.items()}
     print("masks (stack_reads, S=1, B=%d) launches: %s" % (
         B_MAIN, json.dumps(mask_launches)), flush=True)
-    for n in ("inside_ep", "outside_ep"):
+    for n in ("inside_ep", "outside_ep", "factors", "hoisted"):
         if mask_launches[n] <= 0:
             fail("the masks' S=1 pass did not launch %s" % n)
     fn, grads, eff = OBJ.batch_fn_grad(cfg32, p32, batch, device=dev)
@@ -3542,12 +4313,15 @@ def main():
               B_MAIN, json.dumps(eval_launches), json.dumps(
                   {n: kk.variants for n, kk in K.KERNELS.items()
                    if kk.variants})), flush=True)
-    for n in DP_KERNELS:
+    for n in DP_KERNELS + ROWS_CD_KERNELS:
         if eval_launches[n] <= 0:
             fail("kernel %s was not launched on the evaluation path" % n)
     K.reset_counts()
     OBJ.batch_fn_grad(cfg32, p32, batch, device=dev)
     per_fg = {n: kk.launches for n, kk in K.KERNELS.items()}
+    for n in DP_KERNELS + ROWS_CD_KERNELS:
+        if per_fg[n] <= 0:
+            fail("kernel %s was not launched by fn+grad" % n)
     print("K7 (outside_ext): %d launches per fn+grad, one per column of %d "
           "(two per column before its single entry point); %d launches of "
           "all kernels per fn+grad" % (per_fg["outside_ext"], LP,
@@ -3592,6 +4366,14 @@ def main():
           "device busy %.1f ms (%.1f%%); device ms per fn+grad by kernel %s"
           % (wall_us / 1e3, busy_us / 1e3, 100.0 * busy_us / wall_us,
              json.dumps(fg_dev)), flush=True)
+    n_all, n_cp, n_hand, other = launch_census(prof, 2, funcs)
+    print("fn+grad launches (B=%d x %d nt f32): %d of the hand-written "
+          "kernels (their launch counts), %g kernel launches in the "
+          "profiler's trace (%g of them the hand-written kernels' functions, "
+          "%g torch's), %g memcpy/memset events apart; torch's kernels per "
+          "fn+grad: %s" % (B_MAIN, LP, sum(per_fg.values()), n_all, n_hand,
+                           n_all - n_hand, n_cp, json.dumps(other)),
+          flush=True)
     per_m, _, wall_m, busy_m = device_profile(
         lambda: OBJ.stack_reads(cfg32, reads, device=dev), 2)
     print("profile: masks (stack_reads) %.1f ms wall (profiler on, mean of "
@@ -3600,6 +4382,14 @@ def main():
              json.dumps({n: sum(per_m.get(f, 0.0) for f in fn_) / 1e3
                          for n, fn_ in funcs.items()
                          if n not in CYK_KERNELS})), flush=True)
+    m_all, m_cp, m_hand, m_other = launch_census(
+        device_profile(lambda: OBJ.stack_reads(cfg32, reads, device=dev),
+                       2)[1], 2, funcs)
+    print("masks launches (stack_reads, B=%d): %d of the hand-written "
+          "kernels, %g kernel launches in the profiler's trace (%g torch's), "
+          "%g memcpy/memset events apart; torch's kernels: %s" % (
+              B_MAIN, sum(mask_launches.values()), m_all, m_all - m_hand,
+              m_cp, json.dumps(m_other)), flush=True)
     if args.profile:
         os.makedirs(os.path.dirname(os.path.abspath(args.profile)),
                     exist_ok=True)
@@ -3611,7 +4401,9 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         step = production_step(PATTERN, False, tmp, dev)
         step_nr = production_step(NORSS, True, tmp, dev)
-        for run, names in ((step, DP_KERNELS), (step_nr, CHAIN_KERNELS)):
+        for run, names in ((step, DP_KERNELS + ROWS_CD_KERNELS),
+                           (step_nr, CHAIN_KERNELS + ("factors",
+                                                      "factors_adj"))):
             for n in names:
                 if run["launches"][n] <= 0:
                     fail("kernel %s was not launched on the training path "
@@ -3637,7 +4429,7 @@ def main():
         # structure-model scan at f64, its default)
         scan = scan_trna(tmp, dev)
         scan_nr = scan_norss(tmp, dev)
-        for n in SCAN_KERNELS:
+        for n in SCAN_KERNELS + ("factors", "hoisted"):
             if scan["float64"]["launches"][n] <= 0:
                 fail("kernel %s was not launched on the scan path" % n)
         # ---- phase 5 (rows L, M): per-column and per-chunk times
@@ -3684,6 +4476,7 @@ def main():
     # "launches_fn_grad" and "ms_fn_grad" (device time) one batch_fn_grad
     bnd = bounds(cfg32, st, c32, k32.tab, j0, B_MAIN, 4)
     bnd.update(chain_bounds(lin, Lc.cpu().numpy(), LP, 4))
+    bnd.update(bnd_cd)
     c64 = cyk["float64"]
     bnd.update(c64["bound"])
     ms.update(c64["ms"])

@@ -20,9 +20,12 @@
 // log-sum-exp (52 transitions among the 28 states of ..*..).  K8 reads
 // eR once and writes the chain rows [Lp+1, S, B] (1.4 MB at f32 for
 // B = 128 x 100 nt) for K9; K9 reads eR and those rows once and writes
-// the cotangent of eR.  Design: one block per read, one thread per state,
-// the chain row (K8) or its cotangent (K9) in shared memory; no atomics,
-// every sum in a fixed order, so two runs give identical bits.
+// the cotangent of eR.  Design: one block per read, a thread per state
+// (past 1,024 states the block's 1,024 threads stride over them), the
+// chain row (K8) or its cotangent (K9) double-buffered in shared memory,
+// one barrier per step; no atomics, every sum in a fixed order (each
+// state's own transition list), so two runs give identical bits and a
+// read's bits do not depend on the block's width.
 #pragma once
 
 #include "common.cuh"
@@ -41,4 +44,8 @@ struct ChainIdx {         // the DP's right-transition lists
   const int* end_states;  // [3]
 };
 
-static inline int chain_threads(int S) { return ((S + 31) / 32) * 32; }
+// a block's threads: one per state in whole warps, at most 1024
+static inline int chain_threads(int S) {
+  const int t = ((S + 31) / 32) * 32;
+  return t < 1024 ? t : 1024;
+}

@@ -299,4 +299,85 @@ static int allow_smem(const void* fn, long long bytes) {
   return 0;
 }
 
+// ---- ops/dp.read_sum's order in a block of RL reads x C columns
+//
+// The sum over i < n of f(i), padded with zeros to P = 2^k >= n and
+// halves added elementwise until one is left (x[i] + x[i + P/2], ...):
+// the order of the plain versions' per-read sums (K15, K17).  Lane r =
+// threadIdx.x % RL is a read, column c = threadIdx.x / RL (C a power of
+// two) holds the indices i = c + q Cc, Cc = min(C, P): the levels whose
+// half is at least Cc pair two of the column's own values (tree_local: a
+// tree over q, which walked in bit-reversed order of q is the
+// left-to-right pairwise tree, a stack of partial sums; the values come
+// kTreeChunk at a time, their loads in flight together), the rest pair
+// columns in shared memory (tree_cols, NV sums at once).  Every thread of
+// the block calls tree_cols (it holds barriers).
+static const int kTreeDepth = 40;
+static const int kTreeChunk = 8;
+
+struct TreeShape {
+  long long P, Q;  // padded length, values a column holds
+  int Cc, lq;      // columns in use, log2(Q)
+  __device__ __forceinline__ TreeShape(long long n, int C) {
+    P = 1;
+    while (P < n) P <<= 1;
+    Cc = P < C ? (int)P : C;
+    Q = P / Cc;
+    lq = 0;
+    while ((1LL << lq) < Q) ++lq;
+  }
+};
+
+// column c's partial sum (0 for a column past Cc)
+template <typename T, class F>
+__device__ __forceinline__ T tree_local(const TreeShape& t, long long n,
+                                        int c, F f) {
+  if (c >= t.Cc) return (T)0;
+  T stk[kTreeDepth];
+  int depth = 0;
+  for (long long q0 = 0; q0 < t.Q; q0 += kTreeChunk) {
+    T xs[kTreeChunk];
+#pragma unroll
+    for (int u = 0; u < kTreeChunk; ++u) {
+      const long long qq = q0 + u;
+      const long long q =
+          t.lq ? (long long)(__brevll((unsigned long long)qq) >> (64 - t.lq))
+               : 0;
+      const long long i = c + q * t.Cc;
+      xs[u] = qq < t.Q && i < n ? f(i) : (T)0;
+    }
+#pragma unroll
+    for (int u = 0; u < kTreeChunk; ++u) {
+      if (q0 + u >= t.Q) break;
+      T x = xs[u];
+      for (long long m = q0 + u; m & 1; m >>= 1) x = stk[--depth] + x;
+      stk[depth++] = x;
+    }
+  }
+  return stk[0];
+}
+
+// the columns' halving tree in shared memory red [NV][C][RL] of NV
+// partial sums at once; each thread gets its lane's NV sums in out
+template <typename T, int NV, int RL, int C>
+__device__ __forceinline__ void tree_cols(const TreeShape& t, T (&loc)[NV],
+                                          T* red, T (&out)[NV]) {
+  const int r = threadIdx.x % RL, c = threadIdx.x / RL;
+#pragma unroll
+  for (int v = 0; v < NV; ++v) red[(v * C + c) * RL + r] = loc[v];
+  __syncthreads();
+  for (int h = t.Cc / 2; h >= 1; h >>= 1) {
+    if (c < h) {
+#pragma unroll
+      for (int v = 0; v < NV; ++v)
+        red[(v * C + c) * RL + r] =
+            red[(v * C + c) * RL + r] + red[(v * C + c + h) * RL + r];
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int v = 0; v < NV; ++v) out[v] = red[(v * C) * RL + r];
+  __syncthreads();
+}
+
 RNAELEM_EXPORT const char* rnaelem_error_string(int code);

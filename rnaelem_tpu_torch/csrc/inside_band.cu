@@ -28,7 +28,7 @@
 // S work, no max-shift underflow).  The B sum gives each (w, target, read)
 // cell two threads, each a contiguous slice of dk whose loads go out in
 // chunks, merged in order.  The M chain (csrc/mchain.cuh) runs one block
-// per group of reads, one thread per (state, read), the step's inputs
+// per group of reads, one cell per (state, read), a thread's cells' inputs
 // staged by cp.async a few steps ahead, one barrier per step.  The
 // scanner's pin set (common.cuh Aux: the end pass's start
 // pin, CYK's start, end and tail pins) vetoes transitions at the pinned
@@ -220,110 +220,131 @@ band_bif_kernel(DPDims D, BandIdx ix, T* __restrict__ Bt, T* __restrict__ T1,
 }
 
 // ---- M chain (TT_M_M / TT_M_B), sequential over w within column j
-// (motif_model.hpp:346-366): one block per group of G reads, thread
-// (s, g) the cell of state s of read g (csrc/mchain.cuh).  Step w: each
-// thread takes its ring stage (Bt, eL, gate_M, okM of step w, copied
-// R - 1 steps ahead), publishes y = M(w-1)[s] and eL[s], and after the
-// step's barrier takes the log-sum-exp (K10: the max) of Bt and ((y[s'] +
-// TL[s, s']) + eL[s']) + gate over its left-transition sources s' (their
-// y and eL in the published row) in one pass: the terms' exps do not wait
-// on each other.  The terms keep the plain versions' association, so K10
-// equals the plain max DP bit for bit.
-template <typename T, class SR, bool kPin, int G, int R>
+// (motif_model.hpp:346-366): one block per group of G reads, cell (s, g)
+// the cell of state s of read g, NC cells a thread (csrc/mchain.cuh).
+// Step w: each thread takes its cells' ring stages (Bt, eL, gate_M, okM
+// of step w, copied R - 1 steps ahead), publishes y = M(w-1)[s] and eL[s]
+// of each, and after the step's barrier takes for each cell the
+// log-sum-exp (K10: the max) of Bt and ((y[s'] + TL[s, s']) + eL[s']) +
+// gate over its left-transition sources s' (their y and eL in the
+// published row) in one pass: the terms' exps do not wait on each other.
+// The terms keep the plain versions' association, so K10 equals the plain
+// max DP bit for bit.  kDev: the layout in the block's slice of ws.
+template <typename T, class SR, bool kPin, int G, int R, int NC, bool kDev>
 __global__ void __launch_bounds__(1024)
 band_m_kernel(DPDims D, BandIdx ix, Aux ax, T* M, const T* Bt, const T* eL,
-              const T* gate_M, const bool* okM) {
+              const T* gate_M, const bool* okM, unsigned char* ws) {
   static_assert((R & (R - 1)) == 0, "the ring's stages: a power of 2");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int S = D.S, B = D.B, W1 = D.Wp + 1, Lp = D.Lp, j = D.j;
   const MLayout lay(S, G, R, 2, 3, sizeof(T));
+  unsigned char* base = mchain_base<kDev>(smem_raw, ws, lay.total);
   const int n = (int)lay.n;
-  T* ybuf = reinterpret_cast<T*>(smem_raw + lay.buf);     // [2][2][n]
-  T* ring = reinterpret_cast<T*>(smem_raw + lay.ring);    // [R][3][n]
-  int* rok = reinterpret_cast<int*>(smem_raw + lay.ok);   // [R][n]
-  const int tid = threadIdx.x, g = tid % G, s = tid / G;
+  T* ybuf = reinterpret_cast<T*>(base + lay.buf);     // [2][2][n]
+  T* ring = reinterpret_cast<T*>(base + lay.ring);    // [R][3][n]
+  int* rok = reinterpret_cast<int*>(base + lay.ok);   // [R][n]
+  const int g = threadIdx.x % G;
   const int b = blockIdx.x * G + g;
-  const bool live = s < S && b < B;
-  // this cell's rows: (w, s, b) of the column's tables at w = 0, the
-  // eL and gate_M rows at row 0 and okM at w = 0
   const long long SB = (long long)S * B;
-  const long long cell0 = TIDX(j + D.PAD, 0, s, b);
-  const T* eLs = eL + (long long)s * B + b;
-  const T* gms = gate_M + b;
   const bool* oks = okM + (long long)j * W1 * B + b;
-  // the cells of the step being issued, advanced one step per call
-  const T* pBt = Bt + cell0;
-  const bool* pok = oks;
-  auto issue = [&](int w) {
-    if (w < W1 && live) {
-      const int q = w & (R - 1), iw = clip_row(j - w, Lp);
-      T* st = ring + q * 3 * n + tid;
-      cp_async_t(st, pBt);
-      cp_async_t(st + n, eLs + iw * SB);
-      cp_async_t(st + 2 * n, gms + (long long)iw * B);
-      cp_async<4>(rok + q * n + tid, ok_word(pok));
-      pBt += SB;
-      pok += B;
+  const T* ltw = static_cast<const T*>(ix.lt_w);
+  // this thread's cells c (state c / G): their rows (w, s, b) of the
+  // column's tables at w = 0 and their left-transition sources, the first
+  // kMSrc in registers
+  int cid[NC], k0[NC], k1[NC], src[NC][kMSrc];
+  bool live[NC];
+  long long cell0[NC];
+  T wt[NC][kMSrc], x[NC];
+#pragma unroll
+  for (int k = 0; k < NC; ++k) {
+    cid[k] = threadIdx.x + k * blockDim.x;
+    const int s = cid[k] / G;
+    live[k] = s < S && b < B;
+    cell0[k] = TIDX(j + D.PAD, 0, s, b);
+    k0[k] = live[k] ? ix.lt_off[s] : 0;
+    k1[k] = live[k] ? ix.lt_off[s + 1] : 0;
+#pragma unroll
+    for (int q = 0; q < kMSrc; ++q) {
+      src[k][q] = k0[k] + q < k1[k] ? ix.lt_s[k0[k] + q] * G + g : 0;
+      wt[k][q] = k0[k] + q < k1[k] ? ltw[k0[k] + q] : (T)0;
     }
-    cp_async_commit();
+    x[k] = ninf<T>();
+  }
+  auto issue = [&](int w) {
+    if (w < W1) {
+      const int q = w & (R - 1), iw = clip_row(j - w, Lp);
+#pragma unroll
+      for (int k = 0; k < NC; ++k) {
+        if (!live[k]) continue;
+        T* st = ring + q * 3 * n + cid[k];
+        mchain_copy<kDev>(st, Bt + cell0[k] + w * SB);
+        mchain_copy<kDev>(st + n, eL + iw * SB + (cid[k] / G) * (long long)B +
+                                      b);
+        mchain_copy<kDev>(st + 2 * n, gate_M + (long long)iw * B + b);
+        mchain_copy_word<kDev>(rok + q * n + cid[k],
+                               ok_word(oks + (long long)w * B));
+      }
+    }
+    mchain_commit<kDev>();
   };
   for (int w = 0; w < R - 1; ++w) issue(w);
-  // the state's left-transition sources, the first kMSrc in registers
-  const T* ltw = static_cast<const T*>(ix.lt_w);
-  const int k0 = live ? ix.lt_off[s] : 0, k1 = live ? ix.lt_off[s + 1] : 0;
-  int src[kMSrc];
-  T wt[kMSrc];
-#pragma unroll
-  for (int q = 0; q < kMSrc; ++q) {
-    src[q] = k0 + q < k1 ? ix.lt_s[k0 + q] * G + g : 0;
-    wt[q] = k0 + q < k1 ? ltw[k0 + q] : (T)0;
-  }
   PinRegs pr;
-  if (kPin && live) pr = pin_regs(ax, b, kAuxL);
-  T x = ninf<T>();
+  if (kPin && b < B) pr = pin_regs(ax, b, kAuxL);
   for (int w = 0; w < W1; ++w) {
     issue(w + R - 1);
-    cp_async_wait<R - 1>();
+    mchain_wait<kDev, R - 1>();
     T* y = ybuf + (w & 1) * 2 * n;   // [n] M(w-1), then [n] eL of step w
     T* eLw = y + n;
-    T bt = ninf<T>(), gt = (T)0;
-    bool ok = false;
-    if (live) {
-      const T* st = ring + (w & (R - 1)) * 3 * n + tid;
-      bt = st[0];
-      gt = st[2 * n];
-      y[tid] = x;
-      eLw[tid] = st[n];
-      ok = ok_byte(rok[(w & (R - 1)) * n + tid], oks + (long long)w * B);
-    } else if (tid < n) {
-      y[tid] = ninf<T>();
-      eLw[tid] = ninf<T>();
+    T bt[NC], gt[NC];
+    bool ok[NC];
+#pragma unroll
+    for (int k = 0; k < NC; ++k) {
+      bt[k] = ninf<T>();
+      gt[k] = (T)0;
+      ok[k] = false;
+      if (live[k]) {
+        const T* st = ring + (w & (R - 1)) * 3 * n + cid[k];
+        bt[k] = st[0];
+        gt[k] = st[2 * n];
+        y[cid[k]] = x[k];
+        eLw[cid[k]] = st[n];
+        ok[k] = ok_byte(rok[(w & (R - 1)) * n + cid[k]],
+                        oks + (long long)w * B);
+      } else if (cid[k] < n) {
+        y[cid[k]] = ninf<T>();
+        eLw[cid[k]] = ninf<T>();
+      }
     }
     mchain_sync();
-    if (!live) continue;
-    T cur = ninf<T>();
-    if (ok) {
-      const int pinL = kPin ? pin_req_reg(ax, pr, clip_row(j - w, Lp)) : 0;
-      T terms[kMSrc + 1];
-      terms[0] = bt;
+    const int pinL = kPin && b < B ? pin_req_reg(ax, pr, clip_row(j - w, Lp))
+                                   : 0;
 #pragma unroll
-      for (int q = 0; q < kMSrc; ++q)
-        terms[q + 1] =
-            k0 + q < k1 &&
-                    !(kPin && vetoed(ax, pinL, kAuxL, s, src[q] / G, S))
-                ? ((y[src[q]] + wt[q]) + eLw[src[q]]) + gt
-                : ninf<T>();
-      typename SR::Acc acc;
-      acc.add_n(terms);
-      for (int k = k0 + kMSrc; k < k1; ++k) {
-        if (kPin && vetoed(ax, pinL, kAuxL, s, ix.lt_s[k], S)) continue;
-        const int c = ix.lt_s[k] * G + g;
-        acc.add(((y[c] + ltw[k]) + eLw[c]) + gt);
+    for (int k = 0; k < NC; ++k) {
+      if (!live[k]) continue;
+      const int s = cid[k] / G;
+      T cur = ninf<T>();
+      if (ok[k]) {
+        T terms[kMSrc + 1];
+        terms[0] = bt[k];
+#pragma unroll
+        for (int q = 0; q < kMSrc; ++q)
+          terms[q + 1] =
+              k0[k] + q < k1[k] &&
+                      !(kPin && vetoed(ax, pinL, kAuxL, s, src[k][q] / G, S))
+                  ? ((y[src[k][q]] + wt[k][q]) + eLw[src[k][q]]) + gt[k]
+                  : ninf<T>();
+        typename SR::Acc acc;
+        acc.add_n(terms);
+        for (int kk = k0[k] + kMSrc; kk < k1[k]; ++kk) {
+          if (kPin && vetoed(ax, pinL, kAuxL, s, ix.lt_s[kk], S)) continue;
+          const int c = ix.lt_s[kk] * G + g;
+          acc.add(((y[c] + ltw[kk]) + eLw[c]) + gt[k]);
+        }
+        cur = acc.result();
       }
-      cur = acc.result();
+      x[k] = cur;
+      M[cell0[k] + w * SB] = cur;
     }
-    x = cur;
-    M[cell0 + w * SB] = cur;
   }
 }
 
@@ -385,22 +406,27 @@ static int bif(DPDims D, BandIdx ix, T* Bt, T* T1, const T* T2,
   return static_cast<int>(cudaGetLastError());
 }
 
-// the M chain in blocks of G reads with a ring of R stages (the plan's)
+// the M chain in blocks of G reads with a ring of R stages, NC cells a
+// thread, in shared memory or (ws not null) in ws (the plan's)
 template <typename T, class SR>
 static int mchain(DPDims D, BandIdx ix, Aux ax, T* M, const T* Bt, const T* eL,
-                  const T* gate_M, const bool* okM, int G_, int R_,
-                  cudaStream_t st) {
-  if (mchain_threads(D.S, G_) > 1024)
+                  const T* gate_M, const bool* okM, unsigned char* ws, int G_,
+                  int R_, int NC_, cudaStream_t st) {
+  if (!mchain_fits(D.S, G_, NC_))
     return static_cast<int>(cudaErrorInvalidValue);
-  return mchain_dispatch(G_, R_, [&](auto g, auto r) {
+  return mchain_dispatch(G_, R_, NC_, ws != nullptr, [&](auto g, auto r,
+                                                         auto nc, auto dv) {
     constexpr int G = decltype(g)::value, R = decltype(r)::value;
-    const long long bytes = mchain_layout(0, D.S, G, R, sizeof(T)).total;
-    auto kern = has_pin(ax) ? band_m_kernel<T, SR, true, G, R>
-                            : band_m_kernel<T, SR, false, G, R>;
+    constexpr int NC = decltype(nc)::value;
+    constexpr bool kDev = decltype(dv)::value;
+    const long long bytes =
+        kDev ? 0 : mchain_layout(0, D.S, G, R, sizeof(T)).total;
+    auto kern = has_pin(ax) ? band_m_kernel<T, SR, true, G, R, NC, kDev>
+                            : band_m_kernel<T, SR, false, G, R, NC, kDev>;
     const int rc = allow_smem((const void*)kern, bytes);
     if (rc) return rc;
-    kern<<<(D.B + G - 1) / G, mchain_threads(D.S, G), bytes, st>>>(
-        D, ix, ax, M, Bt, eL, gate_M, okM);
+    kern<<<(D.B + G - 1) / G, mchain_threads(D.S, G, NC), bytes, st>>>(
+        D, ix, ax, M, Bt, eL, gate_M, okM, ws);
     return static_cast<int>(cudaGetLastError());
   });
 }
@@ -436,8 +462,10 @@ static int ecol(DPDims D, BandIdx ix, T* E, const T* LL, const T* M,
   }                                                                          \
   RNAELEM_EXPORT int rnaelem_band_m_##SUF(                                   \
       DPDims D, BandIdx ix, Aux ax, T* M, const T* Bt, const T* eL,          \
-      const T* gate_M, const bool* okM, int G, int R, cudaStream_t st) {     \
-    return mchain<T, SR>(D, ix, ax, M, Bt, eL, gate_M, okM, G, R, st);       \
+      const T* gate_M, const bool* okM, unsigned char* ws, int G, int R,     \
+      int NC, cudaStream_t st) {                                             \
+    return mchain<T, SR>(D, ix, ax, M, Bt, eL, gate_M, okM, ws, G, R, NC,    \
+                         st);                                                \
   }                                                                          \
   RNAELEM_EXPORT int rnaelem_band_e_##SUF(                                   \
       DPDims D, BandIdx ix, T* E, const T* LL, const T* M, const T* ep,      \

@@ -106,145 +106,171 @@ __global__ void e_adj_kernel(DPDims D, AdjIdx ix, const T* E, const T* LL,
 }
 
 
-// ---- M chain backwards over w: one block per group of G reads, thread
-// (s, g) the cell of state s of read g (csrc/mchain.cuh).  Step w takes
-// its ring stage (copied R - 1 steps ahead), forms the cotangent gc
-// of M(w)[s] (gM plus the carry from step w+1), writes gB (the M chain's
-// share plus T1 = T2 + B's; front_adj_t adds T1's share of T2),
-// publishes gc and M(w)[s], and after the step's barrier gathers, as a
-// source, the cotangent of M(w-1)[s] over its targets.  The thread owns eL's cotangent of its
-// state at every row: the rows that clip(j - w) sends to one row add up
-// in a register, and each row is written once.  With the class probe it
-// writes the L-class partials of slot (w, s): it is the column's first
-// writer of cpL (cls_red zeroes what it sums).
-template <typename T, bool kPin, int G, int R>
+// ---- M chain backwards over w: one block per group of G reads, cell
+// (s, g) the cell of state s of read g, NC cells a thread
+// (csrc/mchain.cuh).  Step w takes each cell's ring stage (copied R - 1
+// steps ahead), forms the cotangent gc of M(w)[s] (gM plus the carry from
+// step w+1), writes gB (the M chain's share plus T1 = T2 + B's;
+// front_adj_t adds T1's share of T2), publishes gc and M(w)[s], and after
+// the step's barrier gathers, as a source, the cotangent of M(w-1)[s]
+// over its targets.  The thread owns eL's cotangent of its cells' states
+// at every row: the rows that clip(j - w) sends to one row add up in a
+// register, and each row is written once.  With the class probe it writes
+// the L-class partials of slot (w, s): it is the column's first writer of
+// cpL (cls_red zeroes what it sums).  kDev: the layout in the block's
+// slice of ws.
+template <typename T, bool kPin, int G, int R, int NC, bool kDev>
 __global__ void __launch_bounds__(1024)
 m_adj_kernel(DPDims D, AdjIdx ix, Aux ax, const T* M, const T* Bt,
              const T* eL, const T* gate_M, const bool* okM, const T* gM,
-             const T* T1, const T* gT1, T* gB, T* geL) {
+             const T* T1, const T* gT1, T* gB, T* geL, unsigned char* ws) {
   static_assert((R & (R - 1)) == 0, "the ring's stages: a power of 2");
   constexpr int NR = 9;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int S = D.S, B = D.B, W1 = D.Wp + 1, Lp = D.Lp, j = D.j;
   const MLayout lay(S, G, R, 2, NR, sizeof(T));
+  unsigned char* base = mchain_base<kDev>(smem_raw, ws, lay.total);
   const int n = (int)lay.n;
-  T* buf = reinterpret_cast<T*>(smem_raw + lay.buf);      // [2][2][n]
-  T* ring = reinterpret_cast<T*>(smem_raw + lay.ring);    // [R][NR][n]
-  int* rok = reinterpret_cast<int*>(smem_raw + lay.ok);   // [R][n]
-  const int tid = threadIdx.x, g = tid % G, s = tid / G;
+  T* buf = reinterpret_cast<T*>(base + lay.buf);      // [2][2][n]
+  T* ring = reinterpret_cast<T*>(base + lay.ring);    // [R][NR][n]
+  int* rok = reinterpret_cast<int*>(base + lay.ok);   // [R][n]
+  const int g = threadIdx.x % G;
   const int b = blockIdx.x * G + g;
-  const bool live = s < S && b < B;
-  // this cell's rows at w = 0: (w, s, b) of the column's tables and of
-  // the column cotangents gM, gB; the eL rows (and its cotangent's) and
-  // the gate_M rows at row 0; okM
   const long long SB = (long long)S * B;
-  const long long cell0 = TIDX(j + D.PAD, 0, s, b);
-  const long long col0 = (long long)s * B + b;
   const bool* oks = okM + (long long)j * W1 * B + b;
+  const T* ltrw = static_cast<const T*>(ix.ltr_w);
+  // this thread's cells c (source state c / G): their rows at w = 0,
+  // (w, s, b) of the column's tables and of the column cotangents gM, gB
+  // (col0; the eL rows and its cotangent's are col0 + row * SB), and
+  // their left-transition targets, the first kMSrc (and their class
+  // codes) in registers
+  int cid[NC], k0[NC], k1[NC], tgt[NC][kMSrc], code[NC][kMSrc];
+  bool live[NC];
+  long long cell0[NC], col0[NC];
+  T wt[NC][kMSrc], carry[NC], acc_eL[NC];
+#pragma unroll
+  for (int k = 0; k < NC; ++k) {
+    cid[k] = threadIdx.x + k * blockDim.x;
+    const int s = cid[k] / G;
+    live[k] = s < S && b < B;
+    cell0[k] = TIDX(j + D.PAD, 0, s, b);
+    col0[k] = (long long)s * B + b;
+    k0[k] = live[k] ? ix.ltr_off[s] : 0;
+    k1[k] = live[k] ? ix.ltr_off[s + 1] : 0;
+#pragma unroll
+    for (int q = 0; q < kMSrc; ++q) {
+      const int tq = k0[k] + q < k1[k] ? ix.ltr_t[k0[k] + q] : 0;
+      tgt[k][q] = tq * G + g;
+      wt[k][q] = k0[k] + q < k1[k] ? ltrw[k0[k] + q] : (T)0;
+      code[k][q] = k0[k] + q < k1[k] ? ax.code[(kAuxL * S + tq) * S + s] : 0;
+    }
+    carry[k] = (T)0;
+    acc_eL[k] = (T)0;
+  }
   // stage i holds step w = W1-1-i: 0 M(w), 1 gM, 2 Bt, 3 M(w-1), 4 eL,
   // 5 gate_M, 6 the eL cotangent (rows clip(j - w)), 7 T1, 8 gT1
-  // the step being issued: its offsets in the tables (cells) and in the
-  // column cotangents, moved back one width per call
-  long long cell = cell0 + (W1 - 1) * SB, colw = col0 + (W1 - 1) * SB;
-  const bool* pok = oks + (long long)(W1 - 1) * B;
   auto issue = [&](int i) {
-    if (i < W1 && live) {
+    if (i < W1) {
       const int w = W1 - 1 - i, iw = clip_row(j - w, Lp);
-      T* st = ring + (i & (R - 1)) * NR * n + tid;
-      const long long row = col0 + iw * SB;
-      cp_async_t(st, M + cell);
-      cp_async_t(st + n, gM + colw);
-      cp_async_t(st + 2 * n, Bt + cell);
-      if (w >= 1) cp_async_t(st + 3 * n, M + cell - SB);
-      cp_async_t(st + 4 * n, eL + row);
-      cp_async_t(st + 5 * n, gate_M + (long long)iw * B + b);
-      cp_async_t(st + 6 * n, geL + row);
-      cp_async_t(st + 7 * n, T1 + cell);
-      cp_async_t(st + 8 * n, gT1 + cell);
-      cp_async<4>(rok + (i & (R - 1)) * n + tid, ok_word(pok));
-      cell -= SB;
-      colw -= SB;
-      pok -= B;
+#pragma unroll
+      for (int k = 0; k < NC; ++k) {
+        if (!live[k]) continue;
+        T* st = ring + (i & (R - 1)) * NR * n + cid[k];
+        const long long cell = cell0[k] + w * SB, colw = col0[k] + w * SB;
+        const long long row = col0[k] + iw * SB;
+        mchain_copy<kDev>(st, M + cell);
+        mchain_copy<kDev>(st + n, gM + colw);
+        mchain_copy<kDev>(st + 2 * n, Bt + cell);
+        if (w >= 1) mchain_copy<kDev>(st + 3 * n, M + cell - SB);
+        mchain_copy<kDev>(st + 4 * n, eL + row);
+        mchain_copy<kDev>(st + 5 * n, gate_M + (long long)iw * B + b);
+        mchain_copy<kDev>(st + 6 * n, geL + row);
+        mchain_copy<kDev>(st + 7 * n, T1 + cell);
+        mchain_copy<kDev>(st + 8 * n, gT1 + cell);
+        mchain_copy_word<kDev>(rok + (i & (R - 1)) * n + cid[k],
+                               ok_word(oks + (long long)w * B));
+      }
     }
-    cp_async_commit();
+    mchain_commit<kDev>();
   };
   for (int i = 0; i < R - 1; ++i) issue(i);
-  // this source state's left-transition targets, the first kMSrc (and
-  // their class codes) in registers
-  const T* ltrw = static_cast<const T*>(ix.ltr_w);
-  const int k0 = live ? ix.ltr_off[s] : 0, k1 = live ? ix.ltr_off[s + 1] : 0;
-  int tgt[kMSrc], code[kMSrc];
-  T wt[kMSrc];
-#pragma unroll
-  for (int q = 0; q < kMSrc; ++q) {
-    const int tq = k0 + q < k1 ? ix.ltr_t[k0 + q] : 0;
-    tgt[q] = tq * G + g;
-    wt[q] = k0 + q < k1 ? ltrw[k0 + q] : (T)0;
-    code[q] = k0 + q < k1 ? ax.code[(kAuxL * S + tq) * S + s] : 0;
-  }
   PinRegs pr;
-  if (kPin && live) pr = pin_regs(ax, b, kAuxL);
+  if (kPin && b < B) pr = pin_regs(ax, b, kAuxL);
   T* cpL = static_cast<T*>(ax.cpL);
-  T carry = (T)0, acc_eL = (T)0;
   int row_eL = -1;
   for (int i = 0; i < W1; ++i) {
     const int w = W1 - 1 - i, iw = clip_row(j - w, Lp);
     issue(i + R - 1);
-    cp_async_wait<R - 1>();
+    mchain_wait<kDev, R - 1>();
     T* coef = buf + (i & 1) * 2 * n;  // [n] cotangents of M(w)
     T* curv = coef + n;               // [n] values of M(w)
-    const T* st = ring + (i & (R - 1)) * NR * n + tid;
-    if (live) {
-      const T cur = st[0];
-      const bool ok = ok_byte(rok[(i & (R - 1)) * n + tid],
-                              oks + (long long)w * B);
-      const T gc = st[n] + carry;
-      const bool lv = ok && cur > ninf<T>() && gc != (T)0;
-      coef[tid] = lv ? gc : (T)0;
-      curv[tid] = cur;
-      gB[col0 + w * SB] = (lv ? share_sel(gc, st[2 * n], cur) : (T)0) +
-                          share_sel(st[8 * n], st[2 * n], st[7 * n]);
-    } else if (tid < n) {
-      coef[tid] = (T)0;
-      curv[tid] = ninf<T>();
-    }
-    mchain_sync();
-    if (!live) continue;
-    T gy = (T)0, cls[4] = {0, 0, 0, 0};
-    if (w >= 1) {
-      const T y = st[3 * n] + st[4 * n] + st[5 * n];
-      const int pinL = kPin ? pin_req_reg(ax, pr, iw) : 0;
-      if (y > ninf<T>()) {
 #pragma unroll
-        for (int q = 0; q < kMSrc; ++q) {
-          if (k0 + q >= k1) break;
-          if (kPin && pinL != 0 && (code[q] & pinL) != pinL) continue;
-          const T x = share_sel(coef[tgt[q]], y + wt[q], curv[tgt[q]]);
-          gy += x;
-          if (cpL)
-            for (int c = 0; c < 4; ++c)
-              if (code[q] & (1 << c)) cls[c] += x;
-        }
-        for (int k = k0 + kMSrc; k < k1; ++k) {
-          const int tt = ix.ltr_t[k];
-          if (kPin && vetoed(ax, pinL, kAuxL, tt, s, S)) continue;
-          const T x = share(coef[tt * G + g], y + ltrw[k], curv[tt * G + g]);
-          gy += x;
-          if (cpL) add_classes(ax, kAuxL, tt, s, S, x, cls);
-        }
+    for (int k = 0; k < NC; ++k) {
+      const T* st = ring + (i & (R - 1)) * NR * n + cid[k];
+      if (live[k]) {
+        const T cur = st[0];
+        const bool ok = ok_byte(rok[(i & (R - 1)) * n + cid[k]],
+                                oks + (long long)w * B);
+        const T gc = st[n] + carry[k];
+        const bool lv = ok && cur > ninf<T>() && gc != (T)0;
+        coef[cid[k]] = lv ? gc : (T)0;
+        curv[cid[k]] = cur;
+        gB[col0[k] + w * SB] = (lv ? share_sel(gc, st[2 * n], cur) : (T)0) +
+                               share_sel(st[8 * n], st[2 * n], st[7 * n]);
+      } else if (cid[k] < n) {
+        coef[cid[k]] = (T)0;
+        curv[cid[k]] = ninf<T>();
       }
     }
-    carry = gy;
-    if (iw != row_eL) {
-      if (row_eL >= 0) geL[col0 + row_eL * SB] = acc_eL;
-      row_eL = iw;
-      acc_eL = st[6 * n];
+    mchain_sync();
+    const int pinL = kPin && b < B && w >= 1 ? pin_req_reg(ax, pr, iw) : 0;
+    const bool new_row = iw != row_eL;
+#pragma unroll
+    for (int k = 0; k < NC; ++k) {
+      if (!live[k]) continue;
+      const int s = cid[k] / G;
+      const T* st = ring + (i & (R - 1)) * NR * n + cid[k];
+      T gy = (T)0, cls[4] = {0, 0, 0, 0};
+      if (w >= 1) {
+        const T y = st[3 * n] + st[4 * n] + st[5 * n];
+        if (y > ninf<T>()) {
+#pragma unroll
+          for (int q = 0; q < kMSrc; ++q) {
+            if (k0[k] + q >= k1[k]) break;
+            if (kPin && pinL != 0 && (code[k][q] & pinL) != pinL) continue;
+            const T x = share_sel(coef[tgt[k][q]], y + wt[k][q],
+                                  curv[tgt[k][q]]);
+            gy += x;
+            if (cpL)
+              for (int c = 0; c < 4; ++c)
+                if (code[k][q] & (1 << c)) cls[c] += x;
+          }
+          for (int kk = k0[k] + kMSrc; kk < k1[k]; ++kk) {
+            const int tt = ix.ltr_t[kk];
+            if (kPin && vetoed(ax, pinL, kAuxL, tt, s, S)) continue;
+            const T x =
+                share(coef[tt * G + g], y + ltrw[kk], curv[tt * G + g]);
+            gy += x;
+            if (cpL) add_classes(ax, kAuxL, tt, s, S, x, cls);
+          }
+        }
+      }
+      carry[k] = gy;
+      if (new_row) {
+        if (row_eL >= 0) geL[col0[k] + row_eL * SB] = acc_eL[k];
+        acc_eL[k] = st[6 * n];
+      }
+      acc_eL[k] += gy;
+      if (cpL)
+        for (int c = 0; c < 4; ++c) cpL[TIDX(c, w, s, b)] = cls[c];
     }
-    acc_eL += gy;
-    if (cpL)
-      for (int c = 0; c < 4; ++c) cpL[TIDX(c, w, s, b)] = cls[c];
+    if (new_row) row_eL = iw;
   }
-  if (live && row_eL >= 0) geL[col0 + row_eL * SB] = acc_eL;
+  if (row_eL >= 0) {
+#pragma unroll
+    for (int k = 0; k < NC; ++k)
+      if (live[k]) geL[col0[k] + row_eL * SB] = acc_eL[k];
+  }
 }
 
 // ---- B's splits (TT_B_12), one launch of two block ranges.  T1 side:
@@ -716,23 +742,28 @@ static bool too_big(const DPDims& D) {
   kern<T><<<n_blocks(n, kAdjThreads), kAdjThreads, 0, st>>>(__VA_ARGS__);   \
   return static_cast<int>(cudaGetLastError())
 
-// K5's M chain in blocks of G reads with a ring of R stages (the plan's)
+// K5's M chain in blocks of G reads with a ring of R stages, NC cells a
+// thread, in shared memory or (ws not null) in ws (the plan's)
 template <typename T>
 static int m_adj(DPDims D, AdjIdx ix, Aux ax, const T* M, const T* Bt,
                  const T* eL, const T* gate_M, const bool* okM, const T* gM,
-                 const T* T1, const T* gT1, T* gB, T* geL, int G_, int R_,
-                 cudaStream_t st) {
-  if (mchain_threads(D.S, G_) > 1024)
+                 const T* T1, const T* gT1, T* gB, T* geL, unsigned char* ws,
+                 int G_, int R_, int NC_, cudaStream_t st) {
+  if (!mchain_fits(D.S, G_, NC_))
     return static_cast<int>(cudaErrorInvalidValue);
-  return mchain_dispatch(G_, R_, [&](auto g, auto r) {
+  return mchain_dispatch(G_, R_, NC_, ws != nullptr, [&](auto g, auto r,
+                                                         auto nc, auto dv) {
     constexpr int G = decltype(g)::value, R = decltype(r)::value;
-    const long long bytes = mchain_layout(1, D.S, G, R, sizeof(T)).total;
-    auto kern = has_pin(ax) ? m_adj_kernel<T, true, G, R>
-                            : m_adj_kernel<T, false, G, R>;
+    constexpr int NC = decltype(nc)::value;
+    constexpr bool kDev = decltype(dv)::value;
+    const long long bytes =
+        kDev ? 0 : mchain_layout(1, D.S, G, R, sizeof(T)).total;
+    auto kern = has_pin(ax) ? m_adj_kernel<T, true, G, R, NC, kDev>
+                            : m_adj_kernel<T, false, G, R, NC, kDev>;
     const int rc = allow_smem((const void*)kern, bytes);
     if (rc) return rc;
-    kern<<<(D.B + G - 1) / G, mchain_threads(D.S, G), bytes, st>>>(
-        D, ix, ax, M, Bt, eL, gate_M, okM, gM, T1, gT1, gB, geL);
+    kern<<<(D.B + G - 1) / G, mchain_threads(D.S, G, NC), bytes, st>>>(
+        D, ix, ax, M, Bt, eL, gate_M, okM, gM, T1, gT1, gB, geL, ws);
     return static_cast<int>(cudaGetLastError());
   });
 }
@@ -767,9 +798,10 @@ static int front_adj_sw(DPDims D, AdjIdx ix, Aux ax, const T* LL,
   RNAELEM_EXPORT int rnaelem_m_adj_##SUF(                                    \
       DPDims D, AdjIdx ix, Aux ax, const T* M, const T* Bt, const T* eL,     \
       const T* gate_M, const bool* okM, const T* gM, const T* T1,            \
-      const T* gT1, T* gB, T* geL, int G, int R, cudaStream_t st) {          \
+      const T* gT1, T* gB, T* geL, unsigned char* ws, int G, int R, int NC,  \
+      cudaStream_t st) {                                                     \
     return m_adj<T>(D, ix, ax, M, Bt, eL, gate_M, okM, gM, T1, gT1, gB, geL, \
-                    G, R, st);                                               \
+                    ws, G, R, NC, st);                                       \
   }                                                                          \
   RNAELEM_EXPORT int rnaelem_bif_adj_##SUF(                                  \
       DPDims D, AdjIdx ix, const T* T1, const T* T2, const T* Bt,            \

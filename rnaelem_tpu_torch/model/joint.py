@@ -11,7 +11,9 @@ indexed through the grammar's table maps.
 The DP (ops/dp.py) is batched with a trailing batch axis and takes the
 weights as per-read copies (``per_read``): ``batch_logZ_parts_pr`` is the
 one path, and ``batch_logZ_parts`` runs it on the copies of shared
-weights.  Every entry point takes an explicit ``device``: None means CUDA
+weights.  On the card the factors are K14 (csrc/factors.cu) with K15
+their adjoint into the per-read weights; on the CPU (or with
+``plain=True``) the plain version below, whose autograd is the adjoint.  Every entry point takes an explicit ``device``: None means CUDA
 (and raises without a GPU).
 """
 from __future__ import annotations
@@ -349,14 +351,101 @@ def _single_emissions(cfg, k, singles, seq, ws, oh4, tid, ws_flags):
 
 
 def right_emissions(cfg: ModelConfig, k: _Kernels, params_b: Params,
-                    sd: SeqData):
+                    sd: SeqData, plain: bool = False):
     """eR [Lp, S, B] (right emission + ws) of per-read weights,
-    batch-minor: the one differentiable input of the no-rss chain."""
+    batch-minor: the one differentiable input of the no-rss chain (K14
+    alone, mode "eR", on the card; ``plain`` runs the plain version on
+    any device)."""
+    if k.device.type == "cuda" and not plain:
+        return _card_factors(cfg, k, params_b, sd, "eR")["eR"]
     seq, ws, oh4 = _emission_parts(cfg, k, sd)
     singles, _ = _theta(cfg, params_b, k.dtype)
     eR = _single_emissions(cfg, k, singles, seq, ws, oh4, k.g.tid_r,
                            k.g.ws_r)
     return torch.movedim(eR, 0, -1).contiguous()
+
+
+# K14's outputs that no gradient flows through
+CARD_CONSTS = ("alphaP", "seq64", "seqT", "L64", "dcum", "dcumT", "gate",
+               "C", "wsp")
+
+
+class _CardFactors(torch.autograd.Function):
+    """K14 (the factors of per-read weights) with K15 (their adjoint into
+    the weights) as its backward: the card's form of _diff_factors and
+    _const_factors, whose autograd is the plain version.  ``mode`` "dp"
+    gives (eR, eL, bg2, pv, *CARD_CONSTS), "eR" gives eR alone."""
+
+    @staticmethod
+    def forward(ctx, cfg, st, mode, reads, singles, pairs):
+        from ..ops import kernels as K
+        out = K.factors(st, cfg, mode, *reads, singles=singles, pairs=pairs)
+        ctx.set_materialize_grads(False)
+        ctx.meta = (cfg, st, mode, reads[0])
+        ctx.save_for_backward(singles, pairs)
+        if mode == "eR":
+            return out["eR"]
+        consts = [out[n] for n in CARD_CONSTS]
+        ctx.mark_non_differentiable(*consts)
+        return tuple(out[n] for n in ("eR", "eL", "bg2", "pv")) + \
+            tuple(consts)
+
+    @staticmethod
+    def backward(ctx, geR, geL=None, gbg2=None, gpv=None, *_):
+        from ..ops import kernels as K
+        cfg, st, mode, seq = ctx.meta
+        singles, pairs = ctx.saved_tensors
+        gs, gp = K.factors_adj(st, cfg, mode, seq, singles, pairs, geR, geL,
+                               gbg2, gpv)
+        return None, None, None, None, gs, gp
+
+
+def _card_reads(k: _Kernels, sd: SeqData):
+    """The reads as K14 takes them: codes int32, positional weights
+    float64, lengths int32, rss dots bool, on the card (stack_seqdata's
+    types: nothing is converted on the main path)."""
+    dev = k.device
+    as_t = lambda x, t: torch.as_tensor(x, device=dev).to(t).contiguous()
+    return (as_t(sd.seq, torch.int32), as_t(sd.ws, torch.float64),
+            as_t(sd.L, torch.int32), as_t(sd.dots, torch.bool))
+
+
+def _card_factors(cfg: ModelConfig, k: _Kernels, params_b, sd: SeqData,
+                  mode: str):
+    """K14's outputs (a dict, kernels.FAC_OUT's names) for per-read
+    weights (None in mode "null", the masks' motif-free factors), through
+    _CardFactors where a gradient can flow (not under no_prf: the factors
+    do not depend on the weights there)."""
+    from ..ops import kernels as K
+    reads = _card_reads(k, sd)
+    if mode == "null":
+        return K.factors(k.dp_null.st, cfg, mode, *reads)
+    singles, pairs = (x.to(k.dtype) for x in params_b[:2])
+    if mode == "eR":
+        pairs = None
+    if cfg.no_prf:
+        return K.factors(k.dp.st, cfg, mode, *reads, singles=singles.detach(),
+                         pairs=None if pairs is None else pairs.detach())
+    got = _CardFactors.apply(cfg, k.dp.st, mode, reads, singles, pairs)
+    if mode == "eR":
+        return {"eR": got}
+    return dict(zip(("eR", "eL", "bg2", "pv") + CARD_CONSTS, got))
+
+
+def _card_const_factors(cfg: ModelConfig, k: _Kernels, out, bp_ok):
+    """ConstFactors from K14's constants and K1's tables."""
+    bp_ok = torch.as_tensor(bp_ok, device=k.device).bool().contiguous()
+    sc = ET.score_tables(k.tab, out["seq64"], out["L64"], bp_ok, out["dcum"],
+                         cfg.Wp, cfg.max_span, cfg.turn, cfg.no_ene,
+                         cfg.fix_rss)
+    return DP.ConstFactors(
+        wsp=out["wsp"], hp=sc["hp"], stk=sc["stk"], ext=sc["ext"],
+        ml2=sc["ml2"], mlE=sc["mlE"], okP=sc["okP"], okE=sc["okE"],
+        okM=sc["okM"], okB=sc["okB"], gate_O2=out["gate"],
+        gate_M=out["gate"], seq=out["seqT"], C=out["C"], L=out["L64"],
+        dots_cum=out["dcumT"],
+        ep={kk: sc[kk] for kk in ("misA", "misB", "t_out", "t_in",
+                                  "spec_il")})
 
 
 def _diff_factors(cfg: ModelConfig, k: _Kernels, params_b: Params,
@@ -397,10 +486,10 @@ def _diff_factors(cfg: ModelConfig, k: _Kernels, params_b: Params,
 
 
 def batch_factors(cfg: ModelConfig, params: Params, sd_b: SeqData,
-                  bp_ok_b, device=None, aux_b=None):
+                  bp_ok_b, device=None, aux_b=None, plain: bool = False):
     """``batch_factors_pr`` on per-read copies of shared weights."""
     return batch_factors_pr(cfg, per_read(params, len(sd_b.L)), sd_b,
-                            bp_ok_b, device, aux_b)
+                            bp_ok_b, device, aux_b, plain)
 
 
 def _dense_aux(aux_b):
@@ -410,9 +499,11 @@ def _dense_aux(aux_b):
 
 
 def batch_factors_pr(cfg: ModelConfig, params_b: Params, sd_b: SeqData,
-                     bp_ok_b, device=None, aux_b=None):
+                     bp_ok_b, device=None, aux_b=None, plain: bool = False):
     """Batched (DiffFactors, ConstFactors) for the DP from per-read
-    weights.
+    weights: K14 (K15 its adjoint) with K1 on the card, the plain version
+    (_diff_factors, _const_factors; autograd its adjoint) on the CPU or
+    with ``plain``.
 
     sd_b: SeqData with a leading batch axis; bp_ok_b: [B, Lp+1, Wp+1];
     aux_b: the scanner's aux factors (ops/dp.py) or None — dense
@@ -420,9 +511,16 @@ def batch_factors_pr(cfg: ModelConfig, params_b: Params, sd_b: SeqData,
     only), the class probe "cls" [4, Lp, B] and a "pin" (dp.Pin).
     """
     k = kernels(cfg, device)
-    bp_ok_b = torch.as_tensor(bp_ok_b, device=k.device)
-    c = _const_factors(cfg, k, sd_b, bp_ok_b)
-    d = _diff_factors(cfg, k, params_b, sd_b)
+    if k.device.type == "cuda" and not plain:
+        out = _card_factors(cfg, k, params_b, sd_b, "dp")
+        c = _card_const_factors(cfg, k, out, bp_ok_b)
+        d = DP.DiffFactors(eR=out["eR"], eL=out["eL"], bg2=out["bg2"],
+                           pv=out["pv"], lam=params_b.lam.to(k.dtype).T,
+                           alphaP=out["alphaP"])
+    else:
+        bp_ok_b = torch.as_tensor(bp_ok_b, device=k.device)
+        c = _const_factors(cfg, k, sd_b, bp_ok_b)
+        d = _diff_factors(cfg, k, params_b, sd_b)
     if aux_b:
         d = d._replace(cls=aux_b.get("cls"), **_dense_aux(aux_b))
         c = c._replace(pin=aux_b.get("pin"))
@@ -430,11 +528,18 @@ def batch_factors_pr(cfg: ModelConfig, params_b: Params, sd_b: SeqData,
 
 
 def _null_batch_factors(cfg: ModelConfig, k: _Kernels, sd_b: SeqData,
-                        bp0_b):
+                        bp0_b, plain: bool = False):
     """Batched factors for the motif-free McCaskill pass (BPP pruning):
     the constants of the reads with zero positional weights, unit
     emissions, lambda 1 and a zero injected pair factor alphaP that the
-    caller differentiates."""
+    caller differentiates (K14 in mode "null" on the card, unless
+    ``plain``)."""
+    if k.device.type == "cuda" and not plain:
+        out = _card_factors(cfg, k, None, sd_b, "null")
+        d = DP.DiffFactors(eR=out["eR"], eL=out["eL"], bg2=out["bg2"],
+                           pv=out["pv"], lam=out["lam"],
+                           alphaP=out["alphaP"])
+        return d, _card_const_factors(cfg, k, out, bp0_b)
     c = _const_factors(cfg, k, sd_b, bp0_b)
     c = c._replace(wsp=torch.zeros_like(c.wsp))
     Lp, Wp, B = cfg.Lp, cfg.Wp, bp0_b.shape[0]

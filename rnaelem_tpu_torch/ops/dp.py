@@ -27,7 +27,10 @@ backward is the outside pass (JAX ``dp_bwd``): the columns j = Lp..1 in
 reverse, four adjoint stages per column, each the kernels K5-K7
 (outside_band.cu, outside_ep.cu, outside_ext.cu) for CUDA tensors and, for
 CPU tensors, torch.autograd.grad of the stage's pure function on leaf
-copies of the saved rows.
+copies of the saved rows.  The hoisted exp(lambda x) tensors the stages
+read are K16's (hoisted.cu) for CUDA tensors, with K17 for lambda's
+cotangent, and ``hoisted_plain`` (autograd through ``_LamExp``) for CPU
+tensors.
 
 The scanner (scan/scanner.py) adds "aux" log factors to the transitions
 that emit a base (JAX ``DiffFactors.aux*``): kind R on the right-chain
@@ -46,6 +49,7 @@ Cell conventions (span (i, j), i = j - w, bases i..j-1):
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -284,10 +288,6 @@ class DPStatic:
         mbg, combos = _pem_combos(g, ltau)
         self.Mbg = f(mbg)
         self.combos = [(t, a, b, f(m)) for (t, a, b, m) in combos]
-        Hb12 = np.zeros((S * S, S))
-        for (t, a, c2) in g.b12_tuples:
-            Hb12[a * S + c2, t] = 1.0
-        self.Hb12 = f(Hb12)
         codes = class_codes(g)
         self.cls_mask = f(np.stack([(codes >> c) & 1 for c in range(4)],
                                    axis=1))       # [kind, class, S, S]
@@ -299,10 +299,6 @@ class DPStatic:
         self.pt_wl = torch.as_tensor(g.pt_wl, device=device)
         self.pt_wr = torch.as_tensor(g.pt_wr, device=device)
         self.pt_ltw = f(np.where(g.pt_tau, ltau, 0.0))
-        Hop = np.zeros((2, S * S, S))
-        for (t, a, c2) in g.op_tuples:
-            Hop[g.lam_bucket[t], a * S + c2, t] = 1.0
-        self.Hop = [f(Hop[b]) for b in range(2)]
 
         energy_np = {k: np.asarray(energy_tab[k].cpu())
                      for k in ("internal", "ninio", "bulge")}
@@ -410,6 +406,35 @@ class DPStatic:
         self.k = kk
 
 
+    # the plain versions' dense one-hot matrices of the split tuples,
+    # [S*S, S] each (S^3 values: 21 GB at f64 for 1,378 states), built at
+    # their first use: the kernels never read them
+    @functools.cached_property
+    def Hb12(self):
+        """[S*S, S]: 1 at (a * S + c, t) for each split tuple (t, a, c)."""
+        return self._tuple_matrices(self.g.b12_tuples, 1)[0]
+
+    @functools.cached_property
+    def Hop(self):
+        """Per lambda bucket b, [S*S, S]: 1 at (a * S + c, t) for each
+        exterior tuple (t, a, c) whose target t is in bucket b."""
+        return self._tuple_matrices(self.g.op_tuples, 2)
+
+    def _tuple_matrices(self, tuples, n_buckets):
+        S = self.g.S
+        tt = np.asarray(tuples, np.int64).reshape(-1, 3)
+        bucket = np.asarray(self.g.lam_bucket)[tt[:, 0]] if n_buckets > 1 \
+            else np.zeros(len(tt), np.int64)
+        idx = lambda a: torch.as_tensor(a, device=self.device)
+        out = []
+        for b in range(n_buckets):
+            m = torch.zeros((S * S, S), dtype=self.dtype, device=self.device)
+            sel = tt[bucket == b]
+            m[idx(sel[:, 1] * S + sel[:, 2]), idx(sel[:, 0])] = 1.0
+            out.append(m)
+        return out
+
+
 def read_sum(x, ndims: int):
     """Sum ``x`` over its first ``ndims`` dims in one fixed order: padded
     with zeros to a power of two, then halves added elementwise.  Every
@@ -466,7 +491,36 @@ class _RowScale(torch.autograd.Function):
         return g * f[:, None, :], gl, read_sum(gl, 1) if ctx.has_r else None
 
 
+class _CardHoisted(torch.autograd.Function):
+    """K16 (the hoisted tensors) with K17 (lambda's cotangent) as its
+    backward: the card's form of hoisted_plain, whose autograd through
+    _LamExp is the plain version."""
+
+    @staticmethod
+    def forward(ctx, st, c, lam):
+        from . import kernels as K
+        ctx.set_materialize_grads(False)
+        ctx.st, ctx.c = st, c
+        ctx.save_for_backward(lam)
+        return K.hoisted(st, lam, c)
+
+    @staticmethod
+    def backward(ctx, *cots):
+        from . import kernels as K
+        (lam,) = ctx.saved_tensors
+        return None, None, K.hoisted_adj(ctx.st, lam, ctx.c, cots)
+
+
 def hoisted(d: DiffFactors, c: ConstFactors, st: DPStatic):
+    """The hoisted exp-space tensors of ``hoisted_plain`` (a dict by
+    HOISTED): K16 for CUDA tensors, with K17 for lambda's cotangent; the
+    plain version for CPU tensors."""
+    if c.C.device.type == "cpu":
+        return hoisted_plain(d, c, st)
+    return dict(zip(HOISTED, _CardHoisted.apply(st, c, d.lam)))
+
+
+def hoisted_plain(d: DiffFactors, c: ConstFactors, st: DPStatic):
     """Per-evaluation exp-space energy tensors (lambda flows here):
     eSZ [2, n_cls, Cp+1 (dl), Cp+1 (u1), B] with the per-read C cap
     (dl + u1 <= C) folded in, and eSZg [2, 4, Cp+1, Cp+1, B], the size
@@ -975,7 +1029,11 @@ def lam_total(grads, d: DiffFactors, c: ConstFactors, st):
     """Lambda's whole cotangent [2, B] from the outputs of
     ``finish_grads``: its direct term plus what the hoisted
     exponentials' cotangents carry to it (as autograd does in
-    dp_parts)."""
+    dp_parts): K17 alone for CUDA tensors, autograd through
+    hoisted_plain for CPU tensors."""
+    if c.C.device.type != "cpu":
+        from . import kernels as K
+        return grads[4] + K.hoisted_adj(st, d.lam.detach(), c, grads[6:])
     lam = d.lam.detach().requires_grad_(True)
     with torch.enable_grad():
         h = hoisted(d._replace(lam=lam), c, st)

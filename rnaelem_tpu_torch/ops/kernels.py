@@ -16,7 +16,9 @@ float32 (production) and float64 (held to the plain versions).
 The blocks of K3, K6 and K11 and of the M chain (K2, K5, K10) hold
 scratch sized by the grammar, the max internal loop and the type: their
 launch plans (ep_plan, band_plan) are worked out on the host from those
-alone, before any launch, and always name a hand-written kernel.
+alone, before any launch, and always name a hand-written kernel.  K14-K17
+(rows C and D: the factors and the hoisted exponentials, forward and
+adjoint) run once per evaluation.
 
 The scanner's aux factors reach the kernels as an ``Aux`` struct
 (csrc/common.cuh): the grammar's class codes, the evaluation's pin
@@ -47,7 +49,7 @@ CSRC = PKG / "csrc"
 SOURCES = ("score_tables.cu", "inside_band.cu", "inside_ep.cu",
            "inside_ext.cu", "outside_band.cu", "outside_ep.cu",
            "outside_ext.cu", "linear_fwd.cu", "linear_adj.cu",
-           "cyk_traceback.cu")
+           "cyk_traceback.cu", "factors.cu", "hoisted.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 LIB_NAME = "librnaelem_kernels.so"
@@ -103,6 +105,15 @@ KERNELS = {
     "cyk_traceback": Kernel("cyk_traceback",
                             "rnaelem_tpu_torch/csrc/cyk_traceback.cu",
                             "rnaelem_tpu/ops/dp_maxb.py:459"),
+    # K14-K17: rows C and D, the factors and the hoisted exponentials
+    "factors": Kernel("factors", "rnaelem_tpu_torch/csrc/factors.cu",
+                      "rnaelem_tpu/model/joint.py:313"),
+    "factors_adj": Kernel("factors_adj", "rnaelem_tpu_torch/csrc/factors.cu",
+                          "rnaelem_tpu/model/joint.py:436"),
+    "hoisted": Kernel("hoisted", "rnaelem_tpu_torch/csrc/hoisted.cu",
+                      "rnaelem_tpu/ops/dp.py:290"),
+    "hoisted_adj": Kernel("hoisted_adj", "rnaelem_tpu_torch/csrc/hoisted.cu",
+                          "rnaelem_tpu/ops/dp.py:828"),
 }
 
 
@@ -240,6 +251,32 @@ TbIdx = _ptr_struct("TbIdx", TB_IDX)
 TbData = _ptr_struct("TbData", TB_DATA)
 
 
+class FacDims(ctypes.Structure):   # csrc/factors.cu
+    _fields_ = [(n, ctypes.c_int) for n in (
+        "Lp", "Wp", "S", "B", "Tp", "ns", "mode", "theta_softmax",
+        "no_theta", "no_prf", "fix_rss", "turn", "max_span",
+        "max_iloop")] + [("sbs", ctypes.c_longlong), ("sbp", ctypes.c_longlong)]
+
+
+class HoistDims(ctypes.Structure):  # csrc/hoisted.cu
+    _fields_ = [(n, ctypes.c_int) for n in (
+        "Lp", "Wp", "Cp", "B", "PAD", "n_cls")] + [
+        ("lam_s0", ctypes.c_longlong), ("lam_s1", ctypes.c_longlong)]
+
+
+FAC_IDX = ("slot_r", "slot_l", "ws_r", "ws_l")
+FAC_OUT = ("eR", "eL", "bg2", "pv", "alphaP", "lam", "seq64", "seqT", "L64",
+           "dcum", "dcumT", "gate", "C", "wsp")
+FAC_ADJ = ("geR", "geL", "gbg2", "gpv", "gs", "gp")
+HOIST_IN = ("lam", "SZT", "grp", "misA", "misB", "C")
+HOIST_OUT = ("eSZ", "eSZg", "emisA", "emisB")
+FacIdx = _ptr_struct("FacIdx", FAC_IDX)
+FacOut = _ptr_struct("FacOut", FAC_OUT)
+FacAdjArgs = _ptr_struct("FacAdjArgs", FAC_ADJ)
+HoistIn = _ptr_struct("HoistIn", HOIST_IN)
+HoistOut = _ptr_struct("HoistOut", HOIST_OUT)
+
+
 class TbCfg(ctypes.Structure):
     _fields_ = [("eps", ctypes.c_double), ("cap", ctypes.c_int)]
 
@@ -255,14 +292,14 @@ _SIGS = {
     "score_tables": ((ScoreDims,), 19),
     "band_front": ((DPDims, BandIdx, AuxArg), 15),
     "band_bif": ((DPDims, BandIdx), 4),
-    "band_m": ((DPDims, BandIdx, AuxArg), 5, 2),
+    "band_m": ((DPDims, BandIdx, AuxArg), 6, 3),
     "band_e": ((DPDims, BandIdx), 8),
     "ep_fwd": ((DPDims, EpIdx), 13),
     "ep_fwd_red": ((DPDims,), 3),
     "ext_col": ((DPDims, ExtIdx, AuxArg), 6),
     "ext_adj": ((DPDims, ExtAdjListsArg, AuxArg), 10),
     "e_adj": ((DPDims, AdjIdx), 12),
-    "m_adj": ((DPDims, AdjIdx, AuxArg), 10, 2),
+    "m_adj": ((DPDims, AdjIdx, AuxArg), 11, 3),
     "bif_adj": ((DPDims, AdjIdx), 6),
     "front_adj_t": ((DPDims, AdjIdx, AuxArg), 19),
     "front_adj_sw": ((DPDims, AdjIdx, AuxArg), 23),
@@ -273,11 +310,15 @@ _SIGS = {
     "chain_adj": ((ChainDims, ChainIdx, AuxArg), 5),
     "band_front_max": ((DPDims, BandIdx, AuxArg), 15),
     "band_bif_max": ((DPDims, BandIdx), 4),
-    "band_m_max": ((DPDims, BandIdx, AuxArg), 5, 2),
+    "band_m_max": ((DPDims, BandIdx, AuxArg), 6, 3),
     "band_e_max": ((DPDims, BandIdx), 8),
     "ep_max": ((DPDims, EpIdx), 13),
     "ext_col_max": ((DPDims, ExtIdx, AuxArg), 6),
     "cyk_traceback": ((DPDims, TbIdx, AuxArg, TbData, TbCfg), 4),
+    "factors": ((FacDims, FacIdx, FacOut), 6),
+    "factors_adj": ((FacDims, FacIdx, FacAdjArgs), 3, 1),
+    "hoisted": ((HoistDims, HoistIn, HoistOut), 0),
+    "hoisted_adj": ((HoistDims, HoistIn, HoistOut), 1),
 }
 _SUF = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -553,8 +594,8 @@ def band_m(state, j, d, c, h, st, plan=None):
     _check_column(state, j, d, c, h, st)
     _call("inside_band", "band_m", state["O"], _dims(st, state, j, d),
           _band_idx(st), _aux(st, c.pin), _p(state["M"]), _p(state["Bt"]),
-          _p(d.eL), _p(c.gate_M), _p(c.okM), plan.G, plan.R,
-          variant=plan.name)
+          _p(d.eL), _p(c.gate_M), _p(c.okM), _mchain_ws(state, plan),
+          plan.G, plan.R, plan.cells, variant=plan.name)
 
 
 def band_e(state, j, d, c, h, st):
@@ -572,8 +613,8 @@ def band_e(state, j, d, c, h, st):
 # one of EP_XSPLIT (kEpXSplit) ranges of x per block, K3's and K6's
 # partials EP_XSPLIT deep (K11's ranges follow the batch and the variant:
 # rnaelem_ep_max_ranges).  The M chain's blocks (csrc/mchain.cuh) take a
-# group of G reads, one thread per (state, read), their inputs staged in a
-# ring of R steps.  What a block keeps grows with the grammar (S, n_ar),
+# group of G reads, a cell per (state, read) and 1, 2 or 4 cells a thread,
+# their inputs staged in a ring of R steps.  What a block keeps grows with the grammar (S, n_ar),
 # the max internal loop Cp and the type, never with the span Wp or B:
 # the plans below pick, from those alone and before any launch, the
 # hand-written kernel's variant that takes the shape.
@@ -584,6 +625,7 @@ EP_WS_ALIGN = 256        # a block's workspace slice starts on this boundary
 BAND_GROUP_BYTES = 32    # a (w, s) row of an M-chain block's reads at most
 BAND_RING = 4            # kMRing
 BAND_RING_SMALL = 2      # kMRingSmall
+BAND_MAX_CELLS = 4       # (state, read) cells a thread of the M chain
 
 
 def ep_smem_bytes(kernel, S, n_ar, Cp, dtype):
@@ -665,28 +707,43 @@ def band_smem_bytes(kernel, S, dtype, G, R=BAND_RING):
 
 class BandPlan(NamedTuple):
     """How the M chain of K2/K10 ("inside_band") or K5 ("outside_band")
-    runs a grammar: blocks of G reads and ``threads`` threads (one per
-    state and read), a ring of R stages, ``smem`` bytes."""
+    runs a grammar: blocks of G reads and ``threads`` threads (``cells``
+    (state, read) cells a thread: 1, or 2 or 4 states strided at G = 1),
+    a ring of R stages, ``smem`` bytes of shared memory; ``variant``
+    "device" keeps the layout in a slice of ``block_bytes`` of a device
+    workspace per block instead (smem 0)."""
     kernel: str
     G: int
     R: int
     threads: int
     smem: int
+    cells: int = 1
+    variant: str = "shared"
+    block_bytes: int = 0
 
     @property
     def name(self):
-        return "G=%d,R=%d" % (self.G, self.R)
+        return "G=%d,R=%d" % (self.G, self.R) + (
+            ",cells=%d" % self.cells if self.cells > 1 else "") + (
+            ",device" if self.variant == "device" else "")
 
 
 @functools.lru_cache(maxsize=None)
-def band_plan(kernel, S, dtype, G=None, R=None):
+def band_plan(kernel, S, dtype, G=None, R=None, variant=None, cells=None):
     """The M chain's launch plan for S states at ``dtype``: the first of
     32 bytes' worth of reads per block (8 f32, 4 f64), 4, 2 and 1 whose
     block (S x G threads, the layout with a ring of BAND_RING stages, or
-    of BAND_RING_SMALL at G = 1) fits a block.  A read's results do not
-    depend on G or R.  ``G`` and ``R`` force a group and a ring (ValueError
-    where the block does not fit).  A grammar of more than MAX_THREADS
-    states has no M-chain block (one thread per state)."""
+    of BAND_RING_SMALL at G = 1) fits a block.  Past MAX_THREADS states a
+    block holds one read (G = 1) and a thread 2 or 4 states strided by
+    the block's width (up to BAND_MAX_CELLS x MAX_THREADS states); where
+    not even the G = 1 ring of BAND_RING_SMALL fits, the device variant
+    keeps the layout (ring of BAND_RING) in a device workspace.  A read's
+    results do not depend on G, R, the cells per thread or the variant.
+    ``G``, ``R``, ``variant`` ("shared" or "device") and ``cells`` (1, 2
+    or 4; more than 1 only at G = 1) force a group, a ring, a variant and
+    the cells a thread, so that every build of the chain can be held
+    against another at the same S (ValueError where the block does not
+    fit; a group larger than 1 needs S x G <= MAX_THREADS)."""
     it = torch.empty((), dtype=dtype).element_size()
     groups = tuple(g for g in (8, 4, 2, 1) if g * it <= BAND_GROUP_BYTES)
     if G is not None:
@@ -694,23 +751,45 @@ def band_plan(kernel, S, dtype, G=None, R=None):
             raise ValueError("band_plan: G=%r is not one of %s at %s"
                              % (G, groups, dtype))
         groups = (G,)
+    if variant not in (None, "shared", "device"):
+        raise ValueError("band_plan: variant %r is neither 'shared' nor "
+                         "'device'" % (variant,))
+    if cells not in (None, 1, 2, BAND_MAX_CELLS):
+        raise ValueError("band_plan: cells=%r is not one of (1, 2, %d)"
+                         % (cells, BAND_MAX_CELLS))
     for g in groups:
+        nc = 1
+        while S * g > MAX_THREADS * nc and nc < BAND_MAX_CELLS:
+            nc *= 2
+        nc = nc if cells is None else cells
+        if S * g > MAX_THREADS * nc or (nc > 1 and g > 1):
+            continue
+        per_thread_rows = -(-S * g // nc)
+        threads = -(-per_thread_rows // 32) * 32
         rings = (BAND_RING, BAND_RING_SMALL) if g == 1 else (BAND_RING,)
         if R is not None:
             if R not in rings:
                 raise ValueError("band_plan: R=%r is not one of %s at G=%d"
                                  % (R, rings, g))
             rings = (R,)
-        for r in rings:
-            threads = -(-S * g // 32) * 32
-            smem = band_smem_bytes(kernel, S, dtype, g, r)
-            if threads <= MAX_THREADS and smem <= SMEM_LIMIT:
-                return BandPlan(kernel, g, r, threads, smem)
+        if variant != "device":
+            for r in rings:
+                smem = band_smem_bytes(kernel, S, dtype, g, r)
+                if smem <= SMEM_LIMIT:
+                    return BandPlan(kernel, g, r, threads, smem, nc)
+        if g == 1 and variant != "shared" and BAND_RING in rings:
+            layout = band_smem_bytes(kernel, S, dtype, 1, BAND_RING)
+            return BandPlan(kernel, 1, BAND_RING, threads, 0, nc,
+                            "device",
+                            -(-layout // EP_WS_ALIGN) * EP_WS_ALIGN)
     raise ValueError(
-        "%s: no M-chain block takes %d states at %s%s (one thread per "
-        "state and read, at most %d threads)"
+        "%s: no M-chain block takes %d states at %s%s%s (at most %d "
+        "threads, a group of more than one read one state a thread, at "
+        "most %d states a thread)"
         % (kernel, S, str(dtype).replace("torch.", ""),
-           "" if G is None else " in groups of %d reads" % G, MAX_THREADS))
+           "" if G is None else " in groups of %d reads" % G,
+           "" if cells is None else " at %d cells a thread" % cells,
+           MAX_THREADS, BAND_MAX_CELLS))
 
 
 def _workspace(scr, plan, blocks, dev):
@@ -725,6 +804,16 @@ def _workspace(scr, plan, blocks, dev):
         ws = torch.empty(need, dtype=torch.uint8, device=dev)
         scr["ws"] = ws
     return _p(ws)
+
+
+def _mchain_ws(state, plan):
+    """The M chain's device workspace (a slice of the plan's block bytes
+    per group of reads), kept in ``state`` (the inside tables or the
+    gradient state: the chain of the outside pass runs beside K6 on its
+    own stream), or a null pointer for the shared variant."""
+    B = state["O"].shape[-1]
+    scr = state.setdefault("_mchain_scratch", {})
+    return _workspace(scr, plan, -(-B // plan.G), state["O"].device)
 
 
 def ep_stage(state, j, d, c, h, st, plan=None):
@@ -951,8 +1040,8 @@ def m_adj_stage(fs, gs, j, d, c, h, st, plan=None):
     f, g = fs, gs
     _call("outside_band", "m_adj", fs["O"], D, ix, ax, _p(f["M"]), _p(f["Bt"]),
           _p(d.eL), _p(c.gate_M), _p(c.okM), _p(g["gM"]), _p(f["T1"]),
-          _p(g["T1"]), _p(g["gB"]), _p(g["eL"]), plan.G, plan.R,
-          variant=plan.name)
+          _p(g["T1"]), _p(g["gB"]), _p(g["eL"]), _mchain_ws(gs, plan),
+          plan.G, plan.R, plan.cells, variant=plan.name)
 
 
 def band_adj_tail(fs, gs, j, d, c, h, st):
@@ -1082,8 +1171,8 @@ def max_band_m(state, j, d, c, mst, plan=None):
     _check_max_column(state, j, d, c, mst)
     _call("inside_band_max", "band_m_max", state["O"], _dims(st, state, j, d),
           _band_idx(st), _aux(st, c.pin), _p(state["M"]), _p(state["Bt"]),
-          _p(d.eL), _p(c.gate_M), _p(c.okM), plan.G, plan.R,
-          variant=plan.name)
+          _p(d.eL), _p(c.gate_M), _p(c.okM), _mchain_ws(state, plan),
+          plan.G, plan.R, plan.cells, variant=plan.name)
 
 
 def max_band_e(state, j, d, c, mst):
@@ -1177,3 +1266,215 @@ def cyk_traceback(state, d, c, mst, eps: float):
           _dims(st, state, Lp, d), ix, _aux(st, c.pin), data,
           TbCfg(float(eps), cap), _p(psihat), _p(pairs), _p(err), _p(stack))
     return psihat, pairs, err
+
+
+# --------------------------------- K14-K17 rows C and D: the factors and
+# the hoisted exponentials (csrc/factors.cu, csrc/hoisted.cu)
+
+FAC_MODES = {"dp": 0, "eR": 1, "null": 2}
+
+
+def factor_lists(st, ns: int):
+    """K14's and K15's grammar lists on st's device, built once per
+    DPStatic: the single table of each state's right and left node (a
+    negative index wrapped into 0..ns-1, as torch indexing takes it) and
+    the states' positional-weight flags, int32 [S] each."""
+    cache = st.__dict__.setdefault("_factor_lists", {})
+    if ns not in cache:
+        g = st.g
+        i32 = lambda a: torch.as_tensor(np.asarray(a, np.int32),
+                                        device=st.device)
+        cache[ns] = dict(
+            slot_r=i32(np.mod(g.single_table_index[g.tid_r], ns)),
+            slot_l=i32(np.mod(g.single_table_index[g.tid_l], ns)),
+            ws_r=i32(g.ws_r), ws_l=i32(g.ws_l))
+    return cache[ns]
+
+
+def _weights(x, name, dt, shape, dev):
+    """Per-read weights [B, n, k] as K14/K15 read them: the rows of a read
+    contiguous, reads a batch stride apart (0 for the expanded copies of
+    shared weights); anything else is copied contiguous."""
+    if not torch.is_tensor(x) or x.device != dev or x.dtype != dt:
+        raise TypeError("%s: expected %s weights on %s" % (name, dt, dev))
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError("%s: expected shape %s, got %s"
+                         % (name, tuple(shape), tuple(x.shape)))
+    if not x[0].is_contiguous():
+        x = x.contiguous()
+    return x
+
+
+def _seq_args(seq, ws, L, dots):
+    dev = seq.device
+    if dev.type != "cuda":
+        raise ValueError("factors kernel: the reads must be CUDA tensors")
+    B, Lp = seq.shape
+    _req(seq, "seq", torch.int32, (B, Lp), dev)
+    _req(ws, "ws", torch.float64, (B, Lp), dev)
+    _req(L, "L", torch.int32, (B,), dev)
+    _req(dots, "dots", torch.bool, (B, Lp), dev)
+    return dev, B, Lp
+
+
+def _fac_dims(st, cfg, mode, B, Lp, S, Tp, ns, sbs, sbp):
+    return FacDims(Lp, st.dims.Wp, S, B, Tp, ns, FAC_MODES[mode],
+                   int(cfg.theta_softmax), int(cfg.no_theta),
+                   int(cfg.no_prf), int(cfg.fix_rss), cfg.turn,
+                   cfg.max_span, cfg.max_iloop, sbs, sbp)
+
+
+def factors(st, cfg, mode, seq, ws, L, dots, singles=None, pairs=None):
+    """K14 on the grammar's DPStatic ``st`` for the ModelConfig ``cfg``:
+    the factors of the reads (seq int32 [B, Lp], ws float64, L int32,
+    dots bool) from per-read weights singles [B, ns, 4] and pairs [B, Tp,
+    6] of the DP's type, as model/joint._diff_factors and _const_factors
+    build them (without K1's tables).  ``mode`` "dp": every output; "eR":
+    eR alone (the no-rss chain); "null": the masks pass's factors (S = 1,
+    Tp = 1, zero emissions and wsp, lam 1; no weights).  A dict of
+    torch tensors (FAC_OUT)."""
+    dev, B, Lp = _seq_args(seq, ws, L, dots)
+    dt, W1 = st.dtype, st.dims.Wp + 1
+    if mode == "null":
+        S, Tp, ns = 1, 1, 1
+        sbs = sbp = 0
+    else:
+        S, ns = st.dims.S, singles.shape[1]
+        singles = _weights(singles, "singles", dt, (B, ns, 4), dev)
+        sbs = singles.stride(0)
+        Tp, sbp = 1, 0
+        if mode == "dp":
+            Tp = pairs.shape[1]
+            pairs = _weights(pairs, "pairs", dt, (B, Tp, 6), dev)
+            sbp = pairs.stride(0)
+    e = lambda shape, t=dt: torch.empty(shape, dtype=t, device=dev)
+    out = {"eR": e((Lp, S, B))}
+    if mode != "eR":
+        i64, i32 = torch.int64, torch.int32
+        out.update(eL=e((Lp, S, B)), bg2=e((Lp, B)),
+                   pv=e((Lp + 1, W1, Tp, B)), alphaP=e((Lp + 1, W1, B)),
+                   seq64=e((B, Lp), i64), seqT=e((Lp, B), i64),
+                   L64=e((B,), i64), dcum=e((B, Lp + 1), i32),
+                   dcumT=e((Lp + 1, B), i32), gate=e((Lp, B)),
+                   C=e((B,), i32), wsp=e((Lp, B)))
+        if mode == "null":
+            out["lam"] = e((2, B))
+    lists = factor_lists(st, ns)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    _call("factors", "factors", out["eR"],
+          _fac_dims(st, cfg, mode, B, Lp, S, Tp, ns, sbs, sbp),
+          FacIdx(*[lists[f].data_ptr() for f in FAC_IDX]),
+          FacOut(*[ptr(out.get(f)) for f in FAC_OUT]),
+          ctypes.c_void_p(ptr(singles)), ctypes.c_void_p(ptr(pairs)),
+          _p(seq), _p(ws), _p(L), _p(dots))
+    return out
+
+
+def factors_adj(st, cfg, mode, seq, singles, pairs, geR, geL=None,
+                gbg2=None, gpv=None):
+    """K15: each read's cotangent of singles [B, ns, 4] (and, in mode
+    "dp", of pairs [B, Tp, 6]) from the cotangents of K14's eR, eL, bg2
+    and pv (None: zero).  Returns (g_singles, g_pairs or None)."""
+    dev = seq.device
+    if dev.type != "cuda":
+        raise ValueError("factors_adj kernel: the reads must be CUDA tensors")
+    dt = st.dtype
+    B, Lp = seq.shape
+    _req(seq, "seq", torch.int32, (B, Lp), dev)
+    S, W1, ns = st.dims.S, st.dims.Wp + 1, singles.shape[1]
+    singles = _weights(singles, "singles", dt, (B, ns, 4), dev)
+    Tp, sbp = 1, 0
+    if mode == "dp":
+        Tp = pairs.shape[1]
+        pairs = _weights(pairs, "pairs", dt, (B, Tp, 6), dev)
+        sbp = pairs.stride(0)
+    cots = {}
+    for name, t, shape in (("geR", geR, (Lp, S, B)), ("geL", geL, (Lp, S, B)),
+                           ("gbg2", gbg2, (Lp, B)),
+                           ("gpv", gpv, (Lp + 1, W1, Tp, B))):
+        if t is not None and (mode == "dp" or name == "geR"):
+            t = t.contiguous()
+            _req(t, name, dt, shape, dev)
+            cots[name] = t
+    gs = torch.empty((B, ns, 4), dtype=dt, device=dev)
+    gp = torch.empty((B, Tp, 6), dtype=dt, device=dev) if mode == "dp" \
+        else None
+    lists = factor_lists(st, ns)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    args = FacAdjArgs(*[ptr(cots.get(f)) for f in FAC_ADJ[:4]],
+                      gs.data_ptr(), ptr(gp))
+    _call("factors_adj", "factors_adj", gs,
+          _fac_dims(st, cfg, mode, B, Lp, S, Tp, ns, singles.stride(0), sbp),
+          FacIdx(*[lists[f].data_ptr() for f in FAC_IDX]), args,
+          _p(singles), ctypes.c_void_p(ptr(pairs)), _p(seq),
+          Tp if mode == "dp" else 0)
+    return gs, gp
+
+
+def hoist_static(st):
+    """K16's and K17's size classes on st's device, built once per
+    DPStatic: the log size weights SZT [n_cls, Cp+1 (dl), Cp+1 (u1)]
+    (ops/dp.hoisted's transpose of st.SZ) and their groups int32."""
+    got = st.__dict__.get("_hoist_static")
+    if got is None:
+        SZT = torch.as_tensor(np.ascontiguousarray(
+            np.transpose(st.SZ, (0, 2, 1))), dtype=st.dtype,
+            device=st.device)
+        grp = torch.as_tensor(np.asarray(st.grp, np.int32), device=st.device)
+        got = st._hoist_static = (SZT, grp)
+    return got
+
+
+def _hoist_args(st, lam, c):
+    dev, dt = c.C.device, st.dtype
+    if dev.type != "cuda":
+        raise ValueError("hoisted kernels: the factors must be CUDA tensors")
+    B = c.C.shape[0]
+    Lp, W1 = st.dims.Lp, st.dims.Wp + 1
+    if not torch.is_tensor(lam) or lam.device != dev or lam.dtype != dt \
+            or tuple(lam.shape) != (2, B):
+        raise ValueError("lam: expected %s [2, %d] on %s" % (dt, B, dev))
+    _req(c.C, "C", torch.int32, (B,), dev)
+    for name in ("misA", "misB"):
+        _req(c.ep[name], name, dt, (4, Lp + 1, W1, B), dev)
+    SZT, grp = hoist_static(st)
+    D = HoistDims(Lp, st.dims.Wp, st.dims.Cp, B, st.PAD, st.n_cls,
+                  lam.stride(0), lam.stride(1))
+    return D, HoistIn(lam.data_ptr(), SZT.data_ptr(), grp.data_ptr(),
+                      c.ep["misA"].data_ptr(), c.ep["misB"].data_ptr(),
+                      c.C.data_ptr())
+
+
+def hoisted(st, lam, c):
+    """K16: (eSZ, eSZg, emisA, emisB) of ops/dp.hoisted for lambda [2, B]
+    (any strides) and the constants ``c``."""
+    D, ins = _hoist_args(st, lam, c)
+    dt, dev, B = st.dtype, c.C.device, D.B
+    C1, W1, Lp1 = st.dims.Cp + 1, st.dims.Wp + 1, st.dims.Lp + 1
+    e = lambda *shape: torch.empty(shape, dtype=dt, device=dev)
+    out = (e(2, st.n_cls, C1, C1, B), e(2, 4, C1, C1, B),
+           e(2, 4, Lp1, W1, B), e(2, Lp1 + st.PAD, W1, 4, B))
+    _call("hoisted", "hoisted", out[0], D, ins,
+          HoistOut(*[t.data_ptr() for t in out]))
+    return out
+
+
+def hoisted_adj(st, lam, c, cots):
+    """K17: lambda's cotangent [2, B] from the cotangents ``cots`` of
+    (eSZ, eSZg, emisA, emisB) (None: zero)."""
+    D, ins = _hoist_args(st, lam, c)
+    dt, dev, B = st.dtype, c.C.device, D.B
+    C1, W1, Lp1 = st.dims.Cp + 1, st.dims.Wp + 1, st.dims.Lp + 1
+    shapes = ((2, st.n_cls, C1, C1, B), (2, 4, C1, C1, B),
+              (2, 4, Lp1, W1, B), (2, Lp1 + st.PAD, W1, 4, B))
+    ptrs = []
+    for name, t, shape in zip(HOIST_OUT, cots, shapes):
+        if t is not None:
+            t = t.contiguous()
+            _req(t, "cotangent " + name, dt, shape, dev)
+        ptrs.append(t)
+    glam = torch.empty((2, B), dtype=dt, device=dev)
+    _call("hoisted_adj", "hoisted_adj", glam, D, ins,
+          HoistOut(*[None if t is None else t.data_ptr() for t in ptrs]),
+          _p(glam))
+    return glam

@@ -51,7 +51,8 @@ def test_every_pattern_fits_a_block(kernel, dtype):
         plan = K.band_plan(kernel, S, dtype)
         smem = K.band_smem_bytes(kernel, S, dtype, G)
         assert 0 < smem <= K.SMEM_LIMIT == 232448, (pat, smem)
-        assert plan == (kernel, G, 4, -(-S * G // 32) * 32, smem), pat
+        assert plan == K.BandPlan(kernel, G, 4, -(-S * G // 32) * 32,
+                                  smem), pat
 
 
 @pytest.mark.parametrize("kernel", KERNELS)
@@ -104,8 +105,8 @@ def test_shared_memory_follows_the_layout(kernel, S, dtype, nbytes):
 def test_a_forced_group_is_checked():
     """The plan's keywords force G (and R at G = 1): a group the type
     does not take, or a block that does not fit, raises ValueError."""
-    assert K.band_plan("outside_band", 91, torch.float32, G=2) == (
-        "outside_band", 2, 4, 192, K.band_smem_bytes(
+    assert K.band_plan("outside_band", 91, torch.float32, G=2) == \
+        K.BandPlan("outside_band", 2, 4, 192, K.band_smem_bytes(
             "outside_band", 91, torch.float32, 2))
     assert K.band_plan("inside_band", 29, torch.float64, G=1, R=2).R == 2
     with pytest.raises(ValueError, match="not one of"):

@@ -42,6 +42,7 @@ def _cfg(dtype, pattern="(.....)"):
 
 DP_KERNELS = ("score_tables", "inside_band", "inside_ep", "inside_ext",
               "outside_band", "outside_ep", "outside_ext")
+ROWS_CD = ("factors", "factors_adj", "hoisted", "hoisted_adj")
 
 
 def _need_cuda():
@@ -55,7 +56,9 @@ def _need_cuda():
                                   "band_adj", "chain_fwd", "chain_adj",
                                   "max_band_front", "max_band_bif",
                                   "max_band_m", "max_band_e", "max_ep_stage",
-                                  "max_ext_stage", "cyk_traceback"])
+                                  "max_ext_stage", "cyk_traceback",
+                                  "factors", "factors_adj", "hoisted",
+                                  "hoisted_adj"])
 def test_kernel_wrappers_reject_cpu_tensors(name):
     """A wrapper launches its kernel or raises: handed CPU tensors it
     raises before building anything (the CPU path is the dispatcher's
@@ -63,6 +66,22 @@ def test_kernel_wrappers_reject_cpu_tensors(name):
     cfg = _cfg("float64")
     batch = _batch(cfg, "cpu")
     k = J.kernels(cfg, "cpu")
+    if name in ROWS_CD:
+        p = J.per_read(J.init_params(k.g, cfg, device="cpu"), 5)
+        reads = J._card_reads(k, batch.sd)
+        d, c = J.batch_factors(cfg, J.init_params(k.g, cfg, device="cpu"),
+                               batch.sd, batch.bp_ok, device="cpu")
+        h = DP.hoisted(d, c, k.dp.st)
+        args = {"factors": (k.dp.st, cfg, "dp") + reads + (p.singles,
+                                                           p.pairs),
+                "factors_adj": (k.dp.st, cfg, "dp", reads[0], p.singles,
+                                p.pairs, d.eR, d.eL, d.bg2, d.pv),
+                "hoisted": (k.dp.st, d.lam, c),
+                "hoisted_adj": (k.dp.st, d.lam, c,
+                                [h[n] for n in DP.HOISTED])}[name]
+        with pytest.raises(ValueError, match="CUDA"):
+            getattr(K, name)(*args)
+        return
     if name.startswith("chain_"):
         eR = torch.zeros((cfg.Lp, k.g.S, 2), dtype=torch.float64)
         L = torch.full((2,), cfg.Lp, dtype=torch.int64)
@@ -1411,3 +1430,293 @@ def test_ext_adjoint_kernel_matches_plain(case, dtype):
             scale = max(1.0, float(b.abs().max()))
             err = float((a.to(b.dtype) - b).abs().max())
             assert err <= tol * scale, (j0, i, err)
+
+
+# ---------------------------------------------- K14-K17: rows C and D
+
+ROWS_CD_CASES = {
+    "plain": ("(.....)", {}), "softmax": ("(.....)", {"theta_softmax": True}),
+    "no_theta": ("(.....)", {"no_theta": True}),
+    "no_prf": ("(.....)", {"no_prf": True}),
+    "fix_rss": ("(.....)", {"fix_rss": True}),
+    "no_rss": ("..*..", {"no_rss": True}),
+    "no_rss_softmax": ("..*..", {"no_rss": True, "theta_softmax": True})}
+
+
+def _rows_cd_inputs(pattern, opts, dtype, n, seed=31):
+    """(config, SeqData, pair masks, per-read weights [singles, pairs,
+    lam], each read its own) on the card."""
+    cfg = J.ModelConfig(pattern=pattern, Lp=40, max_span=24, max_iloop=12,
+                        min_bpp=0.0, tau=0.1, dtype=dtype, **opts)
+    reads = _ep_reads(cfg, n, seed)
+    sd = J.stack_seqdata([J.make_seqdata(cfg, *r) for r in reads], "cuda")
+    bp = None if cfg.no_rss else J.effective_bp_mask_batch(cfg, sd,
+                                                           "cuda")[0]
+    p = J.init_params(J.kernels(cfg, "cpu").g, cfg, device="cpu",
+                      dtype="float64")
+    rng = np.random.RandomState(seed)
+    dt = torch.float32 if dtype == "float32" else torch.float64
+    f = lambda x: torch.as_tensor(x, dtype=dt, device="cuda")
+    w = [f(p.singles.numpy()[None] + 0.5 * rng.randn(n, *p.singles.shape)),
+         f(p.pairs.numpy()[None] + 0.5 * rng.randn(n, *p.pairs.shape)),
+         f(0.5 + rng.rand(n, 2))]
+    return cfg, sd, bp, w
+
+
+def _factors(cfg, sd, bp, w, cots, plain):
+    """(the factors, the weights' cotangents) of K14/K15 or the plain
+    version and its autograd."""
+    k = J.kernels(cfg, "cuda")
+    leaves = [x.detach().clone().requires_grad_(True) for x in w[:2]]
+    pw = J.Params(leaves[0], leaves[1], w[2])
+    with torch.enable_grad():
+        if cfg.no_rss:
+            outs = [J.right_emissions(cfg, k, pw, sd, plain=plain)]
+        else:
+            d, _ = J.batch_factors_pr(cfg, pw, sd, bp, "cuda", plain=plain)
+            outs = [d.eR, d.eL, d.bg2, d.pv]
+        live = [o.requires_grad for o in outs]
+        grads = [None, None]
+        if cots is not None and any(live):
+            grads = list(torch.autograd.grad(
+                [o for o, l_ in zip(outs, live) if l_], leaves,
+                [c_ for c_, l_ in zip(cots, live) if l_], allow_unused=True))
+    return [o.detach() for o in outs], grads
+
+
+def _rel_ok(a, b, tol):
+    scale = float(b.abs().max())
+    return float((a - b).abs().max()) <= tol * max(scale, 1e-300)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(ROWS_CD_CASES))
+@pytest.mark.parametrize("dtype,tol,n", [("float64", 1e-12, 16),
+                                         ("float32", 1e-6, 64)])
+def test_factor_kernels_match_plain(case, dtype, tol, n):
+    """K14 (the factors) and K15 (their adjoint into the per-read weights)
+    against the plain version and its autograd, relative in the max norm;
+    without the log-softmax K15 is bitwise the plain autograd (its sums
+    follow read_sum's order); two runs give the same bits; every launch
+    goes through the kernels."""
+    _need_cuda()
+    pattern, opts = ROWS_CD_CASES[case]
+    cfg, sd, bp, w = _rows_cd_inputs(pattern, opts, dtype, n)
+    outs_p, _ = _factors(cfg, sd, bp, w, None, True)
+    rng = np.random.RandomState(3)
+    cots = [torch.as_tensor(rng.randn(*o.shape), dtype=o.dtype,
+                            device="cuda") for o in outs_p]
+    outs_p, g_p = _factors(cfg, sd, bp, w, cots, True)
+    K.reset_counts()
+    outs_k, g_k = _factors(cfg, sd, bp, w, cots, False)
+    assert K.KERNELS["factors"].launches == 1
+    assert K.KERNELS["factors_adj"].launches == (0 if cfg.no_prf else 1)
+    outs_2, g_2 = _factors(cfg, sd, bp, w, cots, False)
+    for a, b, a2 in zip(outs_k, outs_p, outs_2):
+        assert torch.equal(a, a2) and _rel_ok(a, b, tol)
+    for a, b, a2 in zip(g_k, g_p, g_2):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert torch.equal(a, a2) and _rel_ok(a, b, tol)
+            if not cfg.theta_softmax:
+                assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol,n", [("float64", 1e-12, 16),
+                                         ("float32", 1e-6, 64)])
+def test_hoisted_kernels_match_plain(dtype, tol, n):
+    """K16 (the hoisted exp-space tensors) and K17 (lambda's cotangent)
+    against hoisted_plain and its autograd for per-read lambdas (a
+    strided view, as the DP's copies are); lam_total launches K17 alone
+    (no second K16) and equals the autograd route; two runs give the same
+    bits."""
+    _need_cuda()
+    cfg, sd, bp, w = _rows_cd_inputs("(.....)", {}, dtype, n)
+    k = J.kernels(cfg, "cuda")
+    d, c = J.batch_factors(cfg, J.Params(*[x[0] for x in w]), sd, bp, "cuda")
+    lam = w[2].T
+    rng = np.random.RandomState(4)
+    with torch.no_grad():
+        want = DP.hoisted_plain(d._replace(lam=lam), c, k.dp.st)
+    cots = [torch.as_tensor(rng.randn(*want[n_].shape), dtype=lam.dtype,
+                            device="cuda") for n_ in DP.HOISTED]
+    got = []
+    for route in (DP.hoisted_plain, DP.hoisted, DP.hoisted):
+        leaf = lam.detach().clone().requires_grad_(True)
+        with torch.enable_grad():
+            h = route(d._replace(lam=leaf), c, k.dp.st)
+            (g,) = torch.autograd.grad([h[n_] for n_ in DP.HOISTED], [leaf],
+                                       cots)
+        got.append(([h[n_].detach() for n_ in DP.HOISTED], g))
+    (hp, gp), (hk, gk), (hk2, gk2) = got
+    for a, b, a2 in zip(hk, hp, hk2):
+        assert torch.equal(a, a2) and _rel_ok(a, b, tol)
+    assert torch.equal(gk, gk2) and _rel_ok(gk, gp, tol)
+    direct = torch.zeros_like(gk)
+    grads = (None,) * 4 + (direct, None) + tuple(cots)
+    K.reset_counts()
+    total = DP.lam_total(grads, d._replace(lam=lam), c, k.dp.st)
+    assert (K.KERNELS["hoisted"].launches,
+            K.KERNELS["hoisted_adj"].launches) == (0, 1)
+    assert torch.equal(total, direct + gk)
+
+
+def _same_fields(ours, plain, tol):
+    """Every field of two DiffFactors or ConstFactors (a dict field by
+    key) of one dtype and shape; identical where ``tol`` is None or the
+    field is not floating, else within ``tol`` relative (max norm)."""
+    for f in ours._fields:
+        a, b = getattr(ours, f), getattr(plain, f)
+        if isinstance(b, dict):
+            assert sorted(a) == sorted(b), f
+            pairs = [(a[k_], b[k_]) for k_ in sorted(b)]
+        else:
+            assert (a is None) == (b is None), f
+            pairs = [] if b is None else [(a, b)]
+        for x, y in pairs:
+            assert (x.dtype, x.shape) == (y.dtype, y.shape), f
+            if tol is None or not y.is_floating_point():
+                assert torch.equal(x, y), f
+            else:
+                assert _rel_ok(x, y, tol), f
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [("float64", 1e-12),
+                                       ("float32", 1e-6)])
+def test_null_factor_kernels_match_plain(dtype, tol):
+    """The masks' motif-free factors at their shapes (the S = 1 grammar,
+    B = 128): K14 in mode "null" (one launch) against the plain
+    _null_batch_factors, every constant identical and every factor within
+    ``tol``; K16 there (lambda 1) against hoisted_plain and K17 against
+    its autograd."""
+    _need_cuda()
+    cfg, sd, _, _ = _rows_cd_inputs("(.....)", {}, dtype, 128)
+    k = J.kernels(cfg, "cuda")
+    bp0 = J._candidate_pairs(cfg, k, sd)
+    K.reset_counts()
+    dk, ck = J._null_batch_factors(cfg, k, sd, bp0)
+    assert K.KERNELS["factors"].launches == 1
+    dp_, cp_ = J._null_batch_factors(cfg, k, sd, bp0, plain=True)
+    _same_fields(ck, cp_, None)
+    _same_fields(dk, dp_, tol)
+    st = k.dp_null.st
+    with torch.no_grad():
+        want = DP.hoisted_plain(dp_, cp_, st)
+    rng = np.random.RandomState(6)
+    cots = [torch.as_tensor(rng.randn(*want[n_].shape), dtype=dk.lam.dtype,
+                            device="cuda") for n_ in DP.HOISTED]
+    got = []
+    for route, d, c in ((DP.hoisted_plain, dp_, cp_), (DP.hoisted, dk, ck)):
+        leaf = d.lam.detach().clone().requires_grad_(True)
+        with torch.enable_grad():
+            h = route(d._replace(lam=leaf), c, st)
+            (g,) = torch.autograd.grad([h[n_] for n_ in DP.HOISTED], [leaf],
+                                       cots)
+        got.append(([h[n_].detach() for n_ in DP.HOISTED], g))
+    (hp, gp), (hk, gk) = got
+    for a, b in zip(hk, hp):
+        assert _rel_ok(a, b, tol)
+    assert _rel_ok(gk, gp, tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_rows_cd_kernels_do_not_depend_on_the_batch(dtype):
+    """K14-K17's outputs for the first 8 reads of 16 are bitwise those of
+    the 8 alone: nothing is summed across reads."""
+    _need_cuda()
+    cfg, sd, bp, w = _rows_cd_inputs("(.....)", {"theta_softmax": True},
+                                     dtype, 16)
+    outs, _ = _factors(cfg, sd, bp, w, None, False)
+    rng = np.random.RandomState(5)
+    cots = [torch.as_tensor(rng.randn(*o.shape), dtype=o.dtype,
+                            device="cuda") for o in outs]
+    outs, g = _factors(cfg, sd, bp, w, cots, False)
+    sd8 = J.SeqData(*[x[:8] for x in sd])
+    outs8, g8 = _factors(cfg, sd8, bp[:8], [x[:8] for x in w],
+                         [c_[..., :8] for c_ in cots], False)
+    for a, b in zip(outs8, outs):
+        assert torch.equal(a, b[..., :8])
+    for a, b in zip(g8, g):
+        assert torch.equal(a, b[:8])
+    st = J.kernels(cfg, "cuda").dp.st
+    _, c = J.batch_factors(cfg, J.Params(*[x[0] for x in w]), sd, bp, "cuda")
+    lam = w[2].T
+    h = K.hoisted(st, lam, c)
+    hc = [torch.as_tensor(rng.randn(*x.shape), dtype=x.dtype, device="cuda")
+          for x in h]
+    gl = K.hoisted_adj(st, lam, c, hc)
+    c8 = c._replace(C=c.C[:8].contiguous(),
+                    ep={n_: v[..., :8].contiguous() for n_, v in c.ep.items()})
+    lam8 = w[2][:8].T
+    h8 = K.hoisted(st, lam8, c8)
+    for a, b in zip(h8, h):
+        assert torch.equal(a, b[..., :8])
+    assert torch.equal(K.hoisted_adj(st, lam8, c8, [x[..., :8] for x in hc]),
+                       gl[:, :8])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_m_chain_and_chain_past_1024_states(dtype):
+    """44 dots (S = 1,081): the M chain (K2's band_m, K5's e_adj and
+    band_adj) at one column against its plain version, the block's
+    threads striding over the states (2 a thread), f64 within 1e-9 and
+    f32 within 1e-4 relative, and bitwise the build of 4 cells a thread
+    (a forced plan); K8/K9 (1,024 threads striding over the
+    states) against the plain chain.  The plain DP's dense matrices are
+    freed after."""
+    _need_cuda()
+    try:
+        cfg = J.ModelConfig(pattern="." * 44, Lp=50, max_span=40,
+                            max_iloop=10, min_bpp=0.0, tau=0.1, dtype=dtype)
+        tol = 1e-9 if dtype == "float64" else 1e-4
+        dp, d, c, h, fs, gbar = _band_inputs(cfg, _ep_reads(cfg, 3, 19))
+        st, j0 = dp.st, 40
+        r = j0 + st.PAD
+        assert st.dims.S == 1081
+        for kn in ("inside_band", "outside_band"):
+            assert K.band_plan(kn, st.dims.S, st.dtype).cells == 2
+        four = {kn: K.band_plan(kn, st.dims.S, st.dtype, cells=4)
+                for kn in ("inside_band", "outside_band")}
+        ks, ps = DP.clone_state(fs), DP.clone_state(fs)
+        k4 = DP.clone_state(fs)
+        K.band_m(ks, j0, d, c, h, st)
+        K.band_m(k4, j0, d, c, h, st, plan=four["inside_band"])
+        DP.band_m_plain(ps, j0, d, c, h, st)
+        a, b = ks["M"][r], ps["M"][r]
+        assert torch.equal(k4["M"][r], a)
+        fin = torch.isfinite(b)
+        assert torch.equal(torch.isfinite(a), fin)
+        assert _rel_ok(a[fin], b[fin], tol)
+        gs = DP.init_grads(fs, d, c, h)
+        DP.seed_parts(gs, gbar, c, st)
+        dp.outside_columns(fs, gs, d, c, h, cfg.Lp + 1, j0 + 1)
+        kg, pg = DP.clone_state(gs), DP.clone_state(gs)
+        K.e_adj(fs, kg, j0, d, c, h, st)
+        kg4 = DP.clone_state(kg)
+        K.band_adj(fs, kg, j0, d, c, h, st)
+        K.band_adj(fs, kg4, j0, d, c, h, st, plan=four["outside_band"])
+        DP.e_adj_plain(fs, pg, j0, d, c, h, st)
+        DP.band_adj_plain(fs, pg, j0, d, c, h, st)
+        for k_ in DP.GRAD_TABLES:
+            assert _rel_ok(kg[k_][:r], pg[k_][:r], tol), k_
+            assert torch.equal(kg4[k_], kg[k_]), k_
+        for k_ in ("eR", "eL", "bg2", "pv", "gM"):
+            assert _rel_ok(kg[k_], pg[k_], tol), k_
+            assert torch.equal(kg4[k_], kg[k_]), k_
+        st_c, eR, L, gp = _chain_inputs("." * 44, 0.1, dtype, n=3)
+        parts, rows = K.chain_fwd(st_c, eR, L)
+        g = K.chain_adj(st_c, eR, L, rows, gp)
+        leaf = eR.detach().clone().requires_grad_(True)
+        want = LIN.chain_plain(st_c, leaf, L)
+        (gw,) = torch.autograd.grad(want, leaf, gp)
+        fin = torch.isfinite(want)
+        assert torch.equal(fin, torch.isfinite(parts))
+        assert _rel_ok(parts[fin], want.detach()[fin], tol)
+        assert _rel_ok(g, gw, tol)
+    finally:
+        J._kernels_cached.cache_clear()
+        torch.cuda.empty_cache()
