@@ -21,7 +21,12 @@ Phases:
      theta_softmax, no_theta, no_prf and fix_rss: f64 at B=16 within
      1e-12 and f32 at B=128 x 100 nt within 1e-6 relative (max norm), the
      constants identical, K15's contraction bitwise the plain sums, two
-     runs and the first 8 of 16 reads bitwise equal;
+     runs and the first 8 of 16 reads bitwise equal; K15's and K17's
+     cotangents per read bitwise equal in batches of 600, 1, 7 and 128
+     reads at other places, in a repeat, and under every split of a read's
+     sums that their host plans (factors_adj_plan, hoisted_adj_plan) can
+     take, forced (f32 and f64), and K15 at 44 dots (S=1,081) under every
+     split bitwise the plain contraction;
      and the full inside DP: f64 kernels vs the f64 plain version (parts
      within 1e-9 absolute), f32 kernels vs the f64 plain version (within
      2e-3 absolute);
@@ -164,6 +169,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -2808,17 +2814,47 @@ def plain_contraction(cfg, sd, cots):
     singles = (bg + paths[1]) + paths[0]
     if len(cots) < 4:
         return singles, None
-    Wp = cfg.Wp
-    j = torch.arange(Lp + 1, device=seq.device)[:, None]
-    w = torch.arange(Wp + 1, device=seq.device)[None, :]
-    i = torch.clamp(j - w, 0, Lp - 1).expand(-1, Wp + 1)
-    jj = torch.clamp(j - 1, 0, Lp - 1).expand(-1, Wp + 1)
-    bt = k.tab["bp"][seq[:, i], seq[:, jj]].reshape(B, -1).T   # [n, B]
+    bt = pair_types(cfg, seq)                                 # [n, B]
     oh6 = torch.nn.functional.one_hot(torch.clamp(bt - 1, 0, 5), 6).to(dt)
     gpv = cots[3].reshape(-1, cots[3].shape[2], B)            # [n, Tp, B]
     pairs = torch.stack([contr(oh6, torch.where(bt > 0, gpv[:, t], zero))
                          for t in range(gpv.shape[1])], 1)
     return singles, pairs
+
+
+def pair_types(cfg, seq):
+    """The pair type of every pair cell (j, w) of every read, [(Lp+1)
+    (Wp+1), B] (0: the bases j-w and j-1 do not pair), as K15 forms it."""
+    k = J.kernels(cfg, DEVICE)
+    seq = seq.long()
+    B, Lp = seq.shape
+    j = torch.arange(Lp + 1, device=seq.device)[:, None]
+    w = torch.arange(cfg.Wp + 1, device=seq.device)[None, :]
+    i = torch.clamp(j - w, 0, Lp - 1).expand(-1, cfg.Wp + 1)
+    jj = torch.clamp(j - 1, 0, Lp - 1).expand(-1, cfg.Wp + 1)
+    return k.tab["bp"][seq[:, i], seq[:, jj]].reshape(B, -1).T
+
+
+def factors_adj_bytes(cfg, seq, cots):
+    """The bytes of K15's cotangents [eR, eL, bg2, pv] (any None) that
+    this batch needs: it loads eR's, eL's and bg2's only at a read's bases
+    (code > 0) and pv's only at the pair cells whose bases pair."""
+    seq = torch.as_tensor(seq, device=DEVICE)
+    n_pos = int((seq > 0).sum())
+    n_pair = int((pair_types(cfg, seq) > 0).sum())
+    per = (lambda t: t.shape[1]), (lambda t: t.shape[1]), (lambda t: 1), \
+        (lambda t: t.shape[2])
+    total = 0
+    for i, (t, f) in enumerate(zip(cots, per)):
+        if t is not None:
+            total += (n_pair if i == 3 else n_pos) * f(t) * t.element_size()
+    return total
+
+
+def hoisted_adj_cots(cots, PAD):
+    """K17's cotangents as it reads them: emisB's without its PAD front
+    rows (K17 reads rows PAD..PAD+Lp only)."""
+    return list(cots[:3]) + [None if cots[3] is None else cots[3][:, PAD:]]
 
 
 def hoisted_run(cfg, d, c, lam, cots, plain, st=None):
@@ -3048,6 +3084,146 @@ def check_null_factors(dev, errs):
     return "; ".join(out)
 
 
+# K15's and K17's bits across batches, places and splits (phase 2): (B,
+# the place of its first read in the SPLIT_READS-read batch)
+SPLIT_READS = 600
+SPLIT_BATCHES = ((1, 3), (7, 11), (128, 200))
+
+
+def adj_inputs(cfg, reads, dev, seed):
+    """K15's and K17's inputs for ``reads``, made on the card from a
+    seed (per-read weights, cotangents of K14's factors and of K16's
+    tensors): a dict of tensors, each with the read last (or first for
+    the weights and codes)."""
+    k = J.kernels(cfg, dev)
+    st = k.dp.st
+    sd, bp = rows_cd_batch(cfg, reads, dev, seed)
+    wts = rows_cd_weights(cfg, len(reads), dev, seed + 1)
+    _, c = J.batch_factors_pr(cfg, J.Params(*wts), sd, bp, dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dt, B, Lp = wts[0].dtype, len(reads), cfg.Lp
+    rn = lambda *shape: torch.randn(shape, generator=gen, dtype=dt,
+                                    device=dev)
+    C1, W1, Lp1 = st.dims.Cp + 1, st.dims.Wp + 1, Lp + 1
+    Tp = wts[1].shape[1]
+    return dict(
+        seq=J._card_reads(k, sd)[0], singles=wts[0], pairs=wts[1],
+        lam=wts[2].T.contiguous(), C=c.C, misA=c.ep["misA"],
+        misB=c.ep["misB"], geR=rn(Lp, st.dims.S, B), geL=rn(Lp, st.dims.S, B),
+        gbg2=rn(Lp, B), gpv=rn(Lp1, W1, Tp, B),
+        eSZ=rn(2, st.n_cls, C1, C1, B), eSZg=rn(2, 4, C1, C1, B),
+        emisA=rn(2, 4, Lp1, W1, B), emisB=rn(2, Lp1 + st.PAD, W1, 4, B))
+
+
+def adj_slice(x, a, b_):
+    """Reads a..b_ of adj_inputs' dict, contiguous (the weights and the
+    codes read-first, the rest read-last)."""
+    out = {}
+    for n_, v in x.items():
+        first = n_ in ("seq", "singles", "pairs")
+        out[n_] = (v[a:b_] if first else v[..., a:b_]).contiguous()
+    return out
+
+
+def run_adj(cfg, x, hoisted=True, splits=(None, None)):
+    """K15 (and with ``hoisted`` K17) on adj_inputs' dict, each on its
+    plan or forced to the split in ``splits``: (g_singles, g_pairs[,
+    g_lam])."""
+    k = J.kernels(cfg, DEVICE)
+    st = k.dp.st
+    gs, gp = K.factors_adj(st, cfg, "dp", x["seq"], x["singles"],
+                           x["pairs"], x["geR"], x["geL"], x["gbg2"],
+                           x["gpv"], split=splits[0])
+    if not hoisted:
+        return [gs, gp]
+    consts = types.SimpleNamespace(C=x["C"], ep={"misA": x["misA"],
+                                                 "misB": x["misB"]})
+    gl = K.hoisted_adj(st, x["lam"], consts, [x[n_] for n_ in DP.HOISTED],
+                       split=splits[1])
+    return [gs, gp, gl]
+
+
+def check_adj_splits(dev):
+    """K15 and K17 at the main path's shapes ((.....), 100 nt), f32 and
+    f64: each read's cotangents bitwise equal in a batch of SPLIT_READS
+    and in batches of 1, 7 and 128 reads taken at other places (the plan
+    picks another split for each B), in a repeat, and under every split
+    the host plan can take, forced (B=128); K15 at 44 dots (S=1,081, 8
+    reads) under every split bitwise equal and bitwise the plain
+    contraction.  Returns the line's text."""
+    rng = np.random.RandomState(21)
+    out = []
+    for dtype in ("float32", "float64"):
+        cfg = cfg_for(dtype)
+        st = J.kernels(cfg, dev).dp.st
+        x = adj_inputs(cfg, make_reads(rng, SPLIT_READS, 60, LP), dev, 22)
+        ref = run_adj(cfg, x)
+        again = run_adj(cfg, x)
+        if not all(torch.equal(a, b_) for a, b_ in zip(ref, again)):
+            fail("K15/K17 %s B=%d: a repeat differs" % (dtype, SPLIT_READS))
+        for B, at in SPLIT_BATCHES:
+            got = run_adj(cfg, adj_slice(x, at, at + B))
+            want = [ref[0][at:at + B], ref[1][at:at + B],
+                    ref[2][:, at:at + B]]
+            for name, a, b_ in zip(("K15 singles", "K15 pairs", "K17"),
+                                   got, want):
+                if not torch.equal(a, b_):
+                    fail("%s %s: reads %d..%d alone (B=%d) differ from the "
+                         "same reads in a batch of %d" % (
+                             name, dtype, at, at + B - 1, B, SPLIT_READS))
+        x128 = adj_slice(x, 200, 328)
+        base = run_adj(cfg, x128)
+        fp = K.factors_adj_plan(st.dims.S, cfg.Lp, st.dims.Wp,
+                                x["pairs"].shape[1], 128, st.dtype)
+        hp = K.hoisted_adj_plan(st.dims.Lp, st.dims.Wp, st.dims.Cp,
+                                st.n_cls, 128, st.dtype)
+        for kk in fp.splits():
+            got = run_adj(cfg, x128, False, (kk, None))
+            if not all(torch.equal(a, b_) for a, b_ in zip(got, base)):
+                fail("K15 %s: split K=%d differs from the plan's K=%d"
+                     % (dtype, kk, fp.K))
+        for kk in hp.splits():
+            got = run_adj(cfg, x128, True, (None, kk))
+            if not torch.equal(got[2], base[2]):
+                fail("K17 %s: split K=%d differs from the plan's K=%d"
+                     % (dtype, kk, hp.K))
+        out.append("%s: K15 splits %s (plan K=%d at B=128), K17 splits %s "
+                   "(plan K=%d)" % (dtype, fp.splits(), fp.K, hp.splits(),
+                                    hp.K))
+        del x, ref, again, x128, base
+        torch.cuda.empty_cache()
+    try:
+        for dtype in ("float32", "float64"):
+            cfg = J.ModelConfig(pattern="." * 44, Lp=50, max_span=40,
+                                max_iloop=10, min_bpp=0.0, tau=0.1,
+                                dtype=dtype)
+            reads = make_reads(rng, 8, 40, 50)
+            st = J.kernels(cfg, dev).dp.st
+            x = adj_inputs(cfg, reads, dev, 23)
+            sd, _ = rows_cd_batch(cfg, reads, dev, 23)
+            want = plain_contraction(cfg, sd, [x[n_] for n_ in (
+                "geR", "geL", "gbg2", "gpv")])
+            fp = K.factors_adj_plan(st.dims.S, cfg.Lp, st.dims.Wp,
+                                    x["pairs"].shape[1], 8, st.dtype)
+            for kk in fp.splits():
+                got = run_adj(cfg, x, False, (kk, None))
+                if not all(torch.equal(a, b_) for a, b_ in zip(got, want)):
+                    fail("K15 44 dots %s: split K=%d differs from the plain "
+                         "contraction" % (dtype, kk))
+            out.append("44 dots (S=%d) %s: K15 splits %s bitwise the plain "
+                       "contraction" % (st.dims.S, dtype, fp.splits()))
+            del x, want
+    finally:
+        J._kernels_cached.cache_clear()
+        torch.cuda.empty_cache()
+    text = ("check K15/K17 bits (each read's cotangents bitwise equal in "
+            "batches of %d and of %s reads at other places, in a repeat and "
+            "under every split the host plan takes): %s" % (
+                SPLIT_READS, [b_ for b_, _ in SPLIT_BATCHES], "; ".join(out)))
+    print(text, flush=True)
+    return text
+
+
 def is_copy_event(name):
     """A memcpy or memset of the profiler's device events (not a kernel)."""
     return name.startswith(("Memcpy", "Memset", "memcpy", "memset"))
@@ -3114,7 +3290,9 @@ def glue_rows(cfg, params, batch, dev, funcs):
     and their backward into lambda (K17).  Each: device ms, kernel
     launches and memcpy/memset events per call (profiler, 20 calls),
     CUDA-event ms, and the bound, the bytes of its inputs and outputs once
-    over HBM."""
+    over HBM, of the inputs only what the kernels read (K15's cotangents at
+    a read's bases and pairing cells, K17's emisB cotangent without its PAD
+    rows)."""
     B = batch.valid.shape[0]
     leaves = J.Params(*[x.detach().clone().requires_grad_(True)
                         for x in J.per_read(params, B)])
@@ -3135,9 +3313,11 @@ def glue_rows(cfg, params, batch, dev, funcs):
                    c.dots_cum) + _nbytes(c.seq, c.L, c.dots_cum)
     bytes_ = {
         "C": reads_in + weights + made,
-        "C backward": _nbytes(*cot_c, batch.sd.seq) + 2 * weights,
+        "C backward": factors_adj_bytes(cfg, batch.sd.seq, cot_c)
+        + _nbytes(batch.sd.seq) + 2 * weights,
         "D": _nbytes(lam, c.ep["misA"], c.ep["misB"], c.C, *outs_d),
-        "D backward": _nbytes(*cot_d, lam, c.ep["misA"], c.ep["misB"], c.C)
+        "D backward": _nbytes(*hoisted_adj_cots(cot_d, st.PAD), lam,
+                              c.ep["misA"], c.ep["misB"], c.C)
         + _nbytes(lam)}
 
     def fwd_c():
@@ -3192,7 +3372,8 @@ def rows_cd_times(cfg, params, batch, dev, funcs):
     """K14-K17 at the main path's shapes (B=128 x 100 nt, f32): device ms
     per call (the profiler, REPS calls) of the kernel alone, the plain
     versions' ms (CUDA events) and the bounds (bytes of inputs and outputs
-    once over HBM against the operations over the f32 peak).  Returns
+    once over HBM, as glue_rows counts them, against the operations over
+    the f32 peak).  Returns
     (ms, plain_ms, bounds, unit) by kernel."""
     k = J.kernels(cfg, dev)
     st = k.dp.st
@@ -3235,10 +3416,12 @@ def rows_cd_times(cfg, params, batch, dev, funcs):
     consts = ("alphaP", "seq64", "seqT", "L64", "dcum", "dcumT", "gate", "C",
               "wsp")
     by = {"factors": _nbytes(*reads, *wts[:2], *out.values()),
-          "factors_adj": _nbytes(*cot, reads[0]) + 2 * _nbytes(*wts[:2]),
+          "factors_adj": factors_adj_bytes(cfg, reads[0], cot)
+          + _nbytes(reads[0]) + 2 * _nbytes(*wts[:2]),
           "hoisted": _nbytes(c.ep["misA"], c.ep["misB"], c.C, lam, *hk),
-          "hoisted_adj": _nbytes(*hcot, c.ep["misA"], c.ep["misB"], c.C,
-                                 lam) + _nbytes(lam)}
+          "hoisted_adj": _nbytes(*hoisted_adj_cots(hcot, st.PAD),
+                                 c.ep["misA"], c.ep["misB"], c.C, lam)
+          + _nbytes(lam)}
     # operations: K15 one product and one add per one-hot term (8 per
     # (position, state) of eR and eL, 4 per bg2 position, 6 per pair cell
     # and table); K17 three per term of its sums; K14/K16 one per output
@@ -3248,7 +3431,8 @@ def rows_cd_times(cfg, params, batch, dev, funcs):
            "factors_adj": 2.0 * B * (8 * Lp * S + 4 * Lp
                                      + 6 * (Lp + 1) * W1 * wts[1].shape[1]),
            "hoisted": float(sum(x.numel() for x in hk)),
-           "hoisted_adj": 3.0 * sum(x.numel() for x in hcot)}
+           "hoisted_adj": 3.0 * sum(x.numel() for x in hoisted_adj_cots(
+               hcot, st.PAD))}
     bnd = {n: max((by[n] / MEM_BPS * 1e3, "bytes"),
                   (ops[n] / PEAK_F32 * 1e3, "operations")) for n in calls}
     unit = {}
@@ -3258,6 +3442,43 @@ def rows_cd_times(cfg, params, batch, dev, funcs):
         unit[n] = ("batch", K.KERNELS[n].launches)
     del out, cot, hk, hcot, outs_p, outs_h
     return ms, plain, bnd, unit
+
+
+def rows_cd_times_only(dev):
+    """K14-K17 at the main path's shapes alone (--rows-cd-times, after
+    phase 1): rows_cd_times' ms, plain ms and bounds, and, where the
+    package has the host plans, K15's and K17's device ms under every
+    split the plan can take (B=128 x 100 nt, f32), as one JSON line.
+    Uses only the kernels' common entry points, so a copy of this script
+    beside an older tree times that tree's kernels."""
+    cfg = cfg_for("float32")
+    params = random_params(cfg, dev)
+    batch, _, _ = batch_factors_for(cfg, main_reads(), dev, params)
+    funcs = kernel_functions()
+    ms, plain, bnd, unit = rows_cd_times(cfg, params, batch, dev, funcs)
+    out = {"ms": ms, "plain_ms": plain, "bound_ms": bnd, "unit": unit}
+    if hasattr(K, "hoisted_adj_plan"):
+        st = J.kernels(cfg, dev).dp.st
+        x = adj_inputs(cfg, main_reads(), dev, 22)
+        fp = K.factors_adj_plan(st.dims.S, cfg.Lp, st.dims.Wp,
+                                x["pairs"].shape[1], B_MAIN, st.dtype)
+        hp = K.hoisted_adj_plan(st.dims.Lp, st.dims.Wp, st.dims.Cp,
+                                st.n_cls, B_MAIN, st.dtype)
+        split = {"factors_adj": {}, "hoisted_adj": {}}
+        for kk in fp.splits():
+            split["factors_adj"][kk] = device_ms(
+                lambda: run_adj(cfg, x, False, (kk, None)), REPS,
+                funcs["factors_adj"])
+        for kk in hp.splits():
+            consts = types.SimpleNamespace(C=x["C"], ep={
+                "misA": x["misA"], "misB": x["misB"]})
+            cots = [x[n_] for n_ in DP.HOISTED]
+            split["hoisted_adj"][kk] = device_ms(
+                lambda: K.hoisted_adj(st, x["lam"], consts, cots, split=kk),
+                REPS, funcs["hoisted_adj"])
+        out["by_split"] = split
+        out["plan_split"] = {"factors_adj": fp.K, "hoisted_adj": hp.K}
+    print(json.dumps({"rows_cd_times": out}), flush=True)
 
 
 # ------------------------------------------------------------ row N
@@ -3620,6 +3841,176 @@ def ep_probes(dev):
                                ("K11_f32_B64", "float32", trna[:64])):
             rec[key] = cyk_column_ms(rd, dev, funcs, dtype)["inside_ep_max"]
         print(json.dumps(rec), flush=True)
+    print("card: %s" % card_line(), flush=True)
+
+
+# K15's first form of its one-hot terms (the compare), patched into the
+# shipped factors.cu by --onehot-repro
+ONEHOT_COMPARE = {"K15 with the compare form": ((
+    "factors.cu",
+    """          const T* oh = oh4[clampi(code, 0, 4)];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            o[k] = oh[k] * vr;
+            o[4 + k] = oh[k] * vl;
+          }""",
+    """          const int base = clampi(code - 1, 0, 3);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const T e = k == base ? (T)1 : (T)0;
+            o[k] = e * vr;
+            o[4 + k] = e * vl;
+          }"""),)}
+
+
+def _function_lines(text, marker, start, keep):
+    """The lines of the function whose header holds ``marker`` (a PTX
+    .entry or a SASS "Function :" line) that match the regex ``keep``."""
+    out, on = [], False
+    for ln in text.splitlines():
+        if start in ln:
+            on = marker in ln
+            continue
+        if on and re.search(keep, ln):
+            out.append(" ".join(re.sub(r"/\* 0x[0-9a-f]+ \*/", "",
+                                       ln).split()))
+    return out
+
+
+def onehot_repro(dev):
+    """The one-hot select of K15's first form, (k == clampi(code - 1, 0,
+    3) ? 1 : 0) x g, alone (csrc/repro/onehot_select.cu, built with the
+    library's nvcc flags and again with ptxas's optimisation off): for
+    codes 0..4 the terms of each base that differ from the exact ones
+    (flat kernels, the compare and the table form, f64 and f32) and each
+    base's reads whose sum differs from read_sum's (K15's state warp with
+    the compare form); the PTX and SASS lines of the flat compare
+    kernel's select (f64); then K15 itself with the compare form patched
+    in, each base's largest error against the plain contraction; the
+    shipped library's functions whose SASS takes a predicate out of a
+    VIMNMX.  One JSON line each; it checks nothing."""
+    import ctypes
+    nvcc = K._nvcc()
+    src = K.CSRC / "repro" / "onehot_select.cu"
+    root = os.path.join(HERE, "build", "onehot_repro")
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.RandomState(5)
+    n, B, Lp = 4096, 64, 40
+    code = torch.as_tensor(rng.randint(0, 5, n).astype(np.int32),
+                           device=dev)
+    lens = rng.randint(Lp // 2, Lp + 1, B)
+    seq = rng.randint(1, 5, (B, Lp)).astype(np.int32)
+    seq[np.arange(Lp)[None, :] >= lens[:, None]] = 0
+    seq = torch.as_tensor(seq, device=dev)
+    oh_seq = torch.nn.functional.one_hot(
+        torch.clamp(seq.long() - 1, 0, 3), 4).permute(1, 0, 2)  # [Lp, B, 4]
+    p_ = lambda t: ctypes.c_void_p(t.data_ptr())
+    ver = subprocess.run([nvcc, "--version"], stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True).stdout
+    print("nvcc: %s" % " / ".join(ver.strip().splitlines()[-2:]), flush=True)
+    for tag, extra in (("-O3", ()), ("-O3, ptxas -O0", ("-Xptxas", "-O0"))):
+        so = os.path.join(root, "repro_%d.so" % len(extra))
+        cmd = [nvcc, *K.NVCC_FLAGS, *extra, "-I", str(K.CSRC), "-shared",
+               "-o", so, str(src)]
+        r = subprocess.run(cmd, stdout=subprocess.PIPE,
+                           stderr=subprocess.STDOUT, text=True)
+        if r.returncode:
+            fail("onehot repro build %s:\n%s" % (tag, r.stdout))
+        L = ctypes.CDLL(so)
+        rec = {"build": tag, "codes": [int((code == v).sum())
+                                       for v in range(5)]}
+        for dt, suf in ((torch.float64, "f64"), (torch.float32, "f32")):
+            g = torch.as_tensor(rng.randn(n), dtype=dt, device=dev)
+            want = torch.nn.functional.one_hot(
+                torch.clamp(code.long() - 1, 0, 3), 4).to(dt) * g[:, None]
+            for kind in ("cmp", "tab"):
+                out = torch.full((n, 4), float("nan"), dtype=dt, device=dev)
+                rc = getattr(L, "repro_flat_%s_%s" % (kind, suf))(
+                    p_(code), p_(g), p_(out), ctypes.c_int(n))
+                torch.cuda.synchronize()
+                rec["flat_%s_%s terms wrong by base" % (kind, suf)] = (
+                    (out != want).sum(0).tolist() if rc == 0 else rc)
+            gR = torch.as_tensor(rng.randn(Lp, B), dtype=dt, device=dev)
+            gL = torch.as_tensor(rng.randn(Lp, B), dtype=dt, device=dev)
+            out = torch.full((8, B), float("nan"), dtype=dt, device=dev)
+            rc = getattr(L, "repro_walk_cmp_%s" % suf)(
+                p_(seq), p_(gR), p_(gL), p_(out), ctypes.c_int(Lp),
+                ctypes.c_int(B))
+            torch.cuda.synchronize()
+            valid = (seq > 0).T
+            zero = torch.zeros((), dtype=dt, device=dev)
+            want = torch.cat([DP.read_sum(oh_seq.to(dt) * torch.where(
+                valid, x, zero)[:, :, None], 1).T for x in (gR, gL)])
+            rec["walk_cmp_%s reads wrong by base (eR, eL)" % suf] = (
+                (out != want).sum(1).tolist() if rc == 0 else rc)
+            rec["walk_cmp_%s max abs err" % suf] = float(
+                (out - want).abs().max())
+        print(json.dumps(rec), flush=True)
+        if extra:
+            continue
+        ptx = os.path.join(root, "repro.ptx")
+        cubin = os.path.join(root, "repro.cubin")
+        for flag, path in (("-ptx", ptx), ("-cubin", cubin)):
+            r = subprocess.run([nvcc, *K.NVCC_FLAGS, "-I", str(K.CSRC), flag,
+                                "-o", path, str(src)],
+                               stdout=subprocess.PIPE,
+                               stderr=subprocess.STDOUT, text=True)
+            if r.returncode:
+                fail("onehot repro %s:\n%s" % (flag, r.stdout))
+        sass = subprocess.run(
+            [os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass",
+             cubin], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True).stdout
+        with open(ptx) as f:
+            ptx_text = f.read()
+        print("PTX of onehot_flat_cmp<double> (compare, select, min/max, "
+              "mul):\n  " + "\n  ".join(_function_lines(
+                  ptx_text, "onehot_flat_cmpIdE", ".entry",
+                  r"setp|selp|min|max|mul\.f64|add\.s32")), flush=True)
+        print("SASS of onehot_flat_cmp<double> (-O3):\n  " + "\n  ".join(
+            _function_lines(sass, "onehot_flat_cmpIdE", "Function :",
+                            r"^\s*/\*[0-9a-f]{4}\*/")), flush=True)
+    shipped_flags = K.NVCC_FLAGS
+    for tag, extra in (("-O3", ()), ("-O3, ptxas -O0", ("-Xptxas", "-O0"))):
+        K.NVCC_FLAGS = shipped_flags + extra
+        try:
+            for _ in patched_builds(ONEHOT_COMPARE, os.path.join(
+                    root, "k15_%d" % len(extra))):
+                rec = {"K15 with the compare form": tag}
+                for dtype, nr in (("float64", 16), ("float32", 64)):
+                    cfg = cfg_for(dtype)
+                    reads = make_reads(np.random.RandomState(0), nr, 80,
+                                       LP)
+                    sd, bp = rows_cd_batch(cfg, reads, dev, 3)
+                    w = rows_cd_weights(cfg, nr, dev, 4)
+                    outs, _, _ = factors_run(cfg, sd, bp, w, None, True)
+                    cots = [torch.randn_like(o) for o in outs]
+                    _, _, g = factors_run(cfg, sd, bp, w, cots, False)
+                    want, _ = plain_contraction(cfg, sd, cots)
+                    rec[dtype + " g_singles max abs err by base"] = (
+                        (g[0] - want).abs().amax((0, 1)).tolist())
+                print(json.dumps(rec), flush=True)
+        except Exception as e:  # a build refused at -O0: say so, go on
+            print(json.dumps({"K15 with the compare form": tag,
+                              "error": str(e)[-2000:]}), flush=True)
+        finally:
+            K.NVCC_FLAGS = shipped_flags
+    # where else ptxas reads a predicate out of a VIMNMX in the shipped
+    # library (the pattern of the wrong select above)
+    sass = subprocess.run(
+        [os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass",
+         str(K.build()[0])], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True).stdout
+    hits, fn = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            fn = ln.split("Function :")[1].strip()
+        elif re.search(r"VIMNMX\S*\s+R\d+,\s*P[0-6]\b", ln):
+            hits[fn] = hits.get(fn, 0) + 1
+    print(json.dumps({"shipped library: VIMNMX with a predicate output, "
+                      "by function": hits, "functions": sum(
+                          "Function :" in ln for ln in sass.splitlines())}),
+          flush=True)
     print("card: %s" % card_line(), flush=True)
 
 
@@ -4010,10 +4401,17 @@ def main():
     ap.add_argument("--ep-probes", action="store_true",
                     help="only time K11 with one piece of its step taken "
                          "out (see ep_probes) and exit")
+    ap.add_argument("--onehot-repro", action="store_true",
+                    help="only build and run the reproducer of K15's first "
+                         "one-hot form (see onehot_repro) and exit")
     ap.add_argument("--wide", action="store_true",
                     help="only build, check the launch plans' layouts and "
                          "run phase 14 (the wide grammars, 44 and 50 dots "
                          "among them), and exit")
+    ap.add_argument("--rows-cd-times", action="store_true",
+                    help="only build and time K14-K17 at the main path's "
+                         "shapes (rows_cd_times; with the host plans, K15 "
+                         "and K17 under every split) and exit")
     ap.add_argument("--shipped-only", action="store_true",
                     help="with --ep-variants, --band-variants, "
                          "--ext-variants or --ext-adj-variants: time the "
@@ -4049,6 +4447,9 @@ def main():
     if args.ep_probes:
         ep_probes(DEVICE)
         return
+    if args.onehot_repro:
+        onehot_repro(DEVICE)
+        return
     dev = DEVICE
     t_start = time.time()
     card = card_line()
@@ -4070,6 +4471,10 @@ def main():
                     exist_ok=True)
         with open(args.ptxas, "w") as f:
             f.write(log)
+    if args.rows_cd_times:
+        rows_cd_times_only(dev)
+        print("card: %s" % card_line(), flush=True)
+        return
     if args.wide:
         _, rows_w = wide_phase(dev)
         print(json.dumps({"kernels": rows_w}))
@@ -4110,6 +4515,7 @@ def main():
     err.update(a32)
     # rows C and D: the factors and the hoisted exponentials, K14-K17
     err.update(check_rows_cd(dev))
+    check_adj_splits(dev)
 
     parts_k64 = J.batch_logZ_parts(cfg64, p64, b16.sd, b16.bp_ok, device=dev)
     parts_p64 = plain_parts(cfg64, p64, b16, dev)
@@ -4307,6 +4713,7 @@ def main():
     torch.cuda.synchronize()
     warm_s = time.time() - t0
     eval_launches = {n: kk.launches for n, kk in K.KERNELS.items()}
+    eval_variants = {n: dict(kk.variants) for n, kk in K.KERNELS.items()}
     launches_fg = sum(eval_launches.values()) - sum(mask_launches.values())
     print("evaluation path launches (masks + fn+grad, B=%d): %s; by the "
           "variant of the launch plans: %s" % (
@@ -4505,7 +4912,8 @@ def main():
             "launches_step": launches[name],
             "launches_eval_path": eval_launches[name],
             "launches_fn_grad": per_fg[name], "ms_fn_grad": fg_dev[name],
-            "ms_by_function": ms_by_fn.get(name)})
+            "ms_by_function": ms_by_fn.get(name),
+            "variants": eval_variants[name]})
         print("kernel %s: %.4f ms per %s of %d launches (plain %.3f ms, "
               "bound %.4f ms by %s; with the pin %s ms); %d launches on the "
               "scan path, %d in the production step, %d on the evaluation "

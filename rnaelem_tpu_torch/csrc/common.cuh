@@ -299,85 +299,137 @@ static int allow_smem(const void* fn, long long bytes) {
   return 0;
 }
 
-// ---- ops/dp.read_sum's order in a block of RL reads x C columns
+// ---- ops/dp.read_sum's order, spread over blocks
 //
-// The sum over i < n of f(i), padded with zeros to P = 2^k >= n and
-// halves added elementwise until one is left (x[i] + x[i + P/2], ...):
-// the order of the plain versions' per-read sums (K15, K17).  Lane r =
-// threadIdx.x % RL is a read, column c = threadIdx.x / RL (C a power of
-// two) holds the indices i = c + q Cc, Cc = min(C, P): the levels whose
-// half is at least Cc pair two of the column's own values (tree_local: a
-// tree over q, which walked in bit-reversed order of q is the
-// left-to-right pairwise tree, a stack of partial sums; the values come
-// kTreeChunk at a time, their loads in flight together), the rest pair
-// columns in shared memory (tree_cols, NV sums at once).  Every thread of
-// the block calls tree_cols (it holds barriers).
-static const int kTreeDepth = 40;
+// read_sum adds x[i], i < n, padded with zeros to P = 2^k >= n, by halving
+// (x[i] + x[i + P/2], ...) until one value is left: the order of the
+// plain versions' per-read sums (K15, K17).  After the levels whose half
+// is at least M (any power of two <= P), the partial sum at r < M is the
+// halving tree over the residue class {r, r + M, r + 2M, ...}; the last
+// log2(M) levels halve those M partials.  So the kernels cut a read's sum
+// twice, and keep its bits whatever the cut:
+//  - K blocks (a split the host plan picks) take the residue classes of
+//    K; block k sums y[m] = x[k + m K], m < P/K, and writes its partial
+//    to a workspace, and the last block of the read's group to finish
+//    halves the K partials in a fixed order (tree_walk over them, or cut
+//    over its columns as a block's class is);
+//  - inside a block, Cc = min(P/K, C) columns take the residue classes of
+//    Cc of y: column c walks y[c + q Cc] (tree_walk), then block_tree
+//    halves the Cc columns, the levels across warps with one barrier, the
+//    levels inside a warp by shuffles.
+// A thread is (read lane r, column c): lane = r + RL c, RL reads a warp's
+// row (32 or 128 bytes), the read fastest so that every batch-minor load
+// is whole sectors.
+static const int kTreeDepth = 32;  // a walk's stack (2^32 chunks)
 static const int kTreeChunk = 8;
 
-struct TreeShape {
-  long long P, Q;  // padded length, values a column holds
-  int Cc, lq;      // columns in use, log2(Q)
-  __device__ __forceinline__ TreeShape(long long n, int C) {
-    P = 1;
-    while (P < n) P <<= 1;
-    Cc = P < C ? (int)P : C;
-    Q = P / Cc;
-    lq = 0;
-    while ((1LL << lq) < Q) ++lq;
-  }
-};
-
-// column c's partial sum (0 for a column past Cc)
-template <typename T, class F>
-__device__ __forceinline__ T tree_local(const TreeShape& t, long long n,
-                                        int c, F f) {
-  if (c >= t.Cc) return (T)0;
-  T stk[kTreeDepth];
-  int depth = 0;
-  for (long long q0 = 0; q0 < t.Q; q0 += kTreeChunk) {
-    T xs[kTreeChunk];
-#pragma unroll
-    for (int u = 0; u < kTreeChunk; ++u) {
-      const long long qq = q0 + u;
-      const long long q =
-          t.lq ? (long long)(__brevll((unsigned long long)qq) >> (64 - t.lq))
-               : 0;
-      const long long i = c + q * t.Cc;
-      xs[u] = qq < t.Q && i < n ? f(i) : (T)0;
-    }
-#pragma unroll
-    for (int u = 0; u < kTreeChunk; ++u) {
-      if (q0 + u >= t.Q) break;
-      T x = xs[u];
-      for (long long m = q0 + u; m & 1; m >>= 1) x = stk[--depth] + x;
-      stk[depth++] = x;
-    }
-  }
-  return stk[0];
+static __host__ __device__ __forceinline__ int log2_pow2(long long x) {
+  int l = 0;
+  while ((1LL << l) < x) ++l;
+  return l;
 }
 
-// the columns' halving tree in shared memory red [NV][C][RL] of NV
-// partial sums at once; each thread gets its lane's NV sums in out
-template <typename T, int NV, int RL, int C>
-__device__ __forceinline__ void tree_cols(const TreeShape& t, T (&loc)[NV],
-                                          T* red, T (&out)[NV]) {
-  const int r = threadIdx.x % RL, c = threadIdx.x / RL;
+// the halving tree over y_v[q], q < Q (Q a power of two), of NV sequences
+// at once; f(q, y) fills y[NV] with the values at q.  The walk takes q in
+// bit-reversed order (which makes the halving tree the left-to-right
+// pairwise tree), kTreeChunk values at a time, their loads in flight
+// together: a chunk is a complete subtree, added in registers, and the
+// chunks' sums go on a stack.
+template <typename T, int NV, class F>
+__device__ __forceinline__ void tree_walk(int Q, F f, T (&out)[NV]) {
+  const int lq = log2_pow2(Q);
+  const int N = Q < kTreeChunk ? Q : kTreeChunk;
+  T stk[kTreeDepth][NV];
+  int depth = 0;
+  for (int q0 = 0, m = 0; q0 < Q; q0 += N, ++m) {
+    T xs[kTreeChunk][NV];
 #pragma unroll
-  for (int v = 0; v < NV; ++v) red[(v * C + c) * RL + r] = loc[v];
-  __syncthreads();
-  for (int h = t.Cc / 2; h >= 1; h >>= 1) {
-    if (c < h) {
+    for (int u = 0; u < kTreeChunk; ++u) {
+      if (u < N) {
+        const int q = lq ? (int)(__brev((unsigned)(q0 + u)) >> (32 - lq)) : 0;
+        f(q, xs[u]);
+      } else {
 #pragma unroll
-      for (int v = 0; v < NV; ++v)
-        red[(v * C + c) * RL + r] =
-            red[(v * C + c) * RL + r] + red[(v * C + c + h) * RL + r];
+        for (int v = 0; v < NV; ++v) xs[u][v] = (T)0;
+      }
     }
-    __syncthreads();
+#pragma unroll
+    for (int w = 1; w < kTreeChunk; w <<= 1)
+      if (w < N) {
+#pragma unroll
+        for (int u = 0; u < kTreeChunk; u += 2 * w)
+#pragma unroll
+          for (int v = 0; v < NV; ++v) xs[u][v] = xs[u][v] + xs[u + w][v];
+      }
+    for (int mm = m; mm & 1; mm >>= 1) {
+      --depth;
+#pragma unroll
+      for (int v = 0; v < NV; ++v) xs[0][v] = stk[depth][v] + xs[0][v];
+    }
+#pragma unroll
+    for (int v = 0; v < NV; ++v) stk[depth][v] = xs[0][v];
+    ++depth;
   }
 #pragma unroll
-  for (int v = 0; v < NV; ++v) out[v] = red[(v * C) * RL + r];
+  for (int v = 0; v < NV; ++v) out[v] = stk[0][v];
+}
+
+// the halving tree over a block's columns, value v over its first cc[v]
+// columns (a power of two; the rest hold nothing of it): the levels that
+// pair columns of two warps in one step after one barrier (warp 0 halves
+// the warps' values of its columns), then the levels inside a warp by
+// shuffles at lane offsets RL h.  Lanes of column 0 of warp 0 end with
+// the sums; every thread of the block calls it (a barrier where some cc
+// exceeds a warp's columns), red holds NV x NT values.
+template <typename T, int NV, int RL, int NT>
+__device__ __forceinline__ void block_tree(const int (&cc)[NV], T (&x)[NV],
+                                           T* red) {
+  constexpr int CW = 32 / RL, C = NT / RL, NW = C / CW;
+  const int r = threadIdx.x % RL, c = threadIdx.x / RL;
+  bool cross = false;
+#pragma unroll
+  for (int v = 0; v < NV; ++v) cross = cross || cc[v] > CW;
+  if (cross) {
+#pragma unroll
+    for (int v = 0; v < NV; ++v) red[(v * C + c) * RL + r] = x[v];
+    __syncthreads();
+    if (c < CW) {
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        const int nw = cc[v] / CW;
+        if (nw < 2) continue;
+        T w8[NW];
+#pragma unroll
+        for (int i = 0; i < NW; ++i)
+          w8[i] = i < nw ? red[(v * C + c + CW * i) * RL + r] : (T)0;
+#pragma unroll
+        for (int h = NW / 2; h >= 1; h >>= 1)
+          if (h < nw) {
+#pragma unroll
+            for (int i = 0; i < h; ++i) w8[i] = w8[i] + w8[i + h];
+          }
+        x[v] = w8[0];
+      }
+    }
+  }
+#pragma unroll
+  for (int h = CW / 2; h >= 1; h >>= 1)
+#pragma unroll
+    for (int v = 0; v < NV; ++v)
+      if (h < cc[v]) x[v] = x[v] + __shfl_xor_sync(0xffffffffu, x[v], RL * h);
+}
+
+// the last block of a group of blocks to arrive (after its partials are
+// written): true in every thread of that block, which then reads the
+// others' partials through L2 (__ldcg) and resets the counter
+__device__ __forceinline__ bool last_of_group(int* done, int n) {
+  __shared__ bool last;
+  __threadfence();
   __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(done, 1) == n - 1;
+  __syncthreads();
+  if (last) __threadfence();
+  return last;
 }
 
 RNAELEM_EXPORT const char* rnaelem_error_string(int code);

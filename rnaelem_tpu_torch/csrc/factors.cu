@@ -27,24 +27,28 @@
 // pairs.  The emission lookups are one-hot contractions (exact: one
 // product per cell), so each sum over a read's positions or pair cells
 // follows ops/dp.read_sum's order (padded to a power of two, halves added
-// elementwise: common.cuh tree_sum), and the per-state sums go to the
-// states' slots in ascending state order, bg2's + eL's + eR's: the
-// contraction is bitwise the plain version's (model/joint._OneHot and the
-// index backward of singles[:, slot]), then the log-softmax's adjoint
-// where theta_softmax applies.  Nothing is summed across reads, so a
-// read's bits do not depend on the batch.
+// elementwise: common.cuh tree_walk, block_tree), and the per-state sums
+// go to the states' slots in ascending state order, bg2's + eL's + eR's:
+// the contraction is bitwise the plain version's (model/joint._OneHot
+// and the index backward of singles[:, slot]), then the log-softmax's
+// adjoint where theta_softmax applies.  Nothing is summed across reads,
+// so a read's bits do not depend on the batch or on the split.
 //
 // Bound on the H100: bytes (a few kB of weights, the codes, and the
 // factors written once: about 8.9 MB in f32 at B = 128 x 100 nt, S = 29,
 // -w 50), and for B of a few hundred, launch latency.  Design: K14 one
 // coalesced pass, a thread per output cell with the read fastest, in four
 // index ranges of one grid (state cells, pair cells, position cells, and
-// a warp per read for the running dot counts); K15 a block of 1024
-// threads per group of RL reads (one 32-byte sector: 8 f32, 4 f64) and C
-// columns, the read fastest so that every load of a batch-minor
-// cotangent is a full sector, the eight sums of a state (eR and eL, four
-// bases) in one pass of the columns' tree, a block per pair table beside
-// the slots' block.
+// a warp per read for the running dot counts).  K15 spreads a read's sums
+// over blocks of 8 warps, each warp a row of RL reads (one 32-byte
+// sector) x 32 / RL columns, the reads' codes staged in shared memory:
+// the state blocks take a state a warp (its eight sums, eR's and eL's at
+// the four bases, one load of each cotangent cell per position, the
+// columns' levels by shuffles) and bg2 in one more warp; K pair blocks
+// per pair table take a residue class of K of its cells each (K from the
+// host plan, ops/kernels.factors_adj_plan).  Each writes its sums to a
+// workspace; the group's last block (a counter) halves the pair slices
+// and adds the states' sums into the slots.
 #include "common.cuh"
 
 struct FacDims {
@@ -55,11 +59,15 @@ struct FacDims {
   long long sbs, sbp;        // batch strides of singles, pairs (elements)
 };
 
-struct FacIdx {             // the grammar's lists (int32, [S])
-  const int* slot_r;        // single table of each state's right node
+struct FacIdx {             // the grammar's lists (int32)
+  const int* slot_r;        // [S] single table of each state's right node
   const int* slot_l;        // and left node (wrapped into 0..ns-1)
-  const int* ws_r;          // 1: the state adds the positional weight
+  const int* ws_r;          // [S] 1: the state adds the positional weight
   const int* ws_l;
+  const int* rs_off;        // [ns+1] each slot's states (right nodes) in
+  const int* rs_s;          // [S] ascending order: rs_s[rs_off[u]..]
+  const int* ls_off;        // the same for the left nodes
+  const int* ls_s;
 };
 
 struct FacOut {             // K14's outputs (null: not written)
@@ -84,6 +92,18 @@ __constant__ int c_fac_bp[25] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 5, 0, 0, 0,
                                  1, 0, 0, 0, 2, 0, 3, 0, 6, 0, 4, 0};
 
 static const int kFacThreads = 256;
+
+// K15's one-hot rows, literal: the base of codes 0..4 (clip(code - 1, 0,
+// 3)), then the index of pair types 0..6 (clip(bt - 1, 0, 5)).  Not
+// computed as (k == clampi(x - 1, 0, hi)): the sm_90a build at -O3 takes
+// that compare at k == hi from the predicate of the clamp's VIMNMX.RELU,
+// which the card sets for every x >= 1 (the PTX is right, and ptxas -O0
+// is exact), so base 3 took every base's term; csrc/repro/onehot_select.cu
+// reproduces it alone (chip_smoke.py --onehot-repro)
+__constant__ int c_fac_onehot[62] = {
+    1, 0, 0, 0, 1, 0, 0, 0, 0, 1, 0, 0, 0, 0, 1, 0, 0, 0, 0, 1,
+    1, 0, 0, 0, 0, 0, 1, 0, 0, 0, 0, 0, 0, 1, 0, 0, 0, 0, 0, 0, 1, 0,
+    0, 0, 0, 0, 0, 1, 0, 0, 0, 0, 0, 0, 1, 0, 0, 0, 0, 0, 0, 1};
 
 __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);
@@ -233,100 +253,195 @@ struct FacAdjArgs {
   const void* gbg2;  // [Lp, B] or null
   const void* gpv;   // [Lp+1, Wp+1, Tp, B] or null
   void* gs;          // [B, ns, 4]
-  void* gp;          // [B, Tp, 6] (pairs blocks only)
+  void* gp;          // [B, Tp, 6] (pair blocks only)
+  void* ws;          // the blocks' sums: [S+1][8][B], then [Tp][Kp][6][B]
+  int* done;         // [read groups] finished blocks (the last resets it)
 };
 
-// ---- K15: block (group, 0) the slots of a group of RL reads, block
-// (group, 1 + t) pair table t
-template <typename T, int RL, int C>
-__global__ void __launch_bounds__(RL * C)
+// K15's block: 8 warps, each a row of RL reads (one 32-byte sector) x CW
+// columns; the reads' codes staged in shared memory [RL][Lp]
+template <typename T>
+struct FacAdjShape {
+  static const int RL = 32 / sizeof(T), NT = 256, NWARP = NT / 32;
+};
+static const int kFinBatch = 8;  // states whose sums a finish thread loads
+                                 // together
+
+// ---- K15: block (group g of RL reads, y).  y < n_sc: warp w takes the
+// task y * NWARP + w: state s < S (eR's and eL's sums at the four bases),
+// s == S (bg2's four sums); y >= n_sc: slice k of Kp of pair table t.
+// The group's last block adds the states' sums into the slots and halves
+// the pair slices (the finish).
+template <typename T>
+__global__ void __launch_bounds__(FacAdjShape<T>::NT)
 factors_adj_kernel(FacDims D, FacIdx ix, const T* singles, const T* pairs,
-                   const int* seq, FacAdjArgs a) {
+                   const int* seq, FacAdjArgs a, int pair_blocks, int Kp) {
+  constexpr int RL = FacAdjShape<T>::RL, NT = FacAdjShape<T>::NT;
+  constexpr int NWARP = FacAdjShape<T>::NWARP, C = NT / RL, CW = 32 / RL;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* red = reinterpret_cast<T*>(smem_raw);  // [8][C][RL]
+  T* red = reinterpret_cast<T*>(smem_raw);          // [6][NT]
+  int* codes = reinterpret_cast<int*>(red + 6 * NT);  // [RL][Lp]
+  __shared__ int bp_s[25];
+  // the one-hot rows (c_fac_onehot: base of a code, pair type index) as
+  // 0/1 values, so that a term is one product, (0 or 1) x g, as the plain
+  // version forms it
+  __shared__ T oh4[5][4], oh6[7][6];
   const int Lp = D.Lp, W1 = D.Wp + 1, S = D.S, B = D.B, ns = D.ns;
   const int r = threadIdx.x % RL, c = threadIdx.x / RL;
   const int b = blockIdx.x * RL + r;
   const bool live = b < B;
-  if (blockIdx.y == 0) {
-    T* accL = red + 8 * C * RL;    // [ns][4][RL] the slots' eL sums
-    T* accR = accL + ns * 4 * RL;  // and eR's
-    for (int i = threadIdx.x; i < 2 * ns * 4 * RL; i += blockDim.x)
-      accL[i] = (T)0;
-    const T* g3[3] = {static_cast<const T*>(a.geR),
-                      static_cast<const T*>(a.geL),
-                      static_cast<const T*>(a.gbg2)};
-    // the one-hot product of read b's position p at base k for cotangent
-    // g3[which] ([Lp, S, B], or bg2's [Lp, B] at s = 0; null: zero)
-    auto term = [&](int which, long long p, int s, int k) -> T {
-      const T* g = g3[which];
-      const int code = live ? seq[(long long)b * Lp + p] : 0;
-      const long long at = (p * (which == 2 ? 1 : S) + s) * B + b;
-      const T gv = live && g && code > 0 ? g[at] : (T)0;
-      return (k == clampi(code - 1, 0, 3) ? (T)1 : (T)0) * gv;
-    };
-    const TreeShape t(Lp, C);
-    __syncthreads();
-    for (int s = 0; s < S; ++s) {
-      T loc[8], sum[8];
+  const int n_sc = (S + 1 + NWARP - 1) / NWARP;
+  T* ws_s = static_cast<T*>(a.ws);
+  T* ws_p = ws_s + (long long)(S + 1) * 8 * B;
+  const int np = (Lp + 1) * W1;  // pair cells (j, w)
+  const int Pp = 1 << log2_pow2(np);
+  const int Kt = Kp < Pp ? Kp : Pp;
+  for (int i = threadIdx.x; i < RL * Lp; i += NT) {
+    const int rr = i / Lp, bb = blockIdx.x * RL + rr;
+    codes[i] = bb < B ? seq[(long long)bb * Lp + (i - rr * Lp)] : 0;
+  }
+  if (threadIdx.x < 25) bp_s[threadIdx.x] = c_fac_bp[threadIdx.x];
+  if (threadIdx.x < 20) oh4[threadIdx.x / 4][threadIdx.x % 4] =
+      (T)c_fac_onehot[threadIdx.x];
+  if (threadIdx.x < 42) oh6[threadIdx.x / 6][threadIdx.x % 6] =
+      (T)c_fac_onehot[20 + threadIdx.x];
+  __syncthreads();
+  const int* code_r = codes + r * Lp;
+  if ((int)blockIdx.y < n_sc) {
+    const int s = blockIdx.y * NWARP + threadIdx.x / 32;
+    const int cw = c % CW;  // the lane's column in its warp
+    if (s <= S) {
+      // positions p = cw + q Cc (read_sum's order over Lp, padded), eR's
+      // and eL's cotangents (bg2's for s == S) loaded once per position
+      const int P = 1 << log2_pow2(Lp);
+      const int Cc = P < CW ? P : CW;
+      const T* gR = static_cast<const T*>(s < S ? a.geR : a.gbg2);
+      const T* gL = static_cast<const T*>(s < S ? a.geL : nullptr);
+      const long long st = s < S ? S : 1, s0 = s < S ? s : 0;
+      T x[8];
 #pragma unroll
-      for (int v = 0; v < 8; ++v)
-        loc[v] = tree_local<T>(t, Lp, c, [&](long long p) -> T {
-          return term(v / 4, p, s, v % 4);
-        });
-      tree_cols<T, 8, RL, C>(t, loc, red, sum);
-      if (c == 0) {
+      for (int v = 0; v < 8; ++v) x[v] = (T)0;
+      if (cw < Cc)
+        tree_walk<T, 8>(P / Cc, [&](int q, T(&o)[8]) {
+          const int p = cw + q * Cc;
+          const int code = live && p < Lp ? code_r[p] : 0;
+          const long long cell = (p * st + s0) * B + b;
+          const T vr = code > 0 && gR ? gR[cell] : (T)0;
+          const T vl = code > 0 && gL ? gL[cell] : (T)0;
+          const T* oh = oh4[clampi(code, 0, 4)];
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          T* ar = accR + (ix.slot_r[s] * 4 + k) * RL + r;
-          T* al = accL + (ix.slot_l[s] * 4 + k) * RL + r;
-          *ar = *ar + sum[k];
-          *al = *al + sum[4 + k];
-        }
+          for (int k = 0; k < 4; ++k) {
+            o[k] = oh[k] * vr;
+            o[4 + k] = oh[k] * vl;
+          }
+        }, x);
+      const int cc[8] = {Cc, Cc, Cc, Cc, Cc, Cc, Cc, Cc};
+      block_tree<T, 8, RL, 32>(cc, x, red);
+      if (live && cw == 0) {
+#pragma unroll
+        for (int v = 0; v < 8; ++v)
+          ws_s[((long long)s * 8 + v) * B + b] = x[v];
       }
     }
-    T loc[4], bg[4];
+  } else {
+    // pair cells i = k + m Kt of table t: this block's residue class
+    const int t = (blockIdx.y - n_sc) / Kp, k = (blockIdx.y - n_sc) % Kp;
+    const T* gpv = static_cast<const T*>(a.gpv);
+    const int Q = Pp / Kt, Cc = Q < C ? Q : C;
+    T x[6];
+#pragma unroll
+    for (int v = 0; v < 6; ++v) x[v] = (T)0;
+    if (k < Kt && c < Cc)
+      tree_walk<T, 6>(Q / Cc, [&](int q, T(&o)[6]) {
+        const int i = k + (c + q * Cc) * Kt;
+        int bt = 0;
+        if (live && i < np) {
+          const unsigned j = (unsigned)i / (unsigned)W1;
+          const int w = i - (int)j * W1;
+          const int x0 = code_r[clampi((int)j - w, 0, Lp - 1)];
+          const int x1 = code_r[clampi((int)j - 1, 0, Lp - 1)];
+          bt = bp_s[clampi(x0, 0, 4) * 5 + clampi(x1, 0, 4)];
+        }
+        const T g = bt > 0 && gpv
+                        ? gpv[((long long)i * D.Tp + t) * B + b] : (T)0;
+#pragma unroll
+        for (int v = 0; v < 6; ++v) o[v] = oh6[bt][v] * g;
+      }, x);
+    const int cc[6] = {Cc, Cc, Cc, Cc, Cc, Cc};
+    block_tree<T, 6, RL, NT>(cc, x, red);
+    if (live && c == 0 && k < Kt) {
+#pragma unroll
+      for (int v = 0; v < 6; ++v)
+        ws_p[(((long long)t * Kp + k) * 6 + v) * B + b] = x[v];
+    }
+  }
+  if (!last_of_group(a.done + blockIdx.x, n_sc + pair_blocks * Kp)) return;
+  // the finish, one thread per (read, slot) and per (read, pair table).
+  // Slots: the states' sums added in ascending state order, eR's and
+  // eL's apart (loaded kFinBatch states at a time), then bg2's + eL's +
+  // eR's (singles[:, slot]'s index adjoint); pairs: the Kt slices' sums
+  // halved; then the log-softmax's adjoint where theta_softmax applies
+  const int n_slot = RL * ns;
+  for (int i = threadIdx.x; i < n_slot + RL * pair_blocks; i += NT) {
+    if (i >= n_slot) {
+      const int rr = (i - n_slot) % RL, t = (i - n_slot) / RL;
+      const int bb = blockIdx.x * RL + rr;
+      if (bb >= B) continue;
+      T g[6];
+      tree_walk<T, 6>(Kt, [&](int q, T(&o)[6]) {
+#pragma unroll
+        for (int v = 0; v < 6; ++v)
+          o[v] = __ldcg(ws_p + (((long long)t * Kp + q) * 6 + v) * B + bb);
+      }, g);
+      if (D.theta_softmax) softmax_adj<T, 6>(pairs + bb * D.sbp + 6 * t, g);
+      T* gp = static_cast<T*>(a.gp) + ((long long)bb * D.Tp + t) * 6;
+#pragma unroll
+      for (int v = 0; v < 6; ++v) gp[v] = g[v];
+      continue;
+    }
+    const int rr = i % RL, u = i / RL, bb = blockIdx.x * RL + rr;
+    if (bb >= B) continue;
+    const int r0 = ix.rs_off[u], nr = ix.rs_off[u + 1] - r0;
+    const int l0 = ix.ls_off[u], nl = ix.ls_off[u + 1] - l0;
+    T accR[4] = {0, 0, 0, 0}, accL[4] = {0, 0, 0, 0}, bg[4];
 #pragma unroll
     for (int k = 0; k < 4; ++k)
-      loc[k] = tree_local<T>(t, Lp, c, [&](long long p) -> T {
-        return term(2, p, 0, k);
-      });
-    tree_cols<T, 4, RL, C>(t, loc, red, bg);
-    if (!live) return;
-    T* gs = static_cast<T*>(a.gs) + (long long)b * ns * 4;
-    for (int u = c; u < ns; u += C) {
-      T g[4];
+      bg[k] = u == 0 ? __ldcg(ws_s + ((long long)S * 8 + k) * B + bb)
+                     : (T)0;
+    for (int e0 = 0; e0 < nr || e0 < nl; e0 += kFinBatch) {
+      T vr[kFinBatch][4], vl[kFinBatch][4];
 #pragma unroll
-      for (int k = 0; k < 4; ++k)
-        g[k] = ((u == 0 ? bg[k] : (T)0) + accL[(u * 4 + k) * RL + r]) +
-               accR[(u * 4 + k) * RL + r];
-      if (D.theta_softmax) softmax_adj<T, 4>(singles + b * D.sbs + 4 * u, g);
+      for (int j = 0; j < kFinBatch; ++j) {
+        const T* sr = e0 + j < nr
+            ? ws_s + (long long)__ldg(ix.rs_s + r0 + e0 + j) * 8 * B + bb
+            : nullptr;
+        const T* sl = e0 + j < nl
+            ? ws_s + ((long long)__ldg(ix.ls_s + l0 + e0 + j) * 8 + 4) * B +
+                  bb
+            : nullptr;
 #pragma unroll
-      for (int k = 0; k < 4; ++k) gs[u * 4 + k] = g[k];
+        for (int k = 0; k < 4; ++k) {
+          vr[j][k] = sr ? __ldcg(sr + k * B) : (T)0;
+          vl[j][k] = sl ? __ldcg(sl + k * B) : (T)0;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kFinBatch; ++j)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          if (e0 + j < nr) accR[k] = accR[k] + vr[j][k];
+          if (e0 + j < nl) accL[k] = accL[k] + vl[j][k];
+        }
     }
-    return;
+    T g[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) g[k] = (bg[k] + accL[k]) + accR[k];
+    if (D.theta_softmax) softmax_adj<T, 4>(singles + bb * D.sbs + 4 * u, g);
+    T* gs = static_cast<T*>(a.gs) + ((long long)bb * ns + u) * 4;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) gs[k] = g[k];
   }
-  const int t = blockIdx.y - 1;
-  const T* gpv = static_cast<const T*>(a.gpv);
-  const long long n = (long long)(Lp + 1) * W1;
-  const TreeShape ts(n, C);
-  T loc[6], sum[6];
-#pragma unroll
-  for (int k = 0; k < 6; ++k)
-    loc[k] = tree_local<T>(ts, n, c, [&](long long i) -> T {
-      const int j = (int)(i / W1), w = (int)(i % W1);
-      const int bt = live ? pair_type(seq, Lp, b, j, w) : 0;
-      const T g = live && gpv && bt > 0
-                      ? gpv[(((long long)j * W1 + w) * D.Tp + t) * B + b]
-                      : (T)0;
-      return (k == clampi(bt - 1, 0, 5) ? (T)1 : (T)0) * g;
-    });
-  tree_cols<T, 6, RL, C>(ts, loc, red, sum);
-  if (!live || c != 0) return;
-  if (D.theta_softmax) softmax_adj<T, 6>(pairs + b * D.sbp + 6 * t, sum);
-  T* gp = static_cast<T*>(a.gp) + ((long long)b * D.Tp + t) * 6;
-#pragma unroll
-  for (int k = 0; k < 6; ++k) gp[k] = sum[k];
+  if (threadIdx.x == 0) a.done[blockIdx.x] = 0;
 }
 
 template <typename T>
@@ -348,29 +463,33 @@ static int factors(FacDims D, FacIdx ix, const T* singles, const T* pairs,
   return static_cast<int>(cudaGetLastError());
 }
 
-// reads per K15 block: one 32-byte sector of a batch-minor row
+// K15's dynamic shared memory: the block trees' values and the codes
 template <typename T>
-struct FacAdjShape {
-  static const int RL = 32 / sizeof(T), C = 1024 / RL;
-};
-
-template <typename T>
-static long long factors_adj_smem(int ns) {
+static long long factors_adj_smem(int Lp) {
   using Sh = FacAdjShape<T>;
-  return (8LL * Sh::C * Sh::RL + 2LL * ns * 4 * Sh::RL) * sizeof(T);
+  return 6LL * Sh::NT * sizeof(T) + 4LL * Sh::RL * Lp;
 }
 
+// K15 on the host plan's layout (ops/kernels.factors_adj_plan: groups of
+// rl reads x grid_y blocks, smem bytes), refused unless it is the
+// kernel's: RL reads a group, a block per NWARP states and Kp per pair
+// table, the block's shared memory
 template <typename T>
 static int factors_adj(FacDims D, FacIdx ix, const T* singles,
                        const T* pairs, const int* seq, FacAdjArgs a,
-                       int pair_blocks, cudaStream_t st) {
+                       int pair_blocks, int Kp, int rl, int groups,
+                       int grid_y, int smem, cudaStream_t st) {
   using Sh = FacAdjShape<T>;
-  auto kern = factors_adj_kernel<T, Sh::RL, Sh::C>;
-  const long long bytes = factors_adj_smem<T>(D.ns);
-  const int rc = allow_smem((const void*)kern, bytes);
+  auto kern = factors_adj_kernel<T>;
+  if (Kp < 1 || (Kp & (Kp - 1)) || rl != Sh::RL ||
+      groups != (D.B + Sh::RL - 1) / Sh::RL ||
+      grid_y != (D.S + 1 + Sh::NWARP - 1) / Sh::NWARP + pair_blocks * Kp ||
+      grid_y > 65535 || smem != factors_adj_smem<T>(D.Lp))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int rc = allow_smem((const void*)kern, smem);
   if (rc) return rc;
-  const dim3 grid((D.B + Sh::RL - 1) / Sh::RL, 1 + pair_blocks);
-  kern<<<grid, Sh::RL * Sh::C, bytes, st>>>(D, ix, singles, pairs, seq, a);
+  kern<<<dim3(groups, grid_y), Sh::NT, smem, st>>>(D, ix, singles, pairs,
+                                                   seq, a, pair_blocks, Kp);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -383,8 +502,10 @@ static int factors_adj(FacDims D, FacIdx ix, const T* singles,
   }                                                                          \
   RNAELEM_EXPORT int rnaelem_factors_adj_##SUF(                              \
       FacDims D, FacIdx ix, FacAdjArgs a, const T* singles, const T* pairs,  \
-      const int* seq, int pair_blocks, cudaStream_t st) {                    \
-    return factors_adj<T>(D, ix, singles, pairs, seq, a, pair_blocks, st);   \
+      const int* seq, int pair_blocks, int Kp, int rl, int groups,           \
+      int grid_y, int smem, cudaStream_t st) {                               \
+    return factors_adj<T>(D, ix, singles, pairs, seq, a, pair_blocks, Kp,    \
+                          rl, groups, grid_y, smem, st);                     \
   }
 
 FACTORS_EXPORTS(f32, float)

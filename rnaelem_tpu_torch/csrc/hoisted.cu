@@ -26,15 +26,23 @@
 // adds the plain version's three _LamExp terms: (emisB + emisA) + eSZ.
 // It recomputes exp(lam x) from lambda and x, so nothing of K16 is kept
 // and ops/dp.lam_total runs no forward again.  Nothing is summed across
-// reads: a read's bits do not depend on the batch.
+// reads: a read's bits do not depend on the batch or on the split.
 //
 // Bound on the H100: bytes.  K16 reads misA and misB and writes about
 // 2.5x their size (emisA, emisB: 2 x 2 x 4 x (Lp+1)(Wp+1) x B values,
 // 21 MB in f32 at B = 128 x 100 nt -w 50); K17 reads those cotangents and
-// misA, misB once.  Design: K16 one coalesced pass, a thread per output
-// cell (the read fastest) in three index ranges of one grid; K17 a block
-// per (bucket, group of RL reads: one 32-byte sector) whose C columns
-// walk the tensors with the read fastest, so every load is a full sector.
+// misA, misB once (about 72 MB there; not emisB's PAD rows).  Design:
+// K16 one coalesced pass, a thread per output cell (the read fastest) in
+// three index ranges of one grid.  K17 spreads each read's sums over the
+// card: a block per (group of RL reads: a warp's loads one 128-byte line,
+// slice k of K) takes residue class k of K of each of the three trees for
+// both buckets (one load of misA/misB for the two, misA's and misB's
+// trees in one walk), its 256 threads RL reads x C columns walking the
+// class with 32-bit indices (common.cuh tree_walk, block_tree); the
+// partials go to a workspace and the group's last block halves them (a
+// counter) the same way.  K comes from the host plan
+// (ops/kernels.hoisted_adj_plan: about 512 blocks), and every K gives
+// read_sum's bits.
 #include "common.cuh"
 
 struct HoistDims {
@@ -132,16 +140,26 @@ __device__ __forceinline__ T lam_term(T g, T lam, T x) {
   return (g * out) * (x == ninf<T>() ? (T)0 : x);
 }
 
-// ---- K17: block (group of RL reads, bucket)
-template <typename T, int RL, int C>
-__global__ void __launch_bounds__(RL * C)
-hoisted_adj_kernel(HoistDims D, HoistIn in, HoistOut g, T* glam) {
-  __shared__ T red[C * RL];
+// ---- K17: block (group of RL reads, slice k of K); both buckets
+template <typename T>
+struct HoistAdjShape {  // a warp's row of reads: one 128-byte line
+  static const int RL = 128 / sizeof(T), NT = 256;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(HoistAdjShape<T>::NT)
+hoisted_adj_kernel(HoistDims D, HoistIn in, HoistOut g, T* glam, T* part,
+                   int* done, int K) {
+  constexpr int RL = HoistAdjShape<T>::RL, NT = HoistAdjShape<T>::NT;
+  constexpr int C = NT / RL;
+  __shared__ T red[6 * NT];
   const int B = D.B, C1 = D.Cp + 1, W1 = D.Wp + 1, Lp1 = D.Lp + 1;
-  const int r = threadIdx.x % RL, c = threadIdx.x / RL, bu = blockIdx.y;
+  const int r = threadIdx.x % RL, c = threadIdx.x / RL, k = blockIdx.y;
   const int b = blockIdx.x * RL + r;
   const bool live = b < B;
-  const T lb = live ? lam_of(D, static_cast<const T*>(in.lam), bu, b) : (T)0;
+  const T* lamp = static_cast<const T*>(in.lam);
+  const T lb[2] = {live ? lam_of(D, lamp, 0, b) : (T)0,
+                   live ? lam_of(D, lamp, 1, b) : (T)0};
   const T* gA = static_cast<const T*>(g.emisA);
   const T* gB = static_cast<const T*>(g.emisB);
   const T* gE = static_cast<const T*>(g.eSZ);
@@ -149,50 +167,117 @@ hoisted_adj_kernel(HoistDims D, HoistIn in, HoistOut g, T* glam) {
   const T* misA = static_cast<const T*>(in.misA);
   const T* misB = static_cast<const T*>(in.misB);
   const T* SZT = static_cast<const T*>(in.SZT);
-  const long long nm = 4LL * Lp1 * W1;  // (g, j, w) of misA / misB
-  const long long ns = (long long)D.n_cls * C1 * C1;  // (x, dl, u1)
-  const TreeShape tm(nm, C), ts(ns, C);
-  T loc[3];
-  loc[0] = tree_local<T>(tm, nm, c, [&](long long i) -> T {
-    if (!live || !gB) return (T)0;
-    const int w = (int)(i % W1), j = (int)((i / W1) % Lp1);
-    const int gr = (int)(i / ((long long)W1 * Lp1));
-    const T gv = gB[((((long long)bu * (Lp1 + D.PAD) + D.PAD + j) * W1 + w) *
-                         4 + gr) * B + b];
-    return lam_term(gv, lb, misB[i * B + b]);
-  });
-  loc[1] = tree_local<T>(tm, nm, c, [&](long long i) -> T {
-    if (!live || !gA) return (T)0;
-    return lam_term(gA[((long long)bu * nm + i) * B + b], lb, misA[i * B + b]);
-  });
-  loc[2] = tree_local<T>(ts, ns, c, [&](long long i) -> T {
-    if (!live || (!gE && !gG)) return (T)0;
-    const long long cell = i % ((long long)C1 * C1);
-    const int x = (int)(i / ((long long)C1 * C1));
-    const int dl = (int)(cell / C1), u1 = (int)(cell % C1);
-    T gv = (T)0;
-    if (gE)
-      gv = gE[((long long)bu * ns + i) * B + b] *
-           (dl + u1 <= in.C[b] ? (T)1 : (T)0);
-    if (gG)
-      gv = gv + gG[(((long long)bu * 4 + in.grp[x]) * C1 * C1 + cell) * B + b];
-    return lam_term(gv, lb, SZT[i]);
-  });
-  // the misA/misB trees and the size classes' tree have their own
-  // column counts: the shared levels run per tree
-  T sum[3];
-  {
-    T one[1] = {loc[0]}, o[1];
-    tree_cols<T, 1, RL, C>(tm, one, red, o);
-    sum[0] = o[0];
-    one[0] = loc[1];
-    tree_cols<T, 1, RL, C>(tm, one, red, o);
-    sum[1] = o[0];
-    one[0] = loc[2];
-    tree_cols<T, 1, RL, C>(ts, one, red, o);
-    sum[2] = o[0];
+  const int nj = Lp1 * W1, nm = 4 * nj;  // (g, j, w) of misA / misB
+  const int c2 = C1 * C1, ns = D.n_cls * c2;  // (x, dl, u1)
+  const long long bB = (long long)(Lp1 + D.PAD) * W1 * 4 * B;  // emisB's
+  // values v = 2 tree + bucket of the trees misB (0), misA (1) and the
+  // size classes (2); misB's and misA's share a shape and one walk.
+  // Kt blocks of the read's K take a residue class each, cc of a block's
+  // columns walk it, Qc values a column
+  int Kt[2], Qc[2], cc[6];
+#pragma unroll
+  for (int t = 0; t < 2; ++t) {
+    const int P = 1 << log2_pow2(t ? ns : nm);
+    Kt[t] = K < P ? K : P;
+    const int Q = P / Kt[t];
+    const int cct = Q < C ? Q : C;
+    Qc[t] = Q / cct;
+    for (int v = (t ? 4 : 0); v < (t ? 6 : 4); ++v) cc[v] = cct;
   }
-  if (live && c == 0) glam[(long long)bu * B + b] = (sum[0] + sum[1]) + sum[2];
+  T x[6];
+#pragma unroll
+  for (int v = 0; v < 6; ++v) x[v] = (T)0;
+  if (k < Kt[0] && c < cc[0]) {  // misB (emisB rows-leading) and misA
+    T y[4];
+    tree_walk<T, 4>(Qc[0], [&](int q, T(&o)[4]) {
+      const int i = k + (c + q * cc[0]) * Kt[0];
+#pragma unroll
+      for (int v = 0; v < 4; ++v) o[v] = (T)0;
+      if (!live || i >= nm) return;
+      const long long at = (long long)i * B + b;
+      if (gB) {
+        const int gr = (i >= nj) + (i >= 2 * nj) + (i >= 3 * nj);
+        const long long cell =
+            (((long long)D.PAD * W1 + (i - gr * nj)) * 4 + gr) * B + b;
+        const T xv = misB[at];
+        o[0] = lam_term(gB[cell], lb[0], xv);
+        o[1] = lam_term(gB[bB + cell], lb[1], xv);
+      }
+      if (gA) {
+        const T xv = misA[at];
+        o[2] = lam_term(gA[at], lb[0], xv);
+        o[3] = lam_term(gA[(long long)nm * B + at], lb[1], xv);
+      }
+    }, y);
+#pragma unroll
+    for (int v = 0; v < 4; ++v) x[v] = y[v];
+  }
+  if (k < Kt[1] && c < cc[4]) {  // the size classes, capped and grouped
+    T y[2];
+    const int Cb = live ? in.C[b] : 0;
+    tree_walk<T, 2>(Qc[1], [&](int q, T(&o)[2]) {
+      const int i = k + (c + q * cc[4]) * Kt[1];
+      o[0] = o[1] = (T)0;
+      if (!live || (!gE && !gG) || i >= ns) return;
+      const unsigned xc = (unsigned)i / (unsigned)c2;
+      const int cell = i - (int)xc * c2;
+      const unsigned dl = (unsigned)cell / (unsigned)C1;
+      const int u1 = cell - (int)dl * C1;
+      const T cap = (int)dl + u1 <= Cb ? (T)1 : (T)0;
+      const int grp = in.grp[xc];
+      const T xv = SZT[i];
+#pragma unroll
+      for (int bu = 0; bu < 2; ++bu) {
+        T gv = (T)0;
+        if (gE) gv = gE[((long long)bu * ns + i) * B + b] * cap;
+        if (gG)
+          gv = gv + gG[(((long long)bu * 4 + grp) * c2 + cell) * B + b];
+        o[bu] = lam_term(gv, lb[bu], xv);
+      }
+    }, y);
+    x[4] = y[0];
+    x[5] = y[1];
+  }
+  block_tree<T, 6, RL, NT>(cc, x, red);
+  // partials [v][K][B]
+  if (live && c == 0) {
+#pragma unroll
+    for (int v = 0; v < 6; ++v)
+      if (k < Kt[v / 4]) part[((long long)v * K + k) * B + b] = x[v];
+  }
+  if (!last_of_group(done + blockIdx.x, K)) return;
+  // the group's last block halves each value's Kt partials, cut as a
+  // block cuts its class (columns over residue classes, then block_tree),
+  // then adds the trees as autograd adds the plain version's three
+  // _LamExp terms, (emisB + emisA) + eSZ
+  int fc[6];
+#pragma unroll
+  for (int v = 0; v < 6; ++v) {
+    x[v] = (T)0;
+    fc[v] = Kt[v / 4] < C ? Kt[v / 4] : C;
+  }
+  if (live) {
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      const int v0 = t ? 4 : 0, nv = t ? 2 : 4;
+      if (c >= fc[v0]) continue;
+      T y[4];
+      tree_walk<T, 4>(Kt[t] / fc[v0], [&](int q, T(&o)[4]) {
+#pragma unroll
+        for (int v = 0; v < 4; ++v)
+          o[v] = v < nv ? __ldcg(part + ((long long)(v0 + v) * K + c +
+                                         q * fc[v0]) * B + b)
+                        : (T)0;
+      }, y);
+      for (int v = 0; v < nv; ++v) x[v0 + v] = y[v];
+    }
+  }
+  block_tree<T, 6, RL, NT>(fc, x, red);
+  if (live && c == 0) {
+    glam[b] = (x[0] + x[2]) + x[4];
+    glam[(long long)B + b] = (x[1] + x[3]) + x[5];
+  }
+  if (threadIdx.x == 0) done[blockIdx.x] = 0;
 }
 
 template <typename T>
@@ -208,12 +293,18 @@ static int hoisted(HoistDims D, HoistIn in, HoistOut o, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// K17 on the host plan's layout (ops/kernels.hoisted_adj_plan: groups
+// of rl reads x K slices), refused unless it is the kernel's
 template <typename T>
-static int hoisted_adj(HoistDims D, HoistIn in, HoistOut g, T* glam,
+static int hoisted_adj(HoistDims D, HoistIn in, HoistOut g, T* glam, T* part,
+                       int* done, int K, int rl, int groups,
                        cudaStream_t st) {
-  constexpr int RL = 32 / sizeof(T), C = 1024 / RL;
-  const dim3 grid((D.B + RL - 1) / RL, 2);
-  hoisted_adj_kernel<T, RL, C><<<grid, RL * C, 0, st>>>(D, in, g, glam);
+  using Sh = HoistAdjShape<T>;
+  if (K < 1 || K > 65535 || (K & (K - 1)) || rl != Sh::RL ||
+      groups != (D.B + Sh::RL - 1) / Sh::RL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  hoisted_adj_kernel<T><<<dim3(groups, K), Sh::NT, 0, st>>>(
+      D, in, g, glam, part, done, K);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -223,8 +314,9 @@ static int hoisted_adj(HoistDims D, HoistIn in, HoistOut g, T* glam,
     return hoisted<T>(D, in, o, st);                                         \
   }                                                                          \
   RNAELEM_EXPORT int rnaelem_hoisted_adj_##SUF(                              \
-      HoistDims D, HoistIn in, HoistOut g, T* glam, cudaStream_t st) {       \
-    return hoisted_adj<T>(D, in, g, glam, st);                               \
+      HoistDims D, HoistIn in, HoistOut g, T* glam, T* part, int* done,      \
+      int K, int rl, int groups, cudaStream_t st) {                          \
+    return hoisted_adj<T>(D, in, g, glam, part, done, K, rl, groups, st);    \
   }
 
 HOISTED_EXPORTS(f32, float)

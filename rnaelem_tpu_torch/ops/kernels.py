@@ -264,10 +264,11 @@ class HoistDims(ctypes.Structure):  # csrc/hoisted.cu
         ("lam_s0", ctypes.c_longlong), ("lam_s1", ctypes.c_longlong)]
 
 
-FAC_IDX = ("slot_r", "slot_l", "ws_r", "ws_l")
+FAC_IDX = ("slot_r", "slot_l", "ws_r", "ws_l", "rs_off", "rs_s", "ls_off",
+           "ls_s")
 FAC_OUT = ("eR", "eL", "bg2", "pv", "alphaP", "lam", "seq64", "seqT", "L64",
            "dcum", "dcumT", "gate", "C", "wsp")
-FAC_ADJ = ("geR", "geL", "gbg2", "gpv", "gs", "gp")
+FAC_ADJ = ("geR", "geL", "gbg2", "gpv", "gs", "gp", "ws", "done")
 HOIST_IN = ("lam", "SZT", "grp", "misA", "misB", "C")
 HOIST_OUT = ("eSZ", "eSZg", "emisA", "emisB")
 FacIdx = _ptr_struct("FacIdx", FAC_IDX)
@@ -316,9 +317,9 @@ _SIGS = {
     "ext_col_max": ((DPDims, ExtIdx, AuxArg), 6),
     "cyk_traceback": ((DPDims, TbIdx, AuxArg, TbData, TbCfg), 4),
     "factors": ((FacDims, FacIdx, FacOut), 6),
-    "factors_adj": ((FacDims, FacIdx, FacAdjArgs), 3, 1),
+    "factors_adj": ((FacDims, FacIdx, FacAdjArgs), 3, 6),
     "hoisted": ((HoistDims, HoistIn, HoistOut), 0),
-    "hoisted_adj": ((HoistDims, HoistIn, HoistOut), 1),
+    "hoisted_adj": ((HoistDims, HoistIn, HoistOut), 3, 3),
 }
 _SUF = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -1291,6 +1292,154 @@ def factor_lists(st, ns: int):
     return cache[ns]
 
 
+def slot_states(st, ns: int):
+    """K15's finish lists on st's device, built once per DPStatic: for
+    each slot u the states whose right (left) node takes it, in ascending
+    state order, as offsets rs_off [ns+1] into rs_s [S] (ls_off, ls_s for
+    the left nodes), int32."""
+    cache = st.__dict__.setdefault("_slot_states", {})
+    if ns not in cache:
+        lists = factor_lists(st, ns)
+        out = {}
+        for key, slot in (("rs", "slot_r"), ("ls", "slot_l")):
+            sl = lists[slot].cpu().numpy()
+            order = np.argsort(sl, kind="stable").astype(np.int32)
+            off = np.concatenate([[0], np.cumsum(np.bincount(
+                sl, minlength=ns))]).astype(np.int32)
+            out[key + "_off"] = torch.as_tensor(off, device=st.device)
+            out[key + "_s"] = torch.as_tensor(order, device=st.device)
+        cache[ns] = out
+    return cache[ns]
+
+
+def _fac_idx(st, ns):
+    lists = dict(factor_lists(st, ns), **slot_states(st, ns))
+    return FacIdx(*[lists[f].data_ptr() for f in FAC_IDX])
+
+
+# K15's and K17's launch plans (csrc/common.cuh tree_walk, block_tree): a
+# read's long sums cut into K blocks, each a residue class of K, halved
+# by the last block of the read's group to finish; the sums keep
+# read_sum's order whatever K, so a plan is chosen for the grid alone.
+# The plan owns the layout: the launchers take its row of reads, grid and
+# shared memory, and refuse a layout that is not their kernel's.
+ADJ_THREADS = 256        # a block's threads (FacAdjShape, HoistAdjShape)
+ADJ_ROW_BYTES = {"factors_adj": 32,     # a warp's row of reads: a sector
+                 "hoisted_adj": 128}    # a line
+ADJ_WARPS = ADJ_THREADS // 32
+ADJ_MAX_SPLIT = 128      # blocks a read's sum may be cut into
+ADJ_TARGET_BLOCKS = 512  # K17's grid: about 4 resident blocks per SM
+PAIR_COLUMN_VALUES = 32  # values a column of K15's pair blocks walks
+TREE_CHUNK = 8           # kTreeChunk
+MAX_GRID_Y = 65535
+
+
+def _pow2(n):
+    return 1 << max(0, int(n) - 1).bit_length()
+
+
+class AdjPlan(NamedTuple):
+    """How K15 ("factors_adj") or K17 ("hoisted_adj") runs a shape:
+    blocks of ``RL`` reads x ADJ_THREADS / RL columns, a grid of
+    ``groups`` x ``grid_y`` blocks, a read's long sums cut into ``K``
+    blocks (K17: its three trees; K15: each pair table; any power of two
+    up to ``k_max`` gives the same bits), ``smem`` bytes of dynamic
+    shared memory and a workspace of ``ws_elems`` values."""
+    kernel: str
+    RL: int
+    groups: int
+    grid_y: int
+    K: int
+    k_max: int
+    smem: int
+    ws_elems: int
+
+    @property
+    def name(self):
+        return "K=%d" % self.K
+
+    def splits(self):
+        """Every split the plan can take: 1, 2, 4, ..., k_max."""
+        return [1 << i for i in range(self.k_max.bit_length())]
+
+
+def _adj_split(kernel, K, k_max, natural):
+    if K is None:
+        return natural
+    if K < 1 or K & (K - 1) or K > k_max:
+        raise ValueError("%s: a split K=%r is not a power of two up to %d"
+                         % (kernel, K, k_max))
+    return K
+
+
+@functools.lru_cache(maxsize=None)
+def hoisted_adj_plan(Lp, Wp, Cp, n_cls, B, dtype, K=None):
+    """K17's plan: one block per (group of RL reads, a warp's row of 128
+    bytes, slice k of K), both buckets in a block; K the least power of
+    two that gives the grid ADJ_TARGET_BLOCKS blocks, at most k_max (a
+    column's values in the misA/misB trees at least a chunk, and
+    ADJ_MAX_SPLIT); ``K`` forces a split.  Workspace: the partials [3
+    trees][2 buckets][K][B]."""
+    it = torch.empty((), dtype=dtype).element_size()
+    RL = ADJ_ROW_BYTES["hoisted_adj"] // it
+    C = ADJ_THREADS // RL
+    groups = -(-B // RL)
+    n_m = 4 * (Lp + 1) * (Wp + 1)
+    if max(n_m, n_cls * (Cp + 1) ** 2) >= 2 ** 31:
+        raise ValueError("hoisted_adj: the sums' 32-bit indices overflow")
+    k_max = max(1, min(ADJ_MAX_SPLIT, _pow2(n_m) // (C * TREE_CHUNK)))
+    nat = 1
+    while nat < k_max and groups * nat < ADJ_TARGET_BLOCKS:
+        nat *= 2
+    K = _adj_split("hoisted_adj", K, k_max, nat)
+    return AdjPlan("hoisted_adj", RL, groups, K, K, k_max, 0, 6 * K * B)
+
+
+@functools.lru_cache(maxsize=None)
+def factors_adj_plan(S, Lp, Wp, Tp, B, dtype, K=None):
+    """K15's plan: blocks per group of RL reads, ceil((S+1) / ADJ_WARPS)
+    of them a warp per state (and one for bg2), then K per pair table
+    (``Tp`` tables; 0: eR alone), K such that a pair block's column walks
+    PAIR_COLUMN_VALUES values (1 to ADJ_MAX_SPLIT); ``K`` forces a split.
+    Shared memory: the block tree's values and the RL reads' codes.
+    Workspace: the states' sums [S+1][8][B] and the pair slices' [Tp][K]
+    [6][B].  ValueError where the grid or the codes do not fit."""
+    it = torch.empty((), dtype=dtype).element_size()
+    RL = ADJ_ROW_BYTES["factors_adj"] // it
+    C = ADJ_THREADS // RL
+    p_pair = _pow2((Lp + 1) * (Wp + 1))
+    k_max = max(1, min(ADJ_MAX_SPLIT, p_pair))
+    nat = max(1, min(ADJ_MAX_SPLIT, p_pair // (C * PAIR_COLUMN_VALUES)))
+    K = _adj_split("factors_adj", K, k_max, nat)
+    n_sc = -(-(S + 1) // ADJ_WARPS)
+    grid_y = n_sc + Tp * K
+    smem = 6 * ADJ_THREADS * it + 4 * RL * Lp
+    if grid_y > MAX_GRID_Y or smem > SMEM_LIMIT:
+        raise ValueError(
+            "factors_adj: no grid for S=%d, Lp=%d, %d pair tables at %s "
+            "(%d blocks a group of reads, at most %d; %d bytes of shared "
+            "memory, at most %d)" % (S, Lp, Tp, str(dtype).replace(
+                "torch.", ""), grid_y, MAX_GRID_Y, smem, SMEM_LIMIT))
+    return AdjPlan("factors_adj", RL, -(-B // RL), grid_y, K, k_max, smem,
+                   ((S + 1) * 8 + Tp * K * 6) * B)
+
+
+def _done(st, kernel, dev, n):
+    """K15's or K17's per-group counts of finished blocks on device
+    ``dev`` (int32, zero between launches: the last block of a group
+    resets its count), kept on the DPStatic ``st`` across calls; the
+    launches of one kernel for one grammar share them, in stream
+    order."""
+    cache = st.__dict__.setdefault("_done_counts", {})
+    key = (kernel, dev.index)
+    t = cache.get(key)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 2 * (0 if t is None else t.numel())),
+                        dtype=torch.int32, device=dev)
+        cache[key] = t
+    return t
+
+
 def _weights(x, name, dt, shape, dev):
     """Per-read weights [B, n, k] as K14/K15 read them: the rows of a read
     contiguous, reads a batch stride apart (0 for the expanded copies of
@@ -1359,11 +1508,10 @@ def factors(st, cfg, mode, seq, ws, L, dots, singles=None, pairs=None):
                    C=e((B,), i32), wsp=e((Lp, B)))
         if mode == "null":
             out["lam"] = e((2, B))
-    lists = factor_lists(st, ns)
     ptr = lambda t: None if t is None else t.data_ptr()
     _call("factors", "factors", out["eR"],
           _fac_dims(st, cfg, mode, B, Lp, S, Tp, ns, sbs, sbp),
-          FacIdx(*[lists[f].data_ptr() for f in FAC_IDX]),
+          _fac_idx(st, ns),
           FacOut(*[ptr(out.get(f)) for f in FAC_OUT]),
           ctypes.c_void_p(ptr(singles)), ctypes.c_void_p(ptr(pairs)),
           _p(seq), _p(ws), _p(L), _p(dots))
@@ -1371,10 +1519,11 @@ def factors(st, cfg, mode, seq, ws, L, dots, singles=None, pairs=None):
 
 
 def factors_adj(st, cfg, mode, seq, singles, pairs, geR, geL=None,
-                gbg2=None, gpv=None):
+                gbg2=None, gpv=None, split=None):
     """K15: each read's cotangent of singles [B, ns, 4] (and, in mode
     "dp", of pairs [B, Tp, 6]) from the cotangents of K14's eR, eL, bg2
-    and pv (None: zero).  Returns (g_singles, g_pairs or None)."""
+    and pv (None: zero), on factors_adj_plan's layout (``split`` forces
+    its K).  Returns (g_singles, g_pairs or None)."""
     dev = seq.device
     if dev.type != "cuda":
         raise ValueError("factors_adj kernel: the reads must be CUDA tensors")
@@ -1388,6 +1537,8 @@ def factors_adj(st, cfg, mode, seq, singles, pairs, geR, geL=None,
         Tp = pairs.shape[1]
         pairs = _weights(pairs, "pairs", dt, (B, Tp, 6), dev)
         sbp = pairs.stride(0)
+    pair_blocks = Tp if mode == "dp" else 0
+    plan = factors_adj_plan(S, Lp, st.dims.Wp, pair_blocks, B, dt, split)
     cots = {}
     for name, t, shape in (("geR", geR, (Lp, S, B)), ("geL", geL, (Lp, S, B)),
                            ("gbg2", gbg2, (Lp, B)),
@@ -1399,15 +1550,16 @@ def factors_adj(st, cfg, mode, seq, singles, pairs, geR, geL=None,
     gs = torch.empty((B, ns, 4), dtype=dt, device=dev)
     gp = torch.empty((B, Tp, 6), dtype=dt, device=dev) if mode == "dp" \
         else None
-    lists = factor_lists(st, ns)
+    ws = torch.empty((plan.ws_elems,), dtype=dt, device=dev)
+    done = _done(st, "factors_adj", dev, plan.groups)
     ptr = lambda t: None if t is None else t.data_ptr()
     args = FacAdjArgs(*[ptr(cots.get(f)) for f in FAC_ADJ[:4]],
-                      gs.data_ptr(), ptr(gp))
+                      gs.data_ptr(), ptr(gp), ws.data_ptr(), done.data_ptr())
     _call("factors_adj", "factors_adj", gs,
           _fac_dims(st, cfg, mode, B, Lp, S, Tp, ns, singles.stride(0), sbp),
-          FacIdx(*[lists[f].data_ptr() for f in FAC_IDX]), args,
-          _p(singles), ctypes.c_void_p(ptr(pairs)), _p(seq),
-          Tp if mode == "dp" else 0)
+          _fac_idx(st, ns), args, _p(singles), ctypes.c_void_p(ptr(pairs)),
+          _p(seq), pair_blocks, plan.K, plan.RL, plan.groups, plan.grid_y,
+          plan.smem, variant=plan.name)
     return gs, gp
 
 
@@ -1459,12 +1611,15 @@ def hoisted(st, lam, c):
     return out
 
 
-def hoisted_adj(st, lam, c, cots):
+def hoisted_adj(st, lam, c, cots, split=None):
     """K17: lambda's cotangent [2, B] from the cotangents ``cots`` of
-    (eSZ, eSZg, emisA, emisB) (None: zero)."""
+    (eSZ, eSZg, emisA, emisB) (None: zero), on hoisted_adj_plan's layout
+    (``split`` forces its K)."""
     D, ins = _hoist_args(st, lam, c)
     dt, dev, B = st.dtype, c.C.device, D.B
     C1, W1, Lp1 = st.dims.Cp + 1, st.dims.Wp + 1, st.dims.Lp + 1
+    plan = hoisted_adj_plan(st.dims.Lp, st.dims.Wp, st.dims.Cp, st.n_cls,
+                            B, dt, split)
     shapes = ((2, st.n_cls, C1, C1, B), (2, 4, C1, C1, B),
               (2, 4, Lp1, W1, B), (2, Lp1 + st.PAD, W1, 4, B))
     ptrs = []
@@ -1474,7 +1629,10 @@ def hoisted_adj(st, lam, c, cots):
             _req(t, "cotangent " + name, dt, shape, dev)
         ptrs.append(t)
     glam = torch.empty((2, B), dtype=dt, device=dev)
+    part = torch.empty((plan.ws_elems,), dtype=dt, device=dev)
+    done = _done(st, "hoisted_adj", dev, plan.groups)
     _call("hoisted_adj", "hoisted_adj", glam, D, ins,
           HoistOut(*[None if t is None else t.data_ptr() for t in ptrs]),
-          _p(glam))
+          _p(glam), _p(part), _p(done), plan.K, plan.RL, plan.groups,
+          variant=plan.name)
     return glam

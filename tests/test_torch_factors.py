@@ -169,6 +169,20 @@ def test_the_kernels_argument_structs_match_their_c_layout():
     assert [int(x) for x in table.split(",")] == list(np.ravel(BP))
 
 
+def test_the_one_hot_rows_are_the_plain_versions():
+    """K15's literal one-hot rows (c_fac_onehot in csrc/factors.cu): the
+    base of codes 0..4 and the index of pair types 0..6, as the plain
+    version's one-hot of clip(x - 1, 0, 3) and clip(x - 1, 0, 5)."""
+    fac = (CSRC / "factors.cu").read_text()
+    table = re.search(r"c_fac_onehot\[62\] = \{([^}]*)\}", fac).group(1)
+    got = [int(x) for x in table.split(",")]
+    one_hot = torch.nn.functional.one_hot
+    want = torch.cat([
+        one_hot(torch.clamp(torch.arange(5) - 1, 0, 3), 4).ravel(),
+        one_hot(torch.clamp(torch.arange(7) - 1, 0, 5), 6).ravel()])
+    assert got == want.tolist()
+
+
 @pytest.mark.parametrize("pattern", ["(.....)", ".(..*).", "." * 12])
 def test_hoisted_size_classes_are_the_plain_versions(pattern):
     """K16/K17's size classes (kernels.hoist_static): SZT is the plain

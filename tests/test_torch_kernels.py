@@ -4,6 +4,7 @@ a CUDA device; this file imports no JAX, so on the card it runs alone:
     python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
 """
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -1443,11 +1444,13 @@ ROWS_CD_CASES = {
     "no_rss_softmax": ("..*..", {"no_rss": True, "theta_softmax": True})}
 
 
-def _rows_cd_inputs(pattern, opts, dtype, n, seed=31):
+def _rows_cd_inputs(pattern, opts, dtype, n, seed=31, Lp=40, span=24,
+                    iloop=12):
     """(config, SeqData, pair masks, per-read weights [singles, pairs,
     lam], each read its own) on the card."""
-    cfg = J.ModelConfig(pattern=pattern, Lp=40, max_span=24, max_iloop=12,
-                        min_bpp=0.0, tau=0.1, dtype=dtype, **opts)
+    cfg = J.ModelConfig(pattern=pattern, Lp=Lp, max_span=span,
+                        max_iloop=iloop, min_bpp=0.0, tau=0.1, dtype=dtype,
+                        **opts)
     reads = _ep_reads(cfg, n, seed)
     sd = J.stack_seqdata([J.make_seqdata(cfg, *r) for r in reads], "cuda")
     bp = None if cfg.no_rss else J.effective_bp_mask_batch(cfg, sd,
@@ -1656,6 +1659,129 @@ def test_rows_cd_kernels_do_not_depend_on_the_batch(dtype):
         assert torch.equal(a, b[..., :8])
     assert torch.equal(K.hoisted_adj(st, lam8, c8, [x[..., :8] for x in hc]),
                        gl[:, :8])
+
+
+def _adj_case(pattern, dtype, n, seed=41):
+    """K15's and K17's inputs on the card for n reads, each its own
+    weights and cotangents: (config, DPStatic, inputs by name)."""
+    cfg, sd, bp, w = _rows_cd_inputs(pattern, {}, dtype, n, seed)
+    k = J.kernels(cfg, "cuda")
+    st = k.dp.st
+    _, c = J.batch_factors(cfg, J.Params(*[x[0] for x in w]), sd, bp, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rn = lambda *shape: torch.randn(shape, generator=gen, dtype=st.dtype,
+                                    device="cuda")
+    Lp, S, W1, C1 = cfg.Lp, st.dims.S, st.dims.Wp + 1, st.dims.Cp + 1
+    x = dict(seq=J._card_reads(k, sd)[0], singles=w[0], pairs=w[1],
+             lam=w[2], C=c.C, misA=c.ep["misA"], misB=c.ep["misB"],
+             geR=rn(Lp, S, n), geL=rn(Lp, S, n), gbg2=rn(Lp, n),
+             gpv=rn(Lp + 1, W1, w[1].shape[1], n),
+             eSZ=rn(2, st.n_cls, C1, C1, n), eSZg=rn(2, 4, C1, C1, n),
+             emisA=rn(2, 4, Lp + 1, W1, n),
+             emisB=rn(2, Lp + 1 + st.PAD, W1, 4, n))
+    return cfg, st, sd, x
+
+
+def _adj_slice(x, a, b):
+    first = ("seq", "singles", "pairs", "lam")
+    return {n_: (v[a:b] if n_ in first else v[..., a:b]).contiguous()
+            for n_, v in x.items()}
+
+
+def _adj_run(cfg, st, x, fsplit=None, hsplit=None):
+    """(g_singles, g_pairs) of K15 and lambda's cotangent of K17, each on
+    its plan or forced to a split."""
+    gs, gp = K.factors_adj(st, cfg, "dp", x["seq"], x["singles"], x["pairs"],
+                           x["geR"], x["geL"], x["gbg2"], x["gpv"],
+                           split=fsplit)
+    c = types.SimpleNamespace(C=x["C"], ep={"misA": x["misA"],
+                                            "misB": x["misB"]})
+    gl = K.hoisted_adj(st, x["lam"].T, c, [x[n_] for n_ in DP.HOISTED],
+                       split=hsplit)
+    return [gs, gp, gl]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_adjoint_sums_do_not_depend_on_the_batch_or_the_split(
+        dtype, monkeypatch):
+    """K15's and K17's cotangents of each read are bitwise equal in a
+    batch of 600 and in batches of 1, 7 and 128 taken at other places
+    (each B its own split), in a repeat, and under every split their host
+    plans can take, forced; each split counts as its plan's variant; a
+    split the plan cannot take is refused, and so is a layout that is not
+    the kernel's (the launcher's check)."""
+    _need_cuda()
+    cfg, st, _, x = _adj_case("(.....)", dtype, 600)
+    ref = _adj_run(cfg, st, x)
+    for a, b in zip(_adj_run(cfg, st, x), ref):
+        assert torch.equal(a, b)
+    for B, at in ((1, 3), (7, 11), (128, 200)):
+        got = _adj_run(cfg, st, _adj_slice(x, at, at + B))
+        want = [ref[0][at:at + B], ref[1][at:at + B], ref[2][:, at:at + B]]
+        for i, (a, b) in enumerate(zip(got, want)):
+            assert torch.equal(a, b), (B, i)
+    x128 = _adj_slice(x, 200, 328)
+    base = _adj_run(cfg, st, x128)
+    Tp = x["pairs"].shape[1]
+    fp = K.factors_adj_plan(st.dims.S, cfg.Lp, st.dims.Wp, Tp, 128, st.dtype)
+    hp = K.hoisted_adj_plan(st.dims.Lp, st.dims.Wp, st.dims.Cp, st.n_cls,
+                            128, st.dtype)
+    K.reset_counts()
+    for k_ in fp.splits():
+        got = _adj_run(cfg, st, x128, fsplit=k_)
+        assert all(torch.equal(a, b) for a, b in zip(got, base)), k_
+    for k_ in hp.splits():
+        got = _adj_run(cfg, st, x128, hsplit=k_)
+        assert torch.equal(got[2], base[2]), k_
+    variants = K.KERNELS["hoisted_adj"].variants
+    assert all(variants.get("K=%d" % k_, 0) >= 1 for k_ in hp.splits())
+    assert K.KERNELS["factors_adj"].variants["K=%d" % fp.K] >= 1
+    with pytest.raises(ValueError, match="split"):
+        _adj_run(cfg, st, x128, hsplit=3)
+    with pytest.raises(ValueError, match="split"):
+        _adj_run(cfg, st, x128, fsplit=2 * fp.k_max)
+    # a layout that is not the kernel's: a row of half the reads, one
+    # state block too many (its blocks would write past the workspace)
+    monkeypatch.setattr(K, "hoisted_adj_plan", lambda *a: hp._replace(
+        RL=hp.RL // 2, groups=2 * hp.groups))
+    with pytest.raises(RuntimeError, match="hoisted_adj failed"):
+        _adj_run(cfg, st, x128)
+    monkeypatch.setattr(K, "factors_adj_plan", lambda *a: fp._replace(
+        grid_y=fp.grid_y + 1))
+    with pytest.raises(RuntimeError, match="factors_adj failed"):
+        _adj_run(cfg, st, x128)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_factors_adjoint_past_1024_states_every_split(dtype):
+    """K15 at 44 dots (S = 1,081: 136 state blocks a group of reads): the
+    weights' cotangents bitwise the plain autograd (no log-softmax) under
+    every split of the pair tables."""
+    _need_cuda()
+    try:
+        cfg, sd, bp, w = _rows_cd_inputs("." * 44, {}, dtype, 6, Lp=50,
+                                         span=40, iloop=10)
+        k = J.kernels(cfg, "cuda")
+        st = k.dp.st
+        assert st.dims.S == 1081
+        outs_p, _ = _factors(cfg, sd, bp, w, None, True)
+        rng = np.random.RandomState(8)
+        cots = [torch.as_tensor(rng.randn(*o.shape), dtype=o.dtype,
+                                device="cuda") for o in outs_p]
+        _, g_p = _factors(cfg, sd, bp, w, cots, True)
+        seq = J._card_reads(k, sd)[0]
+        fp = K.factors_adj_plan(st.dims.S, cfg.Lp, st.dims.Wp,
+                                w[1].shape[1], 6, st.dtype)
+        for k_ in fp.splits():
+            got = K.factors_adj(st, cfg, "dp", seq, w[0], w[1], *cots,
+                                split=k_)
+            for a, b in zip(got, g_p):
+                assert torch.equal(a, b), k_
+    finally:
+        J._kernels_cached.cache_clear()
+        torch.cuda.empty_cache()
 
 
 @pytest.mark.gpu
