@@ -26,7 +26,11 @@ Phases:
      reads at other places, in a repeat, and under every split of a read's
      sums that their host plans (factors_adj_plan, hoisted_adj_plan) can
      take, forced (f32 and f64), and K15 at 44 dots (S=1,081) under every
-     split bitwise the plain contraction;
+     split bitwise the plain contraction; K1 (one launch) and K16 at B = 1,
+     7, 600 and 128 x 100 nt, f64 and f32, against their plain versions
+     (K1's ints and bools equal, floats within 1e-6 relative; K16 within
+     1e-12 / 1e-6 relative, a strided per-read lambda), with the share of
+     float cells bit for bit the plain versions';
      and the full inside DP: f64 kernels vs the f64 plain version (parts
      within 1e-9 absolute), f32 kernels vs the f64 plain version (within
      2e-3 absolute);
@@ -156,11 +160,18 @@ Phases:
      band_plan gives it (rings of 4 and 2, the device variant), each
      plan's ms per column.
 
+--rows-cd-times times K14-K17 and K1 alone through their common entry
+points and prints the SHA-256 of every K1 and K16 output at the seeded
+main-path batch (f32, f64): a copy of this script beside an older tree
+times that tree and prints its bits.  --k1-variants times K1 for other
+launch plans and with a piece of its work taken out (K1_VARIANTS).
+
 Run from the repository root:  python3 chip_smoke.py
 Exits non-zero and prints no result without CUDA or without the package.
 """
 import argparse
 import dataclasses
+import hashlib
 import io
 import json
 import os
@@ -578,14 +589,34 @@ def plain_parts(cfg, params, batch, dev):
 # ------------------------------------------------------------ phase 2
 
 def check_score_tables(cfg, reads, dev):
-    """K1 vs its plain version; returns the max abs float error."""
-    k = J.kernels(cfg, dev)
+    """K1 vs its plain version on ``reads``; returns the max abs float
+    error."""
     batch = OBJ.stack_reads(cfg, reads, device=dev)
-    seq, L, bp_ok, dots_cum = J.score_inputs(cfg, k, batch.sd, batch.bp_ok)
+    return compare_score_tables(cfg, batch.sd, batch.bp_ok, dev)
+
+
+def compare_score_tables(cfg, sd, bp_ok, dev, same=None):
+    """K1 (one launch) vs its plain version on a batch's SeqData and pair
+    masks; returns the max abs float error.  ``same`` (a dict) gathers,
+    per float output, the cells bit for bit the plain version's and all
+    cells."""
+    k = J.kernels(cfg, dev)
+    seq, L, bp_ok, dots_cum = J.score_inputs(cfg, k, sd, bp_ok)
     args = (k.tab, seq, L, bp_ok, dots_cum, cfg.Wp, cfg.max_span, cfg.turn,
             cfg.no_ene, cfg.fix_rss)
+    K.reset_counts()
     got = ET.score_tables(*args)
+    if K.KERNELS["score_tables"].launches != 1:
+        fail("score_tables: %d launches for one call"
+             % K.KERNELS["score_tables"].launches)
     want = ET.score_tables_plain(*args)
+    if same is not None:
+        for key in ET.SCORE_KEYS:
+            if want[key].is_floating_point():
+                eq = got[key] == want[key]
+                eq |= torch.isneginf(got[key]) & torch.isneginf(want[key])
+                n0, n1 = same.get(key, (0, 0))
+                same[key] = (n0 + int(eq.sum()), n1 + eq.numel())
     worst = 0.0
     for key in ET.SCORE_KEYS:
         a, b = got[key], want[key]
@@ -2176,8 +2207,9 @@ def wide_case(case, dev, funcs):
     fk, gk = full_grads(cfg, p, b, dev, plain=False)
     torch.cuda.synchronize()
     launches = {kn: K.KERNELS[kn].launches for kn in DP_KERNELS}
+    # the launch plans' layout variants (K1's plan only sizes its blocks)
     variants = {kn: dict(K.KERNELS[kn].variants) for kn in DP_KERNELS
-                if K.KERNELS[kn].variants}
+                if kn != "score_tables" and K.KERNELS[kn].variants}
     for kn in DP_KERNELS:
         if launches[kn] <= 0:
             fail("wide %s -c %d %s: kernel %s was not launched"
@@ -3001,6 +3033,85 @@ def check_rows_cd(dev):
     return errs
 
 
+EDGE_BATCHES = (1, 7, 600)  # K1's and K16's batches beside the main one
+
+
+def check_k1_k16_batches(dev):
+    """K1 and K16 at B = 1, 7 and 600 x 100 nt (one read of a group, a
+    scalar tail, 16-byte rows and many groups) as at B=128: K1 vs its
+    plain version (ints and bools equal, floats within 1e-6 relative),
+    K16 for per-read lambdas (a strided view) vs hoisted_plain within
+    1e-12 (f64) and 1e-6 (f32) relative in the max norm; prints the share
+    of float cells bit for bit the plain versions'.  Returns the f32 max
+    abs errors by kernel."""
+    errs = {"score_tables": 0.0, "hoisted": 0.0}
+    msgs = []
+    for B in EDGE_BATCHES + (B_MAIN,):
+        rr = make_reads(np.random.RandomState(40 + B), B, LP - 20, LP)
+        for dtype, rel in (("float64", 1e-12), ("float32", 1e-6)):
+            cfg = cfg_for(dtype)
+            same = {}
+            sd, bp = rows_cd_batch(cfg, rr, dev, 41)
+            e1 = compare_score_tables(cfg, sd, bp, dev, same)
+            wts = rows_cd_weights(cfg, B, dev, 42)
+            k = J.kernels(cfg, dev)
+            d, c = J.batch_factors(cfg, J.Params(*[w[0] for w in wts]), sd,
+                                   bp, dev)
+            lam = wts[2].T
+            K.reset_counts()
+            hk = K.hoisted(k.dp.st, lam, c)
+            variant = dict(K.KERNELS["hoisted"].variants)
+            with torch.no_grad():
+                hp = DP.hoisted_plain(d._replace(lam=lam), c, k.dp.st)
+            e2 = 0.0
+            for n_, a in zip(DP.HOISTED, hk):
+                e2 = max(e2, grad_compare("hoisted %s B=%d %s" % (
+                    n_, B, dtype), a, hp[n_], rel))
+                same[n_] = (int((a == hp[n_]).sum()), a.numel())
+            if dtype == "float32":
+                errs["score_tables"] = max(errs["score_tables"], e1)
+                errs["hoisted"] = max(errs["hoisted"], e2)
+            share = {n_: round(a / b_, 6) for n_, (a, b_) in same.items()}
+            msgs.append("B=%d %s: K1 %.3g, K16 %.3g (%s), cells bitwise the "
+                        "plain version's %s" % (B, dtype, e1, e2,
+                                                json.dumps(variant),
+                                                json.dumps(share)))
+            del hk, hp, d, c
+            torch.cuda.empty_cache()
+    print("check K1 and K16 at B = %s x %d nt vs their plain versions, max "
+          "abs err (K1: ints/bools equal, floats within 1e-6 relative; K16: "
+          "f64 1e-12, f32 1e-6 relative, max norm): %s" % (
+              ", ".join(str(b_) for b_ in EDGE_BATCHES + (B_MAIN,)), LP,
+              "; ".join(msgs)), flush=True)
+    return errs
+
+
+def output_digests(dev):
+    """SHA-256 of each K1 and K16 output at the seeded main-path batch (B
+    = 128 x 100 nt, per-read lambdas a strided view), f32 and f64,
+    through the common entry points (ET.score_tables, ops/kernels.hoisted)
+    so that a copy of this script beside an older tree prints that
+    tree's."""
+    out = {}
+    for dtype in ("float32", "float64"):
+        cfg = cfg_for(dtype)
+        k = J.kernels(cfg, dev)
+        sd, bp = rows_cd_batch(cfg, main_reads(), dev, 11)
+        wts = rows_cd_weights(cfg, B_MAIN, dev, 12)
+        args = J.score_inputs(cfg, k, sd, bp) + (
+            cfg.Wp, cfg.max_span, cfg.turn, cfg.no_ene, cfg.fix_rss)
+        got = ET.score_tables(k.tab, *args)
+        d, c = J.batch_factors(cfg, J.Params(*[w[0] for w in wts]), sd, bp,
+                               dev)
+        hk = K.hoisted(k.dp.st, wts[2].T, c)
+        tens = [("K1 " + n_, got[n_]) for n_ in ET.SCORE_KEYS] + [
+            ("K16 " + n_, t) for n_, t in zip(DP.HOISTED, hk)]
+        out[dtype] = {n_: hashlib.sha256(
+            t.contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
+            for n_, t in tens}
+    return out
+
+
 def same_fields(name, ours, plain, rel):
     """Every field of two DiffFactors or ConstFactors (a dict field by
     key): of the same dtype and shape, the integer and bool ones and the
@@ -3445,18 +3556,34 @@ def rows_cd_times(cfg, params, batch, dev, funcs):
 
 
 def rows_cd_times_only(dev):
-    """K14-K17 at the main path's shapes alone (--rows-cd-times, after
-    phase 1): rows_cd_times' ms, plain ms and bounds, and, where the
+    """K14-K17 and K1 at the main path's shapes alone (--rows-cd-times,
+    after phase 1): rows_cd_times' ms, plain ms and bounds, K1's through
+    ET.score_tables, the SHA-256 of every K1 and K16 output at the
+    seeded main-path batch (f32, f64: output_digests) and, where the
     package has the host plans, K15's and K17's device ms under every
     split the plan can take (B=128 x 100 nt, f32), as one JSON line.
     Uses only the kernels' common entry points, so a copy of this script
-    beside an older tree times that tree's kernels."""
+    beside an older tree times that tree's kernels and prints its
+    bits."""
     cfg = cfg_for("float32")
     params = random_params(cfg, dev)
     batch, _, _ = batch_factors_for(cfg, main_reads(), dev, params)
     funcs = kernel_functions()
     ms, plain, bnd, unit = rows_cd_times(cfg, params, batch, dev, funcs)
-    out = {"ms": ms, "plain_ms": plain, "bound_ms": bnd, "unit": unit}
+    k = J.kernels(cfg, dev)
+    sargs = (k.tab,) + tuple(J.score_inputs(cfg, k, batch.sd,
+                                            batch.bp_ok)) + (
+        cfg.Wp, cfg.max_span, cfg.turn, cfg.no_ene, cfg.fix_rss)
+    K.reset_counts()
+    ET.score_tables(*sargs)
+    unit["score_tables"] = ("batch", K.KERNELS["score_tables"].launches)
+    ms["score_tables"] = device_ms(lambda: ET.score_tables(*sargs), REPS,
+                                   funcs["score_tables"])
+    plain["score_tables"] = cuda_ms(lambda: ET.score_tables_plain(*sargs), 3)
+    by, ops = score_work(cfg, None, k.tab, B_MAIN, 4)
+    bnd["score_tables"] = _ms(by, ops)
+    out = {"ms": ms, "plain_ms": plain, "bound_ms": bnd, "unit": unit,
+           "sha256": output_digests(dev)}
     if hasattr(K, "hoisted_adj_plan"):
         st = J.kernels(cfg, dev).dp.st
         x = adj_inputs(cfg, main_reads(), dev, 22)
@@ -4099,6 +4226,93 @@ def patched_builds(variants, root):
             K.CSRC, K.EP_XSPLIT, K._lib = shipped_src, shipped_split, None
 
 
+K1_VARIANTS = {
+    "shipped": ((), {}),
+    "3 diagonals a block": ((), {"SCORE_DIAGONALS": (3, 1)}),
+    "a sector of reads a block (8 f32, 4 f64)": ((), {"SCORE_ROW_BYTES": 32}),
+    "half a line of reads a block": ((), {"SCORE_ROW_BYTES": 64}),
+    "4 blocks an SM (64 registers)": ((
+        ("score_tables.cu", "__launch_bounds__(kScoreThreads, 5) score_tables",
+         "__launch_bounds__(kScoreThreads) score_tables"),), {}),
+    "write-back stores": ((
+        ("score_tables.cu", "  __stcs(p, v);", "  *p = v;"),
+        ("score_tables.cu", "  __stcs(reinterpret_cast<unsigned char*>(p), "
+         "static_cast<unsigned char>(v));", "  *p = v;")), {}),
+    # probes: other bits, what a piece of the work costs
+    "probe: staging only": ((
+        ("score_tables.cu", "  if (b >= B) return;",
+         "  if (b >= 0) return;"),), {}),
+    "probe: no table gathers": ((
+        ("score_tables.cu", "    return tab[off[id] + k];",
+         "    return (T)(k & 7);"),), {}),
+    "probe: hp and okP..okB stored, the rest computed": (tuple(
+        ("score_tables.cu", "    put(%s_o + idx, %s);" % (o_, v_),
+         "    if (%s == 12345) put(%s_o + idx, %s);" % (v_, o_, v_))
+        for o_, v_ in (("stk", "stk"), ("ext", "ext"), ("ml2", "ml2"),
+                       ("mlE", "mlE"), ("tout", "t_out"), ("tin", "t_in")))
+        + (("score_tables.cu", "      put(misA_o + k * plane + idx, misA[k]);"
+            "\n      put(misB_o + k * plane + idx, misB[k]);",
+            "      if (misA[k] == misB[k] + 12345) {\n"
+            "      put(misA_o + k * plane + idx, misA[k]);\n"
+            "      put(misB_o + k * plane + idx, misB[k]); }"),
+           ("score_tables.cu",
+            "    for (int k = 0; k < 6; ++k) put(spec_o + k * plane + idx, "
+            "spec[k]);",
+            "    for (int k = 0; k < 6; ++k) if (spec[k] == 12345) "
+            "put(spec_o + k * plane + idx, spec[k]);")), {}),
+    "probe: stores of constant codes and tables": ((
+        ("score_tables.cu", "    return tab[off[id] + k];",
+         "    return (T)1;"),
+        ("score_tables.cu", "    return seq[(idx - lo) * G];",
+         "    return 1 + (idx & 1);"),
+        ), {}),
+}
+
+
+def k1_variants(dev, variants):
+    """K1's device ms per 128-read batch (f32, B=128 x 100 nt) and whether
+    its outputs keep the shipped bits, for the shipped kernel and for
+    ``variants`` (K1_VARIANTS: source substitutions, each built from a
+    patched copy of csrc under build/k1_variants/, and host plan
+    constants of ops/kernels); the "probe" variants take a piece of the
+    work out.  One JSON line per variant."""
+    cfg = cfg_for("float32")
+    k = J.kernels(cfg, dev)
+    sd, bp = rows_cd_batch(cfg, main_reads(), dev, 11)
+    sargs = (k.tab,) + tuple(J.score_inputs(cfg, k, sd, bp)) + (
+        cfg.Wp, cfg.max_span, cfg.turn, cfg.no_ene, cfg.fix_rss)
+    funcs = kernel_functions()
+    ref = None
+    variants = {n_: v or ((), {}) for n_, v in variants.items()}
+    subs = {n_: v[0] for n_, v in variants.items()}
+    consts = {n_: v[1] for n_, v in variants.items()}
+    for name in patched_builds(subs, os.path.join(HERE, "build",
+                                                  "k1_variants")):
+        saved = {a: getattr(K, a) for a in consts[name]}
+        for a, v in consts[name].items():
+            setattr(K, a, v)
+        K.score_plan.cache_clear()
+        try:
+            t0 = time.time()
+            K.lib()
+            rec = {"variant": name, "build_s": round(time.time() - t0, 1),
+                   "plan": K.score_plan(cfg.Lp, cfg.Wp, B_MAIN,
+                                        torch.float32)._asdict()}
+            out = ET.score_tables(*sargs)
+            if ref is None:
+                ref = out
+            rec["same_bits"] = all(torch.equal(out[n_], ref[n_])
+                                   for n_ in ET.SCORE_KEYS)
+            rec["ms"] = [device_ms(lambda: ET.score_tables(*sargs), REPS,
+                                   funcs["score_tables"]) for _ in range(2)]
+            print(json.dumps(rec), flush=True)
+        finally:
+            for a, v in saved.items():
+                setattr(K, a, v)
+            K.score_plan.cache_clear()
+    print("card: %s" % card_line(), flush=True)
+
+
 def band_variants(dev, variants):
     """K2's and K5's device ms per column J0 (f32 at B=128 and B=33, f64
     at B=64: the main path, a batch that is no multiple of the reads per
@@ -4398,6 +4612,10 @@ def main():
                          "outside_ext.cu's launch constants, with the "
                          "shipped build's ptxas lines (see "
                          "ext_adj_variants), and exit")
+    ap.add_argument("--k1-variants", action="store_true",
+                    help="only time K1 for variants of its launch plan and "
+                         "source, and probes that take a piece of its work "
+                         "out (see k1_variants), and exit")
     ap.add_argument("--ep-probes", action="store_true",
                     help="only time K11 with one piece of its step taken "
                          "out (see ep_probes) and exit")
@@ -4409,9 +4627,10 @@ def main():
                          "run phase 14 (the wide grammars, 44 and 50 dots "
                          "among them), and exit")
     ap.add_argument("--rows-cd-times", action="store_true",
-                    help="only build and time K14-K17 at the main path's "
-                         "shapes (rows_cd_times; with the host plans, K15 "
-                         "and K17 under every split) and exit")
+                    help="only build and time K14-K17 and K1 at the main "
+                         "path's shapes (rows_cd_times; with the host "
+                         "plans, K15 and K17 under every split), print the "
+                         "SHA-256 of K1's and K16's outputs, and exit")
     ap.add_argument("--shipped-only", action="store_true",
                     help="with --ep-variants, --band-variants, "
                          "--ext-variants or --ext-adj-variants: time the "
@@ -4446,6 +4665,9 @@ def main():
         return
     if args.ep_probes:
         ep_probes(DEVICE)
+        return
+    if args.k1_variants:
+        k1_variants(DEVICE, pick(K1_VARIANTS))
         return
     if args.onehot_repro:
         onehot_repro(DEVICE)
@@ -4515,6 +4737,8 @@ def main():
     err.update(a32)
     # rows C and D: the factors and the hoisted exponentials, K14-K17
     err.update(check_rows_cd(dev))
+    for kn, e in check_k1_k16_batches(dev).items():
+        err[kn] = max(err.get(kn, 0.0), e)
     check_adj_splits(dev)
 
     parts_k64 = J.batch_logZ_parts(cfg64, p64, b16.sd, b16.bp_ok, device=dev)

@@ -28,21 +28,26 @@
 // and ops/dp.lam_total runs no forward again.  Nothing is summed across
 // reads: a read's bits do not depend on the batch or on the split.
 //
-// Bound on the H100: bytes.  K16 reads misA and misB and writes about
-// 2.5x their size (emisA, emisB: 2 x 2 x 4 x (Lp+1)(Wp+1) x B values,
-// 21 MB in f32 at B = 128 x 100 nt -w 50); K17 reads those cotangents and
-// misA, misB once (about 72 MB there; not emisB's PAD rows).  Design:
-// K16 one coalesced pass, a thread per output cell (the read fastest) in
-// three index ranges of one grid.  K17 spreads each read's sums over the
-// card: a block per (group of RL reads: a warp's loads one 128-byte line,
-// slice k of K) takes residue class k of K of each of the three trees for
-// both buckets (one load of misA/misB for the two, misA's and misB's
-// trees in one walk), its 256 threads RL reads x C columns walking the
-// class with 32-bit indices (common.cuh tree_walk, block_tree); the
-// partials go to a workspace and the group's last block halves them (a
-// counter) the same way.  K comes from the host plan
-// (ops/kernels.hoisted_adj_plan: about 512 blocks), and every K gives
-// read_sum's bits.
+// Bound on the H100: bytes.  K16 reads misA and misB and writes about 2.5x
+// their size (emisA, emisB: 2 x 2 x 4 x (Lp+1)(Wp+1) x B values, 21 MB in f32
+// at B = 128 x 100 nt -w 50); K17 reads those cotangents and misA, misB once
+// (about 72 MB there; not emisB's PAD rows).  Design: K16 one coalesced pass
+// over rows of B values (every output ends in the read): a block is TY rows x
+// TX threads along the reads, a thread V reads of a row (16 bytes where B and
+// the pointers allow it, else one), and both buckets from one load of its
+// inputs.  The grid's x is the rows' blocks, three ranges of them one after the
+// other (eSZ and eSZg by (dl, block of u1), emisA and emisB by block of rows),
+// its y the groups of reads, so a thread takes its coordinates from blockIdx
+// and threadIdx: no division per value, 32-bit offsets inside a block from a
+// 64-bit base (the host plan ops/kernels.hoisted_plan).  K17 spreads each
+// read's sums over the card: a block per (group of RL reads: a warp's loads one
+// 128-byte line, slice k of K) takes residue class k of K of each of the three
+// trees for both buckets (one load of misA/misB for the two, misA's and misB's
+// trees in one walk), its 256 threads RL reads x C columns walking the class
+// with 32-bit indices (common.cuh tree_walk, block_tree); the partials go to a
+// workspace and the group's last block halves them (a counter) the same way.  K
+// comes from the host plan (ops/kernels.hoisted_adj_plan: about 512 blocks),
+// and every K gives read_sum's bits.
 #include "common.cuh"
 
 struct HoistDims {
@@ -68,6 +73,13 @@ struct HoistOut {     // K16's outputs, K17's cotangents (null: zero)
 
 static const int kHoistThreads = 256;
 
+// K16's layout (ops/kernels.hoisted_plan): V reads a thread, TX threads
+// along the reads and TY rows a block; nb[0..2] the row blocks of the
+// three ranges, nub blocks of u1 per dl in the first
+struct HoistGrid {
+  int V, TX, TY, nub, nb1, nb2, nb3, groups;
+};
+
 template <typename T>
 __device__ __forceinline__ T exp_lam(T lam, T x) {
   return ex(lam_mul(lam, x));
@@ -79,57 +91,127 @@ __device__ __forceinline__ T lam_of(const HoistDims& D, const T* lam, int bu,
   return lam[bu * D.lam_s0 + b * D.lam_s1];
 }
 
-// ---- K16
-template <typename T>
+// V values of a row in one access (16 bytes when V > 1)
+template <typename T, int V>
+struct alignas(sizeof(T) * V) Vec {
+  T v[V];
+};
+
+template <typename T, int V>
+__device__ __forceinline__ Vec<T, V> ld_vec(const T* p) {
+  return *reinterpret_cast<const Vec<T, V>*>(p);
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void st_vec(T* p, const Vec<T, V>& x) {
+  *reinterpret_cast<Vec<T, V>*>(p) = x;
+}
+
+// ---- K16: block (row block, group of reads), thread (row, V reads)
+template <typename T, int V>
 __global__ void __launch_bounds__(kHoistThreads)
-hoisted_kernel(HoistDims D, HoistIn in, HoistOut o, long long n1,
-               long long n2, long long n3) {
+hoisted_kernel(HoistDims D, HoistIn in, HoistOut o, HoistGrid g) {
   const int B = D.B, C1 = D.Cp + 1, W1 = D.Wp + 1, Lp1 = D.Lp + 1;
-  const T* lam = static_cast<const T*>(in.lam);
-  long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx < n1) {  // (bu, dl, u1, b): every class of eSZ and eSZg
-    const int b = (int)(idx % B), u1 = (int)((idx / B) % C1);
-    const int dl = (int)((idx / ((long long)B * C1)) % C1);
-    const int bu = (int)(idx / ((long long)B * C1 * C1));
-    const T lb = lam_of(D, lam, bu, b);
-    const T cap = dl + u1 <= in.C[b] ? (T)1 : (T)0;
-    const T* SZT = static_cast<const T*>(in.SZT);
-    T acc[4] = {0, 0, 0, 0};
-    T* eSZ = static_cast<T*>(o.eSZ);
-    const long long cell = ((long long)dl * C1 + u1) * B + b;
+  const int b0 = (blockIdx.y * g.TX + threadIdx.x) * V;
+  if (b0 >= B) return;
+  const T* lamp = static_cast<const T*>(in.lam);
+  T lb[2][V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    lb[0][v] = lam_of(D, lamp, 0, b0 + v);
+    lb[1][v] = lam_of(D, lamp, 1, b0 + v);
+  }
+  const int ty = threadIdx.y;
+  int rb = blockIdx.x;
+  if (rb < g.nb1) {  // (dl, u1): every class of eSZ and eSZg
+    const int dl = rb / g.nub;
+    const int u1 = (rb - dl * g.nub) * g.TY + ty;
+    if (u1 >= C1) return;
+    const long long c2B = (long long)C1 * C1 * B;
+    const int cell = (dl * C1 + u1) * B + b0;
+    bool cap[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) cap[v] = dl + u1 <= in.C[b0 + v];
+    const T* SZT = static_cast<const T*>(in.SZT) + dl * C1 + u1;
+    T acc[2][4][V];
+#pragma unroll
+    for (int bu = 0; bu < 2; ++bu)
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int v = 0; v < V; ++v) acc[bu][k][v] = (T)0;
+    T* eSZ = static_cast<T*>(o.eSZ) + cell;
     for (int x = 0; x < D.n_cls; ++x) {
-      const T e = exp_lam(lb, SZT[((long long)x * C1 + dl) * C1 + u1]);
-      eSZ[((long long)bu * D.n_cls + x) * C1 * C1 * B + cell] = e * cap;
-      const int g = in.grp[x];
-      acc[g] = acc[g] + e;
+      const T s = SZT[x * C1 * C1];
+      const int gr = in.grp[x];
+#pragma unroll
+      for (int bu = 0; bu < 2; ++bu) {
+        Vec<T, V> y;
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          const T e = exp_lam(lb[bu][v], s);
+          y.v[v] = e * (cap[v] ? (T)1 : (T)0);
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            if (k == gr) acc[bu][k][v] = acc[bu][k][v] + e;
+        }
+        st_vec<T, V>(eSZ + (bu * D.n_cls + x) * c2B, y);
+      }
     }
-    T* eSZg = static_cast<T*>(o.eSZg);
-    for (int g = 0; g < 4; ++g)
-      eSZg[((long long)bu * 4 + g) * C1 * C1 * B + cell] = acc[g];
+    T* eSZg = static_cast<T*>(o.eSZg) + cell;
+#pragma unroll
+    for (int bu = 0; bu < 2; ++bu)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        Vec<T, V> y;
+#pragma unroll
+        for (int v = 0; v < V; ++v) y.v[v] = acc[bu][k][v];
+        st_vec<T, V>(eSZg + (bu * 4 + k) * c2B, y);
+      }
     return;
   }
-  idx -= n1;
-  if (idx < n2) {  // emisA, in its own layout
-    const long long per = 4LL * Lp1 * W1 * B;
-    const int bu = (int)(idx / per), b = (int)(idx % B);
-    static_cast<T*>(o.emisA)[idx] = exp_lam(
-        lam_of(D, lam, bu, b), static_cast<const T*>(in.misA)[idx % per]);
+  rb -= g.nb1;
+  const int off = ty * B + b0;  // inside the block's rows
+  if (rb < g.nb2) {  // emisA, in misA's layout (g, j, w)
+    const int n = 4 * Lp1 * W1;
+    if (rb * g.TY + ty >= n) return;
+    const long long base = (long long)rb * g.TY * B;
+    const Vec<T, V> x =
+        ld_vec<T, V>(static_cast<const T*>(in.misA) + base + off);
+    T* out = static_cast<T*>(o.emisA) + base + off;
+#pragma unroll
+    for (int bu = 0; bu < 2; ++bu) {
+      Vec<T, V> y;
+#pragma unroll
+      for (int v = 0; v < V; ++v) y.v[v] = exp_lam(lb[bu][v], x.v[v]);
+      st_vec<T, V>(out + bu * (long long)n * B, y);
+    }
     return;
   }
-  idx -= n2;
-  if (idx < n3) {  // emisB (bu, row, w, g, b)
-    const int b = (int)(idx % B), g = (int)((idx / B) % 4);
-    const int w = (int)((idx / (4LL * B)) % W1);
-    const long long rows = (long long)Lp1 + D.PAD;
-    const int row = (int)((idx / (4LL * B * W1)) % rows);
-    const int bu = (int)(idx / (4LL * B * W1 * rows));
-    T v = (T)0;
-    if (row >= D.PAD) {
-      const T x = static_cast<const T*>(
-          in.misB)[(((long long)g * Lp1 + (row - D.PAD)) * W1 + w) * B + b];
-      v = exp_lam(lam_of(D, lam, bu, b), x);
+  rb -= g.nb2;  // emisB, row q = (row, w) of [Lp+1+PAD, Wp+1] x its 4 groups
+  const int q0 = rb * g.TY, nq = (Lp1 + D.PAD) * W1;
+  if (q0 + ty >= nq) return;
+  const long long bB = (long long)nq * 4 * B;  // a bucket of emisB
+  T* out = static_cast<T*>(o.emisB) + (long long)q0 * 4 * B + ty * 4 * B + b0;
+  const int src = q0 + ty - D.PAD * W1;  // (row - PAD, w) of misB
+  const long long plane = (long long)Lp1 * W1 * B;
+  const T* misB = static_cast<const T*>(in.misB) + (long long)src * B + b0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    Vec<T, V> y0, y1;
+    if (src >= 0) {
+      const Vec<T, V> x = ld_vec<T, V>(misB + k * plane);
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        y0.v[v] = exp_lam(lb[0][v], x.v[v]);
+        y1.v[v] = exp_lam(lb[1][v], x.v[v]);
+      }
+    } else {
+#pragma unroll
+      for (int v = 0; v < V; ++v) y0.v[v] = y1.v[v] = (T)0;
     }
-    static_cast<T*>(o.emisB)[idx] = v;
+    st_vec<T, V>(out + k * B, y0);
+    st_vec<T, V>(out + bB + k * B, y1);
   }
 }
 
@@ -280,16 +362,38 @@ hoisted_adj_kernel(HoistDims D, HoistIn in, HoistOut g, T* glam, T* part,
   if (threadIdx.x == 0) done[blockIdx.x] = 0;
 }
 
+// K16 on the host plan's layout (ops/kernels.hoisted_plan), refused
+// unless it is the kernel's: V reads a thread (16 bytes, B a multiple of
+// V and every row aligned) or 1, TX x TY = kHoistThreads, the ranges'
+// row blocks and the groups of reads as the plan counts them
 template <typename T>
-static int hoisted(HoistDims D, HoistIn in, HoistOut o, cudaStream_t st) {
+static int hoisted(HoistDims D, HoistIn in, HoistOut o, HoistGrid g,
+                   cudaStream_t st) {
   const int C1 = D.Cp + 1, W1 = D.Wp + 1, Lp1 = D.Lp + 1;
-  const long long n1 = 2LL * C1 * C1 * D.B;
-  const long long n2 = 2LL * 4 * Lp1 * W1 * D.B;
-  const long long n3 = 2LL * (Lp1 + D.PAD) * W1 * 4 * D.B;
-  const long long blocks = (n1 + n2 + n3 + kHoistThreads - 1) / kHoistThreads;
-  if (blocks >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
-  hoisted_kernel<T><<<(int)blocks, kHoistThreads, 0, st>>>(D, in, o, n1, n2,
-                                                           n3);
+  const int VW = 16 / (int)sizeof(T);
+  auto cdiv = [](long long a, long long b) { return (a + b - 1) / b; };
+  bool ok = (g.V == 1 || g.V == VW) && D.B % g.V == 0 && g.TX > 0 &&
+            g.TY > 0 && (g.TX & (g.TX - 1)) == 0 &&
+            g.TX * g.TY == kHoistThreads && g.nub == cdiv(C1, g.TY) &&
+            g.nb1 == (long long)C1 * g.nub &&
+            g.nb2 == cdiv(4LL * Lp1 * W1, g.TY) &&
+            g.nb3 == cdiv((long long)(Lp1 + D.PAD) * W1, g.TY) &&
+            g.groups == cdiv(D.B / g.V, g.TX) && g.groups <= 65535 &&
+            4LL * g.TY * D.B < (1LL << 31) &&
+            (long long)C1 * C1 * D.B < (1LL << 31) &&
+            (long long)g.nb1 + g.nb2 + g.nb3 < (1LL << 31);
+  if (g.V > 1) {
+    const void* ptrs[6] = {in.misA, in.misB, o.eSZ, o.eSZg, o.emisA,
+                           o.emisB};
+    for (const void* p : ptrs)
+      ok = ok && reinterpret_cast<unsigned long long>(p) % 16 == 0;
+  }
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(g.nb1 + g.nb2 + g.nb3, g.groups), block(g.TX, g.TY);
+  if (g.V == 1)
+    hoisted_kernel<T, 1><<<grid, block, 0, st>>>(D, in, o, g);
+  else
+    hoisted_kernel<T, 16 / sizeof(T)><<<grid, block, 0, st>>>(D, in, o, g);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -310,8 +414,9 @@ static int hoisted_adj(HoistDims D, HoistIn in, HoistOut g, T* glam, T* part,
 
 #define HOISTED_EXPORTS(SUF, T)                                              \
   RNAELEM_EXPORT int rnaelem_hoisted_##SUF(HoistDims D, HoistIn in,          \
-                                           HoistOut o, cudaStream_t st) {    \
-    return hoisted<T>(D, in, o, st);                                         \
+                                           HoistOut o, HoistGrid g,          \
+                                           cudaStream_t st) {                \
+    return hoisted<T>(D, in, o, g, st);                                      \
   }                                                                          \
   RNAELEM_EXPORT int rnaelem_hoisted_adj_##SUF(                              \
       HoistDims D, HoistIn in, HoistOut g, T* glam, T* part, int* done,      \

@@ -7,12 +7,25 @@
 // seq_tables (row B), and the band masks of model/joint.py _band_masks.
 //
 // Bound on the H100: bytes.  Each (j, w, read) cell does a few dozen
-// table gathers and writes 14 outputs (about 80 bytes in f32); the
+// table gathers and writes 14 outputs (about 88 bytes in f32); the
 // tables (one packed buffer, about 1.7 MB in f32, mostly the 5^8 hexaloop
-// keys) stay in L2.  Design: one thread per (j, w, b) cell with b the
-// fastest index, so every output store is coalesced in the batch-minor
-// layout the DP kernels read; sequence reads are tiny and cached.  The
-// left_pair_cum running OR over w is a short in-thread loop.
+// keys) stay in L2.  The inputs are read-major (seq [B, Lp], bp_ok [B,
+// Lp+1, Wp+1], dots_cum [B, Lp+1]), the outputs batch-minor.  Design: a
+// block per (band of J diagonals i = j - w, group of G reads: a row of
+// the block's reads one 128-byte line of a float plane; J = 1 on the
+// host plan ops/kernels.score_plan) first stages its reads' codes as
+// bytes [position][read] over the window its cells read (sg()'s and
+// tin_at's clamps included), the bp_ok cells of its diagonals and the
+// one before (okE reads diagonal i - 1 at w + 2), batch-fastest, and
+// dots_cum under fix_rss, all in shared memory.  The left_pair_cum
+// running OR along diagonal i is its first pair: each staged pair of the
+// block's diagonals lowers that diagonal's minimum w (a shared
+// atomicMin), once per (diagonal, read), and a cell's okB is first <= w.
+// Then the block's threads walk its cells, the read fastest, so that a
+// warp's store is a line of one plane; the pair types sit in shared
+// memory (a constant-memory table serialises a warp's different
+// indices).  What holds it back (chip_smoke --k1-variants): its stores,
+// then the staging of bp_ok's diagonals (a sector per row and read).
 #include "common.cuh"
 
 // float tables in one buffer, offsets in energy/tables.py FLOAT_TABLES order
@@ -39,24 +52,34 @@ template <typename T>
 struct Cell {
   const T* tab;
   const int* off;
-  const int64_t* seq;  // this read's [Lp] codes
-  int Lp;
+  const int* pt;             // the pair types c_bp, in shared memory
+  const unsigned char* seq;  // this read's staged codes: position lo + k
+  int Lp, lo, G;             // at seq[k * G]
   __device__ __forceinline__ int sg(int idx) const {
     idx = idx < 0 ? 0 : (idx > Lp - 1 ? Lp - 1 : idx);
-    return static_cast<int>(seq[idx]);
+    return seq[(idx - lo) * G];
+  }
+  // the little-endian base-5 key of n codes from position start
+  __device__ __forceinline__ int key(int start, int n) const {
+    int k = 0, pw = 1;
+    for (int m = 0; m < n; ++m) {
+      k += sg(start + m) * pw;
+      pw *= 5;
+    }
+    return k;
   }
   __device__ __forceinline__ int bp(int a, int b) const {
-    return c_bp[a * 5 + b];
+    return pt[a * 5 + b];
   }
   __device__ __forceinline__ T at(int id, int k) const {
     return tab[off[id] + k];
   }
-  // sum_ext_m(ii, jj, ext) (energy_param.hpp:686-708)
-  __device__ T sum_ext_m(int ii, int jj, int L, bool ext) const {
-    int t = bp(sg(ii), sg(jj));
-    bool five_ok = ii - 1 >= 0;
-    bool three_ok = jj + 1 < L;
-    int five = sg(ii - 1), three = sg(jj + 1);
+  // sum_ext_m(ii, jj, ext) (energy_param.hpp:686-708) for the pair type
+  // t = bp(sg(ii), sg(jj)), five = sg(ii - 1) (ii - 1 >= 0: five_ok) and
+  // three = sg(jj + 1) (jj + 1 < L: three_ok)
+  __device__ __forceinline__ T sum_ext_m(int t, int five, int three,
+                                         bool five_ok, bool three_ok,
+                                         bool ext) const {
     T z;
     if (five_ok && three_ok) {
       z = at(ext ? T_MIS_E : T_MIS_M, (t * 5 + five) * 5 + three);
@@ -69,180 +92,286 @@ struct Cell {
   }
 };
 
-template <typename T>
-__global__ void score_tables_kernel(
-    ScoreDims p, const T* __restrict__ tab, const int64_t* __restrict__ seq,
-    const int64_t* __restrict__ Lb, const bool* __restrict__ bp_ok,
-    const int* __restrict__ dots_cum, T* hp_o, T* stk_o, T* ext_o, T* ml2_o,
-    T* mlE_o, T* misA_o, T* misB_o, T* spec_o, int* tout_o, int* tin_o,
-    bool* okP_o, bool* okE_o, bool* okM_o, bool* okB_o) {
-  const int Lp = p.Lp, Wp = p.Wp, B = p.B, W1 = Wp + 1;
-  const long long n = (long long)(Lp + 1) * W1 * B;
-  long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  const int b = static_cast<int>(idx % B);
-  const int w = static_cast<int>((idx / B) % W1);
-  const int j = static_cast<int>(idx / ((long long)B * W1));
-  const int i = j - w;
-  const int L = static_cast<int>(Lb[b]);
-  const int W = L < p.max_span ? L : p.max_span;
-  Cell<T> c{tab, p.off, seq + (long long)b * Lp, Lp};
-  const long long plane = n;  // stride between planes of misA/misB/spec
-  const T zero = (T)0;
+static const int kScoreThreads = 256;
 
-  // ---- hairpin (energy_param.hpp:710-742), E(i, j): pair (i-1, j)
-  T hp;
-  {
-    const int d = w;
-    const int t = c.bp(c.sg(i - 1), c.sg(j));
-    T base;
-    if (d <= MAXLOOP) {
-      base = c.at(T_HAIRPIN, d < 0 ? 0 : d);
-    } else {
-      T ratio = (T)(d > 1 ? d : 1) / (T)MAXLOOP;
-      base = c.at(T_HAIRPIN, MAXLOOP) -
-             c.at(T_LXC, 0) * lg(ratio) * (T)10.0 / (T)KT;
-    }
-    const T au = t > 2 ? c.at(T_TERM_AU, 0) : zero;
-    const T mish = c.at(T_MIS_H, (t * 5 + c.sg(i)) * 5 + c.sg(j - 1));
-    int key5 = 0, key6 = 0, key8 = 0, pw = 1;
-    for (int k = 0; k < 8; ++k) {
-      int v = c.sg(i - 1 + k) * pw;
-      if (k < 5) key5 += v;
-      if (k < 6) key6 += v;
-      key8 += v;
-      pw *= 5;
-    }
-    if (d == 3) {
-      T tri = c.at(T_TRI, key5);
-      hp = isfinite(tri) ? tri : base + au;
-    } else if (d == 4) {
-      T tetra = c.at(T_TETRA, key6);
-      hp = isfinite(tetra) ? tetra : base + mish;
-    } else if (d == 6) {
-      T hexa = c.at(T_HEXA, key8);
-      hp = isfinite(hexa) ? hexa : base + mish;
-    } else {
-      hp = d > 3 ? base + mish : base;
-    }
-    if (d < 1) hp = ninf<T>();
-    if (p.no_ene) hp = zero;
-    if (p.fix_rss) {
-      const int* dc = dots_cum + (long long)b * (Lp + 1);
-      int ii = i < 0 ? 0 : i;
-      if (dc[j] - dc[ii] != w) hp = ninf<T>();
-    }
-  }
+// K1's layout (ops/kernels.score_plan): G reads a block (2^lgG), J
+// diagonals a block with J + 1 = 2^lgDJ (the staging's lanes along a
+// row of bp_ok), ``bands`` x ``groups`` blocks, ``smem`` bytes
+struct ScoreGrid {
+  int G, lgG, J, lgDJ, bands, groups, smem;
+};
 
-  // ---- stack, exterior and multiloop closing terms
-  T stk = zero, ext = zero, ml2 = zero, mlE = zero;
-  if (!p.no_ene) {
-    const int t = c.bp(c.sg(i), c.sg(j - 1));
-    const int t2 = c.bp(c.sg(j - 2), c.sg(i + 1));
-    stk = c.at(T_STACK, t * 8 + t2);
-    ext = c.sum_ext_m(i, j - 1, L, true);
-    ml2 = c.sum_ext_m(i, j - 1, L, false) + c.at(T_MLINTERN, 0);
-    mlE = c.sum_ext_m(j, i - 1, L, false) + c.at(T_MLCLOSING, 0) +
-          c.at(T_MLINTERN, 0);
-  }
-
-  // ---- factored internal-loop tables (ops/ep_fast.py seq_tables)
-  T misA[4] = {zero, zero, zero, zero}, misB[4] = {zero, zero, zero, zero};
-  T spec[6] = {zero, zero, zero, zero, zero, zero};
-  int t_out = 0, t_in = 0;
-  if (!p.no_ene) {
-    t_out = c.bp(c.sg(i - 1), c.sg(j));
-    const int b_i = c.sg(i), b_jm = c.sg(j - 1);
-    misA[0] = c.at(T_MIS_1N, (t_out * 5 + b_i) * 5 + b_jm);
-    misA[1] = c.at(T_MIS_23, (t_out * 5 + b_i) * 5 + b_jm);
-    misA[2] = c.at(T_MIS_I, (t_out * 5 + b_i) * 5 + b_jm);
-    misA[3] = t_out > 2 ? c.at(T_TERM_AU, 0) : zero;
-    t_in = c.bp(c.sg(j - 1), c.sg(j - w));
-    const int b_l = c.sg(j), b_km = c.sg(j - w - 1);
-    misB[0] = c.at(T_MIS_1N, (t_in * 5 + b_l) * 5 + b_km);
-    misB[1] = c.at(T_MIS_23, (t_in * 5 + b_l) * 5 + b_km);
-    misB[2] = c.at(T_MIS_I, (t_in * 5 + b_l) * 5 + b_km);
-    misB[3] = t_in > 2 ? c.at(T_TERM_AU, 0) : zero;
-    // t_in at cell (clip(j-joff, 0, Lp), clip(w-woff, 0, Wp))
-    auto tin_at = [&](int joff, int woff) {
-      int jj = j - joff, ww = w - woff;
-      jj = jj < 0 ? 0 : (jj > Lp ? Lp : jj);
-      ww = ww < 0 ? 0 : (ww > Wp ? Wp : ww);
-      return c.bp(c.sg(jj - 1), c.sg(jj - ww));
-    };
-    const int b_i1 = c.sg(i + 1), b_j2 = c.sg(j - 2);
-    const T bulge1 = c.at(T_BULGE, 1);
-    spec[0] = bulge1 + c.at(T_STACK, t_out * 8 + tin_at(1, 1));
-    spec[1] = bulge1 + c.at(T_STACK, t_out * 8 + tin_at(0, 1));
-    spec[2] = c.at(T_INT11, ((t_out * 8 + tin_at(1, 2)) * 5 + b_i) * 5 + b_jm);
-    spec[3] = c.at(T_INT21,
-                   (((t_out * 8 + tin_at(2, 3)) * 5 + b_i) * 5 + b_j2) * 5 +
-                       b_jm);
-    spec[4] = c.at(T_INT21,
-                   (((tin_at(1, 3) * 8 + t_out) * 5 + b_jm) * 5 + b_i) * 5 +
-                       b_i1);
-    spec[5] = c.at(T_INT22,
-                   ((((t_out * 8 + tin_at(2, 4)) * 5 + b_i) * 5 + b_i1) * 5 +
-                    b_j2) * 5 + b_jm);
-  }
-
-  // ---- band masks (energy_model.hpp:203-218, 289-338)
-  const bool* bpb = bp_ok + (long long)b * (Lp + 1) * W1;
-  const bool okP = (i >= 0) && (w > 0) && (w <= W) && bpb[j * W1 + w];
-  const bool srcE = (j + 1 <= Lp) && (w + 2 <= Wp) && bpb[(j + 1) * W1 + w + 2];
-  const bool okE = (i > 0) && (w + 2 <= W) && srcE;
-  const int m_min = p.turn == 0 ? 4 : 2 * (2 + p.turn);
-  const bool okM = (i > 0) && (j < L) && (w <= W) && (w >= m_min);
-  bool lbp = false;  // left_pair_cum: any pair (i, i+w'-1), w' <= w
-  if (i >= 0) {
-    for (int w2 = 0; w2 <= w && !lbp; ++w2)
-      lbp = (i + w2 <= Lp) && bpb[(i + w2) * W1 + w2];
-  }
-  const bool okB = (w <= W) && lbp;
-
-  hp_o[idx] = hp;
-  stk_o[idx] = stk;
-  ext_o[idx] = ext;
-  ml2_o[idx] = ml2;
-  mlE_o[idx] = mlE;
-  for (int g = 0; g < 4; ++g) {
-    misA_o[g * plane + idx] = misA[g];
-    misB_o[g * plane + idx] = misB[g];
-  }
-  for (int q = 0; q < 6; ++q) spec_o[q * plane + idx] = spec[q];
-  tout_o[idx] = t_out;
-  tin_o[idx] = t_in;
-  okP_o[idx] = okP;
-  okE_o[idx] = okE;
-  okM_o[idx] = okM;
-  okB_o[idx] = okB;
+static __host__ __device__ __forceinline__ int clampi(int x, int a, int b) {
+  return x < a ? a : (x > b ? b : x);
 }
 
+// the shared layout of a block: ints first, then bytes
+static __host__ __device__ __forceinline__ long long score_smem(int Wp, int G,
+                                                                int J) {
+  return 4LL * G * (J + (J + Wp)) + (long long)G * (J + Wp + 4) +
+         (long long)(J + 1) * (Wp + 1) * G;
+}
+
+// the outputs' stores, streaming (evict first): the DP kernels read them
+// later, and the table gathers keep L2 (chip_smoke --k1-variants)
 template <typename T>
-static int launch_score_tables(ScoreDims p, const T* tab, const int64_t* seq,
-                               const int64_t* L, const bool* bp_ok,
-                               const int* dots_cum, T* hp, T* stk, T* ext,
-                               T* ml2, T* mlE, T* misA, T* misB, T* spec,
-                               int* tout, int* tin, bool* okP, bool* okE,
-                               bool* okM, bool* okB, cudaStream_t stream) {
-  const long long n = (long long)(p.Lp + 1) * (p.Wp + 1) * p.B;
-  const int threads = 256;
-  score_tables_kernel<T><<<ceil_div(n, threads), threads, 0, stream>>>(
-      p, tab, seq, L, bp_ok, dots_cum, hp, stk, ext, ml2, mlE, misA, misB,
-      spec, tout, tin, okP, okE, okM, okB);
+__device__ __forceinline__ void put(T* p, T v) {
+  __stcs(p, v);
+}
+__device__ __forceinline__ void put(bool* p, bool v) {
+  __stcs(reinterpret_cast<unsigned char*>(p), static_cast<unsigned char>(v));
+}
+
+// 5 blocks of kScoreThreads an SM (48 registers a thread): the grid is
+// one wave at the main shape
+template <typename T>
+__global__ void __launch_bounds__(kScoreThreads, 5) score_tables_kernel(
+    ScoreDims p, ScoreGrid gr, const T* __restrict__ tab,
+    const int64_t* __restrict__ seq, const int64_t* __restrict__ Lb,
+    const bool* __restrict__ bp_ok, const int* __restrict__ dots_cum,
+    T* __restrict__ hp_o, T* __restrict__ stk_o, T* __restrict__ ext_o,
+    T* __restrict__ ml2_o, T* __restrict__ mlE_o, T* __restrict__ misA_o,
+    T* __restrict__ misB_o, T* __restrict__ spec_o, int* __restrict__ tout_o,
+    int* __restrict__ tin_o, bool* __restrict__ okP_o,
+    bool* __restrict__ okE_o, bool* __restrict__ okM_o,
+    bool* __restrict__ okB_o) {
+  extern __shared__ int smem[];
+  __shared__ int s_pt[25];
+  const int Lp = p.Lp, Wp = p.Wp, B = p.B, W1 = Wp + 1;
+  const int G = gr.G, lgG = gr.lgG, J = gr.J, DJ = 1 << gr.lgDJ;
+  const int t = threadIdx.x;
+  const int i0 = -Wp + (int)blockIdx.x * J;  // the block's diagonals
+  const int bb = (int)blockIdx.y * G;        // its first read
+  int* s_first = smem;                  // [J][G] first pair on diagonal
+  int* s_dc = s_first + J * G;          // [J + Wp][G] dots_cum, dlo..dhi
+  unsigned char* s_seq =
+      reinterpret_cast<unsigned char*>(s_dc + (J + Wp) * G);  // lo..hi
+  unsigned char* s_bp = s_seq + (J + Wp + 4) * G;  // [J + 1][W1][G]
+  // the window of positions the cells read once clamped (sg(): i - 3 at
+  // w = 0 through tin_at(2, 3), up to j + 1 = i + 1 at w = 0 and j), and
+  // of dots_cum (max(i, 0) .. j)
+  const int lo = clampi(i0 - 3, 0, Lp - 1);
+  const int hi = clampi(i0 + J + Wp, 0, Lp - 1);
+  const int dlo = clampi(i0, 0, Lp), dhi = clampi(i0 + J - 1 + Wp, 0, Lp);
+
+  if (t < 25) s_pt[t] = c_bp[t];
+  for (int e = t; e < J * G; e += kScoreThreads) s_first[e] = W1;
+  for (int e = t; e < ((hi - lo + 1) << lgG); e += kScoreThreads) {
+    const int g = e & (G - 1), b = bb + g;
+    s_seq[e] = b < B ? static_cast<unsigned char>(
+                           seq[(long long)b * Lp + lo + (e >> lgG)])
+                     : 0;
+  }
+  if (p.fix_rss) {
+    for (int e = t; e < ((dhi - dlo + 1) << lgG); e += kScoreThreads) {
+      const int g = e & (G - 1), b = bb + g;
+      s_dc[e] = b < B ? dots_cum[(long long)b * (Lp + 1) + dlo + (e >> lgG)]
+                      : 0;
+    }
+  }
+  __syncthreads();
+  // bp_ok's cells on diagonals i0 - 1 + o, o = 0..J: row rr of the rows
+  // i0 - 1 .. i0 + J + Wp - 1 holds them at w = rr - o (J + 1 neighbouring
+  // bytes of the read's row, lanes o); a pair on a block diagonal lowers
+  // its first pair
+  const int nrow = J + Wp + 1;
+  for (int e = t; e < (nrow << (gr.lgDJ + lgG)); e += kScoreThreads) {
+    const int o = e & (DJ - 1);
+    const int g = (e >> gr.lgDJ) & (G - 1), rr = e >> (gr.lgDJ + lgG);
+    const int w = rr - o, r = i0 - 1 + rr, b = bb + g;
+    if (o > J || w < 0 || w > Wp) continue;
+    const bool v = b < B && r >= 0 && r <= Lp &&
+                   bp_ok[((long long)b * (Lp + 1) + r) * W1 + w];
+    s_bp[(o * W1 + w) * G + g] = v;
+    if (v && o > 0) atomicMin(&s_first[(o - 1) * G + g], w);
+  }
+  __syncthreads();
+
+  // thread: read g of the group, cells (o, w) in turn
+  const int g = t & (G - 1), b = bb + g;
+  if (b >= B) return;
+  const int L = static_cast<int>(Lb[b]);
+  const int W = L < p.max_span ? L : p.max_span;
+  Cell<T> c{tab, p.off, s_pt, s_seq + g, Lp, lo, G};
+  const int* dcg = s_dc + g;
+  const unsigned char* bpg = s_bp + g;
+  const long long plane = (long long)(Lp + 1) * W1 * B;  // misA/misB/spec
+  const T zero = (T)0;
+  const int m_min = p.turn == 0 ? 4 : 2 * (2 + p.turn);
+  const int step = kScoreThreads >> lgG;  // cells (o, w) walked at once
+  int q = t >> lgG;
+  int o = q / W1, w = q - o * W1;
+  for (; o < J; w += step) {
+    while (w >= W1) {
+      w -= W1;
+      ++o;
+    }
+    if (o >= J) break;
+    const int i = i0 + o, j = i + w;
+    if (j < 0 || j > Lp) continue;
+    const long long idx = ((long long)j * W1 + w) * B + b;
+    // the codes around the pair (sg(): clamped to 0..Lp-1; j - w = i)
+    const int s_im1 = c.sg(i - 1), s_i = c.sg(i), s_ip1 = c.sg(i + 1);
+    const int s_jm2 = c.sg(j - 2), s_jm1 = c.sg(j - 1), s_j = c.sg(j);
+
+    // ---- hairpin (energy_param.hpp:710-742), E(i, j): pair (i-1, j)
+    T hp;
+    {
+      const int d = w;
+      const int t_ = c.bp(s_im1, s_j);
+      T base;
+      if (d <= MAXLOOP) {
+        base = c.at(T_HAIRPIN, d < 0 ? 0 : d);
+      } else {
+        T ratio = (T)(d > 1 ? d : 1) / (T)MAXLOOP;
+        base = c.at(T_HAIRPIN, MAXLOOP) -
+               c.at(T_LXC, 0) * lg(ratio) * (T)10.0 / (T)KT;
+      }
+      const T au = t_ > 2 ? c.at(T_TERM_AU, 0) : zero;
+      const T mish = c.at(T_MIS_H, (t_ * 5 + s_i) * 5 + s_jm1);
+      // the loop's window i-1 .. j as a key (d + 2 codes)
+      if (d == 3) {
+        T tri = c.at(T_TRI, c.key(i - 1, 5));
+        hp = isfinite(tri) ? tri : base + au;
+      } else if (d == 4) {
+        T tetra = c.at(T_TETRA, c.key(i - 1, 6));
+        hp = isfinite(tetra) ? tetra : base + mish;
+      } else if (d == 6) {
+        T hexa = c.at(T_HEXA, c.key(i - 1, 8));
+        hp = isfinite(hexa) ? hexa : base + mish;
+      } else {
+        hp = d > 3 ? base + mish : base;
+      }
+      if (d < 1) hp = ninf<T>();
+      if (p.no_ene) hp = zero;
+      if (p.fix_rss) {
+        int ii = i < 0 ? 0 : i;
+        if (dcg[(j - dlo) * G] - dcg[(ii - dlo) * G] != w) hp = ninf<T>();
+      }
+    }
+
+    // ---- stack, exterior and multiloop closing terms
+    T stk = zero, ext = zero, ml2 = zero, mlE = zero;
+    if (!p.no_ene) {
+      const int t_ = c.bp(s_i, s_jm1);
+      const int t2 = c.bp(s_jm2, s_ip1);
+      stk = c.at(T_STACK, t_ * 8 + t2);
+      // sum_ext_m(i, j - 1, .) and sum_ext_m(j, i - 1, .)
+      ext = c.sum_ext_m(t_, s_im1, s_j, i - 1 >= 0, j < L, true);
+      ml2 = c.sum_ext_m(t_, s_im1, s_j, i - 1 >= 0, j < L, false) +
+            c.at(T_MLINTERN, 0);
+      mlE = c.sum_ext_m(c.bp(s_j, s_im1), s_jm1, s_i, j - 1 >= 0, i < L,
+                        false) +
+            c.at(T_MLCLOSING, 0) + c.at(T_MLINTERN, 0);
+    }
+
+    // ---- factored internal-loop tables (ops/ep_fast.py seq_tables)
+    T misA[4] = {zero, zero, zero, zero}, misB[4] = {zero, zero, zero, zero};
+    T spec[6] = {zero, zero, zero, zero, zero, zero};
+    int t_out = 0, t_in = 0;
+    if (!p.no_ene) {
+      t_out = c.bp(s_im1, s_j);
+      const int b_i = s_i, b_jm = s_jm1;
+      misA[0] = c.at(T_MIS_1N, (t_out * 5 + b_i) * 5 + b_jm);
+      misA[1] = c.at(T_MIS_23, (t_out * 5 + b_i) * 5 + b_jm);
+      misA[2] = c.at(T_MIS_I, (t_out * 5 + b_i) * 5 + b_jm);
+      misA[3] = t_out > 2 ? c.at(T_TERM_AU, 0) : zero;
+      t_in = c.bp(s_jm1, s_i);
+      const int b_l = s_j, b_km = s_im1;
+      misB[0] = c.at(T_MIS_1N, (t_in * 5 + b_l) * 5 + b_km);
+      misB[1] = c.at(T_MIS_23, (t_in * 5 + b_l) * 5 + b_km);
+      misB[2] = c.at(T_MIS_I, (t_in * 5 + b_l) * 5 + b_km);
+      misB[3] = t_in > 2 ? c.at(T_TERM_AU, 0) : zero;
+      // t_in at cell (clip(j-joff, 0, Lp), clip(w-woff, 0, Wp))
+      auto tin_at = [&](int joff, int woff) {
+        const int jj = clampi(j - joff, 0, Lp), ww = clampi(w - woff, 0, Wp);
+        return c.bp(c.sg(jj - 1), c.sg(jj - ww));
+      };
+      const int b_i1 = s_ip1, b_j2 = s_jm2;
+      const T bulge1 = c.at(T_BULGE, 1);
+      spec[0] = bulge1 + c.at(T_STACK, t_out * 8 + tin_at(1, 1));
+      spec[1] = bulge1 + c.at(T_STACK, t_out * 8 + tin_at(0, 1));
+      spec[2] =
+          c.at(T_INT11, ((t_out * 8 + tin_at(1, 2)) * 5 + b_i) * 5 + b_jm);
+      spec[3] = c.at(T_INT21,
+                     (((t_out * 8 + tin_at(2, 3)) * 5 + b_i) * 5 + b_j2) * 5 +
+                         b_jm);
+      spec[4] = c.at(T_INT21,
+                     (((tin_at(1, 3) * 8 + t_out) * 5 + b_jm) * 5 + b_i) * 5 +
+                         b_i1);
+      spec[5] = c.at(T_INT22,
+                     ((((t_out * 8 + tin_at(2, 4)) * 5 + b_i) * 5 + b_i1) * 5 +
+                      b_j2) * 5 + b_jm);
+    }
+
+    // ---- band masks (energy_model.hpp:203-218, 289-338): okP is cell
+    // (j, w) of diagonal i, okE's pair cell (j + 1, w + 2) is on diagonal
+    // i - 1, okB = left_pair_cum: a pair (i, i + w' - 1), w' <= w
+    const bool okP =
+        (i >= 0) && (w > 0) && (w <= W) && bpg[((o + 1) * W1 + w) * G];
+    const bool srcE =
+        (j + 1 <= Lp) && (w + 2 <= Wp) && bpg[(o * W1 + w + 2) * G];
+    const bool okE = (i > 0) && (w + 2 <= W) && srcE;
+    const bool okM = (i > 0) && (j < L) && (w <= W) && (w >= m_min);
+    const bool okB = (w <= W) && (i >= 0) && s_first[o * G + g] <= w;
+
+    put(hp_o + idx, hp);
+    put(stk_o + idx, stk);
+    put(ext_o + idx, ext);
+    put(ml2_o + idx, ml2);
+    put(mlE_o + idx, mlE);
+    for (int k = 0; k < 4; ++k) {
+      put(misA_o + k * plane + idx, misA[k]);
+      put(misB_o + k * plane + idx, misB[k]);
+    }
+    for (int k = 0; k < 6; ++k) put(spec_o + k * plane + idx, spec[k]);
+    put(tout_o + idx, t_out);
+    put(tin_o + idx, t_in);
+    put(okP_o + idx, okP);
+    put(okE_o + idx, okE);
+    put(okM_o + idx, okM);
+    put(okB_o + idx, okB);
+  }
+}
+
+// K1 on the host plan's layout (ops/kernels.score_plan), refused unless
+// it is the kernel's
+template <typename T>
+static int launch_score_tables(ScoreDims p, ScoreGrid gr, const T* tab,
+                               const int64_t* seq, const int64_t* L,
+                               const bool* bp_ok, const int* dots_cum, T* hp,
+                               T* stk, T* ext, T* ml2, T* mlE, T* misA,
+                               T* misB, T* spec, int* tout, int* tin,
+                               bool* okP, bool* okE, bool* okM, bool* okB,
+                               cudaStream_t stream) {
+  const int bands = (p.Lp + p.Wp + 1 + gr.J - 1) / gr.J;
+  const bool ok = p.Lp > 0 && p.Wp >= 0 && gr.lgG >= 0 && gr.lgG <= 5 &&
+                  gr.G == (1 << gr.lgG) && gr.lgDJ >= 1 && gr.lgDJ <= 5 &&
+                  gr.J == (1 << gr.lgDJ) - 1 && gr.bands == bands &&
+                  gr.groups == (p.B + gr.G - 1) / gr.G &&
+                  gr.groups <= 65535 &&
+                  gr.smem == score_smem(p.Wp, gr.G, gr.J);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = score_tables_kernel<T>;
+  const int rc = allow_smem((const void*)kern, gr.smem);
+  if (rc != 0) return rc;
+  kern<<<dim3(gr.bands, gr.groups), kScoreThreads, gr.smem, stream>>>(
+      p, gr, tab, seq, L, bp_ok, dots_cum, hp, stk, ext, ml2, mlE, misA,
+      misB, spec, tout, tin, okP, okE, okM, okB);
   return static_cast<int>(cudaGetLastError());
 }
 
 #define SCORE_EXPORT(NAME, T)                                                \
-  RNAELEM_EXPORT int NAME(ScoreDims p, const T* tab, const int64_t* seq,     \
-                          const int64_t* L, const bool* bp_ok,               \
-                          const int* dots_cum, T* hp, T* stk, T* ext,        \
-                          T* ml2, T* mlE, T* misA, T* misB, T* spec,         \
-                          int* tout, int* tin, bool* okP, bool* okE,         \
-                          bool* okM, bool* okB, cudaStream_t stream) {       \
-    return launch_score_tables<T>(p, tab, seq, L, bp_ok, dots_cum, hp, stk,  \
-                                  ext, ml2, mlE, misA, misB, spec, tout, tin,\
-                                  okP, okE, okM, okB, stream);               \
+  RNAELEM_EXPORT int NAME(ScoreDims p, ScoreGrid gr, const T* tab,           \
+                          const int64_t* seq, const int64_t* L,              \
+                          const bool* bp_ok, const int* dots_cum, T* hp,     \
+                          T* stk, T* ext, T* ml2, T* mlE, T* misA, T* misB,  \
+                          T* spec, int* tout, int* tin, bool* okP,           \
+                          bool* okE, bool* okM, bool* okB,                   \
+                          cudaStream_t stream) {                             \
+    return launch_score_tables<T>(p, gr, tab, seq, L, bp_ok, dots_cum, hp,  \
+                                  stk, ext, ml2, mlE, misA, misB, spec,      \
+                                  tout, tin, okP, okE, okM, okB, stream);    \
   }
 
 SCORE_EXPORT(rnaelem_score_tables_f32, float)

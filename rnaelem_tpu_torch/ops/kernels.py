@@ -205,6 +205,11 @@ class ScoreDims(ctypes.Structure):
         ("off", ctypes.c_int * N_TABLES)]
 
 
+class ScoreGrid(ctypes.Structure):  # csrc/score_tables.cu, score_plan
+    _fields_ = [(n, ctypes.c_int) for n in (
+        "G", "lgG", "J", "lgDJ", "bands", "groups", "smem")]
+
+
 class ChainDims(ctypes.Structure):
     _fields_ = [(n, ctypes.c_int) for n in ("Lp", "S", "B")]
 
@@ -264,6 +269,11 @@ class HoistDims(ctypes.Structure):  # csrc/hoisted.cu
         ("lam_s0", ctypes.c_longlong), ("lam_s1", ctypes.c_longlong)]
 
 
+class HoistGrid(ctypes.Structure):  # csrc/hoisted.cu, from hoisted_plan
+    _fields_ = [(n, ctypes.c_int) for n in (
+        "V", "TX", "TY", "nub", "nb1", "nb2", "nb3", "groups")]
+
+
 FAC_IDX = ("slot_r", "slot_l", "ws_r", "ws_l", "rs_off", "rs_s", "ls_off",
            "ls_s")
 FAC_OUT = ("eR", "eL", "bg2", "pv", "alphaP", "lam", "seq64", "seqT", "L64",
@@ -290,7 +300,7 @@ class ExtAdjListsArg(ctypes.Structure):  # csrc/outside_ext.cu ExtAdjLists
 # exported function -> (leading struct argtypes, number of pointers[,
 # number of trailing ints])
 _SIGS = {
-    "score_tables": ((ScoreDims,), 19),
+    "score_tables": ((ScoreDims, ScoreGrid), 19),
     "band_front": ((DPDims, BandIdx, AuxArg), 15),
     "band_bif": ((DPDims, BandIdx), 4),
     "band_m": ((DPDims, BandIdx, AuxArg), 6, 3),
@@ -318,7 +328,7 @@ _SIGS = {
     "cyk_traceback": ((DPDims, TbIdx, AuxArg, TbData, TbCfg), 4),
     "factors": ((FacDims, FacIdx, FacOut), 6),
     "factors_adj": ((FacDims, FacIdx, FacAdjArgs), 3, 6),
-    "hoisted": ((HoistDims, HoistIn, HoistOut), 0),
+    "hoisted": ((HoistDims, HoistIn, HoistOut, HoistGrid), 0),
     "hoisted_adj": ((HoistDims, HoistIn, HoistOut), 3, 3),
 }
 _SUF = {torch.float32: "f32", torch.float64: "f64"}
@@ -401,10 +411,80 @@ def _req(t, name, dtype, shape, device):
 
 # ------------------------------------------------------- K1 score tables
 
+SCORE_ROW_BYTES = 128    # a row of a block's reads in a float plane: a line
+SCORE_DIAGONALS = (1,)   # J a block, 2^k - 1 (J + 1 staging lanes)
+SCORE_MAX_GROUPS = 65535     # the grid's y: groups of reads
+
+
+def score_smem_bytes(Wp, G, J):
+    """K1's shared bytes (csrc/score_tables.cu score_smem): each diagonal's
+    first pair and dots_cum as int32 [J][G], [J + Wp][G], the codes as
+    bytes [J + Wp + 4][G], bp_ok's cells of J + 1 diagonals [J + 1][Wp +
+    1][G]."""
+    return 4 * G * (J + (J + Wp)) + G * (J + Wp + 4) + (J + 1) * (Wp + 1) * G
+
+
+class ScorePlan(NamedTuple):
+    """How K1 runs a shape: blocks of ``G`` reads (a power of two, a row
+    of them a 128-byte line of a float plane) x ``J`` diagonals i = j -
+    w, the grid ``bands`` x ``groups``, ``smem`` bytes of shared memory."""
+    Lp: int
+    Wp: int
+    G: int
+    J: int
+    bands: int
+    groups: int
+    smem: int
+
+    @property
+    def name(self):
+        return "G=%d,J=%d" % (self.G, self.J)
+
+    @property
+    def grid_args(self):
+        return (self.G, self.G.bit_length() - 1, self.J,
+                (self.J + 1).bit_length() - 1, self.bands, self.groups,
+                self.smem)
+
+    def window(self, band):
+        """What block ``band`` stages (the kernel's own arithmetic): its
+        diagonals i0 .. i0 + J - 1, the codes at positions lo .. hi, the
+        dots_cum entries dlo .. dhi, and bp_ok's cells on the diagonals
+        i0 - 1 .. i0 + J - 1 (rows 0 .. Lp)."""
+        Lp, Wp, J = self.Lp, self.Wp, self.J
+        i0 = -Wp + band * J
+        clamp = lambda x, a, b: min(max(x, a), b)
+        return dict(i0=i0, lo=clamp(i0 - 3, 0, Lp - 1),
+                    hi=clamp(i0 + J + Wp, 0, Lp - 1), dlo=clamp(i0, 0, Lp),
+                    dhi=clamp(i0 + J - 1 + Wp, 0, Lp))
+
+
+@functools.lru_cache(maxsize=None)
+def score_plan(Lp, Wp, B, dtype):
+    """K1's plan: G = a line's worth of reads (32 at f32, 16 at f64; the
+    least power of two >= B below that), J = SCORE_DIAGONALS[0] diagonals
+    a block, fewer diagonals and then fewer reads where the shared bytes
+    would pass SMEM_LIMIT.  ValueError where nothing fits."""
+    it = torch.empty((), dtype=dtype).element_size()
+    G = min(SCORE_ROW_BYTES // it, _pow2(B))
+    while G >= 1:
+        for J in SCORE_DIAGONALS:
+            smem = score_smem_bytes(Wp, G, J)
+            groups = -(-B // G)
+            if smem <= SMEM_LIMIT and groups <= SCORE_MAX_GROUPS:
+                return ScorePlan(Lp, Wp, G, J, -(-(Lp + Wp + 1) // J),
+                                 groups, smem)
+        G //= 2
+    raise ValueError("score_tables: no block fits Lp=%d, Wp=%d, B=%d (%d "
+                     "bytes of shared memory at one read and one diagonal, "
+                     "at most %d)" % (Lp, Wp, B, score_smem_bytes(Wp, 1, 1),
+                                      SMEM_LIMIT))
+
+
 def score_tables(tab, seq, L, bp_ok, dots_cum, Wp: int, max_span: int,
                  turn: int, no_ene: bool, fix_rss: bool):
-    """Launch K1 (csrc/score_tables.cu); same outputs as
-    energy.tables.score_tables_plain."""
+    """Launch K1 (csrc/score_tables.cu) on score_plan's layout; same
+    outputs as energy.tables.score_tables_plain."""
     dev = seq.device
     if dev.type != "cuda":
         raise ValueError("score_tables kernel: seq must be a CUDA tensor")
@@ -419,6 +499,7 @@ def score_tables(tab, seq, L, bp_ok, dots_cum, Wp: int, max_span: int,
     offs = tab["packed_offsets"]
     if len(offs) != N_TABLES:
         raise ValueError("packed tables: expected %d offsets" % N_TABLES)
+    plan = score_plan(Lp, Wp, B, dt)
     g = (Lp + 1, Wp + 1, B)
     e = lambda shape, t=dt: torch.empty(shape, dtype=t, device=dev)
     out = {k: e(g) for k in ("hp", "stk", "ext", "ml2", "mlE")}
@@ -427,10 +508,12 @@ def score_tables(tab, seq, L, bp_ok, dots_cum, Wp: int, max_span: int,
     out.update({k: e(g, torch.bool) for k in ("okP", "okE", "okM", "okB")})
     p = ScoreDims(Lp, Wp, B, max_span, turn, int(no_ene), int(fix_rss),
                   (ctypes.c_int * N_TABLES)(*offs))
-    _call("score_tables", "score_tables", packed, p, _p(packed), _p(seq),
-          _p(L), _p(bp_ok), _p(dots_cum), *[_p(out[k]) for k in (
+    _call("score_tables", "score_tables", packed, p,
+          ScoreGrid(*plan.grid_args), _p(packed), _p(seq), _p(L), _p(bp_ok),
+          _p(dots_cum), *[_p(out[k]) for k in (
               "hp", "stk", "ext", "ml2", "mlE", "misA", "misB", "spec_il",
-              "t_out", "t_in", "okP", "okE", "okM", "okB")])
+              "t_out", "t_in", "okP", "okE", "okM", "okB")],
+          variant=plan.name)
     return out
 
 
@@ -1372,6 +1455,61 @@ def _adj_split(kernel, K, k_max, natural):
     return K
 
 
+HOIST_THREADS = 256      # kHoistThreads
+HOIST_VEC_BYTES = 16     # a thread's access along the reads at most
+HOIST_MAX_GROUPS = 65535  # the grid's y: groups of reads
+
+
+class HoistPlan(NamedTuple):
+    """How K16 runs a shape: ``V`` reads a thread (16 bytes; 1 where B is
+    not a multiple of it or a pointer is not 16-byte aligned), blocks of
+    ``TY`` rows x ``TX`` threads along the reads, the grid's x the row
+    blocks of its three ranges ``blocks`` (eSZ/eSZg: C1 x ``nub`` blocks,
+    a dl and a block of u1 each; emisA; emisB by (row, w) with its four
+    groups), its y ``groups`` of TX x V reads."""
+    V: int
+    TX: int
+    TY: int
+    nub: int
+    blocks: tuple
+    groups: int
+
+    @property
+    def name(self):
+        return "V=%d" % self.V
+
+    @property
+    def grid(self):
+        return (sum(self.blocks), self.groups)
+
+    @property
+    def grid_args(self):
+        return (self.V, self.TX, self.TY, self.nub) + tuple(self.blocks) + (
+            self.groups,)
+
+
+@functools.lru_cache(maxsize=None)
+def hoisted_plan(Lp, Wp, Cp, B, dtype, aligned=True):
+    """K16's plan for lambda [2, B] at (Lp, Wp, Cp), emisB with the DP's
+    PAD = Wp + 1 zero rows in front; ``aligned`` says that every input
+    and output starts on a 16-byte boundary.  ValueError where a block's
+    32-bit offsets or the grid would overflow."""
+    it = torch.empty((), dtype=dtype).element_size()
+    vw = HOIST_VEC_BYTES // it
+    V = vw if aligned and B % vw == 0 else 1
+    TX = min(32, _pow2(-(-B // V)))
+    TY = HOIST_THREADS // TX
+    C1, W1, Lp1, PAD = Cp + 1, Wp + 1, Lp + 1, Wp + 1
+    nub = -(-C1 // TY)
+    blocks = (C1 * nub, -(-4 * Lp1 * W1 // TY), -(-(Lp1 + PAD) * W1 // TY))
+    groups = -(-(B // V) // TX)
+    if 4 * TY * B >= 2 ** 31 or C1 * C1 * B >= 2 ** 31 \
+            or sum(blocks) >= 2 ** 31 or groups > HOIST_MAX_GROUPS:
+        raise ValueError("hoisted: B=%d at Lp=%d, Wp=%d, Cp=%d outgrows the "
+                         "kernel's 32-bit offsets or grid" % (B, Lp, Wp, Cp))
+    return HoistPlan(V, TX, TY, nub, blocks, groups)
+
+
 @functools.lru_cache(maxsize=None)
 def hoisted_adj_plan(Lp, Wp, Cp, n_cls, B, dtype, K=None):
     """K17's plan: one block per (group of RL reads, a warp's row of 128
@@ -1599,15 +1737,20 @@ def _hoist_args(st, lam, c):
 
 def hoisted(st, lam, c):
     """K16: (eSZ, eSZg, emisA, emisB) of ops/dp.hoisted for lambda [2, B]
-    (any strides) and the constants ``c``."""
+    (any strides) and the constants ``c``, on hoisted_plan's layout (16
+    bytes a thread where B and every row's address allow it)."""
     D, ins = _hoist_args(st, lam, c)
     dt, dev, B = st.dtype, c.C.device, D.B
     C1, W1, Lp1 = st.dims.Cp + 1, st.dims.Wp + 1, st.dims.Lp + 1
     e = lambda *shape: torch.empty(shape, dtype=dt, device=dev)
     out = (e(2, st.n_cls, C1, C1, B), e(2, 4, C1, C1, B),
            e(2, 4, Lp1, W1, B), e(2, Lp1 + st.PAD, W1, 4, B))
+    aligned = all(p % HOIST_VEC_BYTES == 0 for p in (
+        ins.misA, ins.misB, *[t.data_ptr() for t in out]))
+    plan = hoisted_plan(st.dims.Lp, st.dims.Wp, st.dims.Cp, B, dt, aligned)
     _call("hoisted", "hoisted", out[0], D, ins,
-          HoistOut(*[t.data_ptr() for t in out]))
+          HoistOut(*[t.data_ptr() for t in out]), HoistGrid(*plan.grid_args),
+          variant=plan.name)
     return out
 
 

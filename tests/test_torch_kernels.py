@@ -125,19 +125,50 @@ def test_kernels_take_the_class_probe_as_zeros_only(nonzero):
         K._req_zero_probe(cls)
 
 
+def _score_inputs(B, Lp, Wp, seed):
+    """K1's inputs for B reads on the card, made with numpy: random codes
+    up to each read's length (0 beyond; lengths from 1 to Lp, Lp among
+    them), bp_ok a random 15% (K1 takes any mask), dots_cum of random
+    dots."""
+    rng = np.random.RandomState(seed)
+    L = rng.randint(1, Lp + 1, B)
+    L[0] = Lp
+    seq = rng.randint(1, 5, (B, Lp))
+    seq[np.arange(Lp)[None, :] >= L[:, None]] = 0
+    bp = rng.rand(B, Lp + 1, Wp + 1) < 0.15
+    dots = rng.rand(B, Lp) < 0.9
+    dc = np.concatenate([np.zeros((B, 1), np.int64), np.cumsum(dots, 1)], 1)
+    f = lambda x, t: torch.as_tensor(x, dtype=t, device="cuda")
+    return (f(seq, torch.int64), f(L, torch.int64), f(bp, torch.bool),
+            f(dc, torch.int32))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
-def test_score_tables_kernel_matches_plain(dtype):
+@pytest.mark.parametrize("B", [1, 7, 128, 600])
+@pytest.mark.parametrize("opts", [{}, dict(fix_rss=True), dict(no_ene=True),
+                                  dict(turn=0), dict(span=60)])
+def test_score_tables_kernel_matches_plain(dtype, B, opts):
+    """K1 (one launch) against its plain version: ints and bools equal,
+    floats within 1e-6 relative with the same -inf cells, at B = 1, 7,
+    128, 600 (groups of reads with an empty tail), under fix_rss, no_ene
+    and both hairpin turns, and with the band as wide as the reads (span
+    60 > Lp: diagonals from -Lp, i < 0 everywhere at the left)."""
     _need_cuda()
-    cfg = _cfg(dtype)
-    batch = _batch(cfg, "cuda")
+    opts = dict(opts)
+    cfg = J.ModelConfig(pattern="(.....)", Lp=40,
+                        max_span=opts.pop("span", 24), max_iloop=12,
+                        min_bpp=0.0, tau=0.1, dtype=dtype, **opts)
     k = J.kernels(cfg, "cuda")
-    args = J.score_inputs(cfg, k, batch.sd, batch.bp_ok) + (
-        cfg.Wp, cfg.max_span, cfg.turn, False, False)
+    args = _score_inputs(B, cfg.Lp, cfg.Wp, seed=B) + (
+        cfg.Wp, cfg.max_span, cfg.turn, cfg.no_ene, cfg.fix_rss)
+    K.reset_counts()
     got = ET.score_tables(k.tab, *args)
+    assert K.KERNELS["score_tables"].launches == 1
     want = ET.score_tables_plain(k.tab, *args)
     for key in ET.SCORE_KEYS:
         a, b = got[key].cpu(), want[key].cpu()
+        assert (a.dtype, a.shape) == (b.dtype, b.shape), key
         if not b.is_floating_point():
             assert torch.equal(a, b), key
             continue
@@ -145,6 +176,12 @@ def test_score_tables_kernel_matches_plain(dtype):
         fin = torch.isfinite(b)
         assert torch.all((a[fin] - b[fin]).abs()
                          <= 1e-6 * b[fin].abs() + 1e-12), key
+    batch = _batch(cfg, "cuda")
+    real = J.score_inputs(cfg, k, batch.sd, batch.bp_ok) + args[4:]
+    for key, a in ET.score_tables(k.tab, *real).items():
+        b = ET.score_tables_plain(k.tab, *real)[key]
+        if not b.is_floating_point():
+            assert torch.equal(a, b), key
 
 
 @pytest.mark.gpu
@@ -1526,14 +1563,16 @@ def test_factor_kernels_match_plain(case, dtype, tol, n):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype,tol,n", [("float64", 1e-12, 16),
-                                         ("float32", 1e-6, 64)])
+@pytest.mark.parametrize("dtype,tol", [("float64", 1e-12), ("float32", 1e-6)])
+@pytest.mark.parametrize("n", [1, 7, 16, 64, 600])
 def test_hoisted_kernels_match_plain(dtype, tol, n):
     """K16 (the hoisted exp-space tensors) and K17 (lambda's cotangent)
     against hoisted_plain and its autograd for per-read lambdas (a
-    strided view, as the DP's copies are); lam_total launches K17 alone
-    (no second K16) and equals the autograd route; two runs give the same
-    bits."""
+    strided view, as the DP's copies are), at B = 1, 7 (one read a
+    thread), 16, 64 and 600 (16 bytes a thread); lam_total launches K17
+    alone (no second K16) and equals the autograd route; two runs give
+    the same bits, and so do K16's scalar path (inputs off a 16-byte
+    boundary) and its vector path."""
     _need_cuda()
     cfg, sd, bp, w = _rows_cd_inputs("(.....)", {}, dtype, n)
     k = J.kernels(cfg, "cuda")
@@ -1563,6 +1602,19 @@ def test_hoisted_kernels_match_plain(dtype, tol, n):
     assert (K.KERNELS["hoisted"].launches,
             K.KERNELS["hoisted_adj"].launches) == (0, 1)
     assert torch.equal(total, direct + gk)
+    # the same inputs 4 bytes off a 16-byte boundary take the scalar path
+    def shifted(x):
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+        y = buf[1:].view(x.shape)
+        y.copy_(x)
+        return y
+    c1 = c._replace(ep=dict(c.ep, misA=shifted(c.ep["misA"]),
+                            misB=shifted(c.ep["misB"])))
+    K.reset_counts()
+    h1 = K.hoisted(k.dp.st, lam, c1)
+    assert K.KERNELS["hoisted"].variants == {"V=1": 1}
+    for a, b in zip(h1, hk):
+        assert torch.equal(a, b)
 
 
 def _same_fields(ours, plain, tol):
