@@ -9,7 +9,8 @@ Phases:
      layouts and workspace stride, and the M chain's (K2's band_m, K5's
      m_adj) as band_smem_bytes sizes it for every group and ring (S to
      1,378: threads striding over the states, the device variant's
-     workspace slice);
+     workspace slice), and K8's and K9's as chain_smem_bytes and
+     chain_plan size them (S to 4,096, K9's tiles and device variant);
   2. hold every kernel against its plain PyTorch version on the card:
      K1 score tables (ints/bools equal, floats within 1e-6 relative), the
      column stages of K2-K4 one by one (f64 at B=16 within 1e-9 relative,
@@ -64,8 +65,9 @@ Phases:
      profiler's count of all kernel launches, torch's by name, memcpy and
      memset events apart);
   7. the no-rss chain K8/K9 against its plain version (..*.., f64 within
-     1e-9 and f32 within 1e-4 relative, at B=16 and B=128 x 100 nt; two
-     runs bitwise equal); per-call times of K8/K9;
+     1e-9 and f32 within 1e-4 relative, at B=16, 128 x 100 nt, 1, 7 and
+     600; two runs bitwise equal), plain and under a pin with K9's class
+     sums; per-call times of K8/K9;
   8. the training path, the production step as bench.py times it: the
      Trainer (Adam, k-let shuffled negatives) on 64 random reads x 100 nt
      plus 64 fresh negatives per step, f32, one warm-up step and 4 timed
@@ -165,6 +167,12 @@ points and prints the SHA-256 of every K1 and K16 output at the seeded
 main-path batch (f32, f64): a copy of this script beside an older tree
 times that tree and prints its bits.  --k1-variants times K1 for other
 launch plans and with a piece of its work taken out (K1_VARIANTS).
+--chain-times does the same for K8 and K9 (B=128 x 100 nt of ..*..,
+f32, plain and pinned with the class probe; the SHA-256 of every output
+at f32 and f64, chain rows masked past each read's length).
+--chain-variants times K8 and K9 per plan of ops/kernels.chain_plan
+(the one-warp block, K9's device variant) and with
+a piece of their work taken out (CHAIN_VARIANTS), in us per step.
 
 Run from the repository root:  python3 chip_smoke.py
 Exits non-zero and prints no result without CUDA or without the package.
@@ -393,6 +401,51 @@ def check_band_smem():
                          "workspace bytes a block) does not fit a block"
                          % (name, plan, plan.variant, plan.cells,
                             plan.block_bytes))
+    return n
+
+
+def check_chain_smem():
+    """K8's and K9's layouts as ops/kernels.chain_smem_bytes sizes them
+    against csrc/chain.cuh's own (rnaelem_chain_smem_bytes), over S to
+    4,096, both types and tiles of 1 to 100 steps; each plan of
+    chain_plan (the shape's, K9's device variant) fits a block and sizes
+    its layout so.  Returns the number of cases."""
+    n = 0
+    for S in (1, 28, 29, 66, 91, 136, 300, 1024, 1081, 1378, 4096):
+        nnz = 2 * S
+        for dt, it in ((torch.float32, 4), (torch.float64, 8)):
+            for which, name in ((0, "linear_fwd"), (1, "linear_adj"),
+                                (2, "linear_adj")):
+                for R in ((K.CHAIN_RING,) if which == 0 else
+                          (1, 3, 8, 100)):
+                    c_ = int(K.lib().rnaelem_chain_smem_bytes(
+                        which, S, R, nnz, it))
+                    py = K.chain_smem_bytes(name, S, dt, R, nnz, which == 2)
+                    if c_ != py:
+                        fail("%s layout: the kernel's takes %d bytes, "
+                             "chain_smem_bytes says %d (S=%d, R=%d, %s)"
+                             % (name, c_, py, S, R, dt))
+                    n += 1
+            for name in K.CHAIN_KERNELS:
+                plans = [K.chain_plan(name, S, LP, B_MAIN, dt, True, nnz)]
+                if name == "linear_adj":
+                    plans.append(K.chain_plan(name, S, LP, B_MAIN, dt, True,
+                                              nnz, variant="device"))
+                for plan in plans:
+                    layout = int(K.lib().rnaelem_chain_smem_bytes(
+                        2 * int(name == "linear_adj"), S, plan.R, nnz, it))
+                    if plan.threads > K.MAX_THREADS or \
+                            plan.walkers * plan.cells < S or \
+                            (plan.variant == "shared" and (
+                                plan.smem != layout or
+                                plan.smem > K.SMEM_LIMIT)) or \
+                            (plan.variant == "device" and (
+                                plan.smem or plan.block_bytes != -(
+                                    -layout // K.EP_WS_ALIGN) *
+                                K.EP_WS_ALIGN)):
+                        fail("%s: the plan %s does not fit a block" % (
+                            name, plan))
+                    n += 1
     return n
 
 
@@ -1214,14 +1267,23 @@ def plain_chain(lin, eR, L, gp):
     return parts.detach(), g
 
 
+def chain_batches(small, reads):
+    """The batches of the chain checks: the small one (B=16), the main
+    path's (B=128 x 100 nt), one read, 7 reads and 600 reads (60-100
+    nt): several blocks an SM."""
+    return (("B=%d" % len(small), small),
+            ("B=%d x %d nt" % (len(reads), LP), reads),
+            ("B=1", reads[:1]), ("B=7", small[:7]),
+            ("B=600", make_reads(np.random.RandomState(14), 600, 60, LP)))
+
+
 def check_chain(small, reads, dev):
-    """K8/K9 vs the plain chain, f64 and f32, small and main batches; two
-    kernel runs bitwise equal.  Returns {kernel: max abs err} of the f32
-    main batch."""
+    """K8/K9 vs the plain chain, f64 and f32, at B = 16, 128, 1, 7 and
+    600; two kernel runs bitwise equal.  Returns {kernel: max abs err} of
+    the f32 main batch."""
     errs, msgs = {}, []
     for dtype, rel in (("float64", 1e-9), ("float32", 1e-4)):
-        for name, rr in (("B=%d" % len(small), small),
-                         ("B=%d x %d nt" % (len(reads), LP), reads)):
+        for name, rr in chain_batches(small, reads):
             lin, eR, L, gp = chain_inputs(norss_cfg(dtype), rr, dev)
             parts, rows = K.chain_fwd(lin, eR, L)
             g = K.chain_adj(lin, eR, L, rows, gp)
@@ -1244,7 +1306,9 @@ def check_chain(small, reads, dev):
                 errs = {"linear_fwd": ef, "linear_adj": ea}
     print("check chain %s (no-rss, S=%d) K8/K9 vs plain, max abs err (f64 "
           "within 1e-9, f32 within 1e-4 relative, max norm; two runs bitwise "
-          "equal): %s" % (NORSS, lin.dims.S, "; ".join(msgs)), flush=True)
+          "equal; plans %s): %s" % (NORSS, lin.dims.S, json.dumps(
+              {k_: K.KERNELS[k_].variants for k_ in CHAIN_KERNELS}),
+              "; ".join(msgs)), flush=True)
     return errs
 
 
@@ -1597,13 +1661,12 @@ def masks_by_function(cfg, sd, dev, funcs):
 def check_chain_pinned(small, reads, dev):
     """K8/K9 under a pin per read, with K9's class sums, against the
     plain chain (dense auxR from the pin and the probe, autograd): f64
-    within 1e-9 and f32 within 1e-4 relative (max norm) at B=16 and the
-    main batch; two kernel runs bitwise equal.  Returns {kernel: max abs
-    err} of the f32 main batch and the message."""
+    within 1e-9 and f32 within 1e-4 relative (max norm) at B = 16, 128,
+    1, 7 and 600; two kernel runs bitwise equal.  Returns {kernel: max
+    abs err} of the f32 main batch and the message."""
     errs, msgs = {}, []
     for dtype, rel in (("float64", 1e-9), ("float32", 1e-4)):
-        for name, rr in (("B=%d" % len(small), small),
-                         ("B=%d x %d nt" % (len(reads), LP), reads)):
+        for name, rr in chain_batches(small, reads):
             cfg = norss_cfg(dtype)
             lin, eR, L, gp = chain_inputs(cfg, rr, dev)
             sd = J.stack_seqdata([J.make_seqdata(cfg, s_, q_)
@@ -3608,6 +3671,210 @@ def rows_cd_times_only(dev):
     print(json.dumps({"rows_cd_times": out}), flush=True)
 
 
+def _digest(t):
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest(
+    )[:16]
+
+
+def chain_runs(lin, eR, L, gp, pin):
+    """K8 and K9 once, plain and under ``pin`` with the class probe, through
+    the kernels' entry points: {name: output} (the pinned read's -inf parts
+    get no cotangent)."""
+    parts, rows = K.chain_fwd(lin, eR, L)
+    out = {"K8 parts": parts, "K8 rows": rows,
+           "K9 g_eR": K.chain_adj(lin, eR, L, rows, gp)}
+    parts_p, rows_p = K.chain_fwd(lin, eR, L, pin)
+    gpp = torch.where(torch.isfinite(parts_p), gp, 0.0)
+    cls = torch.empty((4,) + tuple(eR.shape[::2]), dtype=eR.dtype,
+                      device=eR.device)
+    out.update({"K8 parts pinned": parts_p, "K8 rows pinned": rows_p,
+                "K9 g_eR pinned": K.chain_adj(lin, eR, L, rows_p, gpp, pin,
+                                              cls),
+                "K9 class sums pinned": cls})
+    return out, gpp, rows_p
+
+
+def chain_digests(outs, L):
+    """SHA-256 of each output of chain_runs, the chain rows masked past
+    each read's length (K8 leaves them unwritten)."""
+    Lp1 = outs["K8 rows"].shape[0]
+    beyond = (torch.arange(Lp1, device=L.device)[:, None] > L[None, :])
+    d = {}
+    for name, t in outs.items():
+        if " rows" in name:
+            t = t.masked_fill(beyond[:, None, :], 0.0)
+        d[name] = _digest(t)
+    return d
+
+
+def chain_times_only(dev):
+    """K8 and K9 at the main path's shape alone (--chain-times, after
+    phase 1): B=128 x 100 nt of ..*.. (S=28) under random weights, f32,
+    device ms per call (the profiler over REPS calls), plain and under a
+    pin per read with the class probe, each beside its bound and its us
+    per step (the reads' 100 steps); the launches per call; and the
+    SHA-256 of every output at f32 and f64.  Uses only the kernels'
+    entry points (K.chain_fwd, K.chain_adj), so a copy of this script
+    beside an older tree times that tree's kernels and prints its bits.
+    One JSON line."""
+    funcs = kernel_functions()
+    out = {"ms": {}, "us_per_step": {}, "bound_ms": {}, "share_of_bound": {},
+           "launches_per_call": {}, "sha256": {}}
+    reads = main_reads()
+    for dtype in ("float32", "float64"):
+        cfg = norss_cfg(dtype)
+        lin, eR, L, gp = chain_inputs(cfg, reads, dev)
+        sd = J.stack_seqdata([J.make_seqdata(cfg, s_, q_) for s_, q_ in reads],
+                             dev)
+        pin = random_pin(sd, dev)
+        Lc = L.clamp(max=LP)
+        outs, gpp, rows_p = chain_runs(lin, eR, L, gp, pin)
+        out["sha256"][dtype] = chain_digests(outs, Lc)
+        if dtype != "float32":
+            continue
+        rows = outs["K8 rows"]
+        cls = torch.empty_like(outs["K9 class sums pinned"])
+        calls = {
+            "linear_fwd": lambda: K.chain_fwd(lin, eR, L),
+            "linear_adj": lambda: K.chain_adj(lin, eR, L, rows, gp),
+            "linear_fwd pinned": lambda: K.chain_fwd(lin, eR, L, pin),
+            "linear_adj pinned": lambda: K.chain_adj(lin, eR, L, rows_p, gpp,
+                                                     pin, cls)}
+        steps = int(Lc.max())
+        bnd = chain_bounds(lin, Lc.cpu().numpy(), LP, 4)
+        for name, call in calls.items():
+            kn = name.split()[0]
+            K.reset_counts()
+            call()
+            out["launches_per_call"][name] = K.KERNELS[kn].launches
+            ms = device_ms(call, REPS, funcs[kn])
+            out["ms"][name] = ms
+            out["us_per_step"][name] = ms * 1e3 / steps
+            out["bound_ms"][name] = bnd[kn][0]
+            out["share_of_bound"][name] = bnd[kn][0] / ms
+    out["plain_ms"] = {
+        "linear_fwd": cuda_ms(lambda: LIN.chain_plain(lin, eR, L), 3)}
+    print(json.dumps({"chain_times": out}), flush=True)
+
+
+# the build's pieces taken out, to see where a step's time goes (each
+# variant a patched copy of csrc, csrc/linear_*.cu as shipped otherwise)
+CHAIN_VARIANTS = {
+    "shipped": (),
+    "probe: K8 walk alone (constant eR, no ring copies)": (
+        ("linear_fwd.cu",
+         "      const T e = ring[(p & (kChainRing - 1)) * n + cid[k]];",
+         "      const T e = (T)0.5;"),
+        ("linear_fwd.cu", "        cp_async_t(ring + (next & (kChainRing - 1))"
+         " * n + cid[k], src[k]);", "        ;")),
+    "probe: K8 without its chain rows' stores": (
+        ("linear_fwd.cu", "      *dst[k] = nxt;",
+         "      if (nxt == (T)12345) *dst[k] = nxt;"),),
+    "probe: K8 without exp and log": (
+        ("linear_fwd.cu", "ev[q] = ex(x[q] - m0);", "ev[q] = x[q] - m0;"),
+        ("linear_fwd.cu", "any ? m0 + lg(s) + e", "any ? m0 + s * (T)0.01 + e")),
+    "probe: K8 without the ring's wait": (
+        ("linear_fwd.cu", "    cp_async_wait<kChainRing - 1>();\n", "\n"),),
+    "probe: K9 walk alone (constant weights, nothing staged, no class sums)":
+        (("linear_adj.cu", "          const T v = ex(os + l.w[q] + ev[q] - "
+          "on[q]);", "          const T v = (T)0.5;"),
+         ("linear_adj.cu", "          const bool take = os > ninf<T>() && ",
+          "          const bool take = true || os > ninf<T>() && "),
+         ("linear_adj.cu", "      for (int r = h; r <= top - lo; r += H",
+          "      for (int r = h; r < 0; r += H"),
+         ("linear_adj.cu", "      for (int r = h; r < top - lo; r += H",
+          "      for (int r = h; r < 0; r += H"),
+         ("linear_adj.cu", "    if (cls) {\n      __syncthreads();",
+          "    if (cls && false) {\n      __syncthreads();")),
+    "probe: K9 without its walk": (
+        ("linear_adj.cu", "    for (int p = hi - 1; p >= lo && h == 0; --p) {",
+         "    for (int p = hi - 1; p >= hi && h == 0; --p) {"),),
+    "probe: K9 without the walk's stores": (
+        ("linear_adj.cu", "if (live[k]) *gek = gs;",
+         "if (gs == (T)12345) *gek = gs;"),),
+    "K9 without helpers (the walkers alone)": (
+        ("chain.cuh", "static const int kChainAdjThreads = 128;",
+         "static const int kChainAdjThreads = 32;"),),
+}
+# host constants of ops/kernels a variant sets beside its sources
+CHAIN_VARIANT_CONSTS = {
+    "K9 without helpers (the walkers alone)": {"CHAIN_ADJ_THREADS": 32}}
+
+
+def chain_variants(dev, variants):
+    """K8's and K9's device ms per call and us per step (f32, B=128 x 100
+    nt of ..*.., plain and pinned with the class probe) for each plan the
+    shape may take (the one-warp block; K9's device variant) and for
+    ``variants`` (CHAIN_VARIANTS: source substitutions, each built from a
+    patched copy of csrc under build/chain_variants/; the "probe" variants
+    take a piece of the work out), with whether the outputs keep the
+    shipped bits.  One JSON line per variant and plan."""
+    cfg = norss_cfg("float32")
+    reads = main_reads()
+    lin, eR, L, gp = chain_inputs(cfg, reads, dev)
+    sd = J.stack_seqdata([J.make_seqdata(cfg, s_, q_) for s_, q_ in reads],
+                         dev)
+    pin = random_pin(sd, dev)
+    funcs = kernel_functions()
+    S, B = lin.dims.S, len(reads)
+    steps = int(L.clamp(max=LP).max())
+    nnz = int(lin.k["rtr_t"].numel())
+    dt = torch.float32
+    ref = None
+    for name in patched_builds({n_: v for n_, v in variants.items()},
+                               os.path.join(HERE, "build", "chain_variants")):
+        consts = CHAIN_VARIANT_CONSTS.get(name, {})
+        saved = {a: getattr(K, a) for a in consts}
+        for a, v in consts.items():
+            setattr(K, a, v)
+        K.chain_plan.cache_clear()
+        t0 = time.time()
+        K.lib()
+        build_s = round(time.time() - t0, 1)
+        for dev_var in (None, "device"):
+            fp = {a: K.chain_plan("linear_fwd", S, LP, B, dt, a, 0)
+                  for a in (False, True)}
+            ap = {a: K.chain_plan("linear_adj", S, LP, B, dt, a, nnz,
+                                  variant=dev_var) for a in (False, True)}
+            parts, rows = K.chain_fwd(lin, eR, L, plan=fp[False])
+            parts_p, rows_p = K.chain_fwd(lin, eR, L, pin, plan=fp[True])
+            gpp = torch.where(torch.isfinite(parts_p), gp, 0.0)
+            cls = torch.empty((4, LP, B), dtype=dt, device=dev)
+            calls = {
+                "linear_fwd": lambda: K.chain_fwd(lin, eR, L,
+                                                  plan=fp[False]),
+                "linear_adj": lambda: K.chain_adj(lin, eR, L, rows, gp,
+                                                  plan=ap[False]),
+                "linear_fwd pinned": lambda: K.chain_fwd(
+                    lin, eR, L, pin, plan=fp[True]),
+                "linear_adj pinned": lambda: K.chain_adj(
+                    lin, eR, L, rows_p, gpp, pin, cls, plan=ap[True])}
+            got = [parts, rows, calls["linear_adj"](), parts_p,
+                   calls["linear_adj pinned"](), cls]
+            beyond = (torch.arange(LP + 1, device=dev)[:, None]
+                      > L.clamp(max=LP)[None, :])[:, None, :]
+            got[1] = got[1].masked_fill(beyond, 0.0)
+            if ref is None:
+                ref = got
+            rec = {"variant": name, "build_s": build_s,
+                   "block": "one read a block (%d threads)" % fp[
+                       False].threads,
+                   "plans": [fp[True].name, ap[False].name,
+                             ap[True].name],
+                   "K9 threads": ap[False].threads,
+                   "same_bits": all(torch.equal(a, b)
+                                    for a, b in zip(got, ref))}
+            rec["ms"] = {n_: device_ms(c_, REPS, funcs[n_.split()[0]])
+                         for n_, c_ in calls.items()}
+            rec["us_per_step"] = {n_: v * 1e3 / steps
+                                  for n_, v in rec["ms"].items()}
+            print(json.dumps(rec), flush=True)
+        for a, v in saved.items():
+            setattr(K, a, v)
+        K.chain_plan.cache_clear()
+    print("card: %s" % card_line(), flush=True)
+
+
 # ------------------------------------------------------------ row N
 
 def free_port():
@@ -4631,10 +4898,21 @@ def main():
                          "path's shapes (rows_cd_times; with the host "
                          "plans, K15 and K17 under every split), print the "
                          "SHA-256 of K1's and K16's outputs, and exit")
+    ap.add_argument("--chain-times", action="store_true",
+                    help="only build and time K8 and K9 at the main path's "
+                         "shape, plain and pinned with the class probe "
+                         "(chain_times_only), print the SHA-256 of their "
+                         "outputs (f32, f64), and exit")
+    ap.add_argument("--chain-variants", action="store_true",
+                    help="only time K8 and K9 per plan (the one-warp "
+                         "block, K9's device variant) and with pieces of "
+                         "their work taken out (see chain_variants), and "
+                         "exit")
     ap.add_argument("--shipped-only", action="store_true",
                     help="with --ep-variants, --band-variants, "
-                         "--ext-variants or --ext-adj-variants: time the "
-                         "sources as they are, no patched copy")
+                         "--ext-variants, --ext-adj-variants or "
+                         "--chain-variants: time the sources as they are, "
+                         "no patched copy")
     # one rank of N2/N3, started by this script itself
     ap.add_argument("--mesh-worker", type=int, default=-1,
                     help=argparse.SUPPRESS)
@@ -4672,6 +4950,9 @@ def main():
     if args.onehot_repro:
         onehot_repro(DEVICE)
         return
+    if args.chain_variants:
+        chain_variants(DEVICE, pick(CHAIN_VARIANTS))
+        return
     dev = DEVICE
     t_start = time.time()
     card = card_line()
@@ -4687,6 +4968,10 @@ def main():
     print("M chain (K2, K5) shared memory: band_smem_bytes equals the "
           "kernels' layout in %d cases (S to 1024, every group and ring a "
           "plan may pick)" % check_band_smem(), flush=True)
+    if hasattr(K, "chain_plan"):
+        print("K8/K9 layouts: chain_smem_bytes and chain_plan equal the "
+              "kernels' layout in %d cases (S to 4,096, K9's tiles and "
+              "device variant)" % check_chain_smem(), flush=True)
     if args.ptxas:
         _, log = K.build(("-Xptxas", "-v"))
         os.makedirs(os.path.dirname(os.path.abspath(args.ptxas)),
@@ -4695,6 +4980,10 @@ def main():
             f.write(log)
     if args.rows_cd_times:
         rows_cd_times_only(dev)
+        print("card: %s" % card_line(), flush=True)
+        return
+    if args.chain_times:
+        chain_times_only(dev)
         print("card: %s" % card_line(), flush=True)
         return
     if args.wide:

@@ -13,10 +13,11 @@ its launches in ``KERNELS[name].launches`` (and per variant of a launch
 plan in ``KERNELS[name].variants``).  Kernels are instantiated for
 float32 (production) and float64 (held to the plain versions).
 
-The blocks of K3, K6 and K11 and of the M chain (K2, K5, K10) hold
-scratch sized by the grammar, the max internal loop and the type: their
-launch plans (ep_plan, band_plan) are worked out on the host from those
-alone, before any launch, and always name a hand-written kernel.  K14-K17
+The blocks of K3, K6 and K11, of the M chain (K2, K5, K10) and of the
+no-rss chain (K8, K9) hold scratch sized by the grammar, the max internal
+loop and the type: their launch plans (ep_plan, band_plan, chain_plan)
+are worked out on the host from those alone, before any launch, and
+always name a hand-written kernel.  K14-K17
 (rows C and D: the factors and the hoisted exponentials, forward and
 adjoint) run once per evaluation.
 
@@ -214,6 +215,11 @@ class ChainDims(ctypes.Structure):
     _fields_ = [(n, ctypes.c_int) for n in ("Lp", "S", "B")]
 
 
+class ChainGrid(ctypes.Structure):  # csrc/chain.cuh, from chain_plan
+    _fields_ = [(n, ctypes.c_int) for n in (
+        "NC", "R", "nnz", "threads", "dev", "smem", "ws_stride")]
+
+
 class AuxArg(ctypes.Structure):
     _fields_ = [("code", ctypes.c_void_p),
                 ("pin", ctypes.c_void_p * MAX_PINS),
@@ -317,8 +323,8 @@ _SIGS = {
     "cls_red": ((DPDims, AuxArg), 1),
     "ep_adj": ((DPDims, EpIdx), 20),
     "ep_adj_red": ((DPDims,), 8),
-    "chain_fwd": ((ChainDims, ChainIdx, AuxArg), 4),
-    "chain_adj": ((ChainDims, ChainIdx, AuxArg), 5),
+    "chain_fwd": ((ChainDims, ChainIdx, AuxArg, ChainGrid), 4),
+    "chain_adj": ((ChainDims, ChainIdx, AuxArg, ChainGrid), 6),
     "band_front_max": ((DPDims, BandIdx, AuxArg), 15),
     "band_bif_max": ((DPDims, BandIdx), 4),
     "band_m_max": ((DPDims, BandIdx, AuxArg), 6, 3),
@@ -362,6 +368,8 @@ def lib():
             L.rnaelem_ep_max_ranges.restype = ctypes.c_int
             L.rnaelem_band_smem_bytes.argtypes = [ctypes.c_int] * 5
             L.rnaelem_band_smem_bytes.restype = ctypes.c_longlong
+            L.rnaelem_chain_smem_bytes.argtypes = [ctypes.c_int] * 5
+            L.rnaelem_chain_smem_bytes.restype = ctypes.c_longlong
             L.rnaelem_error_string.argtypes = [ctypes.c_int]
             L.rnaelem_error_string.restype = ctypes.c_char_p
             _lib = L
@@ -1156,6 +1164,121 @@ def band_adj_tail(fs, gs, j, d, c, h, st):
 
 
 # ------------------------------------------------ K8-K9 no-rss chain
+#
+# A chain block holds one read, a cell per state (csrc/chain.cuh): one
+# warp at S <= 32; past MAX_THREADS states a thread owns 2 or 4 states.
+# K8 stages eR in a ring of CHAIN_RING steps; K9's block holds copies of
+# its walkers (up to CHAIN_ADJ_THREADS threads) that share the work of a
+# tile other than the walk; K9 takes the read in tiles of R steps whose
+# layout (the tile's weights, cotangent rows, chain rows and eR rows) lies
+# in shared memory, or, where not even one step fits, in a slice of a
+# device workspace per block (tiles of CHAIN_DEV_TILE steps).
+CHAIN_RING = 4           # kChainRing
+CHAIN_MAX_STATES = 4096  # kChainMaxStates
+CHAIN_DEV_TILE = 8       # K9's steps a tile in the device variant
+CHAIN_ADJ_THREADS = 128  # kChainAdjThreads: K9's walkers and helpers
+CHAIN_KERNELS = ("linear_fwd", "linear_adj")
+
+
+def chain_smem_bytes(kernel, S, dtype, R=CHAIN_RING, nnz=0, aux=False):
+    """Bytes of one chain block's layout (csrc/chain.cuh ChainFwdLayout,
+    ChainAdjLayout): K8 ("linear_fwd") the chain row's two slots and the
+    ring of eR rows; K9 ("linear_adj") a tile of R steps: the weights [R,
+    nnz], the cotangent and chain rows [R + 1, S], eR's rows [R, S] and,
+    in the pin / class-sum instantiation (``aux``), the cells' class
+    partials [R, 4, S].  Neither Lp nor B enters."""
+    it = torch.empty((), dtype=dtype).element_size()
+    if kernel == "linear_fwd":
+        return it * (2 + CHAIN_RING) * S
+    if kernel == "linear_adj":
+        return it * (R * nnz + 2 * (R + 1) * S + R * S
+                     + (4 * R * S if aux else 0))
+    raise ValueError("no chain block for kernel %r" % (kernel,))
+
+
+class ChainPlan(NamedTuple):
+    """How K8 ("linear_fwd") or K9 ("linear_adj") runs a shape: one read
+    a block of ``threads`` threads, the first ``walkers`` of them owning
+    ``cells`` states each (K9's other threads, copies of the walkers,
+    share its staging, weights and class sums, not its walk), ``R`` steps
+    (K8: its ring; K9: a tile), ``nnz`` transitions, ``smem`` bytes of
+    shared memory; ``variant`` "device" keeps K9's layout in a slice of
+    ``block_bytes`` of a device workspace per block instead (smem 0).
+    ``aux``: the kernel's pin / class-sum instantiation."""
+    kernel: str
+    cells: int
+    R: int
+    nnz: int
+    walkers: int
+    threads: int
+    smem: int
+    variant: str = "shared"
+    block_bytes: int = 0
+    aux: bool = False
+
+    @property
+    def name(self):
+        return "cells=%d" % self.cells + (
+            ",R=%d" % self.R if self.kernel == "linear_adj" else "") + (
+            ",device" if self.variant == "device" else "") + (
+            ",aux" if self.aux else "")
+
+    @property
+    def grid_args(self):
+        return (self.cells, self.R, self.nnz, self.threads,
+                int(self.variant == "device"), self.smem, self.block_bytes)
+
+
+@functools.lru_cache(maxsize=None)
+def chain_plan(kernel, S, Lp, B, dtype, aux=False, nnz=0, variant=None):
+    """The launch plan of K8 ("linear_fwd") or K9 ("linear_adj") for S
+    states, Lp bases, B reads at ``dtype``; ``aux`` the pin / class-sum
+    instantiation, ``nnz`` the grammar's transitions (K9's weights take
+    nnz a step).  Lp bounds K9's tile; B enters no choice.  One read a
+    block (its walk one warp where S <= 32, K9 with helpers up to
+    CHAIN_ADJ_THREADS); past MAX_THREADS states 2 or 4 states a thread
+    (to CHAIN_MAX_STATES, else ValueError).  K8 rings CHAIN_RING steps of
+    eR; K9 takes the longest tile of steps (at most Lp) whose layout fits
+    SMEM_LIMIT, else the device variant (tiles of CHAIN_DEV_TILE steps in
+    a workspace slice per block).  ``variant`` ("shared" or "device", K9
+    only) forces the layout's place; a read's bits do not depend on it."""
+    if kernel not in CHAIN_KERNELS:
+        raise ValueError("no chain block for kernel %r" % (kernel,))
+    if not 1 <= S <= CHAIN_MAX_STATES:
+        raise ValueError("%s: no chain block takes %d states (at most %d)"
+                         % (kernel, S, CHAIN_MAX_STATES))
+    if variant not in (None, "shared", "device") or (
+            variant == "device" and kernel == "linear_fwd"):
+        raise ValueError("chain_plan: variant %r is not one of %s's"
+                         % (variant, kernel))
+    nc = 1
+    while S > MAX_THREADS * nc:
+        nc *= 2
+    per_thread = -(-S // nc)
+    walkers = -(-per_thread // 32) * 32
+    aux = bool(aux)
+    if kernel == "linear_fwd":
+        return ChainPlan(kernel, nc, CHAIN_RING, 0, walkers, walkers,
+                         chain_smem_bytes(kernel, S, dtype), aux=aux)
+    nnz = int(nnz)
+    threads = CHAIN_ADJ_THREADS // walkers * walkers \
+        if walkers < CHAIN_ADJ_THREADS else walkers
+    fixed = chain_smem_bytes(kernel, S, dtype, 0, nnz, aux)
+    step = chain_smem_bytes(kernel, S, dtype, 1, nnz, aux) - fixed
+    R = min(max(Lp, 1), (SMEM_LIMIT - fixed) // step)
+    if R >= 1 and variant != "device":
+        return ChainPlan(kernel, nc, R, nnz, walkers, threads,
+                         chain_smem_bytes(kernel, S, dtype, R, nnz, aux),
+                         aux=aux)
+    if variant == "shared":
+        raise ValueError("%s: no tile of %d states fits %d bytes of shared "
+                         "memory at %s" % (kernel, S, SMEM_LIMIT,
+                                           str(dtype).replace("torch.", "")))
+    R = min(max(Lp, 1), CHAIN_DEV_TILE)
+    layout = chain_smem_bytes(kernel, S, dtype, R, nnz, aux)
+    return ChainPlan(kernel, nc, R, nnz, walkers, threads, 0, "device",
+                     -(-layout // EP_WS_ALIGN) * EP_WS_ALIGN, aux)
+
 
 def _check_chain(st, eR, L, pin):
     dev = eR.device
@@ -1171,34 +1294,56 @@ def _check_chain(st, eR, L, pin):
     return ChainDims(Lp, S, B), _idx(st, ChainIdx, CHAIN_IDX)
 
 
-def chain_fwd(st, eR, L, pin=None):
+def _chain_plan_for(kernel, st, D, aux, plan):
+    """The plan of a launch: chain_plan's for the shape, or the caller's
+    (forced), which must be the kernel's and the instantiation's."""
+    nnz = int(st.k["rtr_t"].numel())
+    if plan is None:
+        return chain_plan(kernel, D.S, D.Lp, D.B, st.dtype, aux, nnz)
+    if plan.kernel != kernel or plan.aux != aux or (
+            kernel == "linear_adj" and plan.nnz != nnz):
+        raise ValueError("%s: plan %s is not this launch's (aux=%s, nnz=%d)"
+                         % (kernel, plan.name, aux, nnz))
+    return plan
+
+
+def chain_fwd(st, eR, L, pin=None, plan=None):
     """K8 on the grammar's DPStatic ``st``: ([B, 3] parts, the chain rows
     [Lp+1, S, B] for K9); rows beyond a read's length are left
-    unwritten.  ``pin``: the scanner's dp.Pin or None."""
+    unwritten.  ``pin``: the scanner's dp.Pin or None; ``plan``: a
+    chain_plan to force (else the shape's)."""
     D, ix = _check_chain(st, eR, L, pin)
+    plan = _chain_plan_for("linear_fwd", st, D, bool(pin_set(pin)), plan)
     parts = torch.empty((D.B, 3), dtype=eR.dtype, device=eR.device)
     rows = torch.empty((D.Lp + 1, D.S, D.B), dtype=eR.dtype,
                        device=eR.device)
-    _call("linear_fwd", "chain_fwd", eR, D, ix, _aux(st, pin), _p(eR),
-          _p(L), _p(rows), _p(parts))
+    _call("linear_fwd", "chain_fwd", eR, D, ix, _aux(st, pin),
+          ChainGrid(*plan.grid_args), _p(eR), _p(L), _p(rows), _p(parts),
+          variant=plan.name)
     return parts, rows
 
 
-def chain_adj(st, eR, L, rows, gparts, pin=None, cls=None):
+def chain_adj(st, eR, L, rows, gparts, pin=None, cls=None, plan=None):
     """K9: the cotangent of eR [Lp, S, B] from that of the parts [B, 3];
     with ``cls`` [4, Lp, B] it also writes there the class sums of the
-    transition posteriors per base (the scanner's class probe)."""
+    transition posteriors per base (the scanner's class probe).
+    ``plan``: a chain_plan to force (else the shape's)."""
     D, ix = _check_chain(st, eR, L, pin)
     _req(rows, "chain rows", st.dtype, (D.Lp + 1, D.S, D.B), eR.device)
     _req(gparts, "parts cotangent", st.dtype, (D.B, 3), eR.device)
     if cls is not None:
         _req(cls, "class sums", st.dtype, (4, D.Lp, D.B), eR.device)
+    plan = _chain_plan_for("linear_adj", st, D,
+                           bool(pin_set(pin)) or cls is not None, plan)
     g_eR = torch.empty_like(eR)
     ax = _aux(st, pin)
     if cls is not None:
         ax.cpR = cls.data_ptr()
-    _call("linear_adj", "chain_adj", eR, D, ix, ax, _p(eR), _p(L),
-          _p(rows), _p(gparts), _p(g_eR))
+    ws = _workspace(st.__dict__.setdefault("_chain_scratch", {}), plan,
+                    D.B, eR.device)
+    _call("linear_adj", "chain_adj", eR, D, ix, ax,
+          ChainGrid(*plan.grid_args), _p(eR), _p(L), _p(rows), _p(gparts),
+          _p(g_eR), ws, variant=plan.name)
     return g_eR
 
 

@@ -416,13 +416,15 @@ def _chain_inputs(pattern, tau, dtype, no_prf=False, n=6, seed=8):
     ("..*..", 0.1, False), ("..*..", 0.0, False), ("....*....", 0.1, False),
     ("..*..", 0.1, True)])
 @pytest.mark.parametrize("dtype,tol", [("float64", 1e-9), ("float32", 1e-4)])
-def test_chain_kernels_match_plain(pattern, tau, no_prf, dtype, tol):
+@pytest.mark.parametrize("B", [1, 7, 128, 600])
+def test_chain_kernels_match_plain(pattern, tau, no_prf, dtype, tol, B):
     """K8 (parts) and K9 (the cotangent of eR) against the plain chain
-    and its autograd on the same inputs, relative in the max norm; two
-    kernel runs give the same bits; likewise under a pin per read with
-    the class sums of K9 against the plain chain's class probe."""
+    and its autograd on the same inputs, relative in the max norm, at B =
+    1, 7, 128 and 600 reads; two kernel runs give the same bits; likewise
+    under a pin per read with the class sums of K9 against the plain
+    chain's class probe."""
     _need_cuda()
-    st, eR, L, gp = _chain_inputs(pattern, tau, dtype, no_prf)
+    st, eR, L, gp = _chain_inputs(pattern, tau, dtype, no_prf, n=B)
     K.reset_counts()
     parts, rows = K.chain_fwd(st, eR, L)
     g = K.chain_adj(st, eR, L, rows, gp)
@@ -463,6 +465,78 @@ def test_chain_kernels_match_plain(pattern, tau, no_prf, dtype, tol):
     for a, b in ((g, gw), (cls, gc)):
         assert not torch.isnan(a).any()
         assert float((a - b).abs().max()) <= tol * float(b.abs().max())
+
+
+def _chain_plans(st, S, Lp, B, dtype, aux):
+    """Every plan of K8 and K9 for the shape: the shape's (the one-warp
+    block at S <= 32), K9 also in tiles of 3 steps and in the device
+    variant."""
+    nnz = int(st.k["rtr_t"].numel())
+    fwd = [K.chain_plan("linear_fwd", S, Lp, B, dtype, aux, 0)]
+    p = K.chain_plan("linear_adj", S, Lp, B, dtype, aux, nnz)
+    adj = [p, p._replace(R=3, smem=K.chain_smem_bytes(
+        "linear_adj", S, dtype, 3, nnz, aux)),
+        K.chain_plan("linear_adj", S, Lp, B, dtype, aux, nnz,
+                     variant="device")]
+    return fwd, adj
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pattern", ["..*..", "....*...."])
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("pinned", [False, True])
+def test_chain_kernels_do_not_depend_on_the_batch(pattern, dtype, pinned):
+    """Each read's K8 parts and chain rows (up to its length: rows beyond
+    it are not written) and K9's cotangent of eR and class sums (with a
+    pin per read and the class probe) are bitwise equal in batches of
+    600, 1, 7 and 128 reads and under every plan of the kernels: the
+    shape's (one warp at S=28), K9's tiles of 3 steps and its device
+    variant."""
+    _need_cuda()
+    st, eR, L, gp = _chain_inputs(pattern, 0.1, dtype, n=600, seed=12)
+    Lp, S, B = eR.shape
+    pin = DP.Pin(torch.as_tensor(np.arange(B) * 7 % 45 - 5,
+                                 dtype=torch.int32, device="cuda"),
+                 DP.CLS_START) if pinned else None
+
+    def run(lo, hi, fplan=None, aplan=None):
+        pn = None if pin is None else pin._replace(
+            pos=pin.pos[lo:hi].contiguous())
+        e, l_ = eR[..., lo:hi].contiguous(), L[lo:hi].contiguous()
+        parts, rows = K.chain_fwd(st, e, l_, pn, plan=fplan)
+        gpp = torch.where(torch.isfinite(parts), gp[lo:hi], 0.0)
+        cls = torch.empty((4, Lp, hi - lo), dtype=eR.dtype, device="cuda") \
+            if pinned else None
+        g = K.chain_adj(st, e, l_, rows, gpp.contiguous(), pn, cls,
+                        plan=aplan)
+        return parts, rows, g, cls
+
+    ref = run(0, B)
+    Ls = L.clamp(max=Lp).tolist()
+
+    def same(out, lo):
+        parts, rows, g, cls = out
+        for i in range(parts.shape[0]):
+            b = lo + i
+            assert torch.equal(parts[i], ref[0][b]), b
+            assert torch.equal(rows[:Ls[b] + 1, :, i],
+                               ref[1][:Ls[b] + 1, :, b]), b
+            assert torch.equal(g[..., i], ref[2][..., b]), b
+            if pinned:
+                assert torch.equal(cls[..., i], ref[3][..., b]), b
+
+    for lo, hi in ((0, 1), (3, 10), (100, 228), (599, 600)):
+        same(run(lo, hi), lo)
+    fwd, adj = _chain_plans(st, S, Lp, B, eR.dtype, pinned)
+    assert (fwd[0].walkers == 32) == (S <= 32)
+    K.reset_counts()
+    for fp in fwd:
+        for ap in adj:
+            same(run(0, B, fp, ap), 0)
+    n = len(fwd) * len(adj)
+    assert K.KERNELS["linear_fwd"].launches == n
+    assert K.KERNELS["linear_adj"].launches == n
+    assert sum(K.KERNELS["linear_adj"].variants.values()) == n
 
 
 @pytest.mark.gpu
