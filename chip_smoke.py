@@ -27,11 +27,13 @@ Phases:
      reads at other places, in a repeat, and under every split of a read's
      sums that their host plans (factors_adj_plan, hoisted_adj_plan) can
      take, forced (f32 and f64), and K15 at 44 dots (S=1,081) under every
-     split bitwise the plain contraction; K1 (one launch) and K16 at B = 1,
-     7, 600 and 128 x 100 nt, f64 and f32, against their plain versions
-     (K1's ints and bools equal, floats within 1e-6 relative; K16 within
-     1e-12 / 1e-6 relative, a strided per-read lambda), with the share of
-     float cells bit for bit the plain versions';
+     split bitwise the plain contraction; K1 (one launch), K16 and K14 at
+     B = 1, 7, 600 and 128 x 100 nt, f64 and f32, against their plain
+     versions (K1's ints and bools equal, floats within 1e-6 relative; K16
+     and K14 within 1e-12 / 1e-6 relative, a strided per-read lambda, K14's
+     constants identical), K14 under every tile of factors_plan forced
+     bitwise its own plan, with the share of float cells bit for bit the
+     plain versions';
      and the full inside DP: f64 kernels vs the f64 plain version (parts
      within 1e-9 absolute), f32 kernels vs the f64 plain version (within
      2e-3 absolute);
@@ -99,7 +101,9 @@ Phases:
      75 and the whole tables, -inf placement identical, f64 at B=16 within
      1e-12 and f32 at B=64 x 100 nt within 1e-4 (absolute), two kernel runs
      bitwise equal; K13 against the host traceback on the f64 tables, every
-     read's psihat and pair set identical;
+     read's psihat and pair set identical, under each plan of
+     ops/kernels.traceback_plan (the walk's stack in shared memory and in
+     the device scratch; so too on the 76 tRNAs and phase 14's CYK path);
  11. the scan path, this slice's: Scanner.scan of the 76 tRNAs with the
      reference's converged model in the driver's buckets and chunks
      (posteriors, then the CYK alignment), at f64 (the default) held
@@ -164,8 +168,14 @@ Phases:
 
 --rows-cd-times times K14-K17 and K1 alone through their common entry
 points and prints the SHA-256 of every K1 and K16 output at the seeded
-main-path batch (f32, f64): a copy of this script beside an older tree
-times that tree and prints its bits.  --k1-variants times K1 for other
+main-path batch (f32, f64) and of every K14 output in modes dp, eR and
+null at B = 1, 7, 128 and 600 (f32, f64): a copy of this script beside
+an older tree times that tree and prints its bits.  --tb-times does the
+same for K13 on the two chunks of the 76-tRNA scan (f64, f32, each plan:
+device ms, the SHA-256 of psihat, pairs and err, the walk's cells and
+candidates per read, the latency of one dependent load from a pointer
+chase, csrc/probe/pointer_chase.cu, and both bounds); with both flags
+both run.  --k1-variants times K1 for other
 launch plans and with a piece of its work taken out (K1_VARIANTS).
 --chain-times does the same for K8 and K9 (B=128 x 100 nt of ..*..,
 f32, plain and pinned with the class probe; the SHA-256 of every output
@@ -1815,18 +1825,32 @@ def check_max_tables(cfg, reads, params, dev, tol):
     return errs, scfg, d, c, runs[0]
 
 
-def check_traceback(cfg, d, c, state, dev, what):
-    """K13 against the host traceback on the same tables: every read's
-    psihat and pair set identical.  Returns the reads compared."""
-    k = J.kernels(cfg, dev)
-    mdp = DMB.MaxDP(k.dp)
-    eps = CYK.EPS[k.dtype]
-    psihat, pairs, err = K.cyk_traceback(state, d, c, mdp.mst, eps)
-    psihat, pairs, err = (x.cpu().numpy() for x in (psihat, pairs, err))
+def tb_plans(mst):
+    """K13's launch plans to hold against the host traceback: the shape's
+    (ops/kernels.traceback_plan) and the one with the stack in the other
+    place, where that fits; [None] (the launch's own) where the package
+    has no plans."""
+    if not hasattr(K, "traceback_plan"):
+        return [None]
+    li = K.tb_lists(mst)[0]
+    st = mst.st
+    base = K.traceback_plan(st.dims.Lp, st.dtype, (li.ni, li.nt))
+    plans = [base]
+    try:
+        plans.append(K.traceback_plan(
+            st.dims.Lp, st.dtype, (li.ni, li.nt),
+            variant="device" if base.stack == "shared" else "shared"))
+    except ValueError:
+        pass
+    return plans
+
+
+def same_as_host(out, host, L, what):
+    """Fail unless K13's (psihat, pairs, err) has no error flag and every
+    read's psihat and pair set equal the host traceback's."""
+    psihat, pairs, err = (x.cpu().numpy() for x in out)
     if err.any():
         fail("K13 %s: error flags %s" % (what, err.tolist()))
-    host = CYK.host_tracebacks(cfg, k.g, state, d, c, k.dp.st, eps)
-    L = c.L.cpu().numpy()
     for t, (path, _, cells) in enumerate(host):
         if not np.array_equal(psihat[t, :L[t]], path):
             fail("K13 %s: read %d's psihat differs from the host "
@@ -1834,7 +1858,26 @@ def check_traceback(cfg, d, c, state, dev, what):
         if sorted(map(tuple, np.argwhere(pairs[t]))) != sorted(cells):
             fail("K13 %s: read %d's pair set differs from the host "
                  "traceback" % (what, t))
-    return len(host)
+
+
+def check_traceback(cfg, d, c, state, dev, what):
+    """K13 against the host traceback on the same tables, under each plan
+    of tb_plans (the stack in shared memory and in the device scratch):
+    every read's psihat and pair set identical.  Returns (the reads
+    compared, the plans' names)."""
+    k = J.kernels(cfg, dev)
+    mdp = DMB.MaxDP(k.dp)
+    eps = CYK.EPS[k.dtype]
+    host = CYK.host_tracebacks(cfg, k.g, state, d, c, k.dp.st, eps)
+    L = c.L.cpu().numpy()
+    names = []
+    for plan in tb_plans(mdp.mst):
+        name = "launch" if plan is None else plan.name
+        kw = {} if plan is None else {"plan": plan}
+        same_as_host(K.cyk_traceback(state, d, c, mdp.mst, eps, **kw),
+                     host, L, "%s (%s)" % (what, name))
+        names.append(name)
+    return len(host), names
 
 
 def cyk_times(fq, dev):
@@ -1887,18 +1930,31 @@ def cyk_times(fq, dev):
                          torch.finfo(k.dtype).bits // 8)
         out[dtype] = dict(ms=ms, plain_ms=plain_ms, bound=bnd,
                           launches=launches, stats=stats)
+        if dtype == "float64":
+            # K13's dependent-path bound: the longest read's walked cells
+            # (the kernel's trace) x one dependent load from L2
+            tr = torch.zeros((len(reads[:SCD.SCAN_BATCH]),
+                              len(K.TB_TRACE)), dtype=torch.int64,
+                             device=dev)
+            K.cyk_traceback(state, d, c, mdp.mst, eps, trace=tr)
+            cells = tr[:, :2].sum(1).max().item()
+            lat = pointer_chase_ns(dev)
+            out[dtype]["bound_dep"] = dict(
+                cells_max=cells, latency_ns=lat,
+                ms=cells * lat["l2_ns"] * 1e-6)
         # K11 and K12 on the second chunk (12 reads): K11's ranges of x
         # follow B
         out[dtype]["ms_chunk2"] = cyk_column_ms(reads[SCD.SCAN_BATCH:], dev,
                                                 funcs, dtype)
         if dtype == "float64":
-            n = check_traceback(scfg, d, c, state, dev, "76 tRNAs, chunk 1")
+            n, plans = check_traceback(scfg, d, c, state, dev,
+                                       "76 tRNAs, chunk 1")
             del state
             scfg2, d2, c2 = cyk_factors(cfg, params,
                                         reads[SCD.SCAN_BATCH:], dev, False)
-            n += check_traceback(scfg2, d2, c2, DMB.MaxDP(J.kernels(
+            n2, _ = check_traceback(scfg2, d2, c2, DMB.MaxDP(J.kernels(
                 scfg2, dev).dp).tables(d2, c2), dev, "76 tRNAs, chunk 2")
-            out["tb_reads"] = n
+            out["tb_reads"], out["tb_plans"] = n + n2, plans
         torch.cuda.empty_cache()
     return out
 
@@ -2389,7 +2445,8 @@ def wide_cyk(cfg, reads, p, dev, funcs):
         e[kn] = max(e.get(kn, 0.0), max_compare(
             "wide CYK table %s" % key, tabs[key], plain[key], 0.0))
     del again, plain
-    n_tb = check_traceback(scfg, d, c, tabs, dev, "wide %s" % cfg.pattern)
+    n_tb, tb_names = check_traceback(scfg, d, c, tabs, dev,
+                                     "wide %s" % cfg.pattern)
     ks = DP.clone_state(tabs)
     ms = device_ms(lambda: DMB.max_ep_stage(ks, J0, d, c, mdp.mst),
                    REPS // 4, funcs["inside_ep_max"])
@@ -2400,10 +2457,11 @@ def wide_cyk(cfg, reads, p, dev, funcs):
                      torch.finfo(st.dtype).bits // 8)["inside_ep_max"]
     print("wide grammar %s CYK tables (f64, K11 %s variant) vs the plain "
           "max DP: max abs err %s (bitwise), K13 paths of %d reads "
-          "identical to the host traceback; K11 %.4f ms per column %d "
-          "(plain %.3f, bound %.5f by %s)" % (
-              cfg.pattern, plan.variant, json.dumps(e), n_tb, ms, J0,
-              plain, bnd[0], bnd[1]), flush=True)
+          "identical to the host traceback under plans %s; K11 %.4f ms per "
+          "column %d (plain %.3f, bound %.5f by %s)" % (
+              cfg.pattern, plan.variant, json.dumps(e), n_tb,
+              json.dumps(tb_names), ms, J0, plain, bnd[0], bnd[1]),
+          flush=True)
     return dict(err=e["inside_ep_max"], ms=ms, plain_ms=plain, bound=bnd,
                 variant=plan.variant, launches=n_var)
 
@@ -3099,15 +3157,46 @@ def check_rows_cd(dev):
 EDGE_BATCHES = (1, 7, 600)  # K1's and K16's batches beside the main one
 
 
+def check_factor_tiles(cfg, sd, bp, wts, B, dtype, rel):
+    """K14 on per-read weights vs the plain version (every factor within
+    ``rel`` relative in the max norm, the constants identical) and, with
+    each tile of positions factors_plan can take forced, bitwise its own
+    plan's outputs.  Returns (max abs err, the tiles' names)."""
+    outs_p, consts_p, _ = factors_run(cfg, sd, bp, wts, [], True)
+    outs_k, consts_k, _ = factors_run(cfg, sd, bp, wts, [], False)
+    e = max(grad_compare("factors B=%d %s" % (B, dtype), a, b_, rel)
+            for a, b_ in zip(outs_k, outs_p))
+    for a, b_ in zip(consts_k, consts_p):
+        if not torch.equal(a, b_):
+            fail("factors B=%d %s: a constant differs from the plain "
+                 "version's" % (B, dtype))
+    k = J.kernels(cfg, DEVICE)
+    st, reads = k.dp.st, J._card_reads(k, sd)
+    base = K.factors(st, cfg, "dp", *reads, singles=wts[0], pairs=wts[1])
+    names = []
+    for P in K.FAC_TILES:
+        plan = K.factors_plan(cfg.Lp, st.dims.Wp, st.dims.S,
+                              wts[1].shape[1], wts[0].shape[1], B, st.dtype,
+                              True, P)
+        got = K.factors(st, cfg, "dp", *reads, singles=wts[0],
+                        pairs=wts[1], plan=plan)
+        if not all(torch.equal(got[n_], base[n_]) for n_ in base):
+            fail("factors B=%d %s: plan %s differs from the shape's plan"
+                 % (B, dtype, plan.name))
+        names.append(plan.name)
+    return e, names
+
+
 def check_k1_k16_batches(dev):
-    """K1 and K16 at B = 1, 7 and 600 x 100 nt (one read of a group, a
-    scalar tail, 16-byte rows and many groups) as at B=128: K1 vs its
+    """K1, K16 and K14 at B = 1, 7 and 600 x 100 nt (one read of a group,
+    a scalar tail, 16-byte rows and many groups) as at B=128: K1 vs its
     plain version (ints and bools equal, floats within 1e-6 relative),
-    K16 for per-read lambdas (a strided view) vs hoisted_plain within
-    1e-12 (f64) and 1e-6 (f32) relative in the max norm; prints the share
-    of float cells bit for bit the plain versions'.  Returns the f32 max
-    abs errors by kernel."""
-    errs = {"score_tables": 0.0, "hoisted": 0.0}
+    K16 for per-read lambdas (a strided view) vs hoisted_plain and K14
+    for per-read weights vs the plain factors within 1e-12 (f64) and 1e-6
+    (f32) relative in the max norm, K14 under every tile of factors_plan
+    bitwise its own plan; prints the share of float cells bit for bit the
+    plain versions'.  Returns the f32 max abs errors by kernel."""
+    errs = {"score_tables": 0.0, "hoisted": 0.0, "factors": 0.0}
     msgs = []
     for B in EDGE_BATCHES + (B_MAIN,):
         rr = make_reads(np.random.RandomState(40 + B), B, LP - 20, LP)
@@ -3131,19 +3220,23 @@ def check_k1_k16_batches(dev):
                 e2 = max(e2, grad_compare("hoisted %s B=%d %s" % (
                     n_, B, dtype), a, hp[n_], rel))
                 same[n_] = (int((a == hp[n_]).sum()), a.numel())
+            e3, tiles = check_factor_tiles(cfg, sd, bp, wts, B, dtype, rel)
             if dtype == "float32":
                 errs["score_tables"] = max(errs["score_tables"], e1)
                 errs["hoisted"] = max(errs["hoisted"], e2)
+                errs["factors"] = max(errs["factors"], e3)
             share = {n_: round(a / b_, 6) for n_, (a, b_) in same.items()}
-            msgs.append("B=%d %s: K1 %.3g, K16 %.3g (%s), cells bitwise the "
-                        "plain version's %s" % (B, dtype, e1, e2,
-                                                json.dumps(variant),
-                                                json.dumps(share)))
+            msgs.append("B=%d %s: K1 %.3g, K16 %.3g (%s), K14 %.3g (tiles "
+                        "bitwise %s), cells bitwise the plain version's %s"
+                        % (B, dtype, e1, e2, json.dumps(variant), e3,
+                           json.dumps(tiles), json.dumps(share)))
             del hk, hp, d, c
             torch.cuda.empty_cache()
-    print("check K1 and K16 at B = %s x %d nt vs their plain versions, max "
-          "abs err (K1: ints/bools equal, floats within 1e-6 relative; K16: "
-          "f64 1e-12, f32 1e-6 relative, max norm): %s" % (
+    print("check K1, K16 and K14 at B = %s x %d nt vs their plain "
+          "versions, max abs err (K1: ints/bools equal, floats within 1e-6 "
+          "relative; K16 and K14: f64 1e-12, f32 1e-6 relative, max norm, "
+          "K14's constants identical, its outputs bitwise equal under every "
+          "tile of factors_plan): %s" % (
               ", ".join(str(b_) for b_ in EDGE_BATCHES + (B_MAIN,)), LP,
               "; ".join(msgs)), flush=True)
     return errs
@@ -3622,9 +3715,11 @@ def rows_cd_times_only(dev):
     """K14-K17 and K1 at the main path's shapes alone (--rows-cd-times,
     after phase 1): rows_cd_times' ms, plain ms and bounds, K1's through
     ET.score_tables, the SHA-256 of every K1 and K16 output at the
-    seeded main-path batch (f32, f64: output_digests) and, where the
-    package has the host plans, K15's and K17's device ms under every
-    split the plan can take (B=128 x 100 nt, f32), as one JSON line.
+    seeded main-path batch (f32, f64: output_digests) and of every K14
+    output in its three modes at four batches (factors_digests) and,
+    where the package has the host plans, K15's and K17's device ms under
+    every split the plan can take and K14's under every tile of positions
+    (B=128 x 100 nt, f32), as one JSON line.
     Uses only the kernels' common entry points, so a copy of this script
     beside an older tree times that tree's kernels and prints its
     bits."""
@@ -3646,7 +3741,8 @@ def rows_cd_times_only(dev):
     by, ops = score_work(cfg, None, k.tab, B_MAIN, 4)
     bnd["score_tables"] = _ms(by, ops)
     out = {"ms": ms, "plain_ms": plain, "bound_ms": bnd, "unit": unit,
-           "sha256": output_digests(dev)}
+           "sha256": output_digests(dev),
+           "sha256_factors": factors_digests(dev)}
     if hasattr(K, "hoisted_adj_plan"):
         st = J.kernels(cfg, dev).dp.st
         x = adj_inputs(cfg, main_reads(), dev, 22)
@@ -3668,7 +3764,199 @@ def rows_cd_times_only(dev):
                 REPS, funcs["hoisted_adj"])
         out["by_split"] = split
         out["plan_split"] = {"factors_adj": fp.K, "hoisted_adj": hp.K}
+    if hasattr(K, "factors_plan"):
+        # K14 under each tile of positions factors_plan can take, forced
+        k = J.kernels(cfg, dev)
+        st, B = k.dp.st, batch.valid.shape[0]
+        reads = J._card_reads(k, batch.sd)
+        wts = [x.detach().clone() for x in J.per_read(params, B)]
+        out["factors_by_tile"] = {}
+        for P in K.FAC_TILES:
+            plan = K.factors_plan(cfg.Lp, st.dims.Wp, st.dims.S,
+                                  wts[1].shape[1], wts[0].shape[1], B,
+                                  st.dtype, True, P)
+            out["factors_by_tile"][plan.name] = device_ms(
+                lambda: K.factors(st, cfg, "dp", *reads, singles=wts[0],
+                                  pairs=wts[1], plan=plan), REPS,
+                funcs["factors"])
     print(json.dumps({"rows_cd_times": out}), flush=True)
+
+
+def factors_digests(dev):
+    """SHA-256 of every K14 output in modes "dp" ((.....)), "eR" (..*..
+    --no-rss) and "null" (the masks pass) at B = 1, 7, 128 and 600 x 100
+    nt (seeded reads and per-read weights), f32 and f64, through
+    K.factors, so that a copy of this script beside an older tree prints
+    that tree's bits."""
+    out = {}
+    for dtype in ("float32", "float64"):
+        for B in EDGE_BATCHES + (B_MAIN,):
+            rr = make_reads(np.random.RandomState(60 + B), B, LP - 20, LP)
+            for mode in ("dp", "eR", "null"):
+                cfg = norss_cfg(dtype) if mode == "eR" else cfg_for(dtype)
+                k = J.kernels(cfg, dev)
+                sd, _ = rows_cd_batch(cfg, rr, dev, 61)
+                reads = J._card_reads(k, sd)
+                if mode == "null":
+                    got = K.factors(k.dp_null.st, cfg, mode, *reads)
+                else:
+                    wts = rows_cd_weights(cfg, B, dev, 62)
+                    got = K.factors(k.dp.st, cfg, mode, *reads,
+                                    singles=wts[0],
+                                    pairs=wts[1] if mode == "dp" else None)
+                out["%s B=%d %s" % (dtype, B, mode)] = {
+                    n_: _digest(t) for n_, t in sorted(got.items())}
+    return out
+
+
+def pointer_chase_ns(dev, steps=200000):
+    """The latency of one dependent load on the card, ns: one thread
+    following i = next[i] over a single random cycle of 256-byte slots
+    (csrc/probe/pointer_chase.cu, built alone with the library's nvcc
+    flags; CUDA events over ``steps`` loads after a warm pass) in a 4 MiB
+    buffer that L2 holds ("l2_ns") and in a 1 GiB one ("hbm_ns").  None
+    where the tree has no probe source (an older tree)."""
+    import ctypes
+    src = K.CSRC / "probe" / "pointer_chase.cu"
+    if not src.exists():
+        return None
+    root = os.path.join(HERE, "build", "probe")
+    os.makedirs(root, exist_ok=True)
+    so = os.path.join(root, "pointer_chase.so")
+    r = subprocess.run([K._nvcc(), *K.NVCC_FLAGS, "-shared", "-o", so,
+                        str(src)], stdout=subprocess.PIPE,
+                       stderr=subprocess.STDOUT, text=True)
+    if r.returncode:
+        fail("pointer chase build:\n%s" % r.stdout)
+    L = ctypes.CDLL(so)
+    L.pointer_chase.argtypes = [ctypes.c_void_p, ctypes.c_longlong,
+                                ctypes.c_void_p, ctypes.c_void_p]
+    L.pointer_chase.restype = ctypes.c_int
+    rng = np.random.RandomState(3)
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {}
+    for name, nbytes in (("l2_ns", 4 << 20), ("hbm_ns", 1 << 30)):
+        stride = 32                       # int64s: 256 bytes a slot
+        n = nbytes // (8 * stride)
+        perm = rng.permutation(n)
+        nxt = np.zeros(n * stride, np.int64)
+        nxt[perm * stride] = np.roll(perm, -1) * stride
+        t = torch.as_tensor(nxt, device=dev)
+        res = torch.zeros(1, dtype=torch.int64, device=dev)
+        run = lambda k_: L.pointer_chase(
+            ctypes.c_void_p(t.data_ptr()), k_, ctypes.c_void_p(
+                res.data_ptr()), ctypes.c_void_p(stream))
+        if run(min(n, steps)):
+            fail("pointer chase launch failed")
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        run(steps)
+        b.record()
+        torch.cuda.synchronize()
+        out[name] = a.elapsed_time(b) * 1e6 / steps
+        del t
+    torch.cuda.empty_cache()
+    return out
+
+
+def host_walks(cfg, g, state, d, c, st, eps):
+    """The host traceback (K13's plain version) of every read of a chunk
+    with one stats dict per read: ([(path, struct, cells)], [{"cells":
+    walked cells, "cands": candidates up to each choice}])."""
+    tabs, fac = CYK.host_inputs(state, d, c, st)
+    pins = [(p_.pos.cpu().numpy(), int(p_.bit), int(p_.kinds))
+            for p_ in DP.pin_set(c.pin)]
+    codes = DP.class_codes(g)
+    walks, stats = [], []
+    for t in range(fac["L"].shape[0]):
+        st_ = {}
+        walks.append(CYK.traceback(cfg, g, CYK._Host(
+            cfg, g, tabs, fac, t, pins, codes), eps, st_))
+        stats.append(st_)
+    return walks, stats
+
+
+def tb_times_only(dev):
+    """K13 alone (--tb-times, after phase 1) on the two chunks of the
+    76-tRNA scan (64 and 12 reads, bucket 96, the reference's converged
+    model, the CYK pin set from the posterior pass) at f64 and f32, under
+    each plan of tb_plans: device ms per chunk (the profiler, 20 calls),
+    launches, the SHA-256 of psihat, pairs and err, every read held
+    against the host traceback; per chunk the host walk's cells and
+    candidates per read (max and sum), the bytes/operations bound and the
+    dependent-path bound (the longest read's walked cells x one dependent
+    load, from pointer_chase_ns).  Uses only K.cyk_traceback's common
+    entry (a plan where the tree has them), so a copy of this script
+    beside an older tree times that tree's K13 and prints its bits.  One
+    JSON line."""
+    funcs = kernel_functions()
+    lat = pointer_chase_ns(dev)
+    out = {"latency_ns": lat, "chunks": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        reads = trna_reads(tmp)
+    chunks = (reads[:SCD.SCAN_BATCH], reads[SCD.SCAN_BATCH:])
+    for dtype in ("float64", "float32"):
+        cfg, params = MIO.read_model(GOLD_TRNA, Lp=96, dtype=dtype,
+                                     device=dev)
+        for ci, chunk in enumerate(chunks):
+            scfg, d, c = cyk_factors(cfg, params, chunk, dev, False)
+            k = J.kernels(scfg, dev)
+            mdp = DMB.MaxDP(k.dp)
+            state = mdp.tables(d, c)
+            eps = CYK.EPS[k.dtype]
+            host, stats = host_walks(scfg, k.g, state, d, c, k.dp.st, eps)
+            cells = [x.get("cells", 0) for x in stats]
+            cands = [x.get("cands", 0) for x in stats]
+            L = c.L.cpu().numpy()
+            it = torch.finfo(k.dtype).bits // 8
+            Lp, W1, B = scfg.Lp, scfg.Wp + 1, len(chunk)
+            by = it * 4 * sum(cells) + B * (4 * Lp + (Lp + 1) * W1 + 4)
+            rec = {"dtype": dtype, "chunk": ci + 1, "reads": B,
+                   "cells_max": max(cells), "cells_sum": sum(cells),
+                   "cands_max": max(cands), "cands_sum": sum(cands),
+                   "bound_ms": _ms(by, 4.0 * sum(cands)), "plans": {}}
+            if lat:
+                rec["bound_dep_ms"] = {n_: max(cells) * v * 1e-6
+                                       for n_, v in lat.items()}
+            for plan in tb_plans(mdp.mst):
+                kw = {} if plan is None else {"plan": plan}
+                call = lambda: K.cyk_traceback(state, d, c, mdp.mst, eps,
+                                               **kw)
+                K.reset_counts()
+                res = call()
+                torch.cuda.synchronize()
+                name = "launch" if plan is None else plan.name
+                same_as_host(res, host, L, "%s chunk %d (%s)" % (
+                    dtype, ci + 1, name))
+                rec["plans"][name] = {
+                    "launches": K.KERNELS["cyk_traceback"].launches,
+                    "sha256": {n_: _digest(x) for n_, x in zip(
+                        ("psihat", "pairs", "err"), res)},
+                    "ms": device_ms(call, 20, funcs["cyk_traceback"])}
+            if hasattr(K, "TB_TRACE"):
+                # the walk's counters per read (the shape's plan), and the
+                # plan's warps forced to 1, 2 and 8
+                tr = torch.zeros((B, len(K.TB_TRACE)), dtype=torch.int64,
+                                 device=dev)
+                K.cyk_traceback(state, d, c, mdp.mst, eps, trace=tr)
+                tr = tr.cpu().numpy()
+                rec["trace_sum"] = dict(zip(K.TB_TRACE, tr.sum(0).tolist()))
+                rec["trace_max"] = dict(zip(K.TB_TRACE, tr.max(0).tolist()))
+                li = K.tb_lists(mdp.mst)[0]
+                rec["ms_by_warps"] = {}
+                for w_ in (1, 2, 8):
+                    plan = K.traceback_plan(scfg.Lp, k.dtype, (li.ni, li.nt),
+                                            warps=w_)
+                    rec["ms_by_warps"][w_] = device_ms(
+                        lambda: K.cyk_traceback(state, d, c, mdp.mst, eps,
+                                                plan=plan), 20,
+                        funcs["cyk_traceback"])
+            out["chunks"].append(rec)
+            del state
+            torch.cuda.empty_cache()
+    print(json.dumps({"tb_times": out}), flush=True)
 
 
 def _digest(t):
@@ -4903,6 +5191,13 @@ def main():
                          "shape, plain and pinned with the class probe "
                          "(chain_times_only), print the SHA-256 of their "
                          "outputs (f32, f64), and exit")
+    ap.add_argument("--tb-times", action="store_true",
+                    help="only build and time K13 on the two 76-tRNA scan "
+                         "chunks at f64 and f32 under each plan, with the "
+                         "SHA-256 of its outputs, the walk's cells and "
+                         "candidates per read, a dependent load's latency "
+                         "and both bounds (tb_times_only); with "
+                         "--rows-cd-times both run; then exit")
     ap.add_argument("--chain-variants", action="store_true",
                     help="only time K8 and K9 per plan (the one-warp "
                          "block, K9's device variant) and with pieces of "
@@ -4978,8 +5273,11 @@ def main():
                     exist_ok=True)
         with open(args.ptxas, "w") as f:
             f.write(log)
-    if args.rows_cd_times:
-        rows_cd_times_only(dev)
+    if args.rows_cd_times or args.tb_times:
+        if args.rows_cd_times:
+            rows_cd_times_only(dev)
+        if args.tb_times:
+            tb_times_only(dev)
         print("card: %s" % card_line(), flush=True)
         return
     if args.chain_times:
@@ -5064,7 +5362,8 @@ def main():
     # set against the plain max DP, and the traceback K13 against the host
     e_max64, cfg_m, dm, cm, tabs_m = check_max_tables(cfg64, small, p64,
                                                       dev, 1e-12)
-    n_tb = check_traceback(cfg_m, dm, cm, tabs_m, dev, "B=16 random weights")
+    n_tb, tb_names = check_traceback(cfg_m, dm, cm, tabs_m, dev,
+                                     "B=16 random weights")
     del tabs_m, dm, cm
     e_max32, *_ = check_max_tables(cfg32, reads[:B_SCAN], p32, dev, 1e-4)
     err.update(e_max32)
@@ -5074,9 +5373,9 @@ def main():
           "column %d stages and whole tables, -inf placement identical, two "
           "runs bitwise equal: f64 B=%d max abs err %s (<= 1e-12); f32 B=%d x "
           "%d nt %s (<= 1e-4); K13 vs the host traceback on the f64 tables: "
-          "%d reads' psihat and pair sets identical" % (
+          "%d reads' psihat and pair sets identical under plans %s" % (
               J0, len(small), json.dumps(e_max64), B_SCAN, LP,
-              json.dumps(e_max32), n_tb), flush=True)
+              json.dumps(e_max32), n_tb, json.dumps(tb_names)), flush=True)
     torch.cuda.empty_cache()
 
     # ---- phases 3-4: full gradient and masks, small batch
@@ -5356,6 +5655,9 @@ def main():
         cyk = cyk_times(scan["fq"], dev)
         for dtype in ("float64", "float32"):
             ct_ = cyk[dtype]
+            if "bound_dep" in ct_:
+                print("K13's dependent-path bound (f64 chunk 1): %s"
+                      % json.dumps(ct_["bound_dep"]), flush=True)
             print("CYK kernels on a 64-read tRNA scan chunk (bucket 96), %s: "
                   "device ms per column %d (K10-K12) and per chunk (K13) %s, "
                   "launches %s; K11 and K12 on the second chunk (12 reads) "
@@ -5368,8 +5670,8 @@ def main():
                      ct_["stats"]["cells"], ct_["stats"]["cands"]),
                   flush=True)
         print("K13 vs the host traceback on the 76 tRNAs (f64 tables): %d "
-              "reads' psihat and pair sets identical" % cyk["tb_reads"],
-              flush=True)
+              "reads' psihat and pair sets identical under plans %s" % (
+                  cyk["tb_reads"], json.dumps(cyk["tb_plans"])), flush=True)
         for n in CHAIN_KERNELS:
             if scan_nr[n] <= 0:
                 fail("kernel %s was not launched on the no-rss scan" % n)
@@ -5427,6 +5729,8 @@ def main():
             "launches_fn_grad": per_fg[name], "ms_fn_grad": fg_dev[name],
             "ms_by_function": ms_by_fn.get(name),
             "variants": eval_variants[name]})
+        if name == "cyk_traceback":
+            rows[-1]["bound_dep_ms"] = c64["bound_dep"]["ms"]
         print("kernel %s: %.4f ms per %s of %d launches (plain %.3f ms, "
               "bound %.4f ms by %s; with the pin %s ms); %d launches on the "
               "scan path, %d in the production step, %d on the evaluation "

@@ -37,9 +37,21 @@
 // Bound on the H100: bytes (a few kB of weights, the codes, and the
 // factors written once: about 8.9 MB in f32 at B = 128 x 100 nt, S = 29,
 // -w 50), and for B of a few hundred, launch latency.  Design: K14 one
-// coalesced pass, a thread per output cell with the read fastest, in four
-// index ranges of one grid (state cells, pair cells, position cells, and
-// a warp per read for the running dot counts).  K15 spreads a read's sums
+// coalesced pass on the host plan's layout (ops/kernels.factors_plan): a
+// block takes a group of G reads (a 128-byte line of a float plane: 32
+// f32 or 16 f64 reads) and a tile of P positions (P values of j for the
+// pair cells) of one of three index ranges, (position, state) rows of eR
+// and eL, (j, w) rows of pv and alphaP, position rows of bg2, the codes,
+// the gate and wsp; one more block per group writes the running dot
+// counts and the per-read constants.  The block first stages its reads'
+// codes, positional weights and dots batch-fastest in shared memory (each
+// read's run of positions loaded in one coalesced pass) and builds its
+// reads' effective weight rows there, each single row (4 entries) and
+// pair row (6) softmaxed once per block with the same arithmetic, so
+// every output keeps its bits; then TY rows x TX threads along the reads,
+// V reads a thread (16-byte stores where B and the pointers allow it),
+// write whole rows of B values with 32-bit offsets inside the block from
+// a 64-bit base and no division per value.  K15 spreads a read's sums
 // over blocks of 8 warps, each warp a row of RL reads (one 32-byte
 // sector) x 32 / RL columns, the reads' codes staged in shared memory:
 // the state blocks take a state a warp (its eight sums, eR's and eL's at
@@ -121,103 +133,114 @@ __device__ __forceinline__ T row_lse(const T* x) {
   return s > (T)0 ? lg(s) + m : ninf<T>();
 }
 
-// the effective table value of weight row x (K entries) at entry k
-template <typename T, int K>
-__device__ __forceinline__ T theta_of(const FacDims& D, const T* x, int k) {
-  if (D.no_theta) return (T)0;
-  return D.theta_softmax ? x[k] - row_lse<T, K>(x) : x[k];
-}
+// K14's layout (ops/kernels.factors_plan): G = TX V reads a group (the
+// grid's y), a block TY rows x TX threads, V reads a thread; tiles of P
+// positions (a power of two) in the grid's x: n1 tiles of (position,
+// state) rows, n2 of (j, w) rows, n3 of position rows, n4 = 1 block of
+// the group's running dot counts and constants (mode 1 launches the n1
+// tiles alone); smem the dynamic bytes
+struct FacGrid {
+  int V, TX, TY, G, P, n1, n2, n3, n4, groups, smem;
+};
 
-// pair type of the pair cell (j, w) of read b: bases clip(j - w) and
-// clip(j - 1)
-__device__ __forceinline__ int pair_type(const int* seq, int Lp, int b, int j,
-                                         int w) {
-  const int i = clampi(j - w, 0, Lp - 1), jj = clampi(j - 1, 0, Lp - 1);
-  const int a = seq[(long long)b * Lp + i], c = seq[(long long)b * Lp + jj];
-  return c_fac_bp[clampi(a, 0, 4) * 5 + clampi(c, 0, 4)];
-}
-
-// ---- K14: one thread per output cell, four index ranges
+// K14's dynamic shared memory: the single rows [4 ns][G] and pair rows
+// [6 Tp][G] of the block's reads, their positional weights [P][G], their
+// codes over the widest window [P + Wp + 1][G], the scan's tile [32][G]
+// and the dots [P][G] (bytes)
 template <typename T>
-__global__ void __launch_bounds__(kFacThreads)
-factors_kernel(FacDims D, FacIdx ix, const T* singles, const T* pairs,
-               const int* seq, const double* ws, const int* L,
-               const bool* dots, FacOut o, long long n1, long long n2,
-               long long n3, long long n4pad, long long n4) {
-  const int Lp = D.Lp, W1 = D.Wp + 1, S = D.S, B = D.B;
-  long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx < n1) {  // (p, s, b): eR and eL
-    const int b = (int)(idx % B), s = (int)((idx / B) % S);
-    const int p = (int)(idx / ((long long)B * S));
-    const int code = seq[(long long)b * Lp + p];
-    const T wsv = (T)ws[(long long)b * Lp + p];
-    const int k = clampi(code - 1, 0, 3);
-    const T* row = singles + b * D.sbs;
-    T vr = (T)0, vl = (T)0;
-    if (D.mode != 2 && !D.no_prf && code > 0) {
-      vr = theta_of<T, 4>(D, row + 4 * ix.slot_r[s], k);
-      vl = theta_of<T, 4>(D, row + 4 * ix.slot_l[s], k);
-    }
-    if (D.mode == 2) {
-      static_cast<T*>(o.eR)[idx] = (T)0;
-      static_cast<T*>(o.eL)[idx] = (T)0;
-      return;
-    }
-    static_cast<T*>(o.eR)[idx] = vr + (ix.ws_r[s] ? wsv : (T)0);
-    if (D.mode == 0)
-      static_cast<T*>(o.eL)[idx] = vl + (ix.ws_l[s] ? wsv : (T)0);
-    return;
+static long long factors_smem(const FacDims& D, int G, int P) {
+  return (long long)sizeof(T) * G * (4LL * D.ns + 6LL * D.Tp + P) +
+         4LL * G * (P + D.Wp + 1) + 4LL * 32 * G + (long long)G * P;
+}
+
+// V values of a row in one access (16 bytes when V > 1)
+template <typename T, int V>
+struct alignas(sizeof(T) * V) FacVec {
+  T v[V];
+};
+
+template <typename T, int V>
+__device__ __forceinline__ void fac_st(T* p, const FacVec<T, V>& x) {
+  *reinterpret_cast<FacVec<T, V>*>(p) = x;
+}
+
+// V int64 values, 16 bytes at a time where V > 1
+template <int V>
+__device__ __forceinline__ void fac_st_i64(long long* p, const int* c) {
+  if constexpr (V == 1) {
+    p[0] = c[0];
+  } else {
+#pragma unroll
+    for (int h = 0; h < V; h += 2)
+      fac_st<long long, 2>(p + h, FacVec<long long, 2>{{c[h], c[h + 1]}});
   }
-  idx -= n1;
-  if (idx < n2) {  // (j, w, b): alphaP and pv at every table
-    const int b = (int)(idx % B), w = (int)((idx / B) % W1);
-    const int j = (int)(idx / ((long long)B * W1));
-    static_cast<T*>(o.alphaP)[idx] = (T)0;
-    const int bt = D.mode == 2 || D.no_prf ? 0 : pair_type(seq, Lp, b, j, w);
-    const int k = clampi(bt - 1, 0, 5);
-    T* pv = static_cast<T*>(o.pv) + ((long long)j * W1 + w) * D.Tp * B + b;
-    for (int t = 0; t < D.Tp; ++t)
-      pv[(long long)t * B] =
-          bt > 0 ? theta_of<T, 6>(D, pairs + b * D.sbp + 6 * t, k) : (T)0;
-    return;
+}
+
+// the block's reads' effective weight rows (model/joint.effective_theta:
+// 0 under no_theta, else the log-softmax of the row where theta_softmax
+// applies, row_lse once per row): th[(u K + k) G + r] for rows u < n of
+// the per-read weights w (batch stride sb) of read b0 + r
+template <typename T, int K>
+__device__ __forceinline__ void fac_theta(const FacDims& D, const T* w,
+                                          long long sb, int n, int b0,
+                                          int nb, int G, int lgG, T* th) {
+  for (int e = threadIdx.y * blockDim.x + threadIdx.x; e < n * G;
+       e += kFacThreads) {
+    const int u = e >> lgG, r = e & (G - 1);
+    if (r >= nb) continue;
+    const T* x = w + (long long)(b0 + r) * sb + K * u;
+    const T lse = D.theta_softmax && !D.no_theta ? row_lse<T, K>(x) : (T)0;
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      th[(u * K + k) * G + r] = D.no_theta ? (T)0
+                                : D.theta_softmax ? x[k] - lse : x[k];
   }
-  idx -= n2;
-  if (idx < n3) {  // (p, b): bg2, the codes, the gate and wsp
-    const int b = (int)(idx % B), p = (int)(idx / B);
-    const int code = seq[(long long)b * Lp + p];
-    T bg = (T)0;
-    if (D.mode != 2 && !D.no_prf && code > 0)
-      bg = theta_of<T, 4>(D, singles + b * D.sbs, clampi(code - 1, 0, 3));
-    static_cast<T*>(o.bg2)[idx] = bg;
-    o.seqT[idx] = code;
-    o.seq64[(long long)b * Lp + p] = code;
-    static_cast<T*>(o.gate)[idx] =
-        D.fix_rss && !dots[(long long)b * Lp + p] ? ninf<T>() : (T)0;
-    static_cast<T*>(o.wsp)[idx] =
-        D.mode == 2 ? (T)0 : (T)ws[(long long)b * Lp + p];
-    return;
-  }
-  idx -= n3;
-  // per read, one warp from a warp-aligned start (idx4 below): the
-  // length, the cap C, and the running dot counts by a warp scan
-  const long long idx4 = idx - n4pad;
-  if (idx4 < 0 || idx4 >= n4) return;
-  const int b = (int)(idx4 / 32), lane = (int)(idx4 % 32);
-  int carry = 0;
+}
+
+// K14's block of per-read values for the group's reads b0 .. b0 + nb - 1:
+// the running dot counts, a warp a read and its lanes along the positions
+// (a warp scan, a read's run of positions one coalesced load), 32
+// positions at a time through the tile so that dcum [B, Lp+1] and dcumT
+// [Lp+1, B] are both written coalesced; then the lengths, the cap C and
+// the masks pass's lambda
+template <typename T>
+__device__ __forceinline__ void fac_scan(const FacDims& D, const FacGrid& g,
+                                         const bool* dots, const int* L,
+                                         const FacOut& o, int b0, int nb,
+                                         int lgG, int* tile) {
+  const int Lp = D.Lp, B = D.B, G = g.G;
+  const int tid = threadIdx.y * g.TX + threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  constexpr int kW = kFacThreads / 32, kRPW = 32 / kW;  // reads a warp
+  int carry[kRPW];
+#pragma unroll
+  for (int k = 0; k < kRPW; ++k) carry[k] = 0;
   for (int p0 = 0; p0 < Lp; p0 += 32) {
     const int p = p0 + lane;
-    int v = p < Lp && dots[(long long)b * Lp + p] ? 1 : 0;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, v, o);
-      if (lane >= o) v += y;
+#pragma unroll
+    for (int k = 0; k < kRPW; ++k) {
+      const int r = warp + kW * k;
+      if (r >= nb) continue;  // the warp's condition
+      int v = p < Lp && dots[(long long)(b0 + r) * Lp + p] ? 1 : 0;
+      for (int h = 1; h < 32; h <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, v, h);
+        if (lane >= h) v += y;
+      }
+      tile[lane * G + r] = carry[k] + v;
+      if (p < Lp)
+        o.dcum[(long long)(b0 + r) * (Lp + 1) + p + 1] = carry[k] + v;
+      carry[k] += __shfl_sync(0xffffffffu, v, 31);
     }
-    if (p < Lp) {
-      o.dcum[(long long)b * (Lp + 1) + p + 1] = carry + v;
-      o.dcumT[(long long)(p + 1) * B + b] = carry + v;
+    __syncthreads();
+    for (int e = tid; e < 32 * G; e += kFacThreads) {
+      const int q = e >> lgG, r = e & (G - 1);
+      if (r < nb && p0 + q < Lp)
+        o.dcumT[(long long)(p0 + q + 1) * B + b0 + r] = tile[q * G + r];
     }
-    carry += __shfl_sync(0xffffffffu, v, 31);
+    __syncthreads();
   }
-  if (lane != 0) return;
+  if (tid >= nb) return;
+  const int b = b0 + tid;
   o.dcum[(long long)b * (Lp + 1)] = 0;
   o.dcumT[b] = 0;
   const long long Lb = L[b];
@@ -229,6 +252,170 @@ factors_kernel(FacDims D, FacIdx ix, const T* singles, const T* pairs,
     static_cast<T*>(o.lam)[b] = (T)1;
     static_cast<T*>(o.lam)[B + b] = (T)1;
   }
+}
+
+// ---- K14: block (tile of one range, group of G reads), thread (row, V
+// reads)
+template <typename T, int V>
+__global__ void __launch_bounds__(kFacThreads)
+factors_kernel(FacDims D, FacIdx ix, const T* singles, const T* pairs,
+               const int* seq, const double* ws, const int* L,
+               const bool* dots, FacOut o, FacGrid g) {
+  extern __shared__ __align__(16) unsigned char fac_smem[];
+  __shared__ int s_bp[25];
+  const int Lp = D.Lp, W1 = D.Wp + 1, S = D.S, B = D.B, G = g.G, P = g.P;
+  const int lgG = __ffs(G) - 1, lgP = __ffs(P) - 1;
+  const int tid = threadIdx.y * g.TX + threadIdx.x;
+  const int ty = threadIdx.y, r0 = threadIdx.x * V;
+  const int b0 = blockIdx.y * G, nb = min(G, B - b0);
+  const bool prf = D.mode != 2 && !D.no_prf;  // the emissions are not 0
+  T* thS = reinterpret_cast<T*>(fac_smem);    // [4 ns][G]
+  T* thP = thS + 4 * D.ns * G;                // [6 Tp][G]
+  T* wsS = thP + 6 * D.Tp * G;                // [P][G]
+  int* cs = reinterpret_cast<int*>(wsS + P * G);  // [P + Wp + 1][G]
+  int* tile = cs + (P + W1) * G;              // [32][G]
+  unsigned char* ds = reinterpret_cast<unsigned char*>(tile + 32 * G);
+  if (tid < 25) s_bp[tid] = c_fac_bp[tid];
+  int rb = blockIdx.x;
+
+  // stage the codes, the weights (and the dots) of positions p0 .. p0 +
+  // np - 1, each read's run of positions contiguous in the loads
+  auto stage = [&](int p0, int np, bool with_dots) {
+    for (int e = tid; e < G * P; e += kFacThreads) {
+      const int r = e >> lgP, pp = e & (P - 1);
+      if (r >= nb || pp >= np) continue;
+      const long long at = (long long)(b0 + r) * Lp + p0 + pp;
+      cs[pp * G + r] = seq[at];
+      wsS[pp * G + r] = (T)ws[at];
+      if (with_dots) ds[pp * G + r] = dots[at] ? 1 : 0;
+    }
+  };
+  if (rb < g.n1) {  // (p, s): eR and eL
+    const int p0 = rb * P, np = min(P, Lp - p0);
+    stage(p0, np, false);
+    if (prf)
+      fac_theta<T, 4>(D, singles, D.sbs, D.ns, b0, nb, G, lgG, thS);
+    __syncthreads();
+    if (r0 >= nb) return;
+    const long long base = (long long)p0 * S * B + b0 + r0;
+    T* eR = static_cast<T*>(o.eR) + base;
+    T* eL = static_cast<T*>(o.eL) + base;
+    int pp = ty / S, s = ty - pp * S;
+    for (; pp < np;) {
+      const int ur = __ldg(ix.slot_r + s), ul = __ldg(ix.slot_l + s);
+      const bool wr = __ldg(ix.ws_r + s) != 0, wl = __ldg(ix.ws_l + s) != 0;
+      FacVec<T, V> yr, yl;
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const int r = r0 + v, code = cs[pp * G + r];
+        const int k = clampi(code - 1, 0, 3);
+        const T wsv = wsS[pp * G + r];
+        T vr = (T)0, vl = (T)0;
+        if (prf && code > 0) {
+          vr = thS[(ur * 4 + k) * G + r];
+          vl = thS[(ul * 4 + k) * G + r];
+        }
+        yr.v[v] = D.mode == 2 ? (T)0 : vr + (wr ? wsv : (T)0);
+        yl.v[v] = D.mode == 2 ? (T)0 : vl + (wl ? wsv : (T)0);
+      }
+      const int off = (pp * S + s) * B;
+      fac_st<T, V>(eR + off, yr);
+      if (D.mode != 1) fac_st<T, V>(eL + off, yl);
+      s += g.TY;
+      while (s >= S) {
+        s -= S;
+        ++pp;
+      }
+    }
+    return;
+  }
+  rb -= g.n1;
+  if (rb < g.n2) {  // (j, w): alphaP and pv at every table
+    const int j0 = rb * P, nj = min(P, Lp + 1 - j0);
+    const int lo = clampi(j0 - max(D.Wp, 1), 0, Lp - 1);
+    const int nc = clampi(j0 + nj - 1, 0, Lp - 1) - lo + 1;
+    if (prf) {
+      const int warp = tid >> 5, lane = tid & 31;
+      for (int r = warp; r < nb; r += kFacThreads / 32)
+        for (int q = lane; q < nc; q += 32)
+          cs[q * G + r] = seq[(long long)(b0 + r) * Lp + lo + q];
+      fac_theta<T, 6>(D, pairs, D.sbp, D.Tp, b0, nb, G, lgG, thP);
+    }
+    __syncthreads();
+    if (r0 >= nb) return;
+    T* aP = static_cast<T*>(o.alphaP) + (long long)j0 * W1 * B + b0 + r0;
+    T* pv = static_cast<T*>(o.pv) + (long long)j0 * W1 * D.Tp * B + b0 + r0;
+    int jj = ty / W1, w = ty - jj * W1;
+    FacVec<T, V> zero;
+#pragma unroll
+    for (int v = 0; v < V; ++v) zero.v[v] = (T)0;
+    for (; jj < nj;) {
+      const int j = j0 + jj;
+      int bt[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        bt[v] = 0;
+        if (prf) {
+          const int r = r0 + v;
+          const int a = cs[(clampi(j - w, 0, Lp - 1) - lo) * G + r];
+          const int c = cs[(clampi(j - 1, 0, Lp - 1) - lo) * G + r];
+          bt[v] = s_bp[clampi(a, 0, 4) * 5 + clampi(c, 0, 4)];
+        }
+      }
+      const int cell = jj * W1 + w;
+      fac_st<T, V>(aP + cell * B, zero);
+      for (int t = 0; t < D.Tp; ++t) {
+        FacVec<T, V> y;
+#pragma unroll
+        for (int v = 0; v < V; ++v)
+          y.v[v] = bt[v] > 0
+                       ? thP[(t * 6 + clampi(bt[v] - 1, 0, 5)) * G + r0 + v]
+                       : (T)0;
+        fac_st<T, V>(pv + (cell * D.Tp + t) * B, y);
+      }
+      w += g.TY;
+      while (w >= W1) {
+        w -= W1;
+        ++jj;
+      }
+    }
+    return;
+  }
+  rb -= g.n2;
+  if (rb < g.n3) {  // (p, b): bg2, the codes, the gate and wsp
+    const int p0 = rb * P, np = min(P, Lp - p0);
+    stage(p0, np, true);
+    if (prf) fac_theta<T, 4>(D, singles, D.sbs, 1, b0, nb, G, lgG, thS);
+    __syncthreads();
+    // the codes [B, Lp], each read's run of positions contiguous
+    for (int e = tid; e < G * P; e += kFacThreads) {
+      const int r = e >> lgP, pp = e & (P - 1);
+      if (r < nb && pp < np)
+        o.seq64[(long long)(b0 + r) * Lp + p0 + pp] = cs[pp * G + r];
+    }
+    if (r0 >= nb) return;
+    const long long base = (long long)p0 * B + b0 + r0;
+    for (int pp = ty; pp < np; pp += g.TY) {
+      FacVec<T, V> bg, gt, wp;
+      int code[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const int r = r0 + v;
+        code[v] = cs[pp * G + r];
+        bg.v[v] = prf && code[v] > 0
+                      ? thS[clampi(code[v] - 1, 0, 3) * G + r] : (T)0;
+        gt.v[v] = D.fix_rss && !ds[pp * G + r] ? ninf<T>() : (T)0;
+        wp.v[v] = D.mode == 2 ? (T)0 : wsS[pp * G + r];
+      }
+      const int off = pp * B;
+      fac_st<T, V>(static_cast<T*>(o.bg2) + base + off, bg);
+      fac_st_i64<V>(o.seqT + base + off, code);
+      fac_st<T, V>(static_cast<T*>(o.gate) + base + off, gt);
+      fac_st<T, V>(static_cast<T*>(o.wsp) + base + off, wp);
+    }
+    return;
+  }
+  fac_scan<T>(D, g, dots, L, o, b0, nb, lgG, tile);
 }
 
 // the log-softmax's adjoint at weight row x (K entries) for the
@@ -444,22 +631,43 @@ factors_adj_kernel(FacDims D, FacIdx ix, const T* singles, const T* pairs,
   if (threadIdx.x == 0) a.done[blockIdx.x] = 0;
 }
 
+// K14 on the host plan's layout (ops/kernels.factors_plan), refused
+// unless it is the kernel's: V reads a thread (16 bytes, B a multiple of
+// V and every vector-written output aligned) or 1, G = TX V a power of
+// two, TX TY = kFacThreads, the tiles of P positions and the groups as
+// the plan counts them, 32-bit offsets inside a block, the shared bytes
 template <typename T>
-static int factors(FacDims D, FacIdx ix, const T* singles, const T* pairs,
-                   const int* seq, const double* ws, const int* L,
-                   const bool* dots, FacOut o, cudaStream_t st) {
-  const long long n1 = (long long)D.Lp * D.S * D.B;
-  const long long n2 = D.mode == 1 ? 0 : (long long)(D.Lp + 1) * (D.Wp + 1) *
-                                             D.B;
-  const long long n3 = D.mode == 1 ? 0 : (long long)D.Lp * D.B;
-  // the per-read range starts on a warp boundary, a warp per read
-  const long long n4pad = (32 - (n1 + n2 + n3) % 32) % 32;
-  const long long n4 = D.mode == 1 ? 0 : 32LL * D.B;
-  const long long blocks =
-      (n1 + n2 + n3 + n4pad + n4 + kFacThreads - 1) / kFacThreads;
-  if (blocks >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
-  factors_kernel<T><<<(int)blocks, kFacThreads, 0, st>>>(
-      D, ix, singles, pairs, seq, ws, L, dots, o, n1, n2, n3, n4pad, n4);
+static int factors(FacDims D, FacIdx ix, FacGrid g, const T* singles,
+                   const T* pairs, const int* seq, const double* ws,
+                   const int* L, const bool* dots, FacOut o,
+                   cudaStream_t st) {
+  const int VW = 16 / (int)sizeof(T);
+  auto cdiv = [](long long a, long long b) { return (a + b - 1) / b; };
+  auto pow2 = [](int x) { return x > 0 && (x & (x - 1)) == 0; };
+  const long long W1 = D.Wp + 1;
+  bool ok = (g.V == 1 || g.V == VW) && D.B % g.V == 0 && g.TX > 0 &&
+            g.TY > 0 && g.TX * g.TY == kFacThreads && g.G == g.TX * g.V &&
+            pow2(g.G) && g.G <= 32 && pow2(g.P) &&
+            g.P <= 32 && D.Lp >= 1 && g.n1 == cdiv(D.Lp, g.P) &&
+            g.n2 == cdiv(D.Lp + 1, g.P) && g.n3 == cdiv(D.Lp, g.P) &&
+            g.n4 == 1 && g.groups == cdiv(D.B, g.G) && g.groups <= 65535 &&
+            (long long)g.P * D.S * D.B < (1LL << 31) &&
+            (long long)g.P * W1 * D.Tp * D.B < (1LL << 31) &&
+            g.smem == factors_smem<T>(D, g.G, g.P);
+  if (g.V > 1) {
+    const void* ptrs[8] = {o.eR, o.eL, o.bg2, o.pv, o.alphaP, o.seqT,
+                           o.gate, o.wsp};
+    for (const void* p : ptrs)
+      ok = ok && reinterpret_cast<unsigned long long>(p) % 16 == 0;
+  }
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = factors_kernel<T, 1>;
+  if (g.V != 1) kern = factors_kernel<T, 16 / sizeof(T)>;
+  const int rc = allow_smem((const void*)kern, g.smem);
+  if (rc) return rc;
+  const int nx = D.mode == 1 ? g.n1 : g.n1 + g.n2 + g.n3 + g.n4;
+  kern<<<dim3(nx, g.groups), dim3(g.TX, g.TY), g.smem, st>>>(
+      D, ix, singles, pairs, seq, ws, L, dots, o, g);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -495,10 +703,10 @@ static int factors_adj(FacDims D, FacIdx ix, const T* singles,
 
 #define FACTORS_EXPORTS(SUF, T)                                              \
   RNAELEM_EXPORT int rnaelem_factors_##SUF(                                  \
-      FacDims D, FacIdx ix, FacOut o, const T* singles, const T* pairs,      \
-      const int* seq, const double* ws, const int* L, const bool* dots,      \
-      cudaStream_t st) {                                                     \
-    return factors<T>(D, ix, singles, pairs, seq, ws, L, dots, o, st);       \
+      FacDims D, FacIdx ix, FacOut o, FacGrid g, const T* singles,           \
+      const T* pairs, const int* seq, const double* ws, const int* L,        \
+      const bool* dots, cudaStream_t st) {                                   \
+    return factors<T>(D, ix, g, singles, pairs, seq, ws, L, dots, o, st);    \
   }                                                                          \
   RNAELEM_EXPORT int rnaelem_factors_adj_##SUF(                              \
       FacDims D, FacIdx ix, FacAdjArgs a, const T* singles, const T* pairs,  \

@@ -246,10 +246,6 @@ ADJ_IDX = ("rt_off", "rt_s", "rt_w", "rtr_off", "rtr_t", "rtr_w", "ltr_off",
            "b12c_off", "b12c_t", "b12c_a")
 CHAIN_IDX = ("rt_off", "rt_s", "rt_w", "rtr_off", "rtr_t", "rtr_w",
              "end_states")
-TB_IDX = ("rt_off", "rt_s", "rt_w", "lt_off", "lt_s", "lt_w", "pt_code",
-          "pt_wl", "pt_wr", "pt_lt", "loopm", "bucket", "end_states",
-          "state_l", "state_r", "op_off", "op_a", "op_c", "b12_off", "b12_a",
-          "b12_c", "ept_off", "ept_s1", "ept_s2", "ept_s3")
 TB_DATA = ("LL", "P", "E", "M", "Bt", "T1", "T2", "O", "eR", "eL", "bg2",
            "pv", "wsp", "gate_O2", "gate_M", "hp", "stk", "ext", "ml2", "mlE",
            "misA", "misB", "SZ", "spec_il", "lam", "C", "L", "dcum")
@@ -258,7 +254,6 @@ AdjIdx = _ptr_struct("AdjIdx", ADJ_IDX)
 EpIdx = _ptr_struct("EpIdx", EP_IDX)
 ExtIdx = _ptr_struct("ExtIdx", EXT_IDX)
 ChainIdx = _ptr_struct("ChainIdx", CHAIN_IDX)
-TbIdx = _ptr_struct("TbIdx", TB_IDX)
 TbData = _ptr_struct("TbData", TB_DATA)
 
 
@@ -280,6 +275,11 @@ class HoistGrid(ctypes.Structure):  # csrc/hoisted.cu, from hoisted_plan
         "V", "TX", "TY", "nub", "nb1", "nb2", "nb3", "groups")]
 
 
+class FacGrid(ctypes.Structure):   # csrc/factors.cu, from factors_plan
+    _fields_ = [(n, ctypes.c_int) for n in (
+        "V", "TX", "TY", "G", "P", "n1", "n2", "n3", "n4", "groups", "smem")]
+
+
 FAC_IDX = ("slot_r", "slot_l", "ws_r", "ws_l", "rs_off", "rs_s", "ls_off",
            "ls_s")
 FAC_OUT = ("eR", "eL", "bg2", "pv", "alphaP", "lam", "seq64", "seqT", "L64",
@@ -292,6 +292,28 @@ FacOut = _ptr_struct("FacOut", FAC_OUT)
 FacAdjArgs = _ptr_struct("FacAdjArgs", FAC_ADJ)
 HoistIn = _ptr_struct("HoistIn", HOIST_IN)
 HoistOut = _ptr_struct("HoistOut", HOIST_OUT)
+
+
+# K13's grammar lists (csrc/cyk_traceback.cu TbLists): the int32 lists in
+# one buffer, the scalar ones in another, each at its offset; pt packs a
+# pair transition's table code (-1 none, -2 background) and its two
+# positional-weight flags as ((code + 2) << 2) | (wl << 1) | wr.
+TB_INT_LISTS = ("rt_off", "rt_s", "lt_off", "lt_s", "pt", "loopm", "bucket",
+                "end_states", "state_l", "state_r", "op_off", "op_a", "op_c",
+                "b12_off", "b12_a", "b12_c", "ept_off", "ept_s1", "ept_s2",
+                "ept_s3")
+TB_SCALAR_LISTS = ("rt_w", "lt_w", "pt_lt")
+
+
+class TbLists(ctypes.Structure):  # csrc/cyk_traceback.cu
+    _fields_ = [("iv", ctypes.c_void_p), ("tv", ctypes.c_void_p),
+                ("ni", ctypes.c_int), ("nt", ctypes.c_int)] + [
+        (n, ctypes.c_int) for n in TB_INT_LISTS + TB_SCALAR_LISTS]
+
+
+class TbGrid(ctypes.Structure):  # csrc/cyk_traceback.cu, traceback_plan
+    _fields_ = [(n, ctypes.c_int) for n in (
+        "NW", "stack_smem", "lists_smem", "smem")]
 
 
 class TbCfg(ctypes.Structure):
@@ -331,8 +353,8 @@ _SIGS = {
     "band_e_max": ((DPDims, BandIdx), 8),
     "ep_max": ((DPDims, EpIdx), 13),
     "ext_col_max": ((DPDims, ExtIdx, AuxArg), 6),
-    "cyk_traceback": ((DPDims, TbIdx, AuxArg, TbData, TbCfg), 4),
-    "factors": ((FacDims, FacIdx, FacOut), 6),
+    "cyk_traceback": ((DPDims, TbLists, AuxArg, TbData, TbCfg, TbGrid), 5),
+    "factors": ((FacDims, FacIdx, FacOut, FacGrid), 6),
     "factors_adj": ((FacDims, FacIdx, FacAdjArgs), 3, 6),
     "hoisted": ((HoistDims, HoistIn, HoistOut, HoistGrid), 0),
     "hoisted_adj": ((HoistDims, HoistIn, HoistOut), 3, 3),
@@ -1465,23 +1487,166 @@ def max_ext_stage(state, j, d, c, mst):
 
 # ------------------------------------------------ K13 the CYK traceback
 
-def cyk_traceback(state, d, c, mst, eps: float):
-    """K13 on the CYK tables ``state`` of K10-K12 (one warp per read):
-    (psihat [B, Lp] int32 node ids, pair cells [B, Lp+1, Wp+1] uint8,
-    err [B] int32: 0 ok, 1 step guard or stack exhausted, 2 no candidate
-    within ``eps``).  The tables must be complete (every column run)."""
+TB_WARPS = 4             # warps a block (one block per read)
+TB_MAX_WARPS = 8         # kTbMaxWarps
+# the walk's trace per read (kTbTrace counters, csrc/cyk_traceback.cu)
+TB_TRACE = ("cells_warp", "cells_block", "rounds_block", "slots",
+            "cycles_warp", "cycles_block", "cycles_total")
+
+
+def tb_pack(pt_code, pt_wl, pt_wr):
+    """K13's packed pair transitions ((code + 2) << 2) | (wl << 1) | wr."""
+    return ((np.asarray(pt_code, np.int64) + 2) << 2
+            | np.asarray(pt_wl, np.int64) << 1
+            | np.asarray(pt_wr, np.int64)).astype(np.int32)
+
+
+def tb_lists(mst):
+    """K13's lists on the MaxStatic ``mst``'s device, built once and kept
+    on it: (TbLists, the int32 buffer, the scalar buffer)."""
+    got = mst.__dict__.get("_tb_lists")
+    if got is not None:
+        return got
+    st = mst.st
+    kk = {n: v.detach().cpu().numpy() for n, v in dict(st.k, **mst.k).items()
+          if n in TB_INT_LISTS + TB_SCALAR_LISTS + ("pt_code", "pt_wl",
+                                                     "pt_wr")}
+    kk["pt"] = tb_pack(kk["pt_code"], kk["pt_wl"], kk["pt_wr"])
+    off, parts, n = {}, [], 0
+    for name in TB_INT_LISTS:
+        a = np.asarray(kk[name], np.int32).ravel()
+        off[name], n = n, n + a.size
+        parts.append(a)
+    iv = torch.as_tensor(np.concatenate(parts), device=st.device)
+    tparts, nt = [], 0
+    for name in TB_SCALAR_LISTS:
+        a = np.asarray(kk[name]).ravel()
+        off[name], nt = nt, nt + a.size
+        tparts.append(a)
+    tv = torch.as_tensor(np.concatenate(tparts), dtype=st.dtype,
+                         device=st.device)
+    li = TbLists(iv.data_ptr(), tv.data_ptr(), iv.numel(), tv.numel(),
+                 *[off[f] for f in TB_INT_LISTS + TB_SCALAR_LISTS])
+    got = mst._tb_lists = (li, iv, tv)
+    return got
+
+
+def tb_smem_bytes(Lp, dtype, n_lists, stack, lists):
+    """K13's dynamic shared bytes (csrc/cyk_traceback.cu tb_smem_bytes):
+    the stack of 3 (Lp + 2) + 8 int4 cells where ``stack`` is shared, the
+    lists (``n_lists`` = int32 and scalar lengths) where ``lists`` is
+    shared, and the read's running dot counts, Lp + 1 ints."""
+    it = torch.empty((), dtype=dtype).element_size()
+    ni, nt = n_lists
+    return (16 * tb_cap(Lp) if stack else 0) + (
+        it * nt + 4 * ni if lists else 0) + 4 * (Lp + 1)
+
+
+def tb_rows_fit(Lp, Wp, PAD, S, Tp):
+    """K13's 32-bit row indices (csrc/cyk_traceback.cu tb_rows_fit): the
+    tables [Lp+1+PAD, Wp+1, S] and pv, spec_il, misA, misB [<= max(Tp, 6),
+    Lp+1, Wp+1] hold fewer than 2^31 rows of B values."""
+    return (Lp + 1 + PAD) * (Wp + 1) * S < 2 ** 31 \
+        and (Lp + 1) * (Wp + 1) * max(Tp, 6) < 2 ** 31
+
+
+def tb_cap(Lp):
+    """The walk's stack: cells per read."""
+    return 3 * (Lp + 2) + 8
+
+
+class TracebackPlan(NamedTuple):
+    """How K13 runs a shape: one block of ``NW`` warps per read, the walk's
+    stack (``cap`` cells) in shared memory or a device scratch
+    (``stack``), the grammar's lists staged in shared memory or read where
+    they lie (``lists``), ``smem`` bytes of dynamic shared memory; for Lp
+    bases, ``n_lists`` (int32, scalar) list lengths at ``itemsize``."""
+    Lp: int
+    itemsize: int
+    n_lists: tuple
+    NW: int
+    cap: int
+    stack: str
+    lists: str
+    smem: int
+
+    @property
+    def name(self):
+        return "NW=%d,stack=%s,lists=%s" % (self.NW, self.stack, self.lists)
+
+    @property
+    def grid_args(self):
+        return (self.NW, int(self.stack == "shared"),
+                int(self.lists == "shared"), self.smem)
+
+
+@functools.lru_cache(maxsize=None)
+def traceback_plan(Lp, dtype, n_lists, variant=None, warps=None):
+    """K13's plan for reads of Lp bases at ``dtype`` with grammar lists of
+    ``n_lists`` = (int32, scalar) lengths (tb_lists): TB_WARPS warps a
+    block (``warps``: 1 to TB_MAX_WARPS to force); the lists in shared
+    memory where they fit SMEM_LIMIT beside the dot counts, the stack
+    there too where it fits beside them, else in the device scratch.
+    ``variant`` "shared" or "device" forces the stack's place (ValueError
+    where a shared stack does not fit); a read's outputs do not depend on
+    the plan."""
+    if variant not in (None, "shared", "device"):
+        raise ValueError("traceback_plan: variant %r is not shared or "
+                         "device" % (variant,))
+    NW = TB_WARPS if warps is None else int(warps)
+    if not 1 <= NW <= TB_MAX_WARPS:
+        raise ValueError("traceback_plan: %r warps (1 to %d)"
+                         % (warps, TB_MAX_WARPS))
+    n_lists = tuple(int(x) for x in n_lists)
+    it = torch.empty((), dtype=dtype).element_size()
+    lists = tb_smem_bytes(Lp, dtype, n_lists, False, True) <= SMEM_LIMIT
+    fits = tb_smem_bytes(Lp, dtype, n_lists, True, lists) <= SMEM_LIMIT
+    if variant == "shared" and not fits:
+        raise ValueError(
+            "cyk_traceback: a stack of %d cells does not fit %d bytes of "
+            "shared memory beside %d bytes of lists and dot counts"
+            % (tb_cap(Lp), SMEM_LIMIT, tb_smem_bytes(Lp, dtype, n_lists,
+                                                     False, lists)))
+    if tb_smem_bytes(Lp, dtype, n_lists, False, lists) > SMEM_LIMIT:
+        raise ValueError("cyk_traceback: %d bases' dot counts do not fit "
+                         "shared memory" % Lp)
+    stack = "shared" if fits and variant != "device" else "device"
+    return TracebackPlan(Lp, it, n_lists, NW, tb_cap(Lp), stack,
+                         "shared" if lists else "device",
+                         tb_smem_bytes(Lp, dtype, n_lists, stack == "shared",
+                                       lists))
+
+
+def cyk_traceback(state, d, c, mst, eps: float, plan=None, trace=None):
+    """K13 on the CYK tables ``state`` of K10-K12 (one block per read, on
+    traceback_plan's layout, or ``plan`` forced): (psihat [B, Lp] int32
+    node ids, pair cells [B, Lp+1, Wp+1] uint8, err [B] int32: 0 ok, 1
+    step guard or stack exhausted, 2 no candidate within ``eps``).  The
+    tables must be complete (every column run).  ``trace``, an int64
+    [B, len(TB_TRACE)] tensor, gets the walk's counters per read."""
     st = mst.st
     _check_max_column(state, st.dims.Lp, d, c, mst)
     dev = state["O"].device
     Lp, W1 = st.dims.Lp, st.dims.Wp + 1
     B = state["O"].shape[-1]
+    li, iv, tv = tb_lists(mst)
+    n_lists = (li.ni, li.nt)
+    if plan is None:
+        plan = traceback_plan(Lp, st.dtype, n_lists)
+    elif (plan.Lp, plan.itemsize, plan.n_lists) != (
+            Lp, tv.element_size(), n_lists):
+        raise ValueError("cyk_traceback: plan %s is not this launch's (Lp="
+                         "%d, %d-byte values, lists %s)"
+                         % (plan.name, Lp, tv.element_size(), n_lists))
+    if not tb_rows_fit(Lp, st.dims.Wp, st.PAD, st.dims.S, d.pv.shape[2]):
+        raise ValueError("cyk_traceback: the tables' rows outgrow the "
+                         "kernel's 32-bit indices (Lp=%d, Wp=%d, S=%d)"
+                         % (Lp, st.dims.Wp, st.dims.S))
     psihat = torch.zeros((B, Lp), dtype=torch.int32, device=dev)
     pairs = torch.zeros((B, Lp + 1, W1), dtype=torch.uint8, device=dev)
     err = torch.empty((B,), dtype=torch.int32, device=dev)
-    cap = 3 * (Lp + 2) + 8
-    stack = torch.empty((B, cap, 4), dtype=torch.int32, device=dev)
-    kk = dict(st.k, **mst.k)
-    ix = TbIdx(*[kk[f].data_ptr() if f in kk else 0 for f in TB_IDX])
+    stack = torch.empty((B, plan.cap, 4), dtype=torch.int32, device=dev) \
+        if plan.stack == "device" else None
     tens = {k: state[k] for k in ("LL", "P", "E", "M", "Bt", "T1", "T2",
                                   "O")}
     tens.update(eR=d.eR, eL=d.eL, bg2=d.bg2, pv=d.pv, wsp=c.wsp,
@@ -1490,10 +1655,17 @@ def cyk_traceback(state, d, c, mst, eps: float):
                 misB=c.ep["misB"], SZ=mst.SZg, spec_il=c.ep["spec_il"],
                 lam=state["_lam"], C=c.C, L=c.L, dcum=c.dots_cum)
     _req(c.L, "L", torch.int64, (B,), dev)
+    _req(c.dots_cum, "dots_cum", torch.int32, (Lp + 1, B), dev)
+    if trace is not None:
+        _req(trace, "trace", torch.int64, (B, len(TB_TRACE)), dev)
     data = TbData(*[tens[f].data_ptr() for f in TB_DATA])
     _call("cyk_traceback", "cyk_traceback", state["O"],
-          _dims(st, state, Lp, d), ix, _aux(st, c.pin), data,
-          TbCfg(float(eps), cap), _p(psihat), _p(pairs), _p(err), _p(stack))
+          _dims(st, state, Lp, d), li, _aux(st, c.pin), data,
+          TbCfg(float(eps), plan.cap), TbGrid(*plan.grid_args), _p(psihat),
+          _p(pairs), _p(err), ctypes.c_void_p(
+              None if stack is None else stack.data_ptr()),
+          ctypes.c_void_p(None if trace is None else trace.data_ptr()),
+          variant=plan.name)
     return psihat, pairs, err
 
 
@@ -1756,8 +1928,91 @@ def _fac_dims(st, cfg, mode, B, Lp, S, Tp, ns, sbs, sbp):
                    cfg.max_span, cfg.max_iloop, sbs, sbp)
 
 
-def factors(st, cfg, mode, seq, ws, L, dots, singles=None, pairs=None):
-    """K14 on the grammar's DPStatic ``st`` for the ModelConfig ``cfg``:
+FAC_THREADS = 256        # kFacThreads
+FAC_ROW_BYTES = 128      # a group's reads in a float plane: a line
+FAC_VEC_BYTES = 16       # a thread's access along the reads at most
+FAC_TILES = (32, 16, 8, 4)   # positions a tile, the largest first
+FAC_TARGET_BLOCKS = 264  # K14's grid: two blocks per SM of the H100
+
+
+def factors_smem_bytes(Wp, Tp, ns, G, P, dtype):
+    """K14's dynamic shared bytes (csrc/factors.cu factors_smem): the
+    single rows [4 ns][G] and pair rows [6 Tp][G], the positional weights
+    [P][G] (the DP's type), the codes [P + Wp + 1][G] and the scan's tile
+    [32][G] (int32), the dots [P][G] (bytes)."""
+    it = torch.empty((), dtype=dtype).element_size()
+    return it * G * (4 * ns + 6 * Tp + P) + 4 * G * (P + Wp + 1) \
+        + 4 * 32 * G + G * P
+
+
+class FactorsPlan(NamedTuple):
+    """How K14 runs a shape: groups of ``G`` reads (the grid's y,
+    ``groups`` of them), blocks of ``TY`` rows x ``TX`` threads, ``V``
+    reads a thread (16 bytes; 1 where B is not a multiple of it or an
+    output is not 16-byte aligned); tiles of ``P`` positions, the grid's x
+    ``tiles`` = (n1 (position, state) tiles, n2 (j, w) tiles, n3 position
+    tiles, n4 = 1 block of the running dot counts; mode "eR" launches the
+    first alone), ``smem`` bytes of dynamic shared memory."""
+    V: int
+    TX: int
+    TY: int
+    G: int
+    P: int
+    tiles: tuple
+    groups: int
+    smem: int
+
+    @property
+    def name(self):
+        return "V=%d,G=%d,P=%d" % (self.V, self.G, self.P)
+
+    @property
+    def grid_args(self):
+        return (self.V, self.TX, self.TY, self.G, self.P) + tuple(
+            self.tiles) + (self.groups, self.smem)
+
+
+@functools.lru_cache(maxsize=None)
+def factors_plan(Lp, Wp, S, Tp, ns, B, dtype, aligned=True, P=None):
+    """K14's plan for B reads of Lp bases at (Wp, S states, Tp pair
+    tables, ns single tables); ``aligned`` says that every output written
+    16 bytes at a time starts on a 16-byte boundary.  G = a line's worth
+    of reads (the least power of two >= B below that), halved where the
+    shared bytes would pass SMEM_LIMIT; P the largest of FAC_TILES that
+    gives the grid FAC_TARGET_BLOCKS blocks (else the smallest; ``P``
+    forces one).  ValueError where a block's 32-bit offsets or the grid
+    would overflow, or nothing fits."""
+    it = torch.empty((), dtype=dtype).element_size()
+    vw = FAC_VEC_BYTES // it
+    V = vw if aligned and B % vw == 0 else 1
+    G = min(FAC_ROW_BYTES // it, _pow2(B))
+    tiles = FAC_TILES if P is None else (P,)
+    if P is not None and P not in FAC_TILES:
+        raise ValueError("factors: a tile of %r positions is not one of %s"
+                         % (P, FAC_TILES))
+    while G >= V and factors_smem_bytes(Wp, Tp, ns, G, max(tiles),
+                                        dtype) > SMEM_LIMIT:
+        G //= 2
+    groups = -(-B // G)
+    if G < V or groups > MAX_GRID_Y:
+        raise ValueError("factors: no block fits B=%d, Lp=%d, Wp=%d, ns=%d, "
+                         "Tp=%d" % (B, Lp, Wp, ns, Tp))
+    cdiv = lambda a, b: -(-a // b)
+    for P_ in tiles:
+        nt = (cdiv(Lp, P_), cdiv(Lp + 1, P_), cdiv(Lp, P_), 1)
+        if sum(nt) * groups >= FAC_TARGET_BLOCKS:
+            break
+    if P_ * max(S, (Wp + 1) * Tp) * B >= 2 ** 31:
+        raise ValueError("factors: B=%d at Lp=%d, Wp=%d, S=%d outgrows the "
+                         "kernel's 32-bit offsets" % (B, Lp, Wp, S))
+    return FactorsPlan(V, G // V, FAC_THREADS // (G // V), G, P_, nt, groups,
+                       factors_smem_bytes(Wp, Tp, ns, G, P_, dtype))
+
+
+def factors(st, cfg, mode, seq, ws, L, dots, singles=None, pairs=None,
+            plan=None):
+    """K14 on the grammar's DPStatic ``st`` for the ModelConfig ``cfg``,
+    on factors_plan's layout (``plan`` forces one of the shape's):
     the factors of the reads (seq int32 [B, Lp], ws float64, L int32,
     dots bool) from per-read weights singles [B, ns, 4] and pairs [B, Tp,
     6] of the DP's type, as model/joint._diff_factors and _const_factors
@@ -1792,12 +2047,20 @@ def factors(st, cfg, mode, seq, ws, L, dots, singles=None, pairs=None):
         if mode == "null":
             out["lam"] = e((2, B))
     ptr = lambda t: None if t is None else t.data_ptr()
+    aligned = all(out[k].data_ptr() % FAC_VEC_BYTES == 0 for k in (
+        "eR", "eL", "bg2", "pv", "alphaP", "seqT", "gate", "wsp") if k in out)
+    if plan is None:
+        plan = factors_plan(Lp, st.dims.Wp, S, Tp, ns, B, dt, aligned)
+    elif plan.V > 1 and not aligned:
+        raise ValueError("factors: plan %s writes 16 bytes at a time, the "
+                         "outputs are not aligned" % plan.name)
     _call("factors", "factors", out["eR"],
           _fac_dims(st, cfg, mode, B, Lp, S, Tp, ns, sbs, sbp),
           _fac_idx(st, ns),
           FacOut(*[ptr(out.get(f)) for f in FAC_OUT]),
+          FacGrid(*plan.grid_args),
           ctypes.c_void_p(ptr(singles)), ctypes.c_void_p(ptr(pairs)),
-          _p(seq), _p(ws), _p(L), _p(dots))
+          _p(seq), _p(ws), _p(L), _p(dots), variant=plan.name)
     return out
 
 

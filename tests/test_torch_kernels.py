@@ -1067,23 +1067,36 @@ def test_max_kernels_match_plain(pattern, dtype, tol):
 @pytest.mark.parametrize("pattern", ["(.....)", "(.*)"])
 def test_cyk_traceback_kernel_matches_host(pattern):
     """K13 against its plain version (the host traceback) on the same
-    f64 tables of K10-K12: every read's psihat and pair set identical."""
+    f64 tables of K10-K12: every read's psihat and pair set identical,
+    under the shape's plan and with the stack in shared memory and in the
+    device scratch at 1, 4 and 8 warps, the outputs equal across plans."""
     _need_cuda()
     from rnaelem_tpu_torch.scan import cyk as CYK
     cfg, d, c, _ = _cyk_inputs(pattern, "float64", "cuda", seed=14)
     k = J.kernels(cfg, "cuda")
     mdp = DMB.MaxDP(k.dp)
     state = mdp.tables(d, c)
-    K.reset_counts()
-    psihat, pairs, err = K.cyk_traceback(state, d, c, mdp.mst, 1e-9)
-    assert K.KERNELS["cyk_traceback"].launches == 1
-    assert not err.any()
     host = CYK.host_tracebacks(cfg, k.g, state, d, c, k.dp.st, 1e-9)
     L = c.L.cpu().numpy()
-    for t, (path, _, cells) in enumerate(host):
-        np.testing.assert_array_equal(psihat[t, :L[t]].cpu().numpy(), path)
-        got = sorted(map(tuple, np.argwhere(pairs[t].cpu().numpy())))
-        assert got == sorted(cells), t
+    li = K.tb_lists(mdp.mst)[0]
+    plans = [None] + [K.traceback_plan(cfg.Lp, k.dp.st.dtype,
+                                       (li.ni, li.nt), variant=v, warps=w)
+                      for v in ("shared", "device") for w in (1, 4, 8)]
+    first = None
+    for plan in plans:
+        K.reset_counts()
+        out = K.cyk_traceback(state, d, c, mdp.mst, 1e-9, plan=plan)
+        psihat, pairs, err = out
+        assert K.KERNELS["cyk_traceback"].launches == 1
+        assert not err.any()
+        for t, (path, _, cells) in enumerate(host):
+            np.testing.assert_array_equal(psihat[t, :L[t]].cpu().numpy(),
+                                          path)
+            got = sorted(map(tuple, np.argwhere(pairs[t].cpu().numpy())))
+            assert got == sorted(cells), t
+        if first is None:
+            first = out
+        assert all(torch.equal(a, b) for a, b in zip(out, first))
 
 
 def _cyk_chunk(n, dtype, seed, pattern="(.....)"):
@@ -1785,6 +1798,38 @@ def test_rows_cd_kernels_do_not_depend_on_the_batch(dtype):
         assert torch.equal(a, b[..., :8])
     assert torch.equal(K.hoisted_adj(st, lam8, c8, [x[..., :8] for x in hc]),
                        gl[:, :8])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("B", [1, 7, 33, 128])
+def test_factors_kernel_every_tile_gives_the_same_bits(B, dtype):
+    """K14 in modes dp, eR and null: every tile of positions factors_plan
+    can take, forced, and the scalar path (V = 1) give the shape's plan's
+    outputs bit for bit, and each run counts its plan's variant."""
+    _need_cuda()
+    for pattern, opts, mode in (("(.....)", {"fix_rss": True}, "dp"),
+                                ("..*..", {"no_rss": True}, "eR"),
+                                ("(.....)", {}, "null")):
+        cfg, sd, bp, w = _rows_cd_inputs(pattern, opts, dtype, B)
+        k = J.kernels(cfg, "cuda")
+        st = k.dp_null.st if mode == "null" else k.dp.st
+        reads = J._card_reads(k, sd)
+        kw = {} if mode == "null" else dict(
+            singles=w[0], pairs=w[1] if mode == "dp" else None)
+        base = K.factors(st, cfg, mode, *reads, **kw)
+        S = st.dims.S
+        Tp = w[1].shape[1] if mode == "dp" else 1
+        ns = 1 if mode == "null" else w[0].shape[1]
+        for P in K.FAC_TILES:
+            for aligned in (True, False):
+                plan = K.factors_plan(cfg.Lp, st.dims.Wp, S, Tp, ns, B,
+                                      st.dtype, aligned, P)
+                K.reset_counts()
+                got = K.factors(st, cfg, mode, *reads, plan=plan, **kw)
+                assert K.KERNELS["factors"].variants == {plan.name: 1}
+                for n_ in base:
+                    assert torch.equal(got[n_], base[n_]), (mode, P, n_)
 
 
 def _adj_case(pattern, dtype, n, seed=41):
