@@ -63,9 +63,13 @@ Phases:
      more timed on the host clock to the call's return and to a
      synchronize (host-bound when the two agree); two profiled
      batch_fn_grad and two stack_reads (device busy share, device time
-     per kernel, the hand-written kernels' launches beside the
-     profiler's count of all kernel launches, torch's by name, memcpy and
-     memset events apart);
+     per kernel); the glue gate: the census of torch's kernels in one
+     fn+grad, one masks batch and one 64-read posterior chunk of the tRNA
+     scan, each named by its aten op and the port's line (a torch
+     function mode annotates every call), memcpy and memset apart, and
+     the host syncs set_sync_debug_mode("warn") reports, by line; it
+     fails on a cub sort or select kernel or on more than 60 / 50 / 150
+     torch kernels;
   7. the no-rss chain K8/K9 against its plain version (..*.., f64 within
      1e-9 and f32 within 1e-4 relative, at B=16, 128 x 100 nt, 1, 7 and
      600; two runs bitwise equal), plain and under a pin with K9's class
@@ -82,7 +86,7 @@ Phases:
      model over the 76 tRNAs (fn within 2e-3 of 0.13662, fn + L2 within
      2e-3 of 1.713098, f32) and `cli train --no-shuffle` on the first 8
      tRNAs (f64) within 0.05 of the reference binary's model;
- 10. one JSON line per kernel (K1-K17) and per variant of a launch plan
+ 10. one JSON line per kernel (K1-K21) and per variant of a launch plan
      that phase 14's paths ran (K6's and K11's device variants, K3's,
      the M chain in groups of 4 reads at f32), the card line, and the
      result line;
@@ -95,6 +99,17 @@ Phases:
      f32 at B=64 x 100 nt within 1e-4; likewise K8/K9 under a pin with
      K9's class sums (after phase 7); per-call device times of the pinned
      K2, K4, K5, K7, K8, K9 at the main path's shapes (phase 5);
+ 2d. (after phase 2c) K18-K21, the glue at the passes' ends, against
+     their plain twins: K18 (the masks' candidates and threshold), K20
+     (lambda's per-read sums) and K21 (the scanner's posteriors, on class
+     sums rounded to ties too) bitwise and, the first 8 of 16 reads
+     against those 8 alone, bitwise; K19 (the parts' gather bitwise, the
+     objective in both forms, the scanner's lse, the masks' parts[:, 0],
+     on parts with -inf entries too, its gbar and seeded O rows) within
+     1e-12 at f64 and 1e-6 at f32 (relative, max norm); at the main
+     path's shapes (f32, f64), on the no-rss chain's parts, the 64-read
+     tRNA chunk and .....*..... -c 30 f64; per-unit times of K18-K21
+     beside their bounds and twins in phase 5;
  2c. (after phase 2b) rows L and M, the CYK tables: K10-K12 under the
      scanner's pin set (Ys, Ye and the tail; a read with Ye == L, one with
      Ys == Ye) against the plain max DP on the card, every stage at column
@@ -198,6 +213,12 @@ at f32 and f64, chain rows masked past each read's length).
 --chain-variants times K8 and K9 per plan of ops/kernels.chain_plan
 (the one-warp block, K9's device variant) and with
 a piece of their work taken out (CHAIN_VARIANTS), in us per step.
+--glue builds and runs phase 2d, K18-K21's times and the glue gate
+alone.  --glue-times times the walls the glue moves (fn+grad with its
+host ms and busy share, the masks batch, the production steps, a
+posterior chunk, the 76-tRNA scan at f64 and f32), K18-K21 where the
+tree has them, and prints the census: a copy of this script beside an
+older tree times that tree in the same call.
 
 Run from the repository root:  python3 chip_smoke.py
 Exits non-zero and prints no result without CUDA or without the package.
@@ -215,6 +236,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 import types
 from pathlib import Path
 
@@ -1045,15 +1067,28 @@ def plain_forward(dp, d, c, h):
     return state
 
 
-def outside_grads(dp, fs, d, c, h, gbar, stages):
+def outside_grads(dp, fs, d, c, h, gbar, stages, lam=True):
     """finish_grads of an outside pass through ``stages`` (the kernels'
-    DP.ADJ_STAGES or DP.PLAIN_ADJ_STAGES)."""
+    DP.ADJ_STAGES or DP.PLAIN_ADJ_STAGES), lambda's whole cotangent too
+    when ``lam``: through K20 and K17 after the kernels' stages, through
+    lam_sum_plain and autograd through hoisted_plain after the plain
+    ones."""
     gs = DP.init_grads(fs, d, c, h)
     DP.seed_parts(gs, gbar, c, dp.st)
     for j in range(dp.dims.Lp, 0, -1):
         for stage in stages:
             stage(fs, gs, j, d, c, h, dp.st)
-    return DP.finish_grads(gs, dp.st)
+    if stages is DP.ADJ_STAGES:
+        return DP.finish_grads(gs, d, c, dp.st, lam)
+    g = DP.finish_grads(gs, d, c, dp.st, False)
+    if not lam:
+        return g
+    leaf = d.lam.detach().requires_grad_(True)
+    with torch.enable_grad():
+        hp = DP.hoisted_plain(d._replace(lam=leaf), c, dp.st)
+        (gh,) = torch.autograd.grad([hp[k_] for k_ in DP.HOISTED], [leaf],
+                                    list(g[6:]), allow_unused=True)
+    return g[:4] + (DP.lam_sum_plain(gs["DL"], gs["lam"], dp.st, gh),) + g[5:]
 
 
 def full_grads(cfg, params, batch, dev, plain):
@@ -1079,9 +1114,8 @@ def full_grads(cfg, params, batch, dev, plain):
     g = outside_grads(dp, fs, d, c, h, gbar,
                       DP.PLAIN_ADJ_STAGES if plain else DP.ADJ_STAGES)
     with torch.enable_grad():
-        outs = [d.eR, d.eL, d.bg2, d.pv, d.lam, d.alphaP] + \
-            [h[kk] for kk in DP.HOISTED]
-        gr = torch.autograd.grad(outs, leaves + [d.alphaP], list(g),
+        outs = [d.eR, d.eL, d.bg2, d.pv, d.lam, d.alphaP]
+        gr = torch.autograd.grad(outs, leaves + [d.alphaP], list(g[:6]),
                                  allow_unused=True)
     return f.detach(), [torch.zeros_like(x) if y is None else y
                         for x, y in zip(leaves + [d.alphaP], gr)]
@@ -1156,8 +1190,8 @@ def check_adj_stages(dp, d, c, j0, rel):
         for key in GRAD_KEYS:
             e = max(e, grad_compare("%s %s" % (name, key), kg[key],
                                     gs[key], rel))
-        lk = DP.lam_total(DP.finish_grads(kg, st), d, c, st)
-        lp = DP.lam_total(DP.finish_grads(gs, st), d, c, st)
+        lk = DP.finish_grads(kg, d, c, st)[4]
+        lp = DP.finish_grads(gs, d, c, st)[4]
         el = float((lk - lp).abs().max())
         if not el <= rel * max(1.0, float(lp.abs().max())):
             fail("%s lambda: error %.3g beyond %.0e relative" % (name, el, rel))
@@ -1228,7 +1262,7 @@ def plain_posterior(cfg, sd, dev):
     fs = plain_forward(dp, d, c, h)
     gbar = torch.zeros((bp0.shape[0], 3), dtype=k.dtype, device=k.device)
     gbar[:, 0] = 1.0
-    g = outside_grads(dp, fs, d, c, h, gbar, DP.PLAIN_ADJ_STAGES)
+    g = outside_grads(dp, fs, d, c, h, gbar, DP.PLAIN_ADJ_STAGES, False)
     return torch.movedim(g[5], -1, 0), bp0
 
 
@@ -1389,7 +1423,7 @@ def stage_timer(rec):
     return timed
 
 
-def production_step(pattern, no_rss, tmp, dev):
+def production_step(pattern, no_rss, tmp, dev, check=True):
     """The Trainer's step as bench.py times it (64 random reads x 100 nt,
     numpy seed 0, 64 fresh negatives per step, f32, Adam): one warm-up
     step and STEPS timed steps, each stage timed with the device
@@ -1455,7 +1489,7 @@ def production_step(pattern, no_rss, tmp, dev):
                fn=[float(v) for v in fns], launches=launches, fq=fq,
                model="\n".join(MIO.model_lines(cfg, tr.params)) + "\n")
     out["seqs_per_s"] = 2 * N_POS * 1e3 / out["step_ms"]
-    out["grad_err"] = check_step_gradient(last, dev)
+    out["grad_err"] = check_step_gradient(last, dev) if check else None
     print("production step %s f32, %d reads + %d fresh negatives x %d nt: "
           "%.1f ms per step (%.1f seqs/s, mean of %d steps after a warm-up "
           "step of %.2f s); per step: negatives (host) %.2f ms, negatives' "
@@ -2216,15 +2250,11 @@ def scan_trna(tmp, dev):
     out["chunk_launches"] = {n: kk.launches for n, kk in K.KERNELS.items()}
     out["chunk_ms"] = cuda_ms(call, 3)
     out["chunk_bound"] = scan_chunk_bound(scfg, sparams, sd, dev, 4)
-    n_all, n_cp, n_hand, other = launch_census(
-        device_profile(call, 2)[1], 2, kernel_functions())
     print("row K: one posterior chunk (64 reads x bucket 96, f32) %.2f ms, "
-          "launches %s, bound %.4f ms by %s; the profiler's kernel launches "
-          "%g (%g the hand-written kernels', %g torch's: %s), %g "
-          "memcpy/memset events apart" % (
+          "launches %s, bound %.4f ms by %s (its torch kernels: the glue "
+          "census of phase 6)" % (
               out["chunk_ms"], json.dumps(out["chunk_launches"]),
-              out["chunk_bound"][0], out["chunk_bound"][1], n_all, n_hand,
-              n_all - n_hand, json.dumps(other), n_cp), flush=True)
+              out["chunk_bound"][0], out["chunk_bound"][1]), flush=True)
     return out
 
 
@@ -3028,14 +3058,19 @@ def hoisted_adj_cots(cots, PAD):
 
 
 def hoisted_run(cfg, d, c, lam, cots, plain, st=None):
-    """K16/K17 (or the plain version and its autograd) for per-read
-    lambda [2, B]: (the four tensors, lambda's cotangent); ``st`` the
+    """K16 and K17 alone (or the plain version and its autograd) for
+    per-read lambda [2, B]: (the four tensors, lambda's cotangent from
+    theirs, ``cots``); ``st`` the
     grammar's DPStatic (default: the pattern's)."""
     st = J.kernels(cfg, DEVICE).dp.st if st is None else st
+    if not plain:
+        dd = d._replace(lam=lam)
+        h = DP.hoisted(dd, c, st)
+        return ([h[k_] for k_ in DP.HOISTED],
+                DP.hoisted_lam_term(cots, dd, c, st))
     leaf = lam.detach().clone().requires_grad_(True)
     with torch.enable_grad():
-        dd = d._replace(lam=leaf)
-        h = DP.hoisted_plain(dd, c, st) if plain else DP.hoisted(dd, c, st)
+        h = DP.hoisted_plain(d._replace(lam=leaf), c, st)
         outs = [h[k_] for k_ in DP.HOISTED]
         (gl,) = torch.autograd.grad(outs, [leaf], cots)
     return [o.detach() for o in outs], gl
@@ -3129,22 +3164,26 @@ def check_rows_cd(dev):
                          for a, b_ in zip(hk, hp_))
                 eg = grad_compare("hoisted_adj %s" % name, glk, glp, rel)
                 direct = K.hoisted_adj(k.dp.st, lam, c, hc)
+                st_ = k.dp.st
+                gs = dict(zip(("eSZ", "GSZ", "emisA", "emisB"), hc),
+                          lam=torch.zeros_like(glk), DL=torch.zeros(
+                              (st_.dims.Lp + 1, st_.dims.Wp + 1, st_.dims.S,
+                               glk.shape[1]), dtype=glk.dtype, device=dev),
+                          **{k_: None for k_ in ("eR", "eL", "bg2", "pv",
+                                                 "alphaP")})
                 K.reset_counts()
-                total = DP.lam_total((None,) * 4 + (torch.zeros_like(glk),
-                                                    None) + tuple(hc),
-                                     d._replace(lam=lam), c, k.dp.st)
-                if (K.KERNELS["hoisted"].launches,
-                        K.KERNELS["hoisted_adj"].launches) != (0, 1):
-                    fail("hoisted %s: lam_total launched K16 %d times and "
-                         "K17 %d times (want 0 and 1)" % (
-                             name, K.KERNELS["hoisted"].launches,
-                             K.KERNELS["hoisted_adj"].launches))
+                total = DP.finish_grads(gs, d._replace(lam=lam), c, st_)[4]
+                got_n = tuple(K.KERNELS[k_].launches for k_ in (
+                    "hoisted", "hoisted_adj", "lam_sum"))
+                if got_n != (0, 1, 1):
+                    fail("hoisted %s: finish_grads launched K16, K17 and "
+                         "K20 %s times (want 0, 1 and 1)" % (name, got_n))
                 if not (all(torch.equal(a, b_) for a, b_ in zip(hk, hk2))
                         and torch.equal(glk, glk2)
                         and torch.equal(glk, direct)
                         and torch.equal(glk, total)):
                     fail("hoisted %s: two kernel runs (or K17 alone, or "
-                         "lam_total) differ" % name)
+                         "finish_grads) differ" % name)
                 c8 = c._replace(C=c.C[:8].contiguous(), ep={
                     k_: v[..., :8].contiguous() for k_, v in c.ep.items()})
                 hk8, glk8 = hoisted_run(cfg, d, c8, lam[:, :8].contiguous(),
@@ -3538,27 +3577,605 @@ def glue_profile(fn, reps, exclude):
     return us / reps / 1e3, n / reps, cp / reps
 
 
-def launch_census(prof, reps, funcs):
-    """From a profile of ``reps`` calls: (kernel launches per call, memcpy
-    and memset events per call, the hand-written kernels' launches per
-    call, {name of every other kernel: launches per call})."""
+GLUE_LIMITS = {"fn+grad": 60, "masks batch": 50, "posterior chunk": 150}
+CUB_SORT_SELECT = ("RadixSort", "DeviceSelect", "DeviceCompact")
+
+
+# tensor calls that read metadata and launch nothing (left unannotated)
+NO_KERNEL_CALLS = frozenset((
+    "data_ptr", "__get__", "size", "stride", "dim", "is_contiguous",
+    "element_size", "numel", "storage_offset", "__len__", "__hash__"))
+
+
+def _line_mode():
+    """A torch function mode that runs every torch call from Python under
+    a profiler annotation "@file:line" of the innermost frame of the port
+    (or of this script) on the caller's stack: the profiler then names
+    the line that launched each of torch's kernels."""
+    class LineMode(torch.overrides.TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if getattr(func, "__name__", "") in NO_KERNEL_CALLS:
+                return func(*args, **(kwargs or {}))
+            f = sys._getframe(1)
+            while f is not None and not (
+                    ("rnaelem_tpu_torch" + os.sep) in f.f_code.co_filename
+                    or f.f_code.co_filename.endswith("chip_smoke.py")):
+                f = f.f_back
+            label = "?" if f is None else "@%s:%d" % (
+                os.path.relpath(f.f_code.co_filename, HERE), f.f_lineno)
+            with torch.profiler.record_function(label):
+                return func(*args, **(kwargs or {}))
+    return LineMode()
+
+
+def _port_line(evt):
+    """The port's (or this script's) line that launched the CPU op
+    ``evt``: the nearest "@file:line" annotation of _line_mode above it;
+    else the innermost Python function of the port above it (its def
+    line), else the name of the op at the top of its chain (an autograd
+    node)."""
+    top, func = evt, None
+    while evt is not None:
+        if evt.name.startswith("@"):
+            return evt.name[1:]
+        if func is None and "rnaelem_tpu_torch" + os.sep in evt.name:
+            func = evt.name[evt.name.index("rnaelem_tpu_torch"):]
+        top, evt = evt, evt.cpu_parent
+    return func or top.name
+
+
+def _aten_op(evt):
+    """The outermost aten op of the CPU op chain that holds ``evt``."""
+    op = evt.name
+    while evt is not None:
+        if evt.name.startswith("aten::"):
+            op = evt.name
+        evt = evt.cpu_parent
+    return op
+
+
+def glue_census(fn, reps, funcs, label):
+    """Every kernel that torch (not the port's hand-written kernels)
+    launches in a call of ``fn``, named by the aten op and the port's
+    source line that launched it (the profiler's CPU parent of each CUDA
+    event, with_stack=True, under _line_mode's annotations: the kernels the
+    profiler files under each CPU op), over ``reps`` calls after a warm-up; the
+    host syncs that torch.cuda.set_sync_debug_mode("warn") reports in one
+    call, by line.  Prints both tables and returns (torch kernels per
+    call, cub sort/select kernels per call, hand-written per call,
+    memcpy/memset per call, {row: per call}, {sync line: count})."""
+    import warnings
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 with_stack=True) as prof, _line_mode():
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
     own = set().union(*funcs.values())
-    n, cp, hand, other = 0, 0, 0, {}
+    rows, n, cub, hand, cp = {}, 0, 0, 0, 0
     for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        if e.device_type != torch.autograd.DeviceType.CPU:
             continue
-        if is_copy_event(e.name):
-            cp += 1
-            continue
-        n += 1
-        fn_ = _function_name(e.name)
-        if fn_ in own:
-            hand += 1
+        for kern in e.kernels:
+            if is_copy_event(kern.name):
+                cp += 1
+                continue
+            name = _function_name(kern.name)
+            if name in own:
+                hand += 1
+                continue
+            n += 1
+            if any(s in kern.name for s in CUB_SORT_SELECT):
+                cub += 1
+            key = (name.replace("at::native::", "")[:48] or kern.name[:48],
+                   _aten_op(e), _port_line(e))
+            rows[key] = rows.get(key, 0) + 1
+    rows = {k_: v / reps for k_, v in sorted(rows.items(),
+                                             key=lambda kv: -kv[1])}
+    torch.cuda.synchronize()
+    syncs = {}
+
+    def seen(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        # the innermost frame of the port or of this script that led there
+        where = "%s:%d" % (os.path.relpath(filename, HERE), lineno)
+        for fr in reversed(traceback.extract_stack()[:-1]):
+            if ("rnaelem_tpu_torch" + os.sep) in fr.filename or \
+                    fr.filename.endswith("chip_smoke.py") and \
+                    fr.name not in ("seen", "glue_census"):
+                where = "%s:%d" % (os.path.relpath(fr.filename, HERE),
+                                   fr.lineno)
+                break
+        syncs[where] = syncs.get(where, 0) + 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = seen
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    print("glue census (torch %s), %s: %g torch kernels per call (%g cub "
+          "sort/select), %g hand-written, %g memcpy/memset apart; by "
+          "kernel, aten op and the port's line:\n%s\n  host syncs per call "
+          "(set_sync_debug_mode warn): %s" % (
+              torch.__version__, label, n / reps, cub / reps, hand / reps,
+              cp / reps,
+              "\n".join("  %6g  %-34s %-28s %s" % (v, *k_)
+                        for k_, v in rows.items()),
+              json.dumps(syncs)), flush=True)
+    return n / reps, cub / reps, hand / reps, cp / reps, rows, syncs
+
+
+def glue_gate(census):
+    """Fail if a path launches a cub sort or select kernel, or more torch
+    kernels than GLUE_LIMITS allows."""
+    for label, got in census.items():
+        if got[1] > 0:
+            fail("%s launches %g cub sort/select kernels per call"
+                 % (label, got[1]))
+        if got[0] > GLUE_LIMITS[label]:
+            fail("%s launches %g torch kernels per call (at most %d)"
+                 % (label, got[0], GLUE_LIMITS[label]))
+
+
+def census_paths(dev, funcs, reps=2):
+    """glue_census of the three glue-gated paths: fn+grad and a masks
+    batch (B_MAIN x LP nt, PATTERN, f32), and one 64-read posterior chunk
+    of the 76-tRNA scan (f32).  Returns {label: glue_census's tuple}."""
+    cfg32 = cfg_for("float32")
+    reads = main_reads()
+    p32 = random_params(cfg32, dev)
+    batch = OBJ.stack_reads(cfg32, reads, device=dev)
+    out = {"fn+grad": glue_census(
+        lambda: OBJ.batch_fn_grad(cfg32, p32, batch, device=dev), reps,
+        funcs, "fn+grad (B=%d x %d nt %s f32)" % (B_MAIN, LP, PATTERN))}
+    out["masks batch"] = glue_census(
+        lambda: OBJ.stack_reads(cfg32, reads, device=dev), reps, funcs,
+        "masks batch (stack_reads, B=%d)" % B_MAIN)
+    cfg, params = MIO.read_model(GOLD_TRNA, Lp=96, dtype="float32",
+                                 device=dev)
+    scfg, sparams = SCD.scan_config(cfg, params, 96)
+    sd = J.stack_seqdata([J.make_seqdata(scfg, seq_to_ints(s), None)
+                          for s in trna_seqs(SCD.SCAN_BATCH)], dev)
+    out["posterior chunk"] = glue_census(
+        lambda: SC.scan_posteriors_batch(scfg, sparams, sd, device=dev),
+        reps, funcs, "one %d-read posterior chunk (tRNA, bucket 96, f32)"
+        % SCD.SCAN_BATCH)
+    return out
+
+
+# ------------------------------------------------------------ phase 2d
+
+# K18-K21: the passes' ends, the masks' threshold, the scanner's posteriors
+GLUE_KERNELS = ("bpp_keep", "parts", "lam_sum", "posteriors")
+
+
+def _bits(t):
+    """A float tensor's bits as integers (NaN and -0.0 compared exactly)."""
+    t = t.contiguous()
+    if t.dtype == torch.float32:
+        return t.view(torch.int32)
+    if t.dtype == torch.float64:
+        return t.view(torch.int64)
+    return t
+
+
+def same_bits(name, a, b):
+    """Fail unless the kernel's ``a`` is bit for bit the twin's ``b``."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        fail("%s: %s %s against the plain twin's %s %s" % (
+            name, tuple(a.shape), a.dtype, tuple(b.shape), b.dtype))
+    ne = _bits(a) != _bits(b)
+    if bool(ne.any()):
+        fail("%s: %d of %d values differ from the plain twin's bits" % (
+            name, int(ne.sum()), ne.numel()))
+
+
+def close_twin(name, a, b, rel):
+    """Fail unless ``a`` has the twin ``b``'s non-finite values in the
+    same places and its finite ones within ``rel`` relative (max norm);
+    returns the max abs error."""
+    fa, fb = torch.isfinite(a), torch.isfinite(b)
+    if not torch.equal(fa, fb) or not torch.equal(
+            _bits(torch.where(fa, torch.zeros_like(a), a)),
+            _bits(torch.where(fb, torch.zeros_like(b), b))):
+        fail("%s: the non-finite values differ from the plain twin's" % name)
+    e = rel_err(a[fa], b[fb])
+    if not e <= rel:
+        fail("%s: relative error %.3g beyond %.0e" % (name, e, rel))
+    return float((a[fa].double() - b[fb].double()).abs().max()) \
+        if fa.any() else 0.0
+
+
+def ends_cases(B, dev, dt, seed=11):
+    """An Ends of every mode over B reads: the objective in both forms
+    with seeded restrict_ari, is_neg, valid (some reads not), lik_sign
+    and eff."""
+    rng = np.random.RandomState(seed)
+    t = lambda x, dtype: torch.as_tensor(x, dtype=dtype, device=dev)
+    obj = dict(restrict_ari=t(rng.rand(B) < 0.5, torch.bool),
+               lik_sign=t(np.where(rng.rand(B) < 0.5, -1.0, 1.0), dt),
+               is_neg=t(rng.rand(B) < 0.3, torch.bool),
+               valid=t(rng.rand(B) < 0.9, torch.bool), eff=t(rng.rand(B), dt))
+    return (DP.PARTS, DP.Ends("objective", False, **obj),
+            DP.Ends("objective", True, **obj), DP.Ends("lse"),
+            DP.Ends("null"))
+
+
+def inf_parts(B, dev, dt, seed=12):
+    """Parts [B, 3] with -inf in every pattern of the three (read r < 8:
+    bit k of r), finite elsewhere."""
+    rng = np.random.RandomState(seed)
+    p = rng.randn(B, 3) * 20.0 - 100.0
+    for r in range(min(8, B)):
+        p[r, [k for k in range(3) if (r >> k) & 1]] = -np.inf
+    return torch.as_tensor(p, dtype=dt, device=dev)
+
+
+def check_parts(st, O, L, parts, rel, what):
+    """K19 against its twin (ops/dp.ends_plain, ends_adj_plain,
+    extract_parts_plain, seed_parts_plain) in every mode: the gather from
+    the inside table O at rows L (bitwise: a copy) when O is given, else
+    on the given parts; each mode's outputs and the adjoint (from the
+    output's cotangent, the parts', both), its gbar and the seeded O
+    rows, within ``rel``.  Returns the max abs error."""
+    dev, dt = L.device, st.dtype
+    B = L.shape[0]
+    rng = np.random.RandomState(3)
+    gy = torch.as_tensor(rng.randn(B), dtype=dt, device=dev)
+    gp = torch.as_tensor(rng.randn(B, 3), dtype=dt, device=dev)
+    R = st.dims.Lp + 1 + st.PAD
+    err = 0.0
+    for ends in ends_cases(B, dev, dt):
+        name = "K19 %s %s" % (ends.mode + ("/lik-ratio" if ends.lik_ratio
+                                           else ""), what)
+        if O is not None:
+            kp, ky, ky2 = K.ends_fwd(st, ends, O=O, L=L)
+            pp = DP.extract_parts_plain(O, L, st)
+            same_bits(name + " gather", kp, pp)
         else:
-            other[fn_[:80]] = other.get(fn_[:80], 0) + 1
-    return (n / reps, cp / reps, hand / reps,
-            {k_: v / reps for k_, v in sorted(other.items(),
-                                              key=lambda kv: -kv[1])})
+            kp, ky, ky2 = K.ends_fwd(st, ends, parts=parts)
+            pp = parts
+        py, py2 = DP.ends_plain(pp, ends)
+        for tag, a, b in (("y", ky, py), ("y2", ky2, py2)):
+            if (a is None) != (b is None):
+                fail("%s: output %s missing" % (name, tag))
+            if b is not None:
+                err = max(err, close_twin("%s %s" % (name, tag), a, b, rel))
+        cots = ((None, gp),) if ends.mode == "parts" else \
+            ((gy, None), (None, gp), (gy, gp))
+        for gy_, gp_ in cots:
+            gO = torch.zeros((R, st.dims.S, B), dtype=dt, device=dev)
+            gO_p = torch.zeros_like(gO)
+            gk = K.ends_adj(st, ends, pp, gy_, gp_, gO=gO, L=L, gbar=True)
+            gpl = DP.ends_adj_plain(pp, ends, gy_, gp_)
+            DP.seed_parts_plain(gO_p, gpl, L, st)
+            err = max(err, close_twin(name + " gbar", gk, gpl, rel),
+                      close_twin(name + " seeded O", gO, gO_p, rel))
+    return err
+
+
+def check_lam_sum(st, DL, lam, what):
+    """K20 bitwise its twin ops/dp.lam_sum_plain, with and without an
+    extra term; the first 8 of 16 reads bitwise those 8 alone."""
+    B, dev, dt = DL.shape[-1], DL.device, DL.dtype
+    extra = torch.as_tensor(np.random.RandomState(4).randn(2, B), dtype=dt,
+                            device=dev)
+    for ex in (None, extra):
+        same_bits("K20 %s%s" % (what, "" if ex is None else " + extra"),
+                  K.lam_sum(st, DL, lam, ex),
+                  DP.lam_sum_plain(DL, lam, st, ex))
+    if B >= 16:
+        cut = lambda n: (DL[..., :n].contiguous(), lam[:, :n].contiguous(),
+                         extra[:, :n].contiguous())
+        same_bits("K20 %s: 8 of 16 reads against the 8 alone" % what,
+                  K.lam_sum(st, *cut(16))[:, :8], K.lam_sum(st, *cut(8)))
+
+
+def check_bpp(cfg, sd, dev, what):
+    """K18 bitwise its twins: the candidates against
+    energy/tables.pair_mask_jw, the threshold (keep and eff) against
+    model/joint.bpp_keep_plain on the motif-free posterior, and without a
+    posterior (fix_rss's form, a seeded pair set); the first 8 of 16
+    reads bitwise those 8 alone."""
+    k = J.kernels(cfg, dev)
+    bp0 = J._complementary_bp(cfg, k, sd)
+    L = torch.as_tensor(sd.L, device=dev).long()
+    same_bits("K18 candidates %s" % what, bp0, ET.pair_mask_jw(
+        k.tab, torch.as_tensor(sd.seq, device=dev).long(), L,
+        torch.clamp(L, max=cfg.max_span), cfg.Wp, cfg.turn))
+    _, post = J._null_posterior(cfg, k, sd, bp0)
+    rss = torch.as_tensor(np.random.RandomState(8).rand(*bp0.shape) < 0.1,
+                          device=dev)
+    for sel, post_, tag in ((bp0, post, ""), (rss, None, " fix_rss form")):
+        got = K.bpp_keep(bp0, sel, post_, cfg.min_bpp, k.dtype)
+        want = J.bpp_keep_plain(bp0, sel, post_, cfg.min_bpp, k.dtype)
+        same_bits("K18 keep %s%s" % (what, tag), got[0], want[0])
+        same_bits("K18 eff %s%s" % (what, tag), got[1], want[1])
+    B = bp0.shape[0]
+    if B >= 16:
+        cut = lambda n: K.bpp_keep(bp0[:n].contiguous(), bp0[:n].contiguous(),
+                                   post[..., :n].contiguous(), cfg.min_bpp,
+                                   k.dtype)
+        a, b = cut(16), cut(8)
+        same_bits("K18 %s: 8 of 16 reads against the 8 alone" % what,
+                  a[0][:8], b[0])
+        same_bits("K18 eff %s: 8 of 16 reads" % what, a[1][:8], b[1])
+    return bp0, post
+
+
+def check_posteriors(g, L, what):
+    """K21 bitwise its twins (scan/scanner.py pass1_posteriors_plain,
+    end_posteriors_plain) on the class sums g [4, Lp, B], and on g on a
+    coarse grid (ties for the last-maximum rule); the first 8 of 16 reads
+    bitwise those 8 alone."""
+    tied = torch.round(g * 4.0) / 4.0
+    for gg, tag in ((g, ""), (tied, " tied")):
+        for end in (False, True):
+            got = K.posteriors(gg, L, end)
+            want = SC.end_posteriors_plain(gg, L) if end else \
+                SC.pass1_posteriors_plain(gg, L)
+            for i, (a, b) in enumerate(zip(got, want)):
+                same_bits("K21 %s%s %s output %d" % (
+                    what, tag, "end" if end else "pass 1", i), a, b)
+    if g.shape[-1] >= 16:
+        for end in (False, True):
+            a = K.posteriors(tied[..., :16].contiguous(), L[:16], end)
+            b = K.posteriors(tied[..., :8].contiguous(), L[:8], end)
+            for i, (x, y) in enumerate(zip(a, b)):
+                same_bits("K21 %s: 8 of 16 reads, output %d" % (what, i),
+                          x[:8], y)
+
+
+def probe_class_sums(cfg, params, sd, bp_ok, dev):
+    """The scanner's pass-1 class-probe cotangent [4, Lp, B] (K21's
+    input)."""
+    B = len(sd.L)
+    cls = DP.zero_probe(cfg.Lp, B, J.kernels(cfg, dev).dtype, dev)
+    with torch.enable_grad():
+        _, z, _ = J.batch_ends(cfg, params, sd, bp_ok, dev,
+                               aux_b={"cls": cls}, ends=DP.Ends("lse"))
+        (g,) = torch.autograd.grad(z, cls, torch.ones_like(z))
+    return g
+
+
+def glue_case(cfg, reads, params, dev, what, rel):
+    """K18-K21 on one batch of a grammar with rss: the masks (K18), the
+    inside pass's O (K19 gather and every mode), the outside pass's
+    lambda partials (K20), the scanner's class sums (K21).  Returns
+    K19's max abs error."""
+    sd = J.stack_seqdata([J.make_seqdata(cfg, s_, q_) for s_, q_ in reads],
+                         dev)
+    bp0, post = check_bpp(cfg, sd, dev, what)
+    bp_ok, _ = J.effective_bp_mask_batch(cfg, sd, dev)
+    dp = J.kernels(cfg, dev).dp
+    d, c = J.batch_factors(cfg, params, sd, bp_ok, device=dev)
+    h = DP.hoisted(d, c, dp.st)
+    fs = dp.run_inside(d, c, h)
+    B = len(reads)
+    err = check_parts(dp.st, fs["O"], c.L, None, rel, what)
+    err = max(err, check_parts(dp.st, None, c.L,
+                               inf_parts(B, dev, dp.st.dtype), rel,
+                               what + " -inf parts"))
+    gbar = torch.as_tensor(np.random.RandomState(5).rand(B, 3),
+                           dtype=dp.st.dtype, device=dev)
+    gs = dp.outside_state(fs, gbar, d, c, h)
+    check_lam_sum(dp.st, gs["DL"], gs["lam"], what)
+    del fs, gs
+    g = probe_class_sums(cfg, params, sd, bp_ok, dev)
+    check_posteriors(g, torch.as_tensor(sd.L, device=dev).long(), what)
+    return err
+
+
+def check_glue_kernels(dev):
+    """Phase 2d: K18-K21 against their plain twins on the card: K18's
+    keep and eff, K20's lambda cotangent and K21's outputs bitwise, K19
+    (f64 within 1e-12, f32 within 1e-6 relative, max norm: its gbar and
+    seeded O rows likewise); at the main path's shapes (B=128 x 100 nt
+    PATTERN, f32 and f64), on the no-rss path (K19 on K8's parts, ..*..),
+    on the 64-read tRNA chunk and on the widest grammar of phase 14
+    (.....*..... -c 30, f64); K18, K20 and K21 batch-invariant (the first
+    8 of 16 reads bitwise those 8 alone).  Returns {kernel: max abs
+    error} at the main path's f32."""
+    t0 = time.time()
+    reads = main_reads()
+    rel = {"float32": 1e-6, "float64": 1e-12}
+    err = {n: 0.0 for n in GLUE_KERNELS}
+    msgs = []
+    for dtype in ("float32", "float64"):
+        cfg = cfg_for(dtype)
+        e = glue_case(cfg, reads, random_params(cfg, dev), dev,
+                      "main %s" % dtype, rel[dtype])
+        if dtype == "float32":
+            err["parts"] = e
+        msgs.append("main %s K19 %.3g" % (dtype, e))
+        lin, eR, L, _ = chain_inputs(norss_cfg(dtype), reads, dev)
+        parts, _ = K.chain_fwd(lin, eR, L)
+        e = check_parts(lin, None, L, parts, rel[dtype], "no-rss %s" % dtype)
+        msgs.append("no-rss %s K19 %.3g" % (dtype, e))
+        torch.cuda.empty_cache()
+    cfg, params = MIO.read_model(GOLD_TRNA, Lp=96, dtype="float32",
+                                 device=dev)
+    scfg, sparams = SCD.scan_config(cfg, params, 96)
+    chunk = [(seq_to_ints(s_), None) for s_ in trna_seqs(SCD.SCAN_BATCH)]
+    e = glue_case(scfg, chunk, sparams, dev, "tRNA chunk f32", rel["float32"])
+    msgs.append("tRNA chunk f32 K19 %.3g" % e)
+    wcfg = wide_cfg(WIDE_SAME, 30, "float64", 80)
+    wreads = make_reads(np.random.RandomState(9), 16, 60, 80)
+    e = glue_case(wcfg, wreads, random_params(wcfg, dev), dev,
+                  "%s -c 30 f64" % WIDE_SAME, rel["float64"])
+    msgs.append("%s f64 K19 %.3g" % (WIDE_SAME, e))
+    torch.cuda.empty_cache()
+    print("check K18-K21 vs their plain twins (K18 keep/eff, K20, K21 "
+          "bitwise, batch-invariant 8 of 16; K19 f64 1e-12, f32 1e-6 "
+          "relative, gather bitwise, every mode, -inf parts, gbar and the "
+          "seeded O rows): %s; %.1f s" % ("; ".join(msgs), time.time() - t0),
+          flush=True)
+    return err
+
+
+def glue_kernel_times(batch, params, dev, funcs, reps=REPS):
+    """K18-K21 at the main path's shapes (B=128 x 100 nt PATTERN f32; K21
+    a 64-read chunk of 96 nt): device ms per unit (the profiler, ``reps``
+    calls), the plain twins' ms (CUDA events), the bound (over HBM, the
+    input values the unit's work reads, once each, as this run's data
+    needs them, and its outputs written once; the operations are a few
+    per value, far below the f32 peak) and the unit.  Returns
+    (ms, plain_ms, {kernel: (bound ms, by)}, {kernel: (unit, launches)})."""
+    cfg = cfg_for("float32")
+    k = J.kernels(cfg, dev)
+    st, dt, sd = k.dp.st, k.dtype, batch.sd
+    B, n = len(sd.L), (cfg.Lp + 1) * (cfg.Wp + 1)
+    ms, plain, bnd, unit = {}, {}, {}, {}
+
+    def time_it(name, run, run_plain, by, what):
+        K.reset_counts()
+        run()
+        unit[name] = (what, K.KERNELS[name].launches)
+        ms[name] = device_ms(run, reps, funcs[name])
+        plain[name] = cuda_ms(run_plain, 3)
+        bnd[name] = _ms(by, 0)
+
+    # K18: the candidates and the threshold of one masks batch
+    bp0 = J._complementary_bp(cfg, k, sd)
+    _, post = J._null_posterior(cfg, k, sd, bp0)
+    L64 = torch.as_tensor(sd.L, device=dev).long()
+    seq64 = torch.as_tensor(sd.seq, device=dev).long()
+    W = torch.clamp(L64, max=cfg.max_span)
+    time_it("bpp_keep", lambda: (J._complementary_bp(cfg, k, sd), K.bpp_keep(
+        bp0, bp0, post, cfg.min_bpp, dt)), lambda: (ET.pair_mask_jw(
+            k.tab, seq64, L64, W, cfg.Wp, cfg.turn), J.bpp_keep_plain(
+            bp0, bp0, post, cfg.min_bpp, dt)),
+        # the codes and lengths (int32: the read's bases), the pair table,
+        # the posterior at the candidate cells only, bp0 written and read,
+        # keep and eff written
+        4 * int(L64.sum()) + 4 * B + _nbytes(k.tab["bp"])
+        + int(bp0.sum()) * post.element_size() + 3 * B * n
+        + B * post.element_size(),
+        "one %d-read masks batch: candidates and threshold" % B)
+    # K19: fn+grad's ends, the objective from O and its seeded adjoint
+    d, c = J.batch_factors(cfg, params, sd, batch.bp_ok, device=dev)
+    fs = k.dp.run_inside(d, c, DP.hoisted(d, c, st))
+    ends = OBJ._ends(batch, False)
+    O, L = fs["O"], c.L
+    parts = K.ends_fwd(st, ends, O=O, L=L)[0]
+    gy = torch.ones((B,), dtype=dt, device=dev)
+    gO = torch.zeros_like(O)
+    gO_p = torch.zeros_like(O)
+
+    def k19_plain():
+        pp = DP.extract_parts_plain(O, L, st)
+        DP.ends_plain(pp, ends)
+        DP.seed_parts_plain(gO_p, DP.ends_adj_plain(pp, ends, gy), L, st)
+
+    time_it("parts", lambda: (K.ends_fwd(st, ends, O=O, L=L), K.ends_adj(
+        st, ends, parts, gy, gO=gO, L=L)), k19_plain,
+        4 * 3 * B * 4 + B * 8 + 3 * B + 6 * B * 4,
+        "one %d-read fn+grad: the objective from O and its seeded adjoint"
+        % B)
+    del fs
+    # K20: one fn+grad's lambda from K5's and K7's partials
+    g = torch.Generator(device=dev)
+    g.manual_seed(20)
+    DL = torch.randn((cfg.Lp + 1, cfg.Wp + 1, st.dims.S, B), generator=g,
+                     dtype=dt, device=dev)
+    lam, extra = torch.randn((2, 2, B), generator=g, dtype=dt, device=dev)
+    time_it("lam_sum", lambda: K.lam_sum(st, DL, lam, extra),
+            lambda: DP.lam_sum_plain(DL, lam, st, extra),
+            _nbytes(DL, lam, extra, lam), "one %d-read fn+grad's lambda" % B)
+    del DL
+    # K21: one 64-read chunk's two assemblies (Lp 96)
+    Bc, Lc = SCD.SCAN_BATCH, 96
+    gc = torch.rand((4, Lc, Bc), generator=g, dtype=dt, device=dev)
+    Lb = torch.randint(40, Lc + 1, (Bc,), generator=g, device=dev)
+    time_it("posteriors", lambda: (K.posteriors(gc, Lb, False),
+                                   K.posteriors(gc, Lb, True)),
+            lambda: (SC.pass1_posteriors_plain(gc, Lb),
+                     SC.end_posteriors_plain(gc, Lb)),
+            # read: rows 0-1 (pass 1) and row 2 (end pass) at p < L, one
+            # tail value a read, L in each launch; written: Pys, Pyi, Ys,
+            # the int32 pin, Pye, Ye
+            gc.element_size() * (3 * int(Lb.sum()) + Bc) + 2 * 8 * Bc
+            + gc.element_size() * Bc * (2 * Lc + Lc + 1) + Bc * (8 + 4 + 8),
+            "one %d-read posterior chunk of %d nt: pass 1 and the end pass"
+            % (Bc, Lc))
+    return ms, plain, bnd, unit
+
+
+def glue_times(dev):
+    """--glue-times: the walls this slice's glue moves, one run each, on
+    the tree beside this script (an older tree too: a copy of the script
+    beside it): fn+grad (CUDA events, 5 calls; host ms to the call's
+    return and wall ms to a synchronize, 3 calls; the device's busy share
+    of 2 profiled calls), the masks batch, the production steps (.....)
+    and ..*.. --no-rss, one 64-read posterior chunk, the 76-tRNA scan
+    (f64, f32: the second of two runs); the device memory each of
+    fn+grad, the masks batch and the posterior chunk allocates above what
+    was allocated before it, at its peak (MiB); K18-K21's ms where the
+    tree has them; the glue census.  One {"glue_times": ...} line."""
+    funcs = kernel_functions()
+    cfg32 = cfg_for("float32")
+    reads = main_reads()
+    p32 = random_params(cfg32, dev)
+    batch = OBJ.stack_reads(cfg32, reads, device=dev)
+    fg = lambda: OBJ.batch_fn_grad(cfg32, p32, batch, device=dev)
+    out = {"fn_grad_ms": cuda_ms(fg, 5)}
+    host, wall = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fg()
+        host.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    _, _, wall_us, busy_us = device_profile(fg, 2)
+    out.update(fn_grad_host_ms=host, fn_grad_wall_ms=wall,
+               fn_grad_busy_share=busy_us / wall_us,
+               masks_ms=cuda_ms(lambda: OBJ.stack_reads(cfg32, reads,
+                                                        device=dev), 3))
+    cfg, params = MIO.read_model(GOLD_TRNA, Lp=96, dtype="float32",
+                                 device=dev)
+    scfg, sparams = SCD.scan_config(cfg, params, 96)
+    sd = J.stack_seqdata([J.make_seqdata(scfg, seq_to_ints(s_), None)
+                          for s_ in trna_seqs(SCD.SCAN_BATCH)], dev)
+    chunk = lambda: SC.scan_posteriors_batch(scfg, sparams, sd, device=dev)
+    out["chunk_ms"] = cuda_ms(chunk, 3)
+
+    def peak_mib(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        fn()
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 20
+
+    out["peak_mib"] = {
+        "fn_grad": peak_mib(fg), "chunk": peak_mib(chunk),
+        "masks": peak_mib(lambda: OBJ.stack_reads(cfg32, reads, device=dev))}
+    with tempfile.TemporaryDirectory() as tmp:
+        for pat, nr in ((PATTERN, False), (NORSS, True)):
+            out["step_ms " + pat] = production_step(pat, nr, tmp, dev,
+                                                    check=False)["step_ms"]
+        fq = os.path.join(tmp, "trna.fq")
+        write_fq(fq, trna_seqs())
+        for dtype in ("float64", "float32"):
+            cfg, params = MIO.read_model(GOLD_TRNA, Lp=96, dtype=dtype,
+                                         device=dev)
+            sc = SCD.Scanner(cfg, params, dev)
+            scan_run(sc, fq, dev, False)
+            out["scan_ms " + dtype] = scan_run(sc, fq, dev, False)[1]
+    if "parts" in K.KERNELS:
+        ms, plain, bnd, unit = glue_kernel_times(batch, p32, dev, funcs)
+        out["kernels"] = {n: dict(ms=ms[n], plain_ms=plain[n],
+                                  bound_ms=bnd[n][0], unit=unit[n][0],
+                                  launches=unit[n][1]) for n in ms}
+    out["census"] = {k_: v[0] for k_, v in census_paths(dev, funcs).items()}
+    print(json.dumps({"glue_times": out}), flush=True)
 
 
 def _nbytes(*ts):
@@ -3609,8 +4226,7 @@ def glue_rows(cfg, params, batch, dev, funcs):
             J.batch_factors_pr(cfg, leaves, batch.sd, batch.bp_ok, dev)
 
     def fwd_d():
-        with torch.enable_grad():
-            DP.hoisted(d._replace(lam=lam), c, st)
+        DP.hoisted(d._replace(lam=lam), c, st)
 
     calls = {
         "C": fwd_c,
@@ -3618,8 +4234,8 @@ def glue_rows(cfg, params, batch, dev, funcs):
             outs_c, list(leaves[:2]), cot_c, retain_graph=True,
             allow_unused=True),
         "D": fwd_d,
-        "D backward": lambda: torch.autograd.grad(outs_d, [lam], cot_d,
-                                                  retain_graph=True)}
+        "D backward": lambda: DP.hoisted_lam_term(cot_d, d._replace(lam=lam),
+                                                  c, st)}
     out = {}
     for name, fn in calls.items():
         ms, n, cp = glue_profile(fn, 20, funcs["score_tables"])
@@ -5582,6 +6198,16 @@ def main():
                          "on the card: the planted contract, then the "
                          "pattern list's widths at the flagship shapes), "
                          "and exit")
+    ap.add_argument("--glue", action="store_true",
+                    help="only build, hold K18-K21 against their plain "
+                         "twins (phase 2d), time them and run the glue "
+                         "gate, and exit")
+    ap.add_argument("--glue-times", action="store_true",
+                    help="only build and time the walls this slice's glue "
+                         "moves, K18-K21 where the tree has them, and the "
+                         "glue census (see glue_times; a copy of this "
+                         "script beside an older tree times that tree), "
+                         "and exit")
     ap.add_argument("--shipped-only", action="store_true",
                     help="with --ep-variants, --band-variants, "
                          "--ext-variants, --ext-adj-variants or "
@@ -5672,6 +6298,21 @@ def main():
         print(json.dumps({"elem": elem_phase(dev)}))
         print("card: %s" % card_line(), flush=True)
         return
+    if args.glue:
+        funcs = kernel_functions()
+        check_glue_kernels(dev)
+        cfg32 = cfg_for("float32")
+        p32 = random_params(cfg32, dev)
+        bm = OBJ.stack_reads(cfg32, main_reads(), device=dev)
+        print("K18-K21 ms, plain ms, bounds, units: %s" % json.dumps(
+            glue_kernel_times(bm, p32, dev, funcs)), flush=True)
+        glue_gate(census_paths(dev, funcs, reps=1))
+        print("card: %s" % card_line(), flush=True)
+        return
+    if args.glue_times:
+        glue_times(dev)
+        print("card: %s" % card_line(), flush=True)
+        return
 
     # ---- phase 2: kernels vs plain versions
     small = make_reads(np.random.RandomState(0), *SMALL)
@@ -5760,6 +6401,10 @@ def main():
               J0, len(small), json.dumps(e_max64), B_SCAN, LP,
               json.dumps(e_max32), n_tb, json.dumps(tb_names)), flush=True)
     torch.cuda.empty_cache()
+
+    # ---- phase 2d: K18-K21, the passes' ends, the masks' threshold and
+    # the scanner's posteriors, against their plain twins
+    err.update(check_glue_kernels(dev))
 
     # ---- phases 3-4: full gradient and masks, small batch
     check_full_gradient(cfg64, cfg32, small, dev)
@@ -5891,6 +6536,13 @@ def main():
               B_MAIN, LP, REPS, json.dumps(ms_cd), json.dumps(plain_cd),
               json.dumps(bnd_cd)), flush=True)
     glue = glue_rows(cfg32, p32, bm, dev, funcs)
+    ms_g, plain_g, bnd_g, unit_g = glue_kernel_times(bm, p32, dev, funcs)
+    ms.update(ms_g)
+    plain_ms.update(plain_g)
+    unit.update(unit_g)
+    print("K18-K21 device ms per unit (%d calls): %s; plain %s; bounds %s; "
+          "units %s" % (REPS, json.dumps(ms_g), json.dumps(plain_g),
+                        json.dumps(bnd_g), json.dumps(unit_g)), flush=True)
 
     # ---- phase 6: the evaluation path
     K.reset_counts()
@@ -5901,7 +6553,8 @@ def main():
     mask_launches = {n: kk.launches for n, kk in K.KERNELS.items()}
     print("masks (stack_reads, S=1, B=%d) launches: %s" % (
         B_MAIN, json.dumps(mask_launches)), flush=True)
-    for n in ("inside_ep", "outside_ep", "factors", "hoisted"):
+    for n in ("inside_ep", "outside_ep", "factors", "hoisted", "bpp_keep",
+              "parts"):
         if mask_launches[n] <= 0:
             fail("the masks' S=1 pass did not launch %s" % n)
     fn, grads, eff = OBJ.batch_fn_grad(cfg32, p32, batch, device=dev)
@@ -5915,13 +6568,13 @@ def main():
               B_MAIN, json.dumps(eval_launches), json.dumps(
                   {n: kk.variants for n, kk in K.KERNELS.items()
                    if kk.variants})), flush=True)
-    for n in DP_KERNELS + ROWS_CD_KERNELS:
+    for n in DP_KERNELS + ROWS_CD_KERNELS + GLUE_KERNELS[:3]:
         if eval_launches[n] <= 0:
             fail("kernel %s was not launched on the evaluation path" % n)
     K.reset_counts()
     OBJ.batch_fn_grad(cfg32, p32, batch, device=dev)
     per_fg = {n: kk.launches for n, kk in K.KERNELS.items()}
-    for n in DP_KERNELS + ROWS_CD_KERNELS:
+    for n in DP_KERNELS + ROWS_CD_KERNELS + ("parts", "lam_sum"):
         if per_fg[n] <= 0:
             fail("kernel %s was not launched by fn+grad" % n)
     print("K7 (outside_ext): %d launches per fn+grad, one per column of %d "
@@ -5968,14 +6621,6 @@ def main():
           "device busy %.1f ms (%.1f%%); device ms per fn+grad by kernel %s"
           % (wall_us / 1e3, busy_us / 1e3, 100.0 * busy_us / wall_us,
              json.dumps(fg_dev)), flush=True)
-    n_all, n_cp, n_hand, other = launch_census(prof, 2, funcs)
-    print("fn+grad launches (B=%d x %d nt f32): %d of the hand-written "
-          "kernels (their launch counts), %g kernel launches in the "
-          "profiler's trace (%g of them the hand-written kernels' functions, "
-          "%g torch's), %g memcpy/memset events apart; torch's kernels per "
-          "fn+grad: %s" % (B_MAIN, LP, sum(per_fg.values()), n_all, n_hand,
-                           n_all - n_hand, n_cp, json.dumps(other)),
-          flush=True)
     per_m, _, wall_m, busy_m = device_profile(
         lambda: OBJ.stack_reads(cfg32, reads, device=dev), 2)
     print("profile: masks (stack_reads) %.1f ms wall (profiler on, mean of "
@@ -5984,14 +6629,23 @@ def main():
              json.dumps({n: sum(per_m.get(f, 0.0) for f in fn_) / 1e3
                          for n, fn_ in funcs.items()
                          if n not in CYK_KERNELS})), flush=True)
-    m_all, m_cp, m_hand, m_other = launch_census(
-        device_profile(lambda: OBJ.stack_reads(cfg32, reads, device=dev),
-                       2)[1], 2, funcs)
-    print("masks launches (stack_reads, B=%d): %d of the hand-written "
-          "kernels, %g kernel launches in the profiler's trace (%g torch's), "
-          "%g memcpy/memset events apart; torch's kernels: %s" % (
-              B_MAIN, sum(mask_launches.values()), m_all, m_all - m_hand,
-              m_cp, json.dumps(m_other)), flush=True)
+    # the glue gate: torch's kernels by aten op and line, host syncs
+    t0 = time.time()
+    census = census_paths(dev, funcs, reps=1)
+    glue_gate(census)
+    for label, n_fn in (("fn+grad", sum(per_fg.values())),
+                        ("masks batch", sum(mask_launches.values()))):
+        n_torch, _, n_hand, n_cp, _, _ = census[label]
+        print("%s launches (B=%d x %d nt f32): %d of the hand-written "
+              "kernels (their launch counts), %g kernel launches in the "
+              "profiler's trace (%g of them the hand-written kernels' "
+              "functions, %g torch's), %g memcpy/memset events apart" % (
+                  label, B_MAIN, LP, n_fn, n_torch + n_hand, n_hand, n_torch,
+                  n_cp), flush=True)
+    print("glue gate: no cub sort or select; torch kernels per call %s "
+          "(at most %s); %.1f s" % (
+              json.dumps({k_: v[0] for k_, v in census.items()}),
+              json.dumps(GLUE_LIMITS), time.time() - t0), flush=True)
     if args.profile:
         os.makedirs(os.path.dirname(os.path.abspath(args.profile)),
                     exist_ok=True)
@@ -6031,7 +6685,7 @@ def main():
         # structure-model scan at f64, its default)
         scan = scan_trna(tmp, dev)
         scan_nr = scan_norss(tmp, dev)
-        for n in SCAN_KERNELS + ("factors", "hoisted"):
+        for n in SCAN_KERNELS + ("factors", "hoisted") + GLUE_KERNELS:
             if scan["float64"]["launches"][n] <= 0:
                 fail("kernel %s was not launched on the scan path" % n)
         # ---- phase 5 (rows L, M): per-column and per-chunk times
@@ -6085,6 +6739,7 @@ def main():
     bnd = bounds(cfg32, st, c32, k32.tab, j0, B_MAIN, 4)
     bnd.update(chain_bounds(lin, Lc.cpu().numpy(), LP, 4))
     bnd.update(bnd_cd)
+    bnd.update(bnd_g)
     c64 = cyk["float64"]
     bnd.update(c64["bound"])
     ms.update(c64["ms"])
@@ -6113,6 +6768,8 @@ def main():
             "launches_step": launches[name],
             "launches_eval_path": eval_launches[name],
             "launches_fn_grad": per_fg[name], "ms_fn_grad": fg_dev[name],
+            "launches_masks_batch": mask_launches[name],
+            "launches_chunk": scan["chunk_launches"][name],
             "ms_by_function": ms_by_fn.get(name),
             "variants": eval_variants[name]})
         if name == "cyk_traceback":

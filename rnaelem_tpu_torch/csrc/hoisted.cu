@@ -25,7 +25,7 @@
 // uncapped weights first (g_eSZ * cap + g_eSZg[grp]), added as autograd
 // adds the plain version's three _LamExp terms: (emisB + emisA) + eSZ.
 // It recomputes exp(lam x) from lambda and x, so nothing of K16 is kept
-// and ops/dp.lam_total runs no forward again.  Nothing is summed across
+// and ops/dp.finish_grads runs no forward again.  Nothing is summed across
 // reads: a read's bits do not depend on the batch or on the split.
 //
 // Bound on the H100: bytes.  K16 reads misA and misB and writes about 2.5x

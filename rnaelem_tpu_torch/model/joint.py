@@ -9,12 +9,16 @@ two dense banks — ``singles [n_single, 4]`` and ``pairs [n_pair, 6]`` —
 indexed through the grammar's table maps.
 
 The DP (ops/dp.py) is batched with a trailing batch axis and takes the
-weights as per-read copies (``per_read``): ``batch_logZ_parts_pr`` is the
-one path, and ``batch_logZ_parts`` runs it on the copies of shared
-weights.  On the card the factors are K14 (csrc/factors.cu) with K15
-their adjoint into the per-read weights; on the CPU (or with
-``plain=True``) the plain version below, whose autograd is the adjoint.  Every entry point takes an explicit ``device``: None means CUDA
-(and raises without a GPU).
+weights as per-read copies (``per_read``): ``batch_ends_pr`` is the one
+path, ``batch_ends`` runs it on the copies of shared weights, and
+``batch_logZ_parts(_pr)`` take their parts alone.  On the card the
+factors are K14 (csrc/factors.cu) with K15 their adjoint into the
+per-read weights; on the CPU (or with ``plain=True``) the plain version
+below, whose autograd is the adjoint.
+The min-BPP masks' candidate pairs and threshold are K18 on the card
+(``bpp_keep_plain`` and energy/tables.pair_mask_jw its plain twins).
+Every entry point takes an explicit ``device``: None means CUDA (and
+raises without a GPU).
 """
 from __future__ import annotations
 
@@ -245,11 +249,41 @@ def _band_masks(cfg: ModelConfig, sd: SeqData, bp_ok):
 
 
 def _complementary_bp(cfg: ModelConfig, k: _Kernels, sd: SeqData):
-    """Candidate pairs by complementarity, band and turn: [B, Lp+1, Wp+1]."""
+    """Candidate pairs by complementarity, band and turn: [B, Lp+1, Wp+1]
+    (K18's candidates on the card, energy/tables.pair_mask_jw, its plain
+    twin, on the CPU)."""
+    if k.device.type == "cuda":
+        from ..ops import kernels as K
+        as_i32 = lambda x: torch.as_tensor(x, device=k.device).to(
+            torch.int32).contiguous()
+        return K.bpp_candidates(k.tab["bp"], as_i32(sd.seq), as_i32(sd.L),
+                                cfg.Wp, cfg.max_span, cfg.turn, k.dtype)
     seq = torch.as_tensor(sd.seq, device=k.device).long()
     L = torch.as_tensor(sd.L, device=k.device).long()
     W = torch.clamp(L, max=cfg.max_span)
     return ET.pair_mask_jw(k.tab, seq, L, W, cfg.Wp, cfg.turn)
+
+
+def bpp_keep_plain(bp0, sel, post, min_bpp: float, dtype):
+    """K18's plain twin, threshold: (keep [B, Lp+1, Wp+1] = sel &
+    (log(max(post, 1e-300)) >= log(min_bpp)), or sel where post is None;
+    eff [B] = count(keep) / max(count(bp0), 1)), post the motif-free
+    posterior batch-minor [Lp+1, Wp+1, B]."""
+    total = torch.clamp(bp0.sum(dim=(1, 2)), min=1)
+    keep = sel
+    if post is not None:
+        post = torch.movedim(post, -1, 0)
+        keep = sel & (torch.log(torch.clamp(post, min=1e-300))
+                      >= math.log(min_bpp))
+    return keep, keep.sum(dim=(1, 2)).to(dtype) / total
+
+
+def _bpp_keep(k: _Kernels, bp0, sel, post, min_bpp: float):
+    """K18's threshold on the card, bpp_keep_plain on the CPU."""
+    if k.device.type == "cuda":
+        from ..ops import kernels as K
+        return K.bpp_keep(bp0, sel, post, min_bpp, k.dtype)
+    return bpp_keep_plain(bp0, sel, post, min_bpp, k.dtype)
 
 
 def score_inputs(cfg: ModelConfig, k: _Kernels, sd: SeqData, bp_ok):
@@ -527,6 +561,17 @@ def batch_factors_pr(cfg: ModelConfig, params_b: Params, sd_b: SeqData,
     return d, c
 
 
+def _unit_lam(k: _Kernels, B: int):
+    """Lambda 1 for every read of the motif-free pass: one [2] tensor of
+    ones (made once per DP) seen through a zero stride along the reads,
+    so the kernels need not compare per-read copies."""
+    st = k.dp_null.st
+    one = st.__dict__.get("_unit_lam")
+    if one is None:
+        one = st._unit_lam = torch.ones(2, dtype=k.dtype, device=k.device)
+    return one[:, None].expand(2, B)
+
+
 def _null_batch_factors(cfg: ModelConfig, k: _Kernels, sd_b: SeqData,
                         bp0_b, plain: bool = False):
     """Batched factors for the motif-free McCaskill pass (BPP pruning):
@@ -534,20 +579,19 @@ def _null_batch_factors(cfg: ModelConfig, k: _Kernels, sd_b: SeqData,
     emissions, lambda 1 and a zero injected pair factor alphaP that the
     caller differentiates (K14 in mode "null" on the card, unless
     ``plain``)."""
+    B = bp0_b.shape[0]
     if k.device.type == "cuda" and not plain:
         out = _card_factors(cfg, k, None, sd_b, "null")
         d = DP.DiffFactors(eR=out["eR"], eL=out["eL"], bg2=out["bg2"],
-                           pv=out["pv"], lam=out["lam"],
+                           pv=out["pv"], lam=_unit_lam(k, B),
                            alphaP=out["alphaP"])
         return d, _card_const_factors(cfg, k, out, bp0_b)
     c = _const_factors(cfg, k, sd_b, bp0_b)
     c = c._replace(wsp=torch.zeros_like(c.wsp))
-    Lp, Wp, B = cfg.Lp, cfg.Wp, bp0_b.shape[0]
+    Lp, Wp = cfg.Lp, cfg.Wp
     z = lambda *shape: torch.zeros(shape, dtype=k.dtype, device=k.device)
     d = DP.DiffFactors(eR=z(Lp, 1, B), eL=z(Lp, 1, B), bg2=z(Lp, B),
-                       pv=z(Lp + 1, Wp + 1, 1, B),
-                       lam=torch.ones((2, B), dtype=k.dtype,
-                                      device=k.device),
+                       pv=z(Lp + 1, Wp + 1, 1, B), lam=_unit_lam(k, B),
                        alphaP=z(Lp + 1, Wp + 1, B))
     return d, c
 
@@ -558,6 +602,18 @@ def _candidate_pairs(cfg: ModelConfig, k: _Kernels, sd_b: SeqData):
     return _complementary_bp(cfg, k, sd_b)
 
 
+def _null_posterior(cfg: ModelConfig, k: _Kernels, sd_b: SeqData, bp0):
+    """(logZ [B], the pair posteriors batch-minor [Lp+1, Wp+1, B]) of the
+    motif-free pass over the candidates bp0: the alphaP cotangent of
+    z = parts[:, 0] (K19's mode "null")."""
+    d, c = _null_batch_factors(cfg, k, sd_b, bp0)
+    alphaP = d.alphaP.requires_grad_(True)
+    with torch.enable_grad():
+        _, z, _ = k.dp_null.dp_ends(d, c, DP.Ends("null"))
+        (post,) = torch.autograd.grad(z, alphaP, torch.ones_like(z))
+    return z.detach(), post
+
+
 def bpp_posterior_batch(cfg: ModelConfig, sd_b: SeqData, device=None):
     """Batched base-pair probabilities from the motif-free pass
     (energy_model.hpp:188-266): the gradient of logZ with respect to the
@@ -565,31 +621,26 @@ def bpp_posterior_batch(cfg: ModelConfig, sd_b: SeqData, device=None):
     Returns (logZ [B], post [B, Lp+1, Wp+1], bp0 [B, Lp+1, Wp+1])."""
     k = kernels(cfg, device)
     bp0 = _candidate_pairs(cfg, k, sd_b)
-    d, c = _null_batch_factors(cfg, k, sd_b, bp0)
-    alphaP = d.alphaP.requires_grad_(True)
-    with torch.enable_grad():
-        z = k.dp_null.dp_parts(d, c)[:, 0]
-        (post,) = torch.autograd.grad(z.sum(), alphaP)
-    return z.detach(), torch.movedim(post, -1, 0), bp0
+    z, post = _null_posterior(cfg, k, sd_b, bp0)
+    return z, torch.movedim(post, -1, 0), bp0
 
 
 def effective_bp_mask_batch(cfg: ModelConfig, sd_b: SeqData, device=None):
     """Batched bp_ok after min-BPP pruning and bpp_eff [B]
     (energy_model.hpp:211-266): the given structure under fix_rss,
     complementarity alone at min_bpp <= 0 (or no-rss), else the candidate
-    pairs whose motif-free posterior reaches min_bpp."""
+    pairs whose motif-free posterior reaches min_bpp.  On the card the
+    candidates and the threshold are K18's, the pass K1-K7 at S = 1 with
+    K19 at its ends."""
     k = kernels(cfg, device)
     bp0 = _complementary_bp(cfg, k, sd_b)
-    total = torch.clamp(bp0.sum(dim=(1, 2)), min=1)
     if cfg.fix_rss:
         rss = torch.as_tensor(sd_b.rss_pair, device=k.device).bool()
-        return rss, rss.sum(dim=(1, 2)).to(k.dtype) / total
+        return _bpp_keep(k, bp0, rss.contiguous(), None, cfg.min_bpp)
     if cfg.min_bpp <= 0 or cfg.no_rss:
         return bp0, torch.ones(bp0.shape[0], dtype=k.dtype, device=k.device)
-    _, post, _ = bpp_posterior_batch(cfg, sd_b, device)
-    keep = bp0 & (torch.log(torch.clamp(post, min=1e-300))
-                  >= math.log(cfg.min_bpp))
-    return keep, keep.sum(dim=(1, 2)).to(k.dtype) / total
+    _, post = _null_posterior(cfg, k, sd_b, bp0)
+    return _bpp_keep(k, bp0, bp0, post, cfg.min_bpp)
 
 
 def bpp_posterior(cfg: ModelConfig, sd: SeqData, device=None):
@@ -610,14 +661,29 @@ def effective_bp_mask(cfg: ModelConfig, sd: SeqData, device=None):
 def batch_logZ_parts(cfg: ModelConfig, params: Params, sd_b: SeqData,
                      bp_ok_b=None, device=None, aux_b=None):
     """``batch_logZ_parts_pr`` on per-read copies of shared weights."""
-    return batch_logZ_parts_pr(cfg, per_read(params, len(sd_b.L)), sd_b,
-                               bp_ok_b, device, aux_b)
+    return batch_ends(cfg, params, sd_b, bp_ok_b, device, aux_b)[0]
 
 
 def batch_logZ_parts_pr(cfg: ModelConfig, params_b: Params, sd_b: SeqData,
                         bp_ok_b=None, device=None, aux_b=None):
     """[B, 3] log partition parts at end states (0,0), (0,M-2), (0,M-1)
-    from per-read weights (read b's parts depend on its own copy alone).
+    from per-read weights (``batch_ends_pr``'s parts)."""
+    return batch_ends_pr(cfg, params_b, sd_b, bp_ok_b, device, aux_b)[0]
+
+
+def batch_ends(cfg: ModelConfig, params: Params, sd_b: SeqData,
+               bp_ok_b=None, device=None, aux_b=None, ends=DP.PARTS):
+    """``batch_ends_pr`` on per-read copies of shared weights."""
+    return batch_ends_pr(cfg, per_read(params, len(sd_b.L)), sd_b, bp_ok_b,
+                         device, aux_b, ends)
+
+
+def batch_ends_pr(cfg: ModelConfig, params_b: Params, sd_b: SeqData,
+                  bp_ok_b=None, device=None, aux_b=None, ends=DP.PARTS):
+    """(parts, y, y2): the [B, 3] log partition parts at end states (0,0),
+    (0,M-2), (0,M-1) from per-read weights (read b's parts depend on its
+    own copy alone), and what the pass's end forms of them under ``ends``
+    (ops/dp.Ends; K19 on the card; None where its mode has none).
 
     part_func(ari, nasi) of the reference (motif_trainer.hpp:108-112) is
     a logsumexp over a subset of these.  No-rss models run the forward
@@ -629,14 +695,15 @@ def batch_logZ_parts_pr(cfg: ModelConfig, params_b: Params, sd_b: SeqData,
         k = kernels(cfg, device)
         L = torch.as_tensor(sd_b.L, device=k.device).long()
         aux_b = aux_b or {}
-        return LIN.linear_parts(
+        parts = LIN.linear_parts(
             k.dp.st, right_emissions(cfg, k, params_b, sd_b), L,
             _dense_aux(aux_b).get("auxR"), aux_b.get("pin"),
             aux_b.get("cls"))
+        return DP.parts_ends(k.dp.st, parts, ends)
     if bp_ok_b is None:
         bp_ok_b, _ = effective_bp_mask_batch(cfg, sd_b, device)
     d, c = batch_factors_pr(cfg, params_b, sd_b, bp_ok_b, device, aux_b)
-    return kernels(cfg, device).dp.dp_parts(d, c)
+    return kernels(cfg, device).dp.dp_ends(d, c, ends)
 
 
 def linear_parts(cfg: ModelConfig, params: Params, sd: SeqData,

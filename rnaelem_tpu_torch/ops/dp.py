@@ -22,15 +22,22 @@ tensors:
 The plain versions are pure functions of the windows of earlier rows
 (``front_col`` ... ``o_col``, mirroring the JAX column body ``cols_fn``:
 exp-space contractions under per-read max shifts) whose outputs the plain
-stages write into the tables.  ``dp_parts`` is an autograd Function whose
-backward is the outside pass (JAX ``dp_bwd``): the columns j = Lp..1 in
-reverse, four adjoint stages per column, each the kernels K5-K7
-(outside_band.cu, outside_ep.cu, outside_ext.cu) for CUDA tensors and, for
-CPU tensors, torch.autograd.grad of the stage's pure function on leaf
-copies of the saved rows.  The hoisted exp(lambda x) tensors the stages
-read are K16's (hoisted.cu) for CUDA tensors, with K17 for lambda's
-cotangent, and ``hoisted_plain`` (autograd through ``_LamExp``) for CPU
-tensors.
+stages write into the tables.  ``dp_ends`` (``dp_parts`` its parts) runs
+an autograd Function whose backward is the outside pass (JAX ``dp_bwd``):
+the columns j = Lp..1 in reverse, four adjoint stages per column, each
+the kernels K5-K7 (outside_band.cu, outside_ep.cu, outside_ext.cu) for
+CUDA tensors and, for CPU tensors, torch.autograd.grad of the stage's
+pure function on leaf copies of the saved rows.  The hoisted exp(lambda
+x) tensors the stages read are K16's (hoisted.cu) for CUDA tensors, with
+K17 for lambda's cotangent, and ``hoisted_plain`` (autograd through
+``_LamExp``) for CPU tensors.  A pass's ends are K19 (ends.cu) for CUDA
+tensors and its plain twin otherwise: the parts' gather and what the
+caller forms of them (``Ends``: the objective, the scanner's lse, the
+masks' parts[:, 0]), and the seed of the outside pass from their
+cotangent; lambda's per-read sums of the outside pass are K20
+(lam_sum.cu) or ``lam_sum_plain``.  A pass's tables are views of one
+allocation, its cotangents of two (those a caller may keep, and the
+rest).
 
 The scanner (scan/scanner.py) adds "aux" log factors to the transitions
 that emit a base (JAX ``DiffFactors.aux*``): kind R on the right-chain
@@ -57,7 +64,8 @@ import torch
 
 from .. import device as DEV
 from .ep_fast import build_ep_static
-from .semiring import NEG, lam_mul, lse, logadd, mask_neg, safe_log
+from .semiring import (NEG, _finite_or_zero, lam_mul, lse, lse_weights,
+                       logadd, mask_neg, safe_log)
 
 SPEC_COMBOS = ((0, 1), (1, 0), (1, 1), (1, 2), (2, 1), (2, 2))
 
@@ -492,33 +500,15 @@ class _RowScale(torch.autograd.Function):
         return g * f[:, None, :], gl, read_sum(gl, 1) if ctx.has_r else None
 
 
-class _CardHoisted(torch.autograd.Function):
-    """K16 (the hoisted tensors) with K17 (lambda's cotangent) as its
-    backward: the card's form of hoisted_plain, whose autograd through
-    _LamExp is the plain version."""
-
-    @staticmethod
-    def forward(ctx, st, c, lam):
-        from . import kernels as K
-        ctx.set_materialize_grads(False)
-        ctx.st, ctx.c = st, c
-        ctx.save_for_backward(lam)
-        return K.hoisted(st, lam, c)
-
-    @staticmethod
-    def backward(ctx, *cots):
-        from . import kernels as K
-        (lam,) = ctx.saved_tensors
-        return None, None, K.hoisted_adj(ctx.st, lam, ctx.c, cots)
-
-
 def hoisted(d: DiffFactors, c: ConstFactors, st: DPStatic):
     """The hoisted exp-space tensors of ``hoisted_plain`` (a dict by
-    HOISTED): K16 for CUDA tensors, with K17 for lambda's cotangent; the
-    plain version for CPU tensors."""
+    HOISTED): K16 for CUDA tensors, with no autograd record (lambda's
+    cotangent from theirs is hoisted_lam_term's, K17); the plain version
+    for CPU tensors."""
     if c.C.device.type == "cpu":
         return hoisted_plain(d, c, st)
-    return dict(zip(HOISTED, _CardHoisted.apply(st, c, d.lam)))
+    from . import kernels as K
+    return dict(zip(HOISTED, K.hoisted(st, d.lam, c)))
 
 
 def hoisted_plain(d: DiffFactors, c: ConstFactors, st: DPStatic):
@@ -550,6 +540,29 @@ def hoisted_plain(d: DiffFactors, c: ConstFactors, st: DPStatic):
                 emisB=emisB)
 
 
+CARVE_ALIGN = 512    # bytes: each view starts where an allocation would
+
+
+def _carved(shapes, dtype, device, fill=None):
+    """Views of one new allocation, one per shape, each starting on a
+    CARVE_ALIGN boundary (the kernels' vector loads and cp.async copies
+    take 16-byte aligned rows, as separate allocations give them); filled
+    with ``fill`` in one launch if given."""
+    step = CARVE_ALIGN // torch.empty((), dtype=dtype).element_size()
+    offs, at = [], 0
+    for shape in shapes:
+        offs.append(at)
+        at += -(-int(np.prod(shape, dtype=np.int64)) // step) * step
+    buf = torch.empty(at, dtype=dtype, device=device)
+    if fill is not None:
+        buf.fill_(fill)
+    return [buf[o:o + int(np.prod(x, dtype=np.int64))].view(x)
+            for o, x in zip(offs, shapes)]
+
+
+STATE_TABLES = ("LL", "P", "E", "M", "Bt", "T1", "T2", "ep")
+
+
 def init_state(st: DPStatic, B: int):
     """Inside tables with PAD front rows of -inf: LL, P, E, M, Bt, T1, T2
     and the internal-loop term ep [Lp+1+PAD, Wp+1, S, B], O [Lp+1+PAD, S,
@@ -557,17 +570,19 @@ def init_state(st: DPStatic, B: int):
     end_states[0].  The outside pass reads every table, ep included.
     ep_shift [Lp+1, 3, B] holds the kernels' per-(column, read) exp-space
     shifts of the ep term: K3 writes a column's, K6 reads them (the plain
-    versions neither write nor read it)."""
+    versions neither write nor read it).  The tables are views of one
+    allocation: one fill of -inf, one of zeros, the diagonal and the
+    start."""
     Lp, Wp, S = st.dims.Lp, st.dims.Wp, st.dims.S
     PAD, dt, dev = st.PAD, st.dtype, st.device
     R = Lp + 1 + PAD
-    mk = lambda: torch.full((R, Wp + 1, S, B), NEG, dtype=dt, device=dev)
-    state = {k: mk() for k in ("LL", "P", "E", "M", "Bt", "T1", "T2", "ep")}
+    shapes = [(R, Wp + 1, S, B)] * len(STATE_TABLES) + [(R, S, B),
+                                                         (Lp + 1, 3, B)]
+    views = _carved(shapes, dt, dev, NEG)
+    views[-1].zero_()
+    state = dict(zip(STATE_TABLES + ("O", "ep_shift"), views))
     state["LL"][PAD:, 0] = st.diag_col[:, None]
-    O = torch.full((R, S, B), NEG, dtype=dt, device=dev)
-    O[PAD, int(st.g.end_states[0])] = 0.0
-    state["O"] = O
-    state["ep_shift"] = torch.zeros((Lp + 1, 3, B), dtype=dt, device=dev)
+    state["O"][PAD, int(st.g.end_states[0])] = 0.0
     return state
 
 
@@ -974,73 +989,244 @@ def ext_stage_plain(state, j, d, c, h, st):
 GRAD_TABLES = ("LL", "P", "E", "T1", "T2", "O")
 
 
+# the cotangents a caller may keep as a leaf's gradient (the masks' pair
+# posterior, the scanner's class sums, the dense aux): an allocation of
+# their own, so that what a caller keeps holds none of the pass's tables
+KEPT_GRADS = ("alphaP",) + AUX + ("cls",)
+
+
 def init_grads(fs, d: DiffFactors, c: ConstFactors, h):
-    """Zero gradient state for the inside tables ``fs``."""
-    z = torch.zeros_like
-    gs = {k: z(fs[k]) for k in GRAD_TABLES}
+    """Zero gradient state for the inside tables ``fs``: views of two
+    allocations, each filled once, the KEPT_GRADS and the pass's own.
+    Beside the cotangents of the tables, the factors and the hoisted
+    tensors: lambda's direct terms, all per read (the [2, B] cotangent of
+    the plain stages and of K6's small-loop term, K5's and K7's per-cell
+    partials DL[j, w, target, read], summed per bucket in finish_grads,
+    and K6's size-weight partials GSZ [2, 4, Cp+1, Cp+1, B]); the
+    scanner's dense aux (plain versions) and class probe; with a probe,
+    the kernels' class-partial buffers (cpR, cpL) [4, Wp+1, S, B]
+    (cls_red zeroes what it sums)."""
     col = fs["LL"][0]
-    gs.update(gM=z(col), gB=z(col), gep=z(col))
     B = col.shape[-1]
-    gs.update(eR=z(d.eR), eL=z(d.eL), bg2=z(d.bg2), pv=z(d.pv),
-              alphaP=z(d.alphaP))
-    gs.update({k: z(h[k]) for k in ("eSZ", "emisA", "emisB")})
-    # lambda's direct terms, all per read: the [2, B] cotangent (the plain
-    # stages' and K6's small-loop term), K5's and K7's per-cell partials
-    # DL[j, w, target, read] (summed per bucket in finish_grads) and K6's
-    # size-weight partials GSZ [2, 4, Cp+1, Cp+1, B]
-    gs["lam"] = torch.zeros((2, B), dtype=col.dtype, device=col.device)
-    gs["DL"] = z(fs["LL"][: d.pv.shape[0]])
-    gs["GSZ"] = z(h["eSZg"])
-    # the scanner's dense aux (plain versions) and class probe
-    gs.update({k: z(getattr(d, k)) for k in AUX + ("cls",)
-               if getattr(d, k) is not None})
+    like = {k: fs[k] for k in GRAD_TABLES}
+    like.update(gM=col, gB=col, gep=col, eR=d.eR, eL=d.eL, bg2=d.bg2,
+                pv=d.pv)
+    like.update({k: h[k] for k in ("eSZ", "emisA", "emisB")})
+    shapes = {k: tuple(v.shape) for k, v in like.items()}
+    shapes.update(lam=(2, B), DL=tuple(fs["LL"][: d.pv.shape[0]].shape),
+                  GSZ=tuple(h["eSZg"].shape))
+    if d.cls is not None:
+        part = (4, col.shape[0], col.shape[1], B)
+        shapes.update(_cpR=part, _cpL=part)
+    kept = {k: tuple(getattr(d, k).shape) for k in KEPT_GRADS
+            if getattr(d, k) is not None}
+    gs = {}
+    for group in (kept, shapes):
+        gs.update(zip(group, _carved(list(group.values()), col.dtype,
+                                     col.device, 0.0)))
+    if d.cls is not None:
+        gs["_cls_parts"] = (gs.pop("_cpR"), gs.pop("_cpL"))
     return gs
 
 
-def seed_parts(gs, gbar, c: ConstFactors, st):
-    """gbar [B, 3] enters the O cotangent at row L_b (JAX dp_bwd)."""
+class Ends(NamedTuple):
+    """What a pass's end (K19) forms from its parts [B, 3] besides them:
+    mode "parts" nothing; "objective" f [B] and eff [B], the per-read
+    objective terms (train/objective.py) of the flags and [B] vectors
+    below; "lse" z = lse(parts) and PyN = exp(parts[:, 0] - z) (the
+    scanner); "null" z = parts[:, 0] (the masks' motif-free pass)."""
+    mode: str = "parts"
+    lik_ratio: bool = False
+    restrict_ari: Optional[torch.Tensor] = None  # [B] bool
+    lik_sign: Optional[torch.Tensor] = None      # [B] +-1
+    is_neg: Optional[torch.Tensor] = None        # [B] bool
+    valid: Optional[torch.Tensor] = None         # [B] bool
+    eff: Optional[torch.Tensor] = None           # [B]
+
+
+PARTS = Ends()
+
+
+def ends_plain(parts, ends: Ends):
+    """K19's plain twin, forward: (y, y2) that ``ends`` forms from the
+    parts [B, 3] (None where its mode has none).  The objective's maths
+    are train/objective's, the scanner's scan/scanner's."""
+    if ends.mode == "parts":
+        return None, None
+    if ends.mode == "null":
+        return parts[:, 0].clone(), None
+    if ends.mode == "lse":
+        from ..scan.scanner import lse_ends_plain
+        return lse_ends_plain(parts)
+    from ..train.objective import objective_plain
+    return objective_plain(parts, ends)
+
+
+def ends_adj_plain(parts, ends: Ends, gy=None, gparts=None):
+    """K19's plain twin, adjoint: the parts' cotangent [B, 3] from that of
+    the mode's output gy [B] and of the parts gparts [B, 3] (either
+    None), in closed form (the mode's weights d y / d parts, as jax.vjp
+    of the forward gives them)."""
+    g = torch.zeros_like(parts)
+    if gy is not None and ends.mode != "parts":
+        if ends.mode == "null":
+            w = torch.zeros_like(parts)
+            w[:, 0] = 1.0
+        elif ends.mode == "lse":
+            w = lse_weights(parts, torch.ones(3, dtype=torch.bool,
+                                              device=parts.device))[1]
+        else:
+            from ..train.objective import objective_weights
+            w = objective_weights(parts, ends)
+        g = gy[:, None] * w
+    return g if gparts is None else g + gparts
+
+
+def extract_parts_plain(O, L, st):
+    """parts[b, k] = O[L_b + PAD, end_states[k], b] (ragged lengths)."""
+    B = O.shape[-1]
+    rows = O[L + st.PAD, :, torch.arange(B, device=O.device)]
+    return rows[:, st.end_states]                # [B, 3]
+
+
+def seed_parts_plain(gO, gbar, L, st):
+    """gbar [B, 3] enters the O cotangent gO at row L_b (JAX dp_bwd), end
+    state k = 0, 1, 2 in turn."""
     B = gbar.shape[0]
     ar = torch.arange(B, device=gbar.device)
-    rows = c.L.long() + st.PAD
+    rows = L.long() + st.PAD
     for k in range(3):
         es = torch.full_like(ar, int(st.g.end_states[k]))
-        gs["O"].index_put_((rows, es, ar), gbar[:, k].to(gs["O"].dtype),
-                           accumulate=True)
+        gO.index_put_((rows, es, ar), gbar[:, k].to(gO.dtype),
+                      accumulate=True)
 
 
-def finish_grads(gs, st):
+def ends_fwd(st, ends: Ends, O=None, L=None, parts=None):
+    """K19 for CUDA tensors, its plain twin otherwise: (parts, y, y2) of
+    the inside table O at rows L (or of the given parts) under
+    ``ends``."""
+    src = parts if O is None else O
+    if src.device.type != "cpu":
+        from . import kernels as K
+        return K.ends_fwd(st, ends, O, L, parts)
+    if O is not None:
+        parts = extract_parts_plain(O, L, st)
+    return (parts,) + ends_plain(parts, ends)
+
+
+def ends_adj(st, ends: Ends, parts, gy=None, gparts=None, gO=None, L=None,
+             gbar=False):
+    """K19's adjoint for CUDA tensors, its plain twin otherwise: the
+    parts' cotangent seeded into gO's rows L (when given) and returned
+    (when ``gbar``)."""
+    if parts.device.type != "cpu":
+        from . import kernels as K
+        return K.ends_adj(st, ends, parts, gy, gparts, gO, L, gbar)
+    g = ends_adj_plain(parts, ends, gy, gparts)
+    if gO is not None:
+        seed_parts_plain(gO, g, L, st)
+    return g if gbar else None
+
+
+def seed_parts(gs, gbar, c: ConstFactors, st):
+    """gbar [B, 3] enters the O cotangent at row L_b (JAX dp_bwd): K19's
+    seed for CUDA tensors, index_put_ otherwise."""
+    ends_adj(st, PARTS, gbar, gparts=gbar, gO=gs["O"], L=c.L)
+
+
+class _PartsEnds(torch.autograd.Function):
+    """What ``ends`` forms of given parts [B, 3] (the no-rss chain's):
+    K19 without its gather and seed, its adjoint the parts' cotangent."""
+
+    @staticmethod
+    def forward(ctx, st, ends, parts):
+        _, y, y2 = ends_fwd(st, ends, parts=parts)
+        ctx.set_materialize_grads(False)
+        ctx.st, ctx.ends = st, ends
+        ctx.save_for_backward(parts)
+        if y2 is not None:
+            ctx.mark_non_differentiable(y2)
+        return y, y2
+
+    @staticmethod
+    def backward(ctx, gy, _):
+        (parts,) = ctx.saved_tensors
+        return None, None, ends_adj(ctx.st, ctx.ends, parts, gy, gbar=True)
+
+
+def parts_ends(st, parts, ends: Ends = PARTS):
+    """(parts, y, y2) of ``ends`` for parts [B, 3] a pass gave (the no-rss
+    chain's), as dp_ends returns them."""
+    if ends.mode == "parts":
+        return parts, None, None
+    return (parts,) + _PartsEnds.apply(st, ends, parts)
+
+
+def zero_probe(Lp: int, B: int, dtype, device):
+    """A class probe [4, Lp, B] of zeros that requires grad, marked as
+    made so: the kernels, which take the probe as zeros only, then need
+    no count of its nonzeros on the device (a host sync) until it is
+    written in place (its version moves)."""
+    t = torch.zeros((4, Lp, B), dtype=dtype, device=device,
+                    requires_grad=True)
+    t._rnaelem_zero_version = t._version
+    return t
+
+
+def lam_sum_plain(DL, lam, st, extra=None):
+    """K20's plain twin: (lam + per bucket the read_sum of the per-cell
+    partials DL [Lp+1, Wp+1, S, B], summed over the bucket's states by
+    read_sum) + extra: the same bits for a read in any batch."""
+    DLs = read_sum(DL, 2)                                # [S, B]
+    out = lam + torch.stack([read_sum(DLs[st.bucket == b], 1)
+                             for b in range(2)])
+    return out if extra is None else out + extra
+
+
+def lam_sum(DL, lam, st, extra=None):
+    """Lambda's per-read cotangent from a gradient state's parts: K20 for
+    CUDA tensors, lam_sum_plain otherwise."""
+    if DL.device.type != "cpu":
+        from . import kernels as K
+        return K.lam_sum(st, DL, lam, extra)
+    return lam_sum_plain(DL, lam, st, extra)
+
+
+def hoisted_lam_term(cots, d: DiffFactors, c: ConstFactors, st):
+    """What the hoisted exponentials' cotangents ``cots`` (eSZ, eSZg,
+    emisA, emisB; None: zero) carry to lambda, [2, B] per read: K17 for
+    CUDA tensors, autograd through hoisted_plain for CPU tensors (None
+    where nothing reaches lambda)."""
+    if c.C.device.type != "cpu":
+        from . import kernels as K
+        return K.hoisted_adj(st, d.lam.detach(), c, cots)
+    lam = d.lam.detach().requires_grad_(True)
+    with torch.enable_grad():
+        h = hoisted_plain(d._replace(lam=lam), c, st)
+        (g,) = torch.autograd.grad([h[k] for k in HOISTED], [lam],
+                                   list(cots), allow_unused=True)
+    return g
+
+
+def finish_grads(gs, d: DiffFactors, c: ConstFactors, st, lam: bool = True):
     """Cotangents of (eR, eL, bg2, pv, lam, alphaP, eSZ, eSZg, emisA,
-    emisB) from a gradient state, every one per read: the kernels'
-    per-cell lambda partials are summed per bucket into lambda's [2, B]
-    (read_sum: the same bits for a read in any batch)."""
-    DLs = read_sum(gs["DL"], 2)                          # [S, B]
-    lam = gs["lam"] + torch.stack(
-        [read_sum(DLs[st.bucket == b], 1) for b in range(2)])
-    return (gs["eR"], gs["eL"], gs["bg2"], gs["pv"], lam, gs["alphaP"],
-            gs["eSZ"], gs["GSZ"], gs["emisA"], gs["emisB"])
+    emisB) from a gradient state, every one per read.  Lambda's (None
+    unless ``lam``) is its whole cotangent: its direct term, the kernels'
+    per-cell partials summed per bucket, and then what the hoisted
+    exponentials' cotangents carry to it (K20 over K17's term on the
+    card, lam_sum_plain over autograd through hoisted_plain on the CPU:
+    the same bits for a read in any batch)."""
+    hc = (gs["eSZ"], gs["GSZ"], gs["emisA"], gs["emisB"])
+    g = None
+    if lam:
+        g = lam_sum(gs["DL"], gs["lam"], st, hoisted_lam_term(hc, d, c, st))
+    return (gs["eR"], gs["eL"], gs["bg2"], gs["pv"], g, gs["alphaP"]) + hc
 
 
 def aux_grads(gs):
     """Cotangents of the dense aux and of the class probe present in the
     gradient state: {name: tensor}."""
     return {k: gs[k] for k in AUX + ("cls",) if k in gs}
-
-
-def lam_total(grads, d: DiffFactors, c: ConstFactors, st):
-    """Lambda's whole cotangent [2, B] from the outputs of
-    ``finish_grads``: its direct term plus what the hoisted
-    exponentials' cotangents carry to it (as autograd does in
-    dp_parts): K17 alone for CUDA tensors, autograd through
-    hoisted_plain for CPU tensors."""
-    if c.C.device.type != "cpu":
-        from . import kernels as K
-        return grads[4] + K.hoisted_adj(st, d.lam.detach(), c, grads[6:])
-    lam = d.lam.detach().requires_grad_(True)
-    with torch.enable_grad():
-        h = hoisted(d._replace(lam=lam), c, st)
-        (g,) = torch.autograd.grad([h[k] for k in HOISTED], [lam],
-                                   list(grads[6:]), allow_unused=True)
-    return grads[4] + (0.0 if g is None else g)
 
 
 def _leaves(**xs):
@@ -1228,30 +1414,39 @@ GRAD_KEYS = ("eR", "eL", "bg2", "pv", "lam", "alphaP") + HOISTED
 
 
 class _DPParts(torch.autograd.Function):
-    """[B, 3] log partition parts.  The hoisted exponentials come in as
-    inputs, so autograd carries their cotangents on to lambda; lambda's
-    direct terms come out of the outside pass itself, per read.  ``names``
-    are the DiffFactors fields given (the aux ones only when present)."""
+    """A pass: (parts [B, 3] log partition parts, y, y2): what ``ends``
+    forms of them (K19; None where its mode has none, y2 not
+    differentiable).  The backward is the outside pass (outside_state,
+    seeded by K19's adjoint) and finish_grads.  The hoisted exponentials
+    are formed inside, so lambda's cotangent gets their share from
+    finish_grads with its direct terms, per read.  ``names`` are the
+    DiffFactors fields given (the aux ones only when present)."""
 
     @staticmethod
-    def forward(ctx, dp, c, names, *vals):
-        n = len(names)
-        d = DiffFactors(**dict(zip(names, vals[:n])))
-        h = dict(zip(HOISTED, vals[n:]))
+    def forward(ctx, dp, c, ends, names, *vals):
+        d = DiffFactors(**dict(zip(names, vals)))
+        h = hoisted(d, c, dp.st)
         state = dp.run_inside(d, c, h)
+        parts, y, y2 = ends_fwd(dp.st, ends, O=state["O"], L=c.L)
+        ctx.set_materialize_grads(False)
         ctx.dp, ctx.c, ctx.d, ctx.h, ctx.state = dp, c, d, h, state
-        ctx.names = names
-        return dp.extract_parts(state["O"], c)
+        ctx.names, ctx.ends = names, ends
+        ctx.save_for_backward(parts)
+        if y2 is not None:
+            ctx.mark_non_differentiable(y2)
+        return parts, y, y2
 
     @staticmethod
-    def backward(ctx, gbar):
-        gs = ctx.dp.outside_state(ctx.state, gbar.contiguous(), ctx.d,
-                                  ctx.c, ctx.h)
+    def backward(ctx, gparts, gy, _):
+        (parts,) = ctx.saved_tensors
+        dp, c, d, names = ctx.dp, ctx.c, ctx.d, ctx.names
+        gs = dp.outside_state(ctx.state, gparts, d, c, ctx.h, ctx.ends,
+                              parts, gy)
         ctx.state = None
-        grads = dict(zip(GRAD_KEYS, finish_grads(gs, ctx.dp.st)))
+        lam = ctx.needs_input_grad[4 + names.index("lam")]
+        grads = dict(zip(GRAD_KEYS, finish_grads(gs, d, c, dp.st, lam)))
         grads.update(aux_grads(gs))
-        return (None, None, None) + tuple(
-            grads[k] for k in ctx.names + HOISTED)
+        return (None,) * 4 + tuple(grads.get(k) for k in names)
 
 
 class InsideDP:
@@ -1327,32 +1522,41 @@ class InsideDP:
             main.wait_stream(side)
             K.band_adj_tail(fs, gs, j, d, c, h, st)
 
-    def outside_state(self, fs, gbar, d, c, h):
-        """The outside pass (JAX dp_bwd) from the inside tables ``fs`` and
-        the parts' cotangent gbar [B, 3]: the final gradient state."""
+    def outside_state(self, fs, gparts, d, c, h, ends: Ends = PARTS,
+                      parts=None, gy=None):
+        """The outside pass (JAX dp_bwd) from the inside tables ``fs``: the
+        final gradient state.  K19's adjoint seeds it with the cotangents
+        of the parts, gparts [B, 3], and of what ``ends`` formed of the
+        pass's ``parts``, gy [B] (either None; ``parts`` is needed by the
+        modes other than "parts")."""
         gs = init_grads(fs, d, c, h)
-        seed_parts(gs, gbar, c, self.st)
+        ends_adj(self.st, ends, gparts if parts is None else parts, gy,
+                 gparts, gO=gs["O"], L=c.L)
         self.outside_columns(fs, gs, d, c, h, self.dims.Lp + 1, 1)
         return gs
 
     def outside(self, fs, gbar, d, c, h):
         """Cotangents of (eR, eL, bg2, pv, lam, alphaP, eSZ, eSZg, emisA,
-        emisB), per read, of the outside pass."""
-        return finish_grads(self.outside_state(fs, gbar, d, c, h), self.st)
+        emisB), per read, of the outside pass seeded with the parts'
+        cotangent gbar [B, 3] (finish_grads)."""
+        return finish_grads(self.outside_state(fs, gbar, d, c, h), d, c,
+                            self.st)
 
     def extract_parts(self, Ofin, c: ConstFactors):
-        """parts[b, k] = O[L_b, end_states[k], b] (ragged lengths)."""
-        B = Ofin.shape[-1]
-        rows = Ofin[c.L + self.st.PAD, :, torch.arange(B, device=Ofin.device)]
-        return rows[:, self.st.end_states]       # [B, 3]
+        """parts[b, k] = O[L_b, end_states[k], b] (ragged lengths): K19's
+        gather for CUDA tensors, extract_parts_plain otherwise."""
+        return ends_fwd(self.st, PARTS, O=Ofin, L=c.L)[0]
 
     def dp_parts(self, d: DiffFactors, c: ConstFactors):
-        h = hoisted(d, c, self.st)
+        """The pass's log partition parts [B, 3] (dp_ends' parts)."""
+        return self.dp_ends(d, c)[0]
+
+    def dp_ends(self, d: DiffFactors, c: ConstFactors, ends: Ends = PARTS):
+        """The pass's (parts [B, 3], y, y2) under ``ends`` (_DPParts)."""
         names = tuple(k for k in DiffFactors._fields
                       if getattr(d, k) is not None)
-        return _DPParts.apply(self, c, names,
-                              *[getattr(d, k) for k in names],
-                              *[h[k] for k in HOISTED])
+        return _DPParts.apply(self, c, ends, names,
+                              *[getattr(d, k) for k in names])
 
 
 def build_dp(g, dims: Dims, energy_tab, dtype=torch.float64, device=None):

@@ -19,7 +19,9 @@ loop and the type: their launch plans (ep_plan, band_plan, chain_plan)
 are worked out on the host from those alone, before any launch, and
 always name a hand-written kernel.  K14-K17
 (rows C and D: the factors and the hoisted exponentials, forward and
-adjoint) run once per evaluation.
+adjoint) run once per evaluation, and so do K18-K21 (rows G-I, K, O: the
+masks' candidates and threshold, a pass's ends and the objective,
+lambda's per-read sums, the scanner's posteriors).
 
 The scanner's aux factors reach the kernels as an ``Aux`` struct
 (csrc/common.cuh): the grammar's class codes, the evaluation's pin
@@ -33,6 +35,7 @@ import contextlib
 import ctypes
 import functools
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -50,7 +53,8 @@ CSRC = PKG / "csrc"
 SOURCES = ("score_tables.cu", "inside_band.cu", "inside_ep.cu",
            "inside_ext.cu", "outside_band.cu", "outside_ep.cu",
            "outside_ext.cu", "linear_fwd.cu", "linear_adj.cu",
-           "cyk_traceback.cu", "factors.cu", "hoisted.cu")
+           "cyk_traceback.cu", "factors.cu", "hoisted.cu", "bpp_keep.cu",
+           "ends.cu", "lam_sum.cu", "posteriors.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 LIB_NAME = "librnaelem_kernels.so"
@@ -115,6 +119,16 @@ KERNELS = {
                       "rnaelem_tpu/ops/dp.py:290"),
     "hoisted_adj": Kernel("hoisted_adj", "rnaelem_tpu_torch/csrc/hoisted.cu",
                           "rnaelem_tpu/ops/dp.py:828"),
+    # K18-K21: the passes' ends, the masks' threshold and the scanner's
+    # posteriors (rows G, H, I, K and O)
+    "bpp_keep": Kernel("bpp_keep", "rnaelem_tpu_torch/csrc/bpp_keep.cu",
+                       "rnaelem_tpu/model/joint.py:518"),
+    "parts": Kernel("parts", "rnaelem_tpu_torch/csrc/ends.cu",
+                    "rnaelem_tpu/ops/dp.py:771"),
+    "lam_sum": Kernel("lam_sum", "rnaelem_tpu_torch/csrc/lam_sum.cu",
+                      "rnaelem_tpu/ops/dp.py:812"),
+    "posteriors": Kernel("posteriors", "rnaelem_tpu_torch/csrc/posteriors.cu",
+                         "rnaelem_tpu/scan/scanner.py:147"),
 }
 
 
@@ -320,6 +334,36 @@ class TbCfg(ctypes.Structure):
     _fields_ = [("eps", ctypes.c_double), ("cap", ctypes.c_int)]
 
 
+class EndsArgs(ctypes.Structure):  # csrc/ends.cu
+    _fields_ = [(n, ctypes.c_int) for n in (
+        "B", "S", "PAD", "mode", "lik_ratio")] + [
+        (n, ctypes.c_void_p) for n in (
+            "O", "L", "end_states", "parts_in", "parts", "y", "y2",
+            "restrict_ari", "is_neg", "valid", "lik_sign", "eff", "gy",
+            "gparts", "gbar", "gO")]
+
+
+class LamSumArgs(ctypes.Structure):  # csrc/lam_sum.cu
+    _fields_ = [(n, ctypes.c_int) for n in ("n", "S", "B")] + [
+        (n, ctypes.c_void_p) for n in ("DL", "lam", "extra", "states")] + [
+        ("off", ctypes.c_int * 3)] + [
+        (n, ctypes.c_void_p) for n in ("out", "ws", "done")]
+
+
+class BppArgs(ctypes.Structure):  # csrc/bpp_keep.cu
+    _fields_ = [(n, ctypes.c_int) for n in (
+        "Lp", "Wp", "B", "max_span", "wmin")] + [
+        (n, ctypes.c_void_p) for n in (
+            "seq", "L", "pair", "bp0", "sel", "post")] + [
+        ("log_min_bpp", ctypes.c_double)] + [
+        (n, ctypes.c_void_p) for n in ("out", "eff")]
+
+
+class PostArgs(ctypes.Structure):  # csrc/posteriors.cu
+    _fields_ = [(n, ctypes.c_int) for n in ("Lp", "B", "end")] + [
+        (n, ctypes.c_void_p) for n in ("g", "L", "P0", "P1", "arg", "pin")]
+
+
 class ExtAdjListsArg(ctypes.Structure):  # csrc/outside_ext.cu ExtAdjLists
     _fields_ = [("idx", ctypes.c_void_p), ("wt", ctypes.c_void_p)] + [
         (n, ctypes.c_int) for n in ("nA", "nC", "nO", "nR", "nT")]
@@ -358,6 +402,12 @@ _SIGS = {
     "factors_adj": ((FacDims, FacIdx, FacAdjArgs), 3, 6),
     "hoisted": ((HoistDims, HoistIn, HoistOut, HoistGrid), 0),
     "hoisted_adj": ((HoistDims, HoistIn, HoistOut), 3, 3),
+    "bpp_candidates": ((BppArgs,), 0),
+    "bpp_keep": ((BppArgs,), 0),
+    "ends_fwd": ((EndsArgs,), 0),
+    "ends_adj": ((EndsArgs,), 0),
+    "lam_sum": ((LamSumArgs,), 0, 1),
+    "posteriors": ((PostArgs,), 0),
 }
 _SUF = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -398,17 +448,17 @@ def lib():
     return _lib
 
 
-def _call(kernel: str, fname: str, like, *args, variant=None):
+def _call(kernel: str, fname: str, like, *args, variant=None, dtype=None):
     """Launch rnaelem_<fname>_<type> for the dtype of the tensor ``like``
-    on its device's current stream, that device made current for the
-    launch when it is not (a process may hold tensors on several cards);
-    raise on a CUDA error; count the launch against ``kernel`` (and
-    against its plan's ``variant``, if any)."""
-    if like.dtype not in _SUF:
-        raise TypeError("kernels take float32 or float64, not %s"
-                        % like.dtype)
+    (or ``dtype``) on its device's current stream, that device made
+    current for the launch when it is not (a process may hold tensors on
+    several cards); raise on a CUDA error; count the launch against
+    ``kernel`` (and against its plan's ``variant``, if any)."""
+    dtype = like.dtype if dtype is None else dtype
+    if dtype not in _SUF:
+        raise TypeError("kernels take float32 or float64, not %s" % dtype)
     L = lib()
-    fn = getattr(L, "rnaelem_%s_%s" % (fname, _SUF[like.dtype]))
+    fn = getattr(L, "rnaelem_%s_%s" % (fname, _SUF[dtype]))
     dev = like.device.index
     with contextlib.nullcontext() if dev == torch.cuda.current_device() \
             else torch.cuda.device(dev):
@@ -610,7 +660,10 @@ def _check_tables(state, j, d, c, st, key):
     _req(c.dots_cum, "dots_cum", torch.int32, (Lp + 1, B), dev)
     if d.lam.dtype != dt or tuple(d.lam.shape) != (2, B):
         raise ValueError("lam: expected %s [2, %d]" % (dt, B))
-    if not torch.equal(d.lam, d.lam[:, :1].expand_as(d.lam)):
+    # copies seen through a zero stride along the reads (per_read's views
+    # of shared weights) are one value; others are compared on the device
+    if d.lam.stride(1) != 0 and \
+            not torch.equal(d.lam, d.lam[:, :1].expand_as(d.lam)):
         raise ValueError("the kernels take one lambda for the batch: "
                          "per-read copies must be equal")
     _check_aux(d, c, Lp, B, dt, dev)
@@ -640,7 +693,11 @@ def _check_pins(pin, B, dev):
 
 def _req_zero_probe(cls):
     """The kernels write the class sums at a zero probe: they never add
-    the probe's values to the transitions, as the plain versions do."""
+    the probe's values to the transitions, as the plain versions do.  A
+    probe of ops/dp.zero_probe not written since is zeros; any other is
+    counted on the device."""
+    if getattr(cls, "_rnaelem_zero_version", None) == cls._version:
+        return
     if torch.count_nonzero(cls).item():
         raise ValueError("the kernels take the class probe as zeros only")
 
@@ -1010,9 +1067,9 @@ def _adj_scratch(gs, st, B, dev):
         W1, C1, S, dt = st.dims.Wp + 1, st.dims.Cp + 1, st.dims.S, st.dtype
         e = lambda *shape: torch.empty(shape, dtype=dt, device=dev)
         # done: front_adj_sw's count of finished blocks (its last block
-        # resets it)
+        # resets it), kept on st across passes as K15's and K17's
         scr = dict(ePart=e(W1, S, B), bgp=e(W1, B),
-                   done=torch.zeros(1, dtype=torch.int32, device=dev))
+                   done=_done(st, "front_adj_sw", dev, 1))
         if st.have_ep:
             # K6's blocks' partials of the sums across x (right flank,
             # emisA row j, the size weights' triangle dl + u1 <= Cp,
@@ -2187,3 +2244,211 @@ def hoisted_adj(st, lam, c, cots, split=None):
           _p(glam), _p(part), _p(done), plan.K, plan.RL, plan.groups,
           variant=plan.name)
     return glam
+
+
+# ------------------------------- K18-K21: the passes' ends and the glue
+#
+# K19 (ends_fwd/ends_adj) gathers a pass's parts and forms what its caller
+# takes of them (ops/dp.Ends), and seeds the outside pass; K20 (lam_sum)
+# sums lambda's per-cell partials per read; K18 (bpp_candidates/bpp_keep)
+# makes the masks' candidate pairs and threshold; K21 (posteriors) the
+# scanner's posteriors from its class sums.  One thread per read (K19,
+# K21), per cell (K18) or the residue classes of a read's cells (K20):
+# each is one launch over at most B x (Lp+1) x (Wp+1) values.
+
+ENDS_MODES = {"parts": 0, "objective": 1, "lse": 2, "null": 3}
+
+
+def _ends_struct(st, ends, B, dev):
+    """EndsArgs for a launch on the grammar's DPStatic ``st``: the mode
+    of ``ends`` (ops/dp.Ends) and its per-read inputs, checked."""
+    if dev.type != "cuda" or st.dtype not in _SUF:
+        raise ValueError("parts kernel takes float32/float64 CUDA tensors")
+    if ends.mode not in ENDS_MODES:
+        raise ValueError("ends: unknown mode %r" % (ends.mode,))
+    a = EndsArgs(B, st.dims.S, st.PAD, ENDS_MODES[ends.mode],
+                 int(bool(ends.lik_ratio)))
+    a.end_states = st.k["end_states"].data_ptr()
+    if ends.mode == "objective":
+        for name, t in (("restrict_ari", ends.restrict_ari),
+                        ("is_neg", ends.is_neg), ("valid", ends.valid)):
+            _req(t, name, torch.bool, (B,), dev)
+            setattr(a, name, t.data_ptr())
+        for name, t in (("lik_sign", ends.lik_sign), ("eff", ends.eff)):
+            _req(t, name, st.dtype, (B,), dev)
+            setattr(a, name, t.data_ptr())
+    return a
+
+
+def _ends_rows(st, O, L, B, dev):
+    _req(O, "O", st.dtype, (st.dims.Lp + 1 + st.PAD, st.dims.S, B), dev)
+    _req(L, "L", torch.int64, (B,), dev)
+    return O.data_ptr(), L.data_ptr()
+
+
+def ends_fwd(st, ends, O=None, L=None, parts=None):
+    """K19's forward on the grammar's DPStatic ``st``: the parts [B, 3]
+    of the inside table O [Lp+1+PAD, S, B] at rows L + PAD (L int64
+    [B]), or the given parts [B, 3] (the no-rss chain's), and what
+    ``ends`` (ops/dp.Ends) forms of them: (parts, y [B] or None, y2 [B]
+    or None)."""
+    src = parts if O is None else O
+    B = src.shape[0] if O is None else src.shape[-1]
+    dev, dt = src.device, st.dtype
+    a = _ends_struct(st, ends, B, dev)
+    if O is None:
+        _req(parts, "parts", dt, (B, 3), dev)
+        a.parts_in = parts.data_ptr()
+    else:
+        a.O, a.L = _ends_rows(st, O, L, B, dev)
+        parts = torch.empty((B, 3), dtype=dt, device=dev)
+        a.parts = parts.data_ptr()
+    y = y2 = None
+    if ends.mode != "parts":
+        y = torch.empty((B,), dtype=dt, device=dev)
+        a.y = y.data_ptr()
+    if ends.mode in ("objective", "lse"):
+        y2 = torch.empty((B,), dtype=dt, device=dev)
+        a.y2 = y2.data_ptr()
+    _call("parts", "ends_fwd", src, a)
+    return parts, y, y2
+
+
+def ends_adj(st, ends, parts, gy=None, gparts=None, gO=None, L=None,
+             gbar=False):
+    """K19's adjoint: the parts' cotangent [B, 3] from that of the mode's
+    output gy [B] and a cotangent of the parts gparts [B, 3] (either
+    None), added into the outside pass's O cotangent gO [Lp+1+PAD, S, B]
+    at rows L + PAD when it is given, and returned when ``gbar``."""
+    B, dev, dt = parts.shape[0], parts.device, st.dtype
+    a = _ends_struct(st, ends, B, dev)
+    _req(parts, "parts", dt, (B, 3), dev)
+    a.parts = parts.data_ptr()
+    if gy is not None:
+        gy = gy.contiguous()
+        _req(gy, "cotangent of the parts' output", dt, (B,), dev)
+        a.gy = gy.data_ptr()
+    if gparts is not None:
+        gparts = gparts.contiguous()
+        _req(gparts, "cotangent of the parts", dt, (B, 3), dev)
+        a.gparts = gparts.data_ptr()
+    if gO is not None:
+        a.gO, a.L = _ends_rows(st, gO, L, B, dev)
+    out = torch.empty((B, 3), dtype=dt, device=dev) if gbar else None
+    if out is not None:
+        a.gbar = out.data_ptr()
+    if gO is None and out is None:
+        raise ValueError("ends_adj: neither gO nor gbar to write")
+    _call("parts", "ends_adj", parts, a)
+    return out
+
+
+LAM_SUM_ROW_BYTES = 128  # LamSumShape: a warp's row of reads, one line
+
+
+def lam_states(st):
+    """K20's states in (bucket, index) order, int32 on st's device, and
+    the buckets' offsets in it (built once per DPStatic)."""
+    got = st.__dict__.get("_lam_states")
+    if got is None:
+        bu = np.asarray(st.g.lam_bucket)
+        if not np.isin(bu, (0, 1)).all():
+            raise ValueError("lambda buckets must be 0 or 1")
+        order = np.argsort(bu, kind="stable").astype(np.int32)
+        got = st._lam_states = (torch.as_tensor(order, device=st.device),
+                                (0, int((bu == 0).sum()), len(bu)))
+    return got
+
+
+def lam_sum(st, DL, lam, extra=None):
+    """K20: lambda's per-read cotangent [2, B] = (lam [2, B] + per bucket
+    the sum of K5's and K7's per-cell partials DL [Lp+1, Wp+1, S, B] over
+    the bucket's states) + extra [2, B] (if given), every sum in
+    ops/dp.read_sum's order: ops/dp.lam_sum_plain's bits."""
+    dev, dt = DL.device, st.dtype
+    if dev.type != "cuda" or dt not in _SUF:
+        raise ValueError("lam_sum kernel takes float32/float64 CUDA tensors")
+    Lp1, W1, S, B = st.dims.Lp + 1, st.dims.Wp + 1, st.dims.S, DL.shape[-1]
+    _req(DL, "DL", dt, (Lp1, W1, S, B), dev)
+    _req(lam, "lam", dt, (2, B), dev)
+    if extra is not None:
+        extra = extra.contiguous()
+        _req(extra, "extra", dt, (2, B), dev)
+    states, off = lam_states(st)
+    groups = -(-B // (LAM_SUM_ROW_BYTES // DL.element_size()))
+    out = torch.empty((2, B), dtype=dt, device=dev)
+    ws = torch.empty((S * B,), dtype=dt, device=dev)
+    done = _done(st, "lam_sum", dev, groups)
+    _call("lam_sum", "lam_sum", DL, LamSumArgs(
+        Lp1 * W1, S, B, DL.data_ptr(), lam.data_ptr(),
+        None if extra is None else extra.data_ptr(), states.data_ptr(),
+        (ctypes.c_int * 3)(*off), out.data_ptr(), ws.data_ptr(),
+        done.data_ptr()), groups)
+    return out
+
+
+def bpp_candidates(pair, seq, L, Wp: int, max_span: int, turn: int, dtype):
+    """K18's candidates: bp0 [B, Lp+1, Wp+1] bool of
+    energy/tables.pair_mask_jw for the codes seq int32 [B, Lp], the
+    lengths L int32 [B] and the pair types ``pair`` int64 [5, 5] (the
+    energy tables' "bp"); ``dtype`` picks the instantiation."""
+    dev = seq.device
+    if dev.type != "cuda":
+        raise ValueError("bpp kernel: the reads must be CUDA tensors")
+    B, Lp = seq.shape
+    _req(seq, "seq", torch.int32, (B, Lp), dev)
+    _req(L, "L", torch.int32, (B,), dev)
+    _req(pair, "pair types", torch.int64, (5, 5), dev)
+    out = torch.empty((B, Lp + 1, Wp + 1), dtype=torch.bool, device=dev)
+    _call("bpp_keep", "bpp_candidates", out, BppArgs(
+        Lp, Wp, B, max_span, 1 if turn == 0 else turn + 2, seq.data_ptr(),
+        L.data_ptr(), pair.data_ptr(), None, None, None, 0.0,
+        out.data_ptr(), None), dtype=dtype)
+    return out
+
+
+def bpp_keep(bp0, sel, post, min_bpp: float, dtype):
+    """K18's threshold: (keep [B, Lp+1, Wp+1] bool, eff [B] of ``dtype``)
+    with keep = sel & (log(max(post, 1e-300)) >= log(min_bpp)) for the
+    motif-free posterior post [Lp+1, Wp+1, B] (batch-minor; None keeps
+    sel) and eff = count(keep) / max(count(bp0), 1)."""
+    dev = bp0.device
+    if dev.type != "cuda":
+        raise ValueError("bpp kernel: the masks must be CUDA tensors")
+    B, Lp1, W1 = bp0.shape
+    _req(bp0, "bp0", torch.bool, (B, Lp1, W1), dev)
+    _req(sel, "sel", torch.bool, (B, Lp1, W1), dev)
+    if post is not None:
+        _req(post, "post", dtype, (Lp1, W1, B), dev)
+    keep = torch.empty_like(bp0)
+    eff = torch.empty((B,), dtype=dtype, device=dev)
+    _call("bpp_keep", "bpp_keep", eff, BppArgs(
+        Lp1 - 1, W1 - 1, B, 0, 0, None, None, None, bp0.data_ptr(),
+        sel.data_ptr(), None if post is None else post.data_ptr(),
+        math.log(min_bpp) if post is not None else 0.0, keep.data_ptr(),
+        eff.data_ptr()))
+    return keep, eff
+
+
+def posteriors(g, L, end: bool):
+    """K21 from the class-probe cotangent g [4, Lp, B] and L int64 [B]:
+    pass 1 (end False) (Pys [B, Lp], Pyi [B, Lp], Ys int64 [B], Ys int32
+    [B], the end pass's pin); the end pass (Pye [B, Lp+1], Ye int64
+    [B])."""
+    dev, dt = g.device, g.dtype
+    if dev.type != "cuda":
+        raise ValueError("posteriors kernel takes CUDA tensors")
+    _, Lp, B = g.shape
+    _req(g, "class sums", dt, (4, Lp, B), dev)
+    _req(L, "L", torch.int64, (B,), dev)
+    e = lambda shape, t=dt: torch.empty(shape, dtype=t, device=dev)
+    arg = e((B,), torch.int64)
+    if end:
+        P0, P1, pin = e((B, Lp + 1)), None, None
+    else:
+        P0, P1, pin = e((B, Lp)), e((B, Lp)), e((B,), torch.int32)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    _call("posteriors", "posteriors", g, PostArgs(
+        Lp, B, int(end), g.data_ptr(), L.data_ptr(), ptr(P0), ptr(P1),
+        arg.data_ptr(), ptr(pin)))
+    return (P0, arg) if end else (P0, P1, arg, pin)

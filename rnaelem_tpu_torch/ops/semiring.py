@@ -32,6 +32,19 @@ def lse(x, axis=-1):
     return safe_log(s) + m.squeeze(axis)
 
 
+def lse_weights(x, use):
+    """(lse over the columns ``use`` (bool [n]) of x [B, n], the softmax
+    weights of those columns: 0 elsewhere, and where no term is
+    finite)."""
+    xm = torch.where(use[None], x, torch.full_like(x, NEG))
+    m = _finite_or_zero(torch.amax(xm, dim=-1, keepdim=True))
+    e = torch.exp(xm - m)
+    s = e.sum(dim=-1, keepdim=True)
+    w = torch.where(s > 0, e / torch.where(s > 0, s, torch.ones_like(s)),
+                    torch.zeros_like(e))
+    return lse(xm, axis=-1), w
+
+
 def logadd(a, b):
     """Elementwise log(e^a + e^b), -inf-safe."""
     m = _finite_or_zero(torch.maximum(a, b)).detach()

@@ -21,7 +21,10 @@ Replicates RNAelemScanDP (motif_scanner.hpp:186-260, 364-800):
 
 Both passes are the port's one gradient path (model/joint.py
 batch_logZ_parts through the DP's autograd Function): the kernels K2, K4,
-K5, K7 (K8/K9 for --no-rss models) take the pin and write the class sums.
+K5, K7 (K8/K9 for --no-rss models) take the pin and write the class sums,
+K19 forms z and PyN at the passes' ends and seeds them, and K21 assembles
+the posteriors and their argmaxes from the class sums (its plain twins
+``pass1_posteriors_plain`` and ``end_posteriors_plain`` on the CPU).
 """
 from __future__ import annotations
 
@@ -74,6 +77,52 @@ def _argmax_last(v):
     return n - 1 - torch.argmax(torch.flip(v, dims=(-1,)), dim=-1)
 
 
+def lse_ends_plain(parts):
+    """K19's plain twin in mode "lse": (z = lse(parts) [B], PyN =
+    exp(parts[:, 0] - z) [B], the motif-free share) of the parts [B,
+    3]."""
+    z = lse(parts, axis=-1)
+    return z, torch.exp(parts[:, 0] - z)
+
+
+def pass1_posteriors_plain(g, L):
+    """K21's plain twin, pass 1: from the class-probe cotangent g [4, Lp,
+    B] and L [B], (Pys, Pyi [B, Lp] masked to the read, Ys int64 [B] by
+    the last-maximum rule, Ys int32, the end pass's pin)."""
+    Lp = g.shape[1]
+    inb = torch.arange(Lp, device=g.device)[None, :] < L[:, None]
+    zero = torch.zeros((), dtype=g.dtype, device=g.device)
+    Pys = torch.where(inb, g[0].T, zero)
+    Pyi = torch.where(inb, g[1].T, zero)
+    Ys = _argmax_last(torch.where(inb, Pys, -1.0))
+    return Pys, Pyi, Ys, Ys.to(torch.int32)
+
+
+def end_posteriors_plain(g, L):
+    """K21's plain twin, end pass: (Pye [B, Lp+1], adding the tail mass
+    at p = L, Ye int64 [B] by the last-maximum rule over p <= L)."""
+    Lp, B = g.shape[1], g.shape[2]
+    dev, dt = g.device, g.dtype
+    inb = torch.arange(Lp, device=dev)[None, :] < L[:, None]
+    Pye_pos = torch.where(inb, g[2].T, torch.zeros((), dtype=dt, device=dev))
+    lastb = torch.clamp(L - 1, 0, Lp - 1)
+    pye_L = g[3][lastb, torch.arange(B, device=dev)]
+    pos = torch.arange(Lp + 1, device=dev)[None, :]
+    Pye = torch.cat([Pye_pos, torch.zeros((B, 1), dtype=dt, device=dev)],
+                    dim=1) + (pos == L[:, None]) * pye_L[:, None]
+    Ye = _argmax_last(torch.where(pos <= L[:, None], Pye, -1.0))
+    return Pye, Ye
+
+
+def _posteriors(g, L, end: bool):
+    """K21 on the card, its plain twin on the CPU."""
+    if g.device.type == "cuda":
+        from ..ops import kernels as K
+        return K.posteriors(g, L, end)
+    return end_posteriors_plain(g, L) if end else \
+        pass1_posteriors_plain(g, L)
+
+
 def scan_posteriors_batch(cfg: J.ModelConfig, params: J.Params,
                           sd_b: J.SeqData, valid=None, device=None,
                           mark=None):
@@ -97,47 +146,34 @@ def scan_posteriors_batch(cfg: J.ModelConfig, params: J.Params,
     L = torch.as_tensor(sd_b.L, device=dev).long()
     bp_ok, eff = J.effective_bp_mask_batch(cfg, sd_b, dev)
     mark("masks")
+    lse_ends = DP.Ends("lse")
 
     # pass 1: class sums and the weights' gradient (E[N]) of sum_b
     # valid_b logZ_b
-    leaves = J.Params(*[x.detach().clone().requires_grad_(True)
-                        for x in params])
-    cls = torch.zeros((4, Lp, B), dtype=dt, device=dev, requires_grad=True)
+    leaves = J.Params(*[x.detach().requires_grad_(True) for x in params])
+    cls = DP.zero_probe(Lp, B, dt, dev)
     with torch.enable_grad():
-        parts = J.batch_logZ_parts(cfg, leaves, sd_b, bp_ok, dev,
-                                   aux_b={"cls": cls})
-        z = lse(parts, axis=-1)
+        _, z, PyN = J.batch_ends(cfg, leaves, sd_b, bp_ok, dev,
+                                 aux_b={"cls": cls}, ends=lse_ends)
         mark("pass1_forward")
         gr = torch.autograd.grad(z, list(leaves) + [cls], valid,
                                  allow_unused=True)
     mark("pass1_outside")
     EN = J.Params(*[torch.zeros_like(x) if g is None else g
                     for x, g in zip(leaves, gr[:3])])
-    inb = torch.arange(Lp, device=dev)[None, :] < L[:, None]
-    zero = torch.zeros((), dtype=dt, device=dev)
-    Pys = torch.where(inb, gr[3][0].T, zero)
-    Pyi = torch.where(inb, gr[3][1].T, zero)
-    PyN = torch.exp(parts[:, 0] - z).detach()
-    Ys = _argmax_last(torch.where(inb, Pys, -1.0))
+    Pys, Pyi, Ys, Ys32 = _posteriors(gr[3], L, False)
+    del gr
 
     # end pass, start pinned per read at Ys
-    pin = DP.Pin(Ys.to(torch.int32).contiguous(), DP.CLS_START)
-    cls_e = torch.zeros((4, Lp, B), dtype=dt, device=dev,
-                        requires_grad=True)
+    pin = DP.Pin(Ys32, DP.CLS_START)
+    cls_e = DP.zero_probe(Lp, B, dt, dev)
     with torch.enable_grad():
-        parts_e = J.batch_logZ_parts(
+        _, ze, _ = J.batch_ends(
             cfg, J.Params(*[x.detach() for x in params]), sd_b, bp_ok, dev,
-            aux_b={"cls": cls_e, "pin": pin})
-        ze = lse(parts_e, axis=-1)
+            aux_b={"cls": cls_e, "pin": pin}, ends=lse_ends)
         mark("end_forward")
         (ge,) = torch.autograd.grad(ze, cls_e, valid)
     mark("end_outside")
-    Pye_pos = torch.where(inb, ge[2].T, zero)
-    lastb = torch.clamp(L - 1, 0, Lp - 1)
-    pye_L = ge[3][lastb, torch.arange(B, device=dev)]
-    pos = torch.arange(Lp + 1, device=dev)[None, :]
-    Pye = torch.cat([Pye_pos, torch.zeros((B, 1), dtype=dt, device=dev)],
-                    dim=1) + (pos == L[:, None]) * pye_L[:, None]
-    Ye = _argmax_last(torch.where(pos <= L[:, None], Pye, -1.0))
-    return dict(Pys=Pys, Pyi=Pyi, Pye=Pye, PyN=PyN, Z=z.detach(),
+    Pye, Ye = _posteriors(ge, L, True)
+    return dict(Pys=Pys, Pyi=Pyi, Pye=Pye, PyN=PyN.detach(), Z=z.detach(),
                 Ze=ze.detach(), Ys=Ys, Ye=Ye, EN=EN, eff=eff, bp_ok=bp_ok)

@@ -27,7 +27,8 @@ import torch
 
 from .. import device as DEV
 from ..model import joint as J
-from ..ops.semiring import NEG, lse
+from ..ops import dp as DP
+from ..ops.semiring import lse_weights
 
 
 class BatchData(NamedTuple):
@@ -182,33 +183,75 @@ def stack_reads(cfg: J.ModelConfig, reads, negatives=None,
                         bp_fn, device)
 
 
-def _per_read_terms(cfg, parts, batch: BatchData, lik_ratio: bool):
-    """Per-read objective terms f[B] / eff[B] (motif_trainer.hpp:156-245)."""
-    z_all = lse(parts, axis=-1)
-    sel = torch.as_tensor([False, True, True], device=parts.device)[None]
-    z_ari = lse(torch.where(sel, parts, torch.full_like(parts, NEG)),
-                axis=-1)
-    z_nasi = parts[:, 0]
-    if lik_ratio:
-        f = batch.lik_sign * (z_ari - z_all)
-        ok = torch.isfinite(z_all) & torch.isfinite(z_ari)
-    else:
-        z_restr = torch.where(batch.restrict_ari, z_ari, z_nasi)
-        f = z_all - z_restr
-        ok = torch.isfinite(z_all) & (batch.is_neg | torch.isfinite(z_ari))
+def _ends(batch: BatchData, lik_ratio: bool):
+    """The objective as a pass's end forms it (ops/dp.Ends, K19)."""
+    return DP.Ends("objective", lik_ratio, batch.restrict_ari,
+                   batch.lik_sign, batch.is_neg, batch.valid, batch.eff)
+
+
+def _softplus(y):
+    """log(1 + e^y) = max(y, 0) + log1p(e^-|y|): no overflow, and a
+    finite derivative everywhere autograd takes one."""
+    return torch.clamp(y, min=0) + torch.log1p(torch.exp(-torch.abs(y)))
+
+
+def _objective_terms(parts, ends):
+    """(f, ok & valid, d f / d parts [B, 3]) of the per-read objective
+    (motif_trainer.hpp:156-245) under ``ends`` (mode "objective"): z_all
+    = lse(parts), z_ari = lse(parts[:, 1:]), z_nasi = parts[:, 0].  The
+    differences of two lse that nearly cancel are taken as
+    softplus(+-(parts0 - z_ari)) and their gradients as products of the
+    softmax weights (w_ari,k - w_all,k = w_ari,k w_all,0), each a few
+    roundings from exact."""
+    dev = parts.device
+    z_all, wa = lse_weights(parts, torch.ones(3, dtype=torch.bool,
+                                              device=dev))
+    z_ari, wr = lse_weights(parts, torch.as_tensor([False, True, True],
+                                                   device=dev))
+    fin_all, fin_ari = torch.isfinite(z_all), torch.isfinite(z_ari)
+    # parts0 - z_ari, 0 where both are -inf (no finite term: f is masked)
+    x = torch.where(fin_all, parts[:, 0] - z_ari, torch.zeros_like(z_all))
+    # d (z_all - z_ari) / d parts, times sg
+    ari_w = lambda sg: torch.stack([sg * wa[:, 0],
+                                    -(sg * (wa[:, 0] * wr[:, 1])),
+                                    -(sg * (wa[:, 0] * wr[:, 2]))], dim=1)
+    if ends.lik_ratio:
+        sg = -ends.lik_sign
+        return sg * _softplus(x), fin_all & fin_ari & ends.valid, ari_w(sg)
+    ari = ends.restrict_ari
+    f = torch.where(ari, _softplus(x), _softplus(-x))
+    ok = fin_all & (ends.is_neg | fin_ari) & ends.valid
+    nasi_w = torch.stack([-(wa[:, 1] + wa[:, 2]), wa[:, 1], wa[:, 2]], dim=1)
+    return f, ok, torch.where(ari[:, None], ari_w(1.0), nasi_w)
+
+
+def objective_plain(parts, ends):
+    """K19's plain twin in mode "objective": the per-read terms (f [B],
+    eff [B]) of the parts [B, 3], 0 where a read does not count."""
+    f, ok, _ = _objective_terms(parts, ends)
     zero = torch.zeros_like(f)
-    f = torch.where(ok & batch.valid, f, zero)
-    eff = torch.where(batch.valid & ~batch.is_neg, batch.eff.to(f.dtype),
-                      zero)
-    return f, eff
+    eff = torch.where(ends.valid & ~ends.is_neg, ends.eff.to(f.dtype), zero)
+    return torch.where(ok, f, zero), eff
+
+
+def objective_weights(parts, ends):
+    """K19's plain twin's adjoint in mode "objective": d f / d parts [B,
+    3], 0 where a read does not count."""
+    _, ok, w = _objective_terms(parts, ends)
+    return torch.where(ok[:, None], w, torch.zeros_like(w))
+
+
+def _per_read_terms(cfg, parts, batch: BatchData, lik_ratio: bool):
+    """Per-read objective terms f[B] / eff[B] (motif_trainer.hpp:156-245)
+    of given parts: K19's plain twin (objective_plain)."""
+    return objective_plain(parts, _ends(batch, lik_ratio))
 
 
 def batch_total(cfg: J.ModelConfig, params: J.Params, batch: BatchData,
                 lik_ratio: bool = False, device=None):
     """(sum f, sum eff) over the batch through the batched DP."""
-    parts = J.batch_logZ_parts(cfg, params, batch.sd, batch.bp_ok,
-                               device=device)
-    f, eff = _per_read_terms(cfg, parts, batch, lik_ratio)
+    _, f, eff = J.batch_ends(cfg, params, batch.sd, batch.bp_ok,
+                             device=device, ends=_ends(batch, lik_ratio))
     return f.sum(), eff.sum()
 
 
@@ -217,21 +260,24 @@ def batch_fn_grad_pr(cfg: J.ModelConfig, params: J.Params,
     """(f [B], per-read gradients as Params with a leading read axis,
     eff [B]).
 
-    The weights enter as per-read copies (a few KB of tables, B x
-    [n, 4|6] and B x [2]), so d f_b / d weights of read b is the
-    gradient of its own copy: the one-hot contractions of the factors
-    and the outside pass's lambda terms keep the read axis.  The DP
-    kernels themselves take one shared lambda (the copies are equal)."""
+    The weights enter as per-read copies (per_read's views of shared
+    weights, B x [n, 4|6] and B x [2]), so d f_b / d weights of read b is
+    the gradient of its own copy: the one-hot contractions of the factors
+    and the outside pass's lambda terms keep the read axis, and the
+    gradient is taken at the copies (seeded with ones, the cotangent of
+    each read's f).  The DP kernels take one shared lambda (the copies
+    are one value)."""
     B = batch.valid.shape[0]
-    leaves = J.Params(*[x.detach().clone().requires_grad_(True)
-                        for x in J.per_read(params, B)])
+    leaves = J.per_read(J.Params(*[x.detach().requires_grad_(True)
+                                   for x in params]), B)
     with torch.enable_grad():
-        parts = J.batch_logZ_parts_pr(cfg, leaves, batch.sd, batch.bp_ok,
-                                      device=device)
-        f, eff = _per_read_terms(cfg, parts, batch, lik_ratio)
-        gr = torch.autograd.grad(f.sum(), list(leaves), allow_unused=True)
-    grads = J.Params(*[torch.zeros_like(x) if g is None else g
-                       for x, g in zip(leaves, gr)])
+        _, f, eff = J.batch_ends_pr(cfg, leaves, batch.sd, batch.bp_ok,
+                                    device=device,
+                                    ends=_ends(batch, lik_ratio))
+        gr = torch.autograd.grad(f, list(leaves), torch.ones_like(f),
+                                 allow_unused=True)
+    grads = J.Params(*[torch.zeros(x.shape, dtype=x.dtype, device=x.device)
+                       if g is None else g for x, g in zip(leaves, gr)])
     return f.detach(), grads, eff
 
 

@@ -187,7 +187,7 @@ def test_the_one_hot_rows_are_the_plain_versions():
 def test_hoisted_size_classes_are_the_plain_versions(pattern):
     """K16/K17's size classes (kernels.hoist_static): SZT is the plain
     version's transpose of the size weights, grp its groups; the plain
-    adjoint of the hoisted tensors (lam_total's autograd on the CPU) sums
+    adjoint of the hoisted tensors (finish_grads' autograd on the CPU) sums
     each tensor's terms per read."""
     ct = TJ.ModelConfig(pattern=pattern, Lp=LP, max_span=12, max_iloop=6,
                         min_bpp=0.0, tau=0.1, dtype="float64")
@@ -276,25 +276,38 @@ def test_band_plan_forces_four_cells_a_thread(kernel, dtype, dots):
 
 
 def test_lam_total_on_the_cpu_is_the_hoisted_autograd():
-    """ops/dp.lam_total on CPU tensors: the direct term plus autograd
-    through hoisted_plain, per read (what K17 replaces on the card)."""
+    """Lambda's whole cotangent from ops/dp.finish_grads on CPU tensors:
+    the direct term plus autograd through hoisted_plain, per read (what
+    K17 replaces on the card)."""
     _, ct, _, sd_t, bp, w, rng = _case("(.....)", {})
     k = TJ.kernels(ct, "cpu")
+    st = k.dp.st
     d, c = TJ.batch_factors(ct, TJ.Params(*[torch.as_tensor(x[0]) for x in w]),
                             sd_t, torch.as_tensor(bp), device="cpu")
-    h = DP.hoisted(d, c, k.dp.st)
+    h = DP.hoisted(d, c, st)
     cots = [torch.as_tensor(rng.randn(*h[n].shape)) for n in DP.HOISTED]
     direct = torch.as_tensor(rng.randn(2, 3))
-    grads = (None,) * 4 + (direct, None) + tuple(cots)
-    got = DP.lam_total(grads, d, c, k.dp.st)
+    DL = torch.zeros((st.dims.Lp + 1, st.dims.Wp + 1, st.dims.S, 3),
+                     dtype=direct.dtype)
+
+    def lam_of(cots, direct, DL, d, c):
+        gs = dict(zip(("eSZ", "GSZ", "emisA", "emisB"), cots), lam=direct,
+                  DL=DL, **{n: None for n in ("eR", "eL", "bg2", "pv",
+                                              "alphaP")})
+        return DP.finish_grads(gs, d, c, st)[4]
+
+    got = lam_of(cots, direct, DL, d, c)
     lam = d.lam.detach().clone().requires_grad_(True)
     with torch.enable_grad():
-        hp = DP.hoisted_plain(d._replace(lam=lam), c, k.dp.st)
+        hp = DP.hoisted_plain(d._replace(lam=lam), c, st)
         (g,) = torch.autograd.grad([hp[n] for n in DP.HOISTED], [lam], cots)
     assert torch.equal(got, direct + g)
+    # with K5's/K7's partials, K20's twin over the same term (its order)
+    DL = torch.as_tensor(rng.randn(*DL.shape))
+    got = lam_of(cots, direct, DL, d, c)
+    assert torch.equal(got, DP.lam_sum_plain(DL, direct, st, g))
     # each read's cotangent is its own: the first read alone gives its bits
     c1 = c._replace(C=c.C[:1], ep={n: v[..., :1] for n, v in c.ep.items()})
-    one = DP.lam_total((None,) * 4 + (direct[:, :1], None) +
-                       tuple(x[..., :1] for x in cots),
-                       d._replace(lam=d.lam[:, :1]), c1, k.dp.st)
+    one = lam_of([x[..., :1] for x in cots], direct[:, :1], DL[..., :1],
+                 d._replace(lam=d.lam[:, :1]), c1)
     assert torch.equal(one, got[:, :1])

@@ -17,6 +17,7 @@ from rnaelem_tpu_torch.ops import dp as DP
 from rnaelem_tpu_torch.ops import dp_maxb as DMB
 from rnaelem_tpu_torch.ops import kernels as K
 from rnaelem_tpu_torch.ops import linear as LIN
+from rnaelem_tpu_torch.scan import scanner as SC
 from rnaelem_tpu_torch.train import objective as OBJ
 
 # the CPU path is many small torch ops: one thread per test process
@@ -41,6 +42,8 @@ def _cfg(dtype, pattern="(.....)"):
                          min_bpp=0.0, tau=0.1, dtype=dtype)
 
 
+GLUE_WRAPPERS = ("bpp_candidates", "bpp_keep", "ends_fwd", "ends_adj",
+                 "lam_sum", "posteriors")
 DP_KERNELS = ("score_tables", "inside_band", "inside_ep", "inside_ext",
               "outside_band", "outside_ep", "outside_ext")
 ROWS_CD = ("factors", "factors_adj", "hoisted", "hoisted_adj")
@@ -59,7 +62,9 @@ def _need_cuda():
                                   "max_band_m", "max_band_e", "max_ep_stage",
                                   "max_ext_stage", "cyk_traceback",
                                   "factors", "factors_adj", "hoisted",
-                                  "hoisted_adj"])
+                                  "hoisted_adj", "bpp_candidates",
+                                  "bpp_keep", "ends_fwd", "ends_adj",
+                                  "lam_sum", "posteriors"])
 def test_kernel_wrappers_reject_cpu_tensors(name):
     """A wrapper launches its kernel or raises: handed CPU tensors it
     raises before building anything (the CPU path is the dispatcher's
@@ -88,6 +93,27 @@ def test_kernel_wrappers_reject_cpu_tensors(name):
         L = torch.full((2,), cfg.Lp, dtype=torch.int64)
         args = (k.dp.st, eR, L) + ((eR, torch.zeros((2, 3))) if
                                  name == "chain_adj" else ())
+        with pytest.raises(ValueError, match="CUDA"):
+            getattr(K, name)(*args)
+        return
+    if name in GLUE_WRAPPERS:
+        B, st = 5, k.dp.st
+        L = torch.as_tensor(batch.sd.L).long()
+        bp0 = J._complementary_bp(cfg, k, batch.sd)
+        O = torch.zeros((cfg.Lp + 1 + st.PAD, k.g.S, B), dtype=torch.float64)
+        parts = torch.zeros((B, 3), dtype=torch.float64)
+        args = {"bpp_candidates": (k.tab["bp"], batch.sd.seq, batch.sd.L,
+                                   cfg.Wp, cfg.max_span, cfg.turn,
+                                   torch.float64),
+                "bpp_keep": (bp0, bp0, None, 1e-4, torch.float64),
+                "ends_fwd": (st, DP.PARTS, O, L),
+                "ends_adj": (st, DP.PARTS, parts, None, parts, O, L),
+                "lam_sum": (st, torch.zeros((cfg.Lp + 1, cfg.Wp + 1, k.g.S,
+                                             B), dtype=torch.float64),
+                            torch.zeros((2, B), dtype=torch.float64)),
+                "posteriors": (torch.zeros((4, cfg.Lp, B),
+                                           dtype=torch.float64), L, False),
+                }[name]
         with pytest.raises(ValueError, match="CUDA"):
             getattr(K, name)(*args)
         return
@@ -123,6 +149,21 @@ def test_kernels_take_the_class_probe_as_zeros_only(nonzero):
     cls[2, 4, 1] = 1e-30
     with pytest.raises(ValueError, match="zeros only"):
         K._req_zero_probe(cls)
+
+
+@pytest.mark.parametrize("written", [False, True])
+def test_marked_zero_probe_is_counted_once_written(written):
+    """A probe of ops/dp.zero_probe passes the zeros check uncounted (no
+    host sync) until it is written in place; then it is counted like any
+    other, and a nonzero one is refused."""
+    cls = DP.zero_probe(6, 3, torch.float64, "cpu")
+    if written:
+        with torch.no_grad():
+            cls[2, 4, 1] = 1e-30
+        with pytest.raises(ValueError, match="zeros only"):
+            K._req_zero_probe(cls)
+        return
+    K._req_zero_probe(cls)
 
 
 def _score_inputs(B, Lp, Wp, seed):
@@ -360,14 +401,12 @@ def test_outside_pass_kernels_match_plain_and_repeat_bitwise():
     for j in range(cfg.Lp, 0, -1):
         for plain in DP.PLAIN_ADJ_STAGES:
             plain(fs, gs, j, d, c, h, dp.st)
-    want = DP.finish_grads(gs, dp.st)
+    want = DP.finish_grads(gs, d, c, dp.st)
     for a, a2 in zip(got, again):
         assert torch.equal(a, a2)
     # the kernels carry the size weights' cotangent on eSZg, the plain
     # version on eSZ: lambda's whole cotangent compares
-    pairs = list(zip(got[:4], want[:4])) + [
-        (got[5], want[5]), (DP.lam_total(got, d, c, dp.st),
-                            DP.lam_total(want, d, c, dp.st))]
+    pairs = list(zip(got[:6], want[:6]))
     for a, b in pairs:
         scale = max(1.0, float(b.abs().max()))
         assert float((a - b).abs().max()) <= 1e-9 * scale
@@ -767,8 +806,8 @@ def test_fused_ep_kernels_match_plain(case):
         assert not torch.isnan(a).any(), k_
         scale = max(1.0, float(b.abs().max()))
         assert float((a - b).abs().max()) <= tol * scale, k_
-    lk = DP.lam_total(DP.finish_grads(kg, st), d, c, st)
-    lp = DP.lam_total(DP.finish_grads(pg, st), d, c, st)
+    lk = DP.finish_grads(kg, d, c, st)[4]
+    lp = DP.finish_grads(pg, d, c, st)[4]
     assert float((lk - lp).abs().max()) <= tol * max(
         1.0, float(lp.abs().max()))
 
@@ -897,8 +936,8 @@ def test_m_chain_kernels_match_plain(case):
     pairs += [(kg[k_], pg[k_]) for k_ in
               ("eR", "eL", "bg2", "pv", "alphaP", "gM", "gep")
               + (("cls",) if pinned else ())]
-    pairs.append((DP.lam_total(DP.finish_grads(kg, st), d, c, st),
-                  DP.lam_total(DP.finish_grads(pg, st), d, c, st)))
+    pairs.append((DP.finish_grads(kg, d, c, st)[4],
+                  DP.finish_grads(pg, d, c, st)[4]))
     for i, (a, b) in enumerate(pairs):
         assert not torch.isnan(a).any(), i
         scale = max(1.0, float(b.abs().max()))
@@ -1544,8 +1583,8 @@ def test_ext_adjoint_kernel_matches_plain(case, dtype):
         rows = j0 + st.PAD + 1
         pairs = [(kg[k_][:rows], pg[k_][:rows]) for k_ in DP.GRAD_TABLES]
         pairs += [(kg["eR"], pg["eR"]),
-                  (DP.lam_total(DP.finish_grads(kg, st), d, c, st),
-                   DP.lam_total(DP.finish_grads(pg, pst), pd, pc, pst))]
+                  (DP.finish_grads(kg, d, c, st)[4],
+                   DP.finish_grads(pg, pd, pc, pst)[4])]
         if pinned:
             parts = K._cls_parts(kg, st, n, fs["O"].device)
             pairs.append((parts[0][:, 0].sum(1),
@@ -1656,8 +1695,9 @@ def test_hoisted_kernels_match_plain(dtype, tol, n):
     """K16 (the hoisted exp-space tensors) and K17 (lambda's cotangent)
     against hoisted_plain and its autograd for per-read lambdas (a
     strided view, as the DP's copies are), at B = 1, 7 (one read a
-    thread), 16, 64 and 600 (16 bytes a thread); lam_total launches K17
-    alone (no second K16) and equals the autograd route; two runs give
+    thread), 16, 64 and 600 (16 bytes a thread); finish_grads launches
+    K17 alone (no second K16) and K20, and equals the autograd route; two
+    runs give
     the same bits, and so do K16's scalar path (inputs off a 16-byte
     boundary) and its vector path."""
     _need_cuda()
@@ -1670,24 +1710,23 @@ def test_hoisted_kernels_match_plain(dtype, tol, n):
         want = DP.hoisted_plain(d._replace(lam=lam), c, k.dp.st)
     cots = [torch.as_tensor(rng.randn(*want[n_].shape), dtype=lam.dtype,
                             device="cuda") for n_ in DP.HOISTED]
-    got = []
-    for route in (DP.hoisted_plain, DP.hoisted, DP.hoisted):
-        leaf = lam.detach().clone().requires_grad_(True)
-        with torch.enable_grad():
-            h = route(d._replace(lam=leaf), c, k.dp.st)
-            (g,) = torch.autograd.grad([h[n_] for n_ in DP.HOISTED], [leaf],
-                                       cots)
-        got.append(([h[n_].detach() for n_ in DP.HOISTED], g))
-    (hp, gp), (hk, gk), (hk2, gk2) = got
+    dl = d._replace(lam=lam)
+    hp, gp = _hoisted_by_autograd(dl, c, k.dp.st, cots)
+    hk, gk = _hoisted_by_kernels(dl, c, k.dp.st, cots)
+    hk2, gk2 = _hoisted_by_kernels(dl, c, k.dp.st, cots)
     for a, b, a2 in zip(hk, hp, hk2):
         assert torch.equal(a, a2) and _rel_ok(a, b, tol)
     assert torch.equal(gk, gk2) and _rel_ok(gk, gp, tol)
+    st = k.dp.st
     direct = torch.zeros_like(gk)
-    grads = (None,) * 4 + (direct, None) + tuple(cots)
+    gs = dict(zip(("eSZ", "GSZ", "emisA", "emisB"), cots), lam=direct,
+              DL=torch.zeros((st.dims.Lp + 1, st.dims.Wp + 1, st.dims.S, n),
+                             dtype=gk.dtype, device="cuda"),
+              **{n_: None for n_ in ("eR", "eL", "bg2", "pv", "alphaP")})
     K.reset_counts()
-    total = DP.lam_total(grads, d._replace(lam=lam), c, k.dp.st)
-    assert (K.KERNELS["hoisted"].launches,
-            K.KERNELS["hoisted_adj"].launches) == (0, 1)
+    total = DP.finish_grads(gs, dl, c, st)[4]
+    assert (K.KERNELS["hoisted"].launches, K.KERNELS["hoisted_adj"].launches,
+            K.KERNELS["lam_sum"].launches) == (0, 1, 1)
     assert torch.equal(total, direct + gk)
     # the same inputs 4 bytes off a 16-byte boundary take the scalar path
     def shifted(x):
@@ -1702,6 +1741,27 @@ def test_hoisted_kernels_match_plain(dtype, tol, n):
     assert K.KERNELS["hoisted"].variants == {"V=1": 1}
     for a, b in zip(h1, hk):
         assert torch.equal(a, b)
+
+
+def _hoisted_by_autograd(d, c, st, cots):
+    """(the four hoisted tensors, lambda's cotangent [2, B] from their
+    cotangents ``cots``): hoisted_plain and its autograd."""
+    leaf = d.lam.detach().clone().requires_grad_(True)
+    with torch.enable_grad():
+        h = DP.hoisted_plain(d._replace(lam=leaf), c, st)
+        (g,) = torch.autograd.grad([h[n_] for n_ in DP.HOISTED], [leaf], cots)
+    return [h[n_].detach() for n_ in DP.HOISTED], g
+
+
+def _hoisted_by_kernels(d, c, st, cots):
+    """The same on the card: K16 (ops/dp.hoisted), then K17 alone
+    (hoisted_lam_term)."""
+    h = DP.hoisted(d, c, st)
+    K.reset_counts()
+    g = DP.hoisted_lam_term(cots, d, c, st)
+    assert (K.KERNELS["hoisted"].launches,
+            K.KERNELS["hoisted_adj"].launches) == (0, 1)
+    return [h[n_] for n_ in DP.HOISTED], g
 
 
 def _same_fields(ours, plain, tol):
@@ -1749,15 +1809,8 @@ def test_null_factor_kernels_match_plain(dtype, tol):
     rng = np.random.RandomState(6)
     cots = [torch.as_tensor(rng.randn(*want[n_].shape), dtype=dk.lam.dtype,
                             device="cuda") for n_ in DP.HOISTED]
-    got = []
-    for route, d, c in ((DP.hoisted_plain, dp_, cp_), (DP.hoisted, dk, ck)):
-        leaf = d.lam.detach().clone().requires_grad_(True)
-        with torch.enable_grad():
-            h = route(d._replace(lam=leaf), c, st)
-            (g,) = torch.autograd.grad([h[n_] for n_ in DP.HOISTED], [leaf],
-                                       cots)
-        got.append(([h[n_].detach() for n_ in DP.HOISTED], g))
-    (hp, gp), (hk, gk) = got
+    hp, gp = _hoisted_by_autograd(dp_, cp_, st, cots)
+    hk, gk = _hoisted_by_kernels(dk, ck, st, cots)
     for a, b in zip(hk, hp):
         assert _rel_ok(a, b, tol)
     assert _rel_ok(gk, gp, tol)
@@ -2017,3 +2070,138 @@ def test_m_chain_and_chain_past_1024_states(dtype):
     finally:
         J._kernels_cached.cache_clear()
         torch.cuda.empty_cache()
+
+
+# ------------------------------------------------- K18-K21 (the glue)
+
+def _bits(t):
+    t = t.contiguous()
+    return t.view({torch.float32: torch.int32,
+                   torch.float64: torch.int64}.get(t.dtype, t.dtype))
+
+
+def _same_bits(a, b):
+    return a.shape == b.shape and a.dtype == b.dtype and \
+        torch.equal(_bits(a), _bits(b))
+
+
+def _glue_inputs(dtype, pattern="(.....)", n=16, seed=51):
+    """A batch of n reads on the card with its masks' candidates and
+    motif-free posterior, the inside O table and the outside pass's
+    gradient state of random weights, and the pass-1 class sums."""
+    cfg = dataclasses.replace(_cfg(dtype, pattern), min_bpp=1e-4)
+    batch = _batch(cfg, "cuda", n=n, seed=seed)
+    k = J.kernels(cfg, "cuda")
+    bp0 = J._complementary_bp(cfg, k, batch.sd)
+    _, post = J._null_posterior(cfg, k, batch.sd, bp0)
+    params = _random_params(cfg, "cuda")
+    d, c = J.batch_factors(cfg, params, batch.sd, batch.bp_ok, device="cuda")
+    h = DP.hoisted(d, c, k.dp.st)
+    fs = k.dp.run_inside(d, c, h)
+    gbar = torch.as_tensor(np.random.RandomState(seed).rand(n, 3),
+                           dtype=k.dtype, device="cuda")
+    gs = k.dp.outside_state(fs, gbar, d, c, h)
+    cls = DP.zero_probe(cfg.Lp, n, k.dtype, "cuda")
+    with torch.enable_grad():
+        _, z, _ = J.batch_ends(cfg, params, batch.sd, batch.bp_ok, "cuda",
+                               aux_b={"cls": cls}, ends=DP.Ends("lse"))
+        (g,) = torch.autograd.grad(z, cls, torch.ones_like(z))
+    return types.SimpleNamespace(cfg=cfg, k=k, batch=batch, bp0=bp0,
+                                 post=post, O=fs["O"], L=c.L, gs=gs, g=g)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_glue_kernels_match_plain(dtype):
+    """K18 (candidates, keep and eff), K20 (lambda's cotangent) and K21
+    (both passes' posteriors, on rounded sums too: ties) bit for bit
+    their plain twins; K19 (the gather bitwise, every mode's outputs,
+    gbar and the seeded O rows) within 1e-12 (f64) / 1e-6 (f32) relative
+    in the max norm."""
+    _need_cuda()
+    x = _glue_inputs(dtype)
+    st, dt, sd = x.k.dp.st, x.k.dtype, x.batch.sd
+    L64 = torch.as_tensor(sd.L, device="cuda").long()
+    assert torch.equal(x.bp0, ET.pair_mask_jw(
+        x.k.tab, torch.as_tensor(sd.seq, device="cuda").long(), L64,
+        torch.clamp(L64, max=x.cfg.max_span), x.cfg.Wp, x.cfg.turn))
+    got = K.bpp_keep(x.bp0, x.bp0, x.post, 1e-4, dt)
+    want = J.bpp_keep_plain(x.bp0, x.bp0, x.post, 1e-4, dt)
+    assert torch.equal(got[0], want[0]) and _same_bits(got[1], want[1])
+    assert 0 < int(got[0].sum()) < int(x.bp0.sum())
+    extra = torch.randn((2, x.L.shape[0]), dtype=dt, device="cuda")
+    for ex in (None, extra):
+        assert _same_bits(K.lam_sum(st, x.gs["DL"], x.gs["lam"], ex),
+                          DP.lam_sum_plain(x.gs["DL"], x.gs["lam"], st, ex))
+    for gg in (x.g, torch.round(x.g * 4) / 4):
+        for end in (False, True):
+            a = K.posteriors(gg, L64, end)
+            b = SC.end_posteriors_plain(gg, L64) if end else \
+                SC.pass1_posteriors_plain(gg, L64)
+            assert all(_same_bits(u, v) for u, v in zip(a, b))
+    tol = 1e-12 if dtype == "float64" else 1e-6
+    rng = np.random.RandomState(3)
+    B = x.L.shape[0]
+    obj = dict(restrict_ari=torch.as_tensor(rng.rand(B) < .5, device="cuda"),
+               lik_sign=torch.as_tensor(np.where(rng.rand(B) < .5, -1., 1.),
+                                        dtype=dt, device="cuda"),
+               is_neg=torch.as_tensor(rng.rand(B) < .3, device="cuda"),
+               valid=torch.as_tensor(rng.rand(B) < .9, device="cuda"),
+               eff=torch.as_tensor(rng.rand(B), dtype=dt, device="cuda"))
+    gy = torch.as_tensor(rng.randn(B), dtype=dt, device="cuda")
+    for ends in (DP.PARTS, DP.Ends("objective", False, **obj),
+                 DP.Ends("objective", True, **obj), DP.Ends("lse"),
+                 DP.Ends("null")):
+        kp, ky, ky2 = K.ends_fwd(st, ends, O=x.O, L=x.L)
+        pp = DP.extract_parts_plain(x.O, x.L, st)
+        assert _same_bits(kp, pp)
+        py, py2 = DP.ends_plain(pp, ends)
+        for a, b in ((ky, py), (ky2, py2)):
+            if b is not None:
+                assert _rel_close(a, b, tol)
+        gO, gO_p = torch.zeros_like(x.O), torch.zeros_like(x.O)
+        gy_ = None if ends.mode == "parts" else gy
+        gk = K.ends_adj(st, ends, pp, gy_, kp, gO=gO, L=x.L, gbar=True)
+        gp = DP.ends_adj_plain(pp, ends, gy_, kp)
+        DP.seed_parts_plain(gO_p, gp, x.L, st)
+        assert _rel_close(gk, gp, tol) and _rel_close(gO, gO_p, tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_glue_kernels_do_not_depend_on_the_batch(dtype):
+    """K18's keep and eff, K20's lambda cotangent and K21's outputs for the
+    first 8 of 16 reads bit for bit those of the 8 reads alone."""
+    _need_cuda()
+    x = _glue_inputs(dtype)
+    st, dt = x.k.dp.st, x.k.dtype
+    cut = lambda t, n: t[..., :n].contiguous()
+    a = K.bpp_keep(x.bp0[:16].contiguous(), x.bp0[:16].contiguous(),
+                   cut(x.post, 16), 1e-4, dt)
+    b = K.bpp_keep(x.bp0[:8].contiguous(), x.bp0[:8].contiguous(),
+                   cut(x.post, 8), 1e-4, dt)
+    assert torch.equal(a[0][:8], b[0]) and _same_bits(a[1][:8], b[1])
+    a = K.lam_sum(st, cut(x.gs["DL"], 16), cut(x.gs["lam"], 16))
+    b = K.lam_sum(st, cut(x.gs["DL"], 8), cut(x.gs["lam"], 8))
+    assert _same_bits(a[:, :8], b)
+    L64 = torch.as_tensor(x.batch.sd.L, device="cuda").long()
+    for end in (False, True):
+        a = K.posteriors(cut(x.g, 16), L64[:16], end)
+        b = K.posteriors(cut(x.g, 8), L64[:8], end)
+        assert all(_same_bits(u[:8], v) for u, v in zip(a, b))
+
+
+def _rel_close(a, b, tol):
+    """Non-finite values alike, finite ones within ``tol`` relative in the
+    max norm."""
+    fa, fb = torch.isfinite(a), torch.isfinite(b)
+    if not torch.equal(fa, fb) or not torch.equal(
+            _bits(torch.where(fa, torch.zeros_like(a), a)),
+            _bits(torch.where(fb, torch.zeros_like(b), b))):
+        return False
+    if not fa.any():
+        return True
+    scale = float(b[fb].abs().max())
+    err = float((a[fa] - b[fb]).abs().max())
+    return err <= tol * scale if scale > 0 else err == 0.0
+
