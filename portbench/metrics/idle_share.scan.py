@@ -1,0 +1,7 @@
+"""Share of the profiled scan call's wall in which no operation ran on the
+device, %."""
+from portbench.metrics import _common as C
+
+
+def read(rec):
+    return C.idle(rec)
